@@ -1,0 +1,29 @@
+"""Consumer data path: stream, host ingest, device feeding."""
+
+from blendjax_torch.data.batcher import (
+    BatchAssembler,
+    HostIngest,
+    bucket_sizes,
+    pad_to_bucket,
+)
+from blendjax_torch.data.pipeline import (
+    DeviceFeeder,
+    StreamDataPipeline,
+    TileStreamDecoder,
+)
+from blendjax_torch.data.schema import FieldSpec, SchemaError, StreamSchema
+from blendjax_torch.data.stream import RemoteStream
+
+__all__ = [
+    "BatchAssembler",
+    "DeviceFeeder",
+    "FieldSpec",
+    "HostIngest",
+    "RemoteStream",
+    "SchemaError",
+    "StreamDataPipeline",
+    "StreamSchema",
+    "TileStreamDecoder",
+    "bucket_sizes",
+    "pad_to_bucket",
+]

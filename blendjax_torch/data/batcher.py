@@ -1,0 +1,304 @@
+"""Host-side batch assembly (copied from ``blendjax/data/batcher.py``,
+without trace and metrics hooks).
+
+:class:`HostIngest` runs the stream on a background thread: per-item
+messages are validated and written into preallocated, recycled batch
+buffers (:class:`BatchAssembler`); prebatched messages (tile-delta
+batches) pass through untouched. A bounded queue plus the socket HWMs
+carry backpressure to the producers.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+
+import numpy as np
+
+from blendjax_torch.constants import LOGGER_NAME
+from blendjax_torch.data.schema import SchemaError, StreamSchema
+
+logger = logging.getLogger(f"{LOGGER_NAME}.data")
+
+
+def batched_views(item: dict):
+    """Per-item views of a producer-batched message (every ndarray field
+    carries a leading batch dim); other fields replicate into each item."""
+    lead = next(
+        (v.shape[0] for v in item.values()
+         if isinstance(v, np.ndarray) and v.ndim > 0),
+        0,
+    )
+    for i in range(lead):
+        yield {
+            k: v[i] if isinstance(v, np.ndarray) and v.shape[:1] == (lead,)
+            else v
+            for k, v in item.items()
+        }
+
+
+def passthrough_batch(item: dict, schema: StreamSchema, batch_size: int):
+    """A producer-batched item whose fields already match the schema at
+    ``batch_size`` is a batch: hand it on with zero copies (None when any
+    field mismatches)."""
+    for k, spec in schema.fields.items():
+        v = item.get(k)
+        if not (
+            isinstance(v, np.ndarray)
+            and v.shape == (batch_size, *spec.shape)
+            and v.dtype == spec.dtype
+        ):
+            return None
+    batch = {k: item[k] for k in schema.fields}
+    meta = {k: item[k] for k in schema.meta_keys if k in item}
+    batch["_meta"] = [
+        {k: v[i] if isinstance(v, np.ndarray) and len(v) == batch_size else v
+         for k, v in meta.items()}
+        for i in range(batch_size)
+    ]
+    return batch
+
+
+def bucket_sizes(batch_size: int) -> tuple:
+    """Power-of-two bucket ladder up to and including ``batch_size``."""
+    batch_size = max(1, int(batch_size))
+    sizes = []
+    b = 1
+    while b < batch_size:
+        sizes.append(b)
+        b <<= 1
+    sizes.append(batch_size)
+    return tuple(sizes)
+
+
+def pad_to_bucket(batch: dict, batch_size: int | None = None,
+                  buckets=None) -> dict:
+    """Zero-pad a partial batch's leading dim up to a bucket and attach a
+    float32 ``_mask`` (1 for real rows): the masked losses then score the
+    padded batch like its exact-shape form. Works on numpy arrays and on
+    tensors."""
+    meta = batch.get("_meta")
+    if isinstance(meta, list) and meta:
+        lead = len(meta)
+    else:
+        counts: dict = {}
+        for v in batch.values():
+            if getattr(v, "ndim", 0) >= 1:
+                counts[v.shape[0]] = counts.get(v.shape[0], 0) + 1
+        lead = max(counts, key=lambda s: (counts[s], s), default=0)
+    if not lead:
+        return batch
+    if buckets is None:
+        buckets = bucket_sizes(batch_size) if batch_size else ()
+    target = min((b for b in buckets if b >= lead), default=None)
+    if target is None:
+        target = 1
+        while target < lead:
+            target <<= 1
+    out = {}
+    for k, v in batch.items():
+        if k == "_partial":
+            continue
+        if getattr(v, "ndim", 0) >= 1 and v.shape[0] == lead and target > lead:
+            if isinstance(v, np.ndarray):
+                v = np.pad(v, [(0, target - lead)] + [(0, 0)] * (v.ndim - 1))
+            else:
+                import torch
+
+                pad = torch.zeros(
+                    (target - lead, *v.shape[1:]), dtype=v.dtype,
+                    device=v.device,
+                )
+                v = torch.cat([v, pad])
+        out[k] = v
+    mask = np.zeros(target, np.float32)
+    mask[:lead] = 1.0
+    out["_mask"] = mask
+    return out
+
+
+def prebatched_lead(item: dict) -> int:
+    """Leading dim of a prebatched message: its ``*__tileidx`` field's
+    when present, else the first array field's."""
+    from blendjax_torch.ops.tiles import TILEIDX_SUFFIX
+
+    for k, v in item.items():
+        if k.endswith(TILEIDX_SUFFIX) and isinstance(v, np.ndarray) and v.ndim:
+            return v.shape[0]
+    return next(
+        (v.shape[0] for v in item.values()
+         if isinstance(v, np.ndarray) and v.ndim > 0),
+        0,
+    )
+
+
+class BatchAssembler:
+    """Packs per-item dicts into a pool of ``num_buffers`` preallocated
+    batch dicts, cycled so a completed batch stays valid while it is
+    transferred."""
+
+    def __init__(self, schema: StreamSchema, batch_size: int,
+                 num_buffers: int = 3):
+        self.schema = schema
+        self.batch_size = int(batch_size)
+        self._pool = [
+            {k: np.empty((self.batch_size, *spec.shape), spec.dtype)
+             for k, spec in schema.fields.items()}
+            for _ in range(num_buffers)
+        ]
+        self._meta: list = []
+        self._cursor = 0
+        self._active = 0
+
+    def add(self, item: dict):
+        """Add one item; returns the completed batch when full, else None."""
+        buf = self._pool[self._active]
+        for k in self.schema.fields:
+            buf[k][self._cursor] = item[k]
+        self._meta.append(
+            {k: item[k] for k in self.schema.meta_keys if k in item}
+        )
+        self._cursor += 1
+        if self._cursor < self.batch_size:
+            return None
+        batch = dict(buf)
+        batch["_meta"] = self._meta
+        self._meta = []
+        self._cursor = 0
+        self._active = (self._active + 1) % len(self._pool)
+        return batch
+
+
+class HostIngest:
+    """Background thread: stream -> validate -> assemble -> bounded queue."""
+
+    _DONE = object()
+
+    def __init__(self, stream, batch_size: int,
+                 schema: StreamSchema | None = None, prefetch: int = 2):
+        self.stream = stream
+        self.batch_size = batch_size
+        self.schema = schema
+        self.prefetch = prefetch
+        self._queue: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        self._warned_prebatch = False
+        self.batches_out = 0
+        self.items_in = 0
+
+    def _emit(self, batch) -> None:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(batch, timeout=0.25)
+                self.batches_out += 1
+                return
+            except queue.Full:
+                continue
+
+    def _run(self):
+        try:
+            assembler = None
+            for item in self.stream:
+                if self._stop.is_set():
+                    break
+                if item.pop("_prebatched", False):
+                    lead = prebatched_lead(item)
+                    if lead != self.batch_size and not self._warned_prebatch:
+                        self._warned_prebatch = True
+                        logger.warning(
+                            "prebatched message carries %d items but the "
+                            "pipeline batch_size is %d; passing through as-is",
+                            lead, self.batch_size,
+                        )
+                    self.items_in += lead
+                    self._emit(item)
+                    continue
+                batched = bool(item.pop("_batched", False))
+                if self.schema is None:
+                    first = next(batched_views(item), None) if batched else item
+                    if first is None:
+                        raise SchemaError(
+                            "batched message has no array field with a "
+                            f"leading batch dim (keys: {sorted(item)})"
+                        )
+                    self.schema = StreamSchema.infer(first)
+                if assembler is None:
+                    assembler = BatchAssembler(
+                        self.schema, self.batch_size,
+                        num_buffers=self.prefetch + 1,
+                    )
+                if batched:
+                    whole = passthrough_batch(item, self.schema, self.batch_size)
+                    if whole is not None:
+                        self.items_in += self.batch_size
+                        self._emit(whole)
+                        continue
+                    items = batched_views(item)
+                else:
+                    items = (item,)
+                for one in items:
+                    self.schema.validate(one)
+                    self.items_in += 1
+                    batch = assembler.add(one)
+                    if batch is not None:
+                        self._emit(batch)
+        except BaseException as e:  # re-raised in the consumer thread
+            self._error = e
+        finally:
+            while True:  # the sentinel must be delivered (or stop() wins)
+                try:
+                    self._queue.put(self._DONE, timeout=0.25)
+                    break
+                except queue.Full:
+                    if self._stop.is_set():
+                        break
+
+    def start(self) -> "HostIngest":
+        if self._thread is not None:
+            raise RuntimeError("already started")
+        clear = getattr(self.stream, "clear_stop_request", None)
+        if clear is not None:
+            clear()
+        self._thread = threading.Thread(
+            target=self._run, name="blendjax-torch-ingest", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def __iter__(self):
+        if self._thread is None:
+            self.start()
+        while True:
+            batch = self._queue.get()
+            if batch is self._DONE:
+                if self._error is not None:
+                    raise self._error
+                return
+            yield batch
+
+    def stop(self, timeout: float = 10.0):
+        self._stop.set()
+        request_stop = getattr(self.stream, "request_stop", None)
+        if request_stop is not None:
+            request_stop()
+        if self._thread is None:
+            return
+        deadline = time.monotonic() + timeout
+        while self._thread.is_alive():
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            self._thread.join(timeout=min(0.05, remaining))
+        if self._thread.is_alive():
+            raise RuntimeError(
+                f"ingest thread did not exit within {timeout:.1f}s of stop()"
+            )

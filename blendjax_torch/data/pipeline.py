@@ -1,0 +1,362 @@
+"""Device feeding for tile-delta streams (port of ``blendjax/data/pipeline.py``).
+
+- :class:`DeviceFeeder` places host batches on the card: each array is
+  copied into a pinned host buffer and sent with one ``non_blocking`` copy
+  on a side stream; the compute stream waits on that copy's event, so
+  transfers overlap the steps already queued.
+- :class:`TileStreamDecoder` ``host_stage`` is the single-device part of
+  the JAX package's: it keeps each producer's reference image (tiled, on
+  the card), validates deferred run-length buffers, and packs every chunk
+  group of compatible batches into ONE uint8 buffer; ``device_stage``
+  attaches the decode plan the fused train step consumes.
+- :class:`StreamDataPipeline` chains stream -> ingest -> host stage ->
+  feeder -> device stage.
+
+Only the fused form (``emit_packed=True``) is ported: the standalone
+decode-then-step stage, multi-host assembly and mesh shardings wait for
+later slices.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import logging
+
+import numpy as np
+import torch
+
+from blendjax_torch.constants import LOGGER_NAME
+from blendjax_torch.device import resolve_device
+from blendjax_torch.ops import tiles as T
+
+logger = logging.getLogger(f"{LOGGER_NAME}.data")
+
+
+class DeviceFeeder:
+    """Places host batch dicts on ``device`` with a prefetch ring.
+
+    On CUDA every ndarray field (rank >= 1) is written into a pinned host
+    buffer (a small ring per shape and dtype, reused once the copy that
+    last read it has finished) and copied with ``non_blocking=True`` on a
+    side stream; one event per batch orders the compute stream after the
+    copies. On the CPU the arrays are wrapped without a copy. ``_meta``
+    and scalar sidecars stay on the host.
+    """
+
+    PINNED_KEYS_LIMIT = 64
+
+    def __init__(self, device=None, prefetch: int = 2):
+        self.device = resolve_device(device)
+        self.prefetch = max(1, int(prefetch))
+        self._cuda = self.device.type == "cuda"
+        self._copy_stream = (
+            torch.cuda.Stream(self.device) if self._cuda else None
+        )
+        self._pinned: dict = {}
+        self._ring = self.prefetch + 2
+
+    def _pinned_slot(self, arr: np.ndarray):
+        key = (arr.shape, arr.dtype.str)
+        slots = self._pinned.get(key)
+        if slots is None:
+            if len(self._pinned) >= self.PINNED_KEYS_LIMIT:
+                self._pinned.clear()
+            slots = self._pinned[key] = collections.deque()
+        if len(slots) < self._ring:
+            entry = [torch.from_numpy(np.empty_like(arr)).pin_memory(), None]
+        else:
+            entry = slots.popleft()
+            if entry[1] is not None:
+                entry[1].synchronize()  # the last copy out of it is done
+        slots.append(entry)
+        return entry
+
+    def place(self, batch: dict) -> dict:
+        """One placement of a host batch; returns the device batch."""
+        arrays = {
+            k: v for k, v in batch.items()
+            if k != "_meta" and isinstance(v, np.ndarray) and v.ndim >= 1
+        }
+        out = {k: v for k, v in batch.items() if k not in arrays}
+        if not self._cuda:
+            for k, v in arrays.items():
+                out[k] = torch.from_numpy(
+                    v if v.flags.writeable else v.copy()
+                ).to(self.device)
+            return out
+        compute = torch.cuda.current_stream(self.device)
+        entries = []
+        with torch.cuda.stream(self._copy_stream):
+            for k, v in arrays.items():
+                entry = self._pinned_slot(v)
+                entry[0].numpy()[...] = v
+                out[k] = entry[0].to(self.device, non_blocking=True)
+                entries.append(entry)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        for entry in entries:
+            entry[1] = done
+        compute.wait_event(done)
+        for k in arrays:
+            # allocated on the side stream, used on the compute stream
+            out[k].record_stream(compute)
+        return out
+
+    def __call__(self, host_batches):
+        """Iterate device batches, keeping ``prefetch`` placements ahead
+        of the consumer."""
+        ring: collections.deque = collections.deque()
+        it = iter(host_batches)
+        while True:
+            while len(ring) < self.prefetch:
+                try:
+                    ring.append(self.place(next(it)))
+                except StopIteration:
+                    while ring:
+                        yield ring.popleft()
+                    return
+            yield ring.popleft()
+
+
+class TileStreamDecoder:
+    """Host/device stage pair for tile-delta and full-frame palette
+    streams in the fused form.
+
+    ``chunk=K`` groups K consecutive compatible batches (same packed
+    layout, same reference content) into one stacked (K', total) buffer;
+    a mismatch flushes a shorter group. Refs are keyed per (field,
+    producer ``btid``): PUSH is FIFO per producer, so a producer's
+    reference precedes its deltas. A non-tile batch flushes the open
+    group and travels alone as a K'=1 superbatch.
+    """
+
+    def __init__(self, device=None, chunk: int = 1):
+        self.device = resolve_device(device)
+        self.chunk = max(1, int(chunk))
+        self._warned_mixed = False
+        self._refs: dict = {}        # (name, btid) -> device ref tiles
+        self._host_refs: dict = {}   # (name, btid) -> host copy
+        self._ref_digest: dict = {}  # (name, btid) -> content hash
+        self._shapes: dict = {}      # name -> wire geometry
+        self._skipped: set = set()
+        self._plans: collections.deque = collections.deque()
+
+    def reset(self) -> None:
+        """Drop queued plans (call when re-iterating a pipeline)."""
+        self._plans.clear()
+
+    def _take_refs(self, hb: dict, btid) -> None:
+        new_refs: dict = {}
+        T.pop_stream_refs(hb, new_refs, btid)
+        for key, ref in new_refs.items():
+            cached = self._host_refs.get(key)
+            if cached is not None and np.array_equal(cached, ref):
+                continue  # keyframe repeating the reference we hold
+            self._host_refs[key] = np.array(ref)
+            self._ref_digest[key] = int.from_bytes(
+                hashlib.blake2b(
+                    self._host_refs[key].tobytes(), digest_size=8
+                ).digest(), "little",
+            )
+            tile = T.geom_tile(tuple(
+                int(v) for v in hb.get(
+                    key[0] + T.TILESHAPE_SUFFIX, [0, 0, 0, T.TILE]
+                )
+            ))
+            self._refs[key] = T.tile_ref(
+                torch.from_numpy(self._host_refs[key]).to(self.device), tile
+            )
+
+    def host_stage(self, host_batches):
+        group: dict = {}
+        pal_group: dict = {}
+        for hb in host_batches:
+            btid = hb.get("btid")
+            self._take_refs(hb, btid)
+            rle_groups = T.pop_rle_batches(hb)
+            for base, (shape, isz, cap) in rle_groups:
+                T.rle_validate_packed(hb[base + T.NDR_SUFFIX], shape, isz, cap)
+            has_tiles = any(k.endswith(T.TILESHAPE_SUFFIX) for k in hb)
+            pal_groups = T.pop_frame_palette_batches(hb)
+            if pal_groups or (rle_groups and not has_tiles):
+                arrays = {
+                    k: v for k, v in hb.items() if isinstance(v, np.ndarray)
+                }
+                rest = {k: v for k, v in hb.items() if k not in arrays}
+                buf, spec = T.pack_fields(arrays)
+                gkey = (spec, tuple(pal_groups), rle_groups)
+                if pal_group and pal_group["key"] != gkey:
+                    yield from self._flush_pal_group(pal_group)
+                if not pal_group:
+                    pal_group.update(key=gkey, bufs=[], rests=[])
+                pal_group["bufs"].append(buf)
+                pal_group["rests"].append(rest)
+                if len(pal_group["bufs"]) == self.chunk:
+                    yield from self._flush_pal_group(pal_group)
+                continue
+            names = []
+            missing = False
+            for name, geom in T.pop_tile_batches(hb):
+                if (name, btid) not in self._refs:
+                    if (name, btid) not in self._skipped:
+                        self._skipped.add((name, btid))
+                        logger.warning(
+                            "skipping tile batches for %r from producer %r "
+                            "until its reference image arrives", name, btid,
+                        )
+                    missing = True
+                    continue
+                self._shapes[name] = geom
+                names.append(name)
+            if missing:
+                continue
+            if not names:
+                if not self._warned_mixed:
+                    self._warned_mixed = True
+                    logger.warning(
+                        "non-tile message in a chunk=%d stream: flushing the "
+                        "group and sending it as a K'=1 superbatch",
+                        self.chunk,
+                    )
+                yield from self._flush_group(group)
+                yield from self._flush_pal_group(pal_group)
+                self._plans.append(("raw1",))
+                yield hb
+                continue
+            arrays = {k: v for k, v in hb.items() if isinstance(v, np.ndarray)}
+            rest = {k: v for k, v in hb.items() if k not in arrays}
+            buf, spec = T.pack_fields(arrays)
+            gkey = (
+                tuple(names), spec,
+                tuple(self._ref_digest.get((n, btid)) for n in names),
+                rle_groups,
+            )
+            if group and group["key"] != gkey:
+                yield from self._flush_group(group)
+            if not group:
+                # refs pinned at group formation: a producer that restarts
+                # with a new scene must not change an in-flight group
+                group.update(
+                    key=gkey, bufs=[], rests=[],
+                    refs={n: self._refs[(n, btid)] for n in names},
+                    geoms=tuple(self._shapes[n] for n in names),
+                )
+            group["bufs"].append(buf)
+            group["rests"].append(rest)
+            if len(group["bufs"]) == self.chunk:
+                yield from self._flush_group(group)
+        yield from self._flush_group(group)
+        yield from self._flush_pal_group(pal_group)
+
+    def _flush_pal_group(self, pal_group):
+        if not pal_group:
+            return
+        spec, pal_groups, rle_groups = pal_group["key"]
+        self._plans.append(
+            ("palchunk", spec, pal_group["rests"], pal_groups, rle_groups)
+        )
+        stacked = np.stack(pal_group["bufs"])
+        pal_group.clear()
+        yield {"__packed__": stacked}
+
+    def _flush_group(self, group):
+        if not group:
+            return
+        names, spec, _digests, rle_groups = group["key"]
+        self._plans.append(
+            ("chunk", names, spec, group["rests"], group["refs"],
+             group["geoms"], rle_groups)
+        )
+        stacked = np.stack(group["bufs"])
+        group.clear()
+        yield {"__packed__": stacked}
+
+    def device_stage(self, device_batches):
+        """Attach each placed buffer's decode plan: tile groups yield
+        ``{"_packed", "_refs", "_spec", "_names", "_geoms", "_rle",
+        "_meta"}``, palette groups ``{"_packed", "_spec", "_pal", "_rle",
+        "_meta"}``, and a lone raw batch its fields with a leading K'=1
+        axis."""
+        for db in device_batches:
+            plan = self._plans.popleft()
+            if plan[0] == "raw1":
+                for k, v in list(db.items()):
+                    if k != "_meta" and getattr(v, "ndim", 0) >= 1:
+                        db[k] = v[None]
+                yield db
+                continue
+            if plan[0] == "palchunk":
+                _, spec, rests, pal_groups, rle_groups = plan
+                yield {
+                    "_packed": db["__packed__"], "_spec": spec,
+                    "_pal": pal_groups, "_rle": rle_groups, "_meta": rests,
+                }
+                continue
+            _, names, spec, rests, refs, geoms, rle_groups = plan
+            yield {
+                "_packed": db["__packed__"], "_refs": refs, "_spec": spec,
+                "_names": tuple(names), "_geoms": geoms, "_rle": rle_groups,
+                "_meta": rests,
+            }
+
+
+class StreamDataPipeline:
+    """Producer addresses -> device batches for the fused train step.
+
+    ``addresses`` is a producer address (or list), or any iterable of
+    message dicts (e.g. recorded messages). ``chunk=K`` groups K batches
+    per device transfer and train-step call. ``device=None`` means
+    ``cuda`` and raises when no GPU is present. Other keyword arguments go
+    to :class:`~blendjax_torch.data.stream.RemoteStream`.
+    """
+
+    def __init__(self, addresses, batch_size: int, device=None,
+                 prefetch: int = 2, chunk: int = 1, emit_packed: bool = True,
+                 **stream_kwargs):
+        from blendjax_torch.data.stream import RemoteStream
+
+        if not emit_packed:
+            raise NotImplementedError(
+                "only the fused form (emit_packed=True, decoded inside "
+                "make_fused_tile_step) is ported"
+            )
+        self.device = resolve_device(device)
+        if hasattr(addresses, "__iter__") and not isinstance(
+            addresses, (list, tuple, str)
+        ):
+            self.stream = addresses
+        else:
+            stream_kwargs.setdefault("defer_rle", True)
+            self.stream = RemoteStream(addresses, **stream_kwargs)
+        self.batch_size = int(batch_size)
+        self.prefetch = prefetch
+        self.ingest = None
+        self.feeder = DeviceFeeder(device=self.device, prefetch=prefetch)
+        self.tiles = TileStreamDecoder(device=self.device, chunk=chunk)
+
+    @property
+    def seq_gaps(self) -> int:
+        """Messages the producers numbered that never arrived."""
+        return getattr(self.stream, "seq_gaps", 0)
+
+    def __iter__(self):
+        from blendjax_torch.data.batcher import HostIngest
+
+        self.ingest = HostIngest(
+            self.stream, batch_size=self.batch_size, prefetch=self.prefetch,
+        ).start()
+        self.tiles.reset()
+        return iter(self.tiles.device_stage(
+            self.feeder(self.tiles.host_stage(self.ingest))
+        ))
+
+    def stop(self) -> None:
+        if self.ingest is not None:
+            self.ingest.stop()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()

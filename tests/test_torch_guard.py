@@ -1,0 +1,181 @@
+"""Guards of the port: no JAX imports, no silent fallback to the CPU or to
+a kernel's plain twin, and the kernel-selection rule. The ``cuda``-marked
+test holds the CUDA kernels against their twins on a card and skips here.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "blendjax")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "blendjax_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_imports_nothing_of_jax_or_blendjax():
+    files = _port_files()
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                if mod.split(".")[0] in FORBIDDEN:
+                    bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    assert not bad, bad
+
+
+def test_entry_points_without_a_gpu_raise(monkeypatch):
+    from blendjax_torch.data import DeviceFeeder, StreamDataPipeline
+    from blendjax_torch.device import resolve_device
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import make_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        StreamDataPipeline(["tcp://127.0.0.1:1"], batch_size=2)
+    with pytest.raises(RuntimeError):
+        make_train_state(CubeRegressor(features=(4,)))
+    with pytest.raises(RuntimeError):
+        DeviceFeeder()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _case(tile=(16, 32)):
+    rng = np.random.default_rng(0)
+    n = (64 // tile[0]) * (128 // tile[1])
+    ref = torch.from_numpy(rng.integers(0, 256, (n, *tile, 4), dtype=np.uint8))
+    idx = torch.tensor([[0, 3, n], [n, n, n]], dtype=torch.int32)
+    tiles = torch.from_numpy(
+        rng.integers(0, 256, (2, 3, *tile, 4), dtype=np.uint8)
+    )
+    return ref, idx, tiles
+
+
+class _FailingLib:
+    """A kernel library whose launches report cudaErrorMemoryAllocation."""
+
+    def __init__(self):
+        self.bjt_decode_spatial = lambda *a: 2
+        self.bjt_decode_scatter = lambda *a: 2
+        self.bjt_decode_spatial_error = lambda code: b"out of memory"
+        self.bjt_decode_scatter_error = lambda code: b"out of memory"
+
+
+@pytest.mark.parametrize("kernel", ["decode_spatial", "decode_scatter"])
+def test_a_cuda_request_never_falls_back_to_the_twin(monkeypatch, kernel):
+    from blendjax_torch.kernels import decode
+
+    ref, idx, tiles = _case()
+    args = (ref, idx, tiles, (64, 128, 4)) if kernel == "decode_spatial" \
+        else (ref, idx, tiles)
+    wrapper = getattr(decode, kernel)
+    before = wrapper.launches
+
+    def twin(*a):
+        raise AssertionError("the plain twin ran for a CUDA request")
+
+    monkeypatch.setattr(decode, f"{kernel}_plain", twin)
+    monkeypatch.setattr(decode, "_check_inputs", lambda *a: "cuda")
+    monkeypatch.setattr(decode, "_stream", lambda device: 0)
+    monkeypatch.setattr(decode, "load", lambda name: _FailingLib())
+    with pytest.raises(RuntimeError, match="launch failed: out of memory"):
+        wrapper(*args)
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(decode, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        wrapper(*args)
+    assert wrapper.launches == before
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from blendjax_torch.kernels import decode_scatter, decode_spatial
+
+    ref, idx, tiles = (t.to("meta") for t in _case())
+    with pytest.raises(RuntimeError, match="no decode kernel"):
+        decode_spatial(ref, idx, tiles, (64, 128, 4))
+    with pytest.raises(RuntimeError, match="no decode kernel"):
+        decode_scatter(ref, idx, tiles)
+
+
+@pytest.mark.parametrize("tile,kernel", [
+    ((16, 32), "spatial"), ((8, 32), "spatial"), ((16, 10), "spatial"),
+    ((16, 16), "scatter"), ((32, 32), "scatter"), ((5, 5), "scatter"),
+])
+def test_kernel_selection_rule(monkeypatch, tile, kernel):
+    """Square tiles take K2, every other geometry K1; decode_tile_delta
+    routes accordingly."""
+    from blendjax_torch.kernels import decode
+    from blendjax_torch.ops.tiles import decode_tile_delta, select_decode_kernel
+
+    assert select_decode_kernel(*tile, 4) == kernel
+    calls = []
+    for name in ("decode_spatial", "decode_scatter"):
+        real = getattr(decode, name)
+        monkeypatch.setattr(
+            decode, name,
+            lambda *a, _n=name, _r=real: calls.append(_n) or _r(*a),
+        )
+    h, w = tile[0] * 2, tile[1] * 3
+    n = 6
+    ref = torch.zeros((n, *tile, 4), dtype=torch.uint8)
+    idx = torch.tensor([[1, n]], dtype=torch.int32)
+    tiles = torch.full((1, 2, *tile, 4), 7, dtype=torch.uint8)
+    out = decode_tile_delta(ref, idx, tiles, (h, w, 4))
+    assert calls == [f"decode_{kernel}"]
+    assert int(out.sum()) == 7 * tile[0] * tile[1] * 4
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m cuda on the GPU machine)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(16, 32), (16, 16), (16, 10), (5, 5)])
+def test_kernels_match_twins_on_card(cuda_card, tile):
+    from blendjax_torch.kernels import (
+        decode_scatter,
+        decode_scatter_plain,
+        decode_spatial,
+        decode_spatial_plain,
+    )
+
+    h, w = tile[0] * 30, tile[1] * 20
+    n = 600
+    rng = np.random.default_rng(1)
+    ref = torch.from_numpy(
+        rng.integers(0, 256, (n, *tile, 4), dtype=np.uint8)).to(cuda_card)
+    idx = np.full((8, 64), n, np.int32)
+    for i in range(7):  # the last row stays all sentinels
+        idx[i, :50] = rng.choice(n, 50, replace=False)
+    idx = torch.from_numpy(idx).to(cuda_card)
+    tiles = torch.from_numpy(
+        rng.integers(0, 256, (8, 64, *tile, 4), dtype=np.uint8)).to(cuda_card)
+    assert torch.equal(decode_spatial(ref, idx, tiles, (h, w, 4)),
+                       decode_spatial_plain(ref, idx, tiles, (h, w, 4)))
+    assert torch.equal(decode_scatter(ref, idx, tiles),
+                       decode_scatter_plain(ref, idx, tiles))

@@ -1,0 +1,220 @@
+"""Wire, stream, pipeline and driver of blendjax_torch on the CPU.
+
+The wire round trip runs in both directions between the two packages
+(arrays identical); the end-to-end test starts a port producer process
+and trains through StreamDataPipeline(emit_packed=True) and TrainDriver
+with device="cpu".
+"""
+
+import math
+import os
+import subprocess
+import sys
+import time
+
+import msgpack
+import numpy as np
+import pytest
+import torch
+
+from blendjax.transport import wire as jwire
+from blendjax_torch.transport import wire
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _message():
+    rng = np.random.default_rng(0)
+    flat = np.repeat(rng.integers(0, 4, (4, 64), dtype=np.uint8), 64, axis=1)
+    return {
+        "raw": rng.integers(0, 256, (3, 5), dtype=np.uint8),
+        "xy": rng.normal(size=(4, 8, 2)).astype(np.float32),
+        "zeros": np.zeros((64, 64), np.int32),  # zlib-compressible
+        "plane": flat,                          # run-length friendly
+        "btid": 3,
+        "shape": [480, 640, 4, 16, 32],
+        "_prebatched": True,
+    }
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_wire_round_trip_between_packages(direction, defer):
+    msg = _message()
+    kw = dict(compress_level=1, compress_min_bytes=1024, compress_rle=True)
+    if direction == "jax_to_port":
+        frames = jwire.encode_message(msg, **kw)
+        out = wire.decode_message(frames, defer_rle=defer)
+    else:
+        frames = wire.encode_message(msg, **kw)
+        out = jwire.decode_message(frames, defer_rle=defer)
+    header_kinds = {
+        e[0] for e in msgpack.unpackb(bytes(frames[0])[4:], raw=False)[1]
+    }
+    assert {"nd", "ndz", "ndr", "obj"} <= header_kinds
+    if defer:
+        from blendjax_torch.ops.tiles import rle_expand_packed_np
+
+        shape, isz, cap = out.pop("plane__ndrspec")
+        out["plane"] = rle_expand_packed_np(out.pop("plane__ndr"), shape,
+                                            isz, cap)
+    assert set(out) == set(msg)
+    for k, v in msg.items():
+        if isinstance(v, np.ndarray):
+            assert out[k].dtype == v.dtype
+            np.testing.assert_array_equal(out[k], v)
+        else:
+            assert out[k] == v
+
+
+def test_wire_refuses_what_it_does_not_carry():
+    with pytest.raises(TypeError):
+        wire.encode_message({"obj": object()})
+    frames = jwire.encode_message({"obj": object()})  # embedded pickle
+    with pytest.raises(ValueError, match="not supported"):
+        wire.decode_message(frames)
+
+
+def test_stream_counts_sequence_gaps_and_restarts():
+    from blendjax_torch.data import RemoteStream
+
+    s = RemoteStream("tcp://127.0.0.1:1")
+    for seq in (0, 1, 2, 5, 6):
+        s._account({"btid": 0, "_seq": seq, "_pub_wall": 0, "_pub_mono": 0})
+    for seq in (0, 1):
+        s._account({"btid": 1, "_seq": seq})
+    s._account({"btid": 1, "_seq": 0})
+    assert (s.seq_gaps, s.restarts, s.messages) == (2, 1, 8)
+
+
+def _fake_step(state, batch):
+    state["n"] += 1
+    return state, {"loss": torch.tensor([float(state["n"])])}
+
+
+def test_train_driver_ring_stats():
+    from blendjax_torch.train import TrainDriver
+
+    drv = TrainDriver(_fake_step, {"n": 0}, inflight=2, sync_every=3)
+    for _ in range(7):
+        drv.submit({"x": np.zeros((2,))})
+    state, loss = drv.finish()
+    assert loss == 7.0 and state["n"] == 7
+    # CPU steps are complete on return, so finished entries retire before
+    # the next submit and each sync reads the step just taken
+    assert drv.losses == [3.0, 6.0, 7.0]
+    st = drv.stats
+    assert (st["steps"], st["dispatches"], st["syncs"]) == (7, 7, 3)
+    assert st["host_blocks"] == 0 and st["inflight_hwm"] >= 1
+
+
+def test_train_driver_pads_partial_batches():
+    from blendjax_torch.train import TrainDriver
+
+    seen = []
+
+    def step(state, batch):
+        seen.append(batch)
+        return state, {"loss": torch.zeros(())}
+
+    drv = TrainDriver(step, None, buckets=(1, 2, 4))
+    drv.submit({"x": np.ones((3, 2), np.float32), "_partial": True})
+    assert seen[0]["x"].shape == (4, 2)
+    np.testing.assert_array_equal(seen[0]["_mask"], [1, 1, 1, 0])
+
+
+class _Capture:
+    def __init__(self):
+        self.msgs = []
+
+    def publish(self, **msg):
+        self.msgs.append(dict(msg, btid=0, _seq=len(self.msgs)))
+
+
+def test_pipeline_groups_chunks_and_degrades_raw_batches():
+    """Recorded messages (no sockets): K=2 groups form while layouts
+    match; a raw batch flushes the open group and travels alone."""
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.producer import CubeScene, TileBatchPublisher
+
+    scene = CubeScene(shape=(32, 64), seed=1)
+    cap = _Capture()
+    tp = TileBatchPublisher(cap, scene.background_image(), 2, tile=(16, 32),
+                            alpha_slice=False, capacity=4)
+    buf = np.empty((32, 64, 4), np.uint8)
+    for f in range(1, 7):
+        scene.step(f)
+        scene.render(out=buf)
+        tp.add(buf, xy=np.zeros((8, 2), np.float32), frameid=np.int64(f))
+    msgs = cap.msgs[:2] + [{
+        "_batched": True, "image": np.zeros((2, 32, 64, 4), np.uint8),
+        "xy": np.zeros((2, 8, 2), np.float32),
+    }] + cap.msgs[2:]
+    pipe = StreamDataPipeline(iter(msgs), batch_size=2, device="cpu", chunk=2)
+    out = list(pipe)
+    assert [("_packed" in b) for b in out] == [True, False, True]
+    assert out[0]["_packed"].shape[0] == 2 and out[2]["_packed"].shape[0] == 1
+    assert out[1]["image"].shape == (1, 2, 32, 64, 4)
+    assert isinstance(out[0]["_packed"], torch.Tensor)
+
+
+def test_entry_point_refuses_the_slow_path():
+    from blendjax_torch.data import StreamDataPipeline
+
+    with pytest.raises(NotImplementedError):
+        StreamDataPipeline([], batch_size=2, device="cpu", emit_packed=False)
+
+
+def _producer(tmp, i, frames=-1):
+    addr_file = os.path.join(tmp, f"p{i}.addr")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "blendjax_torch.producer.cube",
+         "--addr-file", addr_file, "--btid", str(i), "--seed", str(i),
+         "--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
+         "--tile-rgba", "--tile-capacity", "16", "--frames", str(frames)],
+        cwd=REPO, env=env,
+    )
+    deadline = time.monotonic() + 60
+    while not os.path.exists(addr_file):
+        assert proc.poll() is None, "producer exited before binding"
+        assert time.monotonic() < deadline, "producer did not bind"
+        time.sleep(0.05)
+    with open(addr_file) as f:
+        return proc, f.read().strip()
+
+
+def test_cpu_end_to_end_producer_pipeline_driver(tmp_path):
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        TrainDriver,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    proc, addr = _producer(str(tmp_path), 0)
+    try:
+        state = make_train_state(
+            CubeRegressor(features=(8, 16)).init_params(0), device="cpu"
+        )
+        pipe = StreamDataPipeline([addr], batch_size=4, device="cpu",
+                                  chunk=2, timeoutms=30_000)
+        drv = TrainDriver(make_fused_tile_step(), state, inflight=2,
+                          sync_every=2)
+        try:
+            for batch in pipe:
+                assert batch["_geoms"] == ((64, 128, 4, 16, 32),)
+                drv.submit(batch)
+                if drv.steps >= 4:
+                    break
+            final = drv.drain()
+        finally:
+            pipe.stop()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+    assert all(math.isfinite(v) for v in drv.losses) and math.isfinite(final)
+    assert pipe.seq_gaps == 0
+    assert drv.stats["dispatches"] == drv.stats["steps"] == 4
+    assert state.step == 8  # chunk=2: two updates per step
