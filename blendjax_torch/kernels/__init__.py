@@ -4,12 +4,27 @@
 ``chip_smoke.py`` and ``PERF.md`` can account for each one.
 """
 
+from blendjax_torch.kernels.attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+)
 from blendjax_torch.kernels.decode import (
     decode_scatter,
     decode_scatter_plain,
     decode_spatial,
     decode_spatial_plain,
 )
+
+_FLASH_SOURCE = "blendjax_torch/kernels/csrc/flash_attention.cu"
+# local_attention(backend="flash") reaches the JAX library's kernels here
+_FLASH_CALL = "blendjax/ops/attention.py:157"
+_FLASH_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 KERNELS = {
     "decode_spatial": {
@@ -26,6 +41,27 @@ KERNELS = {
         "source": "blendjax_torch/kernels/csrc/decode_scatter.cu",
         "replaces": "blendjax/ops/tiles.py:1116",
     },
+    "flash_attention_fwd": {
+        "wrapper": flash_attention_fwd,
+        "plain": flash_attention_fwd_plain,
+        "route": "cuda",
+        "source": _FLASH_SOURCE,
+        "replaces": f"{_FLASH_CALL} ({_FLASH_LIB}:758)",
+    },
+    "flash_attention_bwd_dkv": {
+        "wrapper": flash_attention_bwd_dkv,
+        "plain": flash_attention_bwd_dkv_plain,
+        "route": "cuda",
+        "source": _FLASH_SOURCE,
+        "replaces": f"{_FLASH_CALL} ({_FLASH_LIB}:1121)",
+    },
+    "flash_attention_bwd_dq": {
+        "wrapper": flash_attention_bwd_dq,
+        "plain": flash_attention_bwd_dq_plain,
+        "route": "cuda",
+        "source": _FLASH_SOURCE,
+        "replaces": f"{_FLASH_CALL} ({_FLASH_LIB}:1456)",
+    },
 }
 
 
@@ -39,7 +75,15 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "FlashAttention",
     "KERNELS",
+    "flash_attention",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dkv_plain",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dq_plain",
+    "flash_attention_fwd",
+    "flash_attention_fwd_plain",
     "decode_scatter",
     "decode_scatter_plain",
     "decode_spatial",

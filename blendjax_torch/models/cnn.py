@@ -37,6 +37,17 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
+def lecun_normal_(weight: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's default kernel initialisation into a torch-layout weight
+    (out first): truncated at 2 sigma, variance 1/fan_in, with the
+    truncated-normal std correction of ``jax.nn.initializers``."""
+    fan_in = weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+    weight.copy_(w)
+
+
 class CubeRegressor(nn.Module):
     def __init__(self, features=(32, 64, 128, 256), num_points: int = 8,
                  dtype=None, in_channels: int = 4, hidden: int = 256):
@@ -60,14 +71,7 @@ class CubeRegressor(nn.Module):
         gen = torch.Generator().manual_seed(int(seed))
         with torch.no_grad():
             for layer in (*self.convs, self.dense, self.head):
-                fan_in = layer.weight[0].numel()
-                # truncated-normal std correction, as jax.nn.initializers
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                w = torch.empty(layer.weight.shape)
-                nn.init.trunc_normal_(
-                    w, std=std, a=-2 * std, b=2 * std, generator=gen
-                )
-                layer.weight.copy_(w)
+                lecun_normal_(layer.weight, gen)
                 layer.bias.zero_()
         return self
 

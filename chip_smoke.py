@@ -7,23 +7,41 @@ Phases (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA
    device -> exit 1 before anything else;
-2. build: compile every decode kernel from ``blendjax_torch/kernels/csrc``
+2. build: compile every kernel source in ``blendjax_torch/kernels/csrc``
    (one ``nvcc`` per source, started together) and print the build time;
-3. kernels: each kernel against its plain PyTorch twin, bit-exact
-   (``torch.equal``), at the main path's shapes and at the edge cases
-   (``Ct < C``, ``K == 0``, a row of sentinels, byte-wide geometries),
-   then its median time over many launches, the twin's time, a one-call
-   PyTorch yardstick where one exists, and the bytes bound;
+3. kernels: the decode kernels K1/K2 against their plain twins,
+   bit-exact (``torch.equal``), at the main path's shapes and at the edge
+   cases (``Ct < C``, ``K == 0``, a row of sentinels, byte-wide
+   geometries); after the slice legs (run before them, they slowed the
+   producer-bound flagship leg), the flash-attention kernels K4a-c
+   against their plain versions at the StreamFormer slice's shape (B 8,
+   T 768, H 4, D 128, bf16), causal, Tq 256 != Tkv 768, a ragged T of
+   700, D 64 and f32 (forward max |diff| <= 2e-2 bf16 / 1e-4 f32 with
+   TF32 off; gradients max |diff| <= 2e-2 / 1e-4 of max |plain|). Then
+   each kernel's median
+   time over many launches with the min and max window, its plain
+   version's time, a one-call PyTorch yardstick where one exists
+   (``index_copy_``; ``scaled_dot_product_attention`` forward, and its
+   autograd backward for K4b+K4c together), and its bound: the larger of
+   bytes / memory rate and FLOPs / 989 TFLOP/s (bf16 dense);
 4. slice: two cube producers (480x640 RGBA, (16, 32) tiles, capacity
    160, batch 8) -> ``StreamDataPipeline(emit_packed=True, chunk=4)`` ->
-   ``make_fused_tile_step`` on the full-width ``CubeRegressor()``
-   (bf16-compute) -> ``TrainDriver(inflight=2)``; then a shorter leg of
-   square 16x16 tiles (capacity 288). Launch counts are zeroed just
-   before each leg and read just after: the flagship leg must launch K1
-   and the square leg K2; losses must be finite with zero sequence gaps;
+   ``make_fused_tile_step`` -> ``TrainDriver(inflight=2)``, in three legs:
+   flagship (full-width ``CubeRegressor()``, bf16-compute), square
+   (16x16 tiles, capacity 288) and streamformer (``StreamFormer(patch=20,
+   dim=512, depth=8, num_heads=4, num_outputs=16, attn_backend="flash")``
+   with the bench's corner loss). Launch counts are zeroed just before
+   each leg and read just after: flagship must launch K1, square K2,
+   streamformer K1 and each of K4a-c exactly depth x chunk x steps times;
+   losses must be finite with zero sequence gaps and one step call per
+   chunk group. The streamformer leg also times the same model with
+   ``attn_backend="xla"`` (for information) and holds one update of flash
+   against one of xla from copies of the same state (bf16 bars: rel 1e-2
+   before the update, 5e-2 after it);
 5. reference: one recorded chunk group decoded on the card against the
-   CPU twins (bit-exact), and the f32 model forward on the card against
-   the CPU (TF32 off, rtol 1e-4).
+   CPU twins (bit-exact); the f32 CubeRegressor forward and the f32
+   full-width StreamFormer forward (through the f32 flash kernel) on the
+   card against the CPU (TF32 off, rtol 1e-4).
 
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
@@ -31,6 +49,7 @@ device JSON object ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -45,10 +64,17 @@ BATCH = 8
 CHUNK = 4
 FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 24, "warmup": 4}
 SQUARE = {"tile": (16,), "capacity": 288, "steps": 6, "warmup": 1}
+STREAMFORMER = {"tile": (16, 32), "capacity": 160, "steps": 8, "warmup": 2}
+# bench.py:1080-1082, with the flash backend named explicitly
+FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
+          "num_outputs": 16}
+# the long-sequence shape of bench.py:1146 (960x1280 frames -> 3072 tokens)
+LONG_ATTN = (4, 3072)
 # Device-memory rates for the bytes bound (NVIDIA data sheets); an
 # unlisted H100 name takes the SXM part's 3.35 TB/s.
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H200", 4.8e12), ("H100", 3.35e12))
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
 
 
 def log(msg: str) -> None:
@@ -67,9 +93,10 @@ def hbm_rate(name: str) -> float:
     return 3.35e12
 
 
-def time_ms(fn, reps: int = 20, windows: int = 15) -> float:
-    """Median per-call time (CUDA events) over ``windows`` windows of
-    ``reps`` back-to-back calls, after a warm-up."""
+def time_ms(fn, reps: int = 20, windows: int = 15) -> dict:
+    """Per-call time (CUDA events) of ``windows`` windows of ``reps``
+    back-to-back calls, after a warm-up: ``{"ms": median, "min_ms",
+    "max_ms"}`` over the windows, so a reading shows its own spread."""
     import torch
 
     for _ in range(3):
@@ -86,7 +113,12 @@ def time_ms(fn, reps: int = 20, windows: int = 15) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     samples.sort()
-    return samples[len(samples) // 2]
+    return {"ms": samples[len(samples) // 2], "min_ms": samples[0],
+            "max_ms": samples[-1]}
+
+
+def spread(t: dict) -> str:
+    return f"{t['ms']:.4f} ms [{t['min_ms']:.4f}-{t['max_ms']:.4f}]"
 
 
 # -- phase 3: kernels -----------------------------------------------------------
@@ -164,10 +196,10 @@ def kernel_phase(bw: float) -> dict:
     moved = n * ttc + idx.numel() * 4 + valid * ttc + got.numel()
     out["decode_spatial"] = {
         "max_abs_err": int((got.int() - want.int()).abs().max()),
-        "ms": time_ms(lambda: decode_spatial(ref, idx, tiles, (h, w, 4))),
+        **time_ms(lambda: decode_spatial(ref, idx, tiles, (h, w, 4))),
         "plain_ms": time_ms(
             lambda: decode_spatial_plain(ref, idx, tiles, (h, w, 4)), reps=5
-        ),
+        )["ms"],
         "bound_ms": moved / bw * 1e3, "bound_by": "bytes",
         "library_ms": None,
         "shapes": f"B={b} K=160 (16,32)x4 at {h}x{w}, {valid} changed tiles",
@@ -190,15 +222,15 @@ def kernel_phase(bw: float) -> dict:
     slots = want.clone().reshape(b * n, ttc)
     out["decode_scatter"] = {
         "max_abs_err": int((got.int() - want.int()).abs().max()),
-        "ms": time_ms(lambda: decode_scatter(ref, idx, tiles)),
+        **time_ms(lambda: decode_scatter(ref, idx, tiles)),
         "plain_ms": time_ms(
             lambda: decode_scatter_plain(ref, idx, tiles), reps=5
-        ),
+        )["ms"],
         "bound_ms": moved / bw * 1e3, "bound_by": "bytes",
         # one call writing the changed tiles into initialised slots
         "library_ms": time_ms(
             lambda: slots.index_copy_(0, flat_idx, changed)
-        ),
+        )["ms"],
         "library_call": "Tensor.index_copy_ of the changed tiles "
                         "(slot initialisation excluded)",
         "shapes": f"B={b} K=288 16x16x4 at {h}x{w}, {valid} changed tiles",
@@ -207,11 +239,159 @@ def kernel_phase(bw: float) -> dict:
     for name, m in out.items():
         log(
             f"kernel {name}: bit-exact vs plain twin; {m['shapes']}; "
-            f"kernel {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-            f"(bytes / {bw / 1e12:.2f} TB/s), plain twin "
-            f"{m['plain_ms']:.4f} ms (no yardstick), library "
+            f"kernel {spread(m)} (median [min-max window]), bound "
+            f"{m['bound_ms']:.4f} ms (bytes / {bw / 1e12:.2f} TB/s), plain "
+            f"twin {m['plain_ms']:.4f} ms (no yardstick), library "
             f"{m['library_ms'] if m['library_ms'] is None else round(m['library_ms'], 4)} ms"
         )
+    return out
+
+
+# -- phase 3b: flash-attention kernels ------------------------------------------
+
+# (label, B, Tq, Tk, H, D, dtype name, causal)
+ATTN_CASES = [
+    ("slice", 8, 768, 768, 4, 128, "bf16", False),
+    ("causal", 8, 768, 768, 4, 128, "bf16", True),
+    ("Tq 256 != Tkv 768", 8, 256, 768, 4, 128, "bf16", False),
+    ("ragged T 700, causal", 8, 700, 700, 4, 128, "bf16", True),
+    ("D 64", 8, 768, 768, 8, 64, "bf16", False),
+    ("f32", 2, 768, 768, 4, 128, "f32", False),
+]
+ATTN_OUTPUTS = {"flash_attention_fwd": ("o",),
+                "flash_attention_bwd_dkv": ("dk", "dv"),
+                "flash_attention_bwd_dq": ("dq",)}
+
+
+def attn_inputs(b, tq, tk, h, d, dtype, seed):
+    """q, k, v as the (B, T, H, D) views of one (B, T, 3, H, D) buffer, as
+    the model's qkv projection makes them, and do; N(0, 1)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, max(tq, tk), 3, h, d), generator=gen,
+                      device="cuda").to(dtype)
+    do = torch.randn((b, tq, h, d), generator=gen, device="cuda").to(dtype)
+    return qkv[:, :tq, 0], qkv[:, :tk, 1], qkv[:, :tk, 2], do
+
+
+def attn_work(b, tq, tk, h, d, elem):
+    """{kernel: (FLOPs, bytes)} of a non-causal call: FLOPs 4/8/6 *
+    B*H*Tq*Tk*D; bytes each input read once and each output written once
+    (lse and di are f32 (B, H, Tq))."""
+    qb, kb, stat = b * tq * h * d * elem, b * tk * h * d * elem, b * h * tq * 4
+    mnk = b * h * tq * tk * d
+    return {
+        "flash_attention_fwd": (4 * mnk, qb + 2 * kb + qb + stat),
+        "flash_attention_bwd_dkv": (8 * mnk, 2 * qb + 2 * kb + 2 * stat + 2 * kb),
+        "flash_attention_bwd_dq": (6 * mnk, 2 * qb + 2 * kb + 2 * stat + qb),
+    }
+
+
+def bound(flops: float, moved: float, bw: float) -> tuple:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, moved / bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_phase(bw: float) -> dict:
+    """K4a-c against their plain versions at every case, then timings at
+    the slice's shape and the long-sequence shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from blendjax_torch.kernels import attention as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    errs = {}
+    for i, (label, b, tq, tk, h, d, dt, causal) in enumerate(ATTN_CASES):
+        q, k, v, do = attn_inputs(b, tq, tk, h, d, dtypes[dt], 200 + i)
+        o, lse = K.flash_attention_fwd(q, k, v, causal)
+        o_ref, lse_ref = K.flash_attention_fwd_plain(q, k, v, causal)
+        di = K.attention_delta(o, do)
+        got = {
+            "flash_attention_fwd": (o,),
+            "flash_attention_bwd_dkv": K.flash_attention_bwd_dkv(
+                q, k, v, do, lse, di, causal),
+            "flash_attention_bwd_dq": (K.flash_attention_bwd_dq(
+                q, k, v, do, lse, di, causal),),
+        }
+        want = {
+            "flash_attention_fwd": (o_ref,),
+            "flash_attention_bwd_dkv": K.flash_attention_bwd_dkv_plain(
+                q, k, v, do, lse, di, causal),
+            "flash_attention_bwd_dq": (K.flash_attention_bwd_dq_plain(
+                q, k, v, do, lse, di, causal),),
+        }
+        torch.cuda.synchronize()
+        bar = 2e-2 if dt == "bf16" else 1e-4
+        lse_err = float((lse - lse_ref).abs().max())
+        if not lse_err <= 1e-3:
+            fail(f"flash fwd {label}: lse differs from plain by {lse_err}")
+        notes = []
+        for name in got:
+            for out_name, g, w in zip(ATTN_OUTPUTS[name], got[name], want[name]):
+                err = float((g.float() - w.float()).abs().max())
+                top = float(w.float().abs().max())
+                # the forward's bar is absolute (N(0, 1) inputs), the
+                # gradients' relative to the largest plain value
+                limit = bar if name == "flash_attention_fwd" else bar * top
+                if not (math.isfinite(err) and err <= limit):
+                    fail(f"{name} {label}: {out_name} max |diff| {err} > {limit}")
+                if label == "slice":
+                    errs[name] = max(errs.get(name, 0.0), err)
+                notes.append(f"{out_name} {err:.3g}/{limit:.3g}")
+        log(f"kernel check flash {label} (B={b} Tq={tq} Tk={tk} H={h} D={d} "
+            f"{dt}{' causal' if causal else ''}): max |diff| / bar: "
+            f"{', '.join(notes)}; lse {lse_err:.3g}")
+
+    out = {}
+    for shape_name, (b, t) in (("slice", (8, 768)), ("long", LONG_ATTN)):
+        h, d = 4, 128
+        q, k, v, do = attn_inputs(b, t, t, h, d, torch.bfloat16, 300)
+        o, lse = K.flash_attention_fwd(q, k, v)
+        di = K.attention_delta(o, do)
+        bwd = (q, k, v, do, lse, di)
+        timed = {
+            "flash_attention_fwd": (
+                lambda: K.flash_attention_fwd(q, k, v),
+                lambda: K.flash_attention_fwd_plain(q, k, v)),
+            "flash_attention_bwd_dkv": (
+                lambda: K.flash_attention_bwd_dkv(*bwd),
+                lambda: K.flash_attention_bwd_dkv_plain(*bwd)),
+            "flash_attention_bwd_dq": (
+                lambda: K.flash_attention_bwd_dq(*bwd),
+                lambda: K.flash_attention_bwd_dq_plain(*bwd)),
+        }
+        # the yardstick: one PyTorch call in its own (B, H, T, D) layout
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        oh = F.scaled_dot_product_attention(qh, kh, vh)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True))
+        work = attn_work(b, t, t, h, d, 2)
+        for name, (kernel, plain) in timed.items():
+            kt = time_ms(kernel)
+            pt = time_ms(plain, reps=3, windows=5)
+            flops, moved = work[name]
+            bms, by = bound(flops, moved, bw)
+            lib = sdpa_fwd if name == "flash_attention_fwd" else sdpa_bwd
+            log(f"kernel {name} [{shape_name} B={b} T={t} H={h} D={d} bf16]: "
+                f"{spread(kt)}, {flops / kt['ms'] / 1e9:.1f} TFLOP/s; bound "
+                f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+                f"{moved / 1e6:.2f} MB); plain {pt['ms']:.4f} ms; SDPA "
+                f"{'forward' if lib is sdpa_fwd else 'autograd backward (K4b+K4c together)'} "
+                f"{spread(lib)}")
+            if shape_name == "slice":
+                out[name] = {
+                    "max_abs_err": errs[name], **kt, "plain_ms": pt["ms"],
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib["ms"],
+                }
+        del qh, kh, vh, oh
+    torch.cuda.synchronize()
     return out
 
 
@@ -224,8 +404,11 @@ def start_producers(tmp: str, tile, capacity: int, count: int = 2):
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
     )
     procs = []
+    # a fresh directory per leg: an address file left by an earlier leg's
+    # (stopped) producers must never be read as this leg's
+    leg_dir = tempfile.mkdtemp(dir=tmp)
     for i in range(count):
-        addr_file = os.path.join(tmp, f"producer{i}-{'x'.join(map(str, tile))}.addr")
+        addr_file = os.path.join(leg_dir, f"producer{i}.addr")
         cmd = [
             sys.executable, "-m", "blendjax_torch.producer.cube",
             "--addr-file", addr_file, "--btid", str(i), "--seed", str(i),
@@ -260,7 +443,54 @@ def stop_producers(procs) -> None:
             p.wait()
 
 
-def run_leg(label: str, leg: dict, state, tmp: str) -> dict:
+KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> its group
+    ("flash_", "flash attention (K4a-c)"),
+    ("decode_", "decode (K1/K2)"), ("build_inverse", "decode (K1/K2)"),
+    ("copy_footprints", "decode (K1/K2)"), ("scatter_tiles", "decode (K1/K2)"),
+    ("convol", "convolution"), ("conv2d", "convolution"),
+    ("conv_", "convolution"), ("cudnn", "convolution"),
+    ("fprop", "convolution"), ("dgrad", "convolution"),
+    ("wgrad", "convolution"),
+    ("gemm", "matrix products"), ("xmma", "matrix products"),
+    ("nvjet", "matrix products"),
+    ("cutlass", "matrix products"), ("sm90_", "matrix products"),
+    ("adam", "optimizer"), ("foreach", "optimizer"),
+)
+
+
+def profile_step(step, state, batch) -> dict:
+    """One step call under ``torch.profiler``: the wall time, the device
+    time summed over every CUDA kernel (its busy share of the wall) and
+    that time by kernel group, largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels, busy = {}, 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        name = ev.key.lower()
+        group = next((g for key, g in KERNEL_GROUPS if key in name),
+                     "elementwise, reductions, copies")
+        groups[group] = groups.get(group, 0.0) + ms
+        kernels += ev.count
+        busy += ms
+    if kernels == 0:
+        fail("the profiler recorded no CUDA kernel in a step call")
+    return {"wall_ms": wall_ms, "device_ms": busy, "kernels": kernels,
+            "busy": busy / wall_ms,
+            "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+
+
+def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
     import torch
 
     from blendjax_torch.data import StreamDataPipeline
@@ -271,16 +501,18 @@ def run_leg(label: str, leg: dict, state, tmp: str) -> dict:
     pipe = StreamDataPipeline(
         addrs, batch_size=BATCH, chunk=CHUNK, timeoutms=60_000
     )
-    step = make_fused_tile_step()
+    step = make_fused_tile_step(loss_fn)
     drv = TrainDriver(step, state, inflight=2, sync_every=4)
     total = leg["warmup"] + leg["steps"]
     images = 0
+    updates = 0  # optimizer updates submitted: the chunk sizes summed
     last = None
     t0 = None
     try:
         reset_launch_counts()
         for batch in pipe:
             drv.submit(batch)
+            updates += int(batch["_packed"].shape[0])
             last = batch
             if drv.steps == leg["warmup"]:
                 drv.drain()
@@ -315,17 +547,117 @@ def run_leg(label: str, leg: dict, state, tmp: str) -> dict:
     decode_ms = time_ms(lambda: decode_packed_superbatch(
         last["_packed"], last["_refs"], last["_spec"], last["_names"],
         last["_geoms"], last["_rle"],
-    ), reps=5, windows=5)
+    ), reps=5, windows=5)["ms"]
     group_images = int(last["_packed"].shape[0]) * BATCH
     return {
+        "profile": profile_step(step, state, last),
         "img_s": images / wall, "wall_s": wall, "images": images,
-        "steps": drv.steps, "losses": losses, "seq_gaps": gaps,
-        "launches": counts, "driver": drv.stats,
+        "steps": drv.steps, "updates": updates, "losses": losses,
+        "seq_gaps": gaps, "launches": counts, "driver": drv.stats,
         "dispatch_per_step": drv.dispatches / drv.steps,
         "step_alone_ms": alone * 1e3,
         "step_alone_img_s": group_images / alone,
-        "decode_ms": decode_ms, "last": last,
+        "decode_ms": decode_ms, "last": last, "step": step,
     }
+
+
+# -- phase 4b: the streamformer leg ----------------------------------------------
+
+
+def former_loss(model, batch):
+    """The bench's StreamFormer loss (``bench.py:1084-1089``)."""
+    from blendjax_torch.train import corner_loss
+
+    return corner_loss(model(batch["image"]).reshape(-1, 8, 2), batch["xy"],
+                       image_shape=tuple(batch["image"].shape[1:3]))
+
+
+def former_flops_per_image(cfg: dict, tokens: int, in_ch: int = 4) -> float:
+    """Model FLOPs of one image, forward and backward (3x the forward):
+    every dense layer 2 * fan_in * fan_out per token (patch embedding
+    patch^2 * C_in * dim; per block qkv 3 dim^2, proj dim^2, MLP 8 dim^2),
+    attention 4 * T^2 * dim per block (the two products), the head
+    2 * dim * outputs; normalisation, softmax and AdamW not counted."""
+    c = cfg["dim"]
+    dense = cfg["patch"] ** 2 * in_ch * c + cfg["depth"] * 12 * c * c
+    fwd = (2 * tokens * dense + cfg["depth"] * 4 * tokens * tokens * c
+           + 2 * c * cfg["num_outputs"])
+    return 3.0 * fwd
+
+
+def set_attn_backend(model, backend: str) -> None:
+    from blendjax_torch.models import MultiHeadAttention
+
+    for mod in model.modules():
+        if isinstance(mod, MultiHeadAttention):
+            mod.attn_backend = backend
+
+
+def streamformer_leg(tmp: str, card: str) -> dict:
+    import torch
+
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.ops.tiles import decode_packed_superbatch
+    from blendjax_torch.train import make_supervised_step, make_train_state
+
+    model = StreamFormer(**FORMER, attn_backend="flash",
+                         image_shape=SHAPE).init_params(0)
+    state = make_train_state(model)
+    fresh = copy.deepcopy(state)  # the state every comparison starts from
+    leg = run_leg("streamformer leg", STREAMFORMER, state, tmp, former_loss)
+    counts, depth = leg["launches"], FORMER["depth"]
+    if counts["decode_spatial"] <= 0:
+        fail("streamformer leg never launched decode_spatial (K1)")
+    if leg["updates"] != CHUNK * leg["steps"]:
+        fail(f"streamformer leg: {leg['updates']} updates in "
+             f"{leg['steps']} steps, not chunk x steps")
+    want = depth * CHUNK * leg["steps"]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        if counts[name] != want:
+            fail(f"streamformer leg: {name} launched {counts[name]} times, "
+                 f"not depth x chunk x steps = {want}")
+    flops = former_flops_per_image(FORMER, model.tokens)
+    leg["flops_per_image"] = flops
+
+    # for information: the same step with the xla backend on the same group
+    xla = copy.deepcopy(fresh)
+    set_attn_backend(xla.model, "xla")
+    last = leg["last"]
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    for _ in range(3):
+        leg["step"](xla, last)
+    torch.cuda.synchronize()
+    leg["xla_step_alone_ms"] = (time.perf_counter() - s0) / 3 * 1e3
+
+    # one update from copies of the same state, flash against xla
+    group = decode_packed_superbatch(
+        last["_packed"], last["_refs"], last["_spec"], last["_names"],
+        last["_geoms"], last["_rle"],
+    )
+    one = {"image": group["image"][0], "xy": group["xy"][0]}
+    update = make_supervised_step(former_loss)
+    pair = {}
+    for backend in ("flash", "xla"):
+        st = copy.deepcopy(fresh)
+        set_attn_backend(st.model, backend)
+        _, m = update(st, one)
+        with torch.no_grad():
+            after = former_loss(st.model, one)
+        pair[backend] = (float(m["loss"]), float(after))
+    for i, (what, rel) in enumerate((("before", 1e-2), ("after", 5e-2))):
+        f, x = pair["flash"][i], pair["xla"][i]
+        if not (math.isfinite(f) and abs(f - x) <= rel * abs(x)):
+            fail(f"streamformer flash vs xla loss {what} one update: "
+                 f"{f} vs {x} (rel bar {rel})")
+    leg["flash_vs_xla"] = pair
+    log(f"slice streamformer: flash vs xla loss before one update "
+        f"{pair['flash'][0]:.6f} / {pair['xla'][0]:.6f} (rel bar 1e-2), "
+        f"after {pair['flash'][1]:.6f} / {pair['xla'][1]:.6f} (rel bar "
+        f"5e-2); xla step alone {leg['xla_step_alone_ms']:.2f} ms/chunk "
+        f"group on {card} (information only)")
+    return leg
 
 
 # -- phase 5: reference checks --------------------------------------------------
@@ -363,6 +695,24 @@ def reference_phase(batch) -> None:
     log("reference: f32 CubeRegressor forward on the card matches the CPU "
         f"(max abs diff {float((got - ref).abs().max()):.3g}, tol 1e-4)")
 
+    # the full-width StreamFormer in f32: the f32 flash kernel on the card,
+    # the kernels' plain versions on the CPU
+    from blendjax_torch.models import StreamFormer
+
+    former = StreamFormer(**FORMER, dtype=torch.float32, attn_backend="flash",
+                          image_shape=SHAPE).init_params(7)
+    x = img[0, :2].contiguous()
+    with torch.no_grad():
+        ref = former(x.cpu())
+        got = former.cuda()(x).cpu()
+    if got.shape != (2, FORMER["num_outputs"]) or not torch.isfinite(got).all():
+        fail(f"StreamFormer output {tuple(got.shape)} not finite (2, 16)")
+    if not torch.allclose(got, ref, rtol=1e-4, atol=1e-5):
+        fail(f"f32 StreamFormer card vs CPU: max diff {(got - ref).abs().max()}")
+    log("reference: f32 StreamFormer forward (f32 flash kernel) on the card "
+        "matches the CPU plain path (max abs diff "
+        f"{float((got - ref).abs().max()):.3g}, rtol 1e-4, atol 1e-5)")
+
 
 def main() -> None:
     import torch
@@ -396,7 +746,7 @@ def main() -> None:
             if "registers" in line or "smem" in line:
                 log(f"build {name}: {line.strip()}")
 
-    # phase 3: kernels
+    # phase 3: decode kernels
     measured = kernel_phase(bw)
 
     # phase 4: the slice
@@ -406,12 +756,16 @@ def main() -> None:
         legs = {
             "flagship": run_leg("flagship (16,32) leg", FLAGSHIP, state, tmp),
             "square": run_leg("square 16x16 leg", SQUARE, state, tmp),
+            "streamformer": streamformer_leg(tmp, card),
         }
     if legs["flagship"]["launches"]["decode_spatial"] <= 0:
         fail("flagship leg never launched decode_spatial (K1)")
     if legs["square"]["launches"]["decode_scatter"] <= 0:
         fail("square leg never launched decode_scatter (K2)")
     for name, leg in legs.items():
+        if leg["dispatch_per_step"] != 1.0:
+            fail(f"{name} leg: {leg['dispatch_per_step']} step calls per "
+                 "chunk group")
         log(
             f"slice {name}: {leg['img_s']:.1f} img/s over {leg['images']} "
             f"images ({leg['wall_s']:.2f} s) on {card}; "
@@ -422,6 +776,29 @@ def main() -> None:
             f"seq_gaps {leg['seq_gaps']}; driver {leg['driver']}; "
             f"final loss {leg['losses'][-1]:.5f}"
         )
+        prof = leg["profile"]
+        log(
+            f"slice {name} profile of one step call: wall "
+            f"{prof['wall_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms "
+            f"({prof['busy']:.1%}) over {prof['kernels']} kernels; by group: "
+            + ", ".join(f"{g} {ms:.2f} ms" for g, ms in prof["groups"].items())
+        )
+    sf = legs["streamformer"]
+    log(f"slice streamformer: {sf['flops_per_image'] / 1e9:.2f} GFLOP per "
+        "image (fwd+bwd = 3 x fwd; dense 2*fan_in*fan_out per token, "
+        "attention 4*T^2*dim per block); step alone "
+        f"{sf['step_alone_img_s'] * sf['flops_per_image'] / 1e12:.1f} TFLOP/s "
+        f"= {sf['step_alone_img_s'] * sf['flops_per_image'] / PEAK_BF16_FLOPS:.2%}"
+        f" of 989 TFLOP/s, live {sf['img_s'] * sf['flops_per_image'] / PEAK_BF16_FLOPS:.2%}"
+        f", on {card}")
+
+    # phase 3b: the flash-attention kernels, after the legs: run before
+    # them, this phase cost the producer-bound flagship leg 5-10% of its
+    # live img/s against the parent's order (PERF.md), for no known reason
+    t0 = time.perf_counter()
+    measured.update(attention_phase(bw))
+    log(f"kernels: flash attention checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 5: reference checks
     reference_phase(legs["flagship"]["last"])
@@ -433,8 +810,9 @@ def main() -> None:
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": legs[leg_of[name]]["launches"][name],
+            "launches": legs[leg_of.get(name, "streamformer")]["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "min_ms": m["min_ms"], "max_ms": m["max_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })

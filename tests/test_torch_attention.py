@@ -1,0 +1,288 @@
+"""Local attention parity: blendjax_torch.ops.attention and the flash
+kernels' plain versions against the JAX package's ``reference_attention``.
+
+Inputs are numpy N(0, 1) draws from a seed, handed to both sides.
+Tolerances: f32 forward 1e-5 absolute (sums taken in another order);
+bf16 forward 2 bf16 ulps at the output's largest magnitude (the two
+sides round the scores' exponentials and the output at different
+places); the plain backward against ``jax.grad`` at rtol 1e-5. The
+``cuda``-marked tests hold the CUDA kernels against their plain versions
+on a card and skip here. JAX is imported inside the helpers that use it,
+so the card tests also run where only PyTorch is installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from blendjax_torch.kernels import attention as K
+from blendjax_torch.ops import attention as A
+
+SHAPES = [((2, 16, 3, 8), 16), ((2, 8, 3, 8), 24), ((1, 24, 2, 16), 8)]
+
+
+def _qkv(qshape, tk, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    b, _, h, d = qshape
+    q = rng.standard_normal(qshape).astype(np.float32)
+    k = rng.standard_normal((b, tk, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, tk, h, d)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_attention(q, k, v, causal, bf16=False):
+    import jax.numpy as jnp
+
+    from blendjax.parallel.ring import reference_attention
+
+    cast = (lambda a: jnp.asarray(a, jnp.bfloat16)) if bf16 else jnp.asarray
+    out = reference_attention(cast(q), cast(k), cast(v), causal=causal)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _jax_grads(q, k, v, do, causal):
+    import jax
+    import jax.numpy as jnp
+
+    from blendjax.parallel.ring import reference_attention
+
+    def f(q, k, v):
+        return jnp.sum(reference_attention(q, k, v, causal=causal) * do)
+
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+def _bf16_bar(want):
+    """2 bf16 ulps (8 significant bits) at the largest output magnitude."""
+    top = float(np.abs(want).max())
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(a).to(dtype)
+
+
+@pytest.mark.parametrize("backend", ["reference", "xla", "flash", "auto"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("qshape,tk", SHAPES)
+def test_forward_matches_jax_reference(backend, dtype, causal, qshape, tk):
+    q, k, v = _qkv(qshape, tk)
+    bf16 = dtype == "bf16"
+    want = _jax_attention(q, k, v, causal, bf16=bf16)
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    tq, tk_, tv = (_t(a, tdt) for a in (q, k, v))
+    if backend == "reference":
+        got = A.reference_attention(tq, tk_, tv, causal=causal)
+    else:
+        got = A.local_attention(tq, tk_, tv, causal=causal, backend=backend)
+    assert got.dtype == tdt and tuple(got.shape) == qshape
+    got = got.float().numpy()
+    if bf16:
+        assert np.abs(got - want).max() <= _bf16_bar(want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("qshape,tk", SHAPES)
+def test_plain_backward_matches_jax_grad(causal, qshape, tk):
+    q, k, v = _qkv(qshape, tk, seed=1)
+    do = np.random.default_rng(2).standard_normal(qshape).astype(np.float32)
+    want = _jax_grads(q, k, v, do, causal)
+    tq, tk_, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    K.flash_attention(tq, tk_, tv, causal=causal).backward(_t(do))
+    for got, w in zip((tq.grad, tk_.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+def test_backward_runs_the_written_out_plain_backward(monkeypatch):
+    """On CPU tensors the autograd backward calls the two plain backward
+    functions, once each, and nothing differentiates the plain forward."""
+    calls = []
+    for name in ("flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain"):
+        real = getattr(K, name)
+        monkeypatch.setattr(
+            K, name, lambda *a, _n=name, _r=real: calls.append(_n) or _r(*a))
+    q, k, v = (_t(a).requires_grad_() for a in _qkv((1, 8, 2, 8), 8))
+    out = K.flash_attention(q, k, v)
+    assert out.grad_fn.name() == "FlashAttentionBackward"
+    out.sum().backward()
+    assert sorted(calls) == ["flash_attention_bwd_dkv_plain",
+                             "flash_attention_bwd_dq_plain"]
+
+
+def test_plain_forward_statistics_are_the_log_sum_exp():
+    q, k, v = (_t(a) for a in _qkv((2, 12, 2, 8), 20, seed=3))
+    for causal in (False, True):
+        o, lse = K.flash_attention_fwd_plain(q, k, v, causal=causal)
+        s = K._scores(q, k, causal, 8 ** -0.5)
+        assert lse.shape == (2, 2, 12) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1),
+                                   rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(o, A.reference_attention(q, k, v, causal),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd_dkv", "bwd_dq"])
+def test_cpu_wrappers_are_their_plain_versions(wrapper):
+    q, k, v = (_t(a) for a in _qkv((2, 10, 2, 16), 14, seed=4))
+    do = _t(np.random.default_rng(5).standard_normal((2, 10, 2, 16))
+            .astype(np.float32))
+    o, lse = K.flash_attention_fwd_plain(q, k, v)
+    di = K.attention_delta(o, do)
+    args = (q, k, v) if wrapper == "fwd" else (q, k, v, do, lse, di)
+    fn = getattr(K, f"flash_attention_{wrapper}")
+    before = fn.launches
+    got = fn(*args, causal=True)
+    want = getattr(K, f"flash_attention_{wrapper}_plain")(*args, causal=True)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    assert fn.launches == before  # the plain version is not a launch
+
+
+def test_unknown_backend_rejected():
+    q, k, v = (_t(a) for a in _qkv((1, 8, 2, 8), 8))
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        A.local_attention(q, k, v, backend="turbo")
+
+
+class _Fake:
+    """Shape, dtype and device of a tensor, for the eligibility rules."""
+
+    def __init__(self, shape, dtype=torch.bfloat16, device="cuda"):
+        self.shape = tuple(shape)
+        self.ndim = len(shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+
+@pytest.mark.parametrize("shape,dtype,device,ok", [
+    ((8, 768, 4, 128), torch.bfloat16, "cuda", True),
+    ((8, 700, 4, 64), torch.float32, "cuda", True),   # ragged T
+    ((2, 1, 2, 8), torch.bfloat16, "cuda", True),
+    ((8, 768, 4, 128), torch.bfloat16, "cpu", False),  # plain version instead
+    ((8, 768, 4, 128), torch.float16, "cuda", False),
+    ((8, 768, 4, 136), torch.bfloat16, "cuda", False),  # head dim > 128
+    ((8, 768, 4, 12), torch.bfloat16, "cuda", False),   # not a multiple of 8
+    ((8, 768, 128), torch.bfloat16, "cuda", False),
+])
+def test_flash_supported_is_the_kernels_limits(shape, dtype, device, ok):
+    assert A.flash_supported(_Fake(shape, dtype, device)) is ok
+
+
+def test_flash_supported_checks_kv_too():
+    q = _Fake((8, 256, 4, 128))
+    assert A.flash_supported(q, _Fake((8, 768, 4, 128)))  # Tq != Tkv
+    assert not A.flash_supported(q, _Fake((8, 768, 4, 64)))
+    assert not A.flash_supported(q, _Fake((8, 768, 4, 128), torch.float32))
+
+
+def test_explicit_flash_on_an_ineligible_device_tensor_raises(monkeypatch):
+    """A non-CPU tensor the kernel cannot take raises ValueError and never
+    runs the xla path (meta tensors stand in for a card here)."""
+    def no_xla(*a, **kw):
+        raise AssertionError("flash request quietly ran xla")
+
+    monkeypatch.setattr(A, "reference_attention", no_xla)
+    q = torch.empty((2, 64, 2, 12), device="meta")  # head dim 12
+    with pytest.raises(ValueError, match="flash attention backend"):
+        A.local_attention(q, q, q, backend="flash")
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 3072, 4, 128),   # the bench longseq shape: under the budget
+    (1, 16384, 4, 128),  # the JAX module docstring's example: over it
+    (8, 768, 4, 128),    # the StreamFormer slice
+])
+def test_residual_bytes_and_auto_rule_agree_with_jax(shape):
+    """Same bytes and threshold as the JAX package; given tensors each
+    kernel takes, auto picks flash exactly where the JAX rule would."""
+    from blendjax.ops import attention as JA
+
+    class Q:
+        ndim = 4
+
+        def __init__(self):
+            self.shape = shape
+
+    assert A.FLASH_RESIDUAL_BYTES == JA.FLASH_RESIDUAL_BYTES
+    assert A.scores_residual_bytes(_Fake(shape)) == JA.scores_residual_bytes(Q())
+    over = JA.scores_residual_bytes(Q()) > JA.FLASH_RESIDUAL_BYTES
+    assert A.auto_picks_flash(_Fake(shape)) is over
+    assert A.auto_picks_flash(_Fake(shape, device="cpu")) is False
+    if shape == (8, 768, 4, 128):
+        assert not over  # why the slice names flash explicitly
+
+
+def test_auto_on_cpu_resolves_to_xla(monkeypatch):
+    def no_flash(*a, **kw):
+        raise AssertionError("auto took flash on the CPU")
+
+    monkeypatch.setattr(K, "flash_attention", no_flash)
+    q, k, v = (_t(a) for a in _qkv((1, 8, 2, 8), 8))
+    A.local_attention(q, k, v, backend="auto")
+
+
+def test_flash_block_sizes_are_the_kernels_tiles():
+    bs = A.flash_block_sizes(700, 768)
+    assert A.FLASH_BLOCK == bs["block_q"] == K.FWD_BLOCK_Q
+    assert bs["grid_fwd"] == 11 and bs["grid_dkv"] == 12 and bs["grid_dq"] == 11
+    assert (bs["block_k"], bs["block_k_dkv"], bs["block_q_dkv"]) == (64, 64, 32)
+
+
+def test_wrappers_reject_mismatched_inputs():
+    q, k, v = (_t(a) for a in _qkv((2, 8, 2, 8), 8))
+    with pytest.raises(ValueError, match="disagree"):
+        K.flash_attention_fwd(q, k[:, :, :1], v)
+    with pytest.raises(RuntimeError, match="no attention kernel"):
+        K.flash_attention_fwd(*(t.to("meta") for t in (q, k, v)))
+    o, lse = K.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse must be"):
+        K.flash_attention_bwd_dq(q, k, v, o, lse[:, :1], lse)
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m cuda on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal", [
+    (2, 256, 256, 4, 128, torch.bfloat16, False),
+    (2, 256, 256, 4, 128, torch.bfloat16, True),
+    (2, 128, 384, 2, 128, torch.bfloat16, True),
+    (2, 200, 200, 2, 64, torch.bfloat16, False),
+    (2, 130, 70, 2, 32, torch.float32, True),
+])
+def test_kernels_match_plain_versions_on_card(cuda_card, b, tq, tk, h, d,
+                                              dtype, causal):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # q, k, v as views of one (B, T, 3, H, D) buffer, as the model makes them
+    qkv = torch.randn((b, max(tq, tk), 3, h, d), generator=gen,
+                      device=cuda_card).to(dtype)
+    q, k, v = qkv[:, :tq, 0], qkv[:, :tk, 1], qkv[:, :tk, 2]
+    do = torch.randn((b, tq, h, d), generator=gen, device=cuda_card).to(dtype)
+    o, lse = K.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = K.flash_attention_fwd_plain(q, k, v, causal)
+    fwd_tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (o.float() - o_ref.float()).abs().max() <= fwd_tol
+    assert (lse - lse_ref).abs().max() <= 1e-3
+    di = K.attention_delta(o, do)
+    got = (*K.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal),
+           K.flash_attention_bwd_dq(q, k, v, do, lse, di, causal))
+    want = (*K.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal),
+            K.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal))
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        top = w.float().abs().max()
+        assert (g.float() - w.float()).abs().max() <= rel * top

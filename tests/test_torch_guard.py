@@ -24,6 +24,9 @@ def _port_files():
 def test_port_imports_nothing_of_jax_or_blendjax():
     files = _port_files()
     assert len(files) > 10
+    for module in ("kernels/attention.py", "ops/attention.py",
+                   "models/transformer.py", "weights.py"):
+        assert os.path.join(REPO, "blendjax_torch", module) in files
     bad = []
     for path in files:
         with open(path) as f:
@@ -107,6 +110,87 @@ def test_a_cuda_request_never_falls_back_to_the_twin(monkeypatch, kernel):
     with pytest.raises(RuntimeError, match="nvcc"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+class _FailingFlashLib:
+    def __init__(self):
+        for name in ("bjt_flash_fwd", "bjt_flash_bwd_dkv", "bjt_flash_bwd_dq"):
+            setattr(self, name, lambda *a: 2)
+        self.bjt_flash_error = lambda code: b"out of memory"
+
+
+def _attention_args(wrapper):
+    from blendjax_torch.kernels import attention as K
+
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 8, 2, 8))
+                                    .astype(np.float32)) for _ in range(4))
+    if wrapper == "fwd":
+        return (q, k, v)
+    o, lse = K.flash_attention_fwd_plain(q, k, v)
+    return (q, k, v, do, lse, K.attention_delta(o, do))
+
+
+def _make_cuda_requests_fail(monkeypatch, K):
+    """The wrappers see a CUDA request whose library reports a failure;
+    the plain versions must not run."""
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA request")
+
+    for name in ("fwd", "bwd_dkv", "bwd_dq"):
+        monkeypatch.setattr(K, f"flash_attention_{name}_plain", plain)
+    monkeypatch.setattr(K, "_check_inputs", lambda *a: "cuda")
+    monkeypatch.setattr(K, "_stream", lambda device: 0)
+    monkeypatch.setattr(K, "load", lambda name: _FailingFlashLib())
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd_dkv", "bwd_dq"])
+def test_a_cuda_attention_request_never_falls_back(monkeypatch, wrapper):
+    from blendjax_torch.kernels import attention as K
+
+    args = _attention_args(wrapper)
+    fn = getattr(K, f"flash_attention_{wrapper}")
+    before = fn.launches
+    _make_cuda_requests_fail(monkeypatch, K)
+    with pytest.raises(RuntimeError, match="launch failed: out of memory"):
+        fn(*args)
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(K, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_the_autograd_backward_never_falls_back(monkeypatch):
+    """A forward on CPU tensors, then a backward that sees a CUDA request:
+    it launches the backward kernels (here: fails loudly), never the
+    plain backward."""
+    from blendjax_torch.kernels import attention as K
+
+    q, k, v = (t.requires_grad_() for t in _attention_args("fwd"))
+    out = K.flash_attention(q, k, v)
+    _make_cuda_requests_fail(monkeypatch, K)
+    with pytest.raises(RuntimeError, match="bjt_flash_bwd_dkv launch failed"):
+        out.sum().backward()
+
+
+def test_streamformer_entry_points_without_a_gpu_raise(monkeypatch):
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.train import make_train_state
+
+    small = dict(patch=8, dim=32, depth=1, num_heads=4, image_shape=(16, 32))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_state(StreamFormer(**small, attn_backend="flash"))
+    # asked for the CPU: the flash backend runs the kernels' plain versions
+    state = make_train_state(
+        StreamFormer(**small, attn_backend="flash").init_params(0),
+        device="cpu")
+    out = state.model(torch.zeros((1, 16, 32, 4), dtype=torch.uint8))
+    assert out.shape == (1, 16) and torch.isfinite(out).all()
 
 
 def test_kernel_wrappers_refuse_other_devices():
