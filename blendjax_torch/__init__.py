@@ -6,6 +6,9 @@ packs each chunk group into one uint8 buffer and places it on the card,
 and :func:`blendjax_torch.train.make_fused_tile_step` decodes it there
 with hand-written CUDA kernels (``blendjax_torch/kernels``) before the
 ``CubeRegressor`` updates, driven by :class:`blendjax_torch.train.TrainDriver`.
+When the producers are the bound, the decoded form of the pipeline feeds
+:class:`blendjax_torch.data.EchoingPipeline`, which re-draws each frame
+with fresh augmentation into :func:`blendjax_torch.train.make_echo_fused_step`.
 
 Importing the package (or its host-only modules: ``transport``,
 ``producer``, the numpy half of ``ops.tiles``) does not import torch, so

@@ -6,6 +6,11 @@ from blendjax_torch.data.batcher import (
     bucket_sizes,
     pad_to_bucket,
 )
+from blendjax_torch.data.echo import (
+    EchoingPipeline,
+    SampleReservoir,
+    default_echo_augment,
+)
 from blendjax_torch.data.pipeline import (
     DeviceFeeder,
     StreamDataPipeline,
@@ -17,13 +22,16 @@ from blendjax_torch.data.stream import RemoteStream
 __all__ = [
     "BatchAssembler",
     "DeviceFeeder",
+    "EchoingPipeline",
     "FieldSpec",
     "HostIngest",
     "RemoteStream",
+    "SampleReservoir",
     "SchemaError",
     "StreamDataPipeline",
     "StreamSchema",
     "TileStreamDecoder",
     "bucket_sizes",
+    "default_echo_augment",
     "pad_to_bucket",
 ]

@@ -273,7 +273,14 @@ class HostIngest:
         if self._thread is None:
             self.start()
         while True:
-            batch = self._queue.get()
+            try:
+                batch = self._queue.get(timeout=0.25)
+            except queue.Empty:
+                # stop() may have drained the end-of-stream sentinel: a
+                # consumer on another thread must still see the end
+                if self._stop.is_set() and not self._thread.is_alive():
+                    return
+                continue
             if batch is self._DONE:
                 if self._error is not None:
                     raise self._error

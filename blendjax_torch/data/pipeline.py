@@ -12,9 +12,12 @@
 - :class:`StreamDataPipeline` chains stream -> ingest -> host stage ->
   feeder -> device stage.
 
-Only the fused form (``emit_packed=True``) is ported: the standalone
-decode-then-step stage, multi-host assembly and mesh shardings wait for
-later slices.
+Two forms are ported: the fused form (``emit_packed=True``: packed chunk
+groups that ``make_fused_tile_step`` decodes inside the step) and the
+decoded form (``emit_packed=False, chunk=1``: every batch decoded on the
+card by K1/K2 as it arrives, the input of the echo reservoir). The
+decoded form with ``chunk > 1``, multi-host assembly and mesh shardings
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -129,11 +132,15 @@ class TileStreamDecoder:
     producer ``btid``): PUSH is FIFO per producer, so a producer's
     reference precedes its deltas. A non-tile batch flushes the open
     group and travels alone as a K'=1 superbatch.
+
+    ``emit_packed=False`` (with ``chunk=1``) decodes each group on the
+    card in :meth:`device_stage` and yields plain batches.
     """
 
-    def __init__(self, device=None, chunk: int = 1):
+    def __init__(self, device=None, chunk: int = 1, emit_packed: bool = True):
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
+        self.emit_packed = bool(emit_packed)
         self._warned_mixed = False
         self._refs: dict = {}        # (name, btid) -> device ref tiles
         self._host_refs: dict = {}   # (name, btid) -> host copy
@@ -277,7 +284,11 @@ class TileStreamDecoder:
         ``{"_packed", "_refs", "_spec", "_names", "_geoms", "_rle",
         "_meta"}``, palette groups ``{"_packed", "_spec", "_pal", "_rle",
         "_meta"}``, and a lone raw batch its fields with a leading K'=1
-        axis."""
+        axis. The decoded form (``emit_packed=False``) yields each batch's
+        fields decoded instead, with its host sidecars."""
+        if not self.emit_packed:
+            yield from self._decoded(device_batches)
+            return
         for db in device_batches:
             plan = self._plans.popleft()
             if plan[0] == "raw1":
@@ -300,15 +311,41 @@ class TileStreamDecoder:
                 "_meta": rests,
             }
 
+    def _decoded(self, device_batches):
+        """Decode every placed K'=1 group on the card (tile groups through
+        K1/K2, palette groups through the byte-LUT gather) and yield
+        ``{field: (B, ...), **host sidecars}``; a raw batch passes as it is."""
+        for db in device_batches:
+            plan = self._plans.popleft()
+            if plan[0] == "raw1":
+                yield db
+                continue
+            if plan[0] == "palchunk":
+                _, spec, rests, pal_groups, rle_groups = plan
+                fields = T.decode_packed_pal_superbatch(
+                    db["__packed__"], spec, pal_groups, rle_groups)
+            else:
+                _, names, spec, rests, refs, geoms, rle_groups = plan
+                fields = T.decode_packed_superbatch(
+                    db["__packed__"], refs, spec, names, geoms, rle_groups)
+            out = dict(rests[0])
+            out.update({k: v[0] for k, v in fields.items()})
+            yield out
+
 
 class StreamDataPipeline:
-    """Producer addresses -> device batches for the fused train step.
+    """Producer addresses -> device batches.
 
     ``addresses`` is a producer address (or list), or any iterable of
-    message dicts (e.g. recorded messages). ``chunk=K`` groups K batches
-    per device transfer and train-step call. ``device=None`` means
-    ``cuda`` and raises when no GPU is present. Other keyword arguments go
-    to :class:`~blendjax_torch.data.stream.RemoteStream`.
+    message dicts (e.g. recorded messages). ``emit_packed=True`` (the
+    fused form) yields packed groups for ``make_fused_tile_step``;
+    ``chunk=K`` groups K batches per device transfer and train-step call.
+    ``emit_packed=False`` (the decoded form, ``chunk=1`` only) yields
+    each batch decoded on the card, ``{"image": (B, H, W, C) uint8, "xy":
+    ..., ...}``: the input of
+    :class:`~blendjax_torch.data.echo.EchoingPipeline`. ``device=None``
+    means ``cuda`` and raises when no GPU is present. Other keyword
+    arguments go to :class:`~blendjax_torch.data.stream.RemoteStream`.
     """
 
     def __init__(self, addresses, batch_size: int, device=None,
@@ -316,10 +353,10 @@ class StreamDataPipeline:
                  **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
 
-        if not emit_packed:
+        if not emit_packed and int(chunk) > 1:
             raise NotImplementedError(
-                "only the fused form (emit_packed=True, decoded inside "
-                "make_fused_tile_step) is ported"
+                "the decoded form (emit_packed=False) is ported for chunk=1 "
+                "only; chunked groups take the fused form (emit_packed=True)"
             )
         self.device = resolve_device(device)
         if hasattr(addresses, "__iter__") and not isinstance(
@@ -333,7 +370,9 @@ class StreamDataPipeline:
         self.prefetch = prefetch
         self.ingest = None
         self.feeder = DeviceFeeder(device=self.device, prefetch=prefetch)
-        self.tiles = TileStreamDecoder(device=self.device, chunk=chunk)
+        self.tiles = TileStreamDecoder(
+            device=self.device, chunk=chunk, emit_packed=emit_packed
+        )
 
     @property
     def seq_gaps(self) -> int:

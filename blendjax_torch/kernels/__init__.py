@@ -20,6 +20,7 @@ from blendjax_torch.kernels.decode import (
     decode_spatial,
     decode_spatial_plain,
 )
+from blendjax_torch.kernels.image import gamma_normalize, gamma_normalize_plain
 
 _FLASH_SOURCE = "blendjax_torch/kernels/csrc/flash_attention.cu"
 # local_attention(backend="flash") reaches the JAX library's kernels here
@@ -40,6 +41,13 @@ KERNELS = {
         "route": "cuda",
         "source": "blendjax_torch/kernels/csrc/decode_scatter.cu",
         "replaces": "blendjax/ops/tiles.py:1116",
+    },
+    "gamma_normalize": {
+        "wrapper": gamma_normalize,
+        "plain": gamma_normalize_plain,
+        "route": "cuda",
+        "source": "blendjax_torch/kernels/csrc/gamma_normalize.cu",
+        "replaces": "blendjax/ops/image.py:70",
     },
     "flash_attention_fwd": {
         "wrapper": flash_attention_fwd,
@@ -88,6 +96,8 @@ __all__ = [
     "decode_scatter_plain",
     "decode_spatial",
     "decode_spatial_plain",
+    "gamma_normalize",
+    "gamma_normalize_plain",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (
     Path(__file__).resolve().parents[2] / "build" / "blendjax_torch_kernels"
 )
-SOURCES = ("decode_spatial", "decode_scatter", "flash_attention")
+SOURCES = ("decode_spatial", "decode_scatter", "gamma_normalize",
+           "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,6 @@
-"""Ops of the port: the tile-delta codec (``tiles``), image casts
-(``image``) and local attention (``attention``).
+"""Ops of the port: the tile-delta codec (``tiles``), image casts and
+gamma normalize (``image``), augmentation (``augment``) and local
+attention (``attention``).
 
 The attention names resolve on first use, so that a producer importing
 the numpy host half of ``tiles`` does not import torch."""

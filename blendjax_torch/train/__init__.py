@@ -5,6 +5,7 @@ from blendjax_torch.train.steps import (
     TrainState,
     corner_loss,
     make_chunked_supervised_step,
+    make_echo_fused_step,
     make_fused_tile_step,
     make_supervised_step,
     make_train_state,
@@ -15,6 +16,7 @@ __all__ = [
     "TrainState",
     "corner_loss",
     "make_chunked_supervised_step",
+    "make_echo_fused_step",
     "make_fused_tile_step",
     "make_supervised_step",
     "make_train_state",

@@ -5,8 +5,10 @@ A step is ``step(state, batch) -> (state, {"loss": tensor})`` over a
 jits each step; here every step runs eagerly on the card, and the chunked
 form is a Python loop over the chunk axis in place of ``lax.scan`` (same
 K sequential updates). :func:`make_fused_tile_step` decodes a packed chunk
-group with the CUDA decode kernels and trains on it in the same call.
-Augmentation and gradient accumulation wait for a later slice.
+group with the CUDA decode kernels and trains on it in the same call;
+:func:`make_echo_fused_step` gathers and re-augments an echo draw from the
+reservoir ring and trains on it in the same call. Augmentation inside the
+supervised steps and gradient accumulation wait for a later slice.
 """
 
 from __future__ import annotations
@@ -136,5 +138,29 @@ def make_fused_tile_step(loss_fn=None):
                 if k != "_meta" and getattr(v, "ndim", 0) >= 1
             }
         return chunked(state, superbatch)
+
+    return step
+
+
+def make_echo_fused_step(reservoir_draw, loss_fn=None):
+    """``step(state, batch)`` over what ``EchoingPipeline(emit_draws=True)``
+    yields: a draw token ``{"_echo_buffers", "_echo_idx", "_echo_counter"}``
+    is gathered from the ring and augmented by ``reservoir_draw``
+    (:meth:`blendjax_torch.data.echo.SampleReservoir.draw`), then the loss
+    and the AdamW update run, all in this one call; the gathered batch
+    exists only inside it. A batch without ``_echo_idx`` (a fresh decoded
+    batch) trains through :func:`make_supervised_step` on its fields."""
+    loss_fn = loss_fn or _default_loss
+    fallback = make_supervised_step(loss_fn)
+
+    def step(state, batch):
+        idx = batch.get("_echo_idx")
+        if idx is None:
+            fields = {k: v for k, v in batch.items()
+                      if not k.startswith("_") or k == "_mask"}
+            return fallback(state, fields)
+        drawn = reservoir_draw(batch["_echo_buffers"], idx,
+                               batch["_echo_counter"])
+        return state, {"loss": _update(state, drawn, loss_fn)}
 
     return step

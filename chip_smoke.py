@@ -38,7 +38,23 @@ Phases (any failure exits non-zero):
    ``attn_backend="xla"`` (for information) and holds one update of flash
    against one of xla from copies of the same state (bf16 bars: rel 1e-2
    before the update, 5e-2 after it);
-5. reference: one recorded chunk group decoded on the card against the
+5. echo leg (after the three legs above): two cube producers (the
+   flagship stream) -> ``StreamDataPipeline(chunk=1, emit_packed=False)``
+   (every batch decoded on the card by K1) -> ``EchoingPipeline(capacity=
+   256, max_echo_factor=4, emit_draws=True)`` -> ``make_echo_fused_step``
+   on full-width ``CubeRegressor()`` -> ``TrainDriver(inflight=2)``, 4
+   warm-up and 96 measured steps. Each decoded fresh batch also goes
+   through ``uint8_gamma_normalize`` on the card (K3). It fails unless
+   fresh + echoed == steps x batch exactly, echoed > 0, no sample is drawn
+   more than 4 times, seq_gaps == 0, losses are finite, one step call per
+   driver step, the ring's ``data_ptr()``s never move, and K1 and K3 each
+   launched once per decoded fresh batch; it prints live img/s into the
+   step, the fresh frame rate and the unique fraction;
+6. K3 (gamma normalize) against its plain version over all 256 uint8
+   values and at (1, 37, 8, 4), gamma 2.2 and 1.0, f32 and bf16 (f32 max
+   |diff| <= 1e-6, bf16 within one bf16 ulp), and on a decoded batch of
+   the echo leg's stream, where it is timed beside its bytes bound;
+7. reference: one recorded chunk group decoded on the card against the
    CPU twins (bit-exact); the f32 CubeRegressor forward and the f32
    full-width StreamFormer forward (through the f32 flash kernel) on the
    card against the CPU (TF32 off, rtol 1e-4).
@@ -65,6 +81,11 @@ CHUNK = 4
 FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 24, "warmup": 4}
 SQUARE = {"tile": (16,), "capacity": 288, "steps": 6, "warmup": 1}
 STREAMFORMER = {"tile": (16, 32), "capacity": 160, "steps": 8, "warmup": 2}
+# bench.py:measure_live_echo at one echo factor
+# (96 measured steps, not the bench's 24: at ~500 img/s into the step 24
+# steps last 0.4 s, too short a window to read a rate from)
+ECHO = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 4,
+        "reservoir": 256, "max_echo_factor": 4}
 # bench.py:1080-1082, with the flash backend named explicitly
 FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
           "num_outputs": 16}
@@ -660,7 +681,200 @@ def streamformer_leg(tmp: str, card: str) -> dict:
     return leg
 
 
-# -- phase 5: reference checks --------------------------------------------------
+# -- phase 5: the echo leg -------------------------------------------------------
+
+
+class GammaTap:
+    """The decoded pipeline, with every fresh batch's frames also taken
+    through ``uint8_gamma_normalize`` on the card (K3) as it arrives."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.batch_size = pipe.batch_size
+        self.tiles = pipe.tiles
+        self.device = pipe.device
+        self.batches = 0
+        self.last = None  # (decoded frames, their gamma-normalised f32)
+
+    def __iter__(self):
+        from blendjax_torch.ops.image import uint8_gamma_normalize
+
+        for batch in self.pipe:
+            self.last = (batch["image"], uint8_gamma_normalize(batch["image"]))
+            self.batches += 1
+            yield batch
+
+    def stop(self) -> None:
+        self.pipe.stop()
+
+
+def echo_leg(tmp: str) -> dict:
+    import numpy as np
+    import torch
+
+    from blendjax_torch.data import EchoingPipeline, StreamDataPipeline
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        TrainDriver,
+        make_echo_fused_step,
+        make_train_state,
+    )
+
+    state = make_train_state(CubeRegressor().init_params(0))
+    procs, addrs = start_producers(tmp, ECHO["tile"], ECHO["capacity"])
+    pipe = StreamDataPipeline(addrs, batch_size=BATCH, chunk=1,
+                              emit_packed=False, timeoutms=60_000)
+    tap = GammaTap(pipe)
+    echo = EchoingPipeline(tap, capacity=ECHO["reservoir"],
+                           max_echo_factor=ECHO["max_echo_factor"],
+                           emit_draws=True)
+    echo_step = make_echo_fused_step(echo.reservoir.draw)
+    calls = [0]
+
+    def step(st, batch):
+        calls[0] += 1
+        return echo_step(st, batch)
+
+    drv = TrainDriver(step, state, inflight=2, sync_every=4)
+    total = ECHO["warmup"] + ECHO["steps"]
+    try:
+        reset_launch_counts()
+        for token in echo:
+            drv.submit(token)
+            if drv.steps == ECHO["warmup"]:
+                drv.drain()
+                t0 = time.perf_counter()
+                s0 = dict(echo.stats)
+                ptrs0 = echo.reservoir.data_ptrs()
+            if drv.steps >= total:
+                break
+        if drv.steps < total:
+            fail(f"echo leg: the stream ended after {drv.steps} steps")
+        drv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s1 = dict(echo.stats)
+        ptrs1 = echo.reservoir.data_ptrs()
+        echo.stop()  # joins the drain thread: no decode runs after this
+        counts = launch_counts()
+        gaps = pipe.seq_gaps
+    finally:
+        echo.stop()
+        stop_producers(procs)
+    losses = drv.losses
+    decoded = tap.batches
+    checks = [
+        (s1["fresh"] + s1["echoed"] == drv.steps * BATCH,
+         f"fresh {s1['fresh']} + echoed {s1['echoed']} != steps "
+         f"{drv.steps} x batch {BATCH}"),
+        (s1["echoed"] > 0, "nothing was echoed"),
+        (s1["max_uses"] <= ECHO["max_echo_factor"],
+         f"a sample was drawn {s1['max_uses']} times"),
+        (gaps == 0, f"{gaps} sequence gaps"),
+        (all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}"),
+        (calls[0] == drv.steps == drv.dispatches,
+         f"{calls[0]} step calls for {drv.steps} driver steps"),
+        (ptrs0 == ptrs1, f"the ring moved: {ptrs0} -> {ptrs1}"),
+        (decoded > 0 and counts["decode_spatial"] == decoded,
+         f"K1 launched {counts['decode_spatial']} times for {decoded} "
+         "decoded fresh batches"),
+        (counts["gamma_normalize"] == decoded,
+         f"K3 launched {counts['gamma_normalize']} times for {decoded} "
+         "decoded fresh batches"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"echo leg: {what}")
+    fresh = s1["fresh"] - s0["fresh"]
+    drawn = fresh + s1["echoed"] - s0["echoed"]
+    # the echo step alone on one draw token: the card's own rate
+    token = echo.reservoir.draw_token(
+        np.arange(BATCH) % max(echo.reservoir.size, 1))
+    torch.cuda.synchronize()
+    a0 = time.perf_counter()
+    for _ in range(5):
+        echo_step(state, dict(token))
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - a0) / 5
+    return {
+        "img_s": ECHO["steps"] * BATCH / wall, "wall_s": wall,
+        "fresh_img_s": (s1["inserted"] - s0["inserted"]) / wall,
+        "unique_fraction": fresh / drawn if drawn else None,
+        "stats": s1, "driver": drv.stats, "steps": drv.steps,
+        "decoded_batches": decoded, "launches": counts, "seq_gaps": gaps,
+        "losses": losses, "dispatch_per_step": drv.dispatches / drv.steps,
+        "step_alone_ms": alone * 1e3, "step_alone_img_s": BATCH / alone,
+        "profile": profile_step(echo_step, state, dict(token)),
+        "gamma_last": tap.last,
+    }
+
+
+# -- phase 6: the gamma-normalize kernel ---------------------------------------
+
+
+def gamma_close(got, want) -> tuple:
+    """(max |diff|, within the bar): f32 1e-6 absolute; bf16 one bf16 ulp
+    (non-negative values order as their bit patterns)."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.bfloat16:
+        ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+        return err, int(ulps.max()) <= 1
+    return err, err <= 1e-6
+
+
+def gamma_phase(bw: float, decoded) -> dict:
+    """K3 against its plain version (every uint8 value, odd rows, a
+    decoded batch of the stream), then its time on that batch."""
+    import torch
+
+    from blendjax_torch.kernels import gamma_normalize, gamma_normalize_plain
+
+    frames, gamma_f32 = decoded
+    err, ok = gamma_close(gamma_f32, gamma_normalize_plain(frames))
+    if not ok:
+        fail(f"K3 on a decoded echo batch: max |diff| {err} vs plain")
+    gen = torch.Generator().manual_seed(5)
+    cases = {
+        "all 256 values": torch.arange(256, dtype=torch.uint8).reshape(
+            1, 4, 16, 4).to(frames.device),
+        "(1, 37, 8, 4)": torch.randint(0, 256, (1, 37, 8, 4), generator=gen,
+                                       dtype=torch.uint8).to(frames.device),
+        f"decoded {tuple(frames.shape)}": frames,
+    }
+    worst = 0.0
+    for label, x in cases.items():
+        for gamma in (2.2, 1.0):
+            for dtype in (torch.float32, torch.bfloat16):
+                e, ok = gamma_close(gamma_normalize(x, gamma, dtype),
+                                    gamma_normalize_plain(x, gamma, dtype))
+                if not ok:
+                    fail(f"K3 {label} gamma {gamma} {dtype}: max |diff| {e}")
+                if dtype == torch.float32:
+                    worst = max(worst, e)
+        log(f"kernel check gamma_normalize {label}: gamma 2.2 and 1.0, f32 "
+            "and bf16 within their bars")
+    torch.cuda.synchronize()
+    n = frames.numel()
+    kt = time_ms(lambda: gamma_normalize(frames))
+    pt = time_ms(lambda: gamma_normalize_plain(frames))
+    bf = time_ms(lambda: gamma_normalize(frames, 2.2, torch.bfloat16))
+    bound_ms = (n + 4 * n) / bw * 1e3
+    log(f"kernel gamma_normalize [decoded {tuple(frames.shape)} uint8 -> f32]: "
+        f"{spread(kt)}, {5 * n / kt['ms'] / 1e6:.0f} GB/s; bound "
+        f"{bound_ms:.4f} ms (bytes: {n / 1e6:.2f} MB in + {4 * n / 1e6:.2f} MB "
+        f"out at {bw / 1e12:.2f} TB/s); plain {spread(pt)}; bf16 out "
+        f"{spread(bf)} (bound {3 * n / bw * 1e3:.4f} ms); no one-call "
+        "library yardstick")
+    return {"gamma_normalize": {
+        "max_abs_err": worst, **kt, "plain_ms": pt["ms"],
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+    }}
+
+
+# -- phase 7: reference checks --------------------------------------------------
 
 
 def reference_phase(batch) -> None:
@@ -758,6 +972,7 @@ def main() -> None:
             "square": run_leg("square 16x16 leg", SQUARE, state, tmp),
             "streamformer": streamformer_leg(tmp, card),
         }
+        echo = echo_leg(tmp)
     if legs["flagship"]["launches"]["decode_spatial"] <= 0:
         fail("flagship leg never launched decode_spatial (K1)")
     if legs["square"]["launches"]["decode_scatter"] <= 0:
@@ -792,6 +1007,24 @@ def main() -> None:
         f" of 989 TFLOP/s, live {sf['img_s'] * sf['flops_per_image'] / PEAK_BF16_FLOPS:.2%}"
         f", on {card}")
 
+    ep = echo["profile"]
+    log(f"slice echo: {echo['img_s']:.1f} img/s into the step over "
+        f"{ECHO['steps']} steps ({echo['wall_s']:.2f} s) on {card}; fresh "
+        f"frames {echo['fresh_img_s']:.1f} img/s; unique fraction "
+        f"{echo['unique_fraction']:.4f}; stats {echo['stats']}; decoded fresh "
+        f"batches {echo['decoded_batches']}; launches {echo['launches']}; "
+        f"seq_gaps {echo['seq_gaps']}; dispatches/step "
+        f"{echo['dispatch_per_step']:.2f}; driver {echo['driver']}; echo step "
+        f"alone {echo['step_alone_ms']:.2f} ms ({echo['step_alone_img_s']:.1f} "
+        f"img/s); final loss {echo['losses'][-1]:.5f}")
+    log(f"slice echo profile of one step call: wall {ep['wall_ms']:.2f} ms, "
+        f"device busy {ep['device_ms']:.2f} ms ({ep['busy']:.1%}) over "
+        f"{ep['kernels']} kernels; by group: "
+        + ", ".join(f"{g} {ms:.2f} ms" for g, ms in ep["groups"].items()))
+
+    # phase 6: the gamma-normalize kernel, on a decoded batch of the stream
+    measured.update(gamma_phase(bw, echo["gamma_last"]))
+
     # phase 3b: the flash-attention kernels, after the legs: run before
     # them, this phase cost the producer-bound flagship leg 5-10% of its
     # live img/s against the parent's order (PERF.md), for no known reason
@@ -800,10 +1033,12 @@ def main() -> None:
     log(f"kernels: flash attention checked and timed in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # phase 5: reference checks
+    # phase 7: reference checks
     reference_phase(legs["flagship"]["last"])
 
-    leg_of = {"decode_spatial": "flagship", "decode_scatter": "square"}
+    legs["echo"] = echo
+    leg_of = {"decode_spatial": "flagship", "decode_scatter": "square",
+              "gamma_normalize": "echo"}
     rows = []
     for name, meta in KERNELS.items():
         m = measured[name]

@@ -21,6 +21,16 @@ from blendjax_torch.ops import attention as A
 SHAPES = [((2, 16, 3, 8), 16), ((2, 8, 3, 8), 24), ((1, 24, 2, 16), 8)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """At most two torch threads: the suite runs six workers on eight
+    cores beside timing-sensitive tests of the JAX package."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _qkv(qshape, tk, seed=0, dtype=np.float32):
     rng = np.random.default_rng(seed)
     b, _, h, d = qshape

@@ -14,11 +14,37 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "blendjax")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """At most two torch threads: the suite runs six workers on eight
+    cores beside timing-sensitive tests of the JAX package."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "blendjax_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
+
+
+def _forbidden_imports(path):
+    """The modules of ``FORBIDDEN`` that ``path`` imports."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        bad += [m for m in mods if m.split(".")[0] in FORBIDDEN]
+    return bad
 
 
 def test_port_imports_nothing_of_jax_or_blendjax():
@@ -29,19 +55,21 @@ def test_port_imports_nothing_of_jax_or_blendjax():
         assert os.path.join(REPO, "blendjax_torch", module) in files
     bad = []
     for path in files:
-        with open(path) as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                mods = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                mods = [node.module or ""]
-            else:
-                continue
-            for mod in mods:
-                if mod.split(".")[0] in FORBIDDEN:
-                    bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+        for mod in _forbidden_imports(path):
+            bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "ops/image.py", "kernels/image.py", "ops/augment.py", "data/ring.py",
+    "data/echo.py", "train/steps.py",
+])
+def test_the_echo_slice_modules_are_scanned(module):
+    """The echo slice's modules are in the scan above, and each imports
+    nothing of JAX or of the JAX package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
 
 
 def test_entry_points_without_a_gpu_raise(monkeypatch):
@@ -110,6 +138,61 @@ def test_a_cuda_request_never_falls_back_to_the_twin(monkeypatch, kernel):
     with pytest.raises(RuntimeError, match="nvcc"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+class _FailingGammaLib:
+    def __init__(self):
+        self.bjt_gamma_normalize = lambda *a: 2
+        self.bjt_gamma_normalize_error = lambda code: b"out of memory"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_cuda_gamma_request_never_falls_back(monkeypatch, dtype):
+    from blendjax_torch.kernels import image as K
+
+    x = torch.arange(256, dtype=torch.uint8).reshape(1, 4, 16, 4)
+    before = K.gamma_normalize.launches
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA request")
+
+    monkeypatch.setattr(K, "gamma_normalize_plain", plain)
+    monkeypatch.setattr(K, "_check", lambda *a: "cuda")
+    monkeypatch.setattr(K, "_stream", lambda device: 0)
+    monkeypatch.setattr(K, "_max_blocks", lambda index: 1056)
+    monkeypatch.setattr(K, "load", lambda name: _FailingGammaLib())
+    with pytest.raises(RuntimeError, match="launch failed: out of memory"):
+        K.gamma_normalize(x, 2.2, dtype)
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(K, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.gamma_normalize(x, 2.2, dtype)
+    assert K.gamma_normalize.launches == before
+
+
+def test_echo_entry_points_without_a_gpu_raise(monkeypatch):
+    from blendjax_torch.data import (
+        EchoingPipeline,
+        SampleReservoir,
+        StreamDataPipeline,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SampleReservoir(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EchoingPipeline([{"image": np.zeros((2, 4, 4, 4), np.uint8)}],
+                        batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamDataPipeline(["tcp://127.0.0.1:1"], batch_size=2,
+                           emit_packed=False)
+    # asked for the CPU, both run there
+    assert SampleReservoir(4, device="cpu").device == torch.device("cpu")
+    assert EchoingPipeline([], batch_size=2, device="cpu").device == \
+        torch.device("cpu")
 
 
 class _FailingFlashLib:
@@ -263,3 +346,64 @@ def test_kernels_match_twins_on_card(cuda_card, tile):
                        decode_spatial_plain(ref, idx, tiles, (h, w, 4)))
     assert torch.equal(decode_scatter(ref, idx, tiles),
                        decode_scatter_plain(ref, idx, tiles))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 16, 4), (1, 37, 8, 4),
+                                   (8, 480, 640, 4), (3, 5, 7, 1)])
+@pytest.mark.parametrize("gamma", [2.2, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gamma_kernel_matches_its_plain_version_on_card(cuda_card, shape,
+                                                        gamma, dtype):
+    from blendjax_torch.kernels import gamma_normalize, gamma_normalize_plain
+    from blendjax_torch.ops.image import uint8_gamma_normalize
+
+    if shape == (1, 4, 16, 4):  # every uint8 value
+        x = torch.arange(256, dtype=torch.uint8).reshape(shape)
+    else:
+        x = torch.from_numpy(np.random.default_rng(2).integers(
+            0, 256, shape, dtype=np.uint8))
+    x = x.to(cuda_card)
+    before = gamma_normalize.launches
+    got = uint8_gamma_normalize(x, gamma=gamma, dtype=dtype)
+    want = gamma_normalize_plain(x, gamma, dtype)
+    torch.cuda.synchronize()
+    assert gamma_normalize.launches == before + 1
+    # the same powf on the same f32 values: bit-exact
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_an_insert_queued_after_a_step_cannot_change_what_it_read(cuda_card):
+    """A step that gathers ring slots, then an insert overwriting them,
+    queued back to back on the card: the step trains on the old rows."""
+    from blendjax_torch.data import SampleReservoir
+    from blendjax_torch.train import make_echo_fused_step
+
+    res = SampleReservoir(8, augment=None, device=cuda_card)
+    rng = np.random.default_rng(0)
+    old = {"image": rng.integers(0, 256, (8, 480, 640, 4), dtype=np.uint8),
+           "xy": rng.random((8, 8, 2)).astype(np.float32)}
+    new = {k: np.zeros_like(v) for k, v in old.items()}
+    res.insert(old)
+    seen = []
+
+    def loss_fn(model, batch):
+        seen.append(batch["image"].double().sum())  # queued, not read
+        return (batch["image"].float().mean() * model.w).sum()
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones((), device=cuda_card))
+
+    from blendjax_torch.train import make_train_state
+
+    state = make_train_state(Tiny(), device=cuda_card)
+    step = make_echo_fused_step(res.draw, loss_fn)
+    torch.cuda.synchronize()
+    step(state, res.draw_token(np.arange(8)))
+    res.insert(new)  # overwrites all 8 slots
+    torch.cuda.synchronize()
+    want = float(torch.from_numpy(old["image"]).double().sum())
+    assert float(seen[0]) == want

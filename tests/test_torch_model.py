@@ -25,6 +25,16 @@ from blendjax_torch.weights import from_flax
 FEATURES = (8, 16, 8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """At most two torch threads: the suite runs six workers on eight
+    cores beside timing-sensitive tests of the JAX package."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False

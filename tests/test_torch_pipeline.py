@@ -23,6 +23,16 @@ from blendjax_torch.transport import wire
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """At most two torch threads: the suite runs six workers on eight
+    cores beside timing-sensitive tests of the JAX package."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _message():
     rng = np.random.default_rng(0)
     flat = np.repeat(rng.integers(0, 4, (4, 64), dtype=np.uint8), 64, axis=1)
@@ -159,10 +169,49 @@ def test_pipeline_groups_chunks_and_degrades_raw_batches():
 
 
 def test_entry_point_refuses_the_slow_path():
+    """The decoded form is ported for chunk=1 only: chunked groups of
+    decoded batches still raise."""
     from blendjax_torch.data import StreamDataPipeline
 
-    with pytest.raises(NotImplementedError):
-        StreamDataPipeline([], batch_size=2, device="cpu", emit_packed=False)
+    with pytest.raises(NotImplementedError, match="chunk=1"):
+        StreamDataPipeline([], batch_size=2, device="cpu", emit_packed=False,
+                           chunk=2)
+
+
+def test_decoded_form_yields_frames_decoded_on_the_device():
+    """emit_packed=False, chunk=1: every tile batch arrives decoded,
+    bit-exact with the rendered frames, with its sidecars and host fields;
+    a raw batch passes as it is."""
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.producer import CubeScene, TileBatchPublisher
+
+    scene = CubeScene(shape=(32, 64), seed=2)
+    cap = _Capture()
+    tp = TileBatchPublisher(cap, scene.background_image(), 2, tile=(16, 32),
+                            alpha_slice=False, capacity=4)
+    buf = np.empty((32, 64, 4), np.uint8)
+    frames = []
+    for f in range(1, 7):
+        scene.step(f)
+        scene.render(out=buf)
+        frames.append(buf.copy())
+        tp.add(buf, xy=np.full((8, 2), f, np.float32), frameid=np.int64(f))
+    raw = {"_batched": True, "image": np.full((2, 32, 64, 4), 7, np.uint8),
+           "xy": np.zeros((2, 8, 2), np.float32)}
+    msgs = cap.msgs[:2] + [raw] + cap.msgs[2:]
+    pipe = StreamDataPipeline(iter(msgs), batch_size=2, device="cpu",
+                              emit_packed=False)
+    assert pipe.tiles.emit_packed is False
+    out = list(pipe)
+    assert len(out) == 4 and not any("_packed" in b for b in out)
+    tiles = [b for i, b in enumerate(out) if i != 2]
+    np.testing.assert_array_equal(
+        torch.cat([b["image"] for b in tiles]).numpy(), np.stack(frames))
+    np.testing.assert_array_equal(
+        torch.cat([b["xy"][:, 0, 0] for b in tiles]).numpy(), np.arange(1, 7))
+    assert [b["btid"] for b in tiles] == [0, 0, 0]
+    assert out[2]["image"].shape == (2, 32, 64, 4)
+    assert int(out[2]["image"].float().mean()) == 7
 
 
 def _producer(tmp, i, frames=-1):

@@ -19,6 +19,16 @@ from blendjax_torch.ops import tiles as T
 SHAPE = (64, 128, 4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """At most two torch threads: the suite runs six workers on eight
+    cores beside timing-sensitive tests of the JAX package."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 def _frames(n, shape=SHAPE, seed=0, rgb_only=False):
     """A random reference plus ``n`` frames with a few repainted
     rectangles each (alpha untouched with ``rgb_only``)."""

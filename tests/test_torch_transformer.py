@@ -28,6 +28,16 @@ SMALL = dict(patch=8, dim=32, depth=2, num_heads=4, num_outputs=16)
 SHAPE = (32, 64, 4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """At most two torch threads: the suite runs six workers on eight
+    cores beside timing-sensitive tests of the JAX package."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(autouse=True)
 def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
