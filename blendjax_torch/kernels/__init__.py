@@ -13,6 +13,7 @@ from blendjax_torch.kernels.attention import (
     flash_attention_bwd_dq_plain,
     flash_attention_fwd,
     flash_attention_fwd_plain,
+    fwd_variant,
 )
 from blendjax_torch.kernels.decode import (
     decode_scatter,
@@ -23,6 +24,8 @@ from blendjax_torch.kernels.decode import (
 from blendjax_torch.kernels.image import gamma_normalize, gamma_normalize_plain
 
 _FLASH_SOURCE = "blendjax_torch/kernels/csrc/flash_attention.cu"
+# the forward's main-path variant; f32 and other inputs take _FLASH_SOURCE
+_FLASH_FWD_SOURCE = "blendjax_torch/kernels/csrc/flash_fwd_sm90.cu"
 # local_attention(backend="flash") reaches the JAX library's kernels here
 _FLASH_CALL = "blendjax/ops/attention.py:157"
 _FLASH_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -53,7 +56,7 @@ KERNELS = {
         "wrapper": flash_attention_fwd,
         "plain": flash_attention_fwd_plain,
         "route": "cuda",
-        "source": _FLASH_SOURCE,
+        "source": _FLASH_FWD_SOURCE,
         "replaces": f"{_FLASH_CALL} ({_FLASH_LIB}:758)",
     },
     "flash_attention_bwd_dkv": {
@@ -77,9 +80,18 @@ def launch_counts() -> dict:
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
 
 
+def variant_counts() -> dict:
+    """Launches by variant of each kernel that has variants."""
+    return {name: dict(k["wrapper"].launches_by_variant)
+            for name, k in KERNELS.items()
+            if hasattr(k["wrapper"], "launches_by_variant")}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
+        for variant in getattr(k["wrapper"], "launches_by_variant", {}):
+            k["wrapper"].launches_by_variant[variant] = 0
 
 
 __all__ = [
@@ -92,6 +104,7 @@ __all__ = [
     "flash_attention_bwd_dq_plain",
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
+    "fwd_variant",
     "decode_scatter",
     "decode_scatter_plain",
     "decode_spatial",
@@ -100,4 +113,5 @@ __all__ = [
     "gamma_normalize_plain",
     "launch_counts",
     "reset_launch_counts",
+    "variant_counts",
 ]

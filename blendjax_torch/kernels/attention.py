@@ -1,13 +1,19 @@
 """Flash-attention kernels K4a-c: wrappers, plain versions, launch counts
 and the autograd function.
 
-``csrc/flash_attention.cu`` replaces the three Pallas TPU kernels that
-``blendjax/ops/attention.py:157`` reaches in
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_attention.cu`` replace the
+three Pallas TPU kernels that ``blendjax/ops/attention.py:157`` reaches in
 ``jax/experimental/pallas/ops/tpu/flash_attention.py`` (JAX 0.9.0):
 
 - :func:`flash_attention_fwd` (K4a, forward ``pallas_call`` at :758):
   ``o`` and the row log-sum-exp ``lse`` (the JAX kernel's ``m`` and ``l``
-  in one array);
+  in one array). It has two variants, picked by the fixed rule
+  :func:`fwd_variant`: ``"sm90"`` (``flash_fwd_sm90.cu``: TMA, ``wgmma``,
+  warp specialisation) for bf16 inputs with head dim 64 or 128 that TMA
+  can address and a positive scale, ``"simple"`` (``flash_attention.cu``:
+  ``mma.sync``) for the rest (f32, other head dims, unaligned views, a
+  scale <= 0). The rule is not a
+  retry: a failed build or launch of the variant it picks raises;
 - :func:`flash_attention_bwd_dkv` (K4b, :1121): ``dk`` and ``dv``;
 - :func:`flash_attention_bwd_dq` (K4c, :1456): ``dq``.
 
@@ -31,12 +37,15 @@ import ctypes
 
 import torch
 
-from blendjax_torch.kernels.build import load
+from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.kernels.decode import _raise_on, _stream
 
-# The kernel's own tile edges (compile-time constants of the CUDA source).
-FWD_BLOCK_Q = 64  # q rows per forward block
-FWD_BLOCK_K = 64  # k rows per forward loop step
+# The kernels' own tile edges (compile-time constants of the CUDA sources).
+# The forward's, (q rows per block, k rows per loop step) by variant: the
+# sm90 block is three consumer warpgroups of 64 q rows (chosen by
+# measurement on an H100, PERF.md).
+FWD_BLOCKS = {"sm90": (192, 64), "simple": (64, 64)}
+SM90_HEAD_DIMS = (64, 128)
 DKV_BLOCK_K = 64  # kv rows per dK/dV block
 DKV_BLOCK_Q = 32  # q rows per dK/dV loop step
 DQ_BLOCK_Q = 64   # q rows per dQ block
@@ -170,6 +179,22 @@ def _vec16(*tensors) -> bool:
     return True
 
 
+def fwd_variant(q, k, v, scale=None) -> str:
+    """The forward kernel that takes these CUDA tensors: ``"sm90"`` for
+    bf16 q, k and v with head dim 64 or 128 that TMA can address (a unit
+    stride over D, positive (b, t, h) strides that are multiples of 16
+    bytes, 16-byte aligned base addresses) and a positive scale (the sm90
+    kernel takes the row max before scaling), ``"simple"`` otherwise."""
+    if q.shape[-1] not in SM90_HEAD_DIMS or not default_scale(q, scale) > 0:
+        return "simple"
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or t.stride(-1) != 1 or t.data_ptr() % 16:
+            return "simple"
+        if any(t.stride(i) < 1 or (t.stride(i) * 2) % 16 for i in range(3)):
+            return "simple"
+    return "sm90"
+
+
 _ARGS = {
     "bjt_flash_fwd": [ctypes.c_void_p] * 5,
     "bjt_flash_bwd_dkv": [ctypes.c_void_p] * 8,
@@ -179,10 +204,8 @@ _ARGS = {
 
 def _launch(name: str, pointers, strides, q, k, causal, scale, vec) -> None:
     lib = load("flash_attention")
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = (_ARGS[name] + [ctypes.c_void_p] + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn = entry(lib, name, _ARGS[name] + [ctypes.c_void_p] + [ctypes.c_int] * 8
+               + [ctypes.c_float, ctypes.c_void_p])
     b, tq, h, d = q.shape
     code = fn(
         *pointers, strides, b, h, tq, k.shape[1], d, int(bool(causal)),
@@ -191,24 +214,46 @@ def _launch(name: str, pointers, strides, q, k, causal, scale, vec) -> None:
     _raise_on(lib, "bjt_flash_error", code, name)
 
 
+def _launch_sm90(q, k, v, o, lse, causal, scale) -> None:
+    lib = load("flash_fwd_sm90")
+    fn = entry(lib, "bjt_flash_fwd_sm90",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+               + [ctypes.c_float, ctypes.c_void_p])
+    b, tq, h, d = q.shape
+    code = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _strides(q, k, v), b, h, tq, k.shape[1], d, int(bool(causal)),
+        float(scale), _stream(q.device),
+    )
+    _raise_on(lib, "bjt_flash_fwd_sm90_error", code, "bjt_flash_fwd_sm90")
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
-    """K4a: ``(o (B, Tq, H, D) in q's dtype, lse (B, H, Tq) f32)``."""
+    """K4a: ``(o (B, Tq, H, D) in q's dtype, lse (B, H, Tq) f32)``, through
+    the variant :func:`fwd_variant` names."""
     if _check_inputs(q, k, v) == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
     scale = default_scale(q, scale)
     b, tq, h, d = q.shape
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _launch(
-        "bjt_flash_fwd",
-        (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()),
-        _strides(q, k, v), q, k, causal, scale, _vec16(q, k, v),
-    )
+    variant = fwd_variant(q, k, v, scale)
+    if variant == "sm90":
+        _launch_sm90(q, k, v, o, lse, causal, scale)
+    else:
+        _launch(
+            "bjt_flash_fwd",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr()),
+            _strides(q, k, v), q, k, causal, scale, _vec16(q, k, v),
+        )
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_variant[variant] += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_variant = {"sm90": 0, "simple": 0}
 
 
 def _check_stats(q, lse, di):

@@ -24,7 +24,7 @@ BUILD_DIR = (
     Path(__file__).resolve().parents[2] / "build" / "blendjax_torch_kernels"
 )
 SOURCES = ("decode_spatial", "decode_scatter", "gamma_normalize",
-           "flash_attention")
+           "flash_attention", "flash_fwd_sm90")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,10 +89,27 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name``, built if needed."""
+    """The loaded library of kernel source ``name``, built if needed. A
+    library already loaded is returned without taking the lock."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build((name,))
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def entry(lib, name: str, argtypes, restype=ctypes.c_int):
+    """``lib``'s C function ``name`` with its ctypes signature, which is set
+    on the first call for that library only."""
+    bound = vars(lib).setdefault("_bjt_entries", {})
+    fn = bound.get(name)
+    if fn is None:
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        bound[name] = fn
+    return fn

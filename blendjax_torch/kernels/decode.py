@@ -4,8 +4,9 @@
   ``blendjax/ops/tiles.py:_pallas_decode_spatial``: full frames written in
   frame layout, one block per tile footprint.
 - :func:`decode_scatter` (K2, ``csrc/decode_scatter.cu``) replaces
-  ``blendjax/ops/tiles.py:_pallas_decode_scatter``: changed tiles copied
-  into their slots of a reference-initialised slot buffer.
+  ``blendjax/ops/tiles.py:_pallas_decode_scatter``: one launch that writes
+  every slot once, the changed tile where an index names the slot, the
+  reference tile elsewhere.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and adds one to its
 ``launches`` count; for CPU tensors it returns its plain PyTorch twin
@@ -20,7 +21,7 @@ import ctypes
 
 import torch
 
-from blendjax_torch.kernels.build import load
+from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.ops.tiles import tile_grid
 
 
@@ -137,9 +138,8 @@ def decode_spatial(ref_tiles, idx, tiles, shape):
     inv = torch.empty((b, gh * gw), dtype=torch.int32, device=idx.device)
     vec16 = (tw * c) % 16 == 0 and _aligned16(ref_tiles, tiles, out)
     lib = load("decode_spatial")
-    fn = lib.bjt_decode_spatial
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn = entry(lib, "bjt_decode_spatial",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     code = fn(
         ref_tiles.data_ptr(), idx.data_ptr(), tiles.data_ptr(),
         out.data_ptr(), inv.data_ptr(), b, k, h, w, c, th, tw, int(vec16),
@@ -154,24 +154,23 @@ decode_spatial.launches = 0
 
 
 def decode_scatter(ref_tiles, idx, tiles):
-    """K2: slots (B, N, th*tw*C) uint8 initialised from the broadcast
-    reference, tile k of frame b copied into slot ``idx[b, k]``
-    (sentinels and out-of-range indices write nothing)."""
+    """K2: slots (B, N, th*tw*C) uint8: slot ``idx[b, k]`` of frame b holds
+    tile k of frame b, every other slot its reference tile (sentinels and
+    out-of-range indices write nothing). On the card this is one launch,
+    which writes every slot once: no initialisation before it."""
     if _check_inputs(ref_tiles, idx, tiles) == "cpu":
         return decode_scatter_plain(ref_tiles, idx, tiles)
     b, k = idx.shape
     n = int(ref_tiles.shape[0])
     ttc = ref_tiles[0].numel()
     slots = torch.empty((b, n, ttc), dtype=torch.uint8, device=idx.device)
-    slots.copy_(ref_tiles.reshape(1, n, ttc).expand(b, n, ttc))
-    vec16 = ttc % 16 == 0 and _aligned16(tiles, slots)
+    vec16 = ttc % 16 == 0 and _aligned16(ref_tiles, tiles, slots)
     lib = load("decode_scatter")
-    fn = lib.bjt_decode_scatter
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = entry(lib, "bjt_decode_scatter",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(
-        idx.data_ptr(), tiles.data_ptr(), slots.data_ptr(), b, k, n, ttc,
-        int(vec16), _stream(idx.device),
+        ref_tiles.data_ptr(), idx.data_ptr(), tiles.data_ptr(),
+        slots.data_ptr(), b, k, n, ttc, int(vec16), _stream(idx.device),
     )
     _raise_on(lib, "bjt_decode_scatter_error", code, "decode_scatter")
     decode_scatter.launches += 1

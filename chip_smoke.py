@@ -8,20 +8,27 @@ Phases (any failure exits non-zero):
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA
    device -> exit 1 before anything else;
 2. build: compile every kernel source in ``blendjax_torch/kernels/csrc``
-   (one ``nvcc`` per source, started together) and print the build time;
+   (one ``nvcc`` per source, started together), print the build time and
+   ``-Xptxas -v``'s registers and spills, and count the ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA load) instructions in the built sm90 forward's
+   SASS (``cuobjdump -sass``); either count 0 fails;
 3. kernels: the decode kernels K1/K2 against their plain twins,
    bit-exact (``torch.equal``), at the main path's shapes and at the edge
    cases (``Ct < C``, ``K == 0``, a row of sentinels, byte-wide
-   geometries); after the slice legs (run before them, they slowed the
-   producer-bound flagship leg), the flash-attention kernels K4a-c
-   against their plain versions at the StreamFormer slice's shape (B 8,
-   T 768, H 4, D 128, bf16), causal, Tq 256 != Tkv 768, a ragged T of
-   700, D 64 and f32 (forward max |diff| <= 2e-2 bf16 / 1e-4 f32 with
-   TF32 off; gradients max |diff| <= 2e-2 / 1e-4 of max |plain|). Then
-   each kernel's median
-   time over many launches with the min and max window, its plain
-   version's time, a one-call PyTorch yardstick where one exists
-   (``index_copy_``; ``scaled_dot_product_attention`` forward, and its
+   geometries, K2 with negative indices and indices past N); after the
+   slice legs (run before them, they slowed the producer-bound flagship
+   leg), the flash-attention kernels K4a-c against their plain versions
+   at the StreamFormer slice's shape (B 8, T 768, H 4, D 128, bf16),
+   causal, Tq 256 != Tkv 768, a ragged T of 700, D 64 and f32 (forward
+   max |diff| <= 2e-2 bf16 / 1e-4 f32 with TF32 off, lse within 1e-3;
+   gradients max |diff| <= 2e-2 / 1e-4 of max |plain|); every bf16 case
+   must take the forward's sm90 variant, the f32 case the simple one.
+   Then each kernel's median card time over windows of back-to-back
+   launches queued behind a sleep kernel (``time_ms``), with the min and
+   max window and the host's enqueue time per call, its plain version's
+   time, a one-call PyTorch yardstick where one exists (``index_copy_``,
+   beside the two-call ``copy_`` + ``index_copy_`` that computes K2's
+   whole function; ``scaled_dot_product_attention`` forward, and its
    autograd backward for K4b+K4c together), and its bound: the larger of
    bytes / memory rate and FLOPs / 989 TFLOP/s (bf16 dense);
 4. slice: two cube producers (480x640 RGBA, (16, 32) tiles, capacity
@@ -32,7 +39,8 @@ Phases (any failure exits non-zero):
    dim=512, depth=8, num_heads=4, num_outputs=16, attn_backend="flash")``
    with the bench's corner loss). Launch counts are zeroed just before
    each leg and read just after: flagship must launch K1, square K2,
-   streamformer K1 and each of K4a-c exactly depth x chunk x steps times;
+   streamformer K1 and each of K4a-c exactly depth x chunk x steps times,
+   every K4a launch through the sm90 variant;
    losses must be finite with zero sequence gaps and one step call per
    chunk group. The streamformer leg also times the same model with
    ``attn_backend="xla"`` (for information) and holds one update of flash
@@ -56,8 +64,9 @@ Phases (any failure exits non-zero):
    the echo leg's stream, where it is timed beside its bytes bound;
 7. reference: one recorded chunk group decoded on the card against the
    CPU twins (bit-exact); the f32 CubeRegressor forward and the f32
-   full-width StreamFormer forward (through the f32 flash kernel) on the
-   card against the CPU (TF32 off, rtol 1e-4).
+   full-width StreamFormer forward (through the simple f32 flash forward,
+   which f32 always takes) on the card against the CPU (TF32 off, rtol
+   1e-4).
 
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
@@ -114,19 +123,36 @@ def hbm_rate(name: str) -> float:
     return 3.35e12
 
 
+# clock rate for torch.cuda._sleep's cycle count: above the H100's boost
+# clock, so a sleep lasts at least as long as asked
+SLEEP_HZ = 2.0e9
+
+
 def time_ms(fn, reps: int = 20, windows: int = 15) -> dict:
-    """Per-call time (CUDA events) of ``windows`` windows of ``reps``
-    back-to-back calls, after a warm-up: ``{"ms": median, "min_ms",
-    "max_ms"}`` over the windows, so a reading shows its own spread."""
+    """Per-call device time (CUDA events) of ``windows`` windows of
+    ``reps`` back-to-back calls, after a warm-up: ``{"ms": median,
+    "min_ms", "max_ms"}`` over the windows, so a reading shows its own
+    spread, and ``host_ms``, the host's time to enqueue one call. Each
+    window starts behind a sleep kernel that outlasts the host's enqueue
+    of its calls, so the card runs them back to back and the events time
+    the card, not the host (a call that synchronises inside is timed with
+    its host part all the same)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    cycles = int(max(2.0 * host * reps, 1e-4) * SLEEP_HZ)
     samples = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -135,11 +161,26 @@ def time_ms(fn, reps: int = 20, windows: int = 15) -> dict:
         samples.append(start.elapsed_time(end) / reps)
     samples.sort()
     return {"ms": samples[len(samples) // 2], "min_ms": samples[0],
-            "max_ms": samples[-1]}
+            "max_ms": samples[-1], "host_ms": host * 1e3}
 
 
 def spread(t: dict) -> str:
     return f"{t['ms']:.4f} ms [{t['min_ms']:.4f}-{t['max_ms']:.4f}]"
+
+
+def sass_counts(name: str, opcodes) -> dict:
+    """How many instructions of each SASS opcode the built library of
+    kernel source ``name`` holds (``cuobjdump -sass``)."""
+    import re
+    import shutil
+
+    from blendjax_torch.kernels.build import library_path, nvcc_path
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in opcodes}
 
 
 # -- phase 3: kernels -----------------------------------------------------------
@@ -203,6 +244,23 @@ def kernel_phase(bw: float) -> dict:
         if not torch.equal(got.cpu(), want):
             fail(f"kernel edge case {label}: card result != plain twin")
         log(f"kernel check {label}: bit-exact")
+    # K2 on indices outside [0, N) (each writes nothing), and on rows whose
+    # K spans many of the kernel's 16-slot runs, wrapper against plain twin
+    ref, idx, tiles = make_case(b, 288, h, w, 4, 16, 16, seed=120)
+    n = ref.shape[0]
+    bad = {"negative indices": [-1, -2, -n, -(2**31)],
+           "indices past N": [n + 1, 2 * n, 2**31 - 1]}
+    for label, values in bad.items():
+        cut = idx.clone()
+        cut[:, -len(values):] = torch.tensor(values, dtype=torch.int32,
+                                             device=idx.device)
+        got = decode_scatter(ref, cut, tiles)
+        want = decode_scatter_plain(ref.cpu(), cut.cpu(), tiles.cpu())
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            fail(f"K2 with {label}: card result != plain twin")
+        log(f"kernel check K2 16x16x4 with {label} (K 288 over 75 slot "
+            "runs of 16): bit-exact")
 
     out = {}
     # K1 at the flagship shapes
@@ -241,6 +299,16 @@ def kernel_phase(bw: float) -> dict:
     )[ok]
     changed = tiles.reshape(b, -1, ttc)[ok]
     slots = want.clone().reshape(b * n, ttc)
+    base = ref.reshape(1, n, ttc).expand(b, n, ttc)
+
+    def two_calls():  # the same function as K2, in two PyTorch calls
+        fresh = torch.empty((b, n, ttc), dtype=torch.uint8, device=idx.device)
+        fresh.copy_(base)
+        return fresh.view(b * n, ttc).index_copy_(0, flat_idx, changed)
+
+    if not torch.equal(two_calls().view(b, n, ttc), want):
+        fail("the two-call K2 yardstick != decode_scatter_plain")
+    two = time_ms(two_calls)
     out["decode_scatter"] = {
         "max_abs_err": int((got.int() - want.int()).abs().max()),
         **time_ms(lambda: decode_scatter(ref, idx, tiles)),
@@ -248,23 +316,32 @@ def kernel_phase(bw: float) -> dict:
             lambda: decode_scatter_plain(ref, idx, tiles), reps=5
         )["ms"],
         "bound_ms": moved / bw * 1e3, "bound_by": "bytes",
-        # one call writing the changed tiles into initialised slots
+        # one call writing the changed tiles into already initialised slots
         "library_ms": time_ms(
             lambda: slots.index_copy_(0, flat_idx, changed)
         )["ms"],
-        "library_call": "Tensor.index_copy_ of the changed tiles "
-                        "(slot initialisation excluded)",
+        "library_call": "Tensor.index_copy_ of the changed tiles into "
+                        "initialised slots (the slot initialisation, half "
+                        "of K2's function, excluded)",
+        "two_call_ms": two["ms"], "two_call_spread": spread(two),
         "shapes": f"B={b} K=288 16x16x4 at {h}x{w}, {valid} changed tiles",
     }
     torch.cuda.synchronize()
     for name, m in out.items():
         log(
             f"kernel {name}: bit-exact vs plain twin; {m['shapes']}; "
-            f"kernel {spread(m)} (median [min-max window]), bound "
+            f"kernel {spread(m)} (median [min-max window], card time behind "
+            f"a sleep), host enqueue {m['host_ms']:.4f} ms per call; bound "
             f"{m['bound_ms']:.4f} ms (bytes / {bw / 1e12:.2f} TB/s), plain "
             f"twin {m['plain_ms']:.4f} ms (no yardstick), library "
             f"{m['library_ms'] if m['library_ms'] is None else round(m['library_ms'], 4)} ms"
         )
+    m = out["decode_scatter"]
+    log(f"kernel decode_scatter yardsticks: {m['library_call']}: "
+        f"{m['library_ms']:.4f} ms; the same function as K2 in two calls "
+        f"(copy_ of the broadcast reference into torch.empty slots, then "
+        f"index_copy_ of the changed tiles): {m['two_call_spread']}; K2 "
+        f"(one launch writing every slot once): {spread(m)}")
     return out
 
 
@@ -327,7 +404,12 @@ def attention_phase(bw: float) -> dict:
     errs = {}
     for i, (label, b, tq, tk, h, d, dt, causal) in enumerate(ATTN_CASES):
         q, k, v, do = attn_inputs(b, tq, tk, h, d, dtypes[dt], 200 + i)
+        want_variant = ("sm90" if dt == "bf16" and d in K.SM90_HEAD_DIMS
+                        else "simple")
+        before = K.flash_attention_fwd.launches_by_variant[want_variant]
         o, lse = K.flash_attention_fwd(q, k, v, causal)
+        if K.flash_attention_fwd.launches_by_variant[want_variant] != before + 1:
+            fail(f"flash fwd {label}: did not run the {want_variant} variant")
         o_ref, lse_ref = K.flash_attention_fwd_plain(q, k, v, causal)
         di = K.attention_delta(o, do)
         got = {
@@ -363,7 +445,8 @@ def attention_phase(bw: float) -> dict:
                     errs[name] = max(errs.get(name, 0.0), err)
                 notes.append(f"{out_name} {err:.3g}/{limit:.3g}")
         log(f"kernel check flash {label} (B={b} Tq={tq} Tk={tk} H={h} D={d} "
-            f"{dt}{' causal' if causal else ''}): max |diff| / bar: "
+            f"{dt}{' causal' if causal else ''}; forward variant "
+            f"{want_variant}): max |diff| / bar: "
             f"{', '.join(notes)}; lse {lse_err:.3g}")
 
     out = {}
@@ -401,8 +484,10 @@ def attention_phase(bw: float) -> dict:
             bms, by = bound(flops, moved, bw)
             lib = sdpa_fwd if name == "flash_attention_fwd" else sdpa_bwd
             log(f"kernel {name} [{shape_name} B={b} T={t} H={h} D={d} bf16]: "
-                f"{spread(kt)}, {flops / kt['ms'] / 1e9:.1f} TFLOP/s; bound "
-                f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+                f"{spread(kt)}, {flops / kt['ms'] / 1e9:.1f} TFLOP/s = "
+                f"{flops / kt['ms'] * 1e3 / PEAK_BF16_FLOPS:.1%} of 989 "
+                f"TFLOP/s; wrapper host time {kt['host_ms']:.4f} ms per call; "
+                f"bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                 f"{moved / 1e6:.2f} MB); plain {pt['ms']:.4f} ms; SDPA "
                 f"{'forward' if lib is sdpa_fwd else 'autograd backward (K4b+K4c together)'} "
                 f"{spread(lib)}")
@@ -515,7 +600,11 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
     import torch
 
     from blendjax_torch.data import StreamDataPipeline
-    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        variant_counts,
+    )
     from blendjax_torch.train import TrainDriver, make_fused_tile_step
 
     procs, addrs = start_producers(tmp, leg["tile"], leg["capacity"])
@@ -546,6 +635,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        variants = variant_counts()
         gaps = pipe.seq_gaps
     finally:
         pipe.stop()
@@ -574,7 +664,8 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         "profile": profile_step(step, state, last),
         "img_s": images / wall, "wall_s": wall, "images": images,
         "steps": drv.steps, "updates": updates, "losses": losses,
-        "seq_gaps": gaps, "launches": counts, "driver": drv.stats,
+        "seq_gaps": gaps, "launches": counts, "variants": variants,
+        "driver": drv.stats,
         "dispatch_per_step": drv.dispatches / drv.steps,
         "step_alone_ms": alone * 1e3,
         "step_alone_img_s": group_images / alone,
@@ -638,6 +729,10 @@ def streamformer_leg(tmp: str, card: str) -> dict:
         if counts[name] != want:
             fail(f"streamformer leg: {name} launched {counts[name]} times, "
                  f"not depth x chunk x steps = {want}")
+    variants = leg["variants"]["flash_attention_fwd"]
+    if variants != {"sm90": want, "simple": 0}:
+        fail(f"streamformer leg: forward variants {variants}, not all "
+             f"{want} K4a launches through sm90")
     flops = former_flops_per_image(FORMER, model.tokens)
     leg["flops_per_image"] = flops
 
@@ -913,18 +1008,27 @@ def reference_phase(batch) -> None:
     # the kernels' plain versions on the CPU
     from blendjax_torch.models import StreamFormer
 
+    from blendjax_torch.kernels import flash_attention_fwd
+
     former = StreamFormer(**FORMER, dtype=torch.float32, attn_backend="flash",
                           image_shape=SHAPE).init_params(7)
     x = img[0, :2].contiguous()
+    before = dict(flash_attention_fwd.launches_by_variant)
     with torch.no_grad():
         ref = former(x.cpu())
         got = former.cuda()(x).cpu()
+    after = flash_attention_fwd.launches_by_variant
+    if (after["simple"] - before["simple"] != FORMER["depth"]
+            or after["sm90"] != before["sm90"]):
+        fail(f"f32 StreamFormer forward: forward variants {before} -> "
+             f"{after}, not {FORMER['depth']} simple launches")
     if got.shape != (2, FORMER["num_outputs"]) or not torch.isfinite(got).all():
         fail(f"StreamFormer output {tuple(got.shape)} not finite (2, 16)")
     if not torch.allclose(got, ref, rtol=1e-4, atol=1e-5):
         fail(f"f32 StreamFormer card vs CPU: max diff {(got - ref).abs().max()}")
-    log("reference: f32 StreamFormer forward (f32 flash kernel) on the card "
-        "matches the CPU plain path (max abs diff "
+    log("reference: f32 StreamFormer forward (the simple f32 flash forward, "
+        f"{FORMER['depth']} launches; f32 never takes the sm90 variant) on the "
+        "card matches the CPU plain path (max abs diff "
         f"{float((got - ref).abs().max()):.3g}, rtol 1e-4, atol 1e-5)")
 
 
@@ -957,8 +1061,13 @@ def main() -> None:
     log(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "smem" in line:
+            if any(w in line for w in ("registers", "smem", "spill", "C75")):
                 log(f"build {name}: {line.strip()}")
+    sass = sass_counts("flash_fwd_sm90", ("HGMMA", "UTMALDG"))
+    log(f"build flash_fwd_sm90: SASS holds {sass['HGMMA']} HGMMA (wgmma) and "
+        f"{sass['UTMALDG']} UTMALDG (TMA load) instructions")
+    if not all(sass.values()):
+        fail(f"flash_fwd_sm90's SASS lacks wgmma or TMA loads: {sass}")
 
     # phase 3: decode kernels
     measured = kernel_phase(bw)
@@ -1050,6 +1159,8 @@ def main() -> None:
             "min_ms": m["min_ms"], "max_ms": m["max_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            **({"variants": legs["streamformer"]["variants"][name]}
+               if name in legs["streamformer"]["variants"] else {}),
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -161,13 +161,28 @@ def test_unknown_backend_rejected():
 
 
 class _Fake:
-    """Shape, dtype and device of a tensor, for the eligibility rules."""
+    """Shape, dtype, device, strides and base address of a tensor, for the
+    eligibility rules (contiguous at a 256-byte aligned address unless
+    told otherwise)."""
 
-    def __init__(self, shape, dtype=torch.bfloat16, device="cuda"):
+    def __init__(self, shape, dtype=torch.bfloat16, device="cuda",
+                 strides=None, ptr=1 << 20):
         self.shape = tuple(shape)
         self.ndim = len(shape)
         self.dtype = dtype
         self.device = torch.device(device)
+        if strides is None:
+            strides = [1] * len(shape)
+            for i in range(len(shape) - 2, -1, -1):
+                strides[i] = strides[i + 1] * shape[i + 1]
+        self._strides = tuple(strides)
+        self._ptr = ptr
+
+    def stride(self, dim):
+        return self._strides[dim]
+
+    def data_ptr(self):
+        return self._ptr
 
 
 @pytest.mark.parametrize("shape,dtype,device,ok", [
@@ -182,6 +197,56 @@ class _Fake:
 ])
 def test_flash_supported_is_the_kernels_limits(shape, dtype, device, ok):
     assert A.flash_supported(_Fake(shape, dtype, device)) is ok
+
+
+# the qkv projection's (B, T, 3, H, D) buffer viewed as q, k, v: element
+# strides (T*3*H*D, 3*H*D, D, 1), k and v offset by H*D elements
+_QKV = (8 * 768 * 3 * 4 * 128, 3 * 4 * 128, 128, 1)
+
+
+@pytest.mark.parametrize("shape,dtype,strides,ptr,variant", [
+    ((8, 768, 4, 128), torch.bfloat16, None, 1 << 20, "sm90"),
+    ((8, 768, 4, 128), torch.bfloat16, _QKV, (1 << 20) + 2 * 512, "sm90"),
+    ((8, 768, 4, 64), torch.bfloat16, None, 1 << 20, "sm90"),
+    ((8, 700, 4, 128), torch.bfloat16, None, 1 << 20, "sm90"),  # ragged T
+    ((8, 768, 4, 128), torch.float32, None, 1 << 20, "simple"),  # parity path
+    ((8, 768, 4, 128), torch.float16, None, 1 << 20, "simple"),
+    ((8, 768, 4, 32), torch.bfloat16, None, 1 << 20, "simple"),   # head dim
+    ((8, 768, 4, 96), torch.bfloat16, None, 1 << 20, "simple"),
+    ((8, 768, 4, 120), torch.bfloat16, None, 1 << 20, "simple"),
+    ((8, 768, 4, 128), torch.bfloat16, None, (1 << 20) + 2, "simple"),  # base
+    ((8, 768, 4, 128), torch.bfloat16, None, (1 << 20) + 8, "simple"),
+    # a t stride of 516 elements (1032 bytes) is not a multiple of 16 bytes
+    ((8, 768, 4, 128), torch.bfloat16, (768 * 516, 516, 128, 1), 1 << 20,
+     "simple"),
+    ((8, 768, 4, 128), torch.bfloat16, (768 * 516, 512, 129, 1), 1 << 20,
+     "simple"),  # h stride
+    ((8, 768, 4, 128), torch.bfloat16, (768 * 1024, 1024, 256, 2), 1 << 20,
+     "simple"),  # d stride 2
+    ((8, 768, 4, 128), torch.bfloat16, (0, 512, 128, 1), 1 << 20,
+     "simple"),  # a broadcast batch
+])
+def test_fwd_variant_is_a_fixed_rule(shape, dtype, strides, ptr, variant):
+    """bf16 q, k, v with head dim 64 or 128 that TMA can address take the
+    sm90 forward; f32, other head dims and unaligned views the simple one."""
+    t = _Fake(shape, dtype, strides=strides, ptr=ptr)
+    assert K.fwd_variant(t, t, t) == variant
+    ok = _Fake(shape, torch.bfloat16)
+    if variant == "simple" and shape[-1] in K.SM90_HEAD_DIMS:
+        # one ineligible tensor of the three is enough
+        assert K.fwd_variant(ok, ok, t) == "simple"
+        assert K.fwd_variant(t, ok, ok) == "simple"
+
+
+@pytest.mark.parametrize("scale,variant", [
+    (None, "sm90"), (0.5, "sm90"), (0.0, "simple"), (-0.5, "simple"),
+    (float("nan"), "simple"),
+])
+def test_fwd_variant_takes_only_a_positive_scale_to_sm90(scale, variant):
+    """The sm90 forward takes the row max before scaling, which holds only
+    for a positive scale: any other goes to the simple kernel."""
+    t = _Fake((8, 768, 4, 128))
+    assert K.fwd_variant(t, t, t, scale) == variant
 
 
 def test_flash_supported_checks_kv_too():
@@ -238,10 +303,17 @@ def test_auto_on_cpu_resolves_to_xla(monkeypatch):
 
 
 def test_flash_block_sizes_are_the_kernels_tiles():
+    """The forward's edges are its variant's: 192 q rows (three consumer
+    warpgroups of 64) and 64-row k stages for sm90, 64 x 64 for simple."""
     bs = A.flash_block_sizes(700, 768)
-    assert A.FLASH_BLOCK == bs["block_q"] == K.FWD_BLOCK_Q
-    assert bs["grid_fwd"] == 11 and bs["grid_dkv"] == 12 and bs["grid_dq"] == 11
+    assert A.FLASH_BLOCK == bs["block_q"] == K.FWD_BLOCKS["sm90"][0] == 192
+    assert bs["grid_fwd"] == 4 and bs["grid_dkv"] == 12 and bs["grid_dq"] == 11
     assert (bs["block_k"], bs["block_k_dkv"], bs["block_q_dkv"]) == (64, 64, 32)
+    simple = A.flash_block_sizes(700, 768, "simple")
+    assert (simple["block_q"], simple["block_k"], simple["grid_fwd"]) == (64, 64, 11)
+    backward = [key for key in bs if "dkv" in key or "dq" in key]
+    assert len(backward) == 6
+    assert all(simple[key] == bs[key] for key in backward)
 
 
 def test_wrappers_reject_mismatched_inputs():
@@ -273,6 +345,13 @@ def cuda_card():
     (2, 128, 384, 2, 128, torch.bfloat16, True),
     (2, 200, 200, 2, 64, torch.bfloat16, False),
     (2, 130, 70, 2, 32, torch.float32, True),
+    # the sm90 forward: a ragged last q block and k tile, more k tiles than
+    # pipeline stages, Tq > Tk under the causal mask, one row
+    (2, 700, 700, 4, 128, torch.bfloat16, True),
+    (1, 200, 1000, 2, 64, torch.bfloat16, False),
+    (2, 300, 100, 2, 128, torch.bfloat16, True),
+    (1, 1, 65, 1, 128, torch.bfloat16, False),
+    (2, 100, 100, 2, 32, torch.bfloat16, False),  # head dim 32: simple
 ])
 def test_kernels_match_plain_versions_on_card(cuda_card, b, tq, tk, h, d,
                                               dtype, causal):
@@ -282,7 +361,13 @@ def test_kernels_match_plain_versions_on_card(cuda_card, b, tq, tk, h, d,
                       device=cuda_card).to(dtype)
     q, k, v = qkv[:, :tq, 0], qkv[:, :tk, 1], qkv[:, :tk, 2]
     do = torch.randn((b, tq, h, d), generator=gen, device=cuda_card).to(dtype)
+    want_variant = ("sm90" if dtype == torch.bfloat16 and d in K.SM90_HEAD_DIMS
+                    else "simple")
+    assert K.fwd_variant(q, k, v) == want_variant
+    before = dict(K.flash_attention_fwd.launches_by_variant)
     o, lse = K.flash_attention_fwd(q, k, v, causal)
+    after = K.flash_attention_fwd.launches_by_variant
+    assert after[want_variant] == before[want_variant] + 1
     o_ref, lse_ref = K.flash_attention_fwd_plain(q, k, v, causal)
     fwd_tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert (o.float() - o_ref.float()).abs().max() <= fwd_tol
@@ -296,3 +381,31 @@ def test_kernels_match_plain_versions_on_card(cuda_card, b, tq, tk, h, d,
     for g, w in zip(got, want):
         top = w.float().abs().max()
         assert (g.float() - w.float()).abs().max() <= rel * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned base", "negative scale"])
+def test_what_sm90_cannot_take_runs_the_simple_forward_on_card(cuda_card,
+                                                               case):
+    """A bf16 head-dim-128 view whose base is not 16-byte aligned cannot be
+    a TMA tensor map, and a negative scale breaks the sm90 kernel's row max
+    over the unscaled scores: the simple kernel takes both, with the plain
+    version's result. The negative scale spans scores far beyond exp's f32
+    range (~88), where a max over unscaled scores would overflow."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    buf = torch.randn((2, 256, 4, 129), generator=gen,
+                      device=cuda_card).to(torch.bfloat16)
+    if case == "unaligned base":
+        q = k = v = buf[..., 1:]
+        scale = None
+    else:
+        q = k = v = buf[..., :128].contiguous()
+        scale = -2.0
+    assert K.fwd_variant(q, k, v, scale) == "simple"
+    before = K.flash_attention_fwd.launches_by_variant["simple"]
+    o, lse = K.flash_attention_fwd(q, k, v, True, scale)
+    assert K.flash_attention_fwd.launches_by_variant["simple"] == before + 1
+    o_ref, lse_ref = K.flash_attention_fwd_plain(q, k, v, True, scale)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max() <= 2e-2
+    assert (lse - lse_ref).abs().max() <= 1e-3

@@ -25,7 +25,7 @@ def _two_threads():
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "kernel_ab.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "blendjax_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -247,6 +247,145 @@ def test_a_cuda_attention_request_never_falls_back(monkeypatch, wrapper):
     assert fn.launches == before
 
 
+class _FailingSm90Lib:
+    """The sm90 forward's library, whose launches report
+    cudaErrorMemoryAllocation."""
+
+    def __init__(self):
+        self.bjt_flash_fwd_sm90 = lambda *a: 2
+        self.bjt_flash_fwd_sm90_error = lambda code: b"out of memory"
+
+
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_a_failing_sm90_forward_raises(monkeypatch, d, causal):
+    """An sm90-eligible request (bf16 views of one qkv buffer, head dim 64
+    or 128) whose library fails raises: the simple entry point and the
+    plain version never run, and nothing is counted."""
+    from blendjax_torch.kernels import attention as K
+
+    qkv = torch.zeros((2, 16, 3, 2, d), dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert K.fwd_variant(q, k, v) == "sm90"
+    before = (K.flash_attention_fwd.launches,
+              dict(K.flash_attention_fwd.launches_by_variant))
+    _make_cuda_requests_fail(monkeypatch, K)  # the simple entry fails too
+    libs = []
+
+    def load(name):
+        libs.append(name)
+        if name != "flash_fwd_sm90":
+            raise AssertionError(f"an sm90 request loaded {name}")
+        return _FailingSm90Lib()
+
+    monkeypatch.setattr(K, "load", load)
+    with pytest.raises(RuntimeError,
+                       match="bjt_flash_fwd_sm90 launch failed: out of memory"):
+        K.flash_attention_fwd(q, k, v, causal)
+    assert libs == ["flash_fwd_sm90"]
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(K, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.flash_attention_fwd(q, k, v, causal)
+    assert (K.flash_attention_fwd.launches,
+            K.flash_attention_fwd.launches_by_variant) == before
+
+
+def test_a_negative_scale_never_reaches_the_sm90_forward(monkeypatch):
+    """bf16 views the sm90 forward could address, with a scale <= 0: the
+    request goes to the simple entry point (which fails here, and raises)
+    and never loads the sm90 library."""
+    from blendjax_torch.kernels import attention as K
+
+    qkv = torch.zeros((2, 16, 3, 2, 128), dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    _make_cuda_requests_fail(monkeypatch, K)
+    libs = []
+
+    def load(name):
+        libs.append(name)
+        return _FailingFlashLib()
+
+    monkeypatch.setattr(K, "load", load)
+    for scale in (-0.125, 0.0):
+        with pytest.raises(RuntimeError,
+                           match="bjt_flash_fwd launch failed: out of memory"):
+            K.flash_attention_fwd(q, k, v, False, scale)
+    assert libs == ["flash_attention", "flash_attention"]
+
+
+class _Entry:
+    """A recording stand-in for a ctypes function: counts how often its
+    signature is set and records each call."""
+
+    def __init__(self, on_call):
+        object.__setattr__(self, "signature_sets", 0)
+        object.__setattr__(self, "calls", [])
+        object.__setattr__(self, "on_call", on_call)
+
+    def __setattr__(self, name, value):
+        if name == "argtypes":
+            object.__setattr__(self, "signature_sets", self.signature_sets + 1)
+        object.__setattr__(self, name, value)
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.on_call(*args)
+
+
+def test_decode_scatter_is_one_launch_into_an_uninitialised_buffer(
+        monkeypatch):
+    """Each decode_scatter on the card is exactly one entry-point call, made
+    on a slot buffer straight from torch.empty that nothing wrote first (no
+    copy_ of the reference, no fill); the ctypes signature is set once
+    across calls."""
+    import ctypes
+
+    from blendjax_torch.kernels import decode
+
+    ref, idx, tiles = _case((16, 16))
+    b, n, ttc = idx.shape[0], ref.shape[0], ref[0].numel()
+    poison = 0xAB
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):  # what an uninitialised allocation may hold
+        return real_empty(*shape, **kw).fill_(poison)
+
+    def no_copy(self, *a, **kw):
+        raise AssertionError("a card decode_scatter ran copy_")
+
+    seen = []
+
+    def launch(ref_p, idx_p, tiles_p, slots_p, *rest):
+        raw = (ctypes.c_uint8 * (b * n * ttc)).from_address(slots_p)
+        seen.append((bytes(raw) == bytes([poison]) * (b * n * ttc), rest))
+        return 0
+
+    fn = _Entry(launch)
+
+    class Lib:
+        bjt_decode_scatter = fn
+
+    lib = Lib()
+    monkeypatch.setattr(decode, "_check_inputs", lambda *a: "cuda")
+    monkeypatch.setattr(decode, "_stream", lambda device: 0)
+    monkeypatch.setattr(decode, "load", lambda name: lib)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.Tensor, "copy_", no_copy)
+    before = decode.decode_scatter.launches
+    for call in range(3):
+        out = decode.decode_scatter(ref, idx, tiles)
+        assert len(fn.calls) == call + 1
+        assert fn.calls[-1][3] == out.data_ptr()
+    assert decode.decode_scatter.launches == before + 3
+    assert [untouched for untouched, _ in seen] == [True] * 3
+    # (B, K, N, th*tw*C, vec16, stream)
+    assert seen[0][1] == (b, idx.shape[1], n, ttc, 1, 0)
+    assert fn.signature_sets == 1
+
+
 def test_the_autograd_backward_never_falls_back(monkeypatch):
     """A forward on CPU tensors, then a backward that sees a CUDA request:
     it launches the backward kernels (here: fails loudly), never the
@@ -323,7 +462,8 @@ def cuda_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [(16, 32), (16, 16), (16, 10), (5, 5)])
-def test_kernels_match_twins_on_card(cuda_card, tile):
+@pytest.mark.parametrize("bad", [None, "negative", "out of range"])
+def test_kernels_match_twins_on_card(cuda_card, tile, bad):
     from blendjax_torch.kernels import (
         decode_scatter,
         decode_scatter_plain,
@@ -336,9 +476,13 @@ def test_kernels_match_twins_on_card(cuda_card, tile):
     rng = np.random.default_rng(1)
     ref = torch.from_numpy(
         rng.integers(0, 256, (n, *tile, 4), dtype=np.uint8)).to(cuda_card)
-    idx = np.full((8, 64), n, np.int32)
+    idx = np.full((8, 64), n, np.int32)  # K 64: more than one block's slots
     for i in range(7):  # the last row stays all sentinels
         idx[i, :50] = rng.choice(n, 50, replace=False)
+    if bad == "negative":  # write nothing, like sentinels
+        idx[:, 50:56] = [-1, -2, -600, -601, -(2**31), -7]
+    elif bad == "out of range":
+        idx[:, 50:55] = [n + 1, n + 16, 2 * n, 2**31 - 1, n + 600]
     idx = torch.from_numpy(idx).to(cuda_card)
     tiles = torch.from_numpy(
         rng.integers(0, 256, (8, 64, *tile, 4), dtype=np.uint8)).to(cuda_card)

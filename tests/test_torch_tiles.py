@@ -120,6 +120,65 @@ def test_decode_sentinel_rows_and_empty_capacity(tile):
         np.testing.assert_array_equal(got0[i], ref)
 
 
+@pytest.mark.parametrize("case", [
+    "dense", "sentinel row", "K > one block's slot run", "negative -1",
+    "out of range",
+])
+def test_decode_scatter_matches_the_pallas_kernel(case):
+    """K2 (its plain twin on the CPU) against ``_pallas_decode_scatter`` in
+    interpret mode: slots (B, N, th*tw*C), bit-exact. Index rows hold up
+    to K = 40 distinct slots of N = 32 (more than the 16 slots one block
+    of the CUDA kernel owns), sentinels N, -1 and indices past N; each
+    writes nothing. (The interpret-mode Pallas kernel stores into a padded
+    (B, N + 1) buffer, so -1 lands in its pad slot; a deeper negative
+    would wrap into a real slot there and is held to the port's contract
+    in the next test instead.)"""
+    from blendjax_torch.kernels.decode import decode_scatter
+
+    rng = np.random.default_rng(41)
+    tile = (16, 16)
+    n = (SHAPE[0] // tile[0]) * (SHAPE[1] // tile[1])  # 32 slots
+    k = 40 if case == "K > one block's slot run" else 12
+    ref = rng.integers(0, 256, (n, *tile, 4), dtype=np.uint8)
+    idx = np.full((3, k), n, np.int32)
+    for row in range(3):
+        m = min(k, n) if case == "K > one block's slot run" else 9
+        idx[row, :m] = rng.choice(n, m, replace=False)
+    if case == "sentinel row":
+        idx[1] = n
+    elif case == "negative -1":
+        idx[:, 9:] = -1
+    elif case == "out of range":
+        idx[:, 9:] = [n + 1, 2 * n, 2**31 - 1]
+    tiles = rng.integers(0, 256, (3, k, *tile, 4), dtype=np.uint8)
+    want = np.asarray(JT._pallas_decode_scatter(
+        jnp.asarray(ref), jnp.asarray(idx), jnp.asarray(tiles),
+        interpret=True))
+    got = decode_scatter(torch.from_numpy(ref), torch.from_numpy(idx),
+                         torch.from_numpy(tiles)).numpy()
+    assert got.shape == (3, n, 16 * 16 * 4)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_decode_scatter_negative_indices_write_nothing():
+    """Any index outside [0, N) leaves its slot's reference tile in place."""
+    from blendjax_torch.kernels.decode import decode_scatter
+
+    rng = np.random.default_rng(43)
+    n = 32
+    ref = rng.integers(0, 256, (n, 16, 16, 4), dtype=np.uint8)
+    idx = np.array([[3, -2, -n, -(2**31), 7], [-5, 0, n, -1, 31]], np.int32)
+    tiles = rng.integers(0, 256, (2, 5, 16, 16, 4), dtype=np.uint8)
+    got = decode_scatter(torch.from_numpy(ref), torch.from_numpy(idx),
+                         torch.from_numpy(tiles)).numpy()
+    want = np.broadcast_to(ref.reshape(1, n, -1), (2, n, 1024)).copy()
+    for b, row in enumerate(idx):
+        for j, s in enumerate(row):
+            if 0 <= s < n:
+                want[b, s] = tiles[b, j].reshape(-1)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_encoder_rows_hold_unique_indices():
     """Duplicate indices within a row are outside the kernels' contract;
     the encoder and pack_batch never produce them."""
