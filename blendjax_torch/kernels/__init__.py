@@ -13,6 +13,7 @@ from blendjax_torch.kernels.attention import (
     flash_attention_bwd_dq_plain,
     flash_attention_fwd,
     flash_attention_fwd_plain,
+    bwd_variant,
     fwd_variant,
 )
 from blendjax_torch.kernels.decode import (
@@ -24,8 +25,10 @@ from blendjax_torch.kernels.decode import (
 from blendjax_torch.kernels.image import gamma_normalize, gamma_normalize_plain
 
 _FLASH_SOURCE = "blendjax_torch/kernels/csrc/flash_attention.cu"
-# the forward's main-path variant; f32 and other inputs take _FLASH_SOURCE
+# the main-path (sm90) variants of the forward and of the two backward
+# kernels; f32 and other inputs take _FLASH_SOURCE
 _FLASH_FWD_SOURCE = "blendjax_torch/kernels/csrc/flash_fwd_sm90.cu"
+_FLASH_BWD_SOURCE = "blendjax_torch/kernels/csrc/flash_bwd_sm90.cu"
 # local_attention(backend="flash") reaches the JAX library's kernels here
 _FLASH_CALL = "blendjax/ops/attention.py:157"
 _FLASH_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -63,14 +66,14 @@ KERNELS = {
         "wrapper": flash_attention_bwd_dkv,
         "plain": flash_attention_bwd_dkv_plain,
         "route": "cuda",
-        "source": _FLASH_SOURCE,
+        "source": _FLASH_BWD_SOURCE,
         "replaces": f"{_FLASH_CALL} ({_FLASH_LIB}:1121)",
     },
     "flash_attention_bwd_dq": {
         "wrapper": flash_attention_bwd_dq,
         "plain": flash_attention_bwd_dq_plain,
         "route": "cuda",
-        "source": _FLASH_SOURCE,
+        "source": _FLASH_BWD_SOURCE,
         "replaces": f"{_FLASH_CALL} ({_FLASH_LIB}:1456)",
     },
 }
@@ -97,6 +100,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "FlashAttention",
     "KERNELS",
+    "bwd_variant",
     "flash_attention",
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dkv_plain",

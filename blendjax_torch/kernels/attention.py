@@ -15,7 +15,12 @@ three Pallas TPU kernels that ``blendjax/ops/attention.py:157`` reaches in
   scale <= 0). The rule is not a
   retry: a failed build or launch of the variant it picks raises;
 - :func:`flash_attention_bwd_dkv` (K4b, :1121): ``dk`` and ``dv``;
-- :func:`flash_attention_bwd_dq` (K4c, :1456): ``dq``.
+- :func:`flash_attention_bwd_dq` (K4c, :1456): ``dq``. Both backward
+  kernels have two variants, picked by the fixed rule :func:`bwd_variant`:
+  ``"sm90"`` (``flash_bwd_sm90.cu``, on the forward's design) for bf16
+  inputs with head dim 64 or 128 that TMA can address, whatever the scale,
+  ``"simple"`` (``flash_attention.cu``) for the rest. As for the forward, a
+  failed build or launch of the variant the rule picks raises.
 
 Tensors keep the JAX layout: ``q`` (B, Tq, H, D), ``k``/``v`` (B, Tk, H, D),
 read through their strides (a unit stride over D); ``lse`` and ``di`` are
@@ -40,16 +45,17 @@ import torch
 from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.kernels.decode import _raise_on, _stream
 
-# The kernels' own tile edges (compile-time constants of the CUDA sources).
-# The forward's, (q rows per block, k rows per loop step) by variant: the
+# The kernels' own tile edges (compile-time constants of the CUDA sources),
+# by variant. The forward's: (q rows per block, k rows per loop step); the
 # sm90 block is three consumer warpgroups of 64 q rows (chosen by
-# measurement on an H100, PERF.md).
+# measurement on an H100, PERF.md). dK/dV: (kv rows per block, q rows per
+# loop step); dQ: (q rows per block, k rows per loop step); an sm90
+# backward block's two consumer warpgroups share its 64 rows and split the
+# loop steps (the dK/dV grid holds a dk and a dv block per 64 kv rows).
 FWD_BLOCKS = {"sm90": (192, 64), "simple": (64, 64)}
+DKV_BLOCKS = {"sm90": (64, 64), "simple": (64, 32)}
+DQ_BLOCKS = {"sm90": (64, 64), "simple": (64, 64)}
 SM90_HEAD_DIMS = (64, 128)
-DKV_BLOCK_K = 64  # kv rows per dK/dV block
-DKV_BLOCK_Q = 32  # q rows per dK/dV loop step
-DQ_BLOCK_Q = 64   # q rows per dQ block
-DQ_BLOCK_K = 64   # k rows per dQ loop step
 MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 8
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -179,20 +185,40 @@ def _vec16(*tensors) -> bool:
     return True
 
 
+def _tma_ready(*tensors) -> bool:
+    """Whether the sm90 kernels can take these tensors: bf16 with head dim
+    64 or 128 that TMA can address (a unit stride over D, positive (b, t,
+    h) strides that are multiples of 16 bytes, 16-byte aligned bases)."""
+    if tensors[0].shape[-1] not in SM90_HEAD_DIMS:
+        return False
+    for t in tensors:
+        if t.dtype != torch.bfloat16 or t.stride(-1) != 1 or t.data_ptr() % 16:
+            return False
+        if any(t.stride(i) < 1 or (t.stride(i) * 2) % 16 for i in range(3)):
+            return False
+    return True
+
+
 def fwd_variant(q, k, v, scale=None) -> str:
     """The forward kernel that takes these CUDA tensors: ``"sm90"`` for
     bf16 q, k and v with head dim 64 or 128 that TMA can address (a unit
     stride over D, positive (b, t, h) strides that are multiples of 16
     bytes, 16-byte aligned base addresses) and a positive scale (the sm90
     kernel takes the row max before scaling), ``"simple"`` otherwise."""
-    if q.shape[-1] not in SM90_HEAD_DIMS or not default_scale(q, scale) > 0:
+    if not default_scale(q, scale) > 0:
         return "simple"
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16 or t.stride(-1) != 1 or t.data_ptr() % 16:
-            return "simple"
-        if any(t.stride(i) < 1 or (t.stride(i) * 2) % 16 for i in range(3)):
-            return "simple"
-    return "sm90"
+    return "sm90" if _tma_ready(q, k, v) else "simple"
+
+
+def bwd_variant(q, k, v, do) -> str:
+    """The backward kernels (K4b and K4c) that take these CUDA tensors:
+    ``"sm90"`` for bf16 q, k, v and do with head dim 64 or 128 that TMA can
+    address (the forward's conditions on q, k and v, applied to do too),
+    ``"simple"`` otherwise, f32 included. Unlike :func:`fwd_variant` the
+    rule asks nothing of the scale: the backward recomputes
+    ``p = exp(s * scale - lse)`` from the forward's row statistics, which
+    holds for any scale, so no row max is taken."""
+    return "sm90" if _tma_ready(q, k, v, do) else "simple"
 
 
 _ARGS = {
@@ -212,6 +238,18 @@ def _launch(name: str, pointers, strides, q, k, causal, scale, vec) -> None:
         KERNEL_DTYPES[q.dtype], int(vec), float(scale), _stream(q.device),
     )
     _raise_on(lib, "bjt_flash_error", code, name)
+
+
+def _launch_sm90_bwd(name: str, pointers, q, k, v, do, causal, scale) -> None:
+    lib = load("flash_bwd_sm90")
+    fn = entry(lib, name, [ctypes.c_void_p] * (len(pointers) + 1)
+               + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    b, tq, h, d = q.shape
+    code = fn(
+        *pointers, _strides(q, k, v, do), b, h, tq, k.shape[1], d,
+        int(bool(causal)), float(scale), _stream(q.device),
+    )
+    _raise_on(lib, "bjt_flash_bwd_sm90_error", code, name)
 
 
 def _launch_sm90(q, k, v, o, lse, causal, scale) -> None:
@@ -264,51 +302,63 @@ def _check_stats(q, lse, di):
             raise ValueError(f"{name} must be contiguous (B, H, Tq) f32")
 
 
+def _launch_bwd(name: str, outputs, q, k, v, do, lse, di, causal,
+                scale) -> str:
+    """Launch backward kernel ``name`` (``"bjt_flash_bwd_dkv"`` or
+    ``"bjt_flash_bwd_dq"``) through the variant :func:`bwd_variant` names;
+    returns that variant."""
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), di.data_ptr(), *(t.data_ptr() for t in outputs))
+    variant = bwd_variant(q, k, v, do)
+    if variant == "sm90":
+        _launch_sm90_bwd(f"{name}_sm90", pointers, q, k, v, do, causal, scale)
+    else:
+        _launch(name, pointers, _strides(q, k, v, do), q, k, causal, scale,
+                _vec16(q, k, v, do))
+    return variant
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=False, scale=None):
-    """K4b: ``(dk, dv)``, (B, Tk, H, D) in the input dtype."""
+    """K4b: ``(dk, dv)``, (B, Tk, H, D) in the input dtype, through the
+    variant :func:`bwd_variant` names."""
     if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
         raise ValueError("do must match q's shape and dtype")
     _check_stats(q, lse, di)
     if _check_inputs(q, k, v, do, lse, di) == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal,
                                              scale)
-    scale = default_scale(q, scale)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch(
-        "bjt_flash_bwd_dkv",
-        (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-        _strides(q, k, v, do), q, k, causal, scale, _vec16(q, k, v, do),
-    )
+    variant = _launch_bwd("bjt_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, di,
+                          causal, default_scale(q, scale))
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_variant[variant] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_variant = {"sm90": 0, "simple": 0}
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, di, causal=False, scale=None):
-    """K4c: ``dq`` (B, Tq, H, D) in the input dtype."""
+    """K4c: ``dq`` (B, Tq, H, D) in the input dtype, through the variant
+    :func:`bwd_variant` names."""
     if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
         raise ValueError("do must match q's shape and dtype")
     _check_stats(q, lse, di)
     if _check_inputs(q, k, v, do, lse, di) == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal,
                                             scale)
-    scale = default_scale(q, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(
-        "bjt_flash_bwd_dq",
-        (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-         lse.data_ptr(), di.data_ptr(), dq.data_ptr()),
-        _strides(q, k, v, do), q, k, causal, scale, _vec16(q, k, v, do),
-    )
+    variant = _launch_bwd("bjt_flash_bwd_dq", (dq,), q, k, v, do, lse, di,
+                          causal, default_scale(q, scale))
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_variant[variant] += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_variant = {"sm90": 0, "simple": 0}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (loaded with ``ctypes``; no PyTorch
 headers, so a build takes seconds). The library name carries a hash of
-the source and the flags, so an edited source rebuilds, and lands in
+the source, every header of ``csrc/`` (``*.cuh``, which sources share) and
+the flags, so an edited source or header rebuilds, and lands in
 ``build/blendjax_torch_kernels/`` beside the package (listed in
 ``.gitignore``). :func:`build` compiles every missing library at once,
 one ``nvcc`` process per source. Nothing here runs at import time.
@@ -24,7 +25,7 @@ BUILD_DIR = (
     Path(__file__).resolve().parents[2] / "build" / "blendjax_torch_kernels"
 )
 SOURCES = ("decode_spatial", "decode_scatter", "gamma_normalize",
-           "flash_attention", "flash_fwd_sm90")
+           "flash_attention", "flash_fwd_sm90", "flash_bwd_sm90")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,9 +50,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -6,6 +6,10 @@
 //   K4a bjt_flash_fwd      <- _flash_attention_impl    (pallas_call at :758)
 //   K4b bjt_flash_bwd_dkv  <- _flash_attention_bwd_dkv (pallas_call at :1121)
 //   K4c bjt_flash_bwd_dq   <- _flash_attention_bwd_dq  (pallas_call at :1456)
+// These are the "simple" variants: bf16 inputs with a head dim of 64 or 128
+// that TMA can address take the sm90 kernels of flash_fwd_sm90.cu and
+// flash_bwd_sm90.cu instead (kernels/attention.py: fwd_variant,
+// bwd_variant); f32 and every other input run here.
 //
 // What it computes. q (B, Tq, H, D), k and v (B, Tk, H, D) are read in the
 // JAX layout through their (b, t, h) strides with a unit stride over D, so

@@ -22,8 +22,9 @@ Two things differ from the JAX package, on purpose:
   "TPU and T % 128": CUDA tensors, bf16 or f32, a head dim that is a
   multiple of 8 up to 128. Any T is taken: ragged tiles are masked inside
   the kernel. :data:`FLASH_BLOCK` and :func:`flash_block_sizes` are the
-  kernels' own tile edges (the forward's for one of its two variants,
-  :func:`~blendjax_torch.kernels.attention.fwd_variant`).
+  kernels' own tile edges (those of one of their two variants,
+  :func:`~blendjax_torch.kernels.attention.fwd_variant` and
+  :func:`~blendjax_torch.kernels.attention.bwd_variant`).
 - ``backend="flash"`` on CPU tensors runs the kernels' plain versions
   (the same autograd function), as every kernel wrapper of the port does.
   On a CUDA tensor the kernel cannot take it raises ``ValueError`` and
@@ -43,25 +44,28 @@ NEG_INF = -1e30
 # value, unchanged.
 FLASH_RESIDUAL_BYTES = 2 << 30
 # The largest tile edge of any kernel: the sm90 forward's q tile (the
-# others are 32 or 64 rows).
+# others are 32 to 128 rows).
 FLASH_BLOCK = K.FWD_BLOCKS["sm90"][0]
 
 
 def flash_block_sizes(t_q: int, t_kv: int, variant: str = "sm90") -> dict:
     """The kernels' tile edges for a (t_q, t_kv) call, and the grid each
-    launches; the forward's are those of ``variant`` (the name
-    :func:`~blendjax_torch.kernels.attention.fwd_variant` gives: ``"sm90"``
+    launches, those of ``variant`` (the name
+    :func:`~blendjax_torch.kernels.attention.fwd_variant` and
+    :func:`~blendjax_torch.kernels.attention.bwd_variant` give: ``"sm90"``
     on the bf16 main path, or ``"simple"``). Edges are fixed; a ragged last
     tile is masked in the kernel."""
     cdiv = lambda a, b: -(-int(a) // b)  # noqa: E731
     block_q, block_k = K.FWD_BLOCKS[variant]
+    block_k_dkv, block_q_dkv = K.DKV_BLOCKS[variant]
+    block_q_dq, block_k_dq = K.DQ_BLOCKS[variant]
     return {
         "block_q": block_q, "block_k": block_k,
-        "block_k_dkv": K.DKV_BLOCK_K, "block_q_dkv": K.DKV_BLOCK_Q,
-        "block_q_dq": K.DQ_BLOCK_Q, "block_k_dq": K.DQ_BLOCK_K,
+        "block_k_dkv": block_k_dkv, "block_q_dkv": block_q_dkv,
+        "block_q_dq": block_q_dq, "block_k_dq": block_k_dq,
         "grid_fwd": cdiv(t_q, block_q),
-        "grid_dkv": cdiv(t_kv, K.DKV_BLOCK_K),
-        "grid_dq": cdiv(t_q, K.DQ_BLOCK_Q),
+        "grid_dkv": cdiv(t_kv, block_k_dkv),
+        "grid_dq": cdiv(t_q, block_q_dq),
     }
 
 

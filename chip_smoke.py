@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 2. build: compile every kernel source in ``blendjax_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), print the build time and
    ``-Xptxas -v``'s registers and spills, and count the ``HGMMA`` (wgmma)
-   and ``UTMALDG`` (TMA load) instructions in the built sm90 forward's
-   SASS (``cuobjdump -sass``); either count 0 fails;
+   and ``UTMALDG`` (TMA load) instructions in the SASS of the built sm90
+   forward and sm90 backward (``cuobjdump -sass``); any count 0 fails;
 3. kernels: the decode kernels K1/K2 against their plain twins,
    bit-exact (``torch.equal``), at the main path's shapes and at the edge
    cases (``Ct < C``, ``K == 0``, a row of sentinels, byte-wide
@@ -22,8 +22,11 @@ Phases (any failure exits non-zero):
    causal, Tq 256 != Tkv 768, a ragged T of 700, D 64 and f32 (forward
    max |diff| <= 2e-2 bf16 / 1e-4 f32 with TF32 off, lse within 1e-3;
    gradients max |diff| <= 2e-2 / 1e-4 of max |plain|); every bf16 case
-   must take the forward's sm90 variant, the f32 case the simple one.
-   Then each kernel's median card time over windows of back-to-back
+   must take the sm90 variant of all three kernels, the f32 case the
+   simple one; two calls of each backward kernel at the slice's shape must
+   give bit-identical dk, dv and dq. Then each kernel's median card time,
+   at the slice's shape and at the long one (4, 3072, 4, 128), over windows
+   of back-to-back
    launches queued behind a sleep kernel (``time_ms``), with the min and
    max window and the host's enqueue time per call, its plain version's
    time, a one-call PyTorch yardstick where one exists (``index_copy_``,
@@ -40,7 +43,7 @@ Phases (any failure exits non-zero):
    with the bench's corner loss). Launch counts are zeroed just before
    each leg and read just after: flagship must launch K1, square K2,
    streamformer K1 and each of K4a-c exactly depth x chunk x steps times,
-   every K4a launch through the sm90 variant;
+   every K4a-c launch through the sm90 variant;
    losses must be finite with zero sequence gaps and one step call per
    chunk group. The streamformer leg also times the same model with
    ``attn_backend="xla"`` (for information) and holds one update of flash
@@ -392,8 +395,9 @@ def bound(flops: float, moved: float, bw: float) -> tuple:
 
 
 def attention_phase(bw: float) -> dict:
-    """K4a-c against their plain versions at every case, then timings at
-    the slice's shape and the long-sequence shape."""
+    """K4a-c against their plain versions at every case, the backward's
+    determinism, then timings at the slice's shape and the long-sequence
+    shape."""
     import torch
     import torch.nn.functional as F
 
@@ -401,15 +405,17 @@ def attention_phase(bw: float) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    wrappers = {"flash_attention_fwd": K.flash_attention_fwd,
+                "flash_attention_bwd_dkv": K.flash_attention_bwd_dkv,
+                "flash_attention_bwd_dq": K.flash_attention_bwd_dq}
     errs = {}
     for i, (label, b, tq, tk, h, d, dt, causal) in enumerate(ATTN_CASES):
         q, k, v, do = attn_inputs(b, tq, tk, h, d, dtypes[dt], 200 + i)
         want_variant = ("sm90" if dt == "bf16" and d in K.SM90_HEAD_DIMS
                         else "simple")
-        before = K.flash_attention_fwd.launches_by_variant[want_variant]
+        before = {name: fn.launches_by_variant[want_variant]
+                  for name, fn in wrappers.items()}
         o, lse = K.flash_attention_fwd(q, k, v, causal)
-        if K.flash_attention_fwd.launches_by_variant[want_variant] != before + 1:
-            fail(f"flash fwd {label}: did not run the {want_variant} variant")
         o_ref, lse_ref = K.flash_attention_fwd_plain(q, k, v, causal)
         di = K.attention_delta(o, do)
         got = {
@@ -419,6 +425,9 @@ def attention_phase(bw: float) -> dict:
             "flash_attention_bwd_dq": (K.flash_attention_bwd_dq(
                 q, k, v, do, lse, di, causal),),
         }
+        for name, fn in wrappers.items():
+            if fn.launches_by_variant[want_variant] != before[name] + 1:
+                fail(f"{name} {label}: did not run the {want_variant} variant")
         want = {
             "flash_attention_fwd": (o_ref,),
             "flash_attention_bwd_dkv": K.flash_attention_bwd_dkv_plain(
@@ -445,9 +454,21 @@ def attention_phase(bw: float) -> dict:
                     errs[name] = max(errs.get(name, 0.0), err)
                 notes.append(f"{out_name} {err:.3g}/{limit:.3g}")
         log(f"kernel check flash {label} (B={b} Tq={tq} Tk={tk} H={h} D={d} "
-            f"{dt}{' causal' if causal else ''}; forward variant "
-            f"{want_variant}): max |diff| / bar: "
-            f"{', '.join(notes)}; lse {lse_err:.3g}")
+            f"{dt}{' causal' if causal else ''}; variant {want_variant} for "
+            f"all three): max |diff| / bar: {', '.join(notes)}; lse "
+            f"{lse_err:.3g}")
+        if label == "slice":
+            # no atomics: a second call gives the same bits
+            again = (*K.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal),
+                     K.flash_attention_bwd_dq(q, k, v, do, lse, di, causal))
+            first = (*got["flash_attention_bwd_dkv"],
+                     *got["flash_attention_bwd_dq"])
+            for out_name, x, y in zip(("dk", "dv", "dq"), first, again):
+                if not torch.equal(x, y):
+                    fail(f"flash backward {label}: two calls gave different "
+                         f"{out_name}")
+            log(f"kernel check flash {label}: two calls of each backward "
+                "kernel give bit-identical dk, dv and dq")
 
     out = {}
     for shape_name, (b, t) in (("slice", (8, 768)), ("long", LONG_ATTN)):
@@ -477,8 +498,9 @@ def attention_phase(bw: float) -> dict:
         sdpa_bwd = time_ms(lambda: torch.autograd.grad(
             oh, (qh, kh, vh), doh, retain_graph=True))
         work = attn_work(b, t, t, h, d, 2)
+        times = {}
         for name, (kernel, plain) in timed.items():
-            kt = time_ms(kernel)
+            kt = times[name] = time_ms(kernel)
             pt = time_ms(plain, reps=3, windows=5)
             flops, moved = work[name]
             bms, by = bound(flops, moved, bw)
@@ -491,11 +513,17 @@ def attention_phase(bw: float) -> dict:
                 f"{moved / 1e6:.2f} MB); plain {pt['ms']:.4f} ms; SDPA "
                 f"{'forward' if lib is sdpa_fwd else 'autograd backward (K4b+K4c together)'} "
                 f"{spread(lib)}")
+            m = {**kt, "plain_ms": pt["ms"], "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib["ms"]}
             if shape_name == "slice":
-                out[name] = {
-                    "max_abs_err": errs[name], **kt, "plain_ms": pt["ms"],
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib["ms"],
-                }
+                out[name] = {"max_abs_err": errs[name], **m}
+            else:
+                out[name]["long"] = {"shape": [b, t, h, d], **m}
+        bwd_ms = (times["flash_attention_bwd_dkv"]["ms"]
+                  + times["flash_attention_bwd_dq"]["ms"])
+        log(f"kernel flash backward [{shape_name}]: K4b + K4c {bwd_ms:.4f} ms "
+            f"against SDPA's autograd backward {sdpa_bwd['ms']:.4f} ms "
+            f"({bwd_ms / sdpa_bwd['ms']:.2f}x)")
         del qh, kh, vh, oh
     torch.cuda.synchronize()
     return out
@@ -729,10 +757,12 @@ def streamformer_leg(tmp: str, card: str) -> dict:
         if counts[name] != want:
             fail(f"streamformer leg: {name} launched {counts[name]} times, "
                  f"not depth x chunk x steps = {want}")
-    variants = leg["variants"]["flash_attention_fwd"]
-    if variants != {"sm90": want, "simple": 0}:
-        fail(f"streamformer leg: forward variants {variants}, not all "
-             f"{want} K4a launches through sm90")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        variants = leg["variants"][name]
+        if variants != {"sm90": want, "simple": 0}:
+            fail(f"streamformer leg: {name} variants {variants}, not all "
+                 f"{want} launches through sm90")
     flops = former_flops_per_image(FORMER, model.tokens)
     leg["flops_per_image"] = flops
 
@@ -1063,11 +1093,12 @@ def main() -> None:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "smem", "spill", "C75")):
                 log(f"build {name}: {line.strip()}")
-    sass = sass_counts("flash_fwd_sm90", ("HGMMA", "UTMALDG"))
-    log(f"build flash_fwd_sm90: SASS holds {sass['HGMMA']} HGMMA (wgmma) and "
-        f"{sass['UTMALDG']} UTMALDG (TMA load) instructions")
-    if not all(sass.values()):
-        fail(f"flash_fwd_sm90's SASS lacks wgmma or TMA loads: {sass}")
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        sass = sass_counts(name, ("HGMMA", "UTMALDG"))
+        log(f"build {name}: SASS holds {sass['HGMMA']} HGMMA (wgmma) and "
+            f"{sass['UTMALDG']} UTMALDG (TMA load) instructions")
+        if not all(sass.values()):
+            fail(f"{name}'s SASS lacks wgmma or TMA loads: {sass}")
 
     # phase 3: decode kernels
     measured = kernel_phase(bw)
@@ -1161,6 +1192,7 @@ def main() -> None:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             **({"variants": legs["streamformer"]["variants"][name]}
                if name in legs["streamformer"]["variants"] else {}),
+            **({"long": m["long"]} if "long" in m else {}),
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

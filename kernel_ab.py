@@ -1,4 +1,5 @@
-"""Time the K2 (``decode_scatter``) and K4a (``flash_attention_fwd``)
+"""Time the K2 (``decode_scatter``), K4a (``flash_attention_fwd``), K4b
+(``flash_attention_bwd_dkv``) and K4c (``flash_attention_bwd_dq``)
 wrappers of checkouts of this repo on one card, with ``chip_smoke.time_ms``
 (card time of windows queued behind a sleep kernel, and the host's enqueue
 time per call), so two versions of a kernel compare under one method.
@@ -10,10 +11,12 @@ the kernels of every distinct tree first (all ``nvcc`` processes started
 together, into each tree's own ``build/``), then times each TREE in a
 process of its own, in the order given: ``python3 kernel_ab.py PARENT . .
 PARENT`` measures parent, change, change, parent in one run. Shapes are
-the main path's: K2 at B 32, K 288, 16x16x4 slots of 480x640 frames; K4a
-on bf16 q/k/v views of one qkv buffer at (8, 768, 4, 128) and
-(4, 3072, 4, 128), beside SDPA's forward. Every result is held against
-its tree's plain version first (K2 bit-exact, K4a within 2e-2). Prints a
+the main path's: K2 at B 32, K 288, 16x16x4 slots of 480x640 frames;
+K4a-c on bf16 q/k/v views of one qkv buffer at (8, 768, 4, 128) and
+(4, 3072, 4, 128), beside SDPA's forward and its autograd backward (K4b and
+K4c together). Every result is held against its tree's plain version
+first (K2 bit-exact, K4a within 2e-2, K4b/K4c within 2e-2 of the largest
+plain value). Prints a
 line per tree, then the card's name and power limit, and last one JSON
 object of every measurement. Needs a CUDA card; exits 1 without one.
 """
@@ -27,7 +30,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("decode_scatter", "flash_attention", "flash_fwd_sm90")
+KERNEL_SOURCES = ("decode_scatter", "flash_attention", "flash_fwd_sm90",
+                  "flash_bwd_sm90")
 
 
 def smoke():
@@ -64,8 +68,8 @@ def child(tree: str) -> dict:
     out = {"tree": tree,
            "decode_scatter": cs.time_ms(lambda: D.decode_scatter(ref, idx, tiles))}
     for name, (b, t) in (("slice", (8, 768)), ("long", cs.LONG_ATTN)):
-        q, k, v, _ = cs.attn_inputs(b, t, t, 4, 128, torch.bfloat16, 300)
-        o, _ = K.flash_attention_fwd(q, k, v)
+        q, k, v, do = cs.attn_inputs(b, t, t, 4, 128, torch.bfloat16, 300)
+        o, lse = K.flash_attention_fwd(q, k, v)
         o_ref, _ = K.flash_attention_fwd_plain(q, k, v)
         err = float((o.float() - o_ref.float()).abs().max())
         if err > 2e-2:
@@ -80,6 +84,29 @@ def child(tree: str) -> dict:
         with torch.no_grad():
             out[f"sdpa_fwd {name}"] = cs.time_ms(
                 lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        bwd = (q, k, v, do, lse, K.attention_delta(o, do))
+        for kernel in ("bwd_dkv", "bwd_dq"):
+            fn = getattr(K, f"flash_attention_{kernel}")
+            got = fn(*bwd)
+            want = getattr(K, f"flash_attention_{kernel}_plain")(*bwd)
+            err = 0.0
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                e = float((g.float() - w.float()).abs().max())
+                if e > 2e-2 * float(w.float().abs().max()):
+                    raise RuntimeError(f"flash_attention_{kernel} {name}: "
+                                       f"max |diff| {e}")
+                err = max(err, e)
+            out[f"flash_attention_{kernel} {name}"] = {
+                **cs.time_ms(lambda: fn(*bwd)), "max_abs_err": err,
+                "variants": dict(getattr(fn, "launches_by_variant", {})),
+            }
+        for x in (qh, kh, vh):
+            x.requires_grad_()
+        oh = F.scaled_dot_product_attention(qh, kh, vh)
+        doh = do.transpose(1, 2).contiguous()
+        out[f"sdpa_bwd {name}"] = cs.time_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True))
     return out
 
 

@@ -249,6 +249,50 @@ def test_fwd_variant_takes_only_a_positive_scale_to_sm90(scale, variant):
     assert K.fwd_variant(t, t, t, scale) == variant
 
 
+# (q, k, v) views of one qkv buffer and a contiguous do: the main path's
+_DO = (8 * 768 * 4 * 128, 4 * 128, 128, 1)
+
+
+@pytest.mark.parametrize("qkv_shape,do_strides,dtype,ptr,variant", [
+    ((8, 768, 4, 128), _DO, torch.bfloat16, 1 << 20, "sm90"),
+    ((8, 768, 4, 64), None, torch.bfloat16, 1 << 20, "sm90"),
+    ((8, 700, 4, 128), None, torch.bfloat16, 1 << 20, "sm90"),  # ragged T
+    ((8, 768, 4, 128), None, torch.float32, 1 << 20, "simple"),  # parity path
+    ((8, 768, 4, 96), None, torch.bfloat16, 1 << 20, "simple"),  # head dim
+    ((8, 768, 4, 128), None, torch.bfloat16, (1 << 20) + 2, "simple"),  # base
+    # a do whose t stride of 516 elements (1032 bytes) is not a multiple of
+    # 16 bytes
+    ((8, 768, 4, 128), (768 * 516, 516, 128, 1), torch.bfloat16, 1 << 20,
+     "simple"),
+])
+def test_bwd_variant_is_a_fixed_rule(qkv_shape, do_strides, dtype, ptr,
+                                     variant):
+    """bf16 q, k, v and do with head dim 64 or 128 that TMA can address take
+    the sm90 backward; f32, other head dims and unaligned views the simple
+    one. One ineligible tensor of the four is enough."""
+    ok = _Fake(qkv_shape, torch.bfloat16)
+    strides = _QKV if qkv_shape == (8, 768, 4, 128) and do_strides else None
+    qkv = _Fake(qkv_shape, dtype, strides=strides, ptr=ptr)
+    if do_strides is None:
+        assert K.bwd_variant(qkv, qkv, qkv, qkv) == variant
+        if variant == "simple":
+            assert K.bwd_variant(ok, ok, qkv, ok) == "simple"
+    else:
+        do = _Fake(qkv_shape, dtype, strides=do_strides, ptr=ptr)
+        assert K.bwd_variant(qkv, qkv, qkv, do) == variant
+        assert K.bwd_variant(ok, ok, ok, do) == variant
+
+
+@pytest.mark.parametrize("scale", [None, 0.5, -0.5, 0.0])
+def test_bwd_variant_asks_nothing_of_the_scale(scale):
+    """exp(s * scale - lse) holds for any scale: a scale the sm90 forward
+    refuses still takes the sm90 backward."""
+    t = _Fake((8, 768, 4, 128))
+    assert K.bwd_variant(t, t, t, t) == "sm90"
+    assert K.fwd_variant(t, t, t, scale) == ("sm90" if scale is None or scale > 0
+                                             else "simple")
+
+
 def test_flash_supported_checks_kv_too():
     q = _Fake((8, 256, 4, 128))
     assert A.flash_supported(q, _Fake((8, 768, 4, 128)))  # Tq != Tkv
@@ -303,17 +347,23 @@ def test_auto_on_cpu_resolves_to_xla(monkeypatch):
 
 
 def test_flash_block_sizes_are_the_kernels_tiles():
-    """The forward's edges are its variant's: 192 q rows (three consumer
-    warpgroups of 64) and 64-row k stages for sm90, 64 x 64 for simple."""
+    """Each kernel's edges are its variant's: for sm90, 192 q rows (three
+    consumer warpgroups of 64) and 64-row k stages forward, and 64
+    resident rows over 64-row stages in both backward kernels; for simple,
+    64 x 64 forward and dQ, 64 kv rows over 32-row q steps in dK/dV."""
     bs = A.flash_block_sizes(700, 768)
     assert A.FLASH_BLOCK == bs["block_q"] == K.FWD_BLOCKS["sm90"][0] == 192
     assert bs["grid_fwd"] == 4 and bs["grid_dkv"] == 12 and bs["grid_dq"] == 11
-    assert (bs["block_k"], bs["block_k_dkv"], bs["block_q_dkv"]) == (64, 64, 32)
+    assert (bs["block_k"], bs["block_k_dkv"], bs["block_q_dkv"]) == (64, 64, 64)
+    assert (bs["block_q_dq"], bs["block_k_dq"]) == (64, 64)
     simple = A.flash_block_sizes(700, 768, "simple")
     assert (simple["block_q"], simple["block_k"], simple["grid_fwd"]) == (64, 64, 11)
+    assert (simple["block_k_dkv"], simple["block_q_dkv"], simple["grid_dkv"]) == (64, 32, 12)
+    assert (simple["block_q_dq"], simple["block_k_dq"], simple["grid_dq"]) == (64, 64, 11)
     backward = [key for key in bs if "dkv" in key or "dq" in key]
     assert len(backward) == 6
-    assert all(simple[key] == bs[key] for key in backward)
+    assert all(v <= A.FLASH_BLOCK for key in backward
+               for v in (bs[key], simple[key]) if key.startswith("block"))
 
 
 def test_wrappers_reject_mismatched_inputs():
@@ -373,8 +423,14 @@ def test_kernels_match_plain_versions_on_card(cuda_card, b, tq, tk, h, d,
     assert (o.float() - o_ref.float()).abs().max() <= fwd_tol
     assert (lse - lse_ref).abs().max() <= 1e-3
     di = K.attention_delta(o, do)
+    assert K.bwd_variant(q, k, v, do) == want_variant
+    before = [dict(fn.launches_by_variant) for fn in (
+        K.flash_attention_bwd_dkv, K.flash_attention_bwd_dq)]
     got = (*K.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal),
            K.flash_attention_bwd_dq(q, k, v, do, lse, di, causal))
+    for fn, was in zip((K.flash_attention_bwd_dkv, K.flash_attention_bwd_dq),
+                       before):
+        assert fn.launches_by_variant[want_variant] == was[want_variant] + 1
     want = (*K.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, causal),
             K.flash_attention_bwd_dq_plain(q, k, v, do, lse, di, causal))
     rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -409,3 +465,26 @@ def test_what_sm90_cannot_take_runs_the_simple_forward_on_card(cuda_card,
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     assert (o.float() - o_ref.float()).abs().max() <= 2e-2
     assert (lse - lse_ref).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal", [(128, False), (128, True), (64, True)])
+def test_backward_kernels_are_deterministic_on_card(cuda_card, d, causal):
+    """Two calls of each sm90 backward kernel on the same inputs give
+    bit-identical dk, dv and dq: each output row is summed by one block in
+    a fixed order, with no atomics."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn((2, 700, 3, 4, d), generator=gen,
+                      device=cuda_card).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((2, 700, 4, d), generator=gen,
+                     device=cuda_card).to(torch.bfloat16)
+    assert K.bwd_variant(q, k, v, do) == "sm90"
+    o, lse = K.flash_attention_fwd(q, k, v, causal)
+    di = K.attention_delta(o, do)
+    first = (*K.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal),
+             K.flash_attention_bwd_dq(q, k, v, do, lse, di, causal))
+    second = (*K.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal),
+              K.flash_attention_bwd_dq(q, k, v, do, lse, di, causal))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

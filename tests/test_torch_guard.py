@@ -316,6 +316,139 @@ def test_a_negative_scale_never_reaches_the_sm90_forward(monkeypatch):
     assert libs == ["flash_attention", "flash_attention"]
 
 
+class _FailingSm90BwdLib:
+    """The sm90 backward's library, whose launches report
+    cudaErrorMemoryAllocation."""
+
+    def __init__(self):
+        self.bjt_flash_bwd_dkv_sm90 = lambda *a: 2
+        self.bjt_flash_bwd_dq_sm90 = lambda *a: 2
+        self.bjt_flash_bwd_sm90_error = lambda code: b"out of memory"
+
+
+def _sm90_bwd_args(d, dtype=torch.bfloat16):
+    """q, k, v as views of one (B, T, 3, H, D) buffer, do, and f32 lse/di:
+    what the sm90 backward takes."""
+    from blendjax_torch.kernels import attention as K
+
+    qkv = torch.zeros((2, 16, 3, 2, d), dtype=dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.zeros((2, 16, 2, d), dtype=dtype)
+    lse = torch.zeros((2, 2, 16))
+    assert K.bwd_variant(q, k, v, do) == (
+        "sm90" if dtype == torch.bfloat16 else "simple")
+    return q, k, v, do, lse, lse.clone()
+
+
+@pytest.mark.parametrize("wrapper", ["bwd_dkv", "bwd_dq"])
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_a_failing_sm90_backward_raises(monkeypatch, wrapper, d, causal):
+    """An sm90-eligible backward request whose library fails raises: the
+    simple entry point and the plain version never run, and nothing is
+    counted."""
+    from blendjax_torch.kernels import attention as K
+
+    args = _sm90_bwd_args(d)
+    fn = getattr(K, f"flash_attention_{wrapper}")
+    before = (fn.launches, dict(fn.launches_by_variant))
+    _make_cuda_requests_fail(monkeypatch, K)  # the simple entry fails too
+    libs = []
+
+    def load(name):
+        libs.append(name)
+        if name != "flash_bwd_sm90":
+            raise AssertionError(f"an sm90 request loaded {name}")
+        return _FailingSm90BwdLib()
+
+    monkeypatch.setattr(K, "load", load)
+    with pytest.raises(RuntimeError, match=(
+            f"bjt_flash_{wrapper}_sm90 launch failed: out of memory")):
+        fn(*args, causal)
+    assert libs == ["flash_bwd_sm90"]
+
+    def no_build(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(K, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fn(*args, causal)
+    assert (fn.launches, fn.launches_by_variant) == before
+
+
+class _RecordingFlashLib:
+    """Every flash entry point succeeds and records its call."""
+
+    def __init__(self):
+        self.calls = []
+        for name in ("bjt_flash_bwd_dkv", "bjt_flash_bwd_dq",
+                     "bjt_flash_bwd_dkv_sm90", "bjt_flash_bwd_dq_sm90"):
+            setattr(self, name,
+                    lambda *a, _n=name: self.calls.append((_n, a)) or 0)
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "sm90"),
+                                           (torch.float32, "simple")])
+def test_backward_launches_count_by_variant(monkeypatch, dtype, variant):
+    """Each backward launch adds one to its wrapper's count and to its
+    variant's, and calls that variant's entry point once; a negative scale
+    still takes sm90 and reaches the entry point as given."""
+    from blendjax_torch.kernels import attention as K
+
+    q, k, v, do, lse, di = _sm90_bwd_args(128, dtype)
+    lib = _RecordingFlashLib()
+    libs = []
+
+    def load(name):
+        libs.append(name)
+        return lib
+
+    _make_cuda_requests_fail(monkeypatch, K)
+    monkeypatch.setattr(K, "load", load)
+    wrappers = (K.flash_attention_bwd_dkv, K.flash_attention_bwd_dq)
+    before = [(fn.launches, dict(fn.launches_by_variant)) for fn in wrappers]
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, do, lse, di, True, -0.25)
+    dq = K.flash_attention_bwd_dq(q, k, v, do, lse, di, True, -0.25)
+    assert dk.shape == dv.shape == k.shape and dq.shape == q.shape
+    assert dq.dtype == dk.dtype == dtype
+    for fn, (launches, by_variant) in zip(wrappers, before):
+        assert fn.launches == launches + 1
+        other = "simple" if variant == "sm90" else "sm90"
+        assert fn.launches_by_variant[variant] == by_variant[variant] + 1
+        assert fn.launches_by_variant[other] == by_variant[other]
+    suffix = "_sm90" if variant == "sm90" else ""
+    assert [name for name, _ in lib.calls] == [
+        f"bjt_flash_bwd_dkv{suffix}", f"bjt_flash_bwd_dq{suffix}"]
+    assert libs == ["flash_bwd_sm90" if variant == "sm90"
+                    else "flash_attention"] * 2
+    for _, call in lib.calls:
+        assert pytest.approx(-0.25) in [a for a in call if isinstance(a, float)]
+
+
+def test_library_path_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """An edited csrc/*.cuh gives every library a new name, so a stale
+    build is never loaded; so does an edited source, for its own library."""
+    import shutil
+
+    from blendjax_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert (csrc / "sm90.cuh").exists()
+    names = ("flash_fwd_sm90", "flash_bwd_sm90", "decode_scatter")
+    first = {n: build.library_path(n) for n in names}
+    assert first == {n: build.library_path(n) for n in names}  # stable
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = {n: build.library_path(n) for n in names}
+    assert all(first[n] != second[n] for n in names)
+    source = csrc / "flash_bwd_sm90.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    third = {n: build.library_path(n) for n in names}
+    assert third["flash_bwd_sm90"] != second["flash_bwd_sm90"]
+    assert third["flash_fwd_sm90"] == second["flash_fwd_sm90"]
+
+
 class _Entry:
     """A recording stand-in for a ctypes function: counts how often its
     signature is set and records each call."""
