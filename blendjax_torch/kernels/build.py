@@ -7,18 +7,22 @@ the source, every header of ``csrc/`` (``*.cuh``, which sources share) and
 the flags, so an edited source or header rebuilds, and lands in
 ``build/blendjax_torch_kernels/`` beside the package (listed in
 ``.gitignore``). :func:`build` compiles every missing library at once,
-one ``nvcc`` process per source. Nothing here runs at import time.
+one ``nvcc`` process per source (:mod:`blendjax_torch.libbuild`). Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
+
+from blendjax_torch import libbuild
+from blendjax_torch.libbuild import entry
+
+__all__ = ["SOURCES", "build", "entry", "library_path", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (
@@ -50,12 +54,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    digest = digest.hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return libbuild.library_path(CSRC / f"{name}.cu", BUILD_DIR,
+                                 ("nvcc", *NVCC_FLAGS),
+                                 sorted(CSRC.glob("*.cuh")))
 
 
 def build(names=SOURCES) -> dict:
@@ -63,56 +64,17 @@ def build(names=SOURCES) -> dict:
     ``nvcc`` processes started together. Returns ``{name: compiler
     output}`` (``-Xptxas -v`` register and shared-memory report), or
     ``"cached"`` for a library that already existed."""
-    jobs = {}
-    for name in names:
-        so = library_path(name)
-        if so.exists():
-            jobs[name] = None
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs[name] = (proc, tmp, so)
-    logs = {}
-    for name, job in jobs.items():
-        if job is None:
-            logs[name] = "cached"
-            continue
-        proc, tmp, so = job
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-        logs[name] = out
-    return logs
+    missing = [n for n in names if not library_path(n).exists()]
+    command = (nvcc_path(), *NVCC_FLAGS) if missing else ()
+    return libbuild.build({
+        n: (command, CSRC / f"{n}.cu", library_path(n)) for n in names})
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name``, built if needed. A
-    library already loaded is returned without taking the lock."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build((name,))
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
-        return lib
+def load(name: str):
+    """The loaded library of kernel source ``name``, built if needed."""
 
+    def make():
+        build((name,))
+        return ctypes.CDLL(str(library_path(name)))
 
-def entry(lib, name: str, argtypes, restype=ctypes.c_int):
-    """``lib``'s C function ``name`` with its ctypes signature, which is set
-    on the first call for that library only."""
-    bound = vars(lib).setdefault("_bjt_entries", {})
-    fn = bound.get(name)
-    if fn is None:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-        bound[name] = fn
-    return fn
+    return libbuild.load(_libs, _lock, name, make)

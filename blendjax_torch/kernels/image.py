@@ -17,11 +17,10 @@ import functools
 
 import torch
 
-from blendjax_torch.kernels.build import load
+from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.kernels.decode import _aligned16, _raise_on, _stream
 
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCKS_PER_SM = 8  # grid cap of the grid-stride loop
 
 
 def gamma_normalize_plain(x, gamma: float = 2.2, dtype=torch.float32):
@@ -41,8 +40,8 @@ def _check(x, dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count * BLOCKS_PER_SM
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gamma_normalize(x, gamma: float = 2.2, dtype=torch.float32):
@@ -53,15 +52,15 @@ def gamma_normalize(x, gamma: float = 2.2, dtype=torch.float32):
         raise ValueError("x must be contiguous for the CUDA kernel")
     out = torch.empty(x.shape, dtype=dtype, device=x.device)
     lib = load("gamma_normalize")
-    fn = lib.bjt_gamma_normalize
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn = entry(lib, "bjt_gamma_normalize",
+               [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p])
+    words = x.data_ptr() % 4 == 0 and _aligned16(out)
     code = fn(
         x.data_ptr(), out.data_ptr(), x.numel(), OUT_DTYPES[dtype],
-        int(_aligned16(x, out)), 1.0 / 255.0, 1.0 / gamma,
-        _max_blocks(x.device.index or 0), _stream(x.device),
+        int(words), 1.0 / 255.0, 1.0 / gamma,
+        _sm_count(x.device.index or 0), _stream(x.device),
     )
     _raise_on(lib, "bjt_gamma_normalize_error", code, "gamma_normalize")
     gamma_normalize.launches += 1

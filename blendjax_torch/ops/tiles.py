@@ -122,11 +122,13 @@ def tile_grid(shape, tile=TILE):
 class TileDeltaEncoder:
     """Per-stream encoder: images -> ``(idx, tiles)`` deltas against ``ref``.
 
-    The changed-tile scan is the numpy path of the JAX package's encoder
-    (its C++ helper is an exact twin and is not part of this port).
+    The changed-tile scan runs in the port's host C++
+    (``blendjax_torch/_native/tiledelta.cpp`` ``bjt_tile_delta``, built at
+    construction; a failed build raises). ``native=False`` runs the numpy
+    twin, the numpy path of the JAX package's encoder: the same deltas.
     """
 
-    def __init__(self, ref: np.ndarray, tile=TILE):
+    def __init__(self, ref: np.ndarray, tile=TILE, native: bool = True):
         ref = np.ascontiguousarray(ref)
         if ref.dtype != np.uint8 or ref.ndim != 3:
             raise ValueError(
@@ -139,6 +141,11 @@ class TileDeltaEncoder:
         c = ref.shape[2]
         self._idx = np.empty((self.num_tiles,), np.int32)
         self._tiles = np.empty((self.num_tiles, self.th, self.tw, c), np.uint8)
+        self.native = bool(native)
+        if self.native:
+            from blendjax_torch._native import tile_delta
+
+            self._scan = tile_delta()
 
     def tile_bounds(self, hint):
         """Pixel rect ``hint`` -> tile-grid scan bounds ``(ty0, ty1, tx0,
@@ -168,7 +175,15 @@ class TileDeltaEncoder:
         ty0, ty1, tx0, tx1 = self.tile_bounds(hint)
         if ty0 >= ty1 or tx0 >= tx1:
             return self._idx[:0], self._tiles[:0]
-        c = self.ref.shape[2]
+        h, w, c = self.ref.shape
+        if self.native:
+            img = np.ascontiguousarray(img)
+            k = self._scan(
+                img.ctypes.data, self.ref.ctypes.data, h, w, c, th, tw,
+                ty0, ty1, tx0, tx1, self._idx.ctypes.data,
+                self._tiles.ctypes.data,
+            )
+            return self._idx[:k], self._tiles[:k]
         v = img.reshape(gh, th, gw, tw, c)
         r = self.ref.reshape(gh, th, gw, tw, c)
         sub = (v[ty0:ty1, :, tx0:tx1] != r[ty0:ty1, :, tx0:tx1]).any(
@@ -271,10 +286,22 @@ def tile_ref_np(ref: np.ndarray, tile=TILE) -> np.ndarray:
 # -- host half: palette codec -------------------------------------------------
 
 
-def _palettize_flat(flat: np.ndarray, max_colors: int):
+def _palettize_flat(flat: np.ndarray, max_colors: int, native: bool = True):
     """(N, C) uint8 pixels -> ``(idx (N,) uint8, palette (max_colors, C),
-    count)``, or ``None`` with more than ``max_colors`` distinct colors."""
+    count)``, or ``None`` with more than ``max_colors`` distinct colors.
+    ``native`` runs the port's C++ palettizer (``bjt_palettize``; colours
+    numbered by first sight, and ``None`` for C > 4 as well); ``False`` the
+    numpy twin (colours numbered by value)."""
     n, c = flat.shape
+    if native:
+        from blendjax_torch._native import palettize
+
+        flat = np.ascontiguousarray(flat)
+        pal = np.zeros((max_colors, c), np.uint8)
+        idx = np.empty((n,), np.uint8)
+        count = palettize()(flat.ctypes.data, n, c, max_colors,
+                            pal.ctypes.data, idx.ctypes.data)
+        return None if count < 0 else (idx, pal, count)
     key = np.zeros(n, np.uint32)
     for j in range(c):
         key |= flat[:, j].astype(np.uint32) << (8 * j)
@@ -288,15 +315,17 @@ def _palettize_flat(flat: np.ndarray, max_colors: int):
     return idx32.astype(np.uint8), pal, count
 
 
-def palettize_tiles(tiles: np.ndarray, max_colors: int = 256):
+def palettize_tiles(tiles: np.ndarray, max_colors: int = 256,
+                    native: bool = True):
     """Palette-compress a packed tile array (B, K, th, tw, C): returns
     ``(packed, palette, bits)`` (2/4/8-bit indices by the batch's color
-    count; palette (4|16|256, C) zero-padded), or ``None``."""
+    count; palette (4|16|256, C) zero-padded), or ``None``. ``native``:
+    as :func:`_palettize_flat`."""
     max_colors = min(int(max_colors), 256)
     b, k, th, tw, c = tiles.shape
     tt = th * tw
     out = _palettize_flat(
-        np.ascontiguousarray(tiles).reshape(-1, c), max_colors
+        np.ascontiguousarray(tiles).reshape(-1, c), max_colors, native
     )
     if out is None:
         return None

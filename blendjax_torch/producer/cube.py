@@ -13,12 +13,28 @@ prebatched message per ``--batch`` frames.
 The bound address (wildcard ports resolve at bind time) is written to
 ``--addr-file`` so the consumer can connect. ``--frames N`` stops after N
 frames and flushes the partial batch; the default streams until killed.
+
+Rendering, the changed-tile scan and the palettizer run in the port's host
+C++ (``blendjax_torch/_native``, built with g++ at first use; a failed
+build stops the producer). ``--no-native`` is for a host without a C++
+compiler: the producer then runs the numpy twins, at about a twentieth of
+the rate, instead of stopping.
+On stderr the producer says once, at start, which path it runs (a line
+``blendjax_torch.producer.cube path native ...`` or ``... path numpy``),
+and every 64 frames prints ``blendjax_torch.producer.cube stats`` and a
+JSON object of its totals: frames, the ms per frame spent rendering,
+encoding and publishing (serialising and sending: the send waits while the
+consumer's queue is full, so a long publish means the consumer is the
+bound), and its own rate without the publish (``own_frames_s``).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
+import time
 
 import numpy as np
 
@@ -47,6 +63,10 @@ def parse_args(argv=None):
     parser.add_argument("--tile-capacity", type=int, default=0,
                         help="pin the per-frame changed-tile capacity "
                         "(0 = per-stream high-water mark)")
+    parser.add_argument("--no-native", action="store_true",
+                        help="render, scan and palettize with the numpy "
+                        "twins instead of the host C++ (for a host without "
+                        "g++)")
     opts = parser.parse_args(argv)
     if opts.batch < 2:
         parser.error("--encoding tile requires --batch > 1")
@@ -55,9 +75,38 @@ def parse_args(argv=None):
     return opts
 
 
+REPORT_EVERY = 64  # frames between two stats lines on stderr
+
+
+class _TimedPublisher:
+    """The socket's ``publish``, with the seconds spent in it summed."""
+
+    def __init__(self, pub):
+        self.pub = pub
+        self.seconds = 0.0
+
+    def publish(self, **msg) -> None:
+        t0 = time.perf_counter()
+        self.pub.publish(**msg)
+        self.seconds += time.perf_counter() - t0
+
+
+def _say(line: str) -> None:
+    print(f"blendjax_torch.producer.cube {line}", file=sys.stderr, flush=True)
+
+
 def main(argv=None) -> None:
     opts = parse_args(argv)
-    scene = CubeScene(shape=tuple(opts.shape), seed=opts.seed)
+    native = not opts.no_native
+    scene = CubeScene(shape=tuple(opts.shape), seed=opts.seed, native=native)
+    if native:
+        from blendjax_torch._native.build import paths
+
+        libs = paths()
+        _say(f"path native: C++ render, tile scan and palettizer "
+             f"({libs['rasterizer']}, {libs['tiledelta']})")
+    else:
+        _say("path numpy: numpy render, tile scan and palettizer")
     pub = DataPublisherSocket(opts.bind, btid=opts.btid, lingerms=10000,
                               send_hwm=2)
     if opts.addr_file:
@@ -65,19 +114,23 @@ def main(argv=None) -> None:
         with open(tmp, "w") as f:
             f.write(pub.addr)
         os.replace(tmp, opts.addr_file)
+    timed = _TimedPublisher(pub)
     tile = opts.tile[0] if len(opts.tile) == 1 else tuple(opts.tile)
     tiles = TileBatchPublisher(
-        pub, scene.background_image(), opts.batch, tile=tile,
+        timed, scene.background_image(), opts.batch, tile=tile,
         alpha_slice=not opts.tile_rgba, ref_interval=opts.ref_interval,
-        capacity=opts.tile_capacity or None,
+        capacity=opts.tile_capacity or None, native=native,
     )
     h, w = opts.shape
     framebuf = np.empty((h, w, 4), np.uint8)
     frame = 1
+    render_s = add_s = 0.0
     try:
         while opts.frames <= 0 or frame <= opts.frames:
+            t0 = time.perf_counter()
             scene.step(frame)
             scene.render(out=framebuf)
+            t1 = time.perf_counter()
             tiles.add(
                 framebuf,
                 # outside the rect just drawn the frame is background
@@ -87,6 +140,19 @@ def main(argv=None) -> None:
                 ).astype(np.float32),
                 frameid=np.int64(frame),
             )
+            t2 = time.perf_counter()
+            render_s += t1 - t0
+            add_s += t2 - t1
+            if frame % REPORT_EVERY == 0:
+                encode_s = add_s - timed.seconds
+                _say("stats " + json.dumps({
+                    "btid": opts.btid, "path": "native" if native else "numpy",
+                    "frames": frame,
+                    "render_ms": render_s / frame * 1e3,
+                    "encode_ms": encode_s / frame * 1e3,
+                    "publish_ms": timed.seconds / frame * 1e3,
+                    "own_frames_s": frame / (render_s + encode_s),
+                }))
             frame += 1
         tiles.flush()
     finally:

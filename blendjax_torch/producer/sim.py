@@ -1,6 +1,7 @@
-"""Headless cube scene and its software rasterizer (copied from the numpy
-path of ``blendjax/producer/sim.py``; the C++ one-call renderer there is an
-exact twin and is not part of this port).
+"""Headless cube scene and its software rasterizer (copied from
+``blendjax/producer/sim.py``): each frame renders in one call of the port's
+host C++ (``blendjax_torch/_native/rasterizer.cpp``), or with
+``native=False`` through the numpy twin.
 
 :class:`CubeScene` is the benchmark scene: one cube, randomly rotated and
 recoloured each frame, publishing ``image`` (H, W, 4) uint8 plus the
@@ -58,11 +59,22 @@ class Rasterizer:
     re-rendering into the same buffer repaints only the union of the last
     drawn rect and the new geometry's bbox (the rest is background by
     induction). ``last_drawn`` is the drawn rect ``(y0, y1, x0, x1)``, the
-    tile encoder's scan hint."""
+    tile encoder's scan hint.
 
-    def __init__(self, shape=(480, 640), background=(0, 0, 0, 255)):
+    ``native=True`` renders each frame in one call of ``bjt_render_frame``
+    (projection, flat shading, near culling, the dirty-rect clear and a
+    span-solved fill), built at construction; a failed build raises.
+    ``native=False`` runs the numpy twin, which evaluates the barycentric
+    weights per pixel: the two differ only at triangle-edge pixels, by
+    rounding. The C++ path takes a camera of the rasterizer's shape and
+    uint8 (N, 3|4) colours, one row per triangle, and raises otherwise."""
+
+    def __init__(self, shape=(480, 640), background=(0, 0, 0, 255),
+                 native: bool = True):
         self.shape = (int(shape[0]), int(shape[1]))
         self.background = np.ascontiguousarray(background, np.uint8)
+        if self.background.shape != (4,):
+            raise ValueError(f"background must be RGBA, got {background!r}")
         h, w = self.shape
         self._color = np.empty((h, w, 4), np.uint8)
         self._depth = np.empty((h, w), np.float32)
@@ -70,6 +82,13 @@ class Rasterizer:
         self._light = light / np.linalg.norm(light)
         self._prev_target: np.ndarray | None = None
         self.last_drawn: tuple | None = None
+        self.native = bool(native)
+        if self.native:
+            from blendjax_torch._native import render_frame
+
+            self._render_frame = render_frame()
+            self._rect_prev = np.empty(4, np.int64)
+            self._rect_out = np.empty(4, np.int64)
 
     def render(self, camera: Camera, triangles, colors, out=None) -> np.ndarray:
         """Render world-space ``triangles`` (N, 3, 3) filled with
@@ -86,6 +105,9 @@ class Rasterizer:
                 f"{out.shape} {out.dtype}"
             )
         triangles = np.asarray(triangles, np.float64)
+        if self.native:
+            self._render_native(camera, triangles, colors, target)
+            return target.copy() if out is None else target
         px = depth = colors_v = shade_v = bbox = None
         if triangles.size:
             colors = np.asarray(colors)
@@ -121,6 +143,48 @@ class Rasterizer:
         self._prev_target = target
         self.last_drawn = bbox
         return target.copy() if out is None else target
+
+    def _render_native(self, camera, triangles, colors, target) -> None:
+        """One ``bjt_render_frame`` call: project, shade, cull, clear the
+        dirty rect (the whole frame for a new target) and fill."""
+        h, w = self.shape
+        n = len(triangles)
+        if triangles.ndim != 3 or triangles.shape[1:] != (3, 3):
+            raise ValueError(
+                f"triangles must be (N, 3, 3), got {triangles.shape}")
+        if camera.shape != self.shape:
+            raise ValueError(
+                f"camera shape {camera.shape} != rasterizer shape {self.shape}"
+            )
+        colors = np.asarray(colors) if n else np.empty((0, 4), np.uint8)
+        if not (colors.dtype == np.uint8 and colors.ndim == 2
+                and colors.shape[1] in (3, 4) and len(colors) == n):
+            raise ValueError(
+                f"colors must be ({n}, 3|4) uint8, got {colors.shape} "
+                f"{colors.dtype}"
+            )
+        if colors.shape[1] == 3:
+            colors = np.concatenate(
+                [colors, np.full((n, 1), 255, np.uint8)], axis=1
+            )
+        colors = np.ascontiguousarray(colors)
+        tri = np.ascontiguousarray(triangles)
+        if self._prev_target is not target:
+            self._rect_prev[0] = -2  # a new target: clear all of it
+        elif self.last_drawn is None:
+            self._rect_prev[0] = -1  # nothing drawn: clear the new bbox
+        else:
+            self._rect_prev[:] = self.last_drawn
+        self._render_frame(
+            tri.ctypes.data, colors.ctypes.data, n, self._light.ctypes.data,
+            camera._view.ctypes.data, camera._proj.ctypes.data,
+            camera.clip_near, target.ctypes.data, self._depth.ctypes.data,
+            h, w, self.background.ctypes.data, self._rect_prev.ctypes.data,
+            self._rect_out.ctypes.data,
+        )
+        self._prev_target = target
+        self.last_drawn = (None if self._rect_out[0] < 0
+                           else tuple(int(v) for v in self._rect_out))
 
     def _clear(self, target, new_bbox) -> None:
         rect = None
@@ -178,15 +242,16 @@ class Rasterizer:
 
 class CubeScene:
     """The benchmark scene: a unit cube, randomly rotated and recoloured
-    every frame (``step``), seen by a fixed camera."""
+    every frame (``step``), seen by a fixed camera. ``native`` picks the
+    rasterizer's path (:class:`Rasterizer`)."""
 
     def __init__(self, shape=(480, 640), seed: int = 0,
-                 half_extent: float = 1.0):
+                 half_extent: float = 1.0, native: bool = True):
         self.rng = np.random.default_rng(seed)
         self.camera = Camera.look_at(
             eye=(6.0, -6.0, 4.0), target=(0, 0, 0), shape=shape
         )
-        self.raster = Rasterizer(shape=shape)
+        self.raster = Rasterizer(shape=shape, native=native)
         self.half_extent = float(half_extent)
         self.rotation = np.eye(3)
         self.color = np.array([200, 80, 40], np.uint8)

@@ -13,8 +13,11 @@ itself in the stream's first message (and every ``ref_interval``-th).
 - **Palette**: when the batch's changed tiles hold at most 256 colours,
   the tiles ship as 2/4/8-bit indices into one batch palette.
 
-The JAX package's fused native scan+palettize path (per-frame palettes)
-is not part of this port; the consumer decodes both palette forms.
+The changed-tile scan and the palettizer run in the port's host C++
+(``native=True``, the default; a failed build raises) or in their numpy
+twins (``native=False``). The JAX package's fused scan+palettize path
+(per-frame palettes) is not part of this port; the consumer decodes both
+palette forms.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ class TileBatchPublisher:
 
     def __init__(self, publisher, ref: np.ndarray, batch_size: int,
                  tile=TILE, alpha_slice: bool = True, ref_interval: int = 0,
-                 capacity: int | None = None):
+                 capacity: int | None = None, native: bool = True):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self.publisher = publisher
@@ -55,7 +58,8 @@ class TileBatchPublisher:
         self.ref_interval = max(0, int(ref_interval))
         self.palette = True  # latched off after repeated palette misses
         self._palette_misses = 0
-        self.encoder = TileDeltaEncoder(ref, tile=tile)
+        self.native = bool(native)
+        self.encoder = TileDeltaEncoder(ref, tile=tile, native=native)
         self.th, self.tw = self.encoder.th, self.encoder.tw
         self._ref = self.encoder.ref
         if self._ref.shape[2] == 4:
@@ -173,7 +177,8 @@ class TileBatchPublisher:
                 h, w, c, (self.th, self.tw)
             ),
         }
-        compressed = palettize_tiles(tiles) if self.palette else None
+        compressed = (palettize_tiles(tiles, native=self.native)
+                      if self.palette else None)
         if compressed is not None:
             self._palette_misses = 0
             packed, pal, bits = compressed

@@ -45,8 +45,12 @@ Phases (any failure exits non-zero):
    streamformer K1 and each of K4a-c exactly depth x chunk x steps times,
    every K4a-c launch through the sm90 variant;
    losses must be finite with zero sequence gaps and one step call per
-   chunk group. The streamformer leg also times the same model with
-   ``attn_backend="xla"`` (for information) and holds one update of flash
+   chunk group. Every producer must report on stderr that it runs the host
+   C++ path (render, tile scan and palettizer of ``blendjax_torch/_native``);
+   each leg prints the producers' own frames/s (render and encode, the
+   publish left out) beside live img/s and step-alone img/s. The streamformer
+   leg also times the same model with ``attn_backend="xla"`` (for
+   information) and holds one update of flash
    against one of xla from copies of the same state (bf16 bars: rel 1e-2
    before the update, 5e-2 after it);
 5. echo leg (after the three legs above): two cube producers (the
@@ -54,7 +58,7 @@ Phases (any failure exits non-zero):
    (every batch decoded on the card by K1) -> ``EchoingPipeline(capacity=
    256, max_echo_factor=4, emit_draws=True)`` -> ``make_echo_fused_step``
    on full-width ``CubeRegressor()`` -> ``TrainDriver(inflight=2)``, 4
-   warm-up and 96 measured steps. Each decoded fresh batch also goes
+   warm-up and 192 measured steps. Each decoded fresh batch also goes
    through ``uint8_gamma_normalize`` on the card (K3). It fails unless
    fresh + echoed == steps x batch exactly, echoed > 0, no sample is drawn
    more than 4 times, seq_gaps == 0, losses are finite, one step call per
@@ -62,9 +66,13 @@ Phases (any failure exits non-zero):
    launched once per decoded fresh batch; it prints live img/s into the
    step, the fresh frame rate and the unique fraction;
 6. K3 (gamma normalize) against its plain version over all 256 uint8
-   values and at (1, 37, 8, 4), gamma 2.2 and 1.0, f32 and bf16 (f32 max
-   |diff| <= 1e-6, bf16 within one bf16 ulp), and on a decoded batch of
-   the echo leg's stream, where it is timed beside its bytes bound;
+   values, at (1, 37, 8, 4) and at that shape from byte offset 1 (the
+   element path), gamma 2.2 and 1.0, f32 and bf16 (bit-exact, so within
+   the bars f32 max |diff| <= 1e-6 and bf16 one bf16 ulp), and on a
+   decoded batch of the echo leg's stream, where it is timed beside its
+   bytes bound over ``L2_ROUNDS`` copies of the batch in turn (from HBM)
+   and, for information, on that one batch (L2-resident) and beside
+   PyTorch's ``fill_`` of the output alone (the same rotation);
 7. reference: one recorded chunk group decoded on the card against the
    CPU twins (bit-exact); the f32 CubeRegressor forward and the f32
    full-width StreamFormer forward (through the simple f32 flash forward,
@@ -90,13 +98,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (480, 640)
 BATCH = 8
 CHUNK = 4
-FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 24, "warmup": 4}
-SQUARE = {"tile": (16,), "capacity": 288, "steps": 6, "warmup": 1}
+# 96 and 24 measured steps: with the host C++ producers the flagship leg
+# runs ~2000 img/s, and 24 steps lasted 0.38 s, too short to read a rate
+FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 4}
+SQUARE = {"tile": (16,), "capacity": 288, "steps": 24, "warmup": 1}
 STREAMFORMER = {"tile": (16, 32), "capacity": 160, "steps": 8, "warmup": 2}
 # bench.py:measure_live_echo at one echo factor
-# (96 measured steps, not the bench's 24: at ~500 img/s into the step 24
-# steps last 0.4 s, too short a window to read a rate from)
-ECHO = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 4,
+# (192 measured steps, not the bench's 24: at ~600 img/s into the step 24
+# steps last 0.3 s, too short a window to read a rate from)
+ECHO = {"tile": (16, 32), "capacity": 160, "steps": 192, "warmup": 4,
         "reservoir": 256, "max_echo_factor": 4}
 # bench.py:1080-1082, with the flash backend named explicitly
 FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
@@ -165,6 +175,28 @@ def time_ms(fn, reps: int = 20, windows: int = 15) -> dict:
     samples.sort()
     return {"ms": samples[len(samples) // 2], "min_ms": samples[0],
             "max_ms": samples[-1], "host_ms": host * 1e3}
+
+
+# inputs a rotating timing cycles through: at the echo batch, 6 x (9.8 MB in
+# + 39.3 MB f32 out) is about six times the H100's 50 MB L2
+L2_ROUNDS = 6
+
+
+def rotating(fn, inputs):
+    """A call of ``fn`` on each of ``inputs`` in turn, whose result is kept
+    until that input comes round again, so a call finds neither its input
+    nor its output block in L2 when the rounds together outgrow it (a
+    repeated call on one input reads it from L2 and is handed back the
+    output block it just wrote)."""
+    ring = [None] * len(inputs)
+    turn = [0]
+
+    def call():
+        i = turn[0] % len(inputs)
+        turn[0] += 1
+        ring[i] = fn(inputs[i])
+
+    return call
 
 
 def spread(t: dict) -> str:
@@ -533,6 +565,8 @@ def attention_phase(bw: float) -> dict:
 
 
 def start_producers(tmp: str, tile, capacity: int, count: int = 2):
+    """``count`` cube producers on the flagship stream; returns their
+    processes, addresses and stderr log files."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
@@ -543,6 +577,7 @@ def start_producers(tmp: str, tile, capacity: int, count: int = 2):
     leg_dir = tempfile.mkdtemp(dir=tmp)
     for i in range(count):
         addr_file = os.path.join(leg_dir, f"producer{i}.addr")
+        log_file = os.path.join(leg_dir, f"producer{i}.log")
         cmd = [
             sys.executable, "-m", "blendjax_torch.producer.cube",
             "--addr-file", addr_file, "--btid", str(i), "--seed", str(i),
@@ -550,19 +585,23 @@ def start_producers(tmp: str, tile, capacity: int, count: int = 2):
             "--encoding", "tile", "--tile", *map(str, tile), "--tile-rgba",
             "--tile-capacity", str(capacity),
         ]
-        procs.append((subprocess.Popen(cmd, cwd=ROOT, env=env), addr_file))
+        with open(log_file, "w") as log:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stderr=log)
+        procs.append((proc, addr_file, log_file))
     addrs = []
     deadline = time.monotonic() + 120
-    for proc, addr_file in procs:
+    for proc, addr_file, log_file in procs:
         while not os.path.exists(addr_file):
             if proc.poll() is not None:
+                with open(log_file) as f:
+                    print(f.read(), file=sys.stderr)
                 fail(f"producer exited with {proc.returncode} before binding")
             if time.monotonic() > deadline:
                 fail("producer did not bind within 120 s")
             time.sleep(0.05)
         with open(addr_file) as f:
             addrs.append(f.read().strip())
-    return [p for p, _ in procs], addrs
+    return [p for p, _, _ in procs], addrs, [log for _, _, log in procs]
 
 
 def stop_producers(procs) -> None:
@@ -575,6 +614,43 @@ def stop_producers(procs) -> None:
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
+
+
+PRODUCER_LINE = "blendjax_torch.producer.cube "
+
+
+def producer_report(label: str, logs) -> dict:
+    """Each stopped producer's path (its start-up line) and its last stats
+    line; fails unless every producer ran the host C++ path. Returns the
+    per-producer stats and the sum of their own rates (``own_frames_s``:
+    frames over the time spent rendering and encoding)."""
+    stats = []
+    for log in logs:
+        with open(log) as f:
+            lines = [ln[len(PRODUCER_LINE):].strip() for ln in f
+                     if ln.startswith(PRODUCER_LINE)]
+        paths = [ln for ln in lines if ln.startswith("path ")]
+        if len(paths) != 1 or not paths[0].startswith("path native"):
+            fail(f"{label}: producer {log} reported {paths}, not one "
+                 "'path native' line (the host C++ path)")
+        last = [ln for ln in lines if ln.startswith("stats ")][-1:]
+        stats += [json.loads(ln[len("stats "):]) for ln in last]
+    out = {"path": "native", "producers": stats}
+    if len(stats) == len(logs):
+        out["own_frames_s"] = sum(s["own_frames_s"] for s in stats)
+    return out
+
+
+def producer_text(rep: dict) -> str:
+    if "own_frames_s" not in rep:
+        return "producers: path native, frames/s not measured (no stats line)"
+    each = ", ".join(
+        f"{s['own_frames_s']:.1f} ({s['render_ms']:.3f} ms render + "
+        f"{s['encode_ms']:.3f} ms encode per frame; publish "
+        f"{s['publish_ms']:.3f} ms)" for s in rep["producers"])
+    return (f"producers: path native, {rep['own_frames_s']:.1f} frames/s of "
+            f"their own (render + encode) summed over "
+            f"{len(rep['producers'])}; each {each}")
 
 
 KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> its group
@@ -635,7 +711,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
     )
     from blendjax_torch.train import TrainDriver, make_fused_tile_step
 
-    procs, addrs = start_producers(tmp, leg["tile"], leg["capacity"])
+    procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"])
     pipe = StreamDataPipeline(
         addrs, batch_size=BATCH, chunk=CHUNK, timeoutms=60_000
     )
@@ -668,6 +744,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
     finally:
         pipe.stop()
         stop_producers(procs)
+    producers = producer_report(label, logs)
     losses = drv.losses  # drain() appended the final loss
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: non-finite loss in {losses}")
@@ -698,6 +775,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         "step_alone_ms": alone * 1e3,
         "step_alone_img_s": group_images / alone,
         "decode_ms": decode_ms, "last": last, "step": step,
+        "producers": producers,
     }
 
 
@@ -847,7 +925,7 @@ def echo_leg(tmp: str) -> dict:
     )
 
     state = make_train_state(CubeRegressor().init_params(0))
-    procs, addrs = start_producers(tmp, ECHO["tile"], ECHO["capacity"])
+    procs, addrs, logs = start_producers(tmp, ECHO["tile"], ECHO["capacity"])
     pipe = StreamDataPipeline(addrs, batch_size=BATCH, chunk=1,
                               emit_packed=False, timeoutms=60_000)
     tap = GammaTap(pipe)
@@ -887,6 +965,7 @@ def echo_leg(tmp: str) -> dict:
     finally:
         echo.stop()
         stop_producers(procs)
+    producers = producer_report("echo leg", logs)
     losses = drv.losses
     decoded = tap.batches
     checks = [
@@ -931,7 +1010,7 @@ def echo_leg(tmp: str) -> dict:
         "losses": losses, "dispatch_per_step": drv.dispatches / drv.steps,
         "step_alone_ms": alone * 1e3, "step_alone_img_s": BATCH / alone,
         "profile": profile_step(echo_step, state, dict(token)),
-        "gamma_last": tap.last,
+        "gamma_last": tap.last, "producers": producers,
     }
 
 
@@ -951,8 +1030,12 @@ def gamma_close(got, want) -> tuple:
 
 
 def gamma_phase(bw: float, decoded) -> dict:
-    """K3 against its plain version (every uint8 value, odd rows, a
-    decoded batch of the stream), then its time on that batch."""
+    """K3 against its plain version, bit for bit (every uint8 value, odd
+    rows, a view at byte offset 1 that takes the element path, a decoded
+    batch of the stream), then its time on that batch: over
+    ``L2_ROUNDS`` copies in turn (the card time reported), and on one
+    buffer again and again (L2-resident; the method of the earlier
+    readings)."""
     import torch
 
     from blendjax_torch.kernels import gamma_normalize, gamma_normalize_plain
@@ -962,40 +1045,66 @@ def gamma_phase(bw: float, decoded) -> dict:
     if not ok:
         fail(f"K3 on a decoded echo batch: max |diff| {err} vs plain")
     gen = torch.Generator().manual_seed(5)
+    odd = torch.randint(0, 256, (1 + 37 * 8 * 4,), generator=gen,
+                        dtype=torch.uint8).to(frames.device)[1:]
     cases = {
         "all 256 values": torch.arange(256, dtype=torch.uint8).reshape(
             1, 4, 16, 4).to(frames.device),
         "(1, 37, 8, 4)": torch.randint(0, 256, (1, 37, 8, 4), generator=gen,
                                        dtype=torch.uint8).to(frames.device),
+        "(1, 37, 8, 4) at byte offset 1": odd.view(1, 37, 8, 4),
         f"decoded {tuple(frames.shape)}": frames,
     }
     worst = 0.0
     for label, x in cases.items():
         for gamma in (2.2, 1.0):
             for dtype in (torch.float32, torch.bfloat16):
-                e, ok = gamma_close(gamma_normalize(x, gamma, dtype),
-                                    gamma_normalize_plain(x, gamma, dtype))
-                if not ok:
-                    fail(f"K3 {label} gamma {gamma} {dtype}: max |diff| {e}")
+                got = gamma_normalize(x, gamma, dtype)
+                want = gamma_normalize_plain(x, gamma, dtype)
+                e, ok = gamma_close(got, want)
+                if not (ok and torch.equal(got, want)):
+                    fail(f"K3 {label} gamma {gamma} {dtype}: max |diff| {e}, "
+                         "not bit-exact with plain")
                 if dtype == torch.float32:
                     worst = max(worst, e)
         log(f"kernel check gamma_normalize {label}: gamma 2.2 and 1.0, f32 "
-            "and bf16 within their bars")
+            "and bf16 bit-exact with plain")
     torch.cuda.synchronize()
     n = frames.numel()
-    kt = time_ms(lambda: gamma_normalize(frames))
-    pt = time_ms(lambda: gamma_normalize_plain(frames))
-    bf = time_ms(lambda: gamma_normalize(frames, 2.2, torch.bfloat16))
+    xs = [frames.clone() for _ in range(L2_ROUNDS)]
+    kt = time_ms(rotating(gamma_normalize, xs))
+    pt = time_ms(rotating(gamma_normalize_plain, xs))
+    bf = time_ms(rotating(
+        lambda x: gamma_normalize(x, 2.2, torch.bfloat16), xs))
+    hot = time_ms(lambda: gamma_normalize(frames))
+    hot_bf = time_ms(lambda: gamma_normalize(frames, 2.2, torch.bfloat16))
+    # what the card reaches writing only K3's output (PyTorch's fill_, same
+    # rotation, nothing read): a measured floor under the HBM bound
+    floor = {}
+    for key, dtype in (("f32_ms", torch.float32), ("bf16_ms", torch.bfloat16)):
+        outs = [torch.empty(frames.shape, dtype=dtype, device=frames.device)
+                for _ in range(L2_ROUNDS)]
+        floor[key] = time_ms(rotating(lambda o: o.fill_(1.0), outs))["ms"]
+    del xs, outs
     bound_ms = (n + 4 * n) / bw * 1e3
-    log(f"kernel gamma_normalize [decoded {tuple(frames.shape)} uint8 -> f32]: "
-        f"{spread(kt)}, {5 * n / kt['ms'] / 1e6:.0f} GB/s; bound "
-        f"{bound_ms:.4f} ms (bytes: {n / 1e6:.2f} MB in + {4 * n / 1e6:.2f} MB "
-        f"out at {bw / 1e12:.2f} TB/s); plain {spread(pt)}; bf16 out "
-        f"{spread(bf)} (bound {3 * n / bw * 1e3:.4f} ms); no one-call "
+    bf_bound = 3 * n / bw * 1e3
+    log(f"kernel gamma_normalize [decoded {tuple(frames.shape)} uint8 -> f32, "
+        f"{L2_ROUNDS} buffers in turn]: {spread(kt)}, "
+        f"{5 * n / kt['ms'] / 1e6:.0f} GB/s, {bound_ms / kt['ms']:.1%} of the "
+        f"bound {bound_ms:.4f} ms (bytes: {n / 1e6:.2f} MB in + "
+        f"{4 * n / 1e6:.2f} MB out at {bw / 1e12:.2f} TB/s); plain {spread(pt)}; "
+        f"bf16 out {spread(bf)}, {bf_bound / bf['ms']:.1%} of its bound "
+        f"{bf_bound:.4f} ms; one buffer again and again (L2-resident): f32 "
+        f"{spread(hot)}, bf16 {spread(hot_bf)}; PyTorch fill_ of the output "
+        f"alone (writes only, {L2_ROUNDS} buffers in turn): f32 "
+        f"{floor['f32_ms']:.4f} ms, bf16 {floor['bf16_ms']:.4f} ms; no one-call "
         "library yardstick")
     return {"gamma_normalize": {
         "max_abs_err": worst, **kt, "plain_ms": pt["ms"],
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "bf16": {**bf, "bound_ms": bf_bound},
+        "same_buffer": {"f32_ms": hot["ms"], "bf16_ms": hot_bf["ms"]},
+        "output_fill": floor,
     }}
 
 
@@ -1131,6 +1240,9 @@ def main() -> None:
             f"seq_gaps {leg['seq_gaps']}; driver {leg['driver']}; "
             f"final loss {leg['losses'][-1]:.5f}"
         )
+        log(f"slice {name} {producer_text(leg['producers'])}; live "
+            f"{leg['img_s']:.1f} img/s; step alone "
+            f"{leg['step_alone_img_s']:.1f} img/s")
         prof = leg["profile"]
         log(
             f"slice {name} profile of one step call: wall "
@@ -1157,6 +1269,9 @@ def main() -> None:
         f"{echo['dispatch_per_step']:.2f}; driver {echo['driver']}; echo step "
         f"alone {echo['step_alone_ms']:.2f} ms ({echo['step_alone_img_s']:.1f} "
         f"img/s); final loss {echo['losses'][-1]:.5f}")
+    log(f"slice echo {producer_text(echo['producers'])}; fresh "
+        f"{echo['fresh_img_s']:.1f} img/s, live {echo['img_s']:.1f} img/s "
+        f"into the step; step alone {echo['step_alone_img_s']:.1f} img/s")
     log(f"slice echo profile of one step call: wall {ep['wall_ms']:.2f} ms, "
         f"device busy {ep['device_ms']:.2f} ms ({ep['busy']:.1%}) over "
         f"{ep['kernels']} kernels; by group: "
@@ -1193,6 +1308,8 @@ def main() -> None:
             **({"variants": legs["streamformer"]["variants"][name]}
                if name in legs["streamformer"]["variants"] else {}),
             **({"long": m["long"]} if "long" in m else {}),
+            **{k: m[k] for k in ("bf16", "same_buffer", "output_fill")
+               if k in m},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

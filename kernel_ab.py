@@ -1,6 +1,7 @@
-"""Time the K2 (``decode_scatter``), K4a (``flash_attention_fwd``), K4b
-(``flash_attention_bwd_dkv``) and K4c (``flash_attention_bwd_dq``)
-wrappers of checkouts of this repo on one card, with ``chip_smoke.time_ms``
+"""Time the K2 (``decode_scatter``), K3 (``gamma_normalize``), K4a
+(``flash_attention_fwd``), K4b (``flash_attention_bwd_dkv``) and K4c
+(``flash_attention_bwd_dq``) wrappers of checkouts of this repo on one card,
+with ``chip_smoke.time_ms``
 (card time of windows queued behind a sleep kernel, and the host's enqueue
 time per call), so two versions of a kernel compare under one method.
 
@@ -12,11 +13,13 @@ together, into each tree's own ``build/``), then times each TREE in a
 process of its own, in the order given: ``python3 kernel_ab.py PARENT . .
 PARENT`` measures parent, change, change, parent in one run. Shapes are
 the main path's: K2 at B 32, K 288, 16x16x4 slots of 480x640 frames;
-K4a-c on bf16 q/k/v views of one qkv buffer at (8, 768, 4, 128) and
+K3 on an echo batch (8, 480, 640, 4) of uniform random uint8, gamma 2.2,
+f32 and bf16 out, on one buffer and over ``chip_smoke.L2_ROUNDS`` copies in
+turn; K4a-c on bf16 q/k/v views of one qkv buffer at (8, 768, 4, 128) and
 (4, 3072, 4, 128), beside SDPA's forward and its autograd backward (K4b and
 K4c together). Every result is held against its tree's plain version
-first (K2 bit-exact, K4a within 2e-2, K4b/K4c within 2e-2 of the largest
-plain value). Prints a
+first (K2 bit-exact, K3 within 1e-6 f32 / one bf16 ulp, K4a within 2e-2,
+K4b/K4c within 2e-2 of the largest plain value). Prints a
 line per tree, then the card's name and power limit, and last one JSON
 object of every measurement. Needs a CUDA card; exits 1 without one.
 """
@@ -30,8 +33,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("decode_scatter", "flash_attention", "flash_fwd_sm90",
-                  "flash_bwd_sm90")
+KERNEL_SOURCES = ("decode_scatter", "gamma_normalize", "flash_attention",
+                  "flash_fwd_sm90", "flash_bwd_sm90")
 
 
 def smoke():
@@ -67,6 +70,7 @@ def child(tree: str) -> dict:
         raise RuntimeError("decode_scatter != decode_scatter_plain")
     out = {"tree": tree,
            "decode_scatter": cs.time_ms(lambda: D.decode_scatter(ref, idx, tiles))}
+    out.update(gamma_runs(cs))
     for name, (b, t) in (("slice", (8, 768)), ("long", cs.LONG_ATTN)):
         q, k, v, do = cs.attn_inputs(b, t, t, 4, 128, torch.bfloat16, 300)
         o, lse = K.flash_attention_fwd(q, k, v)
@@ -107,6 +111,34 @@ def child(tree: str) -> dict:
         doh = do.transpose(1, 2).contiguous()
         out[f"sdpa_bwd {name}"] = cs.time_ms(lambda: torch.autograd.grad(
             oh, (qh, kh, vh), doh, retain_graph=True))
+    return out
+
+
+def gamma_runs(cs) -> dict:
+    """K3 of the imported tree on one echo batch of random bytes, f32 and
+    bf16 out, each held against the plain version first, then timed on
+    that one buffer again and again (L2-resident) and over
+    ``cs.L2_ROUNDS`` copies of it in turn (``rotating``: from HBM)."""
+    import numpy as np
+    import torch
+
+    from blendjax_torch.kernels import image as I
+
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (cs.BATCH, *cs.SHAPE, 4), dtype=np.uint8)).cuda()
+    xs = [x.clone() for _ in range(cs.L2_ROUNDS)]
+    out = {}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        def fn(t, dt=dt):
+            return I.gamma_normalize(t, 2.2, dt)
+
+        err, ok = cs.gamma_close(fn(x), I.gamma_normalize_plain(x, 2.2, dt))
+        if not ok:
+            raise RuntimeError(f"gamma_normalize {label}: max |diff| {err}")
+        out[f"gamma_normalize {label}"] = {
+            **cs.time_ms(lambda: fn(x)), "max_abs_err": err}
+        out[f"gamma_normalize {label} rotating"] = cs.time_ms(
+            cs.rotating(fn, xs))
     return out
 
 

@@ -72,6 +72,132 @@ def test_the_echo_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+def _docstrings(tree):
+    """The docstring nodes of a module and its classes and functions."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+def test_no_port_source_includes_loads_or_builds_into_the_jax_native_dir():
+    """No C++/CUDA source of the port includes a file outside its own
+    directory, no Python module names ``blendjax/_native`` outside its
+    docstrings, and the host C++ builds into ``build/`` and loads from
+    there."""
+    import re
+
+    from blendjax_torch._native import build
+
+    sources, bad = [], []
+    for root, _dirs, names in os.walk(os.path.join(REPO, "blendjax_torch")):
+        for n in names:
+            path = os.path.join(root, n)
+            rel = os.path.relpath(path, REPO)
+            if n.endswith((".cpp", ".cu", ".cuh")):
+                sources.append(rel)
+                with open(path) as f:
+                    for line in f:
+                        m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+                        if m and ("/" in m.group(1) or ".." in m.group(1)):
+                            bad.append(f"{rel}: {line.strip()}")
+            elif n.endswith(".py"):
+                with open(path) as f:
+                    tree = ast.parse(f.read(), path)
+                docs = _docstrings(tree)
+                for node in ast.walk(tree):
+                    if (isinstance(node, ast.Constant)
+                            and isinstance(node.value, str)
+                            and id(node) not in docs
+                            and re.search(r"blendjax[/.]_native",
+                                          node.value)):
+                        bad.append(f"{rel}: {node.value!r}")
+    assert "blendjax_torch/_native/rasterizer.cpp" in sources
+    assert "blendjax_torch/_native/tiledelta.cpp" in sources
+    assert not bad, bad
+    assert str(build.SRC) == os.path.join(REPO, "blendjax_torch", "_native")
+    assert str(build.BUILD_DIR) == os.path.join(REPO, "build",
+                                                "blendjax_torch_native")
+    for name in ("rasterizer", "tiledelta"):
+        assert os.path.dirname(build.library_path(name)) == str(
+            build.BUILD_DIR)
+        assert os.path.dirname(build.load(name)._name) == str(build.BUILD_DIR)
+
+
+@pytest.mark.parametrize("compiler", ["/nonexistent/g++", "false"],
+                         ids=["missing", "failing"])
+def test_the_producers_raise_when_the_cpp_fails_to_build(monkeypatch,
+                                                         tmp_path, capsys,
+                                                         compiler):
+    """With a compiler that is missing or fails, every producer-side entry
+    point on the C++ path raises; none runs its numpy twin instead. With
+    ``native=False`` they run, and so does the cube producer with
+    ``--no-native`` (a host without g++)."""
+    from blendjax_torch._native import build
+    from blendjax_torch.ops import tiles as T
+    from blendjax_torch.producer import (
+        CubeScene,
+        Rasterizer,
+        TileBatchPublisher,
+        cube,
+    )
+
+    monkeypatch.setattr(build, "CXX", compiler)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(build, "_libs", {})
+    ref = np.zeros((32, 64, 4), np.uint8)
+    tiles = np.zeros((1, 2, 16, 32, 4), np.uint8)
+
+    class Sink:
+        def publish(self, **msg):
+            raise AssertionError("nothing may be published")
+
+    calls = [
+        lambda native: Rasterizer((32, 64), native=native),
+        lambda native: CubeScene((32, 64), native=native),
+        lambda native: T.TileDeltaEncoder(ref, (16, 32), native=native),
+        lambda native: T.palettize_tiles(tiles, native=native),
+        lambda native: TileBatchPublisher(Sink(), ref, 2, (16, 32),
+                                          native=native),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="_native/"):
+            call(True)
+        call(False)
+    sent = []
+
+    class Socket:  # the producer's PUSH socket, recording what it sends
+        addr = "tcp://127.0.0.1:1"
+
+        def __init__(self, *a, **kw):
+            pass
+
+        def publish(self, **msg):
+            sent.append(msg)
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(cube, "DataPublisherSocket", Socket)
+    monkeypatch.setattr(cube, "term_context", lambda: None)
+    args = ["--shape", "32", "64", "--frames", "2"]
+    with pytest.raises(RuntimeError, match="_native/"):
+        cube.main(args)
+    assert not sent
+    cube.main([*args, "--no-native"])
+    assert len(sent) == 1 and list(sent[0]["frameid"]) == [1, 2]
+    said = [ln for ln in capsys.readouterr().err.splitlines()
+            if ln.startswith("blendjax_torch.producer.cube path")]
+    assert len(said) == 1 and said[0].startswith(
+        "blendjax_torch.producer.cube path numpy")
+    assert not list((tmp_path / "native").glob("*"))  # no library, no temp
+
+
 def test_entry_points_without_a_gpu_raise(monkeypatch):
     from blendjax_torch.data import DeviceFeeder, StreamDataPipeline
     from blendjax_torch.device import resolve_device
@@ -159,7 +285,7 @@ def test_a_cuda_gamma_request_never_falls_back(monkeypatch, dtype):
     monkeypatch.setattr(K, "gamma_normalize_plain", plain)
     monkeypatch.setattr(K, "_check", lambda *a: "cuda")
     monkeypatch.setattr(K, "_stream", lambda device: 0)
-    monkeypatch.setattr(K, "_max_blocks", lambda index: 1056)
+    monkeypatch.setattr(K, "_sm_count", lambda index: 132)
     monkeypatch.setattr(K, "load", lambda name: _FailingGammaLib())
     with pytest.raises(RuntimeError, match="launch failed: out of memory"):
         K.gamma_normalize(x, 2.2, dtype)
@@ -630,8 +756,11 @@ def test_kernels_match_twins_on_card(cuda_card, tile, bad):
                                    (8, 480, 640, 4), (3, 5, 7, 1)])
 @pytest.mark.parametrize("gamma", [2.2, 1.0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "byte-offset-1"])
 def test_gamma_kernel_matches_its_plain_version_on_card(cuda_card, shape,
-                                                        gamma, dtype):
+                                                        gamma, dtype, offset):
+    """Offset 1: a contiguous view whose first byte is not word-aligned,
+    which takes the kernel's element path."""
     from blendjax_torch.kernels import gamma_normalize, gamma_normalize_plain
     from blendjax_torch.ops.image import uint8_gamma_normalize
 
@@ -640,7 +769,9 @@ def test_gamma_kernel_matches_its_plain_version_on_card(cuda_card, shape,
     else:
         x = torch.from_numpy(np.random.default_rng(2).integers(
             0, 256, shape, dtype=np.uint8))
-    x = x.to(cuda_card)
+    buf = torch.empty(offset + x.numel(), dtype=torch.uint8, device=cuda_card)
+    x = buf[offset:].view(shape).copy_(x)
+    assert x.data_ptr() % 4 == offset
     before = gamma_normalize.launches
     got = uint8_gamma_normalize(x, gamma=gamma, dtype=dtype)
     want = gamma_normalize_plain(x, gamma, dtype)
