@@ -98,6 +98,7 @@ def pad_to_bucket(batch: dict, batch_size: int | None = None,
         while target < lead:
             target <<= 1
     out = {}
+    device = None  # where the batch's tensors live, if it has any
     for k, v in batch.items():
         if k == "_partial":
             continue
@@ -112,9 +113,17 @@ def pad_to_bucket(batch: dict, batch_size: int | None = None,
                     device=v.device,
                 )
                 v = torch.cat([v, pad])
+        if not isinstance(v, np.ndarray) and hasattr(v, "device"):
+            device = v.device
         out[k] = v
     mask = np.zeros(target, np.float32)
     mask[:lead] = 1.0
+    if device is not None:  # a tensor batch gets a tensor mask beside it
+        import torch
+
+        # non_blocking: a pageable source is staged before the call
+        # returns, and the copy does not wait for the queued steps
+        mask = torch.from_numpy(mask).to(device, non_blocking=True)
     out["_mask"] = mask
     return out
 

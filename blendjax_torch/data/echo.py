@@ -54,6 +54,7 @@ from blendjax_torch.data.ring import (
 )
 from blendjax_torch.device import resolve_device
 from blendjax_torch.ops.augment import (
+    SeededAugment,
     color_jitter,
     fold_seed,
     make_batch_augment,
@@ -153,6 +154,32 @@ class SampleReservoir:
             out = self.augment(fold_seed(self._seed, int(counter)), out)
         return out
 
+    def draw_generators(self) -> list:
+        """The generators a draw's augmentation takes its random numbers
+        from (:class:`~blendjax_torch.ops.augment.SeededAugment`), for a
+        CUDA graph to register; empty for raw repeats."""
+        if isinstance(self.augment, SeededAugment):
+            return self.augment.generators(self.device)
+        return []
+
+    def seed_draw(self, counter: int) -> None:
+        """Seed the draw generators for draw ``counter`` on the host, as
+        :meth:`draw` does before it draws: the host half of a draw that a
+        graph replays."""
+        if isinstance(self.augment, SeededAugment):
+            self.augment.seed(fold_seed(self._seed, int(counter)),
+                              self.device)
+
+    def check_token(self, buffers) -> None:
+        """Raise unless ``buffers`` is the ring of a token made since the
+        last insert (see :meth:`draw`)."""
+        self._require()
+        if buffers is not self._buffers:
+            raise RuntimeError(
+                "draw token outlived an insert: the ring slots it names may "
+                "have been overwritten (run the step before inserting again)"
+            )
+
     def sample(self, idx) -> dict:
         """Gather the rows at host-chosen ``idx`` (B,) and augment them;
         advances the draw counter."""
@@ -173,12 +200,7 @@ class SampleReservoir:
         counter. ``buffers`` must be the ring of a token made since the
         last insert; an older token raises, because the slots it names
         may hold other samples now."""
-        self._require()
-        if buffers is not self._buffers:
-            raise RuntimeError(
-                "draw token outlived an insert: the ring slots it names may "
-                "have been overwritten (run the step before inserting again)"
-            )
+        self.check_token(buffers)
         return self._draw_body(buffers, idx, counter)
 
     def draw_token(self, idx) -> dict:

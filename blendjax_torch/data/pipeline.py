@@ -343,14 +343,16 @@ class StreamDataPipeline:
     ``emit_packed=False`` (the decoded form, ``chunk=1`` only) yields
     each batch decoded on the card, ``{"image": (B, H, W, C) uint8, "xy":
     ..., ...}``: the input of
-    :class:`~blendjax_torch.data.echo.EchoingPipeline`. ``device=None``
+    :class:`~blendjax_torch.data.echo.EchoingPipeline`.
+    ``place_in_driver=True`` (fused form) yields the packed groups still on
+    the host, for ``TrainDriver(place=pipeline.feeder.place)``. ``device=None``
     means ``cuda`` and raises when no GPU is present. Other keyword
     arguments go to :class:`~blendjax_torch.data.stream.RemoteStream`.
     """
 
     def __init__(self, addresses, batch_size: int, device=None,
                  prefetch: int = 2, chunk: int = 1, emit_packed: bool = True,
-                 **stream_kwargs):
+                 place_in_driver: bool = False, **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
 
         if not emit_packed and int(chunk) > 1:
@@ -358,6 +360,12 @@ class StreamDataPipeline:
                 "the decoded form (emit_packed=False) is ported for chunk=1 "
                 "only; chunked groups take the fused form (emit_packed=True)"
             )
+        if place_in_driver and not emit_packed:
+            raise ValueError(
+                "place_in_driver=True yields host batches for the driver's "
+                "place; the decoded form decodes on the card in the pipeline"
+            )
+        self.place_in_driver = bool(place_in_driver)
         self.device = resolve_device(device)
         if hasattr(addresses, "__iter__") and not isinstance(
             addresses, (list, tuple, str)
@@ -386,9 +394,13 @@ class StreamDataPipeline:
             self.stream, batch_size=self.batch_size, prefetch=self.prefetch,
         ).start()
         self.tiles.reset()
-        return iter(self.tiles.device_stage(
-            self.feeder(self.tiles.host_stage(self.ingest))
-        ))
+        host = self.tiles.host_stage(self.ingest)
+        if self.place_in_driver:
+            # host batches with their decode plans: the driver's place
+            # (``TrainDriver(place=pipeline.feeder.place)``) copies each
+            # to the card right before its step
+            return iter(self.tiles.device_stage(host))
+        return iter(self.tiles.device_stage(self.feeder(host)))
 
     def stop(self) -> None:
         if self.ingest is not None:

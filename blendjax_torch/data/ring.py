@@ -96,11 +96,19 @@ def make_ring_insert(capacity: int, sharding=None):
 def _index_tensor(idx, device) -> torch.Tensor:
     """Host indices (numpy or list) -> an int64 tensor on ``device``,
     through pinned memory on CUDA so the copy does not wait for the
-    queued work."""
+    queued work. A CUDA graph cannot take host indices: the copy's pinned
+    source would be freed while the graph still names it, so a captured
+    draw is given a device tensor (the capture wrapper's static index
+    buffer, :class:`blendjax_torch.train.aot.CapturedStep`)."""
     if isinstance(idx, torch.Tensor):
         return idx.to(device=device, dtype=torch.int64)
     t = torch.as_tensor(np.asarray(idx, np.int64))
     if torch.device(device).type == "cuda":
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "host draw indices inside a CUDA graph capture: stage them "
+                "into a device buffer before the capture"
+            )
         return t.pin_memory().to(device, non_blocking=True)
     return t
 

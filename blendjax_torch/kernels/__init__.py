@@ -97,6 +97,17 @@ def reset_launch_counts() -> None:
             k["wrapper"].launches_by_variant[variant] = 0
 
 
+def add_launches(counts: dict, variants: dict) -> None:
+    """Add the launches a CUDA graph captured, on each replay: a replay
+    launches those kernels without running their wrappers."""
+    for name, n in counts.items():
+        KERNELS[name]["wrapper"].launches += n
+    for name, by in variants.items():
+        table = KERNELS[name]["wrapper"].launches_by_variant
+        for variant, n in by.items():
+            table[variant] += n
+
+
 __all__ = [
     "FlashAttention",
     "KERNELS",
@@ -115,6 +126,7 @@ __all__ = [
     "decode_spatial_plain",
     "gamma_normalize",
     "gamma_normalize_plain",
+    "add_launches",
     "launch_counts",
     "reset_launch_counts",
     "variant_counts",

@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from blendjax_torch.kernels.build import entry, load
+from blendjax_torch.kernels.counting import count_launch
 from blendjax_torch.kernels.decode import _raise_on, _stream
 
 # The kernels' own tile edges (compile-time constants of the CUDA sources),
@@ -285,8 +286,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
              lse.data_ptr()),
             _strides(q, k, v), q, k, causal, scale, _vec16(q, k, v),
         )
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_variant[variant] += 1
+    count_launch(flash_attention_fwd, variant)
     return o, lse
 
 
@@ -331,8 +331,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=False, scale=None):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     variant = _launch_bwd("bjt_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, di,
                           causal, default_scale(q, scale))
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.launches_by_variant[variant] += 1
+    count_launch(flash_attention_bwd_dkv, variant)
     return dk, dv
 
 
@@ -352,8 +351,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, causal=False, scale=None):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     variant = _launch_bwd("bjt_flash_bwd_dq", (dq,), q, k, v, do, lse, di,
                           causal, default_scale(q, scale))
-    flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.launches_by_variant[variant] += 1
+    count_launch(flash_attention_bwd_dq, variant)
     return dq
 
 

@@ -545,30 +545,48 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(const Params p) {
   store_rows<T, DP>(static_cast<T*>(p.out), dq, row, one, b, h, p.Tq, p);
 }
 
+constexpr int kMaxDevices = 64;
+
+// Sets a kernel's dynamic shared-memory limit the first time it launches on
+// a device (a function attribute, not stream work), as the sm90 launchers
+// do: a CUDA graph capture then records launches only.
+template <typename K>
+cudaError_t set_smem_once(bool (&done)[kMaxDevices], K kernel, int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int DP>
 int launch(int which, const Params& p, cudaStream_t stream) {
   constexpr int LD = DP + Elem<T>::pad;
   constexpr int row_bytes = LD * static_cast<int>(sizeof(T));
+  static bool attr_set[3][kMaxDevices] = {};
   cudaError_t err;
   if (which == 0) {
     const int smem = (kFwdBq + 2 * kFwdBk) * row_bytes;
-    err = cudaFuncSetAttribute(flash_fwd<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = set_smem_once(attr_set[0], flash_fwd<T, DP>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p.Tq + kFwdBq - 1) / kFwdBq, p.H, p.B);
     flash_fwd<T, DP><<<grid, kThreads, smem, stream>>>(p);
   } else if (which == 1) {
     const int smem = (2 * kDkvBk + 2 * kDkvBq) * row_bytes +
                      2 * kDkvBq * static_cast<int>(sizeof(float));
-    err = cudaFuncSetAttribute(flash_bwd_dkv<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = set_smem_once(attr_set[1], flash_bwd_dkv<T, DP>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p.Tk + kDkvBk - 1) / kDkvBk, p.H, p.B);
     flash_bwd_dkv<T, DP><<<grid, kThreads, smem, stream>>>(p);
   } else {
     const int smem = (2 * kDqBq + 2 * kDqBk) * row_bytes;
-    err = cudaFuncSetAttribute(flash_bwd_dq<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = set_smem_once(attr_set[2], flash_bwd_dq<T, DP>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p.Tq + kDqBq - 1) / kDqBq, p.H, p.B);
     flash_bwd_dq<T, DP><<<grid, kThreads, smem, stream>>>(p);

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from blendjax_torch.kernels.build import entry, load
+from blendjax_torch.kernels.counting import count_launch
 from blendjax_torch.ops.tiles import tile_grid
 
 
@@ -146,7 +147,7 @@ def decode_spatial(ref_tiles, idx, tiles, shape):
         _stream(idx.device),
     )
     _raise_on(lib, "bjt_decode_spatial_error", code, "decode_spatial")
-    decode_spatial.launches += 1
+    count_launch(decode_spatial)
     return out
 
 
@@ -173,7 +174,7 @@ def decode_scatter(ref_tiles, idx, tiles):
         slots.data_ptr(), b, k, n, ttc, int(vec16), _stream(idx.device),
     )
     _raise_on(lib, "bjt_decode_scatter_error", code, "decode_scatter")
-    decode_scatter.launches += 1
+    count_launch(decode_scatter)
     return slots
 
 

@@ -18,6 +18,7 @@ import functools
 import torch
 
 from blendjax_torch.kernels.build import entry, load
+from blendjax_torch.kernels.counting import count_launch
 from blendjax_torch.kernels.decode import _aligned16, _raise_on, _stream
 
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,7 +64,7 @@ def gamma_normalize(x, gamma: float = 2.2, dtype=torch.float32):
         _sm_count(x.device.index or 0), _stream(x.device),
     )
     _raise_on(lib, "bjt_gamma_normalize_error", code, "gamma_normalize")
-    gamma_normalize.launches += 1
+    count_launch(gamma_normalize)
     return out
 
 

@@ -92,5 +92,7 @@ class CubeRegressor(nn.Module):
             F.linear(x, self.dense.weight.to(dtype), self.dense.bias.to(dtype)),
             approximate="tanh",
         )
-        out = F.linear(x.float(), self.head.weight, self.head.bias)
+        # .float(): the parameters may be bf16 copies (the bf16-grads policy)
+        out = F.linear(x.float(), self.head.weight.float(),
+                       self.head.bias.float())
         return out.reshape(-1, self.num_points, 2)

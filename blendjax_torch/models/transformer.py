@@ -179,4 +179,4 @@ class StreamFormer(nn.Module):
         for block in self.blocks:
             x = block(x)
         x = self.norm(x).mean(dim=1)
-        return F.linear(x, self.head.weight, self.head.bias)
+        return _dense(self.head, x, torch.float32)

@@ -15,7 +15,10 @@ hold each apply against the JAX op given the JAX op's own draws.
 :func:`make_batch_augment` and :func:`make_augment` compose ops under an
 integer ``seed`` (the port's counterpart of a JAX key): op ``i`` draws
 from a generator seeded with ``fold_seed(seed, i)``, as the JAX package
-folds the key with ``i``. Images are NHWC, uint8 or float in [0, 1].
+folds the key with ``i``. The composed :class:`SeededAugment` keeps its
+generators, so a CUDA graph can register them and have them re-seeded
+on the host before each replay. Images are NHWC, uint8 or float in
+[0, 1].
 """
 
 from __future__ import annotations
@@ -190,8 +193,64 @@ def _n_required(op) -> int:
                if p.default is empty and p.kind in positional)
 
 
+class SeededAugment:
+    """Ops composed under an integer seed: op ``i`` draws from a generator
+    seeded with ``fold_seed(seed, i)``, as the JAX package folds the key
+    with ``i``.
+
+    The generators live as long as this object, one per op for each
+    device and ``slot`` (the chunked steps give each update of a chunk its
+    own slot), so a CUDA graph can register them
+    (``CUDAGraph.register_generator_state``). A call seeds them on the
+    host and then draws; while the current stream is being captured it
+    only draws, and :meth:`seed` runs on the host before each replay
+    instead: PyTorch reads a registered generator's seed and offset afresh
+    at every replay. A generator seeded again gives the draws of a new
+    generator with that seed, so reuse changes no number."""
+
+    def __init__(self, ops, apply, image_key: str | None = None):
+        self.ops = tuple(ops)
+        self._apply = apply  # (generators, x) -> x
+        # None: x is the images; else x is a batch dict holding them there
+        self.image_key = image_key
+        self._gens: dict = {}
+
+    def generators(self, device, slot: int = 0) -> list:
+        """The generators op by op for ``device`` and ``slot``."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        gens = self._gens.get((device, slot))
+        if gens is None:
+            gens = self._gens[(device, slot)] = [
+                torch.Generator(device=device) for _ in self.ops]
+        return gens
+
+    def seed(self, seed: int, device, slot: int = 0) -> None:
+        for i, gen in enumerate(self.generators(device, slot)):
+            gen.manual_seed(fold_seed(seed, i))
+
+    def __call__(self, seed, x, slot: int = 0):
+        images = x if self.image_key is None else x.get(self.image_key)
+        if images is None:  # a batch without the image field
+            return x
+        device = images.device
+        if not (device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            self.seed(seed, device, slot)
+        return self._apply(self.generators(device, slot), x)
+
+
+def call_augment(augment, seed: int, x, slot: int = 0):
+    """``augment(seed, x)``, in ``slot`` when ``augment`` is a
+    :class:`SeededAugment` (any other ``fn(seed, x)`` has no slots)."""
+    if isinstance(augment, SeededAugment):
+        return augment(seed, x, slot=slot)
+    return augment(seed, x)
+
+
 def make_batch_augment(*ops, image_key: str = "image",
-                       points_key: str | None = None):
+                       points_key: str | None = None) -> SeededAugment:
     """Lift image ops to batch dicts: ``augment(seed, batch) -> batch``.
 
     An op with two required parameters, ``op(gen, images)``, transforms
@@ -207,9 +266,7 @@ def make_batch_augment(*ops, image_key: str = "image",
             "the label field they co-transform"
         )
 
-    def augment(seed, batch):
-        if image_key not in batch:
-            return batch
+    def apply(gens, batch):
         images = batch[image_key]
         points = batch.get(points_key) if points_key is not None else None
         if points is None and any(paired):
@@ -217,8 +274,7 @@ def make_batch_augment(*ops, image_key: str = "image",
                 f"paired augmentation needs batch[{points_key!r}], which "
                 f"is missing (batch fields: {sorted(batch)})"
             )
-        for i, (op, pair) in enumerate(zip(ops, paired)):
-            gen = seeded_generator(fold_seed(seed, i), images.device)
+        for gen, op, pair in zip(gens, ops, paired):
             if pair:
                 images, points = op(gen, images, points)
             else:
@@ -229,20 +285,19 @@ def make_batch_augment(*ops, image_key: str = "image",
             out[points_key] = points
         return out
 
-    return augment
+    return SeededAugment(ops, apply, image_key=image_key)
 
 
-def make_augment(*ops):
+def make_augment(*ops) -> SeededAugment:
     """Compose ops into one ``augment(seed, images)``; op ``i`` draws from
     ``fold_seed(seed, i)``."""
 
-    def augment(seed, images):
-        for i, op in enumerate(ops):
-            images = op(seeded_generator(fold_seed(seed, i), images.device),
-                        images)
+    def apply(gens, images):
+        for gen, op in zip(gens, ops):
+            images = op(gen, images)
         return images
 
-    return augment
+    return SeededAugment(ops, apply)
 
 
 __all__ = [
@@ -262,6 +317,8 @@ __all__ = [
     "random_cutout",
     "random_flip",
     "random_flip_with_points",
+    "SeededAugment",
+    "call_augment",
     "seeded_generator",
     "shift_points",
 ]

@@ -36,16 +36,24 @@ Phases (any failure exits non-zero):
    bytes / memory rate and FLOPs / 989 TFLOP/s (bf16 dense);
 4. slice: two cube producers (480x640 RGBA, (16, 32) tiles, capacity
    160, batch 8) -> ``StreamDataPipeline(emit_packed=True, chunk=4)`` ->
-   ``make_fused_tile_step`` -> ``TrainDriver(inflight=2)``, in three legs:
+   ``CapturedStep(make_fused_tile_step())`` (one CUDA graph per packed
+   plan, captured the first time it is seen) -> ``TrainDriver(inflight=2)``,
+   in three legs:
    flagship (full-width ``CubeRegressor()``, bf16-compute), square
    (16x16 tiles, capacity 288) and streamformer (``StreamFormer(patch=20,
    dim=512, depth=8, num_heads=4, num_outputs=16, attn_backend="flash")``
    with the bench's corner loss). Launch counts are zeroed just before
    each leg and read just after: flagship must launch K1, square K2,
    streamformer K1 and each of K4a-c exactly depth x chunk x steps times,
-   every K4a-c launch through the sm90 variant;
-   losses must be finite with zero sequence gaps and one step call per
-   chunk group. Every producer must report on stderr that it runs the host
+   every K4a-c launch through the sm90 variant, launches counted through
+   the graph replays (each replay adds what its graph captured); losses
+   must be finite with zero sequence gaps, one step call and one graph
+   replay per chunk group and no fallback. Each leg times its step alone
+   on its last chunk group eagerly and through the graph in the same run,
+   profiles one call of each (kernels and host launches per call, device
+   busy share from the profiler, or from CUDA events when the profiler
+   records no graph kernel) and prints its graphs' capture ms and
+   private-pool bytes. Every producer must report on stderr that it runs the host
    C++ path (render, tile scan and palettizer of ``blendjax_torch/_native``);
    each leg prints the producers' own frames/s (render and encode, the
    publish left out) beside live img/s and step-alone img/s. The streamformer
@@ -56,15 +64,29 @@ Phases (any failure exits non-zero):
 5. echo leg (after the three legs above): two cube producers (the
    flagship stream) -> ``StreamDataPipeline(chunk=1, emit_packed=False)``
    (every batch decoded on the card by K1) -> ``EchoingPipeline(capacity=
-   256, max_echo_factor=4, emit_draws=True)`` -> ``make_echo_fused_step``
-   on full-width ``CubeRegressor()`` -> ``TrainDriver(inflight=2)``, 4
-   warm-up and 192 measured steps. Each decoded fresh batch also goes
+   256, max_echo_factor=4, emit_draws=True)`` ->
+   ``CapturedStep(make_echo_fused_step)`` on full-width ``CubeRegressor()``
+   -> ``TrainDriver(inflight=2)``, 128 warm-up and 1024 measured steps. Each decoded fresh batch also goes
    through ``uint8_gamma_normalize`` on the card (K3). It fails unless
    fresh + echoed == steps x batch exactly, echoed > 0, no sample is drawn
    more than 4 times, seq_gaps == 0, losses are finite, one step call per
    driver step, the ring's ``data_ptr()``s never move, and K1 and K3 each
-   launched once per decoded fresh batch; it prints live img/s into the
-   step, the fresh frame rate and the unique fraction;
+   launched once per decoded fresh batch (on the drain thread, outside the
+   step's graph), one graph replay per step and no fallback; it prints
+   live img/s into the step, the fresh frame rate and the unique fraction,
+   and the step alone eager and through its graph;
+5b. graphs: each step builder of the slice (fused tile with K1, fused
+   tile with K2, the streamformer fused step with K1 and K4a-c, echo) runs
+   4 steps eagerly and 4 through ``CapturedStep`` from one state on the
+   legs' last recorded chunk groups (draw tokens for echo), cuDNN
+   deterministic: losses and every parameter must be bit-equal, and the
+   launches counted through replays equal the eager ones. Then
+   ``TrainDriver.build(aot=True)`` on a decoded flagship group as a batch
+   of 32 captures one graph per ladder signature before step 0; two full
+   steps and a ragged tail of 20 rows (a masked bucket of 32) must be
+   bit-equal with the eager step, with no fallback; it prints
+   ``startup_ms``, ``time_to_first_step_ms``, capture ms per signature and
+   pool bytes;
 6. K3 (gamma normalize) against its plain version over all 256 uint8
    values, at (1, 37, 8, 4) and at that shape from byte offset 1 (the
    element path), gamma 2.2 and 1.0, f32 and bf16 (bit-exact, so within
@@ -98,21 +120,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (480, 640)
 BATCH = 8
 CHUNK = 4
-# 96 and 24 measured steps: with the host C++ producers the flagship leg
-# runs ~2000 img/s, and 24 steps lasted 0.38 s, too short to read a rate
-FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 4}
-SQUARE = {"tile": (16,), "capacity": 288, "steps": 24, "warmup": 1}
-STREAMFORMER = {"tile": (16, 32), "capacity": 160, "steps": 8, "warmup": 2}
+# Windows of a few seconds: the captured steps run at ~5000 img/s alone,
+# so a leg is producer-bound live, and the frames the producers queued
+# while the first step was captured (0.1-1.6 s) are drained by the
+# warm-up steps, not counted in the window (96 flagship steps lasted 1.8 s
+# and 24 square steps 0.4 s, both read above the producers' own rate)
+FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 192, "warmup": 64}
+SQUARE = {"tile": (16,), "capacity": 288, "steps": 96, "warmup": 32}
+STREAMFORMER = {"tile": (16, 32), "capacity": 160, "steps": 16, "warmup": 2}
 # bench.py:measure_live_echo at one echo factor
-# (192 measured steps, not the bench's 24: at ~600 img/s into the step 24
-# steps last 0.3 s, too short a window to read a rate from)
-ECHO = {"tile": (16, 32), "capacity": 160, "steps": 192, "warmup": 4,
+# (1024 measured steps after 128 warm-up steps, not the bench's 24: at
+# ~3000 img/s into the step 384 steps lasted 0.9-1.0 s and read a fresh
+# rate above the producers' own, the backlog of the step's capture)
+ECHO = {"tile": (16, 32), "capacity": 160, "steps": 1024, "warmup": 128,
         "reservoir": 256, "max_echo_factor": 4}
 # bench.py:1080-1082, with the flash backend named explicitly
 FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
           "num_outputs": 16}
 # the long-sequence shape of bench.py:1146 (960x1280 frames -> 3072 tokens)
 LONG_ATTN = (4, 3072)
+# steps of each step builder run eagerly and through its graph from one
+# state in the graph-parity phase
+PARITY_STEPS = 4
 # Device-memory rates for the bytes bound (NVIDIA data sheets); an
 # unlisted H100 name takes the SXM part's 3.35 TB/s.
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -668,10 +697,14 @@ KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> its group
 )
 
 
-def profile_step(step, state, batch) -> dict:
+def profile_step(step, state, batch, graph: bool = False) -> dict:
     """One step call under ``torch.profiler``: the wall time, the device
     time summed over every CUDA kernel (its busy share of the wall) and
-    that time by kernel group, largest first."""
+    that time by kernel group, largest first. For a graph replay
+    (``graph=True``) whose kernels the profiler does not record, the
+    device time is read from CUDA events around a second call instead
+    (``source``: "profiler" or "events"; events time the stream from the
+    replay's first kernel to its last, gaps included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -693,14 +726,93 @@ def profile_step(step, state, batch) -> dict:
         groups[group] = groups.get(group, 0.0) + ms
         kernels += ev.count
         busy += ms
+    source = "profiler"
     if kernels == 0:
-        fail("the profiler recorded no CUDA kernel in a step call")
+        if not graph:
+            fail("the profiler recorded no CUDA kernel in a step call")
+        source = "events"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step(state, batch)
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = start.elapsed_time(end)
     return {"wall_ms": wall_ms, "device_ms": busy, "kernels": kernels,
-            "busy": busy / wall_ms,
+            "busy": busy / wall_ms, "source": source,
             "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
 
 
+def alone_ms(fn, reps: int) -> float:
+    """Host wall ms per call of ``reps`` calls of ``fn`` between two
+    synchronisations: a step's own rate, host and card together."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def graph_report(label: str, graph_step) -> dict:
+    """What the captured step holds: signatures, capture ms each, the
+    bytes of each graph's private pool, its replays and fallbacks."""
+    from blendjax_torch.train.aot import pool_bytes
+
+    graphs = [graph_step._graphs[s] for s in graph_step.signatures]
+    rep = {
+        "signatures": len(graphs),
+        "capture_ms": [round(ms, 1) for ms in graph_step.capture_ms.values()],
+        "pool_bytes": [pool_bytes(g) for g in graphs if g is not None],
+        "graph_replays": graph_step.graph_replays,
+        "aot_fallbacks": graph_step.aot_fallbacks,
+        "host_launches": graph_step.host_launches,
+    }
+    log(f"{label} graphs: {rep['signatures']} signature(s), capture "
+        f"{rep['capture_ms']} ms, private pools "
+        f"{[round(b / 2**20, 1) for b in rep['pool_bytes']]} MiB, "
+        f"{rep['graph_replays']} replays, {rep['aot_fallbacks']} fallbacks, "
+        f"{rep['host_launches']} host launches per step call (input copies, "
+        "generator seeds, the replay, the loss clone)")
+    return rep
+
+
+def step_report(label: str, step, graph_step, state, batch, images: int,
+                reps: int) -> dict:
+    """Eager and graph step alone in the same run on the same batch, with
+    one profiled call of each."""
+    eager_ms = alone_ms(lambda: step(state, batch), reps)
+    graph_ms = alone_ms(lambda: graph_step(state, batch), 4 * reps)
+    eager = profile_step(step, state, batch)
+    graph = profile_step(graph_step, state, batch, graph=True)
+    out = {"eager_ms": eager_ms, "graph_ms": graph_ms,
+           "eager_img_s": images / eager_ms * 1e3,
+           "graph_img_s": images / graph_ms * 1e3,
+           "profile": eager, "graph_profile": graph,
+           "graphs": graph_report(label, graph_step)}
+    log(f"{label} step alone: eager {eager_ms:.3f} ms "
+        f"({out['eager_img_s']:.1f} img/s), graph {graph_ms:.3f} ms "
+        f"({out['graph_img_s']:.1f} img/s), {eager_ms / graph_ms:.2f}x; "
+        f"kernels per step call: eager {eager['kernels']} host launches, "
+        f"graph {graph['kernels'] or 'not recorded by the profiler'} kernels "
+        f"from {out['graphs']['host_launches']} host launches; device busy "
+        f"eager {eager['device_ms']:.2f} of {eager['wall_ms']:.2f} ms "
+        f"({eager['busy']:.1%}, profiler), graph {graph['device_ms']:.2f} of "
+        f"{graph['wall_ms']:.2f} ms ({graph['busy']:.1%}, {graph['source']})")
+    return out
+
+
 def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
+    """One producer leg through the captured fused step (one CUDA graph per
+    packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
+    graph-parity phase."""
+    import collections
+
     import torch
 
     from blendjax_torch.data import StreamDataPipeline
@@ -709,28 +821,35 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         reset_launch_counts,
         variant_counts,
     )
-    from blendjax_torch.train import TrainDriver, make_fused_tile_step
+    from blendjax_torch.train import (
+        CapturedStep,
+        TrainDriver,
+        make_fused_tile_step,
+    )
 
     procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"])
     pipe = StreamDataPipeline(
         addrs, batch_size=BATCH, chunk=CHUNK, timeoutms=60_000
     )
     step = make_fused_tile_step(loss_fn)
-    drv = TrainDriver(step, state, inflight=2, sync_every=4)
+    graph_step = CapturedStep(step)
+    drv = TrainDriver(graph_step, state, inflight=2, sync_every=4)
     total = leg["warmup"] + leg["steps"]
     images = 0
     updates = 0  # optimizer updates submitted: the chunk sizes summed
-    last = None
+    recorded = collections.deque(maxlen=PARITY_STEPS)
     t0 = None
     try:
         reset_launch_counts()
         for batch in pipe:
             drv.submit(batch)
             updates += int(batch["_packed"].shape[0])
-            last = batch
+            recorded.append(batch)
             if drv.steps == leg["warmup"]:
                 drv.drain()
                 t0 = time.perf_counter()
+                window0 = (graph_step.aot_fallbacks,
+                           len(graph_step.signatures))
             elif drv.steps > leg["warmup"]:
                 images += int(batch["_packed"].shape[0]) * BATCH
             if drv.steps >= total:
@@ -750,14 +869,12 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         fail(f"{label}: non-finite loss in {losses}")
     if gaps:
         fail(f"{label}: {gaps} sequence gaps")
-    # step alone on the last chunk group: the card's own rate
-    torch.cuda.synchronize()
-    s0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        step(state, last)
-    torch.cuda.synchronize()
-    alone = (time.perf_counter() - s0) / reps
+    if graph_step.aot_fallbacks != window0[0] or graph_step.aot_fallbacks:
+        fail(f"{label}: {graph_step.aot_fallbacks} aot fallbacks")
+    if graph_step.graph_replays != drv.steps:
+        fail(f"{label}: {graph_step.graph_replays} graph replays for "
+             f"{drv.steps} steps")
+    last = recorded[-1]
     from blendjax_torch.ops.tiles import decode_packed_superbatch
 
     decode_ms = time_ms(lambda: decode_packed_superbatch(
@@ -765,17 +882,23 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         last["_geoms"], last["_rle"],
     ), reps=5, windows=5)["ms"]
     group_images = int(last["_packed"].shape[0]) * BATCH
+    # step alone on the last chunk group, eager and through its graph
+    alone = step_report(f"slice {label}", step, graph_step, state, last,
+                        group_images, reps=5)
     return {
-        "profile": profile_step(step, state, last),
+        "profile": alone["profile"], "alone": alone,
         "img_s": images / wall, "wall_s": wall, "images": images,
         "steps": drv.steps, "updates": updates, "losses": losses,
         "seq_gaps": gaps, "launches": counts, "variants": variants,
-        "driver": drv.stats,
+        "driver": drv.stats, "captures_in_window": (
+            len(graph_step.signatures) - window0[1]),
         "dispatch_per_step": drv.dispatches / drv.steps,
-        "step_alone_ms": alone * 1e3,
-        "step_alone_img_s": group_images / alone,
+        "step_alone_ms": alone["eager_ms"],
+        "step_alone_img_s": alone["eager_img_s"],
+        "graph_alone_ms": alone["graph_ms"],
+        "graph_alone_img_s": alone["graph_img_s"],
         "decode_ms": decode_ms, "last": last, "step": step,
-        "producers": producers,
+        "recorded": list(recorded), "producers": producers,
     }
 
 
@@ -876,6 +999,7 @@ def streamformer_leg(tmp: str, card: str) -> dict:
             fail(f"streamformer flash vs xla loss {what} one update: "
                  f"{f} vs {x} (rel bar {rel})")
     leg["flash_vs_xla"] = pair
+    leg["fresh"] = fresh
     log(f"slice streamformer: flash vs xla loss before one update "
         f"{pair['flash'][0]:.6f} / {pair['xla'][0]:.6f} (rel bar 1e-2), "
         f"after {pair['flash'][1]:.6f} / {pair['xla'][1]:.6f} (rel bar "
@@ -919,6 +1043,7 @@ def echo_leg(tmp: str) -> dict:
     from blendjax_torch.kernels import launch_counts, reset_launch_counts
     from blendjax_torch.models import CubeRegressor
     from blendjax_torch.train import (
+        CapturedStep,
         TrainDriver,
         make_echo_fused_step,
         make_train_state,
@@ -933,11 +1058,12 @@ def echo_leg(tmp: str) -> dict:
                            max_echo_factor=ECHO["max_echo_factor"],
                            emit_draws=True)
     echo_step = make_echo_fused_step(echo.reservoir.draw)
+    graph_step = CapturedStep(echo_step)
     calls = [0]
 
     def step(st, batch):
         calls[0] += 1
-        return echo_step(st, batch)
+        return graph_step(st, batch)
 
     drv = TrainDriver(step, state, inflight=2, sync_every=4)
     total = ECHO["warmup"] + ECHO["steps"]
@@ -950,6 +1076,7 @@ def echo_leg(tmp: str) -> dict:
                 t0 = time.perf_counter()
                 s0 = dict(echo.stats)
                 ptrs0 = echo.reservoir.data_ptrs()
+                sigs0 = len(graph_step.signatures)
             if drv.steps >= total:
                 break
         if drv.steps < total:
@@ -986,21 +1113,25 @@ def echo_leg(tmp: str) -> dict:
         (counts["gamma_normalize"] == decoded,
          f"K3 launched {counts['gamma_normalize']} times for {decoded} "
          "decoded fresh batches"),
+        (graph_step.aot_fallbacks == 0
+         and graph_step.graph_replays == drv.steps,
+         f"{graph_step.graph_replays} graph replays and "
+         f"{graph_step.aot_fallbacks} fallbacks for {drv.steps} steps"),
     ]
     for ok, what in checks:
         if not ok:
             fail(f"echo leg: {what}")
     fresh = s1["fresh"] - s0["fresh"]
     drawn = fresh + s1["echoed"] - s0["echoed"]
-    # the echo step alone on one draw token: the card's own rate
+    # the echo step alone on one draw token, eager and through its graph
     token = echo.reservoir.draw_token(
         np.arange(BATCH) % max(echo.reservoir.size, 1))
-    torch.cuda.synchronize()
-    a0 = time.perf_counter()
-    for _ in range(5):
-        echo_step(state, dict(token))
-    torch.cuda.synchronize()
-    alone = (time.perf_counter() - a0) / 5
+    alone = step_report("slice echo", echo_step, graph_step, state, token,
+                        BATCH, reps=5)
+    rng = np.random.default_rng(0)
+    tokens = [echo.reservoir.draw_token(
+        rng.integers(0, echo.reservoir.size, BATCH))
+        for _ in range(PARITY_STEPS)]
     return {
         "img_s": ECHO["steps"] * BATCH / wall, "wall_s": wall,
         "fresh_img_s": (s1["inserted"] - s0["inserted"]) / wall,
@@ -1008,10 +1139,166 @@ def echo_leg(tmp: str) -> dict:
         "stats": s1, "driver": drv.stats, "steps": drv.steps,
         "decoded_batches": decoded, "launches": counts, "seq_gaps": gaps,
         "losses": losses, "dispatch_per_step": drv.dispatches / drv.steps,
-        "step_alone_ms": alone * 1e3, "step_alone_img_s": BATCH / alone,
-        "profile": profile_step(echo_step, state, dict(token)),
+        "step_alone_ms": alone["eager_ms"],
+        "step_alone_img_s": alone["eager_img_s"],
+        "graph_alone_ms": alone["graph_ms"],
+        "graph_alone_img_s": alone["graph_img_s"],
+        "captures_in_window": len(graph_step.signatures) - sigs0,
+        "alone": alone, "profile": alone["profile"],
         "gamma_last": tap.last, "producers": producers,
+        "reservoir": echo.reservoir, "tokens": tokens,
     }
+
+
+# -- phase 5b: graph parity and the supervised AOT set ---------------------------
+
+
+def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
+    """``make_step()`` run ``len(batches)`` times eagerly on one state and
+    through ``CapturedStep(make_step())`` on another made the same way:
+    losses and every parameter must be bit-equal, and the launches the
+    replays add must equal the eager launches."""
+    import torch
+
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.train import CapturedStep
+
+    a, b = make_state(), make_state()
+    reset_launch_counts()
+    eager = make_step()
+    la = [eager(a, dict(x))[1]["loss"] for x in batches]
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    graph = CapturedStep(make_step())
+    lb = [graph(b, dict(x))[1]["loss"] for x in batches]
+    graph_counts = launch_counts()
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not torch.equal(x, y):
+            fail(f"graph parity {label}: step {i} loss eager {x.tolist()} != "
+                 f"graph {y.tolist()}")
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        if not torch.equal(p, q):
+            fail(f"graph parity {label}: parameter {name} differs after "
+                 f"{len(batches)} steps")
+    if a.step != b.step or eager_counts != graph_counts:
+        fail(f"graph parity {label}: steps {a.step} / {b.step}, launches "
+             f"eager {eager_counts} / graph {graph_counts}")
+    n = sum(1 for _ in a.model.parameters())
+    log(f"graph parity {label}: {len(batches)} steps eager and through "
+        f"{len(graph.signatures)} captured graph(s) from one state: losses "
+        f"and all {n} parameters bit-equal; launches counted through "
+        f"replays equal the eager launches {dict((k, v) for k, v in graph_counts.items() if v)}")
+    return {"steps": len(batches), "losses": [float(x.reshape(-1)[-1]) for x in la]}
+
+
+def graph_parity_phase(legs: dict, echo: dict) -> dict:
+    """Each step builder of the slice, eager against captured, from one
+    snapshot (cuDNN deterministic for the phase, so that two eager runs
+    are bit-equal too)."""
+    import torch
+
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        make_echo_fused_step,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cube = make_train_state(CubeRegressor().init_params(3))
+        out = {}
+        for label, leg in (("fused tile K1", "flagship"),
+                           ("fused tile K2", "square")):
+            out[label] = eager_against_graph(
+                label, make_fused_tile_step, lambda: copy.deepcopy(cube),
+                legs[leg]["recorded"])
+        sf = legs["streamformer"]
+        out["streamformer K4a-c"] = eager_against_graph(
+            "streamformer K1 + K4a-c",
+            lambda: make_fused_tile_step(former_loss),
+            lambda: copy.deepcopy(sf["fresh"]), sf["recorded"])
+        draw = echo["reservoir"].draw
+        out["echo"] = eager_against_graph(
+            "echo", lambda: make_echo_fused_step(draw),
+            lambda: copy.deepcopy(cube), echo["tokens"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def aot_phase(group: dict) -> dict:
+    """``TrainDriver.build(aot=True)`` on a decoded flagship group as one
+    batch of 32 (one graph per ladder rung, captured before step 0), two
+    full batches and a ragged tail of 20 rows: every loss and the final
+    parameters bit-equal with the eager step (cuDNN deterministic), no
+    fallback."""
+    import torch
+
+    from blendjax_torch.data import bucket_sizes
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.ops.tiles import decode_packed_superbatch
+    from blendjax_torch.train import (
+        TrainDriver,
+        make_supervised_step,
+        make_train_state,
+    )
+    from blendjax_torch.train.aot import pool_bytes
+
+    fields = decode_packed_superbatch(
+        group["_packed"], group["_refs"], group["_spec"], group["_names"],
+        group["_geoms"], group["_rle"])
+    full = {k: fields[k].flatten(0, 1) for k in ("image", "xy")}
+    lead = int(full["image"].shape[0])
+    tail = {k: v[:20] for k, v in full.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = CubeRegressor().init_params(4)
+        ref = make_train_state(copy.deepcopy(model))
+        drv = TrainDriver.build(model, full, aot=True, inflight=2,
+                                sync_every=0)
+        sets = drv.step
+        eager = make_supervised_step()
+        from blendjax_torch.data.batcher import pad_to_bucket
+
+        for i, batch in enumerate((full, full, {**tail, "_partial": True})):
+            drv.submit(batch)
+            got = drv.drain()
+            want = eager(ref, pad_to_bucket(batch) if i == 2 else batch)
+            want = float(want[1]["loss"])
+            if got != want:
+                fail(f"aot phase: step {i} loss {got} != eager {want}"
+                     f"{' (the masked tail)' if i == 2 else ''}")
+        for p, q in zip(drv.state.model.parameters(), ref.model.parameters()):
+            if not torch.equal(p, q):
+                fail("aot phase: parameters differ from the eager step's")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    st = drv.stats
+    rungs = len(bucket_sizes(lead)) + 1
+    if st["aot_fallbacks"] != 0 or st["signatures"] != rungs:
+        fail(f"aot phase: {st['aot_fallbacks']} fallbacks, "
+             f"{st['signatures']} graphs for {rungs} ladder signatures")
+    if st["graph_replays"] != 3:
+        fail(f"aot phase: {st['graph_replays']} replays for 3 steps")
+    capture = {"x".join(str(d) for d in dict((k, s) for k, s, _ in sig)["image"])
+               + ("+mask" if any(k == "_mask" for k, _, _ in sig) else ""):
+               round(ms, 1) for sig, ms in sets.capture_ms.items()}
+    pools = [pool_bytes(g) for g in sets._graphs.values() if g is not None]
+    out = {"startup_ms": st["startup_ms"],
+           "time_to_first_step_ms": st["time_to_first_step_ms"],
+           "capture_ms": capture, "pool_bytes": pools,
+           "signatures": st["signatures"]}
+    log(f"aot phase: TrainDriver.build(aot=True) captured {rungs} ladder "
+        f"signatures (B={lead} and buckets {bucket_sizes(lead)} with _mask) "
+        f"before step 0: startup_ms {st['startup_ms']:.1f}, "
+        f"time_to_first_step_ms {st['time_to_first_step_ms']:.1f}; capture "
+        f"ms per signature {capture}; private pools "
+        f"{[round(b / 2**20, 1) for b in pools]} MiB; 2 full steps and a "
+        "ragged tail of 20 rows (bucket 32, masked) bit-equal with the eager "
+        "step; aot_fallbacks 0")
+    return out
 
 
 # -- phase 6: the gamma-normalize kernel ---------------------------------------
@@ -1235,14 +1522,18 @@ def main() -> None:
             f"images ({leg['wall_s']:.2f} s) on {card}; "
             f"dispatches/step {leg['dispatch_per_step']:.2f}; step alone "
             f"{leg['step_alone_ms']:.2f} ms/chunk group "
-            f"({leg['step_alone_img_s']:.1f} img/s), of which decode "
-            f"{leg['decode_ms']:.3f} ms; launches {leg['launches']}; "
-            f"seq_gaps {leg['seq_gaps']}; driver {leg['driver']}; "
-            f"final loss {leg['losses'][-1]:.5f}"
+            f"({leg['step_alone_img_s']:.1f} img/s) eager, "
+            f"{leg['graph_alone_ms']:.2f} ms ({leg['graph_alone_img_s']:.1f} "
+            f"img/s) through its graph, of which decode "
+            f"{leg['decode_ms']:.3f} ms; launches (through replays) "
+            f"{leg['launches']}; graphs captured in the measured window "
+            f"{leg['captures_in_window']}; seq_gaps {leg['seq_gaps']}; driver "
+            f"{leg['driver']}; final loss {leg['losses'][-1]:.5f}"
         )
         log(f"slice {name} {producer_text(leg['producers'])}; live "
-            f"{leg['img_s']:.1f} img/s; step alone "
-            f"{leg['step_alone_img_s']:.1f} img/s")
+            f"{leg['img_s']:.1f} img/s through the graph; step alone "
+            f"{leg['step_alone_img_s']:.1f} img/s eager, "
+            f"{leg['graph_alone_img_s']:.1f} img/s graph")
         prof = leg["profile"]
         log(
             f"slice {name} profile of one step call: wall "
@@ -1268,14 +1559,27 @@ def main() -> None:
         f"seq_gaps {echo['seq_gaps']}; dispatches/step "
         f"{echo['dispatch_per_step']:.2f}; driver {echo['driver']}; echo step "
         f"alone {echo['step_alone_ms']:.2f} ms ({echo['step_alone_img_s']:.1f} "
-        f"img/s); final loss {echo['losses'][-1]:.5f}")
+        f"img/s) eager, {echo['graph_alone_ms']:.2f} ms "
+        f"({echo['graph_alone_img_s']:.1f} img/s) through its graph; graphs "
+        f"captured in the measured window {echo['captures_in_window']}; "
+        f"final loss {echo['losses'][-1]:.5f}")
     log(f"slice echo {producer_text(echo['producers'])}; fresh "
         f"{echo['fresh_img_s']:.1f} img/s, live {echo['img_s']:.1f} img/s "
-        f"into the step; step alone {echo['step_alone_img_s']:.1f} img/s")
+        f"into the step through the graph; step alone "
+        f"{echo['step_alone_img_s']:.1f} img/s eager, "
+        f"{echo['graph_alone_img_s']:.1f} img/s graph")
     log(f"slice echo profile of one step call: wall {ep['wall_ms']:.2f} ms, "
         f"device busy {ep['device_ms']:.2f} ms ({ep['busy']:.1%}) over "
         f"{ep['kernels']} kernels; by group: "
         + ", ".join(f"{g} {ms:.2f} ms" for g, ms in ep["groups"].items()))
+
+    # phase 5b: every step builder eager against its graph, then the
+    # supervised AOT set of TrainDriver.build
+    t0 = time.perf_counter()
+    parity = graph_parity_phase(legs, echo)
+    aot = aot_phase(legs["flagship"]["last"])
+    log(f"graphs: parity of {len(parity)} step builders and the AOT set in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 6: the gamma-normalize kernel, on a decoded batch of the stream
     measured.update(gamma_phase(bw, echo["gamma_last"]))

@@ -62,11 +62,12 @@ def test_port_imports_nothing_of_jax_or_blendjax():
 
 @pytest.mark.parametrize("module", [
     "ops/image.py", "kernels/image.py", "ops/augment.py", "data/ring.py",
-    "data/echo.py", "train/steps.py",
+    "data/echo.py", "train/steps.py", "train/aot.py", "train/driver.py",
+    "train/precision.py", "precision.py", "data/pipeline.py",
 ])
 def test_the_echo_slice_modules_are_scanned(module):
-    """The echo slice's modules are in the scan above, and each imports
-    nothing of JAX or of the JAX package."""
+    """The echo slice's and the train layer's modules are in the scan
+    above, and each imports nothing of JAX or of the JAX package."""
     path = os.path.join(REPO, "blendjax_torch", module)
     assert path in _port_files()
     assert _forbidden_imports(path) == []
@@ -710,6 +711,66 @@ def test_kernel_selection_rule(monkeypatch, tile, kernel):
     out = decode_tile_delta(ref, idx, tiles, (h, w, 4))
     assert calls == [f"decode_{kernel}"]
     assert int(out.sum()) == 7 * tile[0] * tile[1] * 4
+
+
+def _cuda_state(monkeypatch):
+    """A CPU train state that the capture code takes for a CUDA one."""
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import aot, make_train_state
+
+    monkeypatch.setattr(aot, "state_device", lambda st: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: None)
+    return make_train_state(CubeRegressor(features=(4,)).init_params(0),
+                            device="cpu")
+
+
+def _counting_step(calls):
+    def step(state, batch):
+        calls.append("eager")
+        return state, {"loss": torch.zeros(())}
+
+    return step
+
+
+def test_a_cuda_step_set_never_gives_way_to_the_eager_step(monkeypatch):
+    """A replay that fails raises out of AotStepSet; the eager step is not
+    run in its place (the JAX set's quiet fallback is not ported)."""
+    from blendjax_torch.train import aot
+
+    class Failing:
+        host_launches = 0
+
+        def __call__(self, state, batch):
+            raise RuntimeError("replay failed")
+
+    calls = []
+    batch = {"image": torch.zeros((2, 4, 4, 4), dtype=torch.uint8)}
+    sig = aot._signature(batch)
+    step_set = aot.AotStepSet(_counting_step(calls), {sig: Failing()}, 0.0)
+    with pytest.raises(RuntimeError, match="replay failed"):
+        step_set(_cuda_state(monkeypatch), batch)
+    assert calls == [] and step_set.aot_fallbacks == 0
+
+
+def test_a_failing_capture_never_gives_way_to_the_eager_step(monkeypatch):
+    """A capture that fails, in the ladder build or on a new packed
+    signature, raises; the eager step does not take over."""
+    from blendjax_torch.train import aot
+
+    def capture(*a, **k):
+        raise RuntimeError("capture failed")
+
+    state = _cuda_state(monkeypatch)
+    monkeypatch.setattr(aot, "_capture", capture)
+    calls = []
+    batch = {"_packed": torch.zeros((1, 8), dtype=torch.uint8),
+             "_spec": (("x", "|u1", (8,), 0, 8),)}
+    with pytest.raises(RuntimeError, match="capture failed"):
+        aot.CapturedStep(_counting_step(calls))(state, batch)
+    example = {"image": torch.zeros((2, 4, 4, 4), dtype=torch.uint8)}
+    with pytest.raises(RuntimeError, match="capture failed"):
+        aot.build_aot_step(_counting_step(calls), state, example)
+    assert calls == []
 
 
 @pytest.fixture
