@@ -17,7 +17,12 @@ from blendjax_torch.data.pipeline import (
     TileStreamDecoder,
 )
 from blendjax_torch.data.schema import FieldSpec, SchemaError, StreamSchema
-from blendjax_torch.data.stream import RemoteStream
+from blendjax_torch.data.shard_ingest import (
+    ParallelBatchAssembler,
+    ShardedHostIngest,
+)
+from blendjax_torch.data.stream import RemoteStream, partition_addresses
+from blendjax_torch.data.torch_compat import RemoteIterableDataset
 
 __all__ = [
     "BatchAssembler",
@@ -25,13 +30,17 @@ __all__ = [
     "EchoingPipeline",
     "FieldSpec",
     "HostIngest",
+    "ParallelBatchAssembler",
+    "RemoteIterableDataset",
     "RemoteStream",
     "SampleReservoir",
     "SchemaError",
+    "ShardedHostIngest",
     "StreamDataPipeline",
     "StreamSchema",
     "TileStreamDecoder",
     "bucket_sizes",
     "default_echo_augment",
     "pad_to_bucket",
+    "partition_addresses",
 ]

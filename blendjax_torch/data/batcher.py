@@ -1,5 +1,6 @@
 """Host-side batch assembly (copied from ``blendjax/data/batcher.py``,
-without trace and metrics hooks).
+without trace and metrics hooks; the sharded ingest is in
+:mod:`blendjax_torch.data.shard_ingest`).
 
 :class:`HostIngest` runs the stream on a background thread: per-item
 messages are validated and written into preallocated, recycled batch
@@ -179,18 +180,62 @@ class BatchAssembler:
         self._active = (self._active + 1) % len(self._pool)
         return batch
 
+    def flush(self):
+        """The partial final batch (fields cut to the filled rows, tagged
+        ``_partial=True``), or None when nothing is pending."""
+        if self._cursor == 0:
+            return None
+        buf = self._pool[self._active]
+        batch = {k: buf[k][: self._cursor] for k in self.schema.fields}
+        batch["_meta"] = self._meta
+        batch["_partial"] = True
+        self._meta = []
+        self._cursor = 0
+        self._active = (self._active + 1) % len(self._pool)
+        return batch
+
+
+def infer_schema(item: dict, batched: bool) -> StreamSchema:
+    """The stream schema from the first item (the first row of a
+    producer-batched message)."""
+    first = next(batched_views(item), None) if batched else item
+    if first is None:
+        raise SchemaError(
+            "batched message has no array field with a leading batch dim "
+            f"(keys: {sorted(item)})"
+        )
+    return StreamSchema.infer(first)
+
+
+def warn_prebatched_lead(owner, lead: int) -> None:
+    """Warn once per ingest when a prebatched message's lead differs
+    from the pipeline's batch size (it passes through as it is)."""
+    if lead != owner.batch_size and not owner._warned_prebatch:
+        owner._warned_prebatch = True
+        logger.warning(
+            "prebatched message carries %d items but the pipeline "
+            "batch_size is %d; passing through as-is", lead, owner.batch_size,
+        )
+
 
 class HostIngest:
-    """Background thread: stream -> validate -> assemble -> bounded queue."""
+    """Background thread: stream -> validate -> assemble -> bounded queue.
+
+    ``validate_every`` validates one item in N against the schema;
+    ``emit_partial_final`` emits a finite stream's ragged tail as a
+    ``_partial=True`` batch instead of dropping it."""
 
     _DONE = object()
 
     def __init__(self, stream, batch_size: int,
-                 schema: StreamSchema | None = None, prefetch: int = 2):
+                 schema: StreamSchema | None = None, prefetch: int = 2,
+                 validate_every: int = 1, emit_partial_final: bool = False):
         self.stream = stream
         self.batch_size = batch_size
         self.schema = schema
         self.prefetch = prefetch
+        self.validate_every = max(1, int(validate_every))
+        self.emit_partial_final = bool(emit_partial_final)
         self._queue: queue.Queue = queue.Queue(maxsize=prefetch)
         self._error: BaseException | None = None
         self._thread: threading.Thread | None = None
@@ -211,30 +256,20 @@ class HostIngest:
     def _run(self):
         try:
             assembler = None
+            exhausted = True
             for item in self.stream:
                 if self._stop.is_set():
+                    exhausted = False
                     break
                 if item.pop("_prebatched", False):
                     lead = prebatched_lead(item)
-                    if lead != self.batch_size and not self._warned_prebatch:
-                        self._warned_prebatch = True
-                        logger.warning(
-                            "prebatched message carries %d items but the "
-                            "pipeline batch_size is %d; passing through as-is",
-                            lead, self.batch_size,
-                        )
+                    warn_prebatched_lead(self, lead)
                     self.items_in += lead
                     self._emit(item)
                     continue
                 batched = bool(item.pop("_batched", False))
                 if self.schema is None:
-                    first = next(batched_views(item), None) if batched else item
-                    if first is None:
-                        raise SchemaError(
-                            "batched message has no array field with a "
-                            f"leading batch dim (keys: {sorted(item)})"
-                        )
-                    self.schema = StreamSchema.infer(first)
+                    self.schema = infer_schema(item, batched)
                 if assembler is None:
                     assembler = BatchAssembler(
                         self.schema, self.batch_size,
@@ -250,11 +285,16 @@ class HostIngest:
                 else:
                     items = (item,)
                 for one in items:
-                    self.schema.validate(one)
+                    if self.items_in % self.validate_every == 0:
+                        self.schema.validate(one)
                     self.items_in += 1
                     batch = assembler.add(one)
                     if batch is not None:
                         self._emit(batch)
+            if exhausted and self.emit_partial_final and assembler is not None:
+                tail = assembler.flush()
+                if tail is not None:
+                    self._emit(tail)
         except BaseException as e:  # re-raised in the consumer thread
             self._error = e
         finally:

@@ -319,10 +319,12 @@ class EchoingPipeline:
         self.saturated_waits = 0
         self.skipped_partial = 0
         self.max_uses = 0  # most draws of any one sample so far
+        self.drain_busy_s = 0.0  # CPU seconds of the drain thread
 
     # -- inner-pipeline drain thread ------------------------------------------
 
     def _drain(self, stream) -> None:
+        cpu0 = time.thread_time()
         try:
             # the iterating thread's stream: decode, insert and step are
             # ordered on it
@@ -330,6 +332,8 @@ class EchoingPipeline:
                    else contextlib.nullcontext())
             with ctx:
                 for b in iter(self.pipeline):
+                    # this thread's CPU seconds so far (its host share)
+                    self.drain_busy_s = time.thread_time() - cpu0
                     while not self._stop.is_set():
                         try:
                             self._queue.put(b, timeout=0.25)
@@ -519,6 +523,7 @@ class EchoingPipeline:
             "skipped_partial": self.skipped_partial,
             "reservoir_fill": int(self._filled.sum()),
             "max_uses": self.max_uses,
+            "drain_busy_s": self.drain_busy_s,
             "unique_fraction": (
                 round(self.fresh / drawn, 4) if drawn else None
             ),

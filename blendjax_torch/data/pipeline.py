@@ -9,8 +9,8 @@
   the card), validates deferred run-length buffers, and packs every chunk
   group of compatible batches into ONE uint8 buffer; ``device_stage``
   attaches the decode plan the fused train step consumes.
-- :class:`StreamDataPipeline` chains stream -> ingest -> host stage ->
-  feeder -> device stage.
+- :class:`StreamDataPipeline` chains stream -> ingest (one thread, or one
+  per shard of the producers) -> host stage -> feeder -> device stage.
 
 Two forms are ported: the fused form (``emit_packed=True``: packed chunk
 groups that ``make_fused_tile_step`` decodes inside the step) and the
@@ -346,13 +346,24 @@ class StreamDataPipeline:
     :class:`~blendjax_torch.data.echo.EchoingPipeline`.
     ``place_in_driver=True`` (fused form) yields the packed groups still on
     the host, for ``TrainDriver(place=pipeline.feeder.place)``. ``device=None``
-    means ``cuda`` and raises when no GPU is present. Other keyword
-    arguments go to :class:`~blendjax_torch.data.stream.RemoteStream`.
+    means ``cuda`` and raises when no GPU is present.
+
+    ``ingest_workers > 1`` partitions the producer addresses over that many
+    receive threads (:class:`~blendjax_torch.data.shard_ingest.ShardedHostIngest`,
+    one :class:`~blendjax_torch.data.stream.RemoteStream` per shard with
+    its gaps tracked) with one shared decode-ahead executor of
+    ``inflate_workers`` threads (0: decode inline); ``max_items`` is then
+    one budget of messages for the whole pool. An opaque iterable or a
+    single address falls back to the single-thread ingest, with a warning.
+    ``emit_partial_final`` emits a finite stream's ragged tail as a
+    ``_partial`` batch. Other keyword arguments go to the stream.
     """
 
     def __init__(self, addresses, batch_size: int, device=None,
                  prefetch: int = 2, chunk: int = 1, emit_packed: bool = True,
-                 place_in_driver: bool = False, **stream_kwargs):
+                 place_in_driver: bool = False, ingest_workers: int = 1,
+                 inflate_workers: int = 2, emit_partial_final: bool = False,
+                 max_items: int | None = None, **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
 
         if not emit_packed and int(chunk) > 1:
@@ -366,14 +377,34 @@ class StreamDataPipeline:
                 "place; the decoded form decodes on the card in the pipeline"
             )
         self.place_in_driver = bool(place_in_driver)
+        self.ingest_workers = max(1, int(ingest_workers))
+        self.inflate_workers = max(0, int(inflate_workers))
+        self.emit_partial_final = bool(emit_partial_final)
         self.device = resolve_device(device)
+        self._addresses = None
         if hasattr(addresses, "__iter__") and not isinstance(
             addresses, (list, tuple, str)
         ):
             self.stream = addresses
         else:
+            self._addresses = (
+                [addresses] if isinstance(addresses, str) else list(addresses)
+            )
+            if self.ingest_workers > 1 and (
+                "worker_index" in stream_kwargs
+                or "num_workers" in stream_kwargs
+            ):
+                raise ValueError(
+                    "ingest_workers > 1 cannot be combined with explicit "
+                    "worker_index/num_workers stream kwargs: the shard "
+                    "pool owns the worker slots"
+                )
             stream_kwargs.setdefault("defer_rle", True)
-            self.stream = RemoteStream(addresses, **stream_kwargs)
+            self.stream = RemoteStream(self._addresses, max_items=max_items,
+                                       **stream_kwargs)
+        self._stream_kwargs = dict(stream_kwargs)
+        self.max_items = max_items
+        self.shards: list = [self.stream]
         self.batch_size = int(batch_size)
         self.prefetch = prefetch
         self.ingest = None
@@ -385,14 +416,88 @@ class StreamDataPipeline:
     @property
     def seq_gaps(self) -> int:
         """Messages the producers numbered that never arrived."""
-        return getattr(self.stream, "seq_gaps", 0)
+        return sum(getattr(s, "seq_gaps", 0) for s in self.shards)
+
+    @property
+    def restarts(self) -> int:
+        """Producer sequences that went backwards."""
+        return sum(getattr(s, "restarts", 0) for s in self.shards)
+
+    def shard_stats(self) -> list:
+        """Per shard stream: its addresses, the messages it received off
+        the socket and accounted, the items and batches ingested, its
+        decodes on the inflate pool, and its wire counts (decoded and wire
+        bytes, shared-memory reads and torn slots)."""
+        ingest = self.ingest
+        out = []
+        for i, s in enumerate(self.shards):
+            if ingest is None:
+                items = batches = 0
+            elif hasattr(ingest, "shard_items"):
+                items = ingest.shard_items[i]
+                batches = ingest.shard_batches[i]
+            else:
+                items, batches = ingest.items_in, ingest.batches_out
+            counts = getattr(s, "counts", None)
+            out.append({
+                "addresses": list(getattr(s, "addresses", ())),
+                "received": getattr(s, "received", None),
+                "messages": getattr(s, "messages", None),
+                "items": items, "batches": batches,
+                "pool_decodes": getattr(s, "pool_decodes", 0),
+                **(counts.as_dict() if counts is not None else {}),
+            })
+        return out
+
+    def _shard_streams(self):
+        """One stream per partition of the addresses, or None when the
+        pipeline takes the single-thread ingest."""
+        if self.ingest_workers <= 1:
+            return None
+        from blendjax_torch.data.stream import RemoteStream, partition_addresses
+
+        if self._addresses is None:
+            logger.warning(
+                "ingest_workers=%d requested but the source is an opaque "
+                "iterable (not producer addresses): falling back to "
+                "single-threaded ingest", self.ingest_workers,
+            )
+            return None
+        shards = partition_addresses(self._addresses, self.ingest_workers)
+        if len(shards) < 2:
+            logger.warning(
+                "ingest_workers=%d requested but only one producer address "
+                "is available: falling back to single-threaded ingest",
+                self.ingest_workers,
+            )
+            return None
+        return [
+            RemoteStream(shard, worker_index=i, num_workers=len(shards),
+                         track_gaps=True, **self._stream_kwargs)
+            for i, shard in enumerate(shards)
+        ]
 
     def __iter__(self):
         from blendjax_torch.data.batcher import HostIngest
 
-        self.ingest = HostIngest(
-            self.stream, batch_size=self.batch_size, prefetch=self.prefetch,
-        ).start()
+        streams = self._shard_streams()
+        if streams is not None:
+            from blendjax_torch.data.shard_ingest import ShardedHostIngest
+
+            self.shards = streams
+            self.ingest = ShardedHostIngest(
+                streams, batch_size=self.batch_size, prefetch=self.prefetch,
+                emit_partial_final=self.emit_partial_final,
+                max_messages=self.max_items,
+                inflate_workers=self.inflate_workers,
+            ).start()
+        else:
+            self.shards = [self.stream]
+            self.ingest = HostIngest(
+                self.stream, batch_size=self.batch_size,
+                prefetch=self.prefetch,
+                emit_partial_final=self.emit_partial_final,
+            ).start()
         self.tiles.reset()
         host = self.tiles.host_stage(self.ingest)
         if self.place_in_driver:

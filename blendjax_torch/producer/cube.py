@@ -13,6 +13,12 @@ prebatched message per ``--batch`` frames.
 The bound address (wildcard ports resolve at bind time) is written to
 ``--addr-file`` so the consumer can connect. ``--frames N`` stops after N
 frames and flushes the partial batch; the default streams until killed.
+``--wire`` picks the encoding: ``raw`` (default), zlib ``ndz``,
+run-length ``ndr`` (``--rle-cap N`` pins its capacity) or ``shm``, a
+shared-memory ring of 4 slots for a consumer on this host (a ring that
+cannot be created stops the producer). Under ``$BLENDJAX_SHM_REGISTRY``
+the ring is registered there for the launcher to unlink; otherwise the
+producer unlinks it when it ends normally.
 
 Rendering, the changed-tile scan and the palettizer run in the port's host
 C++ (``blendjax_torch/_native``, built with g++ at first use; a failed
@@ -25,7 +31,8 @@ and every 64 frames prints ``blendjax_torch.producer.cube stats`` and a
 JSON object of its totals: frames, the ms per frame spent rendering,
 encoding and publishing (serialising and sending: the send waits while the
 consumer's queue is full, so a long publish means the consumer is the
-bound), and its own rate without the publish (``own_frames_s``).
+bound), its own rate without the publish (``own_frames_s``), and its
+wire with the shared-memory ring's fallbacks and reclaims.
 """
 
 from __future__ import annotations
@@ -63,6 +70,18 @@ def parse_args(argv=None):
     parser.add_argument("--tile-capacity", type=int, default=0,
                         help="pin the per-frame changed-tile capacity "
                         "(0 = per-stream high-water mark)")
+    parser.add_argument(
+        "--wire", choices=("raw", "ndz", "ndr", "shm"), default="raw",
+        help="raw frames (default); zlib 'ndz' (inflated on the "
+        "consumer's host); run-length 'ndr' (expanded inside the fused "
+        "train step); 'shm' writes the arrays into a shared-memory ring "
+        "for a consumer on this host and sends only a descriptor",
+    )
+    parser.add_argument(
+        "--rle-cap", type=int, default=0, metavar="N",
+        help="pin the ndr per-row pair capacity, so the consumer's packed "
+        "shapes never change; 0 = a sticky per-key capacity",
+    )
     parser.add_argument("--no-native", action="store_true",
                         help="render, scan and palettize with the numpy "
                         "twins instead of the host C++ (for a host without "
@@ -91,6 +110,23 @@ class _TimedPublisher:
         self.seconds += time.perf_counter() - t0
 
 
+def wire_kwargs(opts) -> dict:
+    """The publisher's wire settings for ``--wire`` (the mapping of the
+    JAX package's synthetic producer). Tile messages are prebatched
+    whatever the wire."""
+    kw = {}
+    if opts.wire in ("ndz", "ndr"):
+        kw["compress_min_bytes"] = 1024
+    if opts.wire == "ndz":
+        kw["compress_level"] = 6
+    elif opts.wire == "ndr":
+        kw["compress_rle"] = True
+        kw["rle_cap"] = opts.rle_cap or None
+    elif opts.wire == "shm":
+        kw["shm"] = 4
+    return kw
+
+
 def _say(line: str) -> None:
     print(f"blendjax_torch.producer.cube {line}", file=sys.stderr, flush=True)
 
@@ -108,7 +144,7 @@ def main(argv=None) -> None:
     else:
         _say("path numpy: numpy render, tile scan and palettizer")
     pub = DataPublisherSocket(opts.bind, btid=opts.btid, lingerms=10000,
-                              send_hwm=2)
+                              send_hwm=2, **wire_kwargs(opts))
     if opts.addr_file:
         tmp = f"{opts.addr_file}.tmp"
         with open(tmp, "w") as f:
@@ -152,6 +188,9 @@ def main(argv=None) -> None:
                     "encode_ms": encode_s / frame * 1e3,
                     "publish_ms": timed.seconds / frame * 1e3,
                     "own_frames_s": frame / (render_s + encode_s),
+                    "wire": opts.wire,
+                    "shm_fallbacks": pub.shm_fallbacks,
+                    "shm_reclaims": pub.shm_reclaims,
                 }))
             frame += 1
         tiles.flush()

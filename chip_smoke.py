@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA
-   device -> exit 1 before anything else;
+   device -> exit 1 before anything else; the host's ``os.cpu_count()``,
+   ``len(os.sched_getaffinity(0))`` and the free bytes of ``/dev/shm``;
 2. build: compile every kernel source in ``blendjax_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), print the build time and
    ``-Xptxas -v``'s registers and spills, and count the ``HGMMA`` (wgmma)
@@ -66,7 +67,8 @@ Phases (any failure exits non-zero):
    (every batch decoded on the card by K1) -> ``EchoingPipeline(capacity=
    256, max_echo_factor=4, emit_draws=True)`` ->
    ``CapturedStep(make_echo_fused_step)`` on full-width ``CubeRegressor()``
-   -> ``TrainDriver(inflight=2)``, 128 warm-up and 1024 measured steps. Each decoded fresh batch also goes
+   -> ``TrainDriver(inflight=2)``, 128 warm-up and 1024 measured steps
+   (the drain thread's CPU seconds over the window printed). Each decoded fresh batch also goes
    through ``uint8_gamma_normalize`` on the card (K3). It fails unless
    fresh + echoed == steps x batch exactly, echoed > 0, no sample is drawn
    more than 4 times, seq_gaps == 0, losses are finite, one step call per
@@ -87,6 +89,27 @@ Phases (any failure exits non-zero):
    bit-equal with the eager step, with no fallback; it prints
    ``startup_ms``, ``time_to_first_step_ms``, capture ms per signature and
    pool bytes;
+5c. input side (after the legs above), each run at the flagship's width
+   through one shared ``CapturedStep(make_fused_tile_step())`` on a fresh
+   full-width ``CubeRegressor()`` and ``TrainDriver(inflight=2)``, 64
+   warm-up and 320 measured steps: four cube producers into
+   ``StreamDataPipeline(ingest_workers=1)`` and ``(ingest_workers=2)`` in
+   the order 1, 2, 2, 1 (the A/B), one run of two shards without the
+   inflate pool (for information), then two producers with ``--wire shm``
+   and two with ``--wire ndz`` (``inflate_workers=2``), each through two
+   shards. Every run fails unless seq_gaps == 0 and restarts == 0, one step
+   call and one replay per driver step, no graph captured in the measured
+   window, K1 launched, and (sharded) every shard took items; the shm run
+   also unless its shm reads equal the messages received with no torn
+   slot, fallback or reclaim, the ndz run unless the inflate pool decoded.
+   Each prints live img/s, the producers' own frames/s, each shard's
+   messages, items and batches, and the graph step alone. A producer that
+   dies (a ring that cannot be made) fails the phase with its log. Then
+   the equality leg: 40 recorded flagship messages through a port
+   publisher on the raw wire, over a shared-memory ring, and as ndz
+   through an inflate pool; the packed groups, their decode on the card
+   and the f32 losses of 10 captured steps from one seeded state must be
+   identical on all three routes;
 6. K3 (gamma normalize) against its plain version over all 256 uint8
    values, at (1, 37, 8, 4) and at that shape from byte offset 1 (the
    element path), gamma 2.2 and 1.0, f32 and bf16 (bit-exact, so within
@@ -134,6 +157,14 @@ STREAMFORMER = {"tile": (16, 32), "capacity": 160, "steps": 16, "warmup": 2}
 # rate above the producers' own, the backlog of the step's capture)
 ECHO = {"tile": (16, 32), "capacity": 160, "steps": 1024, "warmup": 128,
         "reservoir": 256, "max_echo_factor": 4}
+# the input side (phase 5c): the flagship stream and step; the A/B runs
+# alternate one ingest thread and two shards, four producers each (128
+# steps after 32 of warm-up lasted ~1 s at ~4000 img/s: windows that short
+# read the backlog of the first capture, so they are longer)
+INGEST = {"tile": (16, 32), "capacity": 160, "steps": 320, "warmup": 64,
+          "order": (1, 2, 2, 1)}
+# captured steps the equality leg runs on each route's groups
+EQUALITY_STEPS = 10
 # bench.py:1080-1082, with the flash backend named explicitly
 FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
           "num_outputs": 16}
@@ -593,9 +624,14 @@ def attention_phase(bw: float) -> dict:
 # -- phase 4: the slice ---------------------------------------------------------
 
 
-def start_producers(tmp: str, tile, capacity: int, count: int = 2):
-    """``count`` cube producers on the flagship stream; returns their
-    processes, addresses and stderr log files."""
+def start_producers(tmp: str, tile, capacity: int, count: int = 2,
+                    wire: str = "raw"):
+    """``count`` cube producers on the flagship stream, publishing on
+    ``wire``; returns their processes, addresses and stderr log files.
+    Their shared-memory rings (``--wire shm``) are registered in the
+    leg's directory, for :func:`reap_segments` after they stop."""
+    from blendjax_torch.transport import REGISTRY_ENV
+
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
@@ -604,6 +640,7 @@ def start_producers(tmp: str, tile, capacity: int, count: int = 2):
     # a fresh directory per leg: an address file left by an earlier leg's
     # (stopped) producers must never be read as this leg's
     leg_dir = tempfile.mkdtemp(dir=tmp)
+    env[REGISTRY_ENV] = os.path.join(leg_dir, "shm")
     for i in range(count):
         addr_file = os.path.join(leg_dir, f"producer{i}.addr")
         log_file = os.path.join(leg_dir, f"producer{i}.log")
@@ -612,7 +649,7 @@ def start_producers(tmp: str, tile, capacity: int, count: int = 2):
             "--addr-file", addr_file, "--btid", str(i), "--seed", str(i),
             "--shape", str(SHAPE[0]), str(SHAPE[1]), "--batch", str(BATCH),
             "--encoding", "tile", "--tile", *map(str, tile), "--tile-rgba",
-            "--tile-capacity", str(capacity),
+            "--tile-capacity", str(capacity), "--wire", wire,
         ]
         with open(log_file, "w") as log:
             proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stderr=log)
@@ -643,6 +680,30 @@ def stop_producers(procs) -> None:
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
+
+
+def reap_segments(logs) -> int:
+    """Unlink the shared-memory rings the (stopped) producers of a leg
+    registered; returns how many there were."""
+    from blendjax_torch.transport import reap_registry
+
+    return reap_registry(os.path.join(os.path.dirname(logs[0]), "shm"))
+
+
+def producer_watch(label: str, procs, logs):
+    """A stream ``on_timeout`` hook: a producer that died (its shared-
+    memory ring could not be made, say) fails the leg with the end of its
+    log; with every producer alive the timeout is raised."""
+    def on_timeout():
+        for proc, log in zip(procs, logs):
+            if proc.poll() is not None:
+                with open(log) as f:
+                    tail = f.read()[-2000:]
+                fail(f"{label}: producer {log} exited with "
+                     f"{proc.returncode}:\n{tail}")
+        return False
+
+    return on_timeout
 
 
 PRODUCER_LINE = "blendjax_torch.producer.cube "
@@ -807,10 +868,17 @@ def step_report(label: str, step, graph_step, state, batch, images: int,
     return out
 
 
-def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
+def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
+            producers: int = 2, wire: str = "raw", ingest_workers: int = 1,
+            inflate_workers: int = 2, graph_step=None,
+            alone: bool = True) -> dict:
     """One producer leg through the captured fused step (one CUDA graph per
     packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
-    graph-parity phase."""
+    graph-parity phase. ``producers`` cube producers publish on ``wire``
+    into ``StreamDataPipeline(ingest_workers=..., inflate_workers=...)``.
+    A ``graph_step`` (with its ``state``) may be shared between legs, so
+    only the first captures. ``alone=False`` times only the graph step
+    alone on the last group (no eager run, no profile)."""
     import collections
 
     import torch
@@ -827,23 +895,31 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         make_fused_tile_step,
     )
 
-    procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"])
+    procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"],
+                                         count=producers, wire=wire)
     pipe = StreamDataPipeline(
-        addrs, batch_size=BATCH, chunk=CHUNK, timeoutms=60_000
+        addrs, batch_size=BATCH, chunk=CHUNK, timeoutms=60_000,
+        ingest_workers=ingest_workers, inflate_workers=inflate_workers,
+        on_timeout=producer_watch(label, procs, logs),
     )
-    step = make_fused_tile_step(loss_fn)
-    graph_step = CapturedStep(step)
+    if graph_step is None:
+        graph_step = CapturedStep(make_fused_tile_step(loss_fn))
+    step = graph_step.step
+    replays0 = graph_step.graph_replays
     drv = TrainDriver(graph_step, state, inflight=2, sync_every=4)
     total = leg["warmup"] + leg["steps"]
     images = 0
     updates = 0  # optimizer updates submitted: the chunk sizes summed
+    short = 0  # step calls on a group of fewer than CHUNK batches
     recorded = collections.deque(maxlen=PARITY_STEPS)
     t0 = None
     try:
         reset_launch_counts()
         for batch in pipe:
             drv.submit(batch)
-            updates += int(batch["_packed"].shape[0])
+            k = int(batch["_packed"].shape[0])
+            updates += k
+            short += k < CHUNK
             recorded.append(batch)
             if drv.steps == leg["warmup"]:
                 drv.drain()
@@ -851,7 +927,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
                 window0 = (graph_step.aot_fallbacks,
                            len(graph_step.signatures))
             elif drv.steps > leg["warmup"]:
-                images += int(batch["_packed"].shape[0]) * BATCH
+                images += k * BATCH
             if drv.steps >= total:
                 break
         drv.drain()
@@ -859,46 +935,58 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None) -> dict:
         wall = time.perf_counter() - t0
         counts = launch_counts()
         variants = variant_counts()
-        gaps = pipe.seq_gaps
+        gaps, restarts = pipe.seq_gaps, pipe.restarts
     finally:
         pipe.stop()
         stop_producers(procs)
-    producers = producer_report(label, logs)
+        segments = reap_segments(logs)
+    shards = pipe.shard_stats()
+    producers_rep = producer_report(label, logs)
     losses = drv.losses  # drain() appended the final loss
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: non-finite loss in {losses}")
-    if gaps:
-        fail(f"{label}: {gaps} sequence gaps")
+    if gaps or restarts:
+        fail(f"{label}: {gaps} sequence gaps, {restarts} restarts")
     if graph_step.aot_fallbacks != window0[0] or graph_step.aot_fallbacks:
         fail(f"{label}: {graph_step.aot_fallbacks} aot fallbacks")
-    if graph_step.graph_replays != drv.steps:
-        fail(f"{label}: {graph_step.graph_replays} graph replays for "
-             f"{drv.steps} steps")
+    if graph_step.graph_replays - replays0 != drv.steps:
+        fail(f"{label}: {graph_step.graph_replays - replays0} graph replays "
+             f"for {drv.steps} steps")
     last = recorded[-1]
-    from blendjax_torch.ops.tiles import decode_packed_superbatch
-
-    decode_ms = time_ms(lambda: decode_packed_superbatch(
-        last["_packed"], last["_refs"], last["_spec"], last["_names"],
-        last["_geoms"], last["_rle"],
-    ), reps=5, windows=5)["ms"]
     group_images = int(last["_packed"].shape[0]) * BATCH
-    # step alone on the last chunk group, eager and through its graph
-    alone = step_report(f"slice {label}", step, graph_step, state, last,
-                        group_images, reps=5)
+    if alone:
+        from blendjax_torch.ops.tiles import decode_packed_superbatch
+
+        decode_ms = time_ms(lambda: decode_packed_superbatch(
+            last["_packed"], last["_refs"], last["_spec"], last["_names"],
+            last["_geoms"], last["_rle"],
+        ), reps=5, windows=5)["ms"]
+        # step alone on the last chunk group, eager and through its graph
+        alone_rep = step_report(f"slice {label}", step, graph_step, state,
+                                last, group_images, reps=5)
+    else:
+        graph_ms = alone_ms(lambda: graph_step(state, last), 20)
+        decode_ms = None
+        alone_rep = {"eager_ms": None, "eager_img_s": None, "profile": None,
+                     "graph_ms": graph_ms,
+                     "graph_img_s": group_images / graph_ms * 1e3}
     return {
-        "profile": alone["profile"], "alone": alone,
+        "profile": alone_rep["profile"], "alone": alone_rep,
         "img_s": images / wall, "wall_s": wall, "images": images,
         "steps": drv.steps, "updates": updates, "losses": losses,
-        "seq_gaps": gaps, "launches": counts, "variants": variants,
+        "short_groups": short, "seq_gaps": gaps, "restarts": restarts,
+        "launches": counts, "variants": variants,
         "driver": drv.stats, "captures_in_window": (
             len(graph_step.signatures) - window0[1]),
         "dispatch_per_step": drv.dispatches / drv.steps,
-        "step_alone_ms": alone["eager_ms"],
-        "step_alone_img_s": alone["eager_img_s"],
-        "graph_alone_ms": alone["graph_ms"],
-        "graph_alone_img_s": alone["graph_img_s"],
+        "step_alone_ms": alone_rep["eager_ms"],
+        "step_alone_img_s": alone_rep["eager_img_s"],
+        "graph_alone_ms": alone_rep["graph_ms"],
+        "graph_alone_img_s": alone_rep["graph_img_s"],
         "decode_ms": decode_ms, "last": last, "step": step,
-        "recorded": list(recorded), "producers": producers,
+        "recorded": list(recorded), "producers": producers_rep,
+        "shards": shards, "segments": segments, "wire": wire,
+        "ingest_workers": ingest_workers,
     }
 
 
@@ -1123,6 +1211,7 @@ def echo_leg(tmp: str) -> dict:
             fail(f"echo leg: {what}")
     fresh = s1["fresh"] - s0["fresh"]
     drawn = fresh + s1["echoed"] - s0["echoed"]
+    drain_busy = s1["drain_busy_s"] - s0["drain_busy_s"]
     # the echo step alone on one draw token, eager and through its graph
     token = echo.reservoir.draw_token(
         np.arange(BATCH) % max(echo.reservoir.size, 1))
@@ -1136,6 +1225,7 @@ def echo_leg(tmp: str) -> dict:
         "img_s": ECHO["steps"] * BATCH / wall, "wall_s": wall,
         "fresh_img_s": (s1["inserted"] - s0["inserted"]) / wall,
         "unique_fraction": fresh / drawn if drawn else None,
+        "drain_busy_s": drain_busy,
         "stats": s1, "driver": drv.stats, "steps": drv.steps,
         "decoded_batches": decoded, "launches": counts, "seq_gaps": gaps,
         "losses": losses, "dispatch_per_step": drv.dispatches / drv.steps,
@@ -1148,6 +1238,289 @@ def echo_leg(tmp: str) -> dict:
         "gamma_last": tap.last, "producers": producers,
         "reservoir": echo.reservoir, "tokens": tokens,
     }
+
+
+# -- phase 5c: the input side -----------------------------------------------------
+
+
+def host_report() -> dict:
+    """The host's cores and the free bytes of ``/dev/shm`` (where the
+    shared-memory rings live)."""
+    out = {"cpu_count": os.cpu_count(),
+           "affinity": len(os.sched_getaffinity(0))}
+    try:
+        st = os.statvfs("/dev/shm")
+        out["dev_shm_free"] = st.f_bavail * st.f_frsize
+        out["dev_shm_total"] = st.f_blocks * st.f_frsize
+    except OSError:
+        out["dev_shm_free"] = out["dev_shm_total"] = None
+    return out
+
+
+def shard_text(shards) -> str:
+    return "; ".join(
+        f"shard {i} ({len(s['addresses'])} producer(s)): {s['messages']} "
+        f"messages, {s['items']} items, {s['batches']} batches"
+        for i, s in enumerate(shards))
+
+
+def ingest_gates(label: str, leg: dict, workers: int) -> None:
+    checks = [
+        (leg["captures_in_window"] == 0,
+         f"{leg['captures_in_window']} graphs captured in the window"),
+        (leg["dispatch_per_step"] == 1.0,
+         f"{leg['dispatch_per_step']} step calls per driver step"),
+        (leg["launches"]["decode_spatial"] > 0, "K1 never launched"),
+        (len(leg["shards"]) == workers, f"{len(leg['shards'])} shards for "
+         f"{workers} ingest worker(s)"),
+        (all(s["items"] > 0 for s in leg["shards"]),
+         f"a shard took no item: {shard_text(leg['shards'])}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"{label}: {what}")
+
+
+def ingest_phase(tmp: str, card: str, flagship: dict) -> dict:
+    """The input side at the flagship's width: four producers through one
+    ingest thread and through two shards (in the order of
+    ``INGEST["order"]``), then two shared-memory producers and two zlib
+    ("ndz") producers through two shards with a shared inflate pool. Every
+    run trains the full-width CubeRegressor through one shared captured
+    step (captured in the first run's warm-up) with
+    ``TrainDriver(inflight=2)``."""
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        CapturedStep,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    state = make_train_state(CubeRegressor().init_params(0))
+    graph_step = CapturedStep(make_fused_tile_step())
+    runs = []
+    for i, workers in enumerate(INGEST["order"]):
+        label = f"ingest A/B run {i + 1}, {workers} ingest worker(s)"
+        leg = run_leg(label, INGEST, state, tmp, producers=4,
+                      ingest_workers=workers, graph_step=graph_step,
+                      alone=False)
+        ingest_gates(label, leg, workers)
+        log(f"{label}: live {leg['img_s']:.1f} img/s over {leg['images']} "
+            f"images ({leg['wall_s']:.2f} s) on {card}; "
+            f"{producer_text(leg['producers'])}; {shard_text(leg['shards'])};"
+            f" step alone through the graph {leg['graph_alone_ms']:.3f} ms "
+            f"({leg['graph_alone_img_s']:.1f} img/s); step calls on groups "
+            f"below K={CHUNK}: {leg['short_groups']}; launches "
+            f"{leg['launches']}; seq_gaps {leg['seq_gaps']}, restarts "
+            f"{leg['restarts']}; driver {leg['driver']}")
+        runs.append(leg)
+    # for information: two shards with every decode inline on its shard's
+    # thread, which separates the pool's hand-offs from the sharding
+    label = "ingest run 5, 2 ingest workers, no inflate pool (information)"
+    inline = run_leg(label, INGEST, state, tmp, producers=4, ingest_workers=2,
+                     inflate_workers=0, graph_step=graph_step, alone=False)
+    ingest_gates(label, inline, 2)
+    log(f"{label}: live {inline['img_s']:.1f} img/s on {card}; "
+        f"{producer_text(inline['producers'])}; "
+        f"{shard_text(inline['shards'])}; pool decodes "
+        f"{sum(s['pool_decodes'] for s in inline['shards'])}")
+
+    label = "shm leg (2 producers, --wire shm, 2 ingest workers)"
+    shm = run_leg(label, INGEST, state, tmp, producers=2, wire="shm",
+                  ingest_workers=2, graph_step=graph_step, alone=False)
+    ingest_gates(label, shm, 2)
+    reads = sum(s["shm_reads"] for s in shm["shards"])
+    received = sum(s["received"] for s in shm["shards"])
+    torn = sum(s["shm_torn"] for s in shm["shards"])
+    fallbacks = sum(p["shm_fallbacks"] for p in shm["producers"]["producers"])
+    reclaims = sum(p["shm_reclaims"] for p in shm["producers"]["producers"])
+    if not (reads == received > 0 and torn == fallbacks == reclaims == 0):
+        fail(f"{label}: shm_reads {reads} for {received} messages, shm_torn "
+             f"{torn}, shm_fallbacks {fallbacks}, shm_reclaims {reclaims}")
+    if shm["segments"] != 2:
+        fail(f"{label}: {shm['segments']} rings registered, not 2")
+    log(f"{label}: live {shm['img_s']:.1f} img/s (the raw-wire flagship leg "
+        f"of this run: {flagship['img_s']:.1f} img/s) on {card}; "
+        f"shm_reads {reads} of {received} messages "
+        f"({sum(s['shm_bytes'] for s in shm['shards'])} bytes), shm_torn "
+        f"{torn}, shm_fallbacks {fallbacks}, shm_reclaims {reclaims}; "
+        f"{producer_text(shm['producers'])}; {shard_text(shm['shards'])}; "
+        f"step alone through the graph {shm['graph_alone_ms']:.3f} ms")
+
+    label = "ndz leg (2 producers, --wire ndz, 2 ingest workers, 2 inflate)"
+    ndz = run_leg(label, INGEST, state, tmp, producers=2, wire="ndz",
+                  ingest_workers=2, inflate_workers=2, graph_step=graph_step,
+                  alone=False)
+    ingest_gates(label, ndz, 2)
+    pool = sum(s["pool_decodes"] for s in ndz["shards"])
+    raw = sum(s["raw_bytes"] for s in ndz["shards"])
+    wire = sum(s["compressed_bytes"] for s in ndz["shards"])
+    if pool <= 0:
+        fail(f"{label}: no message was decoded on the inflate pool")
+    log(f"{label}: live {ndz['img_s']:.1f} img/s on {card}; pool_decodes "
+        f"{pool}; decoded {raw} bytes from {wire} on the wire "
+        f"({raw / max(wire, 1):.2f}x); {producer_text(ndz['producers'])} "
+        f"(publish, which compresses, left out); "
+        f"{shard_text(ndz['shards'])}; step alone through the graph "
+        f"{ndz['graph_alone_ms']:.3f} ms")
+    k1 = sum(leg["launches"]["decode_spatial"]
+             for leg in (*runs, inline, shm, ndz))
+    return {"runs": runs, "inline": inline, "shm": shm, "ndz": ndz,
+            "k1_launches": k1}
+
+
+class _Capture:
+    """A publisher stand-in that keeps the messages."""
+
+    def __init__(self):
+        self.msgs = []
+
+    def publish(self, **msg):
+        self.msgs.append(msg)
+
+
+def recorded_messages(n: int) -> list:
+    """``n`` flagship-stream messages of one cube producer (seed 0, as the
+    cube producer makes them), kept in memory."""
+    import numpy as np
+
+    from blendjax_torch.producer import CubeScene, TileBatchPublisher
+
+    scene = CubeScene(shape=SHAPE, seed=0)
+    cap = _Capture()
+    tiles = TileBatchPublisher(
+        cap, scene.background_image(), BATCH, tile=FLAGSHIP["tile"],
+        alpha_slice=False, ref_interval=64, capacity=FLAGSHIP["capacity"],
+    )
+    framebuf = np.empty((*SHAPE, 4), np.uint8)
+    frame = 1
+    while len(cap.msgs) < n:
+        scene.step(frame)
+        scene.render(out=framebuf)
+        tiles.add(framebuf, hint=scene.raster.last_drawn,
+                  xy=scene.camera.world_to_pixel(
+                      scene.corners_world()).astype(np.float32),
+                  frameid=np.int64(frame))
+        frame += 1
+    return cap.msgs
+
+
+def equality_leg(card: str) -> dict:
+    """The same recorded messages through three routes: a port publisher
+    on the raw wire, the same publisher over a shared-memory ring, and
+    zlib ("ndz") decoded on an inflate pool. The packed chunk groups, their
+    decode on the card and ten steps of the captured fused step from one
+    seeded state (cuDNN deterministic) must be identical on all three."""
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+    import torch
+
+    from blendjax_torch.data import RemoteStream, StreamDataPipeline
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.ops.tiles import decode_packed_superbatch
+    from blendjax_torch.train import (
+        CapturedStep,
+        make_fused_tile_step,
+        make_train_state,
+    )
+    from blendjax_torch.transport import DataPublisherSocket, detach_all
+
+    steps = EQUALITY_STEPS
+    msgs = recorded_messages(steps * CHUNK)
+    routes = {"raw": {}, "shm": {"shm": 4},
+              "ndz": {"compress_level": 6, "compress_min_bytes": 1024}}
+    got = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, kw in routes.items():
+            pub = DataPublisherSocket("tcp://127.0.0.1:*", btid=0,
+                                      send_hwm=2, **kw)
+            stream = RemoteStream([pub.addr], timeoutms=60_000,
+                                  defer_rle=True, max_items=len(msgs))
+            pool = None
+            if name == "ndz":
+                pool = concurrent.futures.ThreadPoolExecutor(2)
+                stream.set_inflate_pool(pool)
+            feeder = threading.Thread(
+                target=lambda: [pub.publish(**m) for m in msgs], daemon=True)
+            feeder.start()
+            pipe = StreamDataPipeline(stream, batch_size=BATCH, chunk=CHUNK,
+                                      place_in_driver=True)
+            try:
+                groups = list(pipe)
+            finally:
+                pipe.stop()
+                feeder.join(timeout=30)
+                if pool is not None:
+                    pool.shutdown()
+                detach_all()
+                pub.close()
+            if [int(g["_packed"].shape[0]) for g in groups] != [CHUNK] * steps:
+                fail(f"equality leg, {name}: groups of "
+                     f"{[int(g['_packed'].shape[0]) for g in groups]} batches")
+            decoded = [decode_packed_superbatch(
+                torch.from_numpy(g["_packed"]).to(pipe.device), g["_refs"],
+                g["_spec"],
+                g["_names"], g["_geoms"], g["_rle"])["image"] for g in groups]
+            state = make_train_state(CubeRegressor().init_params(0))
+            graph_step = CapturedStep(make_fused_tile_step())
+            losses = []
+            for g in groups:
+                state, m = graph_step(state, pipe.feeder.place(g))
+                losses.append(m["loss"].float().reshape(-1))
+            got[name] = {
+                "groups": groups, "decoded": decoded,
+                "losses": torch.cat(losses).cpu().tolist(),
+                "replays": graph_step.graph_replays,
+                "counts": stream.counts.as_dict(),
+                "pool_decodes": stream.pool_decodes,
+                "messages": stream.messages,
+            }
+            del graph_step, state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    raw = got["raw"]
+    for name in ("shm", "ndz"):
+        other = got[name]
+        for i, (a, b) in enumerate(zip(raw["groups"], other["groups"])):
+            same = (np.array_equal(a["_packed"], b["_packed"])
+                    and a["_spec"] == b["_spec"] and a["_rle"] == b["_rle"]
+                    and a["_geoms"] == b["_geoms"]
+                    and all(torch.equal(a["_refs"][k], b["_refs"][k])
+                            for k in a["_refs"]))
+            if not same:
+                fail(f"equality leg: packed group {i} differs, raw vs {name}")
+            if not torch.equal(raw["decoded"][i], other["decoded"][i]):
+                fail(f"equality leg: decoded group {i} differs, raw vs {name}")
+        if other["losses"] != raw["losses"]:
+            fail(f"equality leg: f32 losses differ, raw {raw['losses']} vs "
+                 f"{name} {other['losses']}")
+    checks = [
+        (got["shm"]["counts"]["shm_reads"] == len(msgs),
+         f"shm route: {got['shm']['counts']['shm_reads']} shm reads for "
+         f"{len(msgs)} messages"),
+        (got["ndz"]["pool_decodes"] == len(msgs),
+         f"ndz route: {got['ndz']['pool_decodes']} pool decodes"),
+        (got["ndz"]["counts"]["compressed_bytes"]
+         < got["ndz"]["counts"]["raw_bytes"], "ndz route: nothing compressed"),
+        (all(r["replays"] == steps for r in got.values()),
+         "a route did not replay its graph once per step"),
+        (all(math.isfinite(v) for v in raw["losses"]), "non-finite loss"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"equality leg: {what}")
+    log(f"equality leg on {card}: {len(msgs)} messages through raw, shm and "
+        f"ndz (inflate pool): {steps} packed groups and their decode on the "
+        f"card identical; {len(raw['losses'])} f32 losses of {steps} "
+        f"captured steps identical (first {raw['losses'][0]:.6f}, last "
+        f"{raw['losses'][-1]:.6f}); ndz decoded "
+        f"{got['ndz']['counts']['raw_bytes']} bytes from "
+        f"{got['ndz']['counts']['compressed_bytes']} on the wire")
+    return {"messages": len(msgs), "losses": raw["losses"]}
 
 
 # -- phase 5b: graph parity and the supervised AOT set ---------------------------
@@ -1480,6 +1853,10 @@ def main() -> None:
     bw = hbm_rate(kind)
     card = f"{kind}, power limit {smi.split(',')[-1].strip()}"
     log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    host = host_report()
+    log(f"host: os.cpu_count() {host['cpu_count']}, "
+        f"len(os.sched_getaffinity(0)) {host['affinity']}, /dev/shm free "
+        f"{host['dev_shm_free']} of {host['dev_shm_total']} bytes")
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -1509,6 +1886,22 @@ def main() -> None:
             "streamformer": streamformer_leg(tmp, card),
         }
         echo = echo_leg(tmp)
+        # phase 5c: the input side, after the earlier legs
+        t0 = time.perf_counter()
+        ingest = ingest_phase(tmp, card, legs["flagship"])
+        equality = equality_leg(card)
+        log(f"input side: ingest A/B, shm, ndz and equality legs in "
+            f"{time.perf_counter() - t0:.1f} s")
+    ab = {w: [r["img_s"] for r in ingest["runs"] if r["ingest_workers"] == w]
+          for w in sorted(set(INGEST["order"]))}
+    log(f"ingest A/B on {card}: live img/s with four producers, by ingest "
+        f"workers (runs in the order {INGEST['order']}): "
+        + "; ".join(f"{w}: {v}" for w, v in ab.items())
+        + "; producers' own frames/s summed: "
+        + str([round(r["producers"].get("own_frames_s", 0.0), 1)
+               for r in ingest["runs"]])
+        + "; step alone through the graph img/s: "
+        + str([round(r["graph_alone_img_s"], 1) for r in ingest["runs"]]))
     if legs["flagship"]["launches"]["decode_spatial"] <= 0:
         fail("flagship leg never launched decode_spatial (K1)")
     if legs["square"]["launches"]["decode_scatter"] <= 0:
@@ -1553,7 +1946,10 @@ def main() -> None:
     ep = echo["profile"]
     log(f"slice echo: {echo['img_s']:.1f} img/s into the step over "
         f"{ECHO['steps']} steps ({echo['wall_s']:.2f} s) on {card}; fresh "
-        f"frames {echo['fresh_img_s']:.1f} img/s; unique fraction "
+        f"frames {echo['fresh_img_s']:.1f} img/s; drain thread busy "
+        f"{echo['drain_busy_s']:.3f} s of CPU over the {echo['wall_s']:.3f} s "
+        f"window ({echo['drain_busy_s'] / echo['wall_s']:.1%} of one core); "
+        f"unique fraction "
         f"{echo['unique_fraction']:.4f}; stats {echo['stats']}; decoded fresh "
         f"batches {echo['decoded_batches']}; launches {echo['launches']}; "
         f"seq_gaps {echo['seq_gaps']}; dispatches/step "
@@ -1601,10 +1997,13 @@ def main() -> None:
     rows = []
     for name, meta in KERNELS.items():
         m = measured[name]
+        launches = legs[leg_of.get(name, "streamformer")]["launches"][name]
+        if name == "decode_spatial":  # every input-side leg launches K1
+            launches += ingest["k1_launches"]
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": legs[leg_of.get(name, "streamformer")]["launches"][name],
+            "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "min_ms": m["min_ms"], "max_ms": m["max_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],

@@ -73,6 +73,74 @@ def test_the_echo_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+@pytest.mark.parametrize("module", [
+    "transport/wire.py", "transport/shm.py", "transport/channels.py",
+    "transport/__init__.py", "data/stream.py", "data/batcher.py",
+    "data/shard_ingest.py", "data/torch_compat.py", "data/__init__.py",
+    "producer/cube.py",
+])
+def test_the_ingest_slice_modules_are_scanned(module):
+    """The input side's modules are in the scan above, and each imports
+    nothing of JAX or of the JAX package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def _no_shared_memory(monkeypatch):
+    from blendjax_torch.transport import shm
+
+    def refuse(*args, **kwargs):
+        raise OSError(28, "No space left on device", "/dev/shm")
+
+    monkeypatch.setattr(shm.shared_memory, "SharedMemory", refuse)
+
+
+def test_a_shm_publisher_without_a_ring_raises_and_sends_nothing(monkeypatch):
+    """A ring that cannot be created fails the publish; the message never
+    goes on the wire instead."""
+    from blendjax_torch.transport import (
+        DataPublisherSocket,
+        DataReceiverSocket,
+        ReceiveTimeoutError,
+    )
+
+    _no_shared_memory(monkeypatch)
+    pub = DataPublisherSocket("tcp://127.0.0.1:*", btid=0, shm=4)
+    recv = DataReceiverSocket([pub.addr], timeoutms=300)
+    try:
+        with pytest.raises(OSError, match="No space"):
+            pub.publish(image=np.zeros((8, 8, 4), np.uint8))
+        assert pub.shm_fallbacks == 0
+        with pytest.raises(ReceiveTimeoutError):
+            recv.recv()
+    finally:
+        recv.close()
+        pub.close()
+
+
+def test_the_cube_producer_stops_when_its_ring_cannot_be_made(monkeypatch):
+    from blendjax_torch.producer import cube
+
+    _no_shared_memory(monkeypatch)
+    with pytest.raises(OSError, match="No space"):
+        cube.main(["--shape", "32", "64", "--batch", "2", "--frames", "2",
+                   "--tile", "16", "32", "--tile-capacity", "4",
+                   "--wire", "shm", "--no-native"])
+
+
+def test_a_sharded_pipeline_without_a_gpu_raises(monkeypatch):
+    from blendjax_torch.data import StreamDataPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamDataPipeline(["tcp://127.0.0.1:1", "tcp://127.0.0.1:2"],
+                           batch_size=2, ingest_workers=2)
+    pipe = StreamDataPipeline(["tcp://127.0.0.1:1", "tcp://127.0.0.1:2"],
+                              batch_size=2, ingest_workers=2, device="cpu")
+    assert pipe.device == torch.device("cpu")
+
+
 def _docstrings(tree):
     """The docstring nodes of a module and its classes and functions."""
     out = set()

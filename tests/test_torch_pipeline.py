@@ -78,11 +78,14 @@ def test_wire_round_trip_between_packages(direction, defer):
 
 
 def test_wire_refuses_what_it_does_not_carry():
-    with pytest.raises(TypeError):
-        wire.encode_message({"obj": object()})
-    frames = jwire.encode_message({"obj": object()})  # embedded pickle
-    with pytest.raises(ValueError, match="not supported"):
+    """A value msgpack cannot carry rides as an embedded pickle, as in the
+    JAX package; the port decodes it only when asked (allow_pickle)."""
+    assert wire.encode_message({"obj": {1, 2}})[0] == jwire.encode_message(
+        {"obj": {1, 2}})[0]
+    frames = jwire.encode_message({"obj": {1, 2}})  # embedded pickle
+    with pytest.raises(ValueError, match="allow_pickle"):
         wire.decode_message(frames)
+    assert wire.decode_message(frames, allow_pickle=True) == {"obj": {1, 2}}
 
 
 def test_stream_counts_sequence_gaps_and_restarts():
