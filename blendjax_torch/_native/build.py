@@ -67,6 +67,17 @@ def palettize():
                           [_P, _I, _I, _I, _P, _P], _I)
 
 
+def tile_delta_palidx():
+    """``bjt_tile_delta_palidx(img, ref, h, w, c, th, tw, ty0, ty1, tx0,
+    tx1, idx_out, palidx_out, keys, vals, palette, pcount, cap) -> count``,
+    or -1 past ``cap`` colours; ``keys`` (uint32[1024]), ``vals``
+    (int16[1024]), ``palette`` (uint8[256*c]) and ``pcount`` (int64[1])
+    are the caller's colour table, kept across calls."""
+    return libbuild.entry(load("tiledelta"), "bjt_tile_delta_palidx",
+                          [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _I], _I)
+
+
 def render_frame():
     """``bjt_render_frame(verts, rgba, n, light, view, proj, clip_near,
     color, zbuf, h, w, bg, prev_rect, out_rect)``: one frame rendered in

@@ -16,6 +16,15 @@ from blendjax_torch.data.pipeline import (
     StreamDataPipeline,
     TileStreamDecoder,
 )
+from blendjax_torch.data.replay import (
+    FileDataset,
+    FileReader,
+    FileRecorder,
+    LegacyBtrReader,
+    ReplayStream,
+    SingleFileDataset,
+    open_reader,
+)
 from blendjax_torch.data.schema import FieldSpec, SchemaError, StreamSchema
 from blendjax_torch.data.shard_ingest import (
     ParallelBatchAssembler,
@@ -29,18 +38,25 @@ __all__ = [
     "DeviceFeeder",
     "EchoingPipeline",
     "FieldSpec",
+    "FileDataset",
+    "FileReader",
+    "FileRecorder",
     "HostIngest",
+    "LegacyBtrReader",
     "ParallelBatchAssembler",
     "RemoteIterableDataset",
     "RemoteStream",
+    "ReplayStream",
     "SampleReservoir",
     "SchemaError",
     "ShardedHostIngest",
+    "SingleFileDataset",
     "StreamDataPipeline",
     "StreamSchema",
     "TileStreamDecoder",
     "bucket_sizes",
     "default_echo_augment",
+    "open_reader",
     "pad_to_bucket",
     "partition_addresses",
 ]

@@ -26,10 +26,14 @@ inserts and the steps use too, so a decoded batch is complete before its
 insert, and an insert queued after a step cannot overwrite the rows that
 step gathers.
 
-Left out of this port (ROADMAP): ``warm_start`` (replay), ``mesh`` /
-``sharding`` (the multi-GPU slice), ``state_dict`` / ``load_state_dict``
-(the checkpoint slice), ``doctor``, and the trace, lineage, scenario and
-metrics-registry hooks; the counters live on the instances.
+Checkpoints: both classes have ``state_dict`` / ``load_state_dict`` (the
+ring's contents, the counters and the host generator's bit state), so a
+resumed echo run draws the same slots with the same augmentation as the
+uninterrupted one; ``warm_start=`` fills the reservoir from a recording
+before the first draw. Left out of this port (ROADMAP): ``mesh`` /
+``sharding`` (the multi-GPU slice, Queue A item 5), ``doctor``, and the
+trace, lineage, scenario and metrics-registry hooks (item 3); the counters
+live on the instances.
 """
 
 from __future__ import annotations
@@ -224,6 +228,45 @@ class SampleReservoir:
         """``{field: data_ptr()}`` of the ring: constant for the run."""
         return {k: v.data_ptr() for k, v in (self._buffers or {}).items()}
 
+    # -- session snapshot (blendjax_torch.checkpoint) ------------------------
+
+    def state_dict(self) -> dict:
+        """The ring and its counters. The buffers ride by reference: the
+        snapshot manager clones them on the current stream and copies them
+        to the host on its own thread."""
+        d = {
+            "capacity": self.capacity,
+            "cursor": self._cursor,
+            "size": self.size,
+            "inserts": self.inserts,
+            "draws": self._draws,
+            "built": self._buffers is not None,
+        }
+        if self._buffers is not None:
+            d["buffers"] = dict(self._buffers)
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        """Rebuild the ring from a snapshot; the draw counter is restored
+        too, so the next draw seeds its augmentation as the uninterrupted
+        run's would."""
+        if int(d["capacity"]) != self.capacity:
+            raise ValueError(
+                f"snapshot reservoir capacity {d['capacity']} != configured "
+                f"{self.capacity}"
+            )
+        self._cursor = int(d["cursor"])
+        self.size = int(d["size"])
+        self.inserts = int(d["inserts"])
+        self._draws = int(d["draws"])
+        if not d.get("built"):
+            return
+        bufs = {k: np.asarray(v) for k, v in d["buffers"].items()}
+        self._buffers = allocate_ring(self.capacity, initial=bufs,
+                                      device=self.device)
+        self._spec = {k: (tuple(v.shape[1:]), v.dtype)
+                      for k, v in self._buffers.items()}
+
 
 class EchoingPipeline:
     """Yield train batches at the step rate from a producer-bound stream,
@@ -244,6 +287,10 @@ class EchoingPipeline:
       batches; composition, accounting and augmentation are the same.
     - ``device``: where the reservoir lives; ``None`` takes the inner
       pipeline's device, else ``cuda`` (raises without a GPU).
+    - ``warm_start``: a recording (path, list or prefix) that fills the
+      reservoir through the replay pipeline before the first draw, so
+      the first steps do not wait for live frames;
+      ``warm_start_allow_pickle`` admits a pickle-bearing recording.
 
     :attr:`stats`: ``fresh + echoed == steps * batch`` exactly;
     ``saturated_waits`` counts the waits for fresh frames with the budget
@@ -256,16 +303,14 @@ class EchoingPipeline:
                  max_echo_factor: int = 8, min_fresh_fraction: float = 0.0,
                  batch_size: int | None = None, augment="default",
                  image_key: str = "image", points_key: str | None = None,
-                 rng: int = 0, warm_start=None, mesh=None, sharding=None,
-                 emit_draws: bool = False, device=None):
-        if warm_start is not None:
-            raise NotImplementedError(
-                "warm_start waits for the replay slice of the port "
-                "(ROADMAP item 11)"
-            )
+                 rng: int = 0, warm_start=None,
+                 warm_start_allow_pickle: bool = False, mesh=None,
+                 sharding=None, emit_draws: bool = False, device=None):
         if mesh is not None or sharding is not None:
             raise NotImplementedError(MULTI_GPU)
         self.pipeline = pipeline
+        self.warm_start = warm_start
+        self.warm_start_allow_pickle = bool(warm_start_allow_pickle)
         self.capacity = int(capacity)
         self.max_echo_factor = max(1, int(max_echo_factor))
         self.min_fresh_fraction = float(min_fresh_fraction)
@@ -462,6 +507,8 @@ class EchoingPipeline:
     # -- iteration ------------------------------------------------------------
 
     def __iter__(self):
+        if self.warm_start:
+            self._warm_fill()
         if self._thread is None:
             self._stop.clear()
             stream = (torch.cuda.current_stream(self.device)
@@ -508,6 +555,79 @@ class EchoingPipeline:
             self.fresh += fresh_n
             self.echoed += len(idx) - fresh_n
             yield batch
+
+    # -- warm start ------------------------------------------------------------
+
+    def _warm_fill(self) -> None:
+        """Fill the reservoir from the ``warm_start`` recording through the
+        whole replay pipeline (tile recordings decode bit-exact), one
+        reservoir's worth of batches."""
+        from blendjax_torch.data.pipeline import StreamDataPipeline
+
+        if self.batch_size is None:
+            raise ValueError(
+                "warm_start needs a known batch_size (pass batch_size= or "
+                "wrap a StreamDataPipeline)"
+            )
+        warm = StreamDataPipeline.from_recording(
+            self.warm_start, batch_size=self.batch_size,
+            allow_pickle=self.warm_start_allow_pickle, device=self.device,
+        )
+        budget = math.ceil(self.capacity / self.batch_size)
+        with warm:
+            it = iter(warm)
+            for _ in range(budget):
+                try:
+                    self._insert_fresh(next(it))
+                except StopIteration:
+                    break
+        logger.info("warm-started the reservoir with %d samples from %r",
+                    int(self._filled.sum()), self.warm_start)
+
+    # -- session snapshot (blendjax_torch.checkpoint) ------------------------
+
+    def state_dict(self) -> dict:
+        """What a resumed echo pipeline needs to go on bitwise: the
+        reservoir (ring and draw counter), the per-slot use counts and
+        fill, the host generator's bit state and the counters. Insert
+        times are stored as ages (a monotonic clock does not survive the
+        process). The arrays are copies: this thread keeps updating its
+        own while the writer encodes them."""
+        now = time.monotonic()
+        return {
+            "reservoir": self.reservoir.state_dict(),
+            "use": self._use.copy(),
+            "filled": self._filled.copy(),
+            "age_s": now - self._t_insert,
+            "rng": self._np_rng.bit_generator.state,
+            "batch_size": self.batch_size,
+            "steps": self.steps,
+            "fresh": self.fresh,
+            "echoed": self.echoed,
+            "inserted": self.inserted,
+            "saturated_waits": self.saturated_waits,
+            "max_uses": self.max_uses,
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore before iteration starts (the drain thread has not
+        touched the reservoir yet); raises once iterating."""
+        if self._thread is not None:
+            raise RuntimeError(
+                "load_state_dict must run before iteration starts")
+        self.reservoir.load_state_dict(d["reservoir"])
+        self._use = np.asarray(d["use"], np.int64).copy()
+        self._filled = np.asarray(d["filled"], bool).copy()
+        self._t_insert = time.monotonic() - np.asarray(d["age_s"], np.float64)
+        self._np_rng.bit_generator.state = d["rng"]
+        if d.get("batch_size"):
+            self.batch_size = int(d["batch_size"])
+        self.steps = int(d.get("steps", 0))
+        self.fresh = int(d.get("fresh", 0))
+        self.echoed = int(d.get("echoed", 0))
+        self.inserted = int(d.get("inserted", 0))
+        self.saturated_waits = int(d.get("saturated_waits", 0))
+        self.max_uses = int(d.get("max_uses", 0))
 
     # -- lifecycle / observability --------------------------------------------
 

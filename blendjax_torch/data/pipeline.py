@@ -14,10 +14,13 @@
 
 Two forms are ported: the fused form (``emit_packed=True``: packed chunk
 groups that ``make_fused_tile_step`` decodes inside the step) and the
-decoded form (``emit_packed=False, chunk=1``: every batch decoded on the
-card by K1/K2 as it arrives, the input of the echo reservoir). The
-decoded form with ``chunk > 1``, multi-host assembly and mesh shardings
-wait for later slices.
+decoded form (``emit_packed=False``, the default, as in the JAX package:
+every chunk group decoded on the card by K1/K2 as it arrives; with
+``chunk=1`` the input of the echo reservoir, with ``chunk=K`` (K, B, ...)
+superbatches). A finite stream's ``_partial`` tail is bucket-padded with
+a ``_mask`` before the host stage (``pad_partial=True``). Multi-host
+assembly and mesh shardings wait for the multi-GPU slice (ROADMAP Queue A
+item 5).
 """
 
 from __future__ import annotations
@@ -130,14 +133,17 @@ class TileStreamDecoder:
     layout, same reference content) into one stacked (K', total) buffer;
     a mismatch flushes a shorter group. Refs are keyed per (field,
     producer ``btid``): PUSH is FIFO per producer, so a producer's
-    reference precedes its deltas. A non-tile batch flushes the open
-    group and travels alone as a K'=1 superbatch.
+    reference precedes its deltas. In a chunked or packed stream a
+    non-tile batch flushes the open group and travels alone as a K'=1
+    superbatch; in the decoded form with ``chunk=1`` it passes as it is.
 
-    ``emit_packed=False`` (with ``chunk=1``) decodes each group on the
-    card in :meth:`device_stage` and yields plain batches.
+    ``emit_packed=False`` decodes each group on the card in
+    :meth:`device_stage`: plain batches with ``chunk=1``, (K', B, ...)
+    superbatches with their ``_meta`` otherwise.
     """
 
-    def __init__(self, device=None, chunk: int = 1, emit_packed: bool = True):
+    def __init__(self, device=None, chunk: int = 1,
+                 emit_packed: bool = False):
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
         self.emit_packed = bool(emit_packed)
@@ -219,16 +225,19 @@ class TileStreamDecoder:
             if missing:
                 continue
             if not names:
-                if not self._warned_mixed:
-                    self._warned_mixed = True
-                    logger.warning(
-                        "non-tile message in a chunk=%d stream: flushing the "
-                        "group and sending it as a K'=1 superbatch",
-                        self.chunk,
-                    )
-                yield from self._flush_group(group)
-                yield from self._flush_pal_group(pal_group)
-                self._plans.append(("raw1",))
+                if self.chunk > 1 or self.emit_packed:
+                    if not self._warned_mixed:
+                        self._warned_mixed = True
+                        logger.warning(
+                            "non-tile message in a chunk=%d stream: flushing "
+                            "the group and sending it as a K'=1 superbatch",
+                            self.chunk,
+                        )
+                    yield from self._flush_group(group)
+                    yield from self._flush_pal_group(pal_group)
+                    self._plans.append(("raw1",))
+                else:  # decoded per batch: a raw batch passes as it is
+                    self._plans.append(("raw",))
                 yield hb
                 continue
             arrays = {k: v for k, v in hb.items() if isinstance(v, np.ndarray)}
@@ -312,12 +321,20 @@ class TileStreamDecoder:
             }
 
     def _decoded(self, device_batches):
-        """Decode every placed K'=1 group on the card (tile groups through
-        K1/K2, palette groups through the byte-LUT gather) and yield
-        ``{field: (B, ...), **host sidecars}``; a raw batch passes as it is."""
+        """Decode every placed group on the card (tile groups through
+        K1/K2, palette groups through the byte-LUT gather). With
+        ``chunk=1`` yield ``{field: (B, ...), **host sidecars}``, else
+        ``{field: (K', B, ...), "_meta": [sidecars per batch]}``; a raw
+        batch passes as it is (``chunk=1``) or with a leading K'=1 axis."""
         for db in device_batches:
             plan = self._plans.popleft()
+            if plan[0] == "raw":
+                yield db
+                continue
             if plan[0] == "raw1":
+                for k, v in list(db.items()):
+                    if k != "_meta" and getattr(v, "ndim", 0) >= 1:
+                        db[k] = v[None]
                 yield db
                 continue
             if plan[0] == "palchunk":
@@ -328,6 +345,9 @@ class TileStreamDecoder:
                 _, names, spec, rests, refs, geoms, rle_groups = plan
                 fields = T.decode_packed_superbatch(
                     db["__packed__"], refs, spec, names, geoms, rle_groups)
+            if self.chunk > 1:
+                yield {"_meta": rests, **fields}
+                continue
             out = dict(rests[0])
             out.update({k: v[0] for k, v in fields.items()})
             yield out
@@ -337,13 +357,14 @@ class StreamDataPipeline:
     """Producer addresses -> device batches.
 
     ``addresses`` is a producer address (or list), or any iterable of
-    message dicts (e.g. recorded messages). ``emit_packed=True`` (the
-    fused form) yields packed groups for ``make_fused_tile_step``;
-    ``chunk=K`` groups K batches per device transfer and train-step call.
-    ``emit_packed=False`` (the decoded form, ``chunk=1`` only) yields
-    each batch decoded on the card, ``{"image": (B, H, W, C) uint8, "xy":
-    ..., ...}``: the input of
-    :class:`~blendjax_torch.data.echo.EchoingPipeline`.
+    message dicts (a :class:`~blendjax_torch.data.replay.ReplayStream`:
+    :meth:`from_recording`). ``emit_packed=False`` (the default, the
+    decoded form) yields each batch decoded on the card, ``{"image": (B,
+    H, W, C) uint8, "xy": ..., ...}``, the input of
+    :class:`~blendjax_torch.data.echo.EchoingPipeline`, or with ``chunk=K``
+    (K, B, ...) superbatches. ``emit_packed=True`` (the fused form) yields
+    packed groups for ``make_fused_tile_step``; ``chunk=K`` groups K
+    batches per device transfer and train-step call.
     ``place_in_driver=True`` (fused form) yields the packed groups still on
     the host, for ``TrainDriver(place=pipeline.feeder.place)``. ``device=None``
     means ``cuda`` and raises when no GPU is present.
@@ -356,21 +377,21 @@ class StreamDataPipeline:
     one budget of messages for the whole pool. An opaque iterable or a
     single address falls back to the single-thread ingest, with a warning.
     ``emit_partial_final`` emits a finite stream's ragged tail as a
-    ``_partial`` batch. Other keyword arguments go to the stream.
+    ``_partial`` batch, which ``pad_partial`` (on by default) zero-pads to
+    its bucket with a float32 ``_mask`` before the host stage;
+    ``pad_partial=False`` keeps the exact ragged tail. Other keyword
+    arguments go to the stream (``record_path_prefix`` tees every
+    message received to a recording, per shard).
     """
 
     def __init__(self, addresses, batch_size: int, device=None,
-                 prefetch: int = 2, chunk: int = 1, emit_packed: bool = True,
+                 prefetch: int = 2, chunk: int = 1, emit_packed: bool = False,
                  place_in_driver: bool = False, ingest_workers: int = 1,
                  inflate_workers: int = 2, emit_partial_final: bool = False,
-                 max_items: int | None = None, **stream_kwargs):
+                 pad_partial: bool = True, max_items: int | None = None,
+                 **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
 
-        if not emit_packed and int(chunk) > 1:
-            raise NotImplementedError(
-                "the decoded form (emit_packed=False) is ported for chunk=1 "
-                "only; chunked groups take the fused form (emit_packed=True)"
-            )
         if place_in_driver and not emit_packed:
             raise ValueError(
                 "place_in_driver=True yields host batches for the driver's "
@@ -380,6 +401,7 @@ class StreamDataPipeline:
         self.ingest_workers = max(1, int(ingest_workers))
         self.inflate_workers = max(0, int(inflate_workers))
         self.emit_partial_final = bool(emit_partial_final)
+        self.pad_partial = bool(pad_partial)
         self.device = resolve_device(device)
         self._addresses = None
         if hasattr(addresses, "__iter__") and not isinstance(
@@ -412,6 +434,19 @@ class StreamDataPipeline:
         self.tiles = TileStreamDecoder(
             device=self.device, chunk=chunk, emit_packed=emit_packed
         )
+
+    @classmethod
+    def from_recording(cls, source, batch_size: int, loop: bool = False,
+                       allow_pickle: bool = False, **kwargs):
+        """Replay a ``.bjr`` recording (a path, a list of paths or a
+        ``record_path_prefix``; a reference ``.btr`` needs
+        ``allow_pickle=True``) through the whole pipeline: a recorded
+        tile stream decodes to the same frames as the live one, with no
+        producer running. ``loop=True`` replays it again and again."""
+        from blendjax_torch.data.replay import ReplayStream
+
+        return cls(ReplayStream(source, allow_pickle=allow_pickle, loop=loop),
+                   batch_size=batch_size, **kwargs)
 
     @property
     def seq_gaps(self) -> int:
@@ -471,9 +506,16 @@ class StreamDataPipeline:
                 self.ingest_workers,
             )
             return None
+        kwargs = dict(self._stream_kwargs)
+        # enable_recording() may have set the tee after construction:
+        # each shard records to its own worker-indexed file
+        prefix = getattr(self.stream, "record_path_prefix", None)
+        if prefix is not None:
+            kwargs["record_path_prefix"] = prefix
+            kwargs["record_max_messages"] = self.stream.record_max_messages
         return [
             RemoteStream(shard, worker_index=i, num_workers=len(shards),
-                         track_gaps=True, **self._stream_kwargs)
+                         track_gaps=True, **kwargs)
             for i, shard in enumerate(shards)
         ]
 
@@ -499,13 +541,27 @@ class StreamDataPipeline:
                 emit_partial_final=self.emit_partial_final,
             ).start()
         self.tiles.reset()
-        host = self.tiles.host_stage(self.ingest)
+        source = (self._pad_partial_stage(self.ingest) if self.pad_partial
+                  else self.ingest)
+        host = self.tiles.host_stage(source)
         if self.place_in_driver:
             # host batches with their decode plans: the driver's place
             # (``TrainDriver(place=pipeline.feeder.place)``) copies each
             # to the card right before its step
             return iter(self.tiles.device_stage(host))
         return iter(self.tiles.device_stage(self.feeder(host)))
+
+    def _pad_partial_stage(self, batches):
+        """Zero-pad each ``_partial`` tail batch to its bucket of
+        ``batch_size`` on the host and add its float32 ``_mask``, before
+        the tile handling and the placement, so every later stage sees a
+        bucket shape."""
+        from blendjax_torch.data.batcher import pad_to_bucket
+
+        for hb in batches:
+            if hb.get("_partial"):
+                hb = pad_to_bucket(hb, batch_size=self.batch_size)
+            yield hb
 
     def stop(self) -> None:
         if self.ingest is not None:

@@ -1,5 +1,5 @@
 """Live message stream from a fleet of producers (copied from
-``blendjax/data/stream.py``; recording waits for the replay slice).
+``blendjax/data/stream.py``).
 
 Every publisher numbers its messages (``_seq``); the stream pops those
 stamps and counts, per producer, the messages that never arrived
@@ -10,6 +10,12 @@ attributes too: ``received`` (messages taken off the socket),
 (messages decoded on an inflate pool) and, in ``counts`` (a
 :class:`~blendjax_torch.transport.wire.WireCounts`), the decoded and wire
 bytes and the shared-memory reads and torn slots.
+
+``record_path_prefix`` tees the raw wire frames of every message received
+to a ``.bjr`` recording (:mod:`blendjax_torch.data.replay`, one file per
+worker) before anything else touches it, in the order received; with
+decode-ahead too, so a recording holds exactly the ``received`` messages
+(up to ``record_max_messages``).
 """
 
 from __future__ import annotations
@@ -33,12 +39,6 @@ logger = logging.getLogger(f"{LOGGER_NAME}.data")
 # pool while the iterating thread waits in the next receive. Deeper buys
 # nothing and holds more zero-copy frame buffers alive.
 DECODE_AHEAD = 2
-
-RECORDING_NOT_PORTED = (
-    "recording a stream is not ported yet: it comes with checkpoint and "
-    "replay (ROADMAP Queue A item 5)"
-)
-
 
 def partition_addresses(addresses, num_shards: int) -> list:
     """Round-robin partition of producer addresses into at most
@@ -73,12 +73,11 @@ class RemoteStream:
                  timeoutms: int = constants.DEFAULT_TIMEOUTMS,
                  max_items: int | None = None, item_transform=None,
                  record_path_prefix: str | None = None,
+                 record_max_messages: int | None = None,
                  worker_index: int = 0, num_workers: int = 1,
                  copy_arrays: bool = False, allow_pickle: bool = False,
                  on_timeout=None, track_gaps: bool | None = None,
                  defer_rle: bool = False):
-        if record_path_prefix is not None:
-            raise NotImplementedError(RECORDING_NOT_PORTED)
         if isinstance(addresses, str):
             addresses = [addresses]
         self.addresses = list(addresses)
@@ -86,6 +85,8 @@ class RemoteStream:
         self.timeoutms = timeoutms
         self.max_items = max_items
         self.item_transform = item_transform
+        self.record_path_prefix = record_path_prefix
+        self.record_max_messages = record_max_messages
         self.worker_index = int(worker_index)
         self.num_workers = int(num_workers)
         self.copy_arrays = bool(copy_arrays)
@@ -155,7 +156,9 @@ class RemoteStream:
         self._stop_requested = False
 
     def enable_recording(self, prefix: str, max_messages=None):
-        raise NotImplementedError(RECORDING_NOT_PORTED)
+        """Tee from the next iteration on (reference ``dataset.py:53-58``)."""
+        self.record_path_prefix = prefix
+        self.record_max_messages = max_messages
 
     def worker_items(self) -> int | None:
         """This worker's share of ``max_items``."""
@@ -188,9 +191,10 @@ class RemoteStream:
             return None  # counted in counts.shm_torn when resolved
         return self.item_transform(msg) if self.item_transform else msg
 
-    def _recv_sliced(self, recv, frames_only: bool = False):
-        """One receive with ``timeoutms`` semantics, polled in <=250 ms
-        slices so :meth:`request_stop` is honoured; None when stopped."""
+    def _recv_sliced(self, recv):
+        """One message's raw frames, received with ``timeoutms``
+        semantics, polled in <=250 ms slices so :meth:`request_stop` is
+        honoured; None when stopped."""
         deadline = time.monotonic() + self.timeoutms / 1e3
         while True:
             self._apply_membership(recv)
@@ -199,10 +203,7 @@ class RemoteStream:
             remaining_ms = (deadline - time.monotonic()) * 1e3
             slice_ms = max(0, min(250, int(remaining_ms)))
             try:
-                if frames_only:
-                    return recv.recv_frames(timeoutms=slice_ms)
-                return recv.recv(timeoutms=slice_ms,
-                                 copy_arrays=self.copy_arrays)
+                return recv.recv_frames(timeoutms=slice_ms)
             except ReceiveTimeoutError:
                 if remaining_ms <= 0:
                     raise ReceiveTimeoutError(
@@ -210,7 +211,7 @@ class RemoteStream:
                         f"{self.addresses}"
                     ) from None
 
-    def _iter_decode_ahead(self, recv, limit, pool):
+    def _iter_decode_ahead(self, recv, recorder, limit, pool):
         """Receive on this thread, decode on ``pool``, yield in receive
         order. The decode jobs run without the intra-message pool (a job
         that submitted into its own small executor could deadlock it),
@@ -219,11 +220,11 @@ class RemoteStream:
         so ``counts`` covers everything ``received``."""
         pending: collections.deque = collections.deque()
         try:
-            yield from self._decode_ahead(recv, limit, pool, pending)
+            yield from self._decode_ahead(recv, recorder, limit, pool, pending)
         finally:
             concurrent.futures.wait([fut for fut, _raw in pending])
 
-    def _decode_ahead(self, recv, limit, pool, pending):
+    def _decode_ahead(self, recv, recorder, limit, pool, pending):
         n = 0
         while limit is None or n < limit:
             if self._stop_requested:
@@ -231,7 +232,7 @@ class RemoteStream:
             raw = None
             if not pending:
                 try:
-                    raw = self._recv_sliced(recv, frames_only=True)
+                    raw = self._recv_sliced(recv)
                 except ReceiveTimeoutError:
                     if self.on_timeout is not None and self.on_timeout():
                         continue
@@ -246,6 +247,8 @@ class RemoteStream:
                     raw = None
             if raw is not None:
                 self.received += 1
+                if recorder is not None:  # the tee, in receive order
+                    recorder.save(raw)
                 # raw holds the frame buffers alive until the decode ran
                 pending.append(
                     (pool.submit(recv.decode_frames, raw, self.copy_arrays),
@@ -273,26 +276,41 @@ class RemoteStream:
             timeoutms=self.timeoutms, allow_pickle=self.allow_pickle,
             defer_rle=self.defer_rle, counts=self.counts,
         )
+        recorder = None
         try:
+            if self.record_path_prefix is not None:
+                from blendjax_torch.data.replay import FileRecorder
+
+                recorder = FileRecorder(
+                    FileRecorder.filename(self.record_path_prefix,
+                                          self.worker_index),
+                    max_messages=self.record_max_messages,
+                ).__enter__()
             pool = self._inflate_pool
             if pool is not None:
-                yield from self._iter_decode_ahead(recv, limit, pool)
+                yield from self._iter_decode_ahead(recv, recorder, limit,
+                                                   pool)
                 return
             n = 0
             while limit is None or n < limit:
                 try:
-                    msg = self._recv_sliced(recv)
+                    raw = self._recv_sliced(recv)
                 except ReceiveTimeoutError:
                     if self.on_timeout is not None and self.on_timeout():
                         continue
                     raise
-                if msg is None:  # request_stop()
+                if raw is None:  # request_stop()
                     return
                 self.received += 1
-                item = self._account(msg)
+                if recorder is not None:  # the tee, before any decode
+                    recorder.save(raw)
+                item = self._account(recv.decode_frames(raw,
+                                                        self.copy_arrays))
                 if item is None:
                     continue
                 yield item
                 n += 1
         finally:
+            if recorder is not None:
+                recorder.__exit__(None, None, None)
             recv.close()

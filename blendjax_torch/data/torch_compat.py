@@ -10,8 +10,9 @@ are rebuilt on the host with the port's numpy tile codec, bit-exact, so
 items carry plain ``image`` arrays whatever the wire encoding.
 ``max_items`` counts items after that split. The trace and scenario
 stamps (:data:`TRACE_KEY`, :data:`SCENARIO_KEY`) are dropped, since
-``default_collate`` needs the same keys in every item. Recording waits
-for the replay slice.
+``default_collate`` needs the same keys in every item.
+``record_path_prefix`` (or :meth:`RemoteIterableDataset.enable_recording`)
+tees each worker's raw messages to ``{prefix}_{worker:02d}.bjr``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch.utils.data as tud
 from blendjax_torch import constants
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.data.batcher import batched_views
-from blendjax_torch.data.stream import RECORDING_NOT_PORTED, RemoteStream
+from blendjax_torch.data.stream import RemoteStream
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
@@ -46,19 +47,19 @@ class RemoteIterableDataset(tud.IterableDataset):
                  max_items: int | None = None, item_transform=None,
                  record_path_prefix: str | None = None,
                  allow_pickle: bool = False):
-        if record_path_prefix is not None:
-            raise NotImplementedError(RECORDING_NOT_PORTED)
         self.addresses = addresses
         self.queue_size = queue_size
         self.timeoutms = timeoutms
         self.max_items = max_items
         self.item_transform = item_transform
         self.allow_pickle = bool(allow_pickle)
+        self.record_path_prefix = record_path_prefix
         self._refs: dict = {}     # (field, btid) -> reference image
         self._skipped: set = set()
 
     def enable_recording(self, prefix: str):
-        raise NotImplementedError(RECORDING_NOT_PORTED)
+        """Tee every worker's messages (reference ``dataset.py:53-58``)."""
+        self.record_path_prefix = prefix
 
     def stream_length(self, max_items: int):
         self.max_items = max_items
@@ -136,8 +137,10 @@ class RemoteIterableDataset(tud.IterableDataset):
         # the batch split, with the reference's per-worker share
         stream = RemoteStream(
             self.addresses, queue_size=self.queue_size,
-            timeoutms=self.timeoutms, worker_index=worker_index,
-            num_workers=num_workers, copy_arrays=True,
+            timeoutms=self.timeoutms,
+            record_path_prefix=self.record_path_prefix,
+            worker_index=worker_index, num_workers=num_workers,
+            copy_arrays=True,
             allow_pickle=self.allow_pickle,
         )
         messages = iter(stream)

@@ -126,6 +126,8 @@ class TileDeltaEncoder:
     (``blendjax_torch/_native/tiledelta.cpp`` ``bjt_tile_delta``, built at
     construction; a failed build raises). ``native=False`` runs the numpy
     twin, the numpy path of the JAX package's encoder: the same deltas.
+    :meth:`encode_palidx` is the fused scan and palettizer
+    (``bjt_tile_delta_palidx``), native only.
     """
 
     def __init__(self, ref: np.ndarray, tile=TILE, native: bool = True):
@@ -142,6 +144,7 @@ class TileDeltaEncoder:
         self._idx = np.empty((self.num_tiles,), np.int32)
         self._tiles = np.empty((self.num_tiles, self.th, self.tw, c), np.uint8)
         self.native = bool(native)
+        self._pal_state = None  # the fused path's colour table, made lazily
         if self.native:
             from blendjax_torch._native import tile_delta
 
@@ -195,6 +198,82 @@ class TileDeltaEncoder:
         self._idx[:k] = idx
         self._tiles[:k] = v[idx // gw, :, idx % gw]
         return self._idx[:k], self._tiles[:k]
+
+
+    # -- fused scan + palettize (native only) --------------------------------
+
+    def palidx_available(self) -> bool:
+        """Whether :meth:`encode_palidx` can run: the native path (its
+        library builds, or the build raises) and at most 4 channels."""
+        if not self.native or self.ref.shape[2] > 4:
+            return False
+        if getattr(self, "_palidx", None) is None:
+            from blendjax_torch._native import tile_delta_palidx
+
+            self._palidx = tile_delta_palidx()
+        return True
+
+    def reset_palette(self) -> None:
+        """Empty the colour table (the publisher does so once per frame)."""
+        if self._pal_state is not None:
+            self._pal_state["vals"].fill(-1)
+            self._pal_state["count"][0] = 0
+
+    @property
+    def palette(self) -> np.ndarray:
+        """(256, C) uint8 colour table, filled up to :attr:`palette_count`."""
+        return self._pal_state["table"]
+
+    @property
+    def palette_count(self) -> int:
+        return int(self._pal_state["count"][0]) if self._pal_state else 0
+
+    def encode_palidx(self, img: np.ndarray, hint=None):
+        """One frame -> ``(idx int32[K], palidx uint8[K, th*tw])``, views
+        into internal staging valid until the next call: the changed tiles
+        as indices into the encoder's colour table (:attr:`palette`), in
+        one pass and without raw tiles. ``None`` when a pixel would take
+        the table past 256 colours (the table stays valid; the caller
+        falls back to :meth:`encode`) or when the fused path is not
+        available. The caller resets the table (:meth:`reset_palette`)."""
+        if not self.palidx_available():
+            return None
+        if img.shape != self.ref.shape or img.dtype != np.uint8:
+            raise ValueError(
+                f"frame shape {img.shape}/{img.dtype} != ref "
+                f"{self.ref.shape}/uint8"
+            )
+        img = np.ascontiguousarray(img)
+        h, w, c = self.ref.shape
+        if self._pal_state is None:
+            s = {
+                "keys": np.zeros(1024, np.uint32),
+                "vals": np.full(1024, -1, np.int16),
+                "table": np.zeros((256, c), np.uint8),
+                "count": np.zeros(1, np.int64),
+            }
+            self._palidx_stage = np.empty(
+                (self.num_tiles, self.th * self.tw), np.uint8)
+            # the persistent buffers' addresses, taken once: the call is
+            # the producer's per-frame hot path
+            s["ptrs"] = (
+                self.ref.ctypes.data, self._idx.ctypes.data,
+                self._palidx_stage.ctypes.data, s["keys"].ctypes.data,
+                s["vals"].ctypes.data, s["table"].ctypes.data,
+                s["count"].ctypes.data,
+            )
+            self._pal_state = s
+        ty0, ty1, tx0, tx1 = self.tile_bounds(hint)
+        (p_ref, p_idx, p_stage, p_keys, p_vals, p_table, p_count
+         ) = self._pal_state["ptrs"]
+        k = self._palidx(
+            img.ctypes.data, p_ref, h, w, c, self.th, self.tw,
+            ty0, ty1, tx0, tx1, p_idx, p_stage, p_keys, p_vals, p_table,
+            p_count, 256,
+        )
+        if k < 0:
+            return None
+        return self._idx[:k], self._palidx_stage[:k]
 
 
 def pack_batch(deltas, num_tiles: int, bucket: int = 16, capacity=None):

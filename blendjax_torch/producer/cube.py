@@ -20,8 +20,10 @@ cannot be created stops the producer). Under ``$BLENDJAX_SHM_REGISTRY``
 the ring is registered there for the launcher to unlink; otherwise the
 producer unlinks it when it ends normally.
 
-Rendering, the changed-tile scan and the palettizer run in the port's host
-C++ (``blendjax_torch/_native``, built with g++ at first use; a failed
+With ``--tile-rgba`` (full-channel tiles) on the native path, the tile
+scan and the palettizer run fused, one colour table per frame (the JAX
+package's per-frame palette form). Rendering, the changed-tile scan and
+the palettizers run in the port's host C++ (``blendjax_torch/_native``, built with g++ at first use; a failed
 build stops the producer). ``--no-native`` is for a host without a C++
 compiler: the producer then runs the numpy twins, at about a twentieth of
 the rate, instead of stopping.
@@ -31,8 +33,10 @@ and every 64 frames prints ``blendjax_torch.producer.cube stats`` and a
 JSON object of its totals: frames, the ms per frame spent rendering,
 encoding and publishing (serialising and sending: the send waits while the
 consumer's queue is full, so a long publish means the consumer is the
-bound), its own rate without the publish (``own_frames_s``), and its
-wire with the shared-memory ring's fallbacks and reclaims.
+bound), its own rate without the publish (``own_frames_s``), its wire
+with the shared-memory ring's fallbacks and reclaims, whether the fused
+path is on (``fused``) and the mean array bytes per message
+(``msg_bytes``, the reference image left out) with ``frames_per_msg``.
 """
 
 from __future__ import annotations
@@ -98,13 +102,21 @@ REPORT_EVERY = 64  # frames between two stats lines on stderr
 
 
 class _TimedPublisher:
-    """The socket's ``publish``, with the seconds spent in it summed."""
+    """The socket's ``publish``, with the seconds spent in it summed, and
+    the messages and their array bytes counted (the reference image that
+    rides on every ``ref_interval``-th message left out)."""
 
     def __init__(self, pub):
         self.pub = pub
         self.seconds = 0.0
+        self.messages = 0
+        self.array_bytes = 0
 
     def publish(self, **msg) -> None:
+        self.messages += 1
+        self.array_bytes += sum(
+            v.nbytes for k, v in msg.items()
+            if isinstance(v, np.ndarray) and not k.endswith("__tileref"))
         t0 = time.perf_counter()
         self.pub.publish(**msg)
         self.seconds += time.perf_counter() - t0
@@ -189,6 +201,9 @@ def main(argv=None) -> None:
                     "publish_ms": timed.seconds / frame * 1e3,
                     "own_frames_s": frame / (render_s + encode_s),
                     "wire": opts.wire,
+                    "fused": tiles._fused_ok,
+                    "msg_bytes": timed.array_bytes / max(timed.messages, 1),
+                    "frames_per_msg": opts.batch,
                     "shm_fallbacks": pub.shm_fallbacks,
                     "shm_reclaims": pub.shm_reclaims,
                 }))

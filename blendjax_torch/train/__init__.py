@@ -9,6 +9,7 @@ from blendjax_torch.train.aot import (
     cache_key,
     configure_compilation_cache,
 )
+from blendjax_torch.train.checkpoint import CheckpointManager
 from blendjax_torch.train.driver import TrainDriver
 from blendjax_torch.train.steps import (
     TrainState,
@@ -24,6 +25,7 @@ from blendjax_torch.train.steps import (
 __all__ = [
     "AotStepSet",
     "CapturedStep",
+    "CheckpointManager",
     "TrainDriver",
     "TrainState",
     "batch_specs_for_ladder",

@@ -537,7 +537,8 @@ def build_aot_step(step, state, example_batch: dict, *,
 class CapturedStep:
     """``step`` (the fused tile step or the echo step) with one CUDA graph
     per :func:`_plan_signature`, captured the first time a signature is
-    seen and replayed on that same batch.
+    seen and replayed on that same batch; :meth:`prepare` captures a
+    signature ahead of its first call.
 
     A capture runs in ``"thread_local"`` mode: it happens mid-run, while
     the echo pipeline's drain thread goes on decoding, staging pinned
@@ -558,10 +559,7 @@ class CapturedStep:
     def signatures(self) -> tuple:
         return tuple(self._graphs)
 
-    def __call__(self, state, batch):
-        device = state_device(state)
-        if device.type != "cuda":
-            return self.step(state, batch)
+    def _graph(self, state, batch, device):
         sig = _plan_signature(batch)
         graph = self._graphs.get(sig)
         if graph is None:
@@ -572,6 +570,21 @@ class CapturedStep:
                 self.step, state, batch, self._stream, "thread_local",
                 self._stager)
             self.capture_ms[sig] = (time.perf_counter() - t0) * 1e3
+        return graph
+
+    def prepare(self, state, batch) -> None:
+        """Capture ``batch``'s signature ahead of its first call, without
+        running the step: the state is left as it was (a capture puts it
+        back). A no-op on a CPU state or a signature already captured."""
+        device = state_device(state)
+        if device.type == "cuda":
+            self._graph(state, batch, device)
+
+    def __call__(self, state, batch):
+        device = state_device(state)
+        if device.type != "cuda":
+            return self.step(state, batch)
+        graph = self._graph(state, batch, device)
         out = graph(state, batch)
         self.graph_replays += 1
         self.host_launches = graph.host_launches

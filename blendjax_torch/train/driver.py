@@ -14,15 +14,30 @@ retired steps, counted as the JAX driver's ``_batch_images`` counts
 them), ``startup_ms`` (:meth:`build`'s wall time), ``time_to_first_step_ms``
 (construction, or :meth:`build`'s entry, to the first retired step),
 ``mfu`` (retired images/s x ``flops_per_image`` / ``peak_flops`` over the
-run, first dispatch to last retirement) and, from a captured step
+run, first dispatch to last retirement), ``checkpoints`` (snapshots handed
+to the manager) and, from a captured step
 (:mod:`blendjax_torch.train.aot`), ``aot_fallbacks``, ``graph_replays``
-and ``signatures``. Checkpointing, resume and the cost-model FLOPs wait
-for later slices; the port has no metrics registry yet.
+and ``signatures``.
+
+Checkpointing (:mod:`blendjax_torch.checkpoint`): with ``checkpoint=`` a
+:class:`~blendjax_torch.checkpoint.SnapshotManager`, every
+``checkpoint_every`` steps and after :meth:`TrainDriver.request_checkpoint`
+the step boundary hands the state (under the JAX package's leaf paths,
+:func:`blendjax_torch.weights.train_state_leaves`) and the session
+(``session_state()`` plus the driver's own counters) to the manager, which
+clones the tensors on the replay's stream and writes them on its own
+thread. A :class:`~blendjax_torch.checkpoint.PreemptionGuard` makes the
+next ``submit`` drain, snapshot and raise
+:class:`~blendjax_torch.checkpoint.PreemptionRequested`.
+``build(resume=True)`` restores the newest snapshot before the graphs are
+captured. The cost-model FLOPs wait for a later slice; the port has no
+metrics registry yet.
 """
 
 from __future__ import annotations
 
 import collections
+import threading
 import time
 
 import torch
@@ -55,12 +70,21 @@ class TrainDriver:
     ``StreamDataPipeline(place_in_driver=True)``) takes each host batch to
     the card right before its step, once a ring slot is free, so the copy
     overlaps the steps in flight. ``flops_per_image`` and ``peak_flops``
-    feed ``stats["mfu"]``; ``peak_flops`` defaults from the card's name."""
+    feed ``stats["mfu"]``; ``peak_flops`` defaults from the card's name.
+    ``checkpoint``, ``checkpoint_every`` and ``session_state`` (a callable
+    returning a dict of pickle-free host state) snapshot the run (see the
+    module docstring)."""
+
+    #: Losses kept in the session snapshot: the step counters carry the
+    #: continuity, so the tail is bounded and a snapshot's size does not
+    #: grow with the run.
+    LOSS_TAIL = 4096
 
     def __init__(self, step, state, inflight: int = 4, sync_every: int = 32,
                  pad_partial: bool = True, buckets=None,
                  flops_per_image: float | None = None,
-                 peak_flops: float | None = None, place=None):
+                 peak_flops: float | None = None, checkpoint=None,
+                 checkpoint_every: int = 0, session_state=None, place=None):
         self.step = step
         self.state = state
         self.inflight = max(1, int(inflight))
@@ -73,6 +97,14 @@ class TrainDriver:
         self.peak_flops = float(peak_flops) if peak_flops else None
         if self.flops_per_image and not self.peak_flops:
             self.peak_flops = default_peak_flops()
+        self.checkpoint = checkpoint
+        self.checkpoint_every = max(0, int(checkpoint_every or 0))
+        self.session_state = session_state
+        self.checkpoints = 0
+        self._ckpt_request = threading.Event()
+        # a PreemptionGuard attaches itself here
+        self.preempt = None
+        self.resumed_session = None
         # ring entries: (loss tensor, completion event or None, images)
         self._pending: collections.deque = collections.deque()
         self.losses: list = []
@@ -89,24 +121,33 @@ class TrainDriver:
 
     @classmethod
     def build(cls, model, example_batch, *, loss_fn=None, optimizer=None,
-              learning_rate: float = 1e-3, augment=None, augment_rng=None,
-              precision=None, aot: bool = True,
-              aot_cache_dir: str | None = None, device=None,
-              **driver_kwargs):
+              learning_rate: float = 1e-3, rng=None, augment=None,
+              augment_rng=None, precision=None, aot: bool = True,
+              aot_cache_dir: str | None = None, resume: bool = False,
+              device=None, **driver_kwargs):
         """Model -> ready driver, with the step captured per ladder shape.
 
-        ``make_train_state`` (on ``device``: ``cuda`` unless ``"cpu"``),
+        ``model.init_params(rng)`` when ``rng`` is given, then
+        ``make_train_state`` (on ``device``: ``cuda`` unless ``"cpu"``);
+        with ``resume=True`` and a ``checkpoint=`` manager in
+        ``driver_kwargs`` the newest snapshot is restored into that state
+        (its driver counters loaded, its session left on
+        ``driver.resumed_session``) BEFORE any graph is captured;
         ``make_supervised_step`` with ``loss_fn``, ``augment``,
-        ``augment_rng`` and ``precision``, then, with ``aot``,
+        ``augment_rng`` and ``precision``; then, with ``aot``,
         :func:`blendjax_torch.train.aot.build_aot_step` captures one graph
         for every bucket-ladder shape of ``example_batch`` before step 0
         (behind the keyed manifest in ``aot_cache_dir`` when given). The
         build's wall time lands on ``startup_ms``, and
-        ``time_to_first_step_ms`` counts from the build's entry.
-        ``resume`` and the cost-model FLOPs wait for later slices."""
+        ``time_to_first_step_ms`` counts from the build's entry. The
+        cost-model FLOPs wait for a later slice."""
         from blendjax_torch.train.steps import (
             make_supervised_step,
             make_train_state,
+        )
+        from blendjax_torch.weights import (
+            load_train_state_leaves,
+            train_state_leaves,
         )
 
         t0 = time.monotonic()
@@ -115,8 +156,17 @@ class TrainDriver:
                 "build() needs a full example batch dict (at least 'image' "
                 "and the loss's fields) to derive the capture ladder"
             )
+        if rng is not None:
+            model.init_params(int(rng))
         state = make_train_state(model, optimizer=optimizer,
                                  learning_rate=learning_rate, device=device)
+        session = None
+        mgr = driver_kwargs.get("checkpoint")
+        if resume and mgr is not None:
+            restored = mgr.restore(train_state_leaves(state))
+            if restored is not None:
+                load_train_state_leaves(state, restored.state)
+                session = restored.session
         step = make_supervised_step(loss_fn=loss_fn, augment=augment,
                                     augment_rng=augment_rng,
                                     precision=precision)
@@ -133,6 +183,9 @@ class TrainDriver:
         drv = cls(step, state, **driver_kwargs)
         drv._t_created = t0  # the cold-start clock starts at build entry
         drv.startup_ms = (time.monotonic() - t0) * 1e3
+        drv.resumed_session = session
+        if isinstance(session, dict) and session.get("driver"):
+            drv.load_state_dict(session["driver"])
         return drv
 
     @staticmethod
@@ -196,8 +249,12 @@ class TrainDriver:
         while len(pending) >= self.inflight:
             self._block_oldest()
 
-    def submit(self, batch) -> None:
-        """Queue one step without waiting for its result."""
+    def submit(self, batch, post: bool = True) -> None:
+        """Queue one step without waiting for its result. ``post=False``
+        leaves the step-boundary work (:meth:`post_dispatch`) to the
+        caller."""
+        if self.preempt is not None and self.preempt.requested:
+            self._preempt_flush()
         if self.pad_partial and batch.get("_partial") and "_mask" not in batch:
             from blendjax_torch.data.batcher import pad_to_bucket
 
@@ -218,8 +275,99 @@ class TrainDriver:
         self.steps += 1
         self._pending.append((loss, event, images))
         self.inflight_hwm = max(self.inflight_hwm, len(self._pending))
+        if post:
+            self.post_dispatch()
+
+    def post_dispatch(self) -> None:
+        """The step-boundary work after a step call: the periodic loss
+        fetch and the snapshot hand-off (every ``checkpoint_every`` steps
+        or on request). The hand-off clones the state on the replay's
+        stream and returns; nothing here waits for the card but the loss
+        fetch."""
         if self.sync_every and self.steps % self.sync_every == 0:
             self._sync_oldest()
+        if self.checkpoint is not None and (
+            self._ckpt_request.is_set()
+            or (self.checkpoint_every
+                and self.steps % self.checkpoint_every == 0)
+        ):
+            self._ckpt_request.clear()
+            self._dispatch_checkpoint()
+
+    # -- checkpointing ----------------------------------------------------------
+
+    def request_checkpoint(self) -> None:
+        """Thread-safe: snapshot at the next step boundary."""
+        self._ckpt_request.set()
+
+    def _dispatch_checkpoint(self) -> None:
+        """Hand the state and the session to the snapshot manager."""
+        from blendjax_torch.weights import train_state_leaves
+
+        session = {}
+        if callable(self.session_state):
+            session = dict(self.session_state() or {})
+        session.setdefault("driver", self.state_dict())
+        self.checkpoint.save_async(self.steps, train_state_leaves(self.state),
+                                   session=session)
+        self.checkpoints += 1
+
+    def _preempt_flush(self) -> None:
+        """The SIGTERM path: drain the ring, snapshot, wait for the commit,
+        then raise for the run loop to exit."""
+        from blendjax_torch.checkpoint import PreemptionRequested
+
+        self.drain()
+        outcome = "no checkpoint manager attached"
+        if self.checkpoint is not None:
+            self._dispatch_checkpoint()
+            # the one synchronous snapshot wait on the step path: the
+            # process is about to exit
+            self.checkpoint.wait()
+            err = getattr(self.checkpoint, "last_error", None)
+            outcome = (
+                f"snapshot FAILED ({err!r}); resuming from the last "
+                "committed step" if err is not None else "snapshot committed"
+            )
+        raise PreemptionRequested(
+            f"preemption honored at step {self.steps}: {outcome}")
+
+    def checkpoint_now(self, wait: bool = True) -> None:
+        """Snapshot out of band (teardown, evaluation boundaries): drain the
+        ring, snapshot, and with ``wait`` block until it commits."""
+        if self.checkpoint is None:
+            raise RuntimeError("no checkpoint manager attached")
+        self.drain()
+        self._dispatch_checkpoint()
+        if wait:
+            self.checkpoint.wait()
+            err = getattr(self.checkpoint, "last_error", None)
+            if err is not None:
+                raise RuntimeError(
+                    f"checkpoint_now: snapshot write failed: {err!r}"
+                ) from err
+
+    def state_dict(self) -> dict:
+        """The driver's counters for the session: a resumed driver goes on
+        with the same step numbering, so the loss fetches, the snapshot
+        cadence and the augmentation seeds line up with the uninterrupted
+        run."""
+        tail = self.losses[-self.LOSS_TAIL:]
+        return {
+            "steps": self.steps,
+            "dispatches": self.dispatches,
+            "images_retired": self.images_retired,
+            "checkpoints": self.checkpoints,
+            "losses": [float(v) for v in tail],
+            "losses_total": len(self.losses),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.steps = int(d["steps"])
+        self.dispatches = int(d.get("dispatches", d["steps"]))
+        self.images_retired = int(d.get("images_retired", 0))
+        self.checkpoints = int(d.get("checkpoints", 0))
+        self.losses = [float(v) for v in d.get("losses", [])]
 
     def drain(self):
         """Wait for every queued step and return the newest loss."""
@@ -273,6 +421,7 @@ class TrainDriver:
             "host_blocks": self.host_blocks,
             "syncs": len(self.losses),
             "images_retired": self.images_retired,
+            "checkpoints": self.checkpoints,
             "startup_ms": self.startup_ms,
             "time_to_first_step_ms": self.time_to_first_step_ms,
             "flops_per_image": self.flops_per_image,

@@ -43,9 +43,15 @@ Phases (any failure exits non-zero):
    flagship (full-width ``CubeRegressor()``, bf16-compute), square
    (16x16 tiles, capacity 288) and streamformer (``StreamFormer(patch=20,
    dim=512, depth=8, num_heads=4, num_outputs=16, attn_backend="flash")``
-   with the bench's corner loss). Launch counts are zeroed just before
+   with the bench's corner loss). Before its producers start, each leg
+   captures every plan signature its stream makes (``CapturedStep.prepare``
+   on groups of K' = 1..4 2-bit and 4-bit messages made here: the
+   producers' per-frame palettes pick each message's index width, and a
+   change of width splits a chunk group), so no capture lands in a
+   measured window. Launch counts are zeroed just before
    each leg and read just after: flagship must launch K1, square K2,
-   streamformer K1 and each of K4a-c exactly depth x chunk x steps times,
+   streamformer K1 and each of K4a-c exactly depth x updates times (the
+   updates: the groups' sizes summed),
    every K4a-c launch through the sm90 variant, launches counted through
    the graph replays (each replay adds what its graph captured); losses
    must be finite with zero sequence gaps, one step call and one graph
@@ -108,8 +114,33 @@ Phases (any failure exits non-zero):
    the equality leg: 40 recorded flagship messages through a port
    publisher on the raw wire, over a shared-memory ring, and as ndz
    through an inflate pool; the packed groups, their decode on the card
-   and the f32 losses of 10 captured steps from one seeded state must be
-   identical on all three routes;
+   and the f32 losses of the captured steps over those groups (the
+   stream's sizes: a change of index width closes a group early) from one
+   seeded state must be identical on all three routes;
+5d. palette producer, replay and resume (after 5c): every producer of
+   every leg must report the fused per-frame palette path (``fused`` in its
+   stats line; these are ``--tile-rgba`` streams), and the flagship leg
+   prints each producer's message bytes per 8 frames and own frames/s
+   beside its live img/s, and holds the frames of its first two chunk
+   groups, decoded on the card, against the scenes rendered again on the
+   host, bit for bit. The flagship leg also records its first
+   ``REPLAY["record"]`` messages (``record_path_prefix``); the replay leg
+   runs ``StreamDataPipeline.from_recording(..., emit_packed=True, chunk=4,
+   loop=True)`` into a fresh captured flagship step from the same initial
+   weights, with no producer, and fails unless its first
+   ``REPLAY["compare"]`` packed groups equal the live leg's bit for bit and
+   their losses agree (bit for bit, or else within bf16 rel 1e-2, printed),
+   K1 launched and one replay per step; it prints replay img/s beside the
+   graph step alone. The resume phase, under deterministic algorithms
+   (cuDNN deterministic; ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set when
+   the script starts), builds drivers with ``TrainDriver.build(rng=0)``
+   (captured ladder) on 2N decoded replay batches: Y trains 2N steps; A
+   trains N with ``checkpoint_every``; B, ``build(resume=True)`` from A's
+   newest snapshot, trains N..2N; C, built and stepped, is restored in
+   place and replays step N. B's and C's losses and B's final parameters
+   must equal Y's bit for bit; it prints the snapshot's bytes, the
+   writer's ms per snapshot, ms per step with and without snapshots and
+   B's time to first step;
 6. K3 (gamma normalize) against its plain version over all 256 uint8
    values, at (1, 37, 8, 4) and at that shape from byte offset 1 (the
    element path), gamma 2.2 and 1.0, f32 and bf16 (bit-exact, so within
@@ -165,6 +196,18 @@ INGEST = {"tile": (16, 32), "capacity": 160, "steps": 320, "warmup": 64,
           "order": (1, 2, 2, 1)}
 # captured steps the equality leg runs on each route's groups
 EQUALITY_STEPS = 10
+# the replay leg: the flagship live leg records its first messages
+# (``record``, 48 chunk groups), keeps its first ``compare`` groups and
+# their losses, and the recording replays in a loop into a fresh captured
+# flagship step from the same initial weights
+REPLAY = {"record": 48 * CHUNK, "compare": 24, "steps": 384, "warmup": 64}
+# the resume phase: drivers built with TrainDriver.build (captured ladder)
+# on decoded replay batches; A trains ``steps`` with a snapshot every
+# ``every``, B resumes from A's newest and trains as many again; then
+# step time without and with snapshots, ``window`` steps each, in the
+# order plain, snapshots, snapshots, plain (a 32-step window lasted 55 ms,
+# shorter than one snapshot write)
+RESUME = {"steps": 32, "every": 8, "window": 512}
 # bench.py:1080-1082, with the flash backend named explicitly
 FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
           "num_outputs": 16}
@@ -711,9 +754,11 @@ PRODUCER_LINE = "blendjax_torch.producer.cube "
 
 def producer_report(label: str, logs) -> dict:
     """Each stopped producer's path (its start-up line) and its last stats
-    line; fails unless every producer ran the host C++ path. Returns the
-    per-producer stats and the sum of their own rates (``own_frames_s``:
-    frames over the time spent rendering and encoding)."""
+    line; fails unless every producer ran the host C++ path and, on these
+    full-RGBA (``--tile-rgba``) streams, the fused per-frame palette path
+    (``fused``). Returns the per-producer stats and the sum of their own
+    rates (``own_frames_s``: frames over the time spent rendering and
+    encoding)."""
     stats = []
     for log in logs:
         with open(log) as f:
@@ -725,6 +770,9 @@ def producer_report(label: str, logs) -> dict:
                  "'path native' line (the host C++ path)")
         last = [ln for ln in lines if ln.startswith("stats ")][-1:]
         stats += [json.loads(ln[len("stats "):]) for ln in last]
+        if last and stats[-1].get("fused") is not True:
+            fail(f"{label}: producer {log} did not take the fused per-frame "
+                 f"palette path on --tile-rgba: {stats[-1]}")
     out = {"path": "native", "producers": stats}
     if len(stats) == len(logs):
         out["own_frames_s"] = sum(s["own_frames_s"] for s in stats)
@@ -738,9 +786,14 @@ def producer_text(rep: dict) -> str:
         f"{s['own_frames_s']:.1f} ({s['render_ms']:.3f} ms render + "
         f"{s['encode_ms']:.3f} ms encode per frame; publish "
         f"{s['publish_ms']:.3f} ms)" for s in rep["producers"])
-    return (f"producers: path native, {rep['own_frames_s']:.1f} frames/s of "
-            f"their own (render + encode) summed over "
-            f"{len(rep['producers'])}; each {each}")
+    sizes = ", ".join(
+        f"{s['msg_bytes'] * 8 / s['frames_per_msg'] / 1e3:.1f} kB"
+        for s in rep["producers"])
+    return (f"producers: path native, fused per-frame palettes, "
+            f"{rep['own_frames_s']:.1f} frames/s of their own (render + "
+            f"encode) summed over {len(rep['producers'])}; each {each}; "
+            f"message bytes per 8 frames (arrays, the reference left out) "
+            f"{sizes}")
 
 
 KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> its group
@@ -868,17 +921,98 @@ def step_report(label: str, step, graph_step, state, batch, images: int,
     return out
 
 
+def plan_groups(tile, capacity: int) -> list:
+    """Packed groups of every plan signature a cube stream of this
+    geometry makes on the fused per-frame palette path: K' = 1..CHUNK
+    groups of 2-bit messages and of 4-bit ones (a batch whose frames hold
+    5-16 colours; no cube frame has shown more than 16). The per-frame
+    form picks each message's index width, and a width change splits a
+    chunk group as a non-tile message does, so a live stream reaches all
+    of these signatures, some of them rarely."""
+    import numpy as np
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.ops.tiles import TILEPAL_SUFFIXES, TILEREF_SUFFIX
+    from blendjax_torch.producer import CubeScene, TileBatchPublisher
+
+    scene = CubeScene(shape=SHAPE, seed=0)
+    cap = _Capture()
+    tile = tile[0] if len(tile) == 1 else tuple(tile)  # as the producer reads it
+    tiles = TileBatchPublisher(cap, scene.background_image(), BATCH,
+                               tile=tile, alpha_slice=False, capacity=capacity)
+    by_bits = {2: [], 4: []}
+    framebuf = np.empty((*SHAPE, 4), np.uint8)
+    frame = 1
+    while min(len(v) for v in by_bits.values()) < CHUNK:
+        if frame > 400 * BATCH:
+            fail(f"plan groups: {[len(v) for v in by_bits.values()]} "
+                 "messages of 2 and 4 bits in 400 batches")
+        scene.step(frame)
+        scene.render(out=framebuf)
+        tiles.add(framebuf, hint=scene.raster.last_drawn,
+                  xy=scene.camera.world_to_pixel(
+                      scene.corners_world()).astype(np.float32),
+                  frameid=np.int64(frame))
+        frame += 1
+        while cap.msgs:
+            msg = cap.msgs.pop(0)
+            for bits in by_bits:
+                if "image" + TILEPAL_SUFFIXES[bits] in msg:
+                    by_bits[bits].append(msg)
+    ref = scene.background_image()
+    groups = []
+    for msgs in by_bits.values():
+        for k in range(1, CHUNK + 1):
+            part = [dict(m) for m in msgs[:k]]
+            part[0]["image" + TILEREF_SUFFIX] = ref
+            groups += list(StreamDataPipeline(iter(part), batch_size=BATCH,
+                                              chunk=k, emit_packed=True))
+    return groups
+
+
+def prewarm(graph_step, state, leg: dict) -> None:
+    """Capture every plan signature of the leg's stream before its window
+    (``CapturedStep.prepare``: the state is left as it was)."""
+    t0 = time.perf_counter()
+    for group in plan_groups(leg["tile"], leg["capacity"]):
+        graph_step.prepare(state, group)
+    log(f"prewarm: {len(graph_step.signatures)} plan signatures captured in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+class _FirstLosses:
+    """A step wrapper that keeps the loss tensors of its first ``keep``
+    calls (read after the run, so nothing here waits for the card)."""
+
+    def __init__(self, step, keep: int):
+        self.inner, self.keep, self.seen = step, keep, []
+
+    def __call__(self, state, batch):
+        state, m = self.inner(state, batch)
+        if len(self.seen) < self.keep:
+            self.seen.append(m["loss"])
+        return state, m
+
+    def values(self) -> list:
+        """Every kept loss as floats, the chunk's updates in order."""
+        return [x for v in self.seen for x in v.float().reshape(-1).tolist()]
+
+
 def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
             producers: int = 2, wire: str = "raw", ingest_workers: int = 1,
             inflate_workers: int = 2, graph_step=None,
-            alone: bool = True) -> dict:
+            alone: bool = True, record: str | None = None,
+            keep_first: int = 0) -> dict:
     """One producer leg through the captured fused step (one CUDA graph per
     packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
     graph-parity phase. ``producers`` cube producers publish on ``wire``
-    into ``StreamDataPipeline(ingest_workers=..., inflate_workers=...)``.
-    A ``graph_step`` (with its ``state``) may be shared between legs, so
-    only the first captures. ``alone=False`` times only the graph step
-    alone on the last group (no eager run, no profile)."""
+    into ``StreamDataPipeline(emit_packed=True, ingest_workers=...,
+    inflate_workers=...)``. A ``graph_step`` (with its ``state``) may be
+    shared between legs, so only the first captures. ``alone=False`` times
+    only the graph step alone on the last group (no eager run, no profile).
+    ``record`` tees the first ``REPLAY["record"]`` messages received to
+    ``{record}_00.bjr``; ``keep_first`` keeps copies of the first groups
+    and their loss tensors (``first``)."""
     import collections
 
     import torch
@@ -895,28 +1029,37 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         make_fused_tile_step,
     )
 
-    procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"],
-                                         count=producers, wire=wire)
-    pipe = StreamDataPipeline(
-        addrs, batch_size=BATCH, chunk=CHUNK, timeoutms=60_000,
-        ingest_workers=ingest_workers, inflate_workers=inflate_workers,
-        on_timeout=producer_watch(label, procs, logs),
-    )
     if graph_step is None:
         graph_step = CapturedStep(make_fused_tile_step(loss_fn))
+    if not graph_step.signatures:
+        prewarm(graph_step, state, leg)
+    procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"],
+                                         count=producers, wire=wire)
+    rec = ({"record_path_prefix": record,
+            "record_max_messages": REPLAY["record"]} if record else {})
+    pipe = StreamDataPipeline(
+        addrs, batch_size=BATCH, chunk=CHUNK, emit_packed=True,
+        timeoutms=60_000, ingest_workers=ingest_workers,
+        inflate_workers=inflate_workers,
+        on_timeout=producer_watch(label, procs, logs), **rec,
+    )
     step = graph_step.step
     replays0 = graph_step.graph_replays
-    drv = TrainDriver(graph_step, state, inflight=2, sync_every=4)
+    tap = _FirstLosses(graph_step, keep_first)
+    drv = TrainDriver(tap, state, inflight=2, sync_every=4)
     total = leg["warmup"] + leg["steps"]
     images = 0
     updates = 0  # optimizer updates submitted: the chunk sizes summed
     short = 0  # step calls on a group of fewer than CHUNK batches
     recorded = collections.deque(maxlen=PARITY_STEPS)
+    first = []
     t0 = None
     try:
         reset_launch_counts()
         for batch in pipe:
             drv.submit(batch)
+            if len(first) < keep_first:
+                first.append({**batch, "_packed": batch["_packed"].clone()})
             k = int(batch["_packed"].shape[0])
             updates += k
             short += k < CHUNK
@@ -984,7 +1127,9 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         "graph_alone_ms": alone_rep["graph_ms"],
         "graph_alone_img_s": alone_rep["graph_img_s"],
         "decode_ms": decode_ms, "last": last, "step": step,
-        "recorded": list(recorded), "producers": producers_rep,
+        "recorded": list(recorded), "first": first,
+        "first_losses": tap.values(),
+        "producers": producers_rep,
         "shards": shards, "segments": segments, "wire": wire,
         "ingest_workers": ingest_workers,
     }
@@ -1037,15 +1182,14 @@ def streamformer_leg(tmp: str, card: str) -> dict:
     counts, depth = leg["launches"], FORMER["depth"]
     if counts["decode_spatial"] <= 0:
         fail("streamformer leg never launched decode_spatial (K1)")
-    if leg["updates"] != CHUNK * leg["steps"]:
-        fail(f"streamformer leg: {leg['updates']} updates in "
-             f"{leg['steps']} steps, not chunk x steps")
-    want = depth * CHUNK * leg["steps"]
+    # every update of every chunk group (a group of K' < CHUNK batches
+    # makes K' updates) runs each kernel once per block
+    want = depth * leg["updates"]
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         if counts[name] != want:
             fail(f"streamformer leg: {name} launched {counts[name]} times, "
-                 f"not depth x chunk x steps = {want}")
+                 f"not depth x updates = {want}")
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         variants = leg["variants"][name]
@@ -1409,8 +1553,9 @@ def equality_leg(card: str) -> dict:
     """The same recorded messages through three routes: a port publisher
     on the raw wire, the same publisher over a shared-memory ring, and
     zlib ("ndz") decoded on an inflate pool. The packed chunk groups, their
-    decode on the card and ten steps of the captured fused step from one
-    seeded state (cuDNN deterministic) must be identical on all three."""
+    decode on the card and a step of the captured fused step per group
+    from one seeded state (cuDNN deterministic) must be identical on all
+    three."""
     import concurrent.futures
     import threading
 
@@ -1448,7 +1593,7 @@ def equality_leg(card: str) -> dict:
                 target=lambda: [pub.publish(**m) for m in msgs], daemon=True)
             feeder.start()
             pipe = StreamDataPipeline(stream, batch_size=BATCH, chunk=CHUNK,
-                                      place_in_driver=True)
+                                      emit_packed=True, place_in_driver=True)
             try:
                 groups = list(pipe)
             finally:
@@ -1458,9 +1603,13 @@ def equality_leg(card: str) -> dict:
                     pool.shutdown()
                 detach_all()
                 pub.close()
-            if [int(g["_packed"].shape[0]) for g in groups] != [CHUNK] * steps:
-                fail(f"equality leg, {name}: groups of "
-                     f"{[int(g['_packed'].shape[0]) for g in groups]} batches")
+            # a change of palette index width between messages closes a
+            # group early, so the sizes are the stream's, the same on
+            # every route
+            sizes = [int(g["_packed"].shape[0]) for g in groups]
+            if sum(sizes) != len(msgs):
+                fail(f"equality leg, {name}: groups of {sizes} batches for "
+                     f"{len(msgs)} messages")
             decoded = [decode_packed_superbatch(
                 torch.from_numpy(g["_packed"]).to(pipe.device), g["_refs"],
                 g["_spec"],
@@ -1485,6 +1634,9 @@ def equality_leg(card: str) -> dict:
     raw = got["raw"]
     for name in ("shm", "ndz"):
         other = got[name]
+        if len(other["groups"]) != len(raw["groups"]):
+            fail(f"equality leg: {len(raw['groups'])} groups on raw, "
+                 f"{len(other['groups'])} on {name}")
         for i, (a, b) in enumerate(zip(raw["groups"], other["groups"])):
             same = (np.array_equal(a["_packed"], b["_packed"])
                     and a["_spec"] == b["_spec"] and a["_rle"] == b["_rle"]
@@ -1506,7 +1658,7 @@ def equality_leg(card: str) -> dict:
          f"ndz route: {got['ndz']['pool_decodes']} pool decodes"),
         (got["ndz"]["counts"]["compressed_bytes"]
          < got["ndz"]["counts"]["raw_bytes"], "ndz route: nothing compressed"),
-        (all(r["replays"] == steps for r in got.values()),
+        (all(r["replays"] == len(r["groups"]) for r in got.values()),
          "a route did not replay its graph once per step"),
         (all(math.isfinite(v) for v in raw["losses"]), "non-finite loss"),
     ]
@@ -1514,13 +1666,322 @@ def equality_leg(card: str) -> dict:
         if not ok:
             fail(f"equality leg: {what}")
     log(f"equality leg on {card}: {len(msgs)} messages through raw, shm and "
-        f"ndz (inflate pool): {steps} packed groups and their decode on the "
-        f"card identical; {len(raw['losses'])} f32 losses of {steps} "
+        f"ndz (inflate pool): {len(raw['groups'])} packed groups (of "
+        f"{[int(g['_packed'].shape[0]) for g in raw['groups']]} batches) and "
+        f"their decode on the card identical; {len(raw['losses'])} f32 "
+        f"losses of {len(raw['groups'])} "
         f"captured steps identical (first {raw['losses'][0]:.6f}, last "
         f"{raw['losses'][-1]:.6f}); ndz decoded "
         f"{got['ndz']['counts']['raw_bytes']} bytes from "
         f"{got['ndz']['counts']['compressed_bytes']} on the wire")
     return {"messages": len(msgs), "losses": raw["losses"]}
+
+
+# -- phase 5d: the palette producer, replay and resume ----------------------------
+
+
+def palette_phase(leg: dict, card: str) -> dict:
+    """The flagship leg's producers took the fused per-frame palette path
+    (``producer_report`` failed the leg otherwise): print each one's
+    message bytes per 8 frames and its own frames/s beside the leg's live
+    img/s, and hold the frames of the leg's first two chunk groups,
+    decoded on the card, against the frames the producers rendered (the
+    same scenes rendered here on the host C++ path), bit for bit."""
+    import numpy as np
+
+    from blendjax_torch.ops.tiles import decode_packed_superbatch
+    from blendjax_torch.producer import CubeScene
+
+    rep = leg["producers"]
+    per8 = [s["msg_bytes"] * 8 / s["frames_per_msg"] for s in rep["producers"]]
+    want: dict = {}  # (btid, frameid) -> decoded frame on the host
+    for g in leg["first"][:2]:
+        fields = decode_packed_superbatch(g["_packed"], g["_refs"],
+                                          g["_spec"], g["_names"],
+                                          g["_geoms"], g["_rle"])
+        images = fields["image"].cpu().numpy()
+        frameids = fields["frameid"].cpu().numpy()
+        for k, rest in enumerate(g["_meta"]):
+            for b in range(images.shape[1]):
+                want[(int(rest["btid"]), int(frameids[k, b]))] = images[k, b]
+    checked = 0
+    buf = np.empty((*SHAPE, 4), np.uint8)
+    for btid in sorted({b for b, _ in want}):
+        scene = CubeScene(shape=SHAPE, seed=btid)  # the producer's --seed
+        last = max(f for b, f in want if b == btid)
+        for f in range(1, last + 1):
+            scene.step(f)
+            scene.render(out=buf)
+            got = want.get((btid, f))
+            if got is not None:
+                if not np.array_equal(got, buf):
+                    fail(f"palette phase: producer {btid} frame {f} decoded "
+                         "on the card differs from its render")
+                checked += 1
+    if checked < 8:
+        fail(f"palette phase: only {checked} frames checked")
+    log(f"palette producer on {card}: every producer on the fused per-frame "
+        f"palette path; message bytes per 8 frames "
+        f"{[round(b, 1) for b in per8]} (arrays, the reference image left "
+        f"out); producers' own frames/s "
+        f"{[round(s['own_frames_s'], 1) for s in rep['producers']]}; leg "
+        f"live {leg['img_s']:.1f} img/s; {checked} decoded frames equal the "
+        "producers' renders bit for bit")
+    return {"msg_bytes_per_8": per8, "checked": checked,
+            "own_frames_s": [s["own_frames_s"] for s in rep["producers"]]}
+
+
+def replay_leg(prefix: str, live: dict, card: str) -> dict:
+    """The flagship live leg's recording, replayed in a loop through
+    ``StreamDataPipeline.from_recording(..., emit_packed=True, chunk=4,
+    loop=True)`` into a fresh ``CapturedStep(make_fused_tile_step())`` on
+    a full-width CubeRegressor from the live leg's initial weights
+    (``init_params(0)``), with no producer running. Fails unless the
+    replay's first ``REPLAY["compare"]`` packed groups equal the live
+    leg's bit for bit and the losses of those steps agree (bit for bit, or
+    else within bf16 rel 1e-2), with K1 launched, one replay per step and
+    no fallback. Prints replay img/s beside the graph step alone."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        CapturedStep,
+        TrainDriver,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    state = make_train_state(CubeRegressor().init_params(0))
+    graph_step = CapturedStep(make_fused_tile_step())
+    prewarm(graph_step, state, FLAGSHIP)
+    compare = min(REPLAY["compare"], len(live["first"]))
+    tap = _FirstLosses(graph_step, compare)
+    drv = TrainDriver(tap, state, inflight=2, sync_every=4)
+    pipe = StreamDataPipeline.from_recording(prefix, batch_size=BATCH,
+                                             emit_packed=True, chunk=CHUNK,
+                                             loop=True)
+    images = 0
+    total = REPLAY["warmup"] + REPLAY["steps"]
+    reset_launch_counts()
+    try:
+        for i, batch in enumerate(pipe):
+            drv.submit(batch)
+            if i < compare:
+                want = live["first"][i]
+                if (batch["_spec"] != want["_spec"]
+                        or not torch.equal(batch["_packed"], want["_packed"])):
+                    fail(f"replay leg: packed group {i} differs from the live "
+                         "leg's")
+            if drv.steps == REPLAY["warmup"]:
+                drv.drain()
+                t0 = time.perf_counter()
+                replays0 = graph_step.graph_replays
+            elif drv.steps > REPLAY["warmup"]:
+                images += int(batch["_packed"].shape[0]) * BATCH
+            if drv.steps >= total:
+                break
+        drv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        pipe.stop()
+    as_float = tap.values()
+    live_f = live["first_losses"][:len(as_float)]
+    if not all(math.isfinite(v) for v in as_float):
+        fail(f"replay leg: non-finite loss in {as_float}")
+    bitwise = as_float == live_f
+    rel = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(as_float, live_f))
+    if not bitwise and rel > 1e-2:
+        fail(f"replay leg: losses differ from the live leg's beyond rel 1e-2 "
+             f"(max rel {rel:.3e}): {as_float} vs {live_f}")
+    if graph_step.graph_replays - replays0 != drv.steps - REPLAY["warmup"]:
+        fail("replay leg: not one graph replay per step")
+    if graph_step.aot_fallbacks or counts["decode_spatial"] <= 0:
+        fail(f"replay leg: {graph_step.aot_fallbacks} fallbacks, launches "
+             f"{counts}")
+    last = batch
+    graph_ms = alone_ms(lambda: graph_step(state, last), 20)
+    alone_img_s = int(last["_packed"].shape[0]) * BATCH / graph_ms * 1e3
+    out = {"img_s": images / wall, "wall_s": wall, "steps": drv.steps,
+           "graph_alone_img_s": alone_img_s, "bitwise": bitwise,
+           "max_rel": rel, "compared": compare, "launches": counts,
+           "losses": as_float}
+    log(f"replay leg on {card}: {out['img_s']:.1f} img/s over "
+        f"{REPLAY['steps']} steps ({wall:.2f} s) from the recording, no "
+        f"producer; graph step alone {alone_img_s:.1f} img/s "
+        f"({out['img_s'] / alone_img_s:.2f} of it); first {compare} packed "
+        f"groups bit-identical to the live leg's; their losses "
+        + ("bit-identical" if bitwise else f"within rel {rel:.3e} (bar 1e-2)")
+        + f"; launches {counts}")
+    return out
+
+
+def _deterministic(on: bool) -> None:
+    import torch
+
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+
+
+def _submit_all(drv, batches) -> list:
+    """Submit each batch; returns each step's loss tensor (read later)."""
+    out = []
+    for b in batches:
+        drv.submit(b)
+        out.append(drv._pending[-1][0] if drv._pending else drv.losses[-1])
+    return out
+
+
+def resume_phase(prefix: str, tmp: str, card: str) -> dict:
+    """Checkpoint, resume and in-place restore through captured graphs, on
+    the flagship replay's batches decoded on the card (K1), full-width
+    CubeRegressor, ``TrainDriver.build(rng=0)`` (one graph per ladder
+    signature), under deterministic algorithms (cuDNN deterministic,
+    ``CUBLAS_WORKSPACE_CONFIG`` set at start):
+
+    - Y trains 2N steps uninterrupted (the yardstick);
+    - A trains N steps with ``checkpoint_every``, snapshots written by the
+      manager's thread;
+    - B is ``build(resume=True)`` from A's newest snapshot and trains
+      steps N..2N: its losses and final parameters must equal Y's;
+    - C, built and captured, trains 2 steps, is restored in place from the
+      same snapshot (``load_train_state_leaves``) and replays step N: its
+      loss must equal B's.
+
+    Then two more drivers time ``RESUME["window"]`` steps each, without
+    and with ``checkpoint_every`` (order plain, snapshots, snapshots,
+    plain). Prints the snapshot's bytes, the writer's ms per snapshot, the
+    snapshots skipped under backpressure, ms per step with and without
+    snapshots, and B's time to its first step."""
+    import torch
+
+    from blendjax_torch.checkpoint import SnapshotManager
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import TrainDriver
+    from blendjax_torch.weights import (
+        load_train_state_leaves,
+        train_state_leaves,
+    )
+
+    n, every = RESUME["steps"], RESUME["every"]
+    pipe = StreamDataPipeline.from_recording(prefix, batch_size=BATCH,
+                                             loop=True)
+    batches = []
+    try:
+        for b in pipe:
+            batches.append({"image": b["image"], "xy": b["xy"]})
+            if len(batches) == 2 * n:
+                break
+    finally:
+        pipe.stop()
+    torch.cuda.synchronize()
+
+    def build(**kw):
+        return TrainDriver.build(CubeRegressor(), batches[0], rng=0,
+                                 inflight=2, sync_every=0, **kw)
+
+    def timed(drv, part):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = _submit_all(drv, part)
+        drv.drain()
+        return losses, (time.perf_counter() - t0) / len(part) * 1e3
+
+    _deterministic(True)
+    try:
+        y = build()
+        y_losses, _ = timed(y, batches[:n])
+        y_more, _ = timed(y, batches[n:])
+        mgr = SnapshotManager(os.path.join(tmp, "resume-ckpt"), keep=2)
+        a = build(checkpoint=mgr, checkpoint_every=every)
+        a_losses, _ = timed(a, batches[:n])
+        mgr.wait()
+        if mgr.last_error is not None or mgr.steps()[-1] != n:
+            fail(f"resume phase: snapshots {mgr.steps()}, error "
+                 f"{mgr.last_error!r}")
+        if not a.dispatches == a.steps == n:
+            fail("resume phase: checkpointing changed the step calls")
+        b = build(checkpoint=SnapshotManager(mgr.directory), resume=True)
+        if b.steps != n or b.state.step != n:
+            fail(f"resume phase: B resumed at {b.steps}/{b.state.step}")
+        b_losses = _submit_all(b, batches[n:])
+        b.drain()
+        ttfs = b.time_to_first_step_ms
+        c = build()
+        _submit_all(c, batches[:2])
+        c.drain()
+        restored = mgr.restore(train_state_leaves(c.state))
+        ptrs = [p.data_ptr() for p in c.state.model.parameters()]
+        load_train_state_leaves(c.state, restored.state)
+        c.load_state_dict(restored.session["driver"])
+        if [p.data_ptr() for p in c.state.model.parameters()] != ptrs:
+            fail("resume phase: the in-place restore moved a parameter")
+        c_loss = _submit_all(c, batches[n:n + 1])[0]
+        c.drain()
+        torch.cuda.synchronize()
+        yv = [float(v) for v in y_losses + y_more]
+        av = [float(v) for v in a_losses]
+        bv = [float(v) for v in b_losses]
+        if av != yv[:n]:
+            fail(f"resume phase: A's losses {av} differ from Y's {yv[:n]}")
+        if bv != yv[n:]:
+            fail(f"resume phase: B's losses {bv} differ from the "
+                 f"uninterrupted run's {yv[n:]}")
+        if float(c_loss) != bv[0]:
+            fail(f"resume phase: C's replay after the in-place restore gave "
+                 f"{float(c_loss)}, B's first step {bv[0]}")
+        for pb, py in zip(b.state.model.parameters(),
+                          y.state.model.parameters()):
+            if not torch.equal(pb, py):
+                fail("resume phase: B's final parameters differ from Y's")
+        for d in (y, a, b, c):
+            if d.step.aot_fallbacks:
+                fail("resume phase: a step fell back to the eager step")
+        with open(os.path.join(mgr.directory, f"step-{n:08d}",
+                               "manifest.json")) as f:
+            nbytes = json.load(f)["bytes"]
+    finally:
+        _deterministic(False)
+    mgr.close()
+    # step time without and with snapshots, in turns
+    timing = SnapshotManager(os.path.join(tmp, "resume-timing"), keep=2)
+    drivers = {"plain": build(),
+               "snapshots": build(checkpoint=timing, checkpoint_every=every)}
+    window = [batches[i % len(batches)] for i in range(RESUME["window"])]
+    ms = {"plain": [], "snapshots": []}
+    for side in ("plain", "snapshots", "snapshots", "plain"):
+        ms[side].append(timed(drivers[side], window)[1])
+    timing.wait()
+    if timing.last_error is not None:
+        fail(f"resume phase: snapshot write failed: {timing.last_error!r}")
+    out = {"snapshot_bytes": nbytes, "save_ms": list(timing.save_ms),
+           "saves": timing.saves, "skipped": timing.skipped,
+           "handed": drivers["snapshots"].checkpoints,
+           "ms_per_step": ms, "b_ttfs_ms": ttfs,
+           "b_startup_ms": b.startup_ms, "losses": yv}
+    timing.close()
+    writes = sorted(timing.save_ms)
+    log(f"resume on {card}: {n} + {n} steps of batch {BATCH} through "
+        f"captured graphs, deterministic algorithms: B (build(resume=True) "
+        f"from A's step-{n} snapshot) and C (restored in place) equal the "
+        f"uninterrupted run's losses bit for bit ({yv[0]:.6f} ... "
+        f"{yv[-1]:.6f}) and B its final parameters; snapshot {nbytes} bytes; "
+        f"B's time to first step {ttfs:.1f} ms (startup {b.startup_ms:.1f} "
+        f"ms); over windows of {RESUME['window']} steps (order plain, "
+        f"snapshots, snapshots, plain) ms per step without snapshots "
+        f"{[round(v, 4) for v in ms['plain']]}, with checkpoint_every="
+        f"{every} {[round(v, 4) for v in ms['snapshots']]}; "
+        f"{out['handed']} snapshots handed to the writer, {timing.saves} "
+        f"written, {timing.skipped} replaced while pending; writer ms per "
+        f"snapshot off the dispatch thread: median "
+        f"{writes[len(writes) // 2]:.2f}, min {writes[0]:.2f}, max "
+        f"{writes[-1]:.2f}")
+    return out
 
 
 # -- phase 5b: graph parity and the supervised AOT set ---------------------------
@@ -1832,6 +2293,10 @@ def reference_phase(batch) -> None:
 
 
 def main() -> None:
+    # cuBLAS is deterministic only with a fixed workspace; it is read when
+    # the first handle is made, so it is set before any CUDA work (the
+    # resume phase runs under deterministic algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1880,8 +2345,11 @@ def main() -> None:
     torch.manual_seed(0)
     state = make_train_state(CubeRegressor().init_params(0))
     with tempfile.TemporaryDirectory() as tmp:
+        recording = os.path.join(tmp, "flagship-rec")
         legs = {
-            "flagship": run_leg("flagship (16,32) leg", FLAGSHIP, state, tmp),
+            "flagship": run_leg("flagship (16,32) leg", FLAGSHIP, state, tmp,
+                                record=recording,
+                                keep_first=REPLAY["compare"]),
             "square": run_leg("square 16x16 leg", SQUARE, state, tmp),
             "streamformer": streamformer_leg(tmp, card),
         }
@@ -1891,6 +2359,13 @@ def main() -> None:
         ingest = ingest_phase(tmp, card, legs["flagship"])
         equality = equality_leg(card)
         log(f"input side: ingest A/B, shm, ndz and equality legs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # phase 5d: the palette producer, replay and resume
+        t0 = time.perf_counter()
+        palette_phase(legs["flagship"], card)
+        replay = replay_leg(recording, legs["flagship"], card)
+        resume_phase(recording, tmp, card)
+        log(f"palette producer, replay and resume phases in "
             f"{time.perf_counter() - t0:.1f} s")
     ab = {w: [r["img_s"] for r in ingest["runs"] if r["ingest_workers"] == w]
           for w in sorted(set(INGEST["order"]))}
@@ -1973,7 +2448,9 @@ def main() -> None:
     # supervised AOT set of TrainDriver.build
     t0 = time.perf_counter()
     parity = graph_parity_phase(legs, echo)
-    aot = aot_phase(legs["flagship"]["last"])
+    aot = aot_phase(next(
+        g for g in (*legs["flagship"]["recorded"], *legs["flagship"]["first"])
+        if int(g["_packed"].shape[0]) == CHUNK))
     log(f"graphs: parity of {len(parity)} step builders and the AOT set in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1998,8 +2475,9 @@ def main() -> None:
     for name, meta in KERNELS.items():
         m = measured[name]
         launches = legs[leg_of.get(name, "streamformer")]["launches"][name]
-        if name == "decode_spatial":  # every input-side leg launches K1
-            launches += ingest["k1_launches"]
+        if name == "decode_spatial":  # the input side and replay launch K1
+            launches += (ingest["k1_launches"]
+                         + replay["launches"]["decode_spatial"])
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],

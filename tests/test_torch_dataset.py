@@ -148,8 +148,39 @@ def test_trace_and_scenario_stamps_are_dropped():
     assert not any(k.startswith("_") for b in batches for k in b)
 
 
-def test_recording_is_refused_until_the_replay_slice():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RemoteIterableDataset(["tcp://a"], record_path_prefix="/tmp/x")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RemoteIterableDataset(["tcp://a"]).enable_recording("/tmp/x")
+@pytest.mark.parametrize("how", ["argument", "enable_recording"])
+def test_the_dataset_records_what_its_worker_received(tmp_path, how):
+    """record_path_prefix (or enable_recording) tees the worker's raw
+    messages to {prefix}_00.bjr before the split; the port's and the JAX
+    package's readers decode the recording to the same messages, whose
+    frames cover every item the dataset yielded."""
+    from blendjax.data.replay import FileDataset as JFileDataset
+    from blendjax_torch.data import FileDataset
+
+    prefix = str(tmp_path / "rec")
+    msgs = _tile_messages(seed=7)
+    src = _Looping(msgs)
+    try:
+        if how == "argument":
+            ds = RemoteIterableDataset([src.pub.addr], max_items=8,
+                                       timeoutms=20_000,
+                                       record_path_prefix=prefix)
+        else:
+            ds = RemoteIterableDataset([src.pub.addr], max_items=8,
+                                       timeoutms=20_000)
+            ds.enable_recording(prefix)
+        items = list(ds)
+    finally:
+        src.close()
+    assert (tmp_path / "rec_00.bjr").exists()
+    port, jax_side = FileDataset(prefix), JFileDataset(prefix)
+    assert len(port) == len(jax_side) >= 2
+    recorded = set()
+    for i in range(len(port)):
+        a, b = port[i], jax_side[i]
+        assert sorted(a) == sorted(b)
+        for k, v in a.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(v, b[k])
+        recorded.update(int(f) for f in a["frameid"])
+    assert {int(it["frameid"]) for it in items} <= recorded

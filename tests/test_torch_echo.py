@@ -466,11 +466,11 @@ def test_echo_pipeline_trains_end_to_end_from_recorded_messages():
 def test_echo_pipeline_refuses_what_it_cannot_echo():
     from blendjax_torch.data import EchoingPipeline, StreamDataPipeline
 
-    packed = StreamDataPipeline([], batch_size=2, device="cpu")
+    packed = StreamDataPipeline([], batch_size=2, device="cpu",
+                                emit_packed=True)
     with pytest.raises(ValueError, match="emit_packed=False"):
         EchoingPipeline(packed, device="cpu")
-    for kw in ({"warm_start": "rec.bjr"}, {"mesh": object()},
-               {"sharding": object()}):
+    for kw in ({"mesh": object()}, {"sharding": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
             EchoingPipeline([], device="cpu", **kw)
     with pytest.raises(ValueError, match="min_fresh_fraction"):

@@ -89,7 +89,7 @@ def _fused_case(card, tile, seed):
                xy=scene.camera.world_to_pixel(scene.corners_world()).astype(
                    np.float32), frameid=np.int64(f))
     pipe = StreamDataPipeline(iter(cap.msgs), batch_size=4, device=card,
-                              chunk=2)
+                              chunk=2, emit_packed=True)
     return list(pipe)
 
 
@@ -250,3 +250,83 @@ def test_a_failing_capture_raises_on_card(cuda_card):
     assert state.step == 0
     for p, q in zip(state.model.parameters(), before):
         assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_prepare_captures_without_stepping_on_card(cuda_card):
+    """CapturedStep.prepare captures a signature ahead of its first call
+    and leaves the state as it was; the calls then replay it and equal
+    the eager step bit for bit."""
+    batches = _fused_case(cuda_card, (16, 32), seed=4)[:3]
+    model = _card_cube(cuda_card)
+    a = S.make_train_state(copy.deepcopy(model))
+    b = S.make_train_state(copy.deepcopy(model))
+    before = [p.detach().clone() for p in b.model.parameters()]
+    graph = aot.CapturedStep(S.make_fused_tile_step())
+    graph.prepare(b, batches[0])
+    assert len(graph.signatures) == 1 and graph.graph_replays == 0
+    assert b.step == 0
+    assert all(torch.equal(p, q) for p, q in zip(b.model.parameters(), before))
+    step = S.make_fused_tile_step()
+    la = [step(a, x)[1]["loss"] for x in batches]
+    lb = [graph(b, x)[1]["loss"] for x in batches]
+    torch.cuda.synchronize()
+    _assert_bit_equal(a, b, la, lb)
+
+
+@pytest.mark.cuda
+def test_snapshots_of_a_captured_run_hold_each_step_on_card(cuda_card,
+                                                             tmp_path):
+    """A driver over a captured step hands a snapshot to the manager
+    every step (clones queued on the replay's stream, written on the
+    manager's thread; a snapshot still pending when the next comes is
+    replaced): every committed snapshot equals the eager state after that
+    many steps, bit for bit, though the next replays update the
+    parameters in place meanwhile. A captured driver restored in place
+    from the first snapshot then replays the next step exactly as the
+    uninterrupted run did."""
+    from blendjax_torch.checkpoint import SnapshotManager
+    from blendjax_torch.weights import (
+        load_train_state_leaves,
+        train_state_leaves,
+    )
+
+    def host(leaves):
+        return {k: np.array(v.detach().cpu() if isinstance(v, torch.Tensor)
+                            else v) for k, v in leaves.items()}
+
+    batches = _fused_case(cuda_card, (16, 32), seed=4)[:4]
+    model = _card_cube(cuda_card)
+    ref = S.make_train_state(copy.deepcopy(model))
+    eager = S.make_fused_tile_step()
+    want = []
+    for x in batches:
+        eager(ref, x)
+        want.append(host(train_state_leaves(ref)))
+    mgr = SnapshotManager(str(tmp_path), keep=10)
+    state = S.make_train_state(copy.deepcopy(model))
+    drv = TrainDriver(aot.CapturedStep(S.make_fused_tile_step()), state,
+                      inflight=4, sync_every=0, checkpoint=mgr,
+                      checkpoint_every=1)
+    for x in batches:
+        drv.submit(x)
+    drv.drain()
+    mgr.wait()
+    steps = mgr.steps()
+    assert mgr.last_error is None and steps[0] == 1 and steps[-1] == 4
+    assert len(steps) + mgr.skipped == 4
+    for k in steps:
+        got = mgr.restore(step=k).state
+        for name, v in want[k - 1].items():
+            np.testing.assert_array_equal(got[name], v, err_msg=name)
+    other = S.make_train_state(copy.deepcopy(model))
+    drv2 = TrainDriver(aot.CapturedStep(S.make_fused_tile_step()), other,
+                       inflight=2, sync_every=0)
+    drv2.submit(batches[0])
+    drv2.drain()
+    load_train_state_leaves(other, mgr.restore(step=1).state)
+    drv2.submit(batches[1])
+    drv2.drain()
+    for name, v in host(train_state_leaves(other)).items():
+        np.testing.assert_array_equal(v, want[1][name], err_msg=name)
+    mgr.close()

@@ -87,6 +87,42 @@ def test_the_ingest_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+@pytest.mark.parametrize("module", [
+    "checkpoint/__init__.py", "checkpoint/format.py", "checkpoint/session.py",
+    "checkpoint/snapshot.py", "checkpoint/preempt.py", "obs/__init__.py",
+    "obs/lineage.py", "data/replay.py", "train/checkpoint.py",
+    "producer/tile_publisher.py", "ops/tiles.py", "_native/build.py",
+])
+def test_the_checkpoint_slice_modules_are_scanned(module):
+    """The checkpoint, replay and palette-producer modules are in the scan
+    above, and each imports nothing of JAX or of the JAX package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_the_train_state_snapshot_needs_no_pickle():
+    """No checkpoint module, and not the driver or the weight mapping,
+    imports pickle or calls torch.save / torch.load: the snapshot format
+    is pickle-free, as the JAX package's is."""
+    for module in ("checkpoint/format.py", "checkpoint/session.py",
+                   "checkpoint/snapshot.py", "checkpoint/preempt.py",
+                   "train/checkpoint.py", "train/driver.py", "weights.py",
+                   "data/echo.py"):
+        path = os.path.join(REPO, "blendjax_torch", module)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not any(n and n.split(".")[0] in ("pickle", "dill")
+                               for n in names), module
+            if isinstance(node, ast.Attribute) and node.attr in ("save",
+                                                                 "load"):
+                assert getattr(node.value, "id", None) != "torch", module
+
+
 def _no_shared_memory(monkeypatch):
     from blendjax_torch.transport import shm
 
@@ -264,6 +300,31 @@ def test_the_producers_raise_when_the_cpp_fails_to_build(monkeypatch,
             if ln.startswith("blendjax_torch.producer.cube path")]
     assert len(said) == 1 and said[0].startswith(
         "blendjax_torch.producer.cube path numpy")
+    assert not list((tmp_path / "native").glob("*"))  # no library, no temp
+
+
+@pytest.mark.parametrize("compiler", ["/nonexistent/g++", "false"],
+                         ids=["missing", "failing"])
+def test_the_fused_palette_path_raises_when_its_cpp_fails_to_build(
+        monkeypatch, tmp_path, compiler):
+    """An encoder whose library goes away (a build that fails after it was
+    made) raises from palidx_available and encode_palidx: neither answers
+    "not available" and lets the publisher run the two-pass path
+    quietly; the loader of the palidx entry raises too."""
+    from blendjax_torch._native import build
+    from blendjax_torch.ops import tiles as T
+
+    ref = np.zeros((32, 64, 4), np.uint8)
+    enc = T.TileDeltaEncoder(ref, (16, 32))  # built with the real g++
+    monkeypatch.setattr(build, "CXX", compiler)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="_native/"):
+        build.tile_delta_palidx()
+    with pytest.raises(RuntimeError, match="_native/"):
+        enc.palidx_available()
+    with pytest.raises(RuntimeError, match="_native/"):
+        enc.encode_palidx(ref)
     assert not list((tmp_path / "native").glob("*"))  # no library, no temp
 
 

@@ -9,6 +9,7 @@ pipeline's decode, and the shared-memory route training exactly as the
 raw one. No test here asserts a wall-clock time. The sharded ingest live
 on a card is in ``tests/test_torch_ingest_card.py``."""
 
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -425,11 +426,66 @@ def test_pipeline_rejects_worker_kwargs_with_sharding():
                            device="cpu", ingest_workers=2, num_workers=2)
 
 
-def test_recording_is_refused_until_the_replay_slice():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RemoteStream(["tcp://a"], record_path_prefix="/tmp/x")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RemoteStream(["tcp://a"]).enable_recording("/tmp/x")
+@pytest.mark.parametrize("decode_ahead", [False, True])
+def test_the_stream_records_exactly_what_it_received(tmp_path, decode_ahead):
+    """The tee sees the messages in the order ingest does, with decode-
+    ahead on and off, and a recording made from a stream stopped at
+    max_items holds exactly the `received` messages; the JAX package's
+    reader replays it to the same messages."""
+    from blendjax.data.replay import FileReader as JFileReader
+    from blendjax_torch.data import FileReader
+
+    pub = DataPublisherSocket(WILD, btid=0)
+    feeder = _publish_async(pub, [_item(i) for i in range(12)])
+    prefix = str(tmp_path / "rec")
+    stream = RemoteStream([pub.addr], timeoutms=10_000, max_items=7,
+                          record_path_prefix=prefix)
+    pool = ThreadPoolExecutor(2) if decode_ahead else None
+    stream.set_inflate_pool(pool)
+    try:
+        got = [int(m["frameid"]) for m in stream]
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    feeder.join(timeout=10)
+    pub.close()
+    assert got == list(range(7))
+    path = str(tmp_path / "rec_00.bjr")
+    port, jax_side = FileReader(path), JFileReader(path)
+    assert len(port) == len(jax_side) == stream.received >= 7
+    for i in range(len(port)):
+        a, b = port[i], jax_side[i]
+        assert a["_seq"] == b["_seq"] == i  # recorded with their stamps
+        assert int(a["frameid"]) == int(b["frameid"]) == i
+        np.testing.assert_array_equal(a["image"], b["image"])
+
+
+def test_enable_recording_and_the_shards_record_per_worker(tmp_path):
+    """enable_recording on a pipeline's stream reaches every shard: each
+    writes its own worker-indexed file, and from_recording of the prefix
+    replays every message."""
+    pubs = [DataPublisherSocket(WILD, btid=k) for k in range(2)]
+    feeders = [_publish_async(p, [_item(k * 16 + i, k) for i in range(8)])
+               for k, p in enumerate(pubs)]
+    prefix = str(tmp_path / "rec")
+    pipe = StreamDataPipeline([p.addr for p in pubs], batch_size=8,
+                              device="cpu", ingest_workers=2,
+                              timeoutms=10_000, max_items=16)
+    pipe.stream.enable_recording(prefix)
+    with pipe:
+        live = sorted(int(v) for b in pipe for v in b["frameid"].reshape(-1))
+    for t in feeders:
+        t.join(timeout=10)
+    for p in pubs:
+        p.close()
+    assert sorted(os.listdir(tmp_path)) == ["rec_00.bjr", "rec_01.bjr"]
+    replay = StreamDataPipeline.from_recording(prefix, batch_size=8,
+                                               device="cpu")
+    with replay:
+        again = sorted(int(v) for b in replay
+                       for v in b["frameid"].reshape(-1))
+    assert live == again == sorted([k * 16 + i for k in range(2)
+                                    for i in range(8)])
 
 
 def _cube_producer(tmp, wire, extra=()):
@@ -460,7 +516,7 @@ def _cube_producer(tmp, wire, extra=()):
 
 
 @pytest.mark.parametrize("wire,extra", [
-    ("raw", ()), ("ndz", ()), ("ndr", ("--rle-cap", "1024")), ("shm", ()),
+    ("raw", ()), ("ndz", ()), ("ndr", ("--rle-cap", "512")), ("shm", ()),
 ])
 def test_every_producer_wire_decodes_to_the_rendered_frames(tmp_path, wire,
                                                             extra):
@@ -474,7 +530,8 @@ def test_every_producer_wire_decodes_to_the_rendered_frames(tmp_path, wire,
     proc, addr = _cube_producer(str(tmp_path), wire, extra)
     try:
         pipe = StreamDataPipeline([addr], batch_size=4, device="cpu",
-                                  chunk=2, timeoutms=30_000, max_items=4)
+                                  chunk=2, emit_packed=True, timeoutms=30_000,
+                                  max_items=4)
         groups = list(pipe)
     finally:
         proc.terminate()
@@ -487,7 +544,7 @@ def test_every_producer_wire_decodes_to_the_rendered_frames(tmp_path, wire,
                                           g["_names"], g["_geoms"], g["_rle"])
         frames += list(fields["image"].reshape(-1, 64, 128, 4).numpy())
         if wire == "ndr":
-            assert g["_rle"] and all(cap == 1024 for _, (_, _, cap)
+            assert g["_rle"] and all(cap == 512 for _, (_, _, cap)
                                      in g["_rle"])
         else:
             assert not g["_rle"]
@@ -574,7 +631,7 @@ def _run_slice(**pub_kwargs):
     started = [_producer_thread(p, seed=k) for k, p in enumerate(pubs)]
     pipe = StreamDataPipeline(
         [p.addr for p in pubs], batch_size=BATCH, device="cpu", chunk=4,
-        ingest_workers=2, timeoutms=20_000,
+        emit_packed=True, ingest_workers=2, timeoutms=20_000,
         max_items=PRODUCERS * FRAMES // BATCH)
     batches = {}
     groups = 0

@@ -74,7 +74,8 @@ def test_sharded_ingest_live_through_a_captured_step(cuda_card, wire):
     graph_step = CapturedStep(make_fused_tile_step())
     drv = TrainDriver(graph_step, state, inflight=2)
     pipe = StreamDataPipeline(
-        [p.addr for p in pubs], batch_size=BATCH, chunk=4, ingest_workers=2,
+        [p.addr for p in pubs], batch_size=BATCH, chunk=4, emit_packed=True,
+        ingest_workers=2,
         timeoutms=20_000, max_items=PRODUCERS * FRAMES // BATCH)
     reset_launch_counts()
     try:

@@ -260,7 +260,10 @@ def test_palettize_tiles_matches_jax(monkeypatch, tile, channels, colors):
 def test_the_producer_batches_match_between_paths():
     """The tile publisher's messages from the C++ path and the numpy path
     hold the same tile indices and decode to the same tiles (frames from
-    one renderer, so only the encoder differs)."""
+    one renderer, so only the encoder differs). With full RGBA tiles the
+    C++ path takes the fused per-frame palette form, whose padding slots
+    (the sentinel index, dropped by the decoder) expand to palette colour
+    0: only the changed tiles are compared."""
     from blendjax_torch.producer import TileBatchPublisher
 
     class Capture:
@@ -283,13 +286,184 @@ def test_the_producer_batches_match_between_paths():
         for pub in pubs:
             pub.add(buf, hint=scene.raster.last_drawn, frameid=np.int64(frame))
     assert len(caps[0].msgs) == len(caps[1].msgs) == 3
+    assert pubs[0]._fused_ok and not pubs[1]._fused_ok
     for a, b in zip(caps[0].msgs, caps[1].msgs):
         np.testing.assert_array_equal(a["image__tileidx"], b["image__tileidx"])
+        valid = a["image__tileidx"] < pubs[0].encoder.num_tiles
         tiles = []
         for msg in (a, b):
             bits = next(k for k, s in T.TILEPAL_SUFFIXES.items()
                         if "image" + s in msg)
             tiles.append(T.expand_palette_tiles_np(
                 msg["image" + T.TILEPAL_SUFFIXES[bits]],
-                msg["image" + T.PALETTE_SUFFIX], bits, (16, 32), 4))
+                msg["image" + T.PALETTE_SUFFIX], bits, (16, 32), 4)[valid])
         np.testing.assert_array_equal(tiles[0], tiles[1])
+
+
+# -- the fused scan + per-frame palettizer (Queue A item 1) -----------------------
+
+
+def _palidx_frames(shape, channels, n=5, seed=0):
+    """Cube frames, then a frame of more than 256 colours in the cube's
+    rect, then cube frames again."""
+    scene = TS.CubeScene(shape=shape, seed=seed)
+    rng = np.random.default_rng(seed)
+    buf = np.empty((*shape, 4), np.uint8)
+    frames = []
+    for f in range(1, n + 1):
+        scene.step(f)
+        scene.render(out=buf)
+        frame = buf[..., :channels].copy()
+        rect = scene.raster.last_drawn
+        if f == 3:  # outside the drawn rect: no scan hint for this frame
+            frame[:16, :32] = rng.integers(0, 256, (16, 32, channels))
+            rect = None
+        frames.append((frame, rect))
+    return np.ascontiguousarray(scene.background_image()[..., :channels]), \
+        frames
+
+
+def _table(c):
+    return {"keys": np.zeros(1024, np.uint32),
+            "vals": np.full(1024, -1, np.int16),
+            "table": np.zeros((256, c), np.uint8),
+            "count": np.zeros(1, np.int64)}
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("cap", [256, 16, 4])
+@pytest.mark.parametrize("reset", [True, False], ids=["per-frame", "kept"])
+def test_fused_scan_matches_jax(channels, cap, reset):
+    """bjt_tile_delta_palidx against the JAX package's bjx_tile_delta_palidx
+    on the same frames: the count (-1 past ``cap`` colours), the tile
+    indices, the palette indices and the whole colour table (keys, slots,
+    colours, count) after every call, with the table reset per frame or
+    kept across frames."""
+    from blendjax_torch._native import tile_delta_palidx
+
+    jfn = JN.load_tile_delta_palidx()
+    assert jfn is not None, "the JAX C++ did not build"
+    fn = tile_delta_palidx()
+    h, w, th, tw = 64, 128, 16, 32
+    ref, frames = _palidx_frames((h, w), channels)
+    n = (h // th) * (w // tw)
+    tables = [_table(channels), _table(channels)]
+    outs = [(np.zeros(n, np.int32), np.zeros((n, th * tw), np.uint8))
+            for _ in range(2)]
+    seen_miss = False
+    for frame, _hint in frames:
+        counts = []
+        for f, t, (idx, pal) in zip((fn, jfn), tables, outs):
+            if reset:
+                t["vals"].fill(-1)
+                t["count"][0] = 0
+            counts.append(f(
+                frame.ctypes.data, ref.ctypes.data, h, w, channels, th, tw,
+                0, h // th, 0, w // tw, idx.ctypes.data, pal.ctypes.data,
+                t["keys"].ctypes.data, t["vals"].ctypes.data,
+                t["table"].ctypes.data, t["count"].ctypes.data, cap))
+        assert counts[0] == counts[1]
+        seen_miss |= counts[0] < 0
+        for key in ("keys", "vals", "table", "count"):
+            np.testing.assert_array_equal(tables[0][key], tables[1][key])
+        k = counts[0]
+        if k >= 0:
+            np.testing.assert_array_equal(outs[0][0][:k], outs[1][0][:k])
+            np.testing.assert_array_equal(outs[0][1][:k], outs[1][1][:k])
+    assert seen_miss  # the >256-colour frame misses at every cap
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("tile", [(16, 32), (16, 16)])
+@pytest.mark.parametrize("hint", [True, False], ids=["hint", "no-hint"])
+def test_encode_palidx_matches_the_jax_encoder(channels, tile, hint):
+    """TileDeltaEncoder.encode_palidx, palette and palette_count against
+    the JAX encoder's, frame by frame with a reset per frame; both return
+    None on the frame of more than 256 colours."""
+    ref, frames = _palidx_frames((64, 128), channels)
+    port = T.TileDeltaEncoder(ref, tile)
+    jax_enc = JT.TileDeltaEncoder(ref, tile=tile)
+    assert port.palidx_available() and jax_enc.palidx_available()
+    nones = 0
+    for frame, rect in frames:
+        port.reset_palette()
+        jax_enc.reset_palette()
+        kw = {"hint": rect if hint and rect is not None else None}
+        a, b = port.encode_palidx(frame, **kw), jax_enc.encode_palidx(frame,
+                                                                      **kw)
+        assert (a is None) == (b is None)
+        if a is None:
+            nones += 1
+            continue
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+        assert port.palette_count == jax_enc.palette_count > 0
+        np.testing.assert_array_equal(port.palette, jax_enc.palette)
+    assert nones == 1
+    assert not T.TileDeltaEncoder(ref, tile, native=False).palidx_available()
+
+
+class _Capture:
+    def __init__(self):
+        self.msgs = []
+
+    def publish(self, **msg):
+        self.msgs.append(msg)
+
+
+@pytest.mark.parametrize("channels,alpha_slice", [(4, False), (3, True)])
+@pytest.mark.parametrize("tile", [(16, 32), (16, 16)])
+@pytest.mark.parametrize("rich", [(), (3,), range(3, 14)],
+                         ids=["cube", "one-miss", "latch"])
+def test_fused_publisher_messages_match_jax(channels, alpha_slice, tile,
+                                            rich):
+    """The port's TileBatchPublisher against the JAX package's on the same
+    cube frames: every message key for key, with the same dtypes, shapes
+    and bytes. It takes the fused path where the reference does (full
+    channels, or an RGB stream under alpha slicing); a frame of more than
+    256 colours turns its batch raw (the rows already indexed expanded
+    through their own palettes), and eight such batches latch the fused
+    path off on both."""
+    from blendjax.producer.tile_publisher import TileBatchPublisher as JPub
+    from blendjax_torch.producer import TileBatchPublisher
+
+    scene = TS.CubeScene(shape=(64, 128), seed=2)
+    rng = np.random.default_rng(1)
+    buf = np.empty((64, 128, 4), np.uint8)
+    frames = []
+    for f in range(1, 61):
+        scene.step(f)
+        scene.render(out=buf)
+        frame = buf[..., :channels].copy()
+        rect = scene.raster.last_drawn
+        if f // 4 in rich and f % 4 == 2:  # the batch's second row
+            frame[:16, :32] = rng.integers(0, 256, (16, 32, channels))
+            rect = None  # outside the drawn rect: no scan hint
+        frames.append((frame, rect))
+    bg = np.ascontiguousarray(scene.background_image()[..., :channels])
+    caps = [_Capture(), _Capture()]
+    pubs = [cls(cap, bg, 4, tile=tile, alpha_slice=alpha_slice, capacity=8,
+                ref_interval=5)
+            for cls, cap in ((TileBatchPublisher, caps[0]), (JPub, caps[1]))]
+    assert pubs[0]._fused_ok and pubs[1]._fused_ok
+    for i, (frame, rect) in enumerate(frames):
+        for pub in pubs:
+            pub.add(frame, hint=rect, xy=np.full((8, 2), i, np.float32),
+                    frameid=np.int64(i))
+    for pub in pubs:
+        pub.flush()
+    assert pubs[0]._fused_ok == pubs[1]._fused_ok == (len(rich) < 8)
+    assert len(caps[0].msgs) == len(caps[1].msgs) == 15
+    forms = set()
+    for a, b in zip(*(c.msgs for c in caps)):
+        assert sorted(a) == sorted(b)
+        for k, v in a.items():
+            if isinstance(v, np.ndarray):
+                assert v.dtype == b[k].dtype and v.shape == b[k].shape, k
+                assert v.tobytes() == b[k].tobytes(), k
+            else:
+                assert v == b[k], k
+        forms.add("raw" if "image__tiles" in a else
+                  "per-frame" if a["image__palette"].ndim == 3 else "batch")
+    assert "per-frame" in forms and (("raw" in forms) == bool(rich))

@@ -163,22 +163,13 @@ def test_pipeline_groups_chunks_and_degrades_raw_batches():
         "_batched": True, "image": np.zeros((2, 32, 64, 4), np.uint8),
         "xy": np.zeros((2, 8, 2), np.float32),
     }] + cap.msgs[2:]
-    pipe = StreamDataPipeline(iter(msgs), batch_size=2, device="cpu", chunk=2)
+    pipe = StreamDataPipeline(iter(msgs), batch_size=2, device="cpu", chunk=2,
+                              emit_packed=True)
     out = list(pipe)
     assert [("_packed" in b) for b in out] == [True, False, True]
     assert out[0]["_packed"].shape[0] == 2 and out[2]["_packed"].shape[0] == 1
     assert out[1]["image"].shape == (1, 2, 32, 64, 4)
     assert isinstance(out[0]["_packed"], torch.Tensor)
-
-
-def test_entry_point_refuses_the_slow_path():
-    """The decoded form is ported for chunk=1 only: chunked groups of
-    decoded batches still raise."""
-    from blendjax_torch.data import StreamDataPipeline
-
-    with pytest.raises(NotImplementedError, match="chunk=1"):
-        StreamDataPipeline([], batch_size=2, device="cpu", emit_packed=False,
-                           chunk=2)
 
 
 def test_decoded_form_yields_frames_decoded_on_the_device():
@@ -251,7 +242,7 @@ def test_cpu_end_to_end_producer_pipeline_driver(tmp_path):
             CubeRegressor(features=(8, 16)).init_params(0), device="cpu"
         )
         pipe = StreamDataPipeline([addr], batch_size=4, device="cpu",
-                                  chunk=2, timeoutms=30_000)
+                                  chunk=2, emit_packed=True, timeoutms=30_000)
         drv = TrainDriver(make_fused_tile_step(), state, inflight=2,
                           sync_every=2)
         try:
@@ -270,3 +261,128 @@ def test_cpu_end_to_end_producer_pipeline_driver(tmp_path):
     assert pipe.seq_gaps == 0
     assert drv.stats["dispatches"] == drv.stats["steps"] == 4
     assert state.step == 8  # chunk=2: two updates per step
+
+
+# -- ragged tails, the decoded form's defaults (ROADMAP C1-C3) ----------------
+
+
+def _items(n):
+    for i in range(n):
+        yield {"image": np.full((8, 8, 4), i, np.uint8),
+               "xy": np.full((8, 2), i, np.float32)}
+
+
+def _host(v):
+    return np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+
+
+@pytest.mark.parametrize("emit_packed", [False, True])
+@pytest.mark.parametrize("pad_partial", [True, False])
+def test_ragged_tail_is_padded_as_the_reference_pads_it(emit_packed,
+                                                        pad_partial):
+    """7 items at batch 4 with emit_partial_final: by default the tail is
+    a bucket of 4 rows with _mask [1, 1, 1, 0]; pad_partial=False keeps
+    the 3-row _partial batch. The port's batches equal the JAX
+    pipeline's, field for field and bit for bit, in the decoded form and
+    in the packed form (where a raw batch travels as a K'=1 group)."""
+    from blendjax.data import StreamDataPipeline as JaxPipeline
+    from blendjax_torch.data import StreamDataPipeline
+
+    kw = dict(batch_size=4, emit_partial_final=True, pad_partial=pad_partial,
+              emit_packed=emit_packed)
+    with StreamDataPipeline(_items(7), device="cpu", **kw) as pipe:
+        got = list(pipe)
+    with JaxPipeline(_items(7), **kw) as pipe:
+        want = list(pipe)
+    assert len(got) == len(want) == 2
+    lead = 1 if emit_packed else 0  # the packed form's K'=1 axis
+    tail = got[-1]
+    if pad_partial:
+        assert _host(tail["image"]).shape[lead] == 4
+        assert _host(tail["_mask"]).reshape(-1).tolist() == [1, 1, 1, 0]
+        assert "_partial" not in tail
+    else:
+        assert _host(tail["image"]).shape[lead] == 3
+        assert tail["_partial"] is True and "_mask" not in tail
+    for g, w in zip(got, want):
+        arrays = sorted(k for k, v in w.items() if hasattr(v, "shape"))
+        assert sorted(k for k, v in g.items() if hasattr(v, "shape")) == arrays
+        for k in arrays:
+            a, b = _host(g[k]), np.asarray(w[k])
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            np.testing.assert_array_equal(a, b)
+
+
+def test_the_decoded_form_warns_of_no_superbatch(caplog):
+    """C2: with emit_packed=False and chunk=1 a raw batch passes through
+    unlifted and without the "K'=1 superbatch" warning, as in the JAX
+    pipeline; the chunked form still warns."""
+    import logging
+
+    from blendjax_torch.data import StreamDataPipeline
+
+    with caplog.at_level(logging.WARNING):
+        out = list(StreamDataPipeline(_items(7), batch_size=4, device="cpu",
+                                      emit_partial_final=True))
+    assert [tuple(b["image"].shape) for b in out] == [(4, 8, 8, 4)] * 2
+    assert not any("superbatch" in r.getMessage() for r in caplog.records)
+    with caplog.at_level(logging.WARNING):
+        out = list(StreamDataPipeline(_items(8), batch_size=4, device="cpu",
+                                      chunk=2))
+    assert [tuple(b["image"].shape) for b in out] == [(1, 4, 8, 8, 4)] * 2
+    assert any("superbatch" in r.getMessage() for r in caplog.records)
+
+
+def test_emit_packed_defaults_to_the_decoded_form_as_in_the_reference():
+    """C3: the same call gives decoded batches on both packages."""
+    import inspect
+
+    from blendjax.data import StreamDataPipeline as JaxPipeline
+    from blendjax_torch.data import StreamDataPipeline
+
+    for cls in (StreamDataPipeline, JaxPipeline):
+        params = inspect.signature(cls).parameters
+        assert params["emit_packed"].default is False
+        assert params["pad_partial"].default is True
+    assert StreamDataPipeline([], batch_size=2,
+                              device="cpu").tiles.emit_packed is False
+
+
+def test_decoded_chunked_form_stacks_decoded_superbatches():
+    """emit_packed=False with chunk=2 (it raised before this port had it):
+    (K, B, ...) superbatches with one _meta entry per batch, equal to the
+    packed groups decoded, and to the JAX pipeline's decoded chunk groups
+    bit for bit."""
+    from blendjax.data import StreamDataPipeline as JaxPipeline
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.ops.tiles import decode_packed_superbatch
+    from blendjax_torch.producer import CubeScene, TileBatchPublisher
+
+    scene = CubeScene(shape=(32, 64), seed=5)
+    cap = _Capture()
+    tp = TileBatchPublisher(cap, scene.background_image(), 2, tile=(16, 32),
+                            alpha_slice=False, capacity=4)
+    buf = np.empty((32, 64, 4), np.uint8)
+    for f in range(1, 9):
+        scene.step(f)
+        scene.render(out=buf)
+        tp.add(buf, xy=np.full((8, 2), f, np.float32), frameid=np.int64(f))
+    import copy
+
+    decoded = list(StreamDataPipeline(iter(copy.deepcopy(cap.msgs)),
+                                      batch_size=2, device="cpu", chunk=2))
+    packed = list(StreamDataPipeline(iter(copy.deepcopy(cap.msgs)),
+                                     batch_size=2, device="cpu", chunk=2,
+                                     emit_packed=True))
+    with JaxPipeline(iter(copy.deepcopy(cap.msgs)), batch_size=2,
+                     chunk=2) as pipe:
+        want = list(pipe)
+    assert len(decoded) == len(packed) == len(want) == 2
+    for d, p, w in zip(decoded, packed, want):
+        assert d["image"].shape == (2, 2, 32, 64, 4)
+        assert len(d["_meta"]) == 2 and "_packed" not in d
+        fields = decode_packed_superbatch(p["_packed"], p["_refs"], p["_spec"],
+                                          p["_names"], p["_geoms"], p["_rle"])
+        for k in ("image", "xy", "frameid"):
+            assert torch.equal(d[k], fields[k]), k
+            np.testing.assert_array_equal(d[k].numpy(), np.asarray(w[k]))

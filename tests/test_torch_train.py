@@ -488,7 +488,7 @@ def test_place_in_driver_trains_as_the_feeder_path():
     losses = {}
     for in_driver in (False, True):
         pipe = StreamDataPipeline(iter(copy.deepcopy(msgs)), batch_size=2,
-                                  device="cpu", chunk=2,
+                                  device="cpu", chunk=2, emit_packed=True,
                                   place_in_driver=in_driver)
         state = S.make_train_state(copy.deepcopy(tm), device="cpu")
         drv = TrainDriver(S.make_fused_tile_step(precision="f32"), state,
