@@ -18,6 +18,7 @@ import signal
 import threading
 
 from blendjax_torch.constants import LOGGER_NAME
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.checkpoint")
 
@@ -40,7 +41,9 @@ class PreemptionGuard:
     ``driver=None`` gives a bare flag (:attr:`requested`); :meth:`attach`
     hooks a driver later. Handlers install on the main thread only
     (CPython's rule); elsewhere the guard warns and :meth:`request` still
-    works. ``signals_seen`` counts the signals handled.
+    works. ``signals_seen`` counts the signals handled; the registry's
+    ``ckpt.preempt_signals`` takes them when :attr:`requested` is next read
+    (the handler itself takes no lock).
     """
 
     def __init__(self, driver=None, signals=(signal.SIGTERM,),
@@ -50,6 +53,7 @@ class PreemptionGuard:
         self._previous: dict = {}
         self.installed = False
         self.signals_seen = 0
+        self._signals_counted = 0
         if driver is not None:
             self.attach(driver)
         if install:
@@ -57,6 +61,10 @@ class PreemptionGuard:
 
     @property
     def requested(self) -> bool:
+        seen = self.signals_seen
+        if seen != self._signals_counted:
+            metrics.count("ckpt.preempt_signals", seen - self._signals_counted)
+            self._signals_counted = seen
         return self._event.is_set()
 
     def request(self) -> None:

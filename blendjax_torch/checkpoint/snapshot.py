@@ -26,7 +26,9 @@ up clones on the card.
 
 Counters are attributes: ``saves``, ``restores``, ``resharded_restores``,
 ``skipped``, ``failed``, ``bytes``, ``save_ms`` (one entry per commit) and
-``last_step``.
+``last_step``; the registry mirrors them as ``ckpt.*`` (the JAX package's
+names: counters, the ``ckpt.save_ms`` histogram, the ``ckpt.last_step``
+gauge).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 
 from blendjax_torch.checkpoint import format as fmt
 from blendjax_torch.constants import LOGGER_NAME
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.checkpoint")
 
@@ -179,6 +182,7 @@ class SnapshotManager:
                 raise RuntimeError("SnapshotManager is closed")
             if self._pending is not None:
                 self.skipped += 1
+                metrics.count("ckpt.skipped")
                 logger.warning(
                     "snapshot writer behind: dropping queued step %d for "
                     "step %d", self._pending[0], step,
@@ -209,6 +213,7 @@ class SnapshotManager:
             except Exception as e:
                 self.last_error = e
                 self.failed += 1
+                metrics.count("ckpt.failed")
                 logger.exception("snapshot write failed (step %d)", item[0])
             finally:
                 with self._cv:
@@ -250,6 +255,10 @@ class SnapshotManager:
         self.bytes += int(nbytes)
         self.save_ms.append(dt_ms)
         self.last_step = int(step)
+        metrics.count("ckpt.saves")
+        metrics.count("ckpt.bytes", int(nbytes))
+        metrics.observe("ckpt.save_ms", dt_ms)
+        metrics.gauge("ckpt.last_step", int(step))
         logger.info("snapshot committed: step %d (%.1f MB in %.0f ms)",
                     step, nbytes / 1e6, dt_ms)
 
@@ -318,8 +327,10 @@ class SnapshotManager:
             with open(os.path.join(directory, manifest["session"]), "rb") as f:
                 session = fmt.unpack_session(f.read())
         self.restores += 1
+        metrics.count("ckpt.restores")
         if resharded:
             self.resharded_restores += 1
+            metrics.count("ckpt.resharded_restores")
         return Restored(step=int(manifest["step"]), state=state,
                         session=session, resharded=bool(resharded))
 

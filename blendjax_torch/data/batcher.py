@@ -1,12 +1,19 @@
-"""Host-side batch assembly (copied from ``blendjax/data/batcher.py``,
-without trace and metrics hooks; the sharded ingest is in
-:mod:`blendjax_torch.data.shard_ingest`).
+"""Host-side batch assembly (copied from ``blendjax/data/batcher.py``;
+the sharded ingest is in :mod:`blendjax_torch.data.shard_ingest`).
 
 :class:`HostIngest` runs the stream on a background thread: per-item
 messages are validated and written into preallocated, recycled batch
 buffers (:class:`BatchAssembler`); prebatched messages (tile-delta
 batches) pass through untouched. A bounded queue plus the socket HWMs
 carry backpressure to the producers.
+
+Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX package's names and
+sites): the ``ingest.recv`` span (the ingest thread blocked on the stream)
+and ``ingest.queue_wait`` (the consumer blocked on the queue);
+``ingest.items``, ``ingest.batches`` and ``ingest.queue_full_waits``; the
+``ingest.queue_depth`` gauge and its ``ingest.queue_depth_hwm``. A sampled
+frame trace is popped off its message, stamped ``batch`` and rides the
+next batch emitted (``_traces``).
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import numpy as np
 
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.data.schema import SchemaError, StreamSchema
+from blendjax_torch.obs.trace import TRACE_KEY, TRACES_KEY
+from blendjax_torch.obs.trace import stage as trace_stage
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
@@ -241,30 +251,53 @@ class HostIngest:
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._warned_prebatch = False
+        self._pending_traces: list = []
         self.batches_out = 0
         self.items_in = 0
 
     def _emit(self, batch) -> None:
+        if self._pending_traces:
+            batch[TRACES_KEY] = self._pending_traces
+            self._pending_traces = []
+        depth = self._queue.qsize()
+        metrics.gauge("ingest.queue_depth", depth)
+        metrics.gauge_max("ingest.queue_depth_hwm", depth)
         while not self._stop.is_set():
             try:
                 self._queue.put(batch, timeout=0.25)
                 self.batches_out += 1
+                metrics.count("ingest.batches")
                 return
             except queue.Full:
+                metrics.count("ingest.queue_full_waits")
                 continue
 
     def _run(self):
         try:
             assembler = None
-            exhausted = True
-            for item in self.stream:
+            exhausted = False
+            stream_it = iter(self.stream)
+            while True:
+                with metrics.span("ingest.recv"):
+                    try:
+                        item = next(stream_it)
+                    except StopIteration:
+                        exhausted = True
+                        break
                 if self._stop.is_set():
-                    exhausted = False
                     break
+                # the sampled trace is a publish stamp, not a data field:
+                # off the item before the schema sees it; it rides the
+                # next batch emitted
+                tr = item.pop(TRACE_KEY, None)
+                if tr is not None:
+                    trace_stage(tr, "batch")
+                    self._pending_traces.append(tr)
                 if item.pop("_prebatched", False):
                     lead = prebatched_lead(item)
                     warn_prebatched_lead(self, lead)
                     self.items_in += lead
+                    metrics.count("ingest.items", lead)
                     self._emit(item)
                     continue
                 batched = bool(item.pop("_batched", False))
@@ -279,6 +312,7 @@ class HostIngest:
                     whole = passthrough_batch(item, self.schema, self.batch_size)
                     if whole is not None:
                         self.items_in += self.batch_size
+                        metrics.count("ingest.items", self.batch_size)
                         self._emit(whole)
                         continue
                     items = batched_views(item)
@@ -288,6 +322,7 @@ class HostIngest:
                     if self.items_in % self.validate_every == 0:
                         self.schema.validate(one)
                     self.items_in += 1
+                    metrics.count("ingest.items")
                     batch = assembler.add(one)
                     if batch is not None:
                         self._emit(batch)
@@ -318,18 +353,29 @@ class HostIngest:
         self._thread.start()
         return self
 
+    def queue_depth(self) -> int:
+        """Current prefetch-queue occupancy (observability gauge)."""
+        return self._queue.qsize()
+
+    def _get(self):
+        """The next queued batch, or ``None`` once ``stop()`` drained the
+        end-of-stream sentinel (a consumer on another thread must still
+        see the end)."""
+        while True:
+            try:
+                return self._queue.get(timeout=0.25)
+            except queue.Empty:
+                if self._stop.is_set() and not self._thread.is_alive():
+                    return None
+
     def __iter__(self):
         if self._thread is None:
             self.start()
         while True:
-            try:
-                batch = self._queue.get(timeout=0.25)
-            except queue.Empty:
-                # stop() may have drained the end-of-stream sentinel: a
-                # consumer on another thread must still see the end
-                if self._stop.is_set() and not self._thread.is_alive():
-                    return
-                continue
+            with metrics.span("ingest.queue_wait"):
+                batch = self._get()
+            if batch is None:
+                return
             if batch is self._DONE:
                 if self._error is not None:
                     raise self._error

@@ -30,10 +30,19 @@ Checkpoints: both classes have ``state_dict`` / ``load_state_dict`` (the
 ring's contents, the counters and the host generator's bit state), so a
 resumed echo run draws the same slots with the same augmentation as the
 uninterrupted one; ``warm_start=`` fills the reservoir from a recording
-before the first draw. Left out of this port (ROADMAP): ``mesh`` /
-``sharding`` (the multi-GPU slice, Queue A item 5), ``doctor``, and the
-trace, lineage, scenario and metrics-registry hooks (item 3); the counters
-live on the instances.
+before the first draw.
+
+Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX package's names and
+sites): the ``echo.insert``, ``echo.sample`` and ``echo.wait_fresh``
+spans; ``echo.inserted``, ``echo.fresh``, ``echo.echoed``,
+``echo.saturated_waits`` and ``echo.skipped_partial``; the
+``echo.reservoir_fill`` gauge. A sampled frame trace is stamped
+``reservoir_insert`` when its batch enters the ring and parked on the
+batch's first slot; the first draw of that slot stamps it
+``reservoir_sample`` and carries it to the step (an overwritten slot drops
+its trace). :meth:`EchoingPipeline.doctor` names the bound; :attr:`stats`
+keeps the instance counters. Left out of this port (ROADMAP): ``mesh`` /
+``sharding`` (the multi-GPU slice, Queue A item 5) and the scenario hooks.
 """
 
 from __future__ import annotations
@@ -57,6 +66,9 @@ from blendjax_torch.data.ring import (
     ring_gather,
 )
 from blendjax_torch.device import resolve_device
+from blendjax_torch.obs.trace import TRACES_KEY
+from blendjax_torch.obs.trace import pop_traces as trace_pop
+from blendjax_torch.obs.trace import stage as trace_stage
 from blendjax_torch.ops.augment import (
     SeededAugment,
     color_jitter,
@@ -65,6 +77,7 @@ from blendjax_torch.ops.augment import (
     random_crop_with_points,
     random_flip_with_points,
 )
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
@@ -139,7 +152,8 @@ class SampleReservoir:
                         f"field {k!r}: got {tuple(v.shape[1:])}/{v.dtype}, "
                         f"reservoir holds {shape}/{dtype}"
                     )
-        self._insert_fn(self._buffers, batch, self._cursor)
+        with metrics.span("echo.insert"):
+            self._insert_fn(self._buffers, batch, self._cursor)
         # same tensors, new dict: tokens holding the old dict are stale
         self._buffers = dict(self._buffers)
         slots = (self._cursor + np.arange(lead)) % self.capacity
@@ -190,7 +204,8 @@ class SampleReservoir:
         self._require()
         counter = self._draws
         self._draws += 1
-        return self._draw_body(self._buffers, idx, counter)
+        with metrics.span("echo.sample"):
+            return self._draw_body(self._buffers, idx, counter)
 
     def gather(self, idx) -> dict:
         """Raw gather of ``idx`` rows: no augmentation, no counter advance."""
@@ -357,6 +372,8 @@ class EchoingPipeline:
         self._inner_done = False
         self._warned_sidecars = False
         self._warned_partial = False
+        # sampled frame traces parked on the first slot of their batch
+        self._slot_traces: dict = {}
         self.steps = 0
         self.fresh = 0
         self.echoed = 0
@@ -415,6 +432,7 @@ class EchoingPipeline:
                     "padded rows would train on zeros"
                 )
             self.skipped_partial += 1
+            metrics.count("echo.skipped_partial")
             return
         arrays = {
             k: v for k, v in batch.items()
@@ -436,11 +454,22 @@ class EchoingPipeline:
             )
         if self.batch_size is None:
             self.batch_size = int(lead)
+        trs = trace_pop(batch)
         slots = self.reservoir.insert(fields)
+        if self._slot_traces:
+            # overwritten slots drop their parked traces with their frames
+            for s in slots:
+                self._slot_traces.pop(int(s), None)
+        if trs:
+            for tr in trs:
+                trace_stage(tr, "reservoir_insert")
+            self._slot_traces[int(slots[0])] = trs
         self._use[slots] = 0
         self._t_insert[slots] = time.monotonic()
         self._filled[slots] = True
         self.inserted += len(slots)
+        metrics.count("echo.inserted", len(slots))
+        metrics.gauge("echo.reservoir_fill", int(self._filled.sum()))
 
     def _poll_fresh(self, block: bool, timeout: float = 0.25) -> bool:
         """Insert pending fresh batches (at most the backlog present at
@@ -460,7 +489,8 @@ class EchoingPipeline:
             got = True
         if not got and block and not self._inner_done:
             try:
-                b = self._queue.get(timeout=timeout)
+                with metrics.span("echo.wait_fresh"):
+                    b = self._queue.get(timeout=timeout)
             except queue.Empty:
                 return False
             if b is self._DONE:
@@ -537,6 +567,7 @@ class EchoingPipeline:
                 if not waiting and self._filled.any():
                     waiting = True  # one count per wait episode
                     self.saturated_waits += 1
+                    metrics.count("echo.saturated_waits")
                 self._poll_fresh(block=True)
                 continue
             waiting = False
@@ -544,6 +575,17 @@ class EchoingPipeline:
                 batch = self.reservoir.draw_token(idx)
             else:
                 batch = self.reservoir.sample(idx)
+            if self._slot_traces:
+                # the first draw of a traced batch's slot carries its traces
+                out_traces = []
+                for s in set(int(i) for i in idx):
+                    trs = self._slot_traces.pop(s, None)
+                    if trs:
+                        out_traces.extend(trs)
+                if out_traces:
+                    for tr in out_traces:
+                        trace_stage(tr, "reservoir_sample")
+                    batch[TRACES_KEY] = out_traces
             # fresh counts first uses: a slot drawn twice in one batch is
             # one fresh and one echo
             first = np.zeros(len(idx), bool)
@@ -554,6 +596,8 @@ class EchoingPipeline:
             self.steps += 1
             self.fresh += fresh_n
             self.echoed += len(idx) - fresh_n
+            metrics.count("echo.fresh", fresh_n)
+            metrics.count("echo.echoed", len(idx) - fresh_n)
             yield batch
 
     # -- warm start ------------------------------------------------------------
@@ -651,6 +695,19 @@ class EchoingPipeline:
                 round(drawn / self.inserted, 4) if self.inserted else None
             ),
         }
+
+    def doctor(self, driver=None):
+        """Stall-doctor verdict for the echoing pipeline: the wrapped
+        pipeline's doctor when it has one (its prefetch bound and queue
+        gauges feed the diagnosis), else the process-wide registries; the
+        ``echo.*`` counters drive the echo-mitigated and echo-saturated
+        arms."""
+        inner = getattr(self.pipeline, "doctor", None)
+        if inner is not None:
+            return inner(driver)
+        from blendjax_torch.obs import diagnose_current
+
+        return diagnose_current(driver=getattr(driver, "stats", driver))
 
     def stop(self) -> None:
         self._stop.set()

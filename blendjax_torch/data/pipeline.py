@@ -21,6 +21,14 @@ superbatches). A finite stream's ``_partial`` tail is bucket-padded with
 a ``_mask`` before the host stage (``pad_partial=True``). Multi-host
 assembly and mesh shardings wait for the multi-GPU slice (ROADMAP Queue A
 item 5).
+
+Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX package's names and
+sites): the ``feed.place`` span and the ``place`` frame-trace stamp of each
+placement; the host stage's ``tiles.*``, ``pal.*`` and ``rle.*`` byte and
+batch counters and its ``tiles.pack`` span; the ``decode.dispatch`` span
+(and the ``decode`` stamp) of the decoded form.
+:meth:`StreamDataPipeline.doctor` names the run's bound
+(:mod:`blendjax_torch.obs.doctor`).
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ import torch
 
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.device import resolve_device
+from blendjax_torch.obs.trace import stamp_batch as trace_stamp_batch
 from blendjax_torch.ops import tiles as T
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
@@ -79,7 +89,14 @@ class DeviceFeeder:
         return entry
 
     def place(self, batch: dict) -> dict:
-        """One placement of a host batch; returns the device batch."""
+        """One placement of a host batch (the ``feed.place`` span, and the
+        ``place`` stamp on its frame traces); returns the device batch."""
+        with metrics.span("feed.place"):
+            out = self._place(batch)
+        trace_stamp_batch(out, "place")
+        return out
+
+    def _place(self, batch: dict) -> dict:
         arrays = {
             k: v for k, v in batch.items()
             if k != "_meta" and isinstance(v, np.ndarray) and v.ndim >= 1
@@ -162,6 +179,9 @@ class TileStreamDecoder:
     def _take_refs(self, hb: dict, btid) -> None:
         new_refs: dict = {}
         T.pop_stream_refs(hb, new_refs, btid)
+        for ref in new_refs.values():
+            # keyframe refs are wire bytes too
+            metrics.count("tiles.wire_bytes", int(ref.nbytes))
         for key, ref in new_refs.items():
             cached = self._host_refs.get(key)
             if cached is not None and np.array_equal(cached, ref):
@@ -188,8 +208,16 @@ class TileStreamDecoder:
             btid = hb.get("btid")
             self._take_refs(hb, btid)
             rle_groups = T.pop_rle_batches(hb)
-            for base, (shape, isz, cap) in rle_groups:
-                T.rle_validate_packed(hb[base + T.NDR_SUFFIX], shape, isz, cap)
+            if rle_groups:
+                decoded = packed_bytes = 0
+                for base, (shape, isz, cap) in rle_groups:
+                    buf = hb[base + T.NDR_SUFFIX]
+                    T.rle_validate_packed(buf, shape, isz, cap)
+                    packed_bytes += int(buf.nbytes)
+                    decoded += int(np.prod(shape))
+                metrics.count("rle.batches")
+                metrics.count("rle.packed_bytes", packed_bytes)
+                metrics.count("rle.decoded_bytes", decoded)
             has_tiles = any(k.endswith(T.TILESHAPE_SUFFIX) for k in hb)
             pal_groups = T.pop_frame_palette_batches(hb)
             if pal_groups or (rle_groups and not has_tiles):
@@ -197,7 +225,16 @@ class TileStreamDecoder:
                     k: v for k, v in hb.items() if isinstance(v, np.ndarray)
                 }
                 rest = {k: v for k, v in hb.items() if k not in arrays}
-                buf, spec = T.pack_fields(arrays)
+                with metrics.span("tiles.pack"):
+                    buf, spec = T.pack_fields(arrays)
+                if pal_groups:
+                    metrics.count("pal.batches")
+                    metrics.count("pal.wire_bytes", int(buf.nbytes))
+                for name, (h_, w_, c_, bits) in pal_groups:
+                    lead = int(arrays[name + T.FRAMEPAL_SUFFIXES[bits]]
+                               .shape[0])
+                    metrics.count("pal.decoded_bytes",
+                                  int(h_ * w_ * c_) * lead)
                 gkey = (spec, tuple(pal_groups), rle_groups)
                 if pal_group and pal_group["key"] != gkey:
                     yield from self._flush_pal_group(pal_group)
@@ -235,6 +272,7 @@ class TileStreamDecoder:
                         )
                     yield from self._flush_group(group)
                     yield from self._flush_pal_group(pal_group)
+                    metrics.count("tiles.degraded_groups")
                     self._plans.append(("raw1",))
                 else:  # decoded per batch: a raw batch passes as it is
                     self._plans.append(("raw",))
@@ -242,7 +280,15 @@ class TileStreamDecoder:
                 continue
             arrays = {k: v for k, v in hb.items() if isinstance(v, np.ndarray)}
             rest = {k: v for k, v in hb.items() if k not in arrays}
-            buf, spec = T.pack_fields(arrays)
+            with metrics.span("tiles.pack"):
+                buf, spec = T.pack_fields(arrays)
+            metrics.count("tiles.batches")
+            metrics.count("tiles.wire_bytes", int(buf.nbytes))
+            for name in names:
+                h_, w_, c_ = self._shapes[name][:3]
+                lead = int(arrays[name + T.TILEIDX_SUFFIX].shape[0])
+                # what the equivalent raw frames would have moved
+                metrics.count("tiles.decoded_bytes", int(h_ * w_ * c_) * lead)
             gkey = (
                 tuple(names), spec,
                 tuple(self._ref_digest.get((n, btid)) for n in names),
@@ -337,19 +383,22 @@ class TileStreamDecoder:
                         db[k] = v[None]
                 yield db
                 continue
-            if plan[0] == "palchunk":
-                _, spec, rests, pal_groups, rle_groups = plan
-                fields = T.decode_packed_pal_superbatch(
-                    db["__packed__"], spec, pal_groups, rle_groups)
-            else:
-                _, names, spec, rests, refs, geoms, rle_groups = plan
-                fields = T.decode_packed_superbatch(
-                    db["__packed__"], refs, spec, names, geoms, rle_groups)
+            with metrics.span("decode.dispatch"):
+                if plan[0] == "palchunk":
+                    _, spec, rests, pal_groups, rle_groups = plan
+                    fields = T.decode_packed_pal_superbatch(
+                        db["__packed__"], spec, pal_groups, rle_groups)
+                else:
+                    _, names, spec, rests, refs, geoms, rle_groups = plan
+                    fields = T.decode_packed_superbatch(
+                        db["__packed__"], refs, spec, names, geoms,
+                        rle_groups)
             if self.chunk > 1:
-                yield {"_meta": rests, **fields}
-                continue
-            out = dict(rests[0])
-            out.update({k: v[0] for k, v in fields.items()})
+                out = {"_meta": rests, **fields}
+            else:
+                out = dict(rests[0])
+                out.update({k: v[0] for k, v in fields.items()})
+            trace_stamp_batch(out, "decode")
             yield out
 
 
@@ -454,9 +503,38 @@ class StreamDataPipeline:
         return sum(getattr(s, "seq_gaps", 0) for s in self.shards)
 
     @property
+    def reorders(self) -> int:
+        """Messages that arrived after a later number of their producer."""
+        return sum(getattr(s, "reorders", 0) for s in self.shards)
+
+    @property
     def restarts(self) -> int:
-        """Producer sequences that went backwards."""
+        """Producers that numbered from 0 again."""
         return sum(getattr(s, "restarts", 0) for s in self.shards)
+
+    @property
+    def messages(self) -> int:
+        """Messages the shard streams accounted."""
+        return sum(getattr(s, "messages", 0) for s in self.shards)
+
+    def queue_depth(self) -> int:
+        return 0 if self.ingest is None else self.ingest.queue_depth()
+
+    def doctor(self, driver=None):
+        """One-line bottleneck verdict for the live pipeline
+        (:mod:`blendjax_torch.obs.doctor`) from the current metrics
+        snapshot and frame lineage. ``driver`` may be a ``TrainDriver`` (or
+        its ``stats``) so ring-full blocks feed the diagnosis; the
+        pipeline's ``prefetch`` lets the queue-depth high-water gauge count
+        as backpressure.
+
+        >>> print(pipe.doctor().render())
+        """
+        from blendjax_torch.obs import diagnose_current
+
+        stats = getattr(driver, "stats", driver)
+        metrics.gauge("ingest.queue_depth", self.queue_depth())
+        return diagnose_current(driver=stats, prefetch=self.prefetch)
 
     def shard_stats(self) -> list:
         """Per shard stream: its addresses, the messages it received off

@@ -15,7 +15,7 @@ that gathered from the ring cannot overwrite the rows before the step
 read them (stream order).
 
 Sharded rings (``sharding=``) wait for the multi-GPU slice (ROADMAP
-item 10) and raise ``NotImplementedError``.
+Queue A item 5) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 MULTI_GPU = (
     "a sharded ring waits for the multi-GPU slice of the port "
-    "(ROADMAP item 10)"
+    "(ROADMAP Queue A item 5)"
 )
 
 

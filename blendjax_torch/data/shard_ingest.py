@@ -1,6 +1,5 @@
 """Sharded parallel ingest: one receive/decode worker thread per shard of
-the producer fleet (copied from ``blendjax/data/shard_ingest.py``, without
-the trace and metrics hooks).
+the producer fleet (copied from ``blendjax/data/shard_ingest.py``).
 
 :class:`~blendjax_torch.data.batcher.HostIngest` receives, decodes,
 validates and copies every item on one thread behind one PULL socket.
@@ -19,9 +18,13 @@ Here the fleet is partitioned over N workers:
 
 Batches come out in completion order: PUSH/PULL fan-in gives no order
 across producers anyway. Each producer's whole stream lands on one shard,
-so per-producer gap counting stays exact. Counters are plain attributes:
+whose stream accounts its lineage (gaps, reorders, restarts) exactly as
+the single-thread path does. Counters are plain attributes,
 ``shard_items`` and ``shard_batches`` (one entry per shard), summed by
-``items_in`` and ``batches_out``.
+``items_in`` and ``batches_out``, and the registry's, as in
+:class:`~blendjax_torch.data.batcher.HostIngest` (the recv span is
+``ingest.recv.shard<i>``, one per shard). A sampled frame trace rides the
+batch that holds its message's first item.
 """
 
 from __future__ import annotations
@@ -41,19 +44,25 @@ from blendjax_torch.data.batcher import (
     warn_prebatched_lead,
 )
 from blendjax_torch.data.schema import StreamSchema
+from blendjax_torch.obs.trace import TRACE_KEY, TRACES_KEY
+from blendjax_torch.obs.trace import stage as trace_stage
+from blendjax_torch.utils.metrics import metrics
 
 
 class _PendingBatch:
     """One batch being filled: its buffers and a countdown of slots; the
     writer of the last slot emits it."""
 
-    __slots__ = ("buffers", "meta", "remaining", "lock")
+    __slots__ = ("buffers", "meta", "remaining", "lock", "traces")
 
     def __init__(self, buffers: dict, batch_size: int):
         self.buffers = buffers
         self.meta: list = [None] * batch_size
         self.remaining = batch_size
         self.lock = threading.Lock()
+        # sampled traces riding this batch: appended between a writer's
+        # reserve() and write(), so the completing write sees them all
+        self.traces: list = []
 
 
 class ParallelBatchAssembler:
@@ -111,6 +120,8 @@ class ParallelBatchAssembler:
             return None
         batch = dict(pending.buffers)
         batch["_meta"] = pending.meta
+        if pending.traces:
+            batch[TRACES_KEY] = pending.traces
         return batch
 
     def add(self, item: dict):
@@ -129,6 +140,8 @@ class ParallelBatchAssembler:
         batch = {k: pending.buffers[k][:filled] for k in self.schema.fields}
         batch["_meta"] = pending.meta[:filled]
         batch["_partial"] = True
+        if pending.traces:
+            batch[TRACES_KEY] = pending.traces
         return batch
 
 
@@ -225,13 +238,18 @@ class ShardedHostIngest:
     # -- worker side ---------------------------------------------------------
 
     def _emit(self, idx: int, batch) -> None:
+        depth = self._queue.qsize()
+        metrics.gauge("ingest.queue_depth", depth)
+        metrics.gauge_max("ingest.queue_depth_hwm", depth)
         # bail only when the consumer is gone
         while not self._consumer_stop:
             try:
                 self._queue.put(batch, timeout=0.25)
                 self.shard_batches[idx] += 1
+                metrics.count("ingest.batches")
                 return
             except queue.Full:
+                metrics.count("ingest.queue_full_waits")
                 continue
 
     def _ensure_assembler(self, item: dict, batched: bool):
@@ -251,10 +269,16 @@ class ShardedHostIngest:
         return self._assembler
 
     def _consume(self, idx: int, item: dict) -> None:
+        tr = item.pop(TRACE_KEY, None)
+        if tr is not None:
+            trace_stage(tr, "batch")
         if item.pop("_prebatched", False):
             lead = prebatched_lead(item)
             warn_prebatched_lead(self, lead)
             self.shard_items[idx] += lead
+            metrics.count("ingest.items", lead)
+            if tr is not None:
+                item[TRACES_KEY] = [tr]
             self._emit(idx, item)
             return
         batched = bool(item.pop("_batched", False))
@@ -265,6 +289,9 @@ class ShardedHostIngest:
             whole = passthrough_batch(item, self.schema, self.batch_size)
             if whole is not None:
                 self.shard_items[idx] += self.batch_size
+                metrics.count("ingest.items", self.batch_size)
+                if tr is not None:
+                    whole[TRACES_KEY] = [tr]
                 self._emit(idx, whole)
                 return
             items = batched_views(item)
@@ -274,7 +301,14 @@ class ShardedHostIngest:
             if self.shard_items[idx] % self.validate_every == 0:
                 self.schema.validate(one)
             self.shard_items[idx] += 1
-            batch = assembler.add(one)
+            metrics.count("ingest.items")
+            pending, slot = assembler.reserve()
+            if tr is not None:
+                # once, on the batch holding the message's first item
+                with pending.lock:
+                    pending.traces.append(tr)
+                tr = None
+            batch = assembler.write(pending, slot, one)
             if batch is not None:
                 self._emit(idx, batch)
 
@@ -294,7 +328,15 @@ class ShardedHostIngest:
         return True
 
     def _run_shard(self, idx: int) -> None:
-        for item in self.streams[idx]:
+        stream_it = iter(self.streams[idx])
+        # one series per shard, bounded by the pool's size
+        span_name = f"ingest.recv.shard{idx}"
+        while True:
+            with metrics.span(span_name):
+                try:
+                    item = next(stream_it)
+                except StopIteration:
+                    return
             if not self._take_budget():
                 return
             if self._consumer_stop or self._error is not None:
@@ -366,18 +408,29 @@ class ShardedHostIngest:
             t.start()
         return self
 
+    def queue_depth(self) -> int:
+        """Current prefetch-queue occupancy (observability gauge)."""
+        return self._queue.qsize()
+
+    def _get(self):
+        """The next queued batch, or ``None`` once ``stop()`` drained the
+        end sentinel."""
+        while True:
+            try:
+                return self._queue.get(timeout=0.25)
+            except queue.Empty:
+                if self._consumer_stop and not any(
+                        t.is_alive() for t in self._threads):
+                    return None
+
     def __iter__(self):
         if not self._threads:
             self.start()
         while True:
-            try:
-                batch = self._queue.get(timeout=0.25)
-            except queue.Empty:
-                # stop() may have drained the end sentinel
-                if self._consumer_stop and not any(
-                        t.is_alive() for t in self._threads):
-                    return
-                continue
+            with metrics.span("ingest.queue_wait"):
+                batch = self._get()
+            if batch is None:
+                return
             if batch is self._DONE:
                 if self._error is not None:
                     raise self._error

@@ -1,13 +1,20 @@
 """Live message stream from a fleet of producers (copied from
 ``blendjax/data/stream.py``).
 
-Every publisher numbers its messages (``_seq``); the stream pops those
-stamps and counts, per producer, the messages that never arrived
-(``seq_gaps``) and restarts (a sequence that goes backwards), so a run can
-assert that its fleet delivered everything. Its other counters are plain
-attributes too: ``received`` (messages taken off the socket),
-``messages`` (those accounted), ``pool_decodes``
-(messages decoded on an inflate pool) and, in ``counts`` (a
+Every publisher numbers its messages (``_seq``) and stamps their publish
+times; the stream hands each message to the process-wide frame lineage
+(``ingest`` of :data:`blendjax_torch.obs.lineage.lineage`, as the JAX
+stream does), which pops the stamps, keeps per-producer staleness and the
+latest piggybacked telemetry, and returns the message's sequence verdict.
+The stream sums the verdicts into its own counts: ``seq_gaps`` (messages
+a producer numbered that never arrived), ``reorders`` (late arrivals of
+an older number, which keep the high-water mark) and ``restarts`` (a
+producer numbering from 0 again), so a run can assert that its fleet
+delivered everything. A sampled frame trace (``_trace``) is stamped
+``recv``. Its other counters are plain attributes too: ``received``
+(messages taken off the socket), ``messages`` (those accounted),
+``pool_decodes`` (messages decoded on an inflate pool, also the registry's
+``wire.pool_decodes``) and, in ``counts`` (a
 :class:`~blendjax_torch.transport.wire.WireCounts`), the decoded and wire
 bytes and the shared-memory reads and torn slots.
 
@@ -27,11 +34,14 @@ import time
 
 from blendjax_torch import constants
 from blendjax_torch.constants import LOGGER_NAME
+from blendjax_torch.obs.lineage import lineage
+from blendjax_torch.obs.trace import TRACE_KEY, stage as trace_stage
 from blendjax_torch.transport import (
     DataReceiverSocket,
     ReceiveTimeoutError,
     WireCounts,
 )
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
@@ -98,11 +108,11 @@ class RemoteStream:
         self.defer_rle = bool(defer_rle)
         self.counts = WireCounts()
         self.seq_gaps = 0
+        self.reorders = 0
         self.restarts = 0
         self.received = 0
         self.messages = 0
         self.pool_decodes = 0
-        self._last_seq: dict = {}
         self._stop_requested = False
         self._inflate_pool = None
         # connect/disconnect from any thread; applied by the iterating
@@ -172,23 +182,24 @@ class RemoteStream:
     # -- receive ------------------------------------------------------------
 
     def _account(self, msg: dict):
-        """Pop the publish stamps, update the per-producer gap count, and
-        return the item (``None`` for a torn shared-memory message)."""
-        seq = msg.pop("_seq", None)
-        msg.pop("_pub_wall", None)
-        msg.pop("_pub_mono", None)
+        """Account the publish stamps through the frame lineage and sum the
+        sequence verdict into this stream's counts; stamp a sampled trace
+        ``recv``; return the item (``None`` for a torn shared-memory
+        message, whose stamps arrived intact and are accounted)."""
+        gap, reordered, restarted = lineage.ingest(
+            msg, track_gaps=self.track_gaps)
         self.messages += 1
-        if seq is not None and self.track_gaps:
-            key = msg.get("btid")
-            last = self._last_seq.get(key)
-            if last is not None:
-                if seq > last + 1:
-                    self.seq_gaps += seq - last - 1
-                elif seq <= last:
-                    self.restarts += 1
-            self._last_seq[key] = seq
+        if gap:
+            self.seq_gaps += gap
+        if reordered:
+            self.reorders += 1
+        if restarted:
+            self.restarts += 1
         if msg.pop("_shm_torn", False):
             return None  # counted in counts.shm_torn when resolved
+        tr = msg.get(TRACE_KEY)
+        if tr is not None:
+            trace_stage(tr, "recv")
         return self.item_transform(msg) if self.item_transform else msg
 
     def _recv_sliced(self, recv):
@@ -255,6 +266,7 @@ class RemoteStream:
                      raw)
                 )
                 self.pool_decodes += 1
+                metrics.count("wire.pool_decodes")
                 if len(pending) < DECODE_AHEAD and (
                     limit is None or n + len(pending) < limit
                 ):

@@ -28,7 +28,8 @@ read through their strides (a unit stride over D); ``lse`` and ``di`` are
 as the JAX library computes it outside its kernels (``flash_attention.py:274``).
 
 Each wrapper launches its kernel for CUDA tensors and adds one to its
-``launches`` count; for CPU tensors it returns its plain PyTorch version
+``launches`` count (its ``work(q, k, causal)`` declares the launch's FLOPs
+and bytes, :func:`blendjax_torch.kernels.work.attention_work`); for CPU tensors it returns its plain PyTorch version
 (``*_plain``), which repeats the kernel's arithmetic: operands in the
 input dtype with products summed in f32 (a product of two bf16 values is
 exact in f32, so the plain version upcasts), the softmax in f32, and
@@ -45,6 +46,7 @@ import torch
 from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.kernels.counting import count_launch
 from blendjax_torch.kernels.decode import _raise_on, _stream
+from blendjax_torch.kernels.work import attention_work
 
 # The kernels' own tile edges (compile-time constants of the CUDA sources),
 # by variant. The forward's: (q rows per block, k rows per loop step); the
@@ -286,11 +288,20 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
              lse.data_ptr()),
             _strides(q, k, v), q, k, causal, scale, _vec16(q, k, v),
         )
-    count_launch(flash_attention_fwd, variant)
+    count_launch(flash_attention_fwd, variant,
+                 lambda: flash_attention_fwd.work(q, k, causal))
     return o, lse
 
 
+def _work(name: str):
+    """``work(q, k, causal)``: one launch's ``(flops, bytes)``."""
+    return lambda q, k, causal=False: attention_work(
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+        q.element_size(), bool(causal))[name]
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd.work = _work("flash_attention_fwd")
 flash_attention_fwd.launches_by_variant = {"sm90": 0, "simple": 0}
 
 
@@ -331,11 +342,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=False, scale=None):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     variant = _launch_bwd("bjt_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, di,
                           causal, default_scale(q, scale))
-    count_launch(flash_attention_bwd_dkv, variant)
+    count_launch(flash_attention_bwd_dkv, variant,
+                 lambda: flash_attention_bwd_dkv.work(q, k, causal))
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.work = _work("flash_attention_bwd_dkv")
 flash_attention_bwd_dkv.launches_by_variant = {"sm90": 0, "simple": 0}
 
 
@@ -351,11 +364,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, causal=False, scale=None):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     variant = _launch_bwd("bjt_flash_bwd_dq", (dq,), q, k, v, do, lse, di,
                           causal, default_scale(q, scale))
-    count_launch(flash_attention_bwd_dq, variant)
+    count_launch(flash_attention_bwd_dq, variant,
+                 lambda: flash_attention_bwd_dq.work(q, k, causal))
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.work = _work("flash_attention_bwd_dq")
 flash_attention_bwd_dq.launches_by_variant = {"sm90": 0, "simple": 0}
 
 

@@ -10,6 +10,12 @@ the counts (:func:`blendjax_torch.kernels.add_launches`). The stream, not
 the thread, decides: a backward pass runs on autograd's own thread but on
 its forward's stream, while the echo pipeline's drain thread decodes on
 another stream during a capture and keeps counting into the wrappers.
+
+A wrapper also declares the work of each launch (a callable giving
+``(flops, bytes)``, :mod:`blendjax_torch.kernels.work`), called only when
+the launch goes to a tally; a tally sums it per kernel under
+``"work"``, so a captured graph knows the kernel work one replay does (the
+device ledger adds it to what ``FlopCounterMode`` counts).
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 _tallies: dict = {}  # CUDA stream handle -> tally of launches queued there
 
 
-def count_launch(wrapper, variant: str | None = None) -> None:
+def count_launch(wrapper, variant: str | None = None,
+                 work=None) -> None:
     tally = None
     if _tallies:
         tally = _tallies.get(torch.cuda.current_stream().cuda_stream)
@@ -32,6 +39,11 @@ def count_launch(wrapper, variant: str | None = None) -> None:
         return
     name = wrapper.__name__
     tally["launches"][name] = tally["launches"].get(name, 0) + 1
+    if work is not None:
+        done = tally.setdefault("work", {})
+        flops, nbytes = done.get(name, (0, 0))
+        add_flops, add_bytes = work()
+        done[name] = (flops + int(add_flops), nbytes + int(add_bytes))
     if variant is not None:
         by = tally["variants"].setdefault(name, {})
         by[variant] = by.get(variant, 0) + 1
@@ -41,7 +53,8 @@ def count_launch(wrapper, variant: str | None = None) -> None:
 def diverted(stream):
     """Count the launches queued on ``stream`` (a ``torch.cuda.Stream``)
     into the yielded tally, ``{"launches": {name: n}, "variants": {name:
-    {variant: n}}}``, not into the wrappers."""
+    {variant: n}}}`` and, once a launch declared its work, ``"work":
+    {name: (flops, bytes)}``, not into the wrappers."""
     tally = {"launches": {}, "variants": {}}
     key = stream.cuda_stream
     if key in _tallies:

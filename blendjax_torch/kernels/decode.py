@@ -9,7 +9,8 @@
   reference tile elsewhere.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and adds one to its
-``launches`` count; for CPU tensors it returns its plain PyTorch twin
+``launches`` count (its ``work(...)`` declares the launch's bytes,
+:func:`blendjax_torch.kernels.work.decode_work`); for CPU tensors it returns its plain PyTorch twin
 (``*_plain``), which the CPU tests use and ``chip_smoke.py`` holds the
 kernel against. Any other device, or mixed devices, raise: there is no
 fallback from a failed launch.
@@ -18,11 +19,13 @@ fallback from a failed launch.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.kernels.counting import count_launch
+from blendjax_torch.kernels.work import decode_work
 from blendjax_torch.ops.tiles import tile_grid
 
 
@@ -147,11 +150,15 @@ def decode_spatial(ref_tiles, idx, tiles, shape):
         _stream(idx.device),
     )
     _raise_on(lib, "bjt_decode_spatial_error", code, "decode_spatial")
-    count_launch(decode_spatial)
+    count_launch(decode_spatial, work=lambda: decode_spatial.work(
+        ref_tiles, idx, tiles, shape))
     return out
 
 
 decode_spatial.launches = 0
+decode_spatial.work = lambda ref_tiles, idx, tiles, shape: decode_work(
+    int(ref_tiles.shape[0]), ref_tiles[0].numel(), idx.numel(), idx.numel(),
+    int(idx.shape[0]) * math.prod(int(s) for s in shape))
 
 
 def decode_scatter(ref_tiles, idx, tiles):
@@ -174,8 +181,12 @@ def decode_scatter(ref_tiles, idx, tiles):
         slots.data_ptr(), b, k, n, ttc, int(vec16), _stream(idx.device),
     )
     _raise_on(lib, "bjt_decode_scatter_error", code, "decode_scatter")
-    count_launch(decode_scatter)
+    count_launch(decode_scatter, work=lambda: decode_scatter.work(
+        ref_tiles, idx, tiles))
     return slots
 
 
 decode_scatter.launches = 0
+decode_scatter.work = lambda ref_tiles, idx, tiles: decode_work(
+    int(ref_tiles.shape[0]), ref_tiles[0].numel(), idx.numel(), idx.numel(),
+    int(idx.shape[0]) * ref_tiles.numel())

@@ -19,6 +19,7 @@ import torch
 
 from blendjax_torch.kernels.build import entry, load
 from blendjax_torch.kernels.counting import count_launch
+from blendjax_torch.kernels.work import gamma_work
 from blendjax_torch.kernels.decode import _aligned16, _raise_on, _stream
 
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,8 +65,10 @@ def gamma_normalize(x, gamma: float = 2.2, dtype=torch.float32):
         _sm_count(x.device.index or 0), _stream(x.device),
     )
     _raise_on(lib, "bjt_gamma_normalize_error", code, "gamma_normalize")
-    count_launch(gamma_normalize)
+    count_launch(gamma_normalize, work=lambda: gamma_normalize.work(x, dtype))
     return out
 
 
 gamma_normalize.launches = 0
+gamma_normalize.work = lambda x, dtype=torch.float32: gamma_work(
+    x.numel(), dtype.itemsize)

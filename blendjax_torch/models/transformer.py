@@ -20,7 +20,7 @@ purpose:
 The token count T is fixed by ``image_shape`` at construction (flax takes
 it from the example input at ``init``). Sequence parallelism (ring,
 ulysses, a mesh), mixture-of-experts blocks and ``remat`` wait for the
-multi-GPU slice (ROADMAP items 9-10) and raise ``NotImplementedError``.
+multi-GPU slice (ROADMAP Queue A item 5) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from blendjax_torch.ops.image import maybe_normalize_uint8
 from blendjax_torch.precision import default_compute_dtype
 
 LATER_SLICE = (
-    "waits for the multi-GPU slice of the port (ROADMAP items 9-10); only "
+    "waits for the multi-GPU slice of the port (ROADMAP Queue A item 5); only "
     "the local, dense StreamFormer path is ported"
 )
 

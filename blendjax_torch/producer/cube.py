@@ -37,6 +37,9 @@ bound), its own rate without the publish (``own_frames_s``), its wire
 with the shared-memory ring's fallbacks and reclaims, whether the fused
 path is on (``fused``) and the mean array bytes per message
 (``msg_bytes``, the reference image left out) with ``frames_per_msg``.
+The publisher stamps lineage, a telemetry snapshot every 64 messages
+(carrying the ``producer.frame`` span of render and scene step) and a
+sampled frame trace every 64 messages, its defaults.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import numpy as np
 from blendjax_torch.producer.sim import CubeScene
 from blendjax_torch.producer.tile_publisher import TileBatchPublisher
 from blendjax_torch.transport import DataPublisherSocket, term_context
+from blendjax_torch.utils.metrics import metrics
 
 
 def parse_args(argv=None):
@@ -176,8 +180,11 @@ def main(argv=None) -> None:
     try:
         while opts.frames <= 0 or frame <= opts.frames:
             t0 = time.perf_counter()
-            scene.step(frame)
-            scene.render(out=framebuf)
+            # render + scene step: the span the publisher's telemetry
+            # snapshots carry to the consumer
+            with metrics.span("producer.frame"):
+                scene.step(frame)
+                scene.render(out=framebuf)
             t1 = time.perf_counter()
             tiles.add(
                 framebuf,

@@ -34,7 +34,16 @@ back into the same tensors after the capture, so the first real step
 starts from exactly the state the caller passed (an optimizer entry made
 during warm-up is zeroed, which is how torch's Adam family starts one).
 Neither the warm-up nor the capture counts as a step or as kernel
-launches. A capture or a replay that fails raises: there is no quiet
+launches. Each new graph is registered with the device ledger
+(:data:`blendjax_torch.obs.devledger.ledger`, ``ledger_entries``): the
+kernels' declared work comes from the capture's tally, and the torch
+operators' FLOPs from one count
+(:func:`blendjax_torch.obs.devledger.count_flops`) over the second
+warm-up call of a builder's first capture, scaled by images for its later
+signatures (they differ in batch or group size, not in frame shape, and
+the matrix products ``FlopCounterMode`` counts are linear in the images).
+Capture time is the ``train.compile_ms`` span. A
+capture or a replay that fails raises: there is no quiet
 fallback to the eager step. On a CPU state nothing is captured and every
 call is the eager step; the ladder and the manifest still run.
 
@@ -62,7 +71,9 @@ import torch
 
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.data.batcher import bucket_sizes
-from blendjax_torch.train.steps import state_device
+from blendjax_torch.obs.devledger import count_flops, ledger
+from blendjax_torch.train.steps import batch_images, state_device
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.train")
 
@@ -344,11 +355,17 @@ def _reseed(step, state, batch) -> None:
 
 
 class _Graph:
-    """One captured step: the graph, its static inputs and loss, and what
-    one replay adds on the host."""
+    """One captured step: the graph, its static inputs and loss, what one
+    replay adds on the host, and what the device ledger reads: ``flops``
+    and the kernels' declared ``work`` of one call, the torch operators'
+    FLOPs per image (``op_flops_per_image``, handed to a builder's later
+    captures), the bytes of the state it updates in place and the
+    ``images`` one call trains on."""
 
     def __init__(self, step, graph, static, loss, updates, launches,
-                 variants, generators, stager):
+                 variants, generators, stager, flops=None, work=None,
+                 state_bytes: int = 0, images: int | None = None,
+                 op_flops_per_image: float | None = None):
         self.step = step
         self.graph = graph
         self.static = static
@@ -358,6 +375,11 @@ class _Graph:
         self.variants = variants
         self.generators = generators
         self.stager = stager
+        self.flops = flops
+        self.work = work or {}
+        self.state_bytes = int(state_bytes)
+        self.images = images
+        self.op_flops_per_image = op_flops_per_image
         # host launches of the last call: the input copies, two fills per
         # registered generator (the replay writes its seed and offset), the
         # graph launch and the loss clone
@@ -375,25 +397,40 @@ class _Graph:
         return state, {"loss": self.loss.clone()}
 
 
-def _capture(step, state, batch, stream, mode: str,
-             stager: _HostStager) -> _Graph:
+def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
+             op_flops_per_image: float | None = None) -> _Graph:
     """Warm up ``step`` on ``batch`` (as static buffers) on ``stream``,
     capture one call into a new graph with its own memory pool, and put
     the state back as it was. The launches of the warm-up and of the
     capture are diverted from the wrappers' counts; the capture's tally
-    is what each replay adds."""
+    is what each replay adds, and its declared kernel work what the
+    ledger adds to the torch operators' FLOPs. Those are
+    ``op_flops_per_image`` x images when given, else counted over the
+    last warm-up call (:func:`~blendjax_torch.obs.devledger.count_flops`)."""
     from blendjax_torch.kernels.counting import diverted
 
     device = state_device(state)
     static = _make_static(batch, device)
+    images = batch_images(batch)
     snap = _snapshot(state)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _k, t in _state_tensors(state))
     step0 = state.step
     try:
         stream.wait_stream(torch.cuda.current_stream(device))
-        with diverted(stream), torch.cuda.stream(stream):
-            for _ in range(_WARMUP):
+        with torch.cuda.stream(stream):
+            for _ in range(_WARMUP - 1):
                 _reseed(step, state, static)
-                step(state, static)
+                with diverted(stream):
+                    step(state, static)
+            _reseed(step, state, static)
+            if op_flops_per_image is None:
+                flops, work = count_flops(lambda: step(state, static), device)
+                op_flops = flops - sum(f for f, _b in work.values())
+                op_flops_per_image = op_flops / max(images, 1)
+            else:
+                with diverted(stream):
+                    step(state, static)
         torch.cuda.current_stream(device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         generators = _generators(step, state, static)
@@ -407,16 +444,24 @@ def _capture(step, state, batch, stream, mode: str,
     finally:
         _restore(state, snap)
         state.step = step0
+    work = dict(tally.get("work", {}))
+    flops = (op_flops_per_image * images
+             + sum(f for f, _b in work.values()))
     return _Graph(step, graph, static, out["loss"], updates,
-                  tally["launches"], tally["variants"], generators, stager)
+                  tally["launches"], tally["variants"], generators, stager,
+                  flops=flops, work=work, state_bytes=state_bytes,
+                  images=images, op_flops_per_image=op_flops_per_image)
 
 
-def pool_bytes(graph) -> int:
+def pool_bytes(graph, segments: list | None = None) -> int:
     """Bytes the caching allocator holds in ``graph``'s private memory
-    pool (segments of ``torch.cuda.memory_snapshot()``)."""
-    pool = graph.graph.pool()
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+    pool: its segments in ``segments`` (one ``torch.cuda.memory_snapshot()``,
+    taken here when not given; a caller sizing many graphs takes it once)."""
+    pool = tuple(graph.graph.pool())
+    if segments is None:
+        segments = torch.cuda.memory_snapshot()
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 # -- the AOT step set ---------------------------------------------------------
@@ -426,8 +471,11 @@ class AotStepSet:
 
     ``graphs`` maps each signature to its :class:`_Graph`, or to ``None``
     on a CPU state (a known signature that runs eagerly). A signature
-    outside the set runs the eager step and counts ``aot_fallbacks``; a
-    replay that fails raises."""
+    outside the set runs the eager step and counts ``aot_fallbacks`` (and
+    ``train.aot_fallbacks``); a replay that fails raises. ``_cache_size``
+    (the graphs and the distinct signatures run eagerly) is what
+    :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches;
+    ``ledger_entries`` are the graphs' device-ledger entries."""
 
     def __init__(self, step, graphs: dict, compile_ms: float,
                  cache_hits: int = 0, cache_misses: int = 0,
@@ -441,16 +489,28 @@ class AotStepSet:
         self.aot_fallbacks = 0
         self.graph_replays = 0
         self.host_launches = 0
+        self.ledger_entries: list = []
+        self._fallback_sigs: set = set()
 
     @property
     def signatures(self) -> tuple:
         return tuple(self._graphs)
+
+    def _cache_size(self) -> int:
+        return len(self._graphs) + len(self._fallback_sigs)
+
+    @staticmethod
+    def signature_of(batch) -> tuple:
+        return _signature({k: v for k, v in batch.items()
+                           if _is_batch_array(k, v)})
 
     def __call__(self, state, batch):
         fields = {k: v for k, v in batch.items() if _is_batch_array(k, v)}
         sig = _signature(fields)
         if sig not in self._graphs:
             self.aot_fallbacks += 1
+            self._fallback_sigs.add(sig)
+            metrics.count("train.aot_fallbacks")
             return self._step(state, fields)
         graph = self._graphs[sig]
         if graph is None:
@@ -479,7 +539,8 @@ def _ladder_batch(example: dict, spec: dict) -> dict:
 def build_aot_step(step, state, example_batch: dict, *,
                    buckets: tuple | list | None = None,
                    cache_dir: str | None = None,
-                   key: str | None = None) -> AotStepSet:
+                   key: str | None = None,
+                   ledger_name: str = "aot_step") -> AotStepSet:
     """Capture ``step`` for every ladder signature before step 0.
 
     ``state`` is the concrete train state, ``example_batch`` a full-size
@@ -488,7 +549,8 @@ def build_aot_step(step, state, example_batch: dict, *,
     warms up on a side stream and captures in ``"global"`` mode: no other
     thread of the process may make a call that capture forbids while it
     runs, which holds before step 0. Capture times per signature land on
-    ``AotStepSet.capture_ms``."""
+    ``AotStepSet.capture_ms``, the whole build in the ``train.compile_ms``
+    span, and every graph in the device ledger under ``ledger_name``."""
     manifest: dict = {}
     seen: set = set()
     if cache_dir:
@@ -503,33 +565,44 @@ def build_aot_step(step, state, example_batch: dict, *,
     stager = _HostStager()
     graphs: dict = {}
     capture_ms: dict = {}
+    op_flops_per_image = None
     hits = misses = 0
     t0 = time.perf_counter()
-    for spec in batch_specs_for_ladder(example_batch, buckets):
-        sig = _signature(spec)
-        if sig in graphs:
-            continue
-        sig_hash = hashlib.sha256(repr(sig).encode()).hexdigest()[:16]
-        if cache_dir:
-            if sig_hash in seen and (built or not on_card):
-                hits += 1
-            else:
-                misses += 1
-                seen.add(sig_hash)
-        if not on_card:
-            graphs[sig] = None
-            continue
-        t1 = time.perf_counter()
-        graphs[sig] = _capture(step, state, _ladder_batch(example_batch, spec),
-                               stream, "global", stager)
-        capture_ms[sig] = (time.perf_counter() - t1) * 1e3
+    with metrics.span("train.compile_ms"):
+        for spec in batch_specs_for_ladder(example_batch, buckets):
+            sig = _signature(spec)
+            if sig in graphs:
+                continue
+            sig_hash = hashlib.sha256(repr(sig).encode()).hexdigest()[:16]
+            if cache_dir:
+                if sig_hash in seen and (built or not on_card):
+                    hits += 1
+                    metrics.count("train.aot_cache_hits")
+                else:
+                    misses += 1
+                    metrics.count("train.aot_cache_misses")
+                    seen.add(sig_hash)
+            if not on_card:
+                graphs[sig] = None
+                continue
+            t1 = time.perf_counter()
+            graphs[sig] = graph = _capture(
+                step, state, _ladder_batch(example_batch, spec), stream,
+                "global", stager, op_flops_per_image)
+            op_flops_per_image = graph.op_flops_per_image
+            capture_ms[sig] = (time.perf_counter() - t1) * 1e3
     compile_ms = (time.perf_counter() - t0) * 1e3
     if cache_dir:
         manifest[key] = sorted(seen)
         _save_manifest(cache_dir, manifest)
     logger.info("aot step set: %d signatures in %.0f ms (%d warm, %d cold)",
                 len(graphs), compile_ms, hits, misses)
-    return AotStepSet(step, graphs, compile_ms, hits, misses, capture_ms)
+    step_set = AotStepSet(step, graphs, compile_ms, hits, misses, capture_ms)
+    try:
+        step_set.ledger_entries = ledger.register_aot_set(ledger_name, graphs)
+    except Exception:  # accounting only: never fails a build
+        logger.debug("device ledger registration failed", exc_info=True)
+    return step_set
 
 
 # -- the fused and echo steps -------------------------------------------------
@@ -543,21 +616,33 @@ class CapturedStep:
     A capture runs in ``"thread_local"`` mode: it happens mid-run, while
     the echo pipeline's drain thread goes on decoding, staging pinned
     buffers and waiting on events, calls that ``"global"`` mode would
-    fail. On a CPU state every call is the eager step."""
+    fail. On a CPU state every call is the eager step.
+
+    Each capture is timed in the ``train.compile_ms`` span and registered
+    with the device ledger as ``"captured_step"`` (``ledger_entries``);
+    ``_cache_size`` (the graphs captured) is what
+    :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches."""
 
     def __init__(self, step):
         self.step = step
         self._graphs: dict = {}
         self._stream = None
         self._stager = _HostStager()
+        self._op_flops_per_image = None  # counted on the first capture
         self.capture_ms: dict = {}
         self.aot_fallbacks = 0  # never: a new signature is captured
         self.graph_replays = 0
         self.host_launches = 0
+        self.ledger_entries: list = []
 
     @property
     def signatures(self) -> tuple:
         return tuple(self._graphs)
+
+    def _cache_size(self) -> int:
+        return len(self._graphs)
+
+    signature_of = staticmethod(_plan_signature)
 
     def _graph(self, state, batch, device):
         sig = _plan_signature(batch)
@@ -566,10 +651,19 @@ class CapturedStep:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(device)
             t0 = time.perf_counter()
-            graph = self._graphs[sig] = _capture(
-                self.step, state, batch, self._stream, "thread_local",
-                self._stager)
+            with metrics.span("train.compile_ms"):
+                graph = self._graphs[sig] = _capture(
+                    self.step, state, batch, self._stream, "thread_local",
+                    self._stager, self._op_flops_per_image)
+            self._op_flops_per_image = graph.op_flops_per_image
             self.capture_ms[sig] = (time.perf_counter() - t0) * 1e3
+            try:
+                self.ledger_entries.append(ledger.register(
+                    "captured_step", graph, signature=sig,
+                    batch_images=graph.images))
+            except Exception:  # accounting only
+                logger.debug("device ledger registration failed",
+                             exc_info=True)
         return graph
 
     def prepare(self, state, batch) -> None:

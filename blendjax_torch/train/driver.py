@@ -30,8 +30,24 @@ thread. A :class:`~blendjax_torch.checkpoint.PreemptionGuard` makes the
 next ``submit`` drain, snapshot and raise
 :class:`~blendjax_torch.checkpoint.PreemptionRequested`.
 ``build(resume=True)`` restores the newest snapshot before the graphs are
-captured. The cost-model FLOPs wait for a later slice; the port has no
-metrics registry yet.
+captured.
+
+Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX driver's names): the
+``train.dispatch`` span around each step call and ``train.dispatches``;
+``driver.ring_wait`` and ``train.host_blocks`` for a genuine ring-full
+wait; ``driver.loss_sync`` around each loss fetch; each retired entry's
+dispatch-to-retirement time in ``train.step_device_ms`` (an upper bound of
+the step's device time: a finished entry is seen within one submit); and,
+with ``flops_per_image`` and ``peak_flops``, the live ``train.mfu`` gauge
+(retired images/s over windows of >= 1 s, and over the whole run at
+:meth:`drain`). Sampled frame traces (:mod:`blendjax_torch.obs.trace`) come
+off the batch before the step call, are stamped ``step_dispatch``, ride the
+ring entry and are stamped ``step_retire`` and completed at retirement. A
+:class:`~blendjax_torch.obs.devledger.RetraceAudit` watches a captured step
+for signatures met after warm-up. A step that carries device-ledger entries
+(:meth:`build`'s AOT set, a captured step) gives the cost-model FLOPs per
+image (``mfu_source`` ``"cost-model"``) unless ``flops_per_image`` is
+passed by hand (``"hand-fed"``).
 """
 
 from __future__ import annotations
@@ -42,25 +58,15 @@ import time
 
 import torch
 
-#: Known peak dense bf16 FLOP/s, matched by substring against the card's
-#: name (NVIDIA data sheets; first match wins, the specific names first).
-KNOWN_PEAK_FLOPS = (
-    ("h100 pcie", 756e12),
-    ("h100", 989e12),  # the SXM part
-    ("h200", 989e12),
-    ("a100", 312e12),
+from blendjax_torch.obs.devledger import RetraceAudit, default_peak_flops
+from blendjax_torch.obs.trace import (
+    TERMINAL_STAGE,
+    pop_traces as trace_pop,
+    stage as trace_stage,
+    tracer,
 )
-
-
-def default_peak_flops(device_name: str | None = None) -> float | None:
-    """The card's peak dense bf16 FLOP/s from :data:`KNOWN_PEAK_FLOPS`
-    (``None`` for an unknown card or no card)."""
-    if device_name is None:
-        if not torch.cuda.is_available():
-            return None
-        device_name = torch.cuda.get_device_name(0)
-    name = device_name.lower()
-    return next((peak for sub, peak in KNOWN_PEAK_FLOPS if sub in name), None)
+from blendjax_torch.train.steps import batch_images
+from blendjax_torch.utils.metrics import metrics
 
 
 class TrainDriver:
@@ -95,8 +101,11 @@ class TrainDriver:
         self.flops_per_image = (float(flops_per_image) if flops_per_image
                                 else None)
         self.peak_flops = float(peak_flops) if peak_flops else None
+        self.mfu_source = "hand-fed" if self.flops_per_image else None
+        self._adopt_cost_model_flops(step)
         if self.flops_per_image and not self.peak_flops:
             self.peak_flops = default_peak_flops()
+        self.retrace_audit = RetraceAudit.for_step(step)
         self.checkpoint = checkpoint
         self.checkpoint_every = max(0, int(checkpoint_every or 0))
         self.session_state = session_state
@@ -105,8 +114,10 @@ class TrainDriver:
         # a PreemptionGuard attaches itself here
         self.preempt = None
         self.resumed_session = None
-        # ring entries: (loss tensor, completion event or None, images)
+        # ring entries: (loss tensor, completion event or None, images,
+        # dispatch time, frame traces)
         self._pending: collections.deque = collections.deque()
+        self._mfu_mark: tuple | None = None  # (t_mono, images_retired)
         self.losses: list = []
         self.steps = 0
         self.dispatches = 0
@@ -140,7 +151,8 @@ class TrainDriver:
         (behind the keyed manifest in ``aot_cache_dir`` when given). The
         build's wall time lands on ``startup_ms``, and
         ``time_to_first_step_ms`` counts from the build's entry. The
-        cost-model FLOPs wait for a later slice."""
+        captured graphs' device-ledger entries give ``flops_per_image``
+        (``mfu_source="cost-model"``) unless it is passed by hand."""
         from blendjax_torch.train.steps import (
             make_supervised_step,
             make_train_state,
@@ -179,6 +191,7 @@ class TrainDriver:
                 cache_dir=aot_cache_dir,
                 key=cache_key(model=model, precision=precision,
                               buckets=buckets) if aot_cache_dir else None,
+                ledger_name=f"{type(model).__name__}.supervised_step",
             )
         drv = cls(step, state, **driver_kwargs)
         drv._t_created = t0  # the cold-start clock starts at build entry
@@ -188,31 +201,30 @@ class TrainDriver:
             drv.load_state_dict(session["driver"])
         return drv
 
-    @staticmethod
-    def _batch_images(batch) -> int:
-        """Images this batch trains on: a draw token's index count, a
-        packed group's K' x the per-batch lead of ``_spec`` (its ``xy``
-        field's, else the largest), K x B of a (K, B, H, W, C) image, else
-        the leading dim. Shape reads only."""
-        idx = batch.get("_echo_idx")
-        if idx is None:
-            idx = batch.get("_rl_idx")
-        if idx is not None:
-            return int(len(idx))
-        packed = batch.get("_packed")
-        if packed is not None:
-            spec = batch.get("_spec") or ()
-            lead = next((s[0] for n, _d, s, *_r in spec if n == "xy"), None)
-            if lead is None:
-                lead = max((s[0] for _n, _d, s, *_r in spec if s), default=1)
-            return int(packed.shape[0]) * int(lead)
-        img = batch.get("image")
-        if img is not None and getattr(img, "ndim", 0) >= 4:
-            shp = img.shape
-            return int(shp[0] * shp[1]) if img.ndim >= 5 else int(shp[0])
-        return int(next((v.shape[0] for k, v in batch.items()
-                         if not k.startswith("_")
-                         and getattr(v, "ndim", 0) >= 1), 0))
+    def _adopt_cost_model_flops(self, step) -> None:
+        """The cost-model MFU numerator from the device ledger: when no
+        ``flops_per_image`` was passed by hand, the step's ledger entries
+        (its captured graphs) give FLOPs per image, from the entry of the
+        most images (an AOT ladder's full batch, a packed group of K
+        batches). Accounting only: never fails a build."""
+        if self.flops_per_image:
+            return
+        try:
+            entries = [
+                e for e in (getattr(step, "ledger_entries", None) or [])
+                if isinstance(e.get("flops"), float) and e.get("batch_images")
+            ]
+            if not entries:
+                return
+            e = max(entries, key=lambda e: e["batch_images"])
+            self.flops_per_image = e["flops"] / e["batch_images"]
+            self.mfu_source = "cost-model"
+            if not self.peak_flops:
+                self.peak_flops = default_peak_flops()
+        except Exception:  # pragma: no cover - accounting only
+            pass
+
+    _batch_images = staticmethod(batch_images)
 
     @staticmethod
     def _is_done(entry) -> bool:
@@ -220,24 +232,45 @@ class TrainDriver:
         return event is None or event.query()
 
     def _retire(self, entry) -> None:
+        """Host bookkeeping of one finished entry: the dispatch-to-retirement
+        histogram, the live MFU gauge and the terminal stamp of its frame
+        traces (the loss is not fetched here)."""
+        _loss, _event, images, t0, traces = entry
         now = time.monotonic()
         if self._t_first_retire is None:
             self._t_first_retire = now
         self._t_last_retire = now
-        self.images_retired += entry[2]
+        metrics.observe("train.step_device_ms", (now - t0) * 1e3)
+        self.images_retired += images
+        if self.flops_per_image and self.peak_flops:
+            if self._mfu_mark is None:
+                self._mfu_mark = (now, self.images_retired)
+            elif now - self._mfu_mark[0] >= 1.0:
+                t_mark, img_mark = self._mfu_mark
+                rate = (self.images_retired - img_mark) / (now - t_mark)
+                metrics.gauge("train.mfu", round(
+                    rate * self.flops_per_image / self.peak_flops, 6))
+                self._mfu_mark = (now, self.images_retired)
+        if traces:
+            for tr in traces:
+                trace_stage(tr, TERMINAL_STAGE)
+                tracer.complete(tr)
 
     def _block_oldest(self) -> None:
         entry = self._pending.popleft()
         if not self._is_done(entry):
             self.host_blocks += 1
-            entry[1].synchronize()
+            metrics.count("train.host_blocks")
+            with metrics.span("driver.ring_wait"):
+                entry[1].synchronize()
         self._retire(entry)
 
     def _sync_oldest(self) -> None:
         """Periodic loss fetch: the oldest in-flight loss blocks least."""
         if self._pending:
             entry = self._pending.popleft()
-            self.losses.append(float(entry[0].reshape(-1)[-1]))
+            with metrics.span("driver.loss_sync"):
+                self.losses.append(float(entry[0].reshape(-1)[-1]))
             self._retire(entry)
 
     def ensure_ring_slot(self) -> None:
@@ -262,10 +295,19 @@ class TrainDriver:
         self.ensure_ring_slot()
         if self.place is not None:
             batch = self.place(batch)
+        # frame traces are host metadata: off the batch before the step
+        traces = trace_pop(batch)
+        if traces:
+            for tr in traces:
+                trace_stage(tr, "step_dispatch")
         images = self._batch_images(batch)
         if self._t_first_dispatch is None:
             self._t_first_dispatch = time.monotonic()
-        self.state, m = self.step(self.state, batch)
+        with metrics.span("train.dispatch"):
+            self.state, m = self.step(self.state, batch)
+        metrics.count("train.dispatches")
+        if self.retrace_audit is not None:
+            self.retrace_audit.observe(batch)
         loss = m["loss"]
         event = None
         if loss.is_cuda:
@@ -273,7 +315,7 @@ class TrainDriver:
             event.record(torch.cuda.current_stream(loss.device))
         self.dispatches += 1
         self.steps += 1
-        self._pending.append((loss, event, images))
+        self._pending.append((loss, event, images, time.monotonic(), traces))
         self.inflight_hwm = max(self.inflight_hwm, len(self._pending))
         if post:
             self.post_dispatch()
@@ -377,6 +419,9 @@ class TrainDriver:
         # the fetch waited for every older step: retire them all
         while self._pending:
             self._retire(self._pending.popleft())
+        mfu = self.mfu
+        if mfu is not None:  # the whole run's, at the drain barrier
+            metrics.gauge("train.mfu", round(mfu, 6))
         self.losses.append(val)
         return val
 
@@ -427,6 +472,7 @@ class TrainDriver:
             "flops_per_image": self.flops_per_image,
             "peak_flops": self.peak_flops,
             "mfu": self.mfu,
+            "mfu_source": self.mfu_source,
             "aot_fallbacks": getattr(self.step, "aot_fallbacks", None),
             "graph_replays": getattr(self.step, "graph_replays", None),
             "signatures": (len(self.step.signatures)

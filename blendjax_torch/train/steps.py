@@ -65,6 +65,32 @@ def state_device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
+def batch_images(batch) -> int:
+    """Images this batch trains on: a draw token's index count, a
+    packed group's K' x the per-batch lead of ``_spec`` (its ``xy``
+    field's, else the largest), K x B of a (K, B, H, W, C) image, else
+    the leading dim. Shape reads only."""
+    idx = batch.get("_echo_idx")
+    if idx is None:
+        idx = batch.get("_rl_idx")
+    if idx is not None:
+        return int(len(idx))
+    packed = batch.get("_packed")
+    if packed is not None:
+        spec = batch.get("_spec") or ()
+        lead = next((s[0] for n, _d, s, *_r in spec if n == "xy"), None)
+        if lead is None:
+            lead = max((s[0] for _n, _d, s, *_r in spec if s), default=1)
+        return int(packed.shape[0]) * int(lead)
+    img = batch.get("image")
+    if img is not None and getattr(img, "ndim", 0) >= 4:
+        shp = img.shape
+        return int(shp[0] * shp[1]) if img.ndim >= 5 else int(shp[0])
+    return int(next((v.shape[0] for k, v in batch.items()
+                     if not k.startswith("_")
+                     and getattr(v, "ndim", 0) >= 1), 0))
+
+
 def corner_loss(pred, xy, image_shape=None, mask=None):
     """MSE over predicted corner pixels, normalised to [0, 1] image
     coordinates. ``mask`` (B,) marks the valid rows of a bucket-padded

@@ -5,8 +5,14 @@ RCVHWM): backpressure through small queues, fair fan-in, at-most-once
 delivery. A poll timeout raises :class:`ReceiveTimeoutError`.
 
 Each published message carries ``_seq`` (a per-publisher counter) and
-publish times, so the consumer can count sequence gaps exactly
-(:class:`blendjax_torch.data.stream.RemoteStream`).
+publish times, so the consumer's frame lineage counts gaps, reorders and
+restarts exactly (:mod:`blendjax_torch.obs.lineage`); every
+``telemetry_every``-th message also carries ``_telemetry``, a
+msgpack-native snapshot of the publishing process's metrics registry, and
+every ``trace_every``-th a sampled frame trace ``_trace``
+(:mod:`blendjax_torch.obs.trace`), in the JAX package's shapes, so either
+package's consumer accounts the other's producers. ``lineage=False``
+sends none of these stamps.
 
 A publisher may compress large arrays (``compress_level``: zlib "ndz";
 ``compress_rle``: run-length "ndr") or, for a consumer on the same host,
@@ -86,7 +92,9 @@ class DataPublisherSocket:
     to write into, or ``True`` / a slot count to create one sized from
     the first payload (twice its bytes per slot); a ring that cannot be
     created raises. A ring slot waits at most ``shm_timeout_s`` for its
-    reader before it is reclaimed (``shm_reclaims``).
+    reader before it is reclaimed (``shm_reclaims``). ``lineage``,
+    ``telemetry_every`` and ``trace_every`` are the stamps of the module
+    docstring (0 turns telemetry or traces off).
     """
 
     def __init__(self, bind_addr: str, btid: int | None = None,
@@ -95,7 +103,9 @@ class DataPublisherSocket:
                  compress_level: int = 0,
                  compress_min_bytes: int = DEFAULT_COMPRESS_MIN_BYTES,
                  compress_rle: bool = False, rle_cap: int | None = None,
-                 quantize_f16=(), shm=None, shm_timeout_s: float = 5.0):
+                 quantize_f16=(), lineage: bool = True,
+                 telemetry_every: int = 64, trace_every: int = 64,
+                 shm=None, shm_timeout_s: float = 5.0):
         self.btid = btid
         self.codec = codec
         self.compress_level = int(compress_level)
@@ -120,7 +130,13 @@ class DataPublisherSocket:
             self._shm_ring = None
             self._shm_slots = 0
         self.shm_fallbacks = 0
+        self.lineage = bool(lineage)
+        self.telemetry_every = int(telemetry_every) if lineage else 0
+        self.trace_every = int(trace_every) if lineage else 0
+        self._pid = os.getpid()
         self._seq = 0
+        self._created_wall = time.time()
+        self._tel_mark = (0, self._created_wall)  # (seq, wall) at last one
         self.sock = zmq_context().socket(zmq.PUSH)
         self.sock.setsockopt(zmq.SNDHWM, send_hwm)
         self.sock.setsockopt(zmq.IMMEDIATE, 1)
@@ -135,11 +151,50 @@ class DataPublisherSocket:
         return self._shm_ring.reclaims if self._shm_ring is not None else 0
 
     def _stamp(self, data: dict) -> dict:
+        if not self.lineage:
+            return data
         data["_seq"] = self._seq
         data["_pub_wall"] = time.time()
         data["_pub_mono"] = time.monotonic()
+        if self.telemetry_every and self._seq % self.telemetry_every == 0:
+            data["_telemetry"] = self._telemetry_snapshot()
+        if self.trace_every and self._seq % self.trace_every == 0:
+            # the trace context's shape, inlined: unique per (pid, seq)
+            data["_trace"] = {
+                "id": f"{self.btid}-{self._pid}-{self._seq}",
+                "btid": self.btid,
+                "pid": self._pid,
+                "stages": [["publish", time.monotonic(), time.time()]],
+            }
         self._seq += 1
         return data
+
+    def _telemetry_snapshot(self) -> dict:
+        """Msgpack-native snapshot of this process's metrics registry
+        (the producer's ``producer.frame`` span, its counters) and its
+        message rate since the last snapshot."""
+        from blendjax_torch.utils.metrics import metrics
+
+        now = time.time()
+        last_seq, last_wall = self._tel_mark
+        dt = max(now - last_wall, 1e-9)
+        self._tel_mark = (self._seq, now)
+        report = metrics.report()
+        return {
+            "seq": int(self._seq),
+            "uptime_s": round(now - self._created_wall, 3),
+            # messages/s since the previous snapshot (0.0 on the first)
+            "mps": round((self._seq - last_seq) / dt, 3),
+            "counters": {k: int(v) for k, v in report["counters"].items()},
+            "spans": {
+                k: {
+                    "count": int(v["count"]),
+                    "mean_ms": round(float(v["mean_ms"]), 3),
+                    "p95_ms": round(float(v.get("p95_ms", 0.0)), 3),
+                }
+                for k, v in report["spans"].items()
+            },
+        }
 
     def _encode(self, data: dict) -> list:
         return encode_message(

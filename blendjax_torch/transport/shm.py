@@ -26,9 +26,10 @@ it unlinks the segments (:func:`reap_registry`). Without a registry the
 creating publisher unlinks on close. Attached handles are cached per
 process (:func:`attach_ring`).
 
-Counters are plain attributes: :attr:`ShmRing.reclaims` on the writer's
-ring; :func:`resolve_message` adds reads, bytes and torn slots to the
-``counts`` object it is given.
+Counters: :attr:`ShmRing.reclaims` on the writer's ring (and the
+registry's ``wire.shm_reclaims``); :func:`resolve_message` adds reads,
+bytes and torn slots to the ``counts`` object it is given and to the
+registry (``wire.shm_reads``, ``wire.shm_bytes``, ``wire.shm_torn``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from blendjax_torch.constants import LOGGER_NAME
+from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.transport")
 
@@ -231,6 +233,7 @@ class ShmRing:
                     # the reader is gone or far behind: the stale
                     # descriptor, if ever read, fails its generation check
                     self.reclaims += 1
+                    metrics.count("wire.shm_reclaims")
                     break
                 time.sleep(0.0005)
         self._gen[slot] = gen + 1  # odd: write in progress
@@ -364,6 +367,7 @@ def resolve_message(msg: dict, counts=None) -> dict:
     if out is None:
         if counts is not None:
             counts.add(shm_torn=1)
+        metrics.count("wire.shm_torn")
         msg["_shm_torn"] = True
         return msg
     nbytes = 0
@@ -372,6 +376,8 @@ def resolve_message(msg: dict, counts=None) -> dict:
         nbytes += arr.nbytes
     if counts is not None:
         counts.add(shm_reads=1, shm_bytes=nbytes)
+    metrics.count("wire.shm_reads")
+    metrics.count("wire.shm_bytes", nbytes)
     return msg
 
 

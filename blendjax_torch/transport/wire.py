@@ -17,6 +17,11 @@ PROTO opcode). The byte layout is identical to the JAX package's, so
 either side decodes the other's messages, and a :class:`WireCompressState`
 makes the same frames from the same message sequence in both packages.
 
+A receiver's decode (one given a :class:`WireCounts`) also counts
+``wire.raw_bytes`` and ``wire.compressed_bytes`` and observes each
+message's host inflate time in ``wire.inflate_ms`` in the metrics
+registry; a skipped compression trial counts ``wire.compress_skips``.
+
 Unpickling runs code chosen by the sender. The port's receivers therefore
 refuse pickled messages and embedded ``"pkl"`` entries unless the caller
 passes ``allow_pickle=True`` (the JAX package accepts them by default).
@@ -26,12 +31,14 @@ from __future__ import annotations
 
 import pickle
 import threading
+import time
 import zlib
 
 import msgpack
 import numpy as np
 
 from blendjax_torch.constants import WIRE_MAGIC
+from blendjax_torch.utils.metrics import metrics
 
 # Pickle protocol 4: readable by every Python >= 3.4.
 PICKLE_PROTOCOL = 4
@@ -68,6 +75,7 @@ class WireCompressState:
         if left > 0:
             self._skip[(kind, key)] = left - 1
             self.compress_skips += 1
+            metrics.count("wire.compress_skips")
             return False
         return True
 
@@ -282,6 +290,7 @@ class TensorCodec:
                     )
         out = {}
         raw_bytes = wire_bytes = 0
+        inflate_ms = 0.0
         for i, entry in enumerate(entries):
             kind, key = entry[0], entry[1]
             if kind == "nd":
@@ -296,9 +305,11 @@ class TensorCodec:
                 _, _, shape, dtype, idx = entry
                 dt = np.dtype(dtype)
                 fut = inflated.get(i)
+                t0 = time.perf_counter()
                 buf = fut.result() if fut is not None else _inflate_bounded(
                     key, frames[1 + idx], _declared_bytes(key, shape, dt)
                 )
+                inflate_ms += (time.perf_counter() - t0) * 1e3
                 arr = np.frombuffer(buf, dtype=dt).reshape(shape)
                 raw_bytes += arr.nbytes
                 wire_bytes += _nbytes(frames[1 + idx])
@@ -354,7 +365,12 @@ class TensorCodec:
             else:
                 raise ValueError(f"unknown wire entry kind {kind!r}")
         if counts is not None and raw_bytes:
+            # only the data stream (a receiver's counts) feeds the registry
             counts.add(raw_bytes=raw_bytes, compressed_bytes=wire_bytes)
+            metrics.count("wire.raw_bytes", raw_bytes)
+            metrics.count("wire.compressed_bytes", wire_bytes)
+            if inflate_ms:
+                metrics.observe("wire.inflate_ms", inflate_ms)
         return out
 
 

@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --startup 5   # only the start-up probe
 
 Phases (any failure exits non-zero):
 
@@ -103,8 +104,9 @@ Phases (any failure exits non-zero):
    the order 1, 2, 2, 1 (the A/B), one run of two shards without the
    inflate pool (for information), then two producers with ``--wire shm``
    and two with ``--wire ndz`` (``inflate_workers=2``), each through two
-   shards. Every run fails unless seq_gaps == 0 and restarts == 0, one step
-   call and one replay per driver step, no graph captured in the measured
+   shards. Every run fails unless seq_gaps == reorders == restarts == 0,
+   one step call and one replay per driver step, no graph captured in the
+   measured
    window, K1 launched, and (sharded) every shard took items; the shm run
    also unless its shm reads equal the messages received with no torn
    slot, fallback or reclaim, the ndz run unless the inflate pool decoded.
@@ -154,6 +156,34 @@ Phases (any failure exits non-zero):
    full-width StreamFormer forward (through the simple f32 flash forward,
    which f32 always takes) on the card against the CPU (TF32 off, rtol
    1e-4).
+
+Observability (the metrics registry and ``blendjax_torch.obs``): every
+live leg zeroes the process-wide registry, frame lineage and trace
+collector before its producers start (each leg's producers number from 0
+under the same btids) and fails unless its streams counted no gap, no
+reorder and no restart; each leg prints the stall doctor's verdict. The
+flagship leg runs with the publishers' default stamps (lineage, telemetry
+and a sampled frame trace every 64 messages), a ``StatsReporter`` ticking
+every second into a JSONL file, span events on and the Prometheus exporter
+on a free localhost port, scraped once mid-window, and prints one
+``stages`` JSON line (spans with p50/p95/p99, the ``tiles.``, ``ingest.``,
+``wire.``, ``train.``, ``feed.`` and ``device.`` counters and gauges,
+per-producer lineage, the frame traces' transitions and the verdict); it
+fails unless every span's histogram counts sum to its span count, the
+lineage received exactly the stream's messages, every producer completed
+a frame trace through publish, recv, batch, step_dispatch and step_retire
+in monotonic order, the Chrome trace holds a frame_trace lane, the scrape
+parses and carries ``blendjax_train_dispatches_total``, and the JSONL file
+has one line per reporter tick. The streamformer and replay legs print
+their ``stages`` lines too. The streamformer leg's full-group graph, in the
+device ledger, must count within 2% of the executed-work FLOPs per image
+(``former_executed_flops_per_image``), and the leg prints its eager step's
+device time by kernel group (through the guarded ``trace``) beside the
+graph replay's event time. Phase 5e (after the AOT phase): the AOT
+ladder's cost-model FLOPs per image within 10% of ``measure_model_flops``;
+no retrace on the prewarmed legs, then exactly one for an unprepared
+signature fed twice, attributed to it; the HBM gauges after a reporter
+tick, printed beside the allocator's figures and the ladder's pool bytes.
 
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
@@ -356,6 +386,7 @@ def kernel_phase(bw: float) -> dict:
         decode_spatial,
         decode_spatial_plain,
     )
+    from blendjax_torch.kernels.work import decode_work
     from blendjax_torch.ops.tiles import decode_tile_delta
 
     h, w = SHAPE
@@ -410,7 +441,7 @@ def kernel_phase(bw: float) -> dict:
     n = ref.shape[0]
     valid = int(((idx >= 0) & (idx < n)).sum())
     ttc = ref[0].numel()
-    moved = n * ttc + idx.numel() * 4 + valid * ttc + got.numel()
+    _f, moved = decode_work(n, ttc, idx.numel(), valid, got.numel())
     out["decode_spatial"] = {
         "max_abs_err": int((got.int() - want.int()).abs().max()),
         **time_ms(lambda: decode_spatial(ref, idx, tiles, (h, w, 4))),
@@ -431,7 +462,7 @@ def kernel_phase(bw: float) -> dict:
     ttc = ref[0].numel()
     ok = (idx >= 0) & (idx < n)
     valid = int(ok.sum())
-    moved = n * ttc + idx.numel() * 4 + valid * ttc + got.numel()
+    _f, moved = decode_work(n, ttc, idx.numel(), valid, got.numel())
     flat_idx = (
         torch.arange(b, device=idx.device)[:, None] * n + idx.long()
     )[ok]
@@ -511,19 +542,6 @@ def attn_inputs(b, tq, tk, h, d, dtype, seed):
     return qkv[:, :tq, 0], qkv[:, :tk, 1], qkv[:, :tk, 2], do
 
 
-def attn_work(b, tq, tk, h, d, elem):
-    """{kernel: (FLOPs, bytes)} of a non-causal call: FLOPs 4/8/6 *
-    B*H*Tq*Tk*D; bytes each input read once and each output written once
-    (lse and di are f32 (B, H, Tq))."""
-    qb, kb, stat = b * tq * h * d * elem, b * tk * h * d * elem, b * h * tq * 4
-    mnk = b * h * tq * tk * d
-    return {
-        "flash_attention_fwd": (4 * mnk, qb + 2 * kb + qb + stat),
-        "flash_attention_bwd_dkv": (8 * mnk, 2 * qb + 2 * kb + 2 * stat + 2 * kb),
-        "flash_attention_bwd_dq": (6 * mnk, 2 * qb + 2 * kb + 2 * stat + qb),
-    }
-
-
 def bound(flops: float, moved: float, bw: float) -> tuple:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, moved / bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -537,6 +555,7 @@ def attention_phase(bw: float) -> dict:
     import torch.nn.functional as F
 
     from blendjax_torch.kernels import attention as K
+    from blendjax_torch.kernels.work import attention_work
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -632,7 +651,8 @@ def attention_phase(bw: float) -> dict:
         oh = F.scaled_dot_product_attention(qh, kh, vh)
         sdpa_bwd = time_ms(lambda: torch.autograd.grad(
             oh, (qh, kh, vh), doh, retain_graph=True))
-        work = attn_work(b, t, t, h, d, 2)
+        # the formula each wrapper declares per launch (and the ledger sums)
+        work = attention_work(b, t, t, h, d, 2)
         times = {}
         for name, (kernel, plain) in timed.items():
             kt = times[name] = time_ms(kernel)
@@ -812,19 +832,24 @@ KERNEL_GROUPS = (  # substring of a CUDA kernel's name -> its group
 
 
 def profile_step(step, state, batch, graph: bool = False) -> dict:
-    """One step call under ``torch.profiler``: the wall time, the device
-    time summed over every CUDA kernel (its busy share of the wall) and
-    that time by kernel group, largest first. For a graph replay
-    (``graph=True``) whose kernels the profiler does not record, the
-    device time is read from CUDA events around a second call instead
-    (``source``: "profiler" or "events"; events time the stream from the
-    replay's first kernel to its last, gaps included)."""
+    """One step call under ``torch.profiler``, through the port's guarded
+    ``blendjax_torch.utils.metrics.trace`` (one profiler per process): the
+    wall time, the device time summed over every CUDA kernel (its busy
+    share of the wall) and that time by kernel group (``KERNEL_GROUPS``;
+    the hand-written kernels show under their CUDA names), largest first.
+    For a graph replay (``graph=True``) whose kernels the profiler does
+    not record, the device time is read from CUDA events around a second
+    call instead (``source``: "profiler" or "events"; events time the
+    stream from the replay's first kernel to its last, gaps included)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from blendjax_torch.utils.metrics import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as logdir, trace(logdir) as prof:
+        if prof is None:
+            fail("profile_step: another profiler trace is open")
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
@@ -986,6 +1011,10 @@ class _FirstLosses:
 
     def __init__(self, step, keep: int):
         self.inner, self.keep, self.seen = step, keep, []
+        # the driver's retrace audit and cost model read the captured step
+        self._cache_size = step._cache_size
+        self.signature_of = step.signature_of
+        self.ledger_entries = step.ledger_entries
 
     def __call__(self, state, batch):
         state, m = self.inner(state, batch)
@@ -998,11 +1027,184 @@ class _FirstLosses:
         return [x for v in self.seen for x in v.float().reshape(-1).tolist()]
 
 
+def fresh_registry() -> None:
+    """Zero the port's process-wide metrics, frame lineage and trace
+    collector before a leg starts its producers: each leg's producers
+    number from 0 again under the btids of the last leg's, which the
+    lineage (kept per btid, as the JAX package's) would read as restarts,
+    and each leg's stages and verdict read its own window."""
+    from blendjax_torch.obs import lineage, tracer
+    from blendjax_torch.utils.metrics import metrics
+
+    metrics.reset()
+    lineage.reset()
+    tracer.reset()
+
+
+STAGE_PREFIXES = ("tiles.", "pal.", "rle.", "ingest.", "wire.", "train.",
+                  "feed.", "decode.", "device.", "echo.", "trace.")
+# the sampled trace's stages on the fused path, in order (the place stamp
+# lands on the placed buffer, whose traces ride the group's plan: the
+# fused path has no "place" and no "decode" stamp, as in the JAX package)
+FUSED_STAGES = ("publish", "recv", "batch", "step_dispatch", "step_retire")
+
+
+def stages_line(label: str, pipe, drv, full: bool = True) -> dict:
+    """The counterpart of ``bench.py``'s stage breakdown: every span with
+    its count, total and p50/p95/p99, the counters and gauges of the
+    pipeline's families, per-producer lineage, the completed frame traces'
+    per-transition percentiles and the doctor's verdict, printed as one
+    ``stages`` JSON line (``full=False``: the verdict line only)."""
+    from blendjax_torch.obs import lineage, tracer
+    from blendjax_torch.utils.metrics import metrics
+
+    rep = metrics.report()
+    verdict = pipe.doctor(drv)
+    out = {
+        "leg": label,
+        "spans": {k: {"count": v["count"], "total_s": round(v["total_s"], 6),
+                      **{q: round(v[q], 4) for q in ("p50_ms", "p95_ms",
+                                                      "p99_ms") if q in v}}
+                  for k, v in sorted(rep["spans"].items())},
+        "counters": {k: v for k, v in sorted(rep["counters"].items())
+                     if k.startswith(STAGE_PREFIXES)},
+        "gauges": {k: v for k, v in sorted(rep["gauges"].items())
+                   if k.startswith(STAGE_PREFIXES)},
+        "lineage": {btid: {
+            "received": e["received"], "seq_gaps": e["seq_gaps"],
+            "seq_reorders": e["seq_reorders"], "restarts": e["restarts"],
+            "e2e_staleness_ms": e["e2e_staleness_ms"],
+            "telemetry_age_s": e.get("telemetry_age_s"),
+            "producer_frame_ms": (e.get("telemetry", {}).get("spans", {})
+                                  .get("producer.frame")),
+        } for btid, e in sorted(lineage.report().items())},
+        "traces": tracer.report(),
+        "doctor": verdict.render(),
+    }
+    if full:
+        print(f"chip_smoke: stages {json.dumps(out)}", flush=True)
+    else:
+        log(f"{label} {verdict.render()}")
+    return {"stages": out, "verdict": verdict, "report": rep}
+
+
+class ObsLeg:
+    """The observability surface around one live leg: span events on (for
+    the Chrome trace), a ``StatsReporter`` ticking every
+    ``interval_s`` into a JSONL file, and the Prometheus exporter on a
+    free localhost port, scraped once mid-window (:meth:`scrape`)."""
+
+    def __init__(self, directory: str, interval_s: float = 1.0):
+        from blendjax_torch.obs import StatsReporter, start_http_exporter
+        from blendjax_torch.utils.metrics import metrics
+
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+        self.jsonl = os.path.join(directory, "stats.jsonl")
+        metrics.enable_span_events()
+        self.reporter = StatsReporter(interval_s=interval_s,
+                                      jsonl_path=self.jsonl)
+        self.ticks = 0
+        tick = self.reporter.tick
+
+        def counted_tick():
+            self.ticks += 1
+            return tick()
+
+        self.reporter.tick = counted_tick
+        self.reporter.start()
+        self.server = start_http_exporter(port=0)
+        self.scraped = None
+
+    def scrape(self) -> None:
+        """One ``GET /metrics`` (the first call only)."""
+        import urllib.request
+
+        if self.scraped is None:
+            url = f"http://127.0.0.1:{self.server.port}/metrics"
+            with urllib.request.urlopen(url, timeout=10) as r:
+                self.scraped = r.read().decode()
+
+    def finish(self) -> dict:
+        """Stop the reporter (its closing tick included) and the exporter,
+        write the Chrome trace; returns the paths and the tick count."""
+        from blendjax_torch.obs import write_chrome_trace
+        from blendjax_torch.utils.metrics import metrics
+
+        self.reporter.stop()
+        self.server.close()
+        chrome = os.path.join(self.dir, "trace.json")
+        events = write_chrome_trace(chrome)
+        metrics.disable_span_events()
+        return {"jsonl": self.jsonl, "chrome": chrome, "events": events,
+                "ticks": self.ticks, "scrape": self.scraped}
+
+
+def obs_gates(label: str, leg: dict, producers: int) -> None:
+    """The flagship leg's exact observability gates (see ``main``)."""
+    import re
+
+    rep = leg["obs"]["report"]
+    checks = []
+    for name, span in rep["spans"].items():
+        h = rep["histograms"].get(name, {}).get("count")
+        checks.append((h == span["count"],
+                       f"span {name}: {span['count']} spans, histogram {h}"))
+    lin = leg["obs"]["stages"]["lineage"]
+    received = sum(e["received"] for e in lin.values())
+    checks.append((received == leg["messages"],
+                   f"lineage received {received} != stream messages "
+                   f"{leg['messages']}"))
+    bad = {b: e for b, e in lin.items()
+           if e["seq_gaps"] or e["seq_reorders"] or e["restarts"]}
+    checks.append((not bad and len(lin) == producers,
+                   f"lineage gaps/reorders/restarts or producers: {lin}"))
+    per = {}
+    for tr in leg["obs"]["traces"]:
+        names = [s[0] for s in tr["stages"]]
+        mono = [float(s[1]) for s in tr["stages"]]
+        if tuple(names) == FUSED_STAGES and mono == sorted(mono):
+            per[tr["btid"]] = per.get(tr["btid"], 0) + 1
+    checks.append((len(per) == producers,
+                   f"complete frame traces per producer {per} (stages "
+                   f"{FUSED_STAGES} in monotonic order)"))
+    files = leg["obs"]["files"]
+    with open(files["chrome"]) as f:
+        chrome = json.load(f)["traceEvents"]
+    checks.append((any(e.get("cat") == "frame_trace" for e in chrome),
+                   "the Chrome trace has no frame_trace lane"))
+    scrape = files["scrape"] or ""
+    sample = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? "
+                        r"[-+]?[0-9.]+([eE][-+]?[0-9]+)?$|^[a-zA-Z_:].* "
+                        r"[-+]?(inf|Inf|nan|NaN)$")
+    unparsed = [ln for ln in scrape.splitlines()
+                if ln and not ln.startswith("# TYPE ") and not sample.match(ln)]
+    checks.append((scrape and not unparsed
+                   and re.search(r"^blendjax_train_dispatches_total \d+$",
+                                 scrape, re.M),
+                   f"Prometheus scrape: {len(scrape)} bytes, unparsed "
+                   f"{unparsed[:3]}"))
+    with open(files["jsonl"]) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    checks.append((len(lines) == files["ticks"] > 0,
+                   f"{len(lines)} JSONL lines for {files['ticks']} ticks"))
+    for ok, what in checks:
+        if not ok:
+            fail(f"{label}: {what}")
+    log(f"{label} observability gates held: {len(rep['spans'])} spans' "
+        f"histograms sum to their counts; lineage received {received} == "
+        f"stream messages; no gap, reorder or restart; complete frame traces "
+        f"per producer {per}; Chrome trace {files['events']} events with "
+        f"frame_trace lanes; Prometheus scrape {len(scrape)} bytes parsed; "
+        f"{len(lines)} JSONL lines for {files['ticks']} reporter ticks")
+
+
 def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
             producers: int = 2, wire: str = "raw", ingest_workers: int = 1,
             inflate_workers: int = 2, graph_step=None,
             alone: bool = True, record: str | None = None,
-            keep_first: int = 0) -> dict:
+            keep_first: int = 0, obs: str | None = None,
+            stages: bool = False) -> dict:
     """One producer leg through the captured fused step (one CUDA graph per
     packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
     graph-parity phase. ``producers`` cube producers publish on ``wire``
@@ -1012,7 +1214,11 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
     only the graph step alone on the last group (no eager run, no profile).
     ``record`` tees the first ``REPLAY["record"]`` messages received to
     ``{record}_00.bjr``; ``keep_first`` keeps copies of the first groups
-    and their loss tensors (``first``)."""
+    and their loss tensors (``first``). The registry, lineage and traces
+    start from zero for the leg (:func:`fresh_registry`); its stages and
+    verdict are printed (the whole ``stages`` line with ``stages`` or
+    ``obs``). ``obs`` (a directory) adds the reporter, the exporter and the
+    Chrome trace (:class:`ObsLeg`)."""
     import collections
 
     import torch
@@ -1033,6 +1239,8 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         graph_step = CapturedStep(make_fused_tile_step(loss_fn))
     if not graph_step.signatures:
         prewarm(graph_step, state, leg)
+    fresh_registry()
+    watch = ObsLeg(obs) if obs else None
     procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"],
                                          count=producers, wire=wire)
     rec = ({"record_path_prefix": record,
@@ -1071,6 +1279,8 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
                            len(graph_step.signatures))
             elif drv.steps > leg["warmup"]:
                 images += k * BATCH
+                if watch is not None and drv.steps == total - leg["steps"] // 2:
+                    watch.scrape()
             if drv.steps >= total:
                 break
         drv.drain()
@@ -1078,18 +1288,25 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         wall = time.perf_counter() - t0
         counts = launch_counts()
         variants = variant_counts()
-        gaps, restarts = pipe.seq_gaps, pipe.restarts
     finally:
         pipe.stop()
         stop_producers(procs)
         segments = reap_segments(logs)
+    gaps, reorders, restarts = pipe.seq_gaps, pipe.reorders, pipe.restarts
+    from blendjax_torch.obs import tracer
+
+    files = watch.finish() if watch is not None else None
+    obs_rep = stages_line(label, pipe, drv, full=bool(obs or stages))
+    obs_rep["files"] = files
+    obs_rep["traces"] = tracer.records()
     shards = pipe.shard_stats()
     producers_rep = producer_report(label, logs)
     losses = drv.losses  # drain() appended the final loss
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: non-finite loss in {losses}")
-    if gaps or restarts:
-        fail(f"{label}: {gaps} sequence gaps, {restarts} restarts")
+    if gaps or reorders or restarts:
+        fail(f"{label}: {gaps} sequence gaps, {reorders} reorders, "
+             f"{restarts} restarts")
     if graph_step.aot_fallbacks != window0[0] or graph_step.aot_fallbacks:
         fail(f"{label}: {graph_step.aot_fallbacks} aot fallbacks")
     if graph_step.graph_replays - replays0 != drv.steps:
@@ -1118,6 +1335,9 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         "img_s": images / wall, "wall_s": wall, "images": images,
         "steps": drv.steps, "updates": updates, "losses": losses,
         "short_groups": short, "seq_gaps": gaps, "restarts": restarts,
+        "reorders": reorders, "messages": pipe.messages, "obs": obs_rep,
+        "verdict": obs_rep["verdict"].render(),
+        "graph_step": graph_step,
         "launches": counts, "variants": variants,
         "driver": drv.stats, "captures_in_window": (
             len(graph_step.signatures) - window0[1]),
@@ -1159,6 +1379,22 @@ def former_flops_per_image(cfg: dict, tokens: int, in_ch: int = 4) -> float:
     return 3.0 * fwd
 
 
+def former_executed_flops_per_image(cfg: dict, tokens: int,
+                                    in_ch: int = 4) -> float:
+    """The FLOPs one image's update executes (what the device ledger
+    counts): every dense layer's forward, input gradient and weight
+    gradient (3x its forward), but the patch embedding's input (the
+    frames) needs no gradient (2x); and per block the attention kernels'
+    own work, 4 (forward) + 8 (dK/dV, which recomputes q k^T) + 6 (dQ,
+    which recomputes it again) x T^2 x dim, against the 3 x 4 of
+    :func:`former_flops_per_image`."""
+    c = cfg["dim"]
+    embed = 2 * tokens * cfg["patch"] ** 2 * in_ch * c
+    dense = 2 * tokens * cfg["depth"] * 12 * c * c + 2 * c * cfg["num_outputs"]
+    attention = cfg["depth"] * 18 * tokens * tokens * c
+    return 2.0 * embed + 3.0 * dense + attention
+
+
 def set_attn_backend(model, backend: str) -> None:
     from blendjax_torch.models import MultiHeadAttention
 
@@ -1178,7 +1414,8 @@ def streamformer_leg(tmp: str, card: str) -> dict:
                          image_shape=SHAPE).init_params(0)
     state = make_train_state(model)
     fresh = copy.deepcopy(state)  # the state every comparison starts from
-    leg = run_leg("streamformer leg", STREAMFORMER, state, tmp, former_loss)
+    leg = run_leg("streamformer leg", STREAMFORMER, state, tmp, former_loss,
+                  stages=True)
     counts, depth = leg["launches"], FORMER["depth"]
     if counts["decode_spatial"] <= 0:
         fail("streamformer leg never launched decode_spatial (K1)")
@@ -1198,6 +1435,23 @@ def streamformer_leg(tmp: str, card: str) -> dict:
                  f"{want} launches through sm90")
     flops = former_flops_per_image(FORMER, model.tokens)
     leg["flops_per_image"] = flops
+    # the device ledger's count of the full group's graph against the
+    # executed-work count (the kernels' declared work is in it)
+    executed = former_executed_flops_per_image(FORMER, model.tokens)
+    full = [e for e in leg["graph_step"].ledger_entries
+            if e["batch_images"] == CHUNK * BATCH]
+    if not full or not isinstance(full[0]["flops"], float):
+        fail(f"streamformer leg: no ledger entry of a full group: "
+             f"{[e['batch_images'] for e in leg['graph_step'].ledger_entries]}")
+    ledger_fpi = full[0]["flops"] / full[0]["batch_images"]
+    if abs(ledger_fpi / executed - 1.0) > 0.02:
+        fail(f"streamformer leg: ledger {ledger_fpi:.6g} FLOPs per image vs "
+             f"the executed-work count {executed:.6g} (bar 2%)")
+    leg["ledger"] = {"flops_per_image": ledger_fpi, "executed": executed,
+                     "kernel_flops_per_image": full[0]["kernel_flops"]
+                     / full[0]["batch_images"],
+                     "mfu": leg["obs"]["report"]["gauges"].get("train.mfu"),
+                     "mfu_source": leg["driver"]["mfu_source"]}
 
     # for information: the same step with the xla backend on the same group
     xla = copy.deepcopy(fresh)
@@ -1282,6 +1536,7 @@ def echo_leg(tmp: str) -> dict:
     )
 
     state = make_train_state(CubeRegressor().init_params(0))
+    fresh_registry()
     procs, addrs, logs = start_producers(tmp, ECHO["tile"], ECHO["capacity"])
     pipe = StreamDataPipeline(addrs, batch_size=BATCH, chunk=1,
                               emit_packed=False, timeoutms=60_000)
@@ -1320,10 +1575,11 @@ def echo_leg(tmp: str) -> dict:
         ptrs1 = echo.reservoir.data_ptrs()
         echo.stop()  # joins the drain thread: no decode runs after this
         counts = launch_counts()
-        gaps = pipe.seq_gaps
+        gaps = pipe.seq_gaps + pipe.reorders + pipe.restarts
     finally:
         echo.stop()
         stop_producers(procs)
+    verdict = stages_line("echo leg", echo, drv, full=False)["verdict"]
     producers = producer_report("echo leg", logs)
     losses = drv.losses
     decoded = tap.batches
@@ -1334,7 +1590,7 @@ def echo_leg(tmp: str) -> dict:
         (s1["echoed"] > 0, "nothing was echoed"),
         (s1["max_uses"] <= ECHO["max_echo_factor"],
          f"a sample was drawn {s1['max_uses']} times"),
-        (gaps == 0, f"{gaps} sequence gaps"),
+        (gaps == 0, f"{gaps} sequence gaps, reorders and restarts"),
         (all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}"),
         (calls[0] == drv.steps == drv.dispatches,
          f"{calls[0]} step calls for {drv.steps} driver steps"),
@@ -1381,6 +1637,7 @@ def echo_leg(tmp: str) -> dict:
         "alone": alone, "profile": alone["profile"],
         "gamma_last": tap.last, "producers": producers,
         "reservoir": echo.reservoir, "tokens": tokens,
+        "verdict": verdict.render(),
     }
 
 
@@ -1762,6 +2019,7 @@ def replay_leg(prefix: str, live: dict, card: str) -> dict:
     pipe = StreamDataPipeline.from_recording(prefix, batch_size=BATCH,
                                              emit_packed=True, chunk=CHUNK,
                                              loop=True)
+    fresh_registry()
     images = 0
     total = REPLAY["warmup"] + REPLAY["steps"]
     reset_launch_counts()
@@ -1803,10 +2061,12 @@ def replay_leg(prefix: str, live: dict, card: str) -> dict:
     if graph_step.aot_fallbacks or counts["decode_spatial"] <= 0:
         fail(f"replay leg: {graph_step.aot_fallbacks} fallbacks, launches "
              f"{counts}")
+    obs = stages_line("replay leg", pipe, drv)
     last = batch
     graph_ms = alone_ms(lambda: graph_step(state, last), 20)
     alone_img_s = int(last["_packed"].shape[0]) * BATCH / graph_ms * 1e3
     out = {"img_s": images / wall, "wall_s": wall, "steps": drv.steps,
+           "verdict": obs["verdict"].render(),
            "graph_alone_img_s": alone_img_s, "bitwise": bitwise,
            "max_rel": rel, "compared": compare, "launches": counts,
            "losses": as_float}
@@ -2072,6 +2332,7 @@ def aot_phase(group: dict) -> dict:
 
     from blendjax_torch.data import bucket_sizes
     from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.obs.devledger import count_flops
     from blendjax_torch.ops.tiles import decode_packed_superbatch
     from blendjax_torch.train import (
         TrainDriver,
@@ -2109,6 +2370,22 @@ def aot_phase(group: dict) -> dict:
                 fail("aot phase: parameters differ from the eager step's")
     finally:
         torch.backends.cudnn.deterministic = False
+    # what the ledger's one FLOP count costs a build (its first capture):
+    # the eager step at the full batch under FlopCounterMode against the
+    # same step alone, 3 calls each, alternating
+    scratch = make_train_state(CubeRegressor().init_params(4))
+    count = {"counted": [], "alone": []}
+    for _ in range(3):
+        for key, fn in (
+                ("alone", lambda: eager(scratch, full)),
+                ("counted", lambda: count_flops(lambda: eager(scratch, full),
+                                                torch.device("cuda")))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            count[key].append((time.perf_counter() - t1) * 1e3)
+    count = {k: sorted(v)[1] for k, v in count.items()}
     st = drv.stats
     rungs = len(bucket_sizes(lead)) + 1
     if st["aot_fallbacks"] != 0 or st["signatures"] != rungs:
@@ -2119,19 +2396,112 @@ def aot_phase(group: dict) -> dict:
     capture = {"x".join(str(d) for d in dict((k, s) for k, s, _ in sig)["image"])
                + ("+mask" if any(k == "_mask" for k, _, _ in sig) else ""):
                round(ms, 1) for sig, ms in sets.capture_ms.items()}
-    pools = [pool_bytes(g) for g in sets._graphs.values() if g is not None]
+    # what sizing the ladder's pools costs: a memory snapshot per graph
+    # (``pool_bytes`` alone) against one for the set (what the ledger's
+    # ``register_aot_set`` takes)
+    graphs = [g for g in sets._graphs.values() if g is not None]
+    t1 = time.perf_counter()
+    pools = [pool_bytes(g) for g in graphs]
+    each_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    segments = torch.cuda.memory_snapshot()
+    once = [pool_bytes(g, segments) for g in graphs]
+    once_ms = (time.perf_counter() - t1) * 1e3
+    if once != pools:
+        fail(f"aot phase: pools sized from one snapshot {once} != {pools}")
     out = {"startup_ms": st["startup_ms"],
            "time_to_first_step_ms": st["time_to_first_step_ms"],
            "capture_ms": capture, "pool_bytes": pools,
-           "signatures": st["signatures"]}
+           "count_pass_ms": count,
+           "sizing_ms": {"snapshot_each": each_ms, "one_snapshot": once_ms},
+           "signatures": st["signatures"], "driver": drv, "full": full}
     log(f"aot phase: TrainDriver.build(aot=True) captured {rungs} ladder "
         f"signatures (B={lead} and buckets {bucket_sizes(lead)} with _mask) "
         f"before step 0: startup_ms {st['startup_ms']:.1f}, "
         f"time_to_first_step_ms {st['time_to_first_step_ms']:.1f}; capture "
-        f"ms per signature {capture}; private pools "
-        f"{[round(b / 2**20, 1) for b in pools]} MiB; 2 full steps and a "
+        f"ms per signature {capture} (the first holds the ledger's one FLOP "
+        f"count: eager step under FlopCounterMode {count['counted']:.1f} ms "
+        f"vs alone {count['alone']:.1f} ms, median of 3); private pools "
+        f"{[round(b / 2**20, 1) for b in pools]} MiB, sized in "
+        f"{each_ms:.1f} ms with a memory snapshot each, {once_ms:.1f} ms "
+        f"with one; 2 full steps and a "
         "ragged tail of 20 rows (bucket 32, masked) bit-equal with the eager "
         "step; aot_fallbacks 0")
+    return out
+
+
+# -- phase 5e: the device ledger -----------------------------------------------
+
+
+def ledger_phase(aot: dict, legs: dict, card: str) -> dict:
+    """The device ledger on the card (the counterpart of ``bench.py``'s
+    ``measure_live_device_ledger``): the AOT ladder's cost-model FLOPs per
+    image against ``measure_model_flops`` on the same model (10%); no
+    retrace across the prewarmed legs, then one unprepared signature fed
+    twice is exactly one retrace, attributed to it; the HBM gauges after a
+    reporter tick beside the ladder's pool bytes; and the StreamFormer
+    leg's ledger count against the executed-work count (its own gate)
+    beside the model-FLOP figure, with ``train.mfu`` from the cost model."""
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.obs import StatsReporter, ledger, measure_model_flops
+    from blendjax_torch.utils.metrics import metrics
+
+    drv = aot["driver"]
+    if ledger.retrace_count != 0:
+        fail(f"ledger: {ledger.retrace_count} retraces across the prewarmed "
+             f"legs: {ledger.report()['retraces']['events']}")
+    entries = drv.step.ledger_entries
+    hand = measure_model_flops(CubeRegressor().init_params(0), shape=SHAPE,
+                               batch=BATCH, memo=False)
+    ratio = drv.flops_per_image / hand["flops_per_image"]
+    if drv.stats["mfu_source"] != "cost-model" or abs(ratio - 1.0) > 0.10:
+        fail(f"ledger: cost-model {drv.flops_per_image} FLOPs per image "
+             f"({drv.stats['mfu_source']}) vs hand-fed "
+             f"{hand['flops_per_image']} (bar 10%)")
+    # one signature the ladder does not hold, fed twice
+    odd = {k: v[:20] for k, v in aot["full"].items()}
+    for _ in range(2):
+        drv.submit(dict(odd))
+    drv.drain()
+    events = ledger.report()["retraces"]["events"]
+    want = f"({20}, {SHAPE[0]}, {SHAPE[1]}, 4)"
+    if ledger.retrace_count != 1 or want not in events[0]["signature"]:
+        fail(f"ledger: {ledger.retrace_count} retraces after injecting "
+             f"{want} twice: {events}")
+    metrics.reset()
+    StatsReporter(interval_s=60).tick()
+    gauges = metrics.report()["gauges"]
+    mem = ledger.report()["memory"]
+    if not (gauges.get("device.hbm_in_use_bytes", 0) > 0
+            and gauges.get("device.hbm_headroom_frac", 0) > 0):
+        fail(f"ledger: HBM gauges after a reporter tick: {gauges}")
+    pools = sum(e["temp_bytes"] for e in entries)
+    sf = legs["streamformer"]["ledger"]
+    out = {"cost_model": drv.flops_per_image, "hand_fed": hand, "ratio": ratio,
+           "retrace": events[0]["signature"], "memory": mem,
+           "ladder_pool_bytes": pools, "streamformer": sf,
+           "entries": len(entries)}
+    log(f"ledger on {card}: CubeRegressor() ladder of {len(entries)} graphs; "
+        f"cost-model {drv.flops_per_image:.6g} FLOPs per image vs hand-fed "
+        f"(FlopCounterMode, eager unchunked step) "
+        f"{hand['flops_per_image']:.6g}, ratio {ratio:.6f} (bar 10%); "
+        f"retraces 0 across the prewarmed legs, then {want} fed twice: "
+        f"exactly 1, attributed to it; after a reporter tick "
+        f"device.hbm_in_use_bytes {gauges['device.hbm_in_use_bytes']} "
+        f"(total - free of torch.cuda.mem_get_info: graph pools and the "
+        f"allocator's reserve included; the doctor reads the headroom "
+        f"fraction from it) against the caching allocator's allocated "
+        f"{mem['allocated_bytes']} and reserved {mem['reserved_bytes']} "
+        f"bytes, device.hbm_headroom_frac {gauges['device.hbm_headroom_frac']}"
+        f", limit {mem['bytes_limit']}; the ladder's private pools "
+        f"{pools} bytes in all")
+    log(f"ledger streamformer on {card}: the full group's graph counts "
+        f"{sf['flops_per_image'] / 1e9:.4f} GFLOP per image (of it the flash "
+        f"kernels' declared work {sf['kernel_flops_per_image'] / 1e9:.4f}) "
+        f"vs the executed-work count {sf['executed'] / 1e9:.4f} (bar 2%) and "
+        f"the model-FLOP figure (3 x forward) "
+        f"{legs['streamformer']['flops_per_image'] / 1e9:.4f}; train.mfu "
+        f"from the cost model ({sf['mfu_source']}) {sf['mfu']}")
     return out
 
 
@@ -2160,6 +2530,7 @@ def gamma_phase(bw: float, decoded) -> dict:
     import torch
 
     from blendjax_torch.kernels import gamma_normalize, gamma_normalize_plain
+    from blendjax_torch.kernels.work import gamma_work
 
     frames, gamma_f32 = decoded
     err, ok = gamma_close(gamma_f32, gamma_normalize_plain(frames))
@@ -2207,8 +2578,8 @@ def gamma_phase(bw: float, decoded) -> dict:
                 for _ in range(L2_ROUNDS)]
         floor[key] = time_ms(rotating(lambda o: o.fill_(1.0), outs))["ms"]
     del xs, outs
-    bound_ms = (n + 4 * n) / bw * 1e3
-    bf_bound = 3 * n / bw * 1e3
+    bound_ms = gamma_work(n, 4)[1] / bw * 1e3
+    bf_bound = gamma_work(n, 2)[1] / bw * 1e3
     log(f"kernel gamma_normalize [decoded {tuple(frames.shape)} uint8 -> f32, "
         f"{L2_ROUNDS} buffers in turn]: {spread(kt)}, "
         f"{5 * n / kt['ms'] / 1e6:.0f} GB/s, {bound_ms / kt['ms']:.1%} of the "
@@ -2292,6 +2663,55 @@ def reference_phase(batch) -> None:
         f"{float((got - ref).abs().max()):.3g}, rtol 1e-4, atol 1e-5)")
 
 
+def startup_probe(builds: int) -> None:
+    """``python3 chip_smoke.py --startup N``: ``N`` times
+    ``TrainDriver.build(CubeRegressor(), batch, rng=0, aot=True)`` on one
+    seeded random batch of 32 RGBA 480x640 frames, in one fresh process
+    after one eager warm-up step: each build's ``startup_ms``, its capture
+    ms per ladder signature and their sum. The start-up of the library
+    alone, apart from what the smoke's legs leave in the caching
+    allocator; a copy of this file in a checkout of another tree measures
+    that tree's package (the script's own directory comes first on
+    ``sys.path``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        TrainDriver,
+        make_supervised_step,
+        make_train_state,
+    )
+
+    h, w = SHAPE
+    n = BATCH * CHUNK
+    gen = torch.Generator().manual_seed(0)
+    batch = {
+        "image": torch.randint(0, 256, (n, h, w, 4), dtype=torch.uint8,
+                               generator=gen).cuda(),
+        "xy": (torch.rand((n, 8, 2), generator=gen) * w).cuda(),
+    }
+    warm = make_train_state(CubeRegressor().init_params(1))
+    make_supervised_step()(warm, batch)
+    torch.cuda.synchronize()
+    del warm
+    runs = []
+    for i in range(builds):
+        drv = TrainDriver.build(CubeRegressor(), batch, rng=0, aot=True,
+                                sync_every=0)
+        captures = [round(ms, 1) for ms in drv.step.capture_ms.values()]
+        runs.append({"startup_ms": round(drv.stats["startup_ms"], 1),
+                     "capture_ms": captures,
+                     "capture_sum_ms": round(sum(captures), 1)})
+        log(f"startup probe build {i}: startup_ms {runs[-1]['startup_ms']}, "
+            f"capture ms per signature {captures} (sum "
+            f"{runs[-1]['capture_sum_ms']})")
+        del drv
+        torch.cuda.synchronize()
+    print(json.dumps({"startup_probe": runs}), flush=True)
+
+
 def main() -> None:
     # cuBLAS is deterministic only with a fixed workspace; it is read when
     # the first handle is made, so it is set before any CUDA work (the
@@ -2349,10 +2769,12 @@ def main() -> None:
         legs = {
             "flagship": run_leg("flagship (16,32) leg", FLAGSHIP, state, tmp,
                                 record=recording,
-                                keep_first=REPLAY["compare"]),
+                                keep_first=REPLAY["compare"],
+                                obs=os.path.join(tmp, "obs-flagship")),
             "square": run_leg("square 16x16 leg", SQUARE, state, tmp),
             "streamformer": streamformer_leg(tmp, card),
         }
+        obs_gates("flagship (16,32) leg", legs["flagship"], 2)
         echo = echo_leg(tmp)
         # phase 5c: the input side, after the earlier legs
         t0 = time.perf_counter()
@@ -2410,6 +2832,20 @@ def main() -> None:
             + ", ".join(f"{g} {ms:.2f} ms" for g, ms in prof["groups"].items())
         )
     sf = legs["streamformer"]
+    eager, graph = sf["alone"]["profile"], sf["alone"]["graph_profile"]
+    log(f"slice streamformer kernel groups of one eager step call (the graph "
+        f"launches the same kernels; torch.profiler through the guarded "
+        f"trace): "
+        + ", ".join(f"{g} {ms:.3f} ms" for g, ms in eager["groups"].items())
+        + f"; sum {sum(eager['groups'].values()):.3f} ms of device time "
+        f"beside the graph replay's {graph['device_ms']:.3f} ms "
+        f"({graph['source']}) and the eager call's wall "
+        f"{eager['wall_ms']:.3f} ms, on {card}; the replay's own groups "
+        + (", ".join(f"{g} {ms:.3f} ms" for g, ms in graph["groups"].items())
+           if graph["groups"] else "not recorded (events only)"))
+    log("verdicts: " + "; ".join(
+        f"{name}: {leg['verdict']}" for name, leg in
+        (*legs.items(), ("echo", echo), ("replay", replay))))
     log(f"slice streamformer: {sf['flops_per_image'] / 1e9:.2f} GFLOP per "
         "image (fwd+bwd = 3 x fwd; dense 2*fan_in*fan_out per token, "
         "attention 4*T^2*dim per block); step alone "
@@ -2453,6 +2889,9 @@ def main() -> None:
         if int(g["_packed"].shape[0]) == CHUNK))
     log(f"graphs: parity of {len(parity)} step builders and the AOT set in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 5e: the device ledger
+    ledger_phase(aot, legs, card)
 
     # phase 6: the gamma-normalize kernel, on a decoded batch of the stream
     measured.update(gamma_phase(bw, echo["gamma_last"]))
@@ -2499,4 +2938,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--startup"]:
+        startup_probe(int(sys.argv[2]) if len(sys.argv) > 2 else 5)
+    else:
+        main()

@@ -219,7 +219,7 @@ def test_ring_insert_and_gather_match_jax():
 
 
 def test_ring_refuses_a_sharding_and_overfull_batches():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
         R.allocate_ring(4, {"x": torch.zeros(1)}, sharding=object())
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         R.make_ring_insert(4, sharding=object())
@@ -471,7 +471,7 @@ def test_echo_pipeline_refuses_what_it_cannot_echo():
     with pytest.raises(ValueError, match="emit_packed=False"):
         EchoingPipeline(packed, device="cpu")
     for kw in ({"mesh": object()}, {"sharding": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
             EchoingPipeline([], device="cpu", **kw)
     with pytest.raises(ValueError, match="min_fresh_fraction"):
         EchoingPipeline([], device="cpu", min_fresh_fraction=1.5)

@@ -101,6 +101,21 @@ def test_the_checkpoint_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+@pytest.mark.parametrize("module", [
+    "utils/__init__.py", "utils/metrics.py", "utils/tg.py",
+    "utils/logging.py", "obs/trace.py", "obs/lineage.py", "obs/doctor.py",
+    "obs/devledger.py", "obs/exporters.py", "obs/reporter.py",
+    "obs/watchdog.py", "obs/__init__.py", "kernels/work.py",
+])
+def test_the_observability_slice_modules_are_scanned(module):
+    """The metrics and observability modules are in the scan above, and
+    each imports nothing of JAX or of the JAX package (not even the JAX
+    package's stdlib-only ``blendjax/obs`` or its threadguard)."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
 def test_the_train_state_snapshot_needs_no_pickle():
     """No checkpoint module, and not the driver or the weight mapping,
     imports pickle or calls torch.save / torch.load: the snapshot format

@@ -45,6 +45,16 @@ def _two_threads():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_lineage():
+    """The port's frame lineage is process-wide and keyed by producer btid,
+    as the JAX package's is: a producer of one test reusing the btid of an
+    earlier test's would read as a restart. Each test starts from none."""
+    from blendjax_torch.obs.lineage import lineage
+
+    lineage.reset()
+
+
 def _item(i, btid=0, h=4, w=6):
     return {
         "btid": btid,

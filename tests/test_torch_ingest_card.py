@@ -23,6 +23,17 @@ BATCH = 4
 PRODUCERS = 4
 
 
+@pytest.fixture(autouse=True)
+def _fresh_lineage():
+    """The port's frame lineage is process-wide and keyed by producer btid,
+    as the JAX package's is: the publishers of one case reuse the btids of
+    the case before, which would read as restarts. Each case starts from
+    none."""
+    from blendjax_torch.obs.lineage import lineage
+
+    lineage.reset()
+
+
 @pytest.fixture
 def cuda_card():
     if not torch.cuda.is_available():

@@ -33,6 +33,16 @@ def _two_threads():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_lineage():
+    """The port's frame lineage is process-wide and keyed by producer btid,
+    as the JAX package's is: a producer of one test reusing the btid of an
+    earlier test's would read as a restart. Each test starts from none."""
+    from blendjax_torch.obs.lineage import lineage
+
+    lineage.reset()
+
+
 def _message():
     rng = np.random.default_rng(0)
     flat = np.repeat(rng.integers(0, 4, (4, 64), dtype=np.uint8), 64, axis=1)

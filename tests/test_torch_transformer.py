@@ -291,5 +291,5 @@ def test_converter_names_match_a_real_flax_tree():
     {"num_experts": 2}, {"remat": True},
 ])
 def test_later_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP items 9-10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
         StreamFormer(**SMALL, **kwargs)
