@@ -36,6 +36,7 @@ from __future__ import annotations
 import collections
 import hashlib
 import logging
+import threading
 
 import numpy as np
 import torch
@@ -431,6 +432,14 @@ class StreamDataPipeline:
     ``pad_partial=False`` keeps the exact ragged tail. Other keyword
     arguments go to the stream (``record_path_prefix`` tees every
     message received to a recording, per shard).
+
+    With a ``launcher`` (a :class:`~blendjax_torch.launcher.ProcessLauncher`
+    whose producers publish on ``addresses``) and no ``on_timeout`` of the
+    caller's, a receive timeout becomes a health check of the producers:
+    ``launcher.assert_alive()`` raises the launcher's dead-producer error,
+    or respawns the dead with ``respawn=True``; with every producer alive
+    the stream waits again, at most 3 times. Each shard stream has a retry
+    budget of its own, and the checks of all shards run one at a time.
     """
 
     def __init__(self, addresses, batch_size: int, device=None,
@@ -438,9 +447,16 @@ class StreamDataPipeline:
                  place_in_driver: bool = False, ingest_workers: int = 1,
                  inflate_workers: int = 2, emit_partial_final: bool = False,
                  pad_partial: bool = True, max_items: int | None = None,
-                 **stream_kwargs):
+                 launcher=None, **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
 
+        self.launcher = launcher
+        self._auto_timeout = (
+            launcher is not None and "on_timeout" not in stream_kwargs
+        )
+        self._launcher_lock = threading.Lock()
+        if self._auto_timeout:
+            stream_kwargs["on_timeout"] = self._launcher_on_timeout()
         if place_in_driver and not emit_packed:
             raise ValueError(
                 "place_in_driver=True yields host batches for the driver's "
@@ -483,6 +499,24 @@ class StreamDataPipeline:
         self.tiles = TileStreamDecoder(
             device=self.device, chunk=chunk, emit_packed=emit_packed
         )
+
+    def _launcher_on_timeout(self):
+        """A launcher health hook with a retry budget of its own (each
+        shard gets a fresh one, so one silent producer cannot spend its
+        peers' retries); ``assert_alive`` runs under one lock across the
+        shards' threads."""
+        launcher = self.launcher
+        retries = {"left": 3}
+
+        def on_timeout():
+            with self._launcher_lock:
+                launcher.assert_alive()  # raises, or respawns the dead
+            # every producer alive but silent: wait again a bounded
+            # number of times (a slow start or a respawn), then fail
+            retries["left"] -= 1
+            return retries["left"] >= 0
+
+        return on_timeout
 
     @classmethod
     def from_recording(cls, source, batch_size: int, loop: bool = False,
@@ -591,11 +625,14 @@ class StreamDataPipeline:
         if prefix is not None:
             kwargs["record_path_prefix"] = prefix
             kwargs["record_max_messages"] = self.stream.record_max_messages
-        return [
-            RemoteStream(shard, worker_index=i, num_workers=len(shards),
-                         track_gaps=True, **kwargs)
-            for i, shard in enumerate(shards)
-        ]
+        streams = []
+        for i, shard in enumerate(shards):
+            if self._auto_timeout:
+                kwargs["on_timeout"] = self._launcher_on_timeout()
+            streams.append(RemoteStream(
+                shard, worker_index=i, num_workers=len(shards),
+                track_gaps=True, **kwargs))
+        return streams
 
     def __iter__(self):
         from blendjax_torch.data.batcher import HostIngest

@@ -1,14 +1,24 @@
 """Cube producer process: streams tile-delta batches of the rotating cube.
 
 The port's copy of the tile branch of ``examples/datagen/cube_producer.py``.
-Every frame the scene is re-randomised, rendered into a reused
-framebuffer, scanned for tiles that differ from the background, and added
-to a :class:`~blendjax_torch.producer.TileBatchPublisher`, which pushes one
-prebatched message per ``--batch`` frames.
+The frames run through an
+:class:`~blendjax_torch.producer.AnimationController` over a
+:class:`~blendjax_torch.producer.sim.SimEngine`: each frame the engine
+re-randomises the scene, and a ``post_frame`` handler renders it into a
+reused framebuffer, scans it for tiles that differ from the background and
+adds it to a :class:`~blendjax_torch.producer.TileBatchPublisher`, which
+pushes one prebatched message per ``--batch`` frames.
+
+Started by hand, it binds ``--bind`` and takes ``--btid`` and ``--seed``:
 
     python -m blendjax_torch.producer.cube --bind 'tcp://127.0.0.1:*' \\
         --addr-file /tmp/p0.addr --btid 0 --seed 0 --shape 480 640 \\
         --batch 8 --encoding tile --tile 16 32 --tile-rgba --tile-capacity 160
+
+Started by a launcher (``PythonProducerLauncher(script=<this file>,
+named_sockets=["DATA"])``), it reads the handshake after ``--``
+(``-btid``, ``-btseed``, ``-btsockets DATA=...``), which takes the place
+of those three flags; the flags of ``instance_args`` follow it.
 
 The bound address (wildcard ports resolve at bind time) is written to
 ``--addr-file`` so the consumer can connect. ``--frames N`` stops after N
@@ -27,10 +37,12 @@ the palettizers run in the port's host C++ (``blendjax_torch/_native``, built wi
 build stops the producer). ``--no-native`` is for a host without a C++
 compiler: the producer then runs the numpy twins, at about a twentieth of
 the rate, instead of stopping.
-On stderr the producer says once, at start, which path it runs (a line
+On stderr (or appended to ``--log FILE``) the producer says once, at
+start, which path it runs (a line
 ``blendjax_torch.producer.cube path native ...`` or ``... path numpy``),
 and every 64 frames prints ``blendjax_torch.producer.cube stats`` and a
-JSON object of its totals: frames, the ms per frame spent rendering,
+JSON object of its btid and seed and its totals: frames, the ms per frame
+spent rendering,
 encoding and publishing (serialising and sending: the send waits while the
 consumer's queue is full, so a long publish means the consumer is the
 bound), its own rate without the publish (``own_frames_s``), its wire
@@ -38,31 +50,52 @@ with the shared-memory ring's fallbacks and reclaims, whether the fused
 path is on (``fused``) and the mean array bytes per message
 (``msg_bytes``, the reference image left out) with ``frames_per_msg``.
 The publisher stamps lineage, a telemetry snapshot every 64 messages
-(carrying the ``producer.frame`` span of render and scene step) and a
+(carrying the controller's ``producer.frame`` span, the scene step) and a
 sampled frame trace every 64 messages, its defaults.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import os
 import sys
-import time
 
-import numpy as np
+if __name__ == "__main__":
+    # Run as a file (a launcher's way), this directory is sys.path[0],
+    # where producer/signal.py would shadow the standard library's signal.
+    _here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path
+                   if os.path.abspath(p or os.curdir) != _here]
 
-from blendjax_torch.producer.sim import CubeScene
-from blendjax_torch.producer.tile_publisher import TileBatchPublisher
-from blendjax_torch.transport import DataPublisherSocket, term_context
-from blendjax_torch.utils.metrics import metrics
+import argparse  # noqa: E402
+import json  # noqa: E402
+import time  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from blendjax_torch.launcher.arguments import parse_launch_args  # noqa: E402
+from blendjax_torch.producer.animation import AnimationController  # noqa: E402
+from blendjax_torch.producer.sim import CubeScene, SimEngine  # noqa: E402
+from blendjax_torch.producer.tile_publisher import TileBatchPublisher  # noqa: E402
+from blendjax_torch.transport import DataPublisherSocket, term_context  # noqa: E402
 
 
 def parse_args(argv=None):
+    """The producer's options; with a launcher's handshake after ``--``,
+    its btid, seed and ``DATA`` address replace ``--btid``, ``--seed`` and
+    ``--bind``, and the user flags after the handshake are parsed with the
+    ones before ``--``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    launch = None
+    if "--" in argv:
+        launch, remainder = parse_launch_args(argv)
+        argv = argv[:argv.index("--")] + remainder
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--bind", default="tcp://127.0.0.1:*")
     parser.add_argument("--addr-file", default=None,
                         help="write the bound address here")
+    parser.add_argument("--log", default=None, metavar="FILE",
+                        help="append the path and stats lines to FILE "
+                        "instead of stderr")
     parser.add_argument("--btid", type=int, default=0)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--shape", nargs=2, type=int, default=[480, 640])
@@ -95,6 +128,12 @@ def parse_args(argv=None):
                         "twins instead of the host C++ (for a host without "
                         "g++)")
     opts = parser.parse_args(argv)
+    if launch is not None:
+        if "DATA" not in launch.btsockets:
+            parser.error("the launch handshake names no DATA socket")
+        opts.bind = launch.btsockets["DATA"]
+        opts.btid = launch.btid
+        opts.seed = launch.btseed
     if opts.batch < 2:
         parser.error("--encoding tile requires --batch > 1")
     if len(opts.tile) > 2:
@@ -143,8 +182,13 @@ def wire_kwargs(opts) -> dict:
     return kw
 
 
-def _say(line: str) -> None:
-    print(f"blendjax_torch.producer.cube {line}", file=sys.stderr, flush=True)
+def _say(line: str, log: str | None = None) -> None:
+    line = f"blendjax_torch.producer.cube {line}"
+    if log is None:
+        print(line, file=sys.stderr, flush=True)
+    else:
+        with open(log, "a") as f:
+            f.write(line + "\n")
 
 
 def main(argv=None) -> None:
@@ -156,9 +200,9 @@ def main(argv=None) -> None:
 
         libs = paths()
         _say(f"path native: C++ render, tile scan and palettizer "
-             f"({libs['rasterizer']}, {libs['tiledelta']})")
+             f"({libs['rasterizer']}, {libs['tiledelta']})", opts.log)
     else:
-        _say("path numpy: numpy render, tile scan and palettizer")
+        _say("path numpy: numpy render, tile scan and palettizer", opts.log)
     pub = DataPublisherSocket(opts.bind, btid=opts.btid, lingerms=10000,
                               send_hwm=2, **wire_kwargs(opts))
     if opts.addr_file:
@@ -175,46 +219,55 @@ def main(argv=None) -> None:
     )
     h, w = opts.shape
     framebuf = np.empty((h, w, 4), np.uint8)
-    frame = 1
-    render_s = add_s = 0.0
+    ctrl = AnimationController(SimEngine(scene))
+    clock = {"t0": 0.0, "render_s": 0.0, "add_s": 0.0}
+
+    def start_frame(frame: int) -> None:
+        clock["t0"] = time.perf_counter()
+
+    def publish(frame: int) -> None:
+        # the engine stepped the scene (the controller's producer.frame
+        # span): render it, scan and add the frame
+        scene.render(out=framebuf)
+        t1 = time.perf_counter()
+        tiles.add(
+            framebuf,
+            # outside the rect just drawn the frame is background
+            hint=scene.raster.last_drawn,
+            xy=scene.camera.world_to_pixel(
+                scene.corners_world()
+            ).astype(np.float32),
+            frameid=np.int64(frame),
+        )
+        t2 = time.perf_counter()
+        clock["render_s"] += t1 - clock["t0"]  # scene step + render
+        clock["add_s"] += t2 - t1
+        if frame % REPORT_EVERY == 0:
+            render_s, add_s = clock["render_s"], clock["add_s"]
+            encode_s = add_s - timed.seconds
+            _say("stats " + json.dumps({
+                "btid": opts.btid, "seed": opts.seed,
+                "path": "native" if native else "numpy",
+                "frames": frame,
+                "render_ms": render_s / frame * 1e3,
+                "encode_ms": encode_s / frame * 1e3,
+                "publish_ms": timed.seconds / frame * 1e3,
+                "own_frames_s": frame / (render_s + encode_s),
+                "wire": opts.wire,
+                "fused": tiles._fused_ok,
+                "msg_bytes": timed.array_bytes / max(timed.messages, 1),
+                "frames_per_msg": opts.batch,
+                "shm_fallbacks": pub.shm_fallbacks,
+                "shm_reclaims": pub.shm_reclaims,
+            }), opts.log)
+        if 0 < opts.frames <= frame:
+            ctrl.cancel()
+
+    ctrl.pre_frame.add(start_frame)
+    ctrl.post_frame.add(publish)
+    end = opts.frames if opts.frames > 0 else 2_147_483_647
     try:
-        while opts.frames <= 0 or frame <= opts.frames:
-            t0 = time.perf_counter()
-            # render + scene step: the span the publisher's telemetry
-            # snapshots carry to the consumer
-            with metrics.span("producer.frame"):
-                scene.step(frame)
-                scene.render(out=framebuf)
-            t1 = time.perf_counter()
-            tiles.add(
-                framebuf,
-                # outside the rect just drawn the frame is background
-                hint=scene.raster.last_drawn,
-                xy=scene.camera.world_to_pixel(
-                    scene.corners_world()
-                ).astype(np.float32),
-                frameid=np.int64(frame),
-            )
-            t2 = time.perf_counter()
-            render_s += t1 - t0
-            add_s += t2 - t1
-            if frame % REPORT_EVERY == 0:
-                encode_s = add_s - timed.seconds
-                _say("stats " + json.dumps({
-                    "btid": opts.btid, "path": "native" if native else "numpy",
-                    "frames": frame,
-                    "render_ms": render_s / frame * 1e3,
-                    "encode_ms": encode_s / frame * 1e3,
-                    "publish_ms": timed.seconds / frame * 1e3,
-                    "own_frames_s": frame / (render_s + encode_s),
-                    "wire": opts.wire,
-                    "fused": tiles._fused_ok,
-                    "msg_bytes": timed.array_bytes / max(timed.messages, 1),
-                    "frames_per_msg": opts.batch,
-                    "shm_fallbacks": pub.shm_fallbacks,
-                    "shm_reclaims": pub.shm_reclaims,
-                }))
-            frame += 1
+        ctrl.play(frame_range=(1, end), num_episodes=-1)
         tiles.flush()
     finally:
         pub.close()

@@ -1,18 +1,29 @@
-"""Headless cube scene and its software rasterizer (copied from
-``blendjax/producer/sim.py``): each frame renders in one call of the port's
-host C++ (``blendjax_torch/_native/rasterizer.cpp``), or with
-``native=False`` through the numpy twin.
+"""Headless simulation engine, a Blender stand-in (copied from
+``blendjax/producer/sim.py``): a software rasterizer and small scenes,
+each rendered in one call of the port's host C++
+(``blendjax_torch/_native/rasterizer.cpp``), or with ``native=False``
+through the numpy twin.
 
-:class:`CubeScene` is the benchmark scene: one cube, randomly rotated and
-recoloured each frame, publishing ``image`` (H, W, 4) uint8 plus the
-projected corner pixels ``xy`` (8, 2).
+- :class:`CubeScene`: the benchmark scene, one cube randomly rotated and
+  recoloured each frame, publishing ``image`` (H, W, 4) uint8 plus the
+  projected corner pixels ``xy`` (8, 2).
+- :class:`FallingCubesScene`: N cubes under gravity with a ground bounce.
+- :class:`SupershapeScene`: a 2D superformula silhouette whose parameters
+  arrive over the duplex channel.
+- :class:`CartpoleScene`: cart and pole with a velocity-servo motor, the
+  remote-controlled environment of the gym layer.
+
+:class:`SimEngine` drives a scene from an
+:class:`~blendjax_torch.producer.animation.AnimationController`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from blendjax_torch.producer.camera import Camera, cube_vertices
+from blendjax_torch.producer.animation import Engine
+from blendjax_torch.producer.camera import Camera
+from blendjax_torch.producer.utils import cube_vertices
 
 _CUBE_FACES = np.array(
     [  # quads as indices into cube_vertices' x-major corner order
@@ -169,6 +180,7 @@ class Rasterizer:
             )
         colors = np.ascontiguousarray(colors)
         tri = np.ascontiguousarray(triangles)
+        view, proj = camera._matrices()
         if self._prev_target is not target:
             self._rect_prev[0] = -2  # a new target: clear all of it
         elif self.last_drawn is None:
@@ -177,7 +189,7 @@ class Rasterizer:
             self._rect_prev[:] = self.last_drawn
         self._render_frame(
             tri.ctypes.data, colors.ctypes.data, n, self._light.ctypes.data,
-            camera._view.ctypes.data, camera._proj.ctypes.data,
+            view.ctypes.data, proj.ctypes.data,
             camera.clip_near, target.ctypes.data, self._depth.ctypes.data,
             h, w, self.background.ctypes.data, self._rect_prev.ctypes.data,
             self._rect_out.ctypes.data,
@@ -240,21 +252,55 @@ class Rasterizer:
         cbuf[closer] = shaded
 
 
-class CubeScene:
-    """The benchmark scene: a unit cube, randomly rotated and recoloured
-    every frame (``step``), seen by a fixed camera. ``native`` picks the
-    rasterizer's path (:class:`Rasterizer`)."""
+class SimScene:
+    """Base: a camera, a rasterizer (``native`` picks its path) and the
+    per-frame state, drawn from ``rng`` (seeded by ``seed``)."""
 
-    def __init__(self, shape=(480, 640), seed: int = 0,
-                 half_extent: float = 1.0, native: bool = True):
+    def __init__(self, shape=(480, 640), seed: int = 0, camera: Camera = None,
+                 native: bool = True):
         self.rng = np.random.default_rng(seed)
-        self.camera = Camera.look_at(
+        self.camera = camera or Camera.look_at(
             eye=(6.0, -6.0, 4.0), target=(0, 0, 0), shape=shape
         )
         self.raster = Rasterizer(shape=shape, native=native)
+        self.reset()
+
+    def reset(self) -> None:
+        """Rewind hook (``Engine.reset``, at every episode start)."""
+
+    def reseed(self, seed: int) -> None:
+        """Replace the episode RNG: where a remote ``reset(seed=)`` lands
+        (``BaseEnv._env_seed``), so two seeded resets start identical
+        episodes."""
+        self.rng = np.random.default_rng(int(seed))
+
+    def step(self, frame: int) -> None:
+        """Advance the scene to ``frame``."""
+        raise NotImplementedError
+
+    def render(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def background_image(self) -> np.ndarray:
+        """The scene with no geometry: the tile-delta reference frame."""
+        return self.raster.render(
+            self.camera, np.zeros((0, 3, 3)), np.zeros((0, 4), np.uint8)
+        )
+
+
+class CubeScene(SimScene):
+    """The benchmark scene: a cube, randomly rotated and recoloured every
+    frame (``step``), seen by a fixed camera."""
+
+    def __init__(self, shape=(480, 640), seed: int = 0,
+                 half_extent: float = 1.0, native: bool = True):
         self.half_extent = float(half_extent)
         self.rotation = np.eye(3)
         self.color = np.array([200, 80, 40], np.uint8)
+        super().__init__(shape=shape, seed=seed, native=native)
+
+    def reset(self) -> None:
+        self.rotation = np.eye(3)
 
     def step(self, frame: int) -> None:
         del frame
@@ -264,12 +310,6 @@ class CubeScene:
     def corners_world(self) -> np.ndarray:
         return cube_vertices((0, 0, 0), self.half_extent) @ self.rotation.T
 
-    def background_image(self) -> np.ndarray:
-        """The scene with no geometry: the tile-delta reference frame."""
-        return self.raster.render(
-            self.camera, np.zeros((0, 3, 3)), np.zeros((0, 4), np.uint8)
-        )
-
     def render(self, out=None) -> np.ndarray:
         tris, faces = cube_triangles((0, 0, 0), self.half_extent, self.rotation)
         tint = 1.0 - 0.08 * (faces % 3)  # per-face tint
@@ -277,3 +317,211 @@ class CubeScene:
             self.color.astype(np.float64)[None, :] * tint[:, None], 0, 255
         ).astype(np.uint8)
         return self.raster.render(self.camera, tris, colors, out=out)
+
+    def _label_xy(self) -> np.ndarray:
+        """The corners' pixel coordinates (8, 2)."""
+        return self.camera.world_to_pixel(self.corners_world())
+
+    def observation(self, frame: int) -> dict:
+        return {"image": self.render(),
+                "xy": self._label_xy().astype(np.float32), "frameid": frame}
+
+    def observation_into(self, frame: int, buf: dict, i: int) -> None:
+        """Write frame ``frame``'s observation into slot ``i`` of a batch
+        buffer dict (``image`` (B, H, W, 4) uint8, ``xy`` (B, 8, 2)
+        float32, ``frameid`` (B,) int64), rendering in place."""
+        self.render(out=buf["image"][i])
+        buf["xy"][i] = self._label_xy()
+        buf["frameid"][i] = frame
+
+
+class FallingCubesScene(SimScene):
+    """N cubes under gravity with an inelastic ground bounce."""
+
+    def __init__(self, shape=(480, 640), seed: int = 0, num_cubes: int = 8,
+                 native: bool = True):
+        self.num_cubes = num_cubes
+        super().__init__(shape=shape, seed=seed, native=native)
+
+    def reset(self) -> None:
+        n = self.num_cubes
+        self.pos = np.stack(
+            [
+                self.rng.uniform(-3, 3, n),
+                self.rng.uniform(-3, 3, n),
+                self.rng.uniform(4, 9, n),
+            ],
+            axis=1,
+        )
+        self.vel = np.zeros((n, 3))
+        self.rot = self.rng.uniform(0, 2 * np.pi, (n, 3))
+        self.rotvel = self.rng.uniform(-2, 2, (n, 3))
+        self.colors = self.rng.integers(40, 255, (n, 3)).astype(np.uint8)
+        self.half = 0.5
+
+    def step(self, frame: int, dt: float = 1 / 25) -> None:
+        g = np.array([0, 0, -9.81])
+        self.vel += g * dt
+        self.pos += self.vel * dt
+        self.rot += self.rotvel * dt
+        low = self.pos[:, 2] < self.half
+        self.pos[low, 2] = self.half
+        self.vel[low, 2] *= -0.5
+
+    def render(self) -> np.ndarray:
+        all_tris, all_cols = [], []
+        for i in range(self.num_cubes):
+            tris, _faces = cube_triangles(
+                self.pos[i], self.half, rotation_xyz(*self.rot[i])
+            )
+            all_tris.append(tris)
+            all_cols.append(np.repeat(self.colors[i][None], 12, axis=0))
+        return self.raster.render(
+            self.camera, np.concatenate(all_tris), np.concatenate(all_cols)
+        )
+
+    def observation(self, frame: int) -> dict:
+        return {
+            "image": self.render(),
+            "xy": self.camera.world_to_pixel(self.pos).astype(np.float32),
+            "frameid": frame,
+        }
+
+
+def supershape_radius(theta, m, n1, n2, n3, a=1.0, b=1.0):
+    """The superformula (Gielis)."""
+    t = np.abs(np.cos(m * theta / 4.0) / a) ** n2 + np.abs(
+        np.sin(m * theta / 4.0) / b
+    ) ** n3
+    return t ** (-1.0 / n1)
+
+
+class SupershapeScene(SimScene):
+    """2D supershape silhouette; its parameters are set over the duplex
+    channel (:meth:`set_params`)."""
+
+    def __init__(self, shape=(256, 256), seed: int = 0, segments: int = 72,
+                 native: bool = True):
+        self.segments = segments
+        self.params = np.array([6.0, 1.0, 1.0, 1.0])  # m, n1, n2, n3
+        self.shape_id = -1
+        cam = Camera.look_at(
+            eye=(0, 0, 8.0), target=(0, 0, 0), up=(0, 1, 0), shape=shape
+        )
+        super().__init__(shape=shape, seed=seed, camera=cam, native=native)
+
+    def set_params(self, params, shape_id: int) -> None:
+        self.params = np.asarray(params, np.float64)
+        self.shape_id = int(shape_id)
+
+    def step(self, frame: int) -> None:
+        pass  # the shape changes only through set_params
+
+    def render(self) -> np.ndarray:
+        theta = np.linspace(0, 2 * np.pi, self.segments, endpoint=False)
+        r = supershape_radius(theta, *self.params)
+        r = np.nan_to_num(r, nan=0.0, posinf=0.0) * 2.0
+        pts = np.stack([r * np.cos(theta), r * np.sin(theta), np.zeros_like(r)], 1)
+        center = np.zeros(3)
+        tris = np.stack(
+            [
+                np.broadcast_to(center, (self.segments, 3)),
+                pts,
+                np.roll(pts, -1, axis=0),
+            ],
+            axis=1,
+        )
+        colors = np.repeat(
+            np.array([[230, 230, 230]], np.uint8), self.segments, axis=0
+        )
+        return self.raster.render(self.camera, tris, colors)
+
+    def observation(self, frame: int) -> dict:
+        return {
+            "image": self.render(),
+            "shape_id": self.shape_id,
+            "frameid": frame,
+        }
+
+
+class CartpoleScene(SimScene):
+    """Cart and pole on a rail, the cart driven by a velocity-servo motor
+    whose target velocity is the action."""
+
+    GRAVITY = 9.81
+    MASS_CART = 1.0
+    MASS_POLE = 0.1
+    POLE_LEN = 1.0  # half-length
+    DT = 1 / 60
+
+    def __init__(self, shape=(240, 320), seed: int = 0, native: bool = True):
+        cam = Camera.look_at(
+            eye=(0, -8.0, 1.0), target=(0, 0, 1.0), shape=shape
+        )
+        super().__init__(shape=shape, seed=seed, camera=cam, native=native)
+
+    def reset(self) -> None:
+        # x, x_dot, theta (rad from upright), theta_dot
+        self.state = self.rng.uniform(-0.05, 0.05, size=4)
+        self.motor_velocity = 0.0
+
+    def apply_motor(self, velocity: float) -> None:
+        self.motor_velocity = float(np.clip(velocity, -5.0, 5.0))
+
+    def step(self, frame: int) -> None:
+        x, x_dot, th, th_dot = self.state
+        # the cart accelerates toward the commanded velocity; the pole
+        # swings from the cart's acceleration and gravity
+        x_acc = 20.0 * (self.motor_velocity - x_dot)
+        th_acc = (
+            self.GRAVITY * np.sin(th) - x_acc * np.cos(th)
+        ) / self.POLE_LEN
+        dt = self.DT
+        x_dot += x_acc * dt
+        x += x_dot * dt
+        th_dot += th_acc * dt
+        th += th_dot * dt
+        self.state = np.array([x, x_dot, th, th_dot])
+
+    def observation_vector(self) -> np.ndarray:
+        return self.state.astype(np.float32)
+
+    def render(self) -> np.ndarray:
+        x, _, th, _ = self.state
+        cart_c = np.array([x, 0.0, 0.5])
+        cart_tris, _ = cube_triangles(cart_c, 0.3)
+        tip = cart_c + np.array([np.sin(th), 0.0, np.cos(th)]) * (
+            2 * self.POLE_LEN
+        )
+        mid = (cart_c + tip) / 2
+        d = tip - cart_c
+        zaxis = d / (np.linalg.norm(d) + 1e-9)
+        xaxis = np.cross([0, 1, 0], zaxis)
+        xaxis /= np.linalg.norm(xaxis) + 1e-9
+        yaxis = np.cross(zaxis, xaxis)
+        rot = np.stack([xaxis, yaxis, zaxis], axis=1)
+        pole_tris, _ = cube_triangles((0, 0, 0), 1.0, rotation=None)
+        scale = np.diag([0.05, 0.05, np.linalg.norm(d) / 2])
+        pole_tris = pole_tris @ (rot @ scale).T + mid
+        tris = np.concatenate([cart_tris, pole_tris])
+        colors = np.concatenate(
+            [
+                np.repeat(np.array([[80, 80, 220]], np.uint8), 12, axis=0),
+                np.repeat(np.array([[220, 180, 40]], np.uint8), 12, axis=0),
+            ]
+        )
+        return self.raster.render(self.camera, tris, colors)
+
+
+class SimEngine(Engine):
+    """Drive a :class:`SimScene` from an AnimationController (the headless
+    counterpart of Blender's frame clock)."""
+
+    def __init__(self, scene: SimScene):
+        self.scene = scene
+
+    def frame_set(self, frame: int) -> None:
+        self.scene.step(frame)
+
+    def reset(self) -> None:
+        self.scene.reset()

@@ -3,7 +3,10 @@
 from blendjax_torch.transport.channels import (
     DataPublisherSocket,
     DataReceiverSocket,
+    PairChannel,
     ReceiveTimeoutError,
+    RpcClient,
+    RpcServer,
     term_context,
     zmq_context,
 )
@@ -32,9 +35,12 @@ __all__ = [
     "CODECS",
     "DataPublisherSocket",
     "DataReceiverSocket",
+    "PairChannel",
     "PickleCodec",
     "REGISTRY_ENV",
     "ReceiveTimeoutError",
+    "RpcClient",
+    "RpcServer",
     "ShmCapacityError",
     "ShmRing",
     "TensorCodec",

@@ -1,8 +1,18 @@
-"""The data-stream socket pair (copied from ``blendjax/transport/channels.py``).
+"""Socket patterns of the port (copied from ``blendjax/transport/channels.py``).
 
-PUSH (bind, small SNDHWM, IMMEDIATE) -> PULL (connect to all producers,
-RCVHWM): backpressure through small queues, fair fan-in, at-most-once
-delivery. A poll timeout raises :class:`ReceiveTimeoutError`.
+- The data stream: PUSH (bind, small SNDHWM, IMMEDIATE) -> PULL (connect
+  to all producers, RCVHWM): backpressure through small queues, fair
+  fan-in, at-most-once delivery. A poll timeout raises
+  :class:`ReceiveTimeoutError`.
+- Duplex control: PAIR (producer binds) <-> PAIR (consumer connects),
+  each message stamped with the sender's ``btid`` and a random message
+  id ``btmid`` (:class:`PairChannel`).
+- Environment RPC: REQ (RELAXED + CORRELATE, send and receive timeouts)
+  <-> REP (:class:`RpcClient`, :class:`RpcServer`).
+
+Every receiver refuses pickled messages and embedded pickles unless it is
+told ``allow_pickle=True`` (the JAX package's accept them unless told
+otherwise); the frames on the wire are the JAX package's either way.
 
 Each published message carries ``_seq`` (a per-publisher counter) and
 publish times, so the consumer's frame lineage counts gaps, reorders and
@@ -78,11 +88,68 @@ def term_context() -> None:
         ctx.term()
 
 
-class DataPublisherSocket:
+class _Channel:
+    """What the sockets share: the poller, receiving one message's frame
+    buffers within a timeout, decoding them with the channel's pickle
+    policy, closing, and use as a context manager."""
+
+    sock: zmq.Socket
+    allow_pickle: bool = False
+
+    def _register_poller(self) -> None:
+        self.poller = zmq.Poller()
+        self.poller.register(self.sock, zmq.POLLIN)
+
+    def _poll_frames(self, timeoutms: int):
+        """One raw multipart message's frame buffers, or ``None`` when
+        nothing arrived within ``timeoutms``."""
+        if self.sock not in dict(self.poller.poll(timeoutms)):
+            return None
+        return [f.buffer for f in self.sock.recv_multipart(copy=False)]
+
+    def _poll_recv(self, timeoutms: int):
+        """One decoded message (arrays copied, so they outlive the
+        frames), or ``None`` on timeout."""
+        buffers = self._poll_frames(timeoutms)
+        if buffers is None:
+            return None
+        return decode_message(buffers, copy_arrays=True,
+                              allow_pickle=self.allow_pickle)
+
+    def close(self) -> None:
+        # queued messages stay for the IO thread to flush, bounded by the
+        # socket's LINGER; call term_context() at the end of a process to
+        # wait for that flush
+        self.sock.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class _SentTracker:
+    """A ``zmq.MessageTracker`` stand-in for a publish through the
+    shared-memory ring: the arrays were copied into the ring before the
+    send, so the caller's buffers are free at once."""
+
+    done = True
+
+    def wait(self, timeout=None):
+        return None
+
+
+_DONE_TRACKER = _SentTracker()
+
+
+class DataPublisherSocket(_Channel):
     """Producer end of the data stream: PUSH, bind side.
 
-    ndarray payloads are handed to the socket by reference and sent after
-    ``publish`` returns: a producer that reuses a buffer copies it first.
+    With ``copy=False`` (the default) ndarray payloads are handed to the
+    socket by reference and sent after ``publish`` returns: a producer
+    that reuses a buffer passes ``copy=True``, or rotates a pool of
+    buffers behind :meth:`publish_tracked`.
 
     ``codec`` is ``"tensor"`` or ``"pickle"``; ``compress_level``,
     ``compress_min_bytes``, ``compress_rle``, ``rle_cap`` and
@@ -100,7 +167,7 @@ class DataPublisherSocket:
     def __init__(self, bind_addr: str, btid: int | None = None,
                  send_hwm: int = constants.DEFAULT_SEND_HWM,
                  codec: str = "tensor", lingerms: int = 0,
-                 compress_level: int = 0,
+                 copy: bool = False, compress_level: int = 0,
                  compress_min_bytes: int = DEFAULT_COMPRESS_MIN_BYTES,
                  compress_rle: bool = False, rle_cap: int | None = None,
                  quantize_f16=(), lineage: bool = True,
@@ -108,6 +175,7 @@ class DataPublisherSocket:
                  shm=None, shm_timeout_s: float = 5.0):
         self.btid = btid
         self.codec = codec
+        self.copy = bool(copy)
         self.compress_level = int(compress_level)
         self.compress_min_bytes = int(compress_min_bytes)
         self.compress_rle = bool(compress_rle)
@@ -239,10 +307,27 @@ class DataPublisherSocket:
                 # the ring holds a copy: the descriptor frames are tiny
                 self.sock.send_multipart(frames, copy=True)
                 return
-        self.sock.send_multipart(self._encode(data), copy=False)
+        self.sock.send_multipart(self._encode(data), copy=self.copy)
+
+    def publish_tracked(self, **kwargs):
+        """Publish without copying and return a ``zmq.MessageTracker``:
+        ``tracker.done`` turns True once the IO thread no longer holds the
+        payload buffers, so a producer rotating a fixed pool of buffers
+        can ``tracker.wait()`` before rendering into one again (PUSH keeps
+        one queue per peer, so the send HWM alone does not bound the
+        messages in flight). Through the shared-memory ring the arrays are
+        copied before the send and the tracker is done at once."""
+        data = self._stamp({"btid": self.btid, **kwargs})
+        if self._shm_slots:
+            frames = self._encode_shm(data)
+            if frames is not None:
+                self.sock.send_multipart(frames, copy=True)
+                return _DONE_TRACKER
+        return self.sock.send_multipart(self._encode(data), copy=False,
+                                        track=True)
 
     def close(self) -> None:
-        self.sock.close()
+        super().close()
         ring = self._shm_ring
         if ring is not None and self._shm_owned:
             ring.close()
@@ -251,7 +336,7 @@ class DataPublisherSocket:
                 ring.unlink()
 
 
-class DataReceiverSocket:
+class DataReceiverSocket(_Channel):
     """Consumer end: PULL, connected to every producer address.
 
     ``recv`` returns the decoded message dict or raises
@@ -280,15 +365,7 @@ class DataReceiverSocket:
         self.sock.setsockopt(zmq.LINGER, 0)
         for addr in self.addresses:
             self.sock.connect(addr)
-        self.poller = zmq.Poller()
-        self.poller.register(self.sock, zmq.POLLIN)
-
-    def _poll_frames(self, timeoutms: int):
-        """One raw multipart message's frame buffers, or ``None`` when
-        nothing arrived within ``timeoutms``."""
-        if self.sock not in dict(self.poller.poll(timeoutms)):
-            return None
-        return [f.buffer for f in self.sock.recv_multipart(copy=False)]
+        self._register_poller()
 
     def decode_frames(self, buffers, copy_arrays: bool = False) -> dict:
         """Decode raw frame buffers with this receiver's settings and
@@ -333,5 +410,105 @@ class DataReceiverSocket:
         if addr in self.addresses:
             self.addresses.remove(addr)
 
-    def close(self) -> None:
-        self.sock.close()
+
+class PairChannel(_Channel):
+    """Duplex control channel, PAIR <-> PAIR: the producer binds
+    (``bind=True``), the consumer connects. ``send`` stamps ``btid`` and a
+    fresh random 4-byte message id ``btmid`` and returns the id; ``recv``
+    returns ``None`` on timeout (``timeoutms=0`` polls)."""
+
+    def __init__(self, addr: str, btid: int | None = None,
+                 bind: bool = False, hwm: int = constants.DEFAULT_SEND_HWM,
+                 lingerms: int = 0, codec: str = "tensor",
+                 default_timeoutms: int = constants.DEFAULT_TIMEOUTMS,
+                 allow_pickle: bool = False):
+        self.btid = btid
+        self.codec = codec
+        self.default_timeoutms = default_timeoutms
+        self.allow_pickle = bool(allow_pickle)
+        self.sock = zmq_context().socket(zmq.PAIR)
+        self.sock.setsockopt(zmq.SNDHWM, hwm)
+        self.sock.setsockopt(zmq.RCVHWM, hwm)
+        self.sock.setsockopt(zmq.LINGER, lingerms)
+        if bind:
+            self.sock.bind(addr)
+            self.addr = self.sock.getsockopt_string(zmq.LAST_ENDPOINT)
+        else:
+            self.sock.connect(addr)
+            self.addr = addr
+        self._register_poller()
+
+    def send(self, **kwargs) -> bytes:
+        """Send one message (copied at send time: control messages are
+        small); returns its ``btmid``."""
+        btmid = os.urandom(4)
+        data = {"btid": self.btid, "btmid": btmid, **kwargs}
+        self.sock.send_multipart(encode_message(data, codec=self.codec),
+                                 copy=True)
+        return btmid
+
+    def recv(self, timeoutms: int | None = None):
+        """One message, or ``None`` if nothing arrives in time."""
+        t = self.default_timeoutms if timeoutms is None else timeoutms
+        return self._poll_recv(t)
+
+
+class RpcClient(_Channel):
+    """Blocking request/reply client: REQ with RELAXED and CORRELATE, so
+    the socket recovers from a lost reply instead of wedging; a send or
+    receive that waits ``timeoutms`` raises :class:`ReceiveTimeoutError`,
+    so a dead environment fails fast."""
+
+    def __init__(self, addr: str, timeoutms: int = constants.DEFAULT_TIMEOUTMS,
+                 codec: str = "tensor", allow_pickle: bool = False):
+        self.codec = codec
+        self.timeoutms = timeoutms
+        self.addr = addr
+        self.allow_pickle = bool(allow_pickle)
+        self.sock = zmq_context().socket(zmq.REQ)
+        self.sock.setsockopt(zmq.REQ_RELAXED, 1)
+        self.sock.setsockopt(zmq.REQ_CORRELATE, 1)
+        self.sock.setsockopt(zmq.SNDTIMEO, timeoutms)
+        self.sock.setsockopt(zmq.RCVTIMEO, timeoutms)
+        self.sock.setsockopt(zmq.LINGER, 0)
+        self.sock.connect(addr)
+
+    def call(self, **kwargs) -> dict:
+        """Send one request and return the decoded reply."""
+        try:
+            self.sock.send_multipart(
+                encode_message(kwargs, codec=self.codec), copy=True
+            )
+            frames = self.sock.recv_multipart(copy=False)
+        except zmq.error.Again as e:
+            raise ReceiveTimeoutError(f"rpc to {self.addr} timed out") from e
+        return decode_message([f.buffer for f in frames], copy_arrays=True,
+                              allow_pickle=self.allow_pickle)
+
+
+class RpcServer(_Channel):
+    """Reply side of the RPC pattern: REP, bind. ``recv`` and ``reply``
+    are separate calls, so the producer's request/reply state machine can
+    interleave them with frame callbacks; ``recv(timeoutms=0)`` polls
+    (the env's real-time mode)."""
+
+    def __init__(self, bind_addr: str, codec: str = "tensor",
+                 default_timeoutms: int = constants.DEFAULT_TIMEOUTMS,
+                 allow_pickle: bool = False):
+        self.codec = codec
+        self.default_timeoutms = default_timeoutms
+        self.allow_pickle = bool(allow_pickle)
+        self.sock = zmq_context().socket(zmq.REP)
+        self.sock.setsockopt(zmq.LINGER, 0)
+        self.sock.bind(bind_addr)
+        self.addr = self.sock.getsockopt_string(zmq.LAST_ENDPOINT)
+        self._register_poller()
+
+    def recv(self, timeoutms: int | None = None):
+        """One request, or ``None`` on timeout."""
+        t = self.default_timeoutms if timeoutms is None else timeoutms
+        return self._poll_recv(t)
+
+    def reply(self, **kwargs) -> None:
+        self.sock.send_multipart(encode_message(kwargs, codec=self.codec),
+                                 copy=True)

@@ -143,6 +143,33 @@ Phases (any failure exits non-zero):
    must equal Y's bit for bit; it prints the snapshot's bytes, the
    writer's ms per snapshot, ms per step with and without snapshots and
    B's time to first step;
+5f. launched, gym and duplex legs (after 5d): the flagship configuration
+   started by the port's launcher (``PythonProducerLauncher(script=
+   <producer/cube.py>, named_sockets=["DATA"], seed=0, proto="ipc",
+   respawn=True)``) into ``StreamDataPipeline(launcher=..., ingest_workers
+   =2, timeoutms=5000)`` and a fresh captured full-width CubeRegressor
+   step, 64 warm-up and 192 measured steps: it fails unless the window has
+   no gap, reorder or restart, btids 0 and 1 arrived with the handshake's
+   seeds 0 and 1 (their stats lines, and their first groups' frames equal
+   to those seeds' renders), one replay per step and K1 launched; it
+   prints live img/s, the producers' own frames/s and the doctor's
+   verdict. Then producer 1 is SIGKILLed: the launcher respawns it
+   through the stream's timeout hook, and the run fails unless the
+   stream counts exactly one restart, for btid 1, and 64 more steps
+   train; then a second fleet with ``respawn=False`` and the same kill,
+   which must raise the launcher's dead-producer error within the
+   receive timeout + 5 s. After each fleet no producer process, ipc or
+   registry directory and no new ``/dev/shm`` segment may be left. The
+   gym leg starts the port's cartpole script under the launcher
+   (``GYM`` socket) and drives it with ``RemoteEnv`` as ``bench.py``'s
+   ``measure_rl_hz`` does (100 warm-up steps, 3 s of ``step(0.0)``,
+   steps/s and round trip p50/p99), and fails unless two
+   ``reset(seed=7)`` runs under one action sequence give bit-identical
+   observations over 200 steps. The duplex leg launches a producer
+   (written into the leg's directory) that echoes each ``CTRL`` message
+   through ``DuplexChannel`` on ``SimEngine`` frames, sends 1000
+   ``PairChannel`` messages (round trip p50/p99), and fails unless every
+   ``btmid`` comes back from btid 0;
 6. K3 (gamma normalize) against its plain version over all 256 uint8
    values, at (1, 37, 8, 4) and at that shape from byte offset 1 (the
    element path), gamma 2.2 and 1.0, f32 and bf16 (bit-exact, so within
@@ -1937,22 +1964,18 @@ def equality_leg(card: str) -> dict:
 # -- phase 5d: the palette producer, replay and resume ----------------------------
 
 
-def palette_phase(leg: dict, card: str) -> dict:
-    """The flagship leg's producers took the fused per-frame palette path
-    (``producer_report`` failed the leg otherwise): print each one's
-    message bytes per 8 frames and its own frames/s beside the leg's live
-    img/s, and hold the frames of the leg's first two chunk groups,
-    decoded on the card, against the frames the producers rendered (the
-    same scenes rendered here on the host C++ path), bit for bit."""
+def renders_match(label: str, groups) -> int:
+    """Decode packed groups on the card and hold every frame against the
+    frame its producer rendered (the same scene, seeded with the
+    producer's btid, rendered here on the host C++ path), bit for bit;
+    returns the frames checked (at least 8, else the run fails)."""
     import numpy as np
 
     from blendjax_torch.ops.tiles import decode_packed_superbatch
     from blendjax_torch.producer import CubeScene
 
-    rep = leg["producers"]
-    per8 = [s["msg_bytes"] * 8 / s["frames_per_msg"] for s in rep["producers"]]
     want: dict = {}  # (btid, frameid) -> decoded frame on the host
-    for g in leg["first"][:2]:
+    for g in groups:
         fields = decode_packed_superbatch(g["_packed"], g["_refs"],
                                           g["_spec"], g["_names"],
                                           g["_geoms"], g["_rle"])
@@ -1964,7 +1987,7 @@ def palette_phase(leg: dict, card: str) -> dict:
     checked = 0
     buf = np.empty((*SHAPE, 4), np.uint8)
     for btid in sorted({b for b, _ in want}):
-        scene = CubeScene(shape=SHAPE, seed=btid)  # the producer's --seed
+        scene = CubeScene(shape=SHAPE, seed=btid)  # the producer's seed
         last = max(f for b, f in want if b == btid)
         for f in range(1, last + 1):
             scene.step(f)
@@ -1972,11 +1995,24 @@ def palette_phase(leg: dict, card: str) -> dict:
             got = want.get((btid, f))
             if got is not None:
                 if not np.array_equal(got, buf):
-                    fail(f"palette phase: producer {btid} frame {f} decoded "
+                    fail(f"{label}: producer {btid} frame {f} decoded "
                          "on the card differs from its render")
                 checked += 1
     if checked < 8:
-        fail(f"palette phase: only {checked} frames checked")
+        fail(f"{label}: only {checked} frames checked")
+    return checked
+
+
+def palette_phase(leg: dict, card: str) -> dict:
+    """The flagship leg's producers took the fused per-frame palette path
+    (``producer_report`` failed the leg otherwise): print each one's
+    message bytes per 8 frames and its own frames/s beside the leg's live
+    img/s, and hold the frames of the leg's first two chunk groups,
+    decoded on the card, against the frames the producers rendered (the
+    same scenes rendered here on the host C++ path), bit for bit."""
+    rep = leg["producers"]
+    per8 = [s["msg_bytes"] * 8 / s["frames_per_msg"] for s in rep["producers"]]
+    checked = renders_match("palette phase", leg["first"][:2])
     log(f"palette producer on {card}: every producer on the fused per-frame "
         f"palette path; message bytes per 8 frames "
         f"{[round(b, 1) for b in per8]} (arrays, the reference image left "
@@ -2242,6 +2278,425 @@ def resume_phase(prefix: str, tmp: str, card: str) -> dict:
         f"{writes[len(writes) // 2]:.2f}, min {writes[0]:.2f}, max "
         f"{writes[-1]:.2f}")
     return out
+
+
+# -- phase 5f: the launched, gym and duplex legs ---------------------------------
+
+CUBE_SCRIPT = os.path.join(ROOT, "blendjax_torch", "producer", "cube.py")
+CARTPOLE_SCRIPT = os.path.join(ROOT, "blendjax_torch", "producer", "scripts",
+                               "cartpole.py")
+# the flagship configuration, started by the port's launcher; a receive
+# that waits `timeoutms` asks the launcher (respawn, or its error)
+LAUNCHED = {"tile": (16, 32), "capacity": 160, "steps": 192, "warmup": 64,
+            "after": 64, "timeoutms": 5000, "before_kill": 16}
+GYM = {"warmup": 100, "seconds": 3.0, "steps": 200, "seed": 7}
+DUPLEX = {"messages": 1000}
+
+# The duplex leg's producer (written into the leg's directory): a CTRL
+# socket on SimEngine frames that sends every message back, and stops on
+# {"stop": True}.
+DUPLEX_SCRIPT = '''\
+import sys
+
+from blendjax_torch.producer import (
+    AnimationController, DuplexChannel, parse_launch_args)
+from blendjax_torch.producer.sim import CubeScene, SimEngine
+from blendjax_torch.transport import term_context
+
+args, _ = parse_launch_args(sys.argv)
+duplex = DuplexChannel(args.btsockets["CTRL"], btid=args.btid, lingerms=5000)
+ctrl = AnimationController(SimEngine(
+    CubeScene(shape=(48, 64), seed=args.btseed, native=False)))
+
+
+def echo(frame):
+    msg = duplex.recv(timeoutms=100)
+    if msg is None:
+        return
+    duplex.send(echo=msg)
+    if msg.get("stop"):
+        ctrl.cancel()
+
+
+ctrl.post_frame.add(echo)
+try:
+    ctrl.play(frame_range=(1, 1000), num_episodes=-1)
+finally:
+    duplex.close()
+    term_context()
+'''
+
+
+def percentiles_ms(seconds) -> dict:
+    import numpy as np
+
+    ms = np.asarray(seconds) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max())}
+
+
+def fleet_gone(label: str, pids, dirs, shm_before: set) -> None:
+    """No producer process of the leg is left, its ipc and shared-memory
+    registry directories are gone, and /dev/shm holds no segment it did
+    not hold before the leg."""
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    left = [d for d in dirs if d and os.path.exists(d)]
+    shm_new = sorted(set(os.listdir("/dev/shm")) - shm_before)
+    if alive or left or shm_new:
+        fail(f"{label}: left behind processes {alive}, directories {left}, "
+             f"shared-memory segments {shm_new}")
+
+
+def launched_args(logs) -> list:
+    return [["--shape", str(SHAPE[0]), str(SHAPE[1]), "--batch", str(BATCH),
+             "--encoding", "tile", "--tile", *map(str, LAUNCHED["tile"]),
+             "--tile-rgba", "--tile-capacity", str(LAUNCHED["capacity"]),
+             "--log", log] for log in logs]
+
+
+def launched_leg(tmp: str, card: str) -> dict:
+    """The flagship configuration started by the port's launcher
+    (``PythonProducerLauncher(script=<producer/cube.py>, seed=0,
+    proto="ipc", respawn=True)``) into ``StreamDataPipeline(launcher=...,
+    ingest_workers=2)`` and a fresh captured full-width CubeRegressor
+    step: 64 warm-up and 192 measured steps, gated as the flagship (no
+    gap, reorder or restart; the handshake's btids 0 and 1 with seeds 0
+    and 1, the first groups' frames equal to those seeds' renders). Then
+    producer 1 is SIGKILLed: its shard's receive timeout asks the
+    launcher, which respawns it; the stream must count exactly one
+    restart, for btid 1, and training goes on for ``LAUNCHED["after"]``
+    steps. Then a second fleet with ``respawn=False``: the same kill must
+    raise the launcher's dead-producer error through the pipeline within
+    the timeout budget. After each fleet no producer process, ipc or
+    registry directory or shared-memory segment of the leg is left."""
+    import shutil
+    import signal
+
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.launcher import PythonProducerLauncher
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.obs import lineage
+    from blendjax_torch.train import (
+        CapturedStep,
+        TrainDriver,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    label = "launched leg"
+    state = make_train_state(CubeRegressor().init_params(0))
+    graph_step = CapturedStep(make_fused_tile_step())
+    prewarm(graph_step, state, LAUNCHED)
+    timeout_s = LAUNCHED["timeoutms"] / 1e3
+    leg_dir = tempfile.mkdtemp(dir=tmp)
+    logs = [os.path.join(leg_dir, f"producer{i}.log") for i in range(2)]
+    shm_before = set(os.listdir("/dev/shm"))
+    fresh_registry()
+    # the launcher spawns from the main thread: its producers carry the
+    # parent-death signal (a respawn from an ingest thread does not)
+    launcher = PythonProducerLauncher(
+        script=CUBE_SCRIPT, num_instances=2, named_sockets=["DATA"], seed=0,
+        proto="ipc", respawn=True, instance_args=launched_args(logs))
+    with launcher:
+        pids = list(launcher.launch_info.processes)
+        dirs = [launcher._ipc_dir, launcher._shm_registry]
+        commands = list(launcher.launch_info.commands)
+        pipe = StreamDataPipeline(
+            launcher.addresses["DATA"], batch_size=BATCH, chunk=CHUNK,
+            emit_packed=True, timeoutms=LAUNCHED["timeoutms"],
+            ingest_workers=2, launcher=launcher)
+        drv = TrainDriver(graph_step, state, inflight=2, sync_every=4)
+        total = LAUNCHED["warmup"] + LAUNCHED["steps"]
+        replays0 = graph_step.graph_replays
+        images, first = 0, []
+        it = iter(pipe)
+        try:
+            reset_launch_counts()
+            for batch in it:
+                drv.submit(batch)
+                if len(first) < 2:
+                    first.append({**batch,
+                                  "_packed": batch["_packed"].clone()})
+                if drv.steps == LAUNCHED["warmup"]:
+                    drv.drain()
+                    t0 = time.perf_counter()
+                elif drv.steps > LAUNCHED["warmup"]:
+                    images += int(batch["_packed"].shape[0]) * BATCH
+                if drv.steps >= total:
+                    break
+            drv.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            window = {"gaps": pipe.seq_gaps, "reorders": pipe.reorders,
+                      "restarts": pipe.restarts}
+            verdict = stages_line(label, pipe, drv, full=False)["verdict"]
+            received = {b: e["received"] for b, e in lineage.report().items()}
+            # the producers' own rates over the window (a respawn appends
+            # a second life to the log)
+            for log_file in logs:
+                shutil.copy(log_file, log_file + ".window")
+            victim = launcher.processes[1]
+            os.kill(victim.pid, signal.SIGKILL)
+            victim.wait(timeout=30)
+            t_kill = time.perf_counter()
+            steps_at_kill = drv.steps
+            deadline = time.monotonic() + 4 * timeout_s + 60
+            restart_s = None
+            for batch in it:
+                drv.submit(batch)
+                if restart_s is None and pipe.restarts:
+                    restart_s = time.perf_counter() - t_kill
+                    steps_at_restart = drv.steps
+                if restart_s is not None and (
+                        drv.steps >= steps_at_restart + LAUNCHED["after"]):
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"{label}: no restart counted "
+                         f"{4 * timeout_s + 60:.0f} s after the kill")
+            drv.drain()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            respawned = launcher.processes[1].pid
+            pids.append(respawned)
+            alive_after = launcher.poll_processes()
+        finally:
+            pipe.stop()
+    fleet_gone(label, pids, dirs, shm_before)
+    lin = lineage.report()
+    rep = producer_report(label, [f + ".window" for f in logs])
+    stats = {s["btid"]: s for s in rep["producers"]}
+    checked = renders_match(label, first)
+    checks = [
+        (window == {"gaps": 0, "reorders": 0, "restarts": 0},
+         f"window gaps/reorders/restarts {window}"),
+        (sorted(received) == ["0", "1"] and min(received.values()) > 0,
+         f"btids received {received}, not 0 and 1"),
+        ({b: s["seed"] for b, s in stats.items()} == {0: 0, 1: 1},
+         f"handshake seeds {[(s['btid'], s['seed']) for s in stats.values()]}"
+         " not btid i -> seed i"),
+        (all(f"-btid {i} -btseed {i} " in c for i, c in enumerate(commands)),
+         f"launch commands {commands}"),
+        (pipe.restarts == 1 and lin["1"]["restarts"] == 1
+         and lin["0"]["restarts"] == 0,
+         f"restarts {pipe.restarts}, per btid "
+         f"{ {b: e['restarts'] for b, e in lin.items()} }, not one for btid 1"),
+        (pipe.seq_gaps == 0 and pipe.reorders == 0,
+         f"after the respawn: {pipe.seq_gaps} gaps, {pipe.reorders} reorders"),
+        (respawned != victim.pid and alive_after == [None, None],
+         f"producer 1 pid {victim.pid} -> {respawned}, alive {alive_after}"),
+        (all(math.isfinite(v) for v in drv.losses),
+         f"non-finite loss in {drv.losses[-8:]}"),
+        (graph_step.graph_replays - replays0 == drv.steps
+         and graph_step.aot_fallbacks == 0,
+         f"{graph_step.graph_replays - replays0} replays for {drv.steps} "
+         f"steps, {graph_step.aot_fallbacks} fallbacks"),
+        (counts["decode_spatial"] > 0, f"K1 never launched: {counts}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"{label}: {what}")
+    img_s = images / wall
+    own = rep.get("own_frames_s", 0.0)
+    log(f"{label} on {card}: live {img_s:.1f} img/s over {images} images "
+        f"({wall:.2f} s), producers' own {own:.1f} frames/s summed (live "
+        f"{img_s / own:.3f} of it); {producer_text(rep)}; {verdict.render()};"
+        f" btids 0 and 1 with handshake seeds 0 and 1, {checked} decoded "
+        f"frames equal those seeds' renders; window gaps/reorders/restarts "
+        f"{window}; SIGKILL of producer 1 after step {steps_at_kill}: "
+        f"respawned (pid {victim.pid} -> {respawned}) and one restart "
+        f"counted {restart_s:.2f} s after the kill (receive timeout "
+        f"{timeout_s:.1f} s), {LAUNCHED['after']} more steps trained, final "
+        f"loss {drv.losses[-1]:.5f}; K1 launches {counts['decode_spatial']}")
+
+    # the same kill with respawn=False: the launcher's error, not a hang
+    logs2 = [os.path.join(leg_dir, f"fail{i}.log") for i in range(2)]
+    fresh_registry()
+    launcher = PythonProducerLauncher(
+        script=CUBE_SCRIPT, num_instances=2, named_sockets=["DATA"], seed=0,
+        proto="ipc", respawn=False, instance_args=launched_args(logs2))
+    error = None
+    with launcher:
+        pids = list(launcher.launch_info.processes)
+        dirs = [launcher._ipc_dir, launcher._shm_registry]
+        pipe = StreamDataPipeline(
+            launcher.addresses["DATA"], batch_size=BATCH, chunk=CHUNK,
+            emit_packed=True, timeoutms=LAUNCHED["timeoutms"],
+            ingest_workers=2, launcher=launcher)
+        drv = TrainDriver(graph_step, state, inflight=2, sync_every=4)
+        it = iter(pipe)
+        try:
+            reset_launch_counts()
+            for batch in it:
+                drv.submit(batch)
+                if drv.steps >= LAUNCHED["before_kill"] and min(
+                        s.received for s in pipe.shards) > 0:
+                    break
+            victim = launcher.processes[1]
+            os.kill(victim.pid, signal.SIGKILL)
+            victim.wait(timeout=30)
+            t_kill = time.perf_counter()
+            try:
+                for batch in it:
+                    drv.submit(batch)
+                    if time.perf_counter() - t_kill > 4 * timeout_s + 60:
+                        fail(f"{label}: no error {4 * timeout_s + 60:.0f} s "
+                             "after the kill with respawn=False")
+            except RuntimeError as e:
+                error = e
+            raise_s = time.perf_counter() - t_kill
+            drv.drain()
+            torch.cuda.synchronize()
+            counts2 = launch_counts()
+        finally:
+            pipe.stop()
+    fleet_gone(label + " (respawn=False)", pids, dirs, shm_before)
+    if error is None or "producer instances died" not in str(error) or (
+            "1: -9" not in str(error)):
+        fail(f"{label}: respawn=False ended with {error!r}, not the "
+             "launcher's dead-producer error for producer 1")
+    if raise_s > timeout_s + 5:
+        fail(f"{label}: the launcher's error came {raise_s:.2f} s after the "
+             f"kill, past the {timeout_s:.1f} s receive timeout + 5 s")
+    log(f"{label} with respawn=False on {card}: SIGKILL of producer 1 after "
+        f"{drv.steps} steps raised {error!r} {raise_s:.2f} s after the kill "
+        f"(receive timeout {timeout_s:.1f} s); K1 launches "
+        f"{counts2['decode_spatial']}; no process, directory or segment "
+        "left by either fleet")
+    return {"img_s": img_s, "own_frames_s": own, "wall_s": wall,
+            "images": images, "restart_s": restart_s, "raise_s": raise_s,
+            "verdict": verdict.render(),
+            "launches": {k: counts[k] + counts2[k] for k in counts}}
+
+
+def gym_leg(tmp: str, card: str) -> dict:
+    """The port's cartpole script started by ``PythonProducerLauncher(
+    named_sockets=["GYM"], proto="ipc")`` and driven by the port's
+    ``RemoteEnv`` as ``bench.py``'s ``measure_rl_hz`` drives the JAX
+    package's: 100 warm-up steps, then ``GYM["seconds"]`` of ``step(0.0)``
+    with a reset at ``done``; prints steps/s and the round trip's
+    percentiles. Gate: two ``reset(seed=7)`` runs under one fixed action
+    sequence (a reset at ``done``) give bit-identical observations over
+    200 steps."""
+    import numpy as np
+
+    from blendjax_torch.env import RemoteEnv
+    from blendjax_torch.launcher import PythonProducerLauncher
+
+    label = "gym leg"
+    shm_before = set(os.listdir("/dev/shm"))
+    launcher = PythonProducerLauncher(
+        script=CARTPOLE_SCRIPT, num_instances=1, named_sockets=["GYM"],
+        seed=0, proto="ipc")
+    actions = np.random.default_rng(0).uniform(-4, 4, GYM["steps"])
+    with launcher:
+        pids = list(launcher.launch_info.processes)
+        dirs = [launcher._ipc_dir, launcher._shm_registry]
+        env = RemoteEnv(launcher.addresses["GYM"][0], timeoutms=30_000)
+        try:
+            env.reset()
+            for _ in range(GYM["warmup"]):
+                if env.step(0.0)[2]:
+                    env.reset()
+            rtt, resets = [], 0
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < GYM["seconds"]:
+                t1 = time.perf_counter()
+                done = env.step(0.0)[2]
+                rtt.append(time.perf_counter() - t1)
+                if done:
+                    env.reset()
+                    resets += 1
+            dt = time.perf_counter() - t0
+            runs = []
+            for _ in range(2):
+                obs, _ = env.reset(seed=GYM["seed"])
+                run = [obs]
+                for a in actions:
+                    obs, _, done, _ = env.step(float(a))
+                    run.append(obs)
+                    if done:
+                        run.append(env.reset()[0])
+                runs.append(np.stack(run))
+        finally:
+            env.close()
+    fleet_gone(label, pids, dirs, shm_before)
+    if not (runs[0].shape == runs[1].shape and np.array_equal(*runs)):
+        fail(f"{label}: two reset(seed={GYM['seed']}) runs under one action "
+             f"sequence differ: shapes {runs[0].shape} {runs[1].shape}")
+    episodes = len(runs[0]) - GYM["steps"] - 1
+    pct = percentiles_ms(rtt)
+    steps_s = len(rtt) / dt
+    log(f"{label} on {card}: {steps_s:.1f} steps/s ({len(rtt)} steps of "
+        f"step(0.0) in {dt:.2f} s, {resets} resets), round trip p50 "
+        f"{pct['p50_ms']:.4f} ms, p99 {pct['p99_ms']:.4f} ms, max "
+        f"{pct['max_ms']:.4f} ms; two reset(seed={GYM['seed']}) runs of "
+        f"{GYM['steps']} steps ({episodes} episode ends each) bit-identical")
+    return {"steps_s": steps_s, "steps": len(rtt), **pct}
+
+
+def duplex_leg(tmp: str, card: str) -> dict:
+    """One producer with a ``CTRL`` socket (``DUPLEX_SCRIPT``, written into
+    the leg's directory) that sends every message back through
+    ``DuplexChannel`` on ``SimEngine`` frames; the consumer's
+    ``PairChannel`` sends ``DUPLEX["messages"]`` timed messages one at a
+    time, after one that waits for the producer to start.
+    Gate: every ``btmid`` comes back, from btid 0 (the handshake's), with
+    the consumer's btid and payload. Prints the round trip's
+    percentiles."""
+    from blendjax_torch.launcher import PythonProducerLauncher
+    from blendjax_torch.transport import PairChannel
+
+    label = "duplex leg"
+    leg_dir = tempfile.mkdtemp(dir=tmp)
+    script = os.path.join(leg_dir, "duplex_echo.py")
+    with open(script, "w") as f:
+        f.write(DUPLEX_SCRIPT)
+    shm_before = set(os.listdir("/dev/shm"))
+    launcher = PythonProducerLauncher(
+        script=script, num_instances=1, named_sockets=["CTRL"], seed=0,
+        proto="ipc")
+    rtt, bad = [], []
+    with launcher:
+        pids = list(launcher.launch_info.processes)
+        dirs = [launcher._ipc_dir, launcher._shm_registry]
+        duplex = PairChannel(launcher.addresses["CTRL"][0], btid=77)
+        try:
+            # message 0 waits for the producer to start: not timed
+            for i in range(DUPLEX["messages"] + 2):
+                stop = i == DUPLEX["messages"] + 1
+                t0 = time.perf_counter()
+                mid = duplex.send(i=i, stop=stop)
+                rep = duplex.recv(timeoutms=30_000)
+                if 0 < i and not stop:
+                    rtt.append(time.perf_counter() - t0)
+                if rep is None:
+                    fail(f"{label}: message {i} not answered within 30 s")
+                echo = rep.get("echo", {})
+                if not (rep["btid"] == 0 and echo.get("btmid") == mid
+                        and echo.get("btid") == 77 and echo.get("i") == i):
+                    bad.append((i, rep))
+            code = launcher.processes[0].wait(timeout=30)
+        finally:
+            duplex.close()
+    fleet_gone(label, pids, dirs, shm_before)
+    if bad or code != 0:
+        fail(f"{label}: {len(bad)} echoes wrong (first {bad[:2]}), producer "
+             f"exit code {code}")
+    pct = percentiles_ms(rtt)
+    log(f"{label} on {card}: {len(rtt)} messages, every btmid back from "
+        f"btid 0; round trip p50 {pct['p50_ms']:.4f} ms, p99 "
+        f"{pct['p99_ms']:.4f} ms, max {pct['max_ms']:.4f} ms")
+    return {"messages": len(rtt), **pct}
 
 
 # -- phase 5b: graph parity and the supervised AOT set ---------------------------
@@ -2789,6 +3244,13 @@ def main() -> None:
         resume_phase(recording, tmp, card)
         log(f"palette producer, replay and resume phases in "
             f"{time.perf_counter() - t0:.1f} s")
+        # phase 5f: the launched, gym and duplex legs
+        t0 = time.perf_counter()
+        launched = launched_leg(tmp, card)
+        gym = gym_leg(tmp, card)
+        duplex = duplex_leg(tmp, card)
+        log(f"launched, gym and duplex legs in "
+            f"{time.perf_counter() - t0:.1f} s")
     ab = {w: [r["img_s"] for r in ingest["runs"] if r["ingest_workers"] == w]
           for w in sorted(set(INGEST["order"]))}
     log(f"ingest A/B on {card}: live img/s with four producers, by ingest "
@@ -2845,7 +3307,15 @@ def main() -> None:
            if graph["groups"] else "not recorded (events only)"))
     log("verdicts: " + "; ".join(
         f"{name}: {leg['verdict']}" for name, leg in
-        (*legs.items(), ("echo", echo), ("replay", replay))))
+        (*legs.items(), ("echo", echo), ("replay", replay),
+         ("launched", launched))))
+    log(f"control on {card}: launched leg live {launched['img_s']:.1f} img/s "
+        f"against its producers' own {launched['own_frames_s']:.1f} "
+        f"frames/s, respawn restart {launched['restart_s']:.2f} s after the "
+        f"kill, the respawn=False error {launched['raise_s']:.2f} s after it;"
+        f" gym {gym['steps_s']:.1f} steps/s, round trip p50 "
+        f"{gym['p50_ms']:.4f} / p99 {gym['p99_ms']:.4f} ms; duplex round trip"
+        f" p50 {duplex['p50_ms']:.4f} / p99 {duplex['p99_ms']:.4f} ms")
     log(f"slice streamformer: {sf['flops_per_image'] / 1e9:.2f} GFLOP per "
         "image (fwd+bwd = 3 x fwd; dense 2*fan_in*fan_out per token, "
         "attention 4*T^2*dim per block); step alone "
@@ -2914,9 +3384,10 @@ def main() -> None:
     for name, meta in KERNELS.items():
         m = measured[name]
         launches = legs[leg_of.get(name, "streamformer")]["launches"][name]
-        if name == "decode_spatial":  # the input side and replay launch K1
+        if name == "decode_spatial":  # the input side, replay, launched
             launches += (ingest["k1_launches"]
-                         + replay["launches"]["decode_spatial"])
+                         + replay["launches"]["decode_spatial"]
+                         + launched["launches"]["decode_spatial"])
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],

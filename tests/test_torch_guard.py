@@ -116,6 +116,88 @@ def test_the_observability_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+CONTROL_MODULES = [
+    "utils/ipaddr.py", "transport/channels.py", "launcher/__init__.py",
+    "launcher/arguments.py", "launcher/launch_info.py", "launcher/finder.py",
+    "launcher/launcher.py", "launcher/apps.py", "producer/__init__.py",
+    "producer/signal.py", "producer/animation.py", "producer/utils.py",
+    "producer/camera.py", "producer/sim.py", "producer/publisher.py",
+    "producer/duplex.py", "producer/env.py", "producer/bpy_engine.py",
+    "producer/offscreen.py", "producer/scripts/__init__.py",
+    "producer/scripts/cartpole.py", "producer/cube.py", "env/__init__.py",
+    "env/remote.py", "env/vector.py", "env/rendering.py",
+    "env/gymnasium_adapter.py", "env/registry.py",
+]
+
+
+@pytest.mark.parametrize("module", CONTROL_MODULES)
+def test_the_control_slice_modules_are_scanned(module):
+    """The control channels, producer runtime, launcher and env modules
+    are in the scan above, and each imports nothing of JAX or of the JAX
+    package (not even ``blendjax.testing``, which only the tests use)."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+TORCH_FREE = ("producer", "launcher", "transport", "env")
+
+
+def _torch_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    return [m for m in mods if m.split(".")[0] in ("torch", "triton")]
+
+
+@pytest.mark.parametrize("package", TORCH_FREE)
+def test_the_host_side_packages_import_no_torch(package):
+    """No module of ``producer/``, ``launcher/``, ``transport/`` or
+    ``env/`` imports torch, at its top or inside a function: a producer
+    process never pays for it, and a launcher's producers come up within
+    its bind grace window."""
+    root = os.path.join(REPO, "blendjax_torch", package)
+    files = [os.path.join(d, n) for d, _s, names in os.walk(root)
+             for n in names if n.endswith(".py")]
+    assert files
+    bad = {os.path.relpath(f, REPO): _torch_imports(f) for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_importing_the_host_side_loads_no_torch():
+    """In a fresh interpreter, importing every host-side module (the cube
+    producer, the cartpole script, the launcher, the channels and the env
+    package with its Gymnasium registration) and running a producer's
+    scene loads neither torch nor anything of JAX."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import blendjax_torch.producer.cube, blendjax_torch.launcher.apps\n"
+        "import blendjax_torch.producer.scripts.cartpole\n"
+        "import blendjax_torch.env, blendjax_torch.transport\n"
+        "from blendjax_torch.producer.sim import CubeScene, SimEngine\n"
+        "from blendjax_torch.producer import AnimationController\n"
+        "scene = CubeScene(shape=(32, 64), seed=0, native=False)\n"
+        "ctrl = AnimationController(SimEngine(scene))\n"
+        "ctrl.post_frame.add(lambda f: scene.render())\n"
+        "ctrl.play(frame_range=(1, 3), num_episodes=1)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'blendjax')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_the_train_state_snapshot_needs_no_pickle():
     """No checkpoint module, and not the driver or the weight mapping,
     imports pickle or calls torch.save / torch.load: the snapshot format

@@ -16,8 +16,16 @@ package's, byte for byte, on the CPU.
   path on what both decode to (the numpy paths number colours by value,
   the C++ ones by first sight).
 
+- The cube producer process, on the producer runtime
+  (``AnimationController`` over ``SimEngine``), started by its flags or by
+  the launcher: its messages against the loop it ran before that move,
+  on both paths.
+
 Tolerance: none; every comparison is ``array_equal``.
 """
+
+import os
+import time
 
 import numpy as np
 import pytest
@@ -467,3 +475,108 @@ def test_fused_publisher_messages_match_jax(channels, alpha_slice, tile,
         forms.add("raw" if "image__tiles" in a else
                   "per-frame" if a["image__palette"].ndim == 3 else "batch")
     assert "per-frame" in forms and (("raw" in forms) == bool(rich))
+
+
+# -- the cube producer on the producer runtime ---------------------------------
+
+PRODUCER_ARGS = ["--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
+                 "--tile-rgba", "--tile-capacity", "16", "--ref-interval", "2",
+                 "--frames", "22"]
+STAMPS = ("_seq", "_pub_wall", "_pub_mono", "_telemetry", "_trace")
+
+
+def _pre_move_messages(seed, btid, native):
+    """The messages of the cube producer's loop as it was before it moved
+    onto the AnimationController (step, render, add; flush at the end),
+    captured in-process."""
+    from blendjax_torch.producer import TileBatchPublisher
+
+    scene = TS.CubeScene(shape=(64, 128), seed=seed, native=native)
+    cap = _Capture()
+    tiles = TileBatchPublisher(cap, scene.background_image(), 4,
+                               tile=(16, 32), alpha_slice=False,
+                               ref_interval=2, capacity=16, native=native)
+    framebuf = np.empty((64, 128, 4), np.uint8)
+    for frame in range(1, 23):
+        scene.step(frame)
+        scene.render(out=framebuf)
+        tiles.add(framebuf, hint=scene.raster.last_drawn,
+                  xy=scene.camera.world_to_pixel(
+                      scene.corners_world()).astype(np.float32),
+                  frameid=np.int64(frame))
+    tiles.flush()
+    return [{"btid": btid, **m} for m in cap.msgs]
+
+
+def _received(addr, n):
+    from blendjax_torch.transport import DataReceiverSocket
+
+    recv = DataReceiverSocket(addr, timeoutms=30_000)
+    try:
+        return [recv.recv_frames() for _ in range(n)], recv
+    finally:
+        recv.close()
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["cpp", "numpy"])
+@pytest.mark.parametrize("start", ["flags", "launcher"])
+def test_the_cube_producer_publishes_the_pre_move_messages(tmp_path, native,
+                                                           start):
+    """The cube producer, now on ``AnimationController(SimEngine(scene))``
+    with a ``post_frame`` publish, started by hand (``--bind``,
+    ``--btid``, ``--seed``) or by the launcher's handshake: every array
+    frame on the wire is byte for byte the pre-move loop's, and every
+    other value of every message equal, the lineage stamps (clocks) left
+    out."""
+    import subprocess
+    import sys
+
+    from blendjax_torch.launcher import PythonProducerLauncher
+    from blendjax_torch.transport import decode_message, encode_message
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cube = os.path.join(repo, "blendjax_torch", "producer", "cube.py")
+    args = PRODUCER_ARGS + ([] if native else ["--no-native"])
+    expected = _pre_move_messages(seed=5, btid=0 if start == "launcher"
+                                  else 3, native=native)
+    assert len(expected) == 6  # five batches, the flushed tail of two
+    if start == "flags":
+        addr_file = str(tmp_path / "p.addr")
+        env = dict(os.environ, PYTHONPATH=repo)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "blendjax_torch.producer.cube", "--bind",
+             "tcp://127.0.0.1:*", "--addr-file", addr_file, "--btid", "3",
+             "--seed", "5", "--log", str(tmp_path / "p.log"), *args],
+            cwd=repo, env=env)
+        try:
+            deadline = time.monotonic() + 60
+            while not os.path.exists(addr_file):
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.05)
+            with open(addr_file) as f:
+                got, _ = _received(f.read().strip(), len(expected))
+            assert proc.wait(timeout=30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        with open(tmp_path / "p.log") as f:
+            lines = f.read().splitlines()
+        assert lines[0].startswith("blendjax_torch.producer.cube path "
+                                   + ("native" if native else "numpy"))
+    else:
+        with PythonProducerLauncher(script=cube, seed=5, proto="ipc",
+                                    instance_args=[args]) as ln:
+            got, _ = _received(ln.addresses["DATA"][0], len(expected))
+            assert ln.processes[0].wait(timeout=30) == 0
+    for frames, want in zip(got, expected):
+        msg = decode_message(frames, copy_arrays=True)
+        assert [msg.pop(k) for k in STAMPS if k in msg][:1] != []  # stamped
+        assert sorted(msg) == sorted(want)
+        for k, v in want.items():
+            if isinstance(v, np.ndarray):
+                assert msg[k].dtype == v.dtype and msg[k].shape == v.shape, k
+            np.testing.assert_array_equal(msg[k], v)
+        ref_frames = encode_message(want)
+        assert [bytes(f) for f in frames[1:]] == [bytes(f) for f in
+                                                  ref_frames[1:]]

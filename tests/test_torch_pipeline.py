@@ -396,3 +396,139 @@ def test_decoded_chunked_form_stacks_decoded_superbatches():
         for k in ("image", "xy", "frameid"):
             assert torch.equal(d[k], fields[k]), k
             np.testing.assert_array_equal(d[k].numpy(), np.asarray(w[k]))
+
+
+# -- StreamDataPipeline(launcher=) -----------------------------------------------
+
+CUBE = os.path.join(REPO, "blendjax_torch", "producer", "cube.py")
+CUBE_ARGS = ["--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
+             "--tile-rgba", "--tile-capacity", "16"]
+
+
+def _cube_launcher(n, frames=-1, respawn=False):
+    from blendjax_torch.launcher import PythonProducerLauncher
+
+    return PythonProducerLauncher(
+        script=CUBE, num_instances=n, named_sockets=["DATA"], seed=0,
+        instance_args=[CUBE_ARGS + ["--frames", str(frames)]] * n,
+        respawn=respawn, proto="ipc", bind_grace_s=0.5,
+    )
+
+
+def test_a_launched_stream_gives_the_references_batches():
+    """The port's cube producer, started by the port's launcher from its
+    file, into ``StreamDataPipeline(launcher=)`` on each package (the
+    decoded form): the same frames, labels and frame ids, batch for batch
+    (one producer, so the order is fixed; the producers are launched
+    twice with the same seed)."""
+    from blendjax.data.pipeline import StreamDataPipeline as JPipeline
+    from blendjax_torch.data import StreamDataPipeline
+
+    out = {}
+    for side in ("port", "jax"):
+        with _cube_launcher(1, frames=24) as ln:
+            if side == "port":
+                pipe = StreamDataPipeline(
+                    ln.addresses["DATA"], batch_size=4, device="cpu",
+                    launcher=ln, timeoutms=30_000, max_items=6)
+            else:
+                pipe = JPipeline(ln.addresses["DATA"], batch_size=4,
+                                 launcher=ln, timeoutms=30_000, max_items=6)
+            with pipe:
+                out[side] = [{k: np.asarray(b[k]) for k in
+                              ("image", "xy", "frameid")} for b in pipe]
+        assert pipe._auto_timeout
+    assert len(out["port"]) == len(out["jax"]) == 6
+    for a, b in zip(out["port"], out["jax"]):
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            np.testing.assert_array_equal(a[k], b[k])
+    np.testing.assert_array_equal(
+        np.concatenate([b["frameid"] for b in out["port"]]), np.arange(1, 25))
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_a_killed_producer_raises_the_launchers_error(workers):
+    """respawn=False: SIGKILL a producer mid-stream; the stream's receive
+    timeout asks the launcher, which raises its dead-producer error,
+    within the timeout budget (one producer on the single ingest thread,
+    two producers on two shards)."""
+    import signal
+
+    from blendjax_torch.data import StreamDataPipeline
+
+    timeoutms = 3000
+    with _cube_launcher(workers) as ln:
+        pipe = StreamDataPipeline(
+            ln.addresses["DATA"], batch_size=4, device="cpu", launcher=ln,
+            timeoutms=timeoutms, ingest_workers=workers)
+        it = iter(pipe)
+        try:
+            for _ in range(4):
+                next(it)
+            victim = ln.processes[workers - 1]
+            os.kill(victim.pid, signal.SIGKILL)
+            assert victim.wait(timeout=10) == -signal.SIGKILL
+            t0 = time.monotonic()
+            with pytest.raises(RuntimeError, match="died") as err:
+                for _ in it:
+                    assert time.monotonic() - t0 < 60, "no error raised"
+            elapsed = time.monotonic() - t0
+        finally:
+            pipe.stop()
+    assert f"{workers - 1}: -9" in str(err.value)
+    assert elapsed < 2 * timeoutms / 1e3 + 5
+
+
+def test_a_respawned_producer_counts_one_restart():
+    """respawn=True on two shards: the killed producer's shard times out,
+    the launcher respawns it (same btid and seed), the stream reads its
+    fresh numbering as exactly one restart, and batches keep coming."""
+    import signal
+
+    from blendjax_torch.data import StreamDataPipeline
+
+    with _cube_launcher(2, respawn=True) as ln:
+        pipe = StreamDataPipeline(
+            ln.addresses["DATA"], batch_size=4, device="cpu", launcher=ln,
+            timeoutms=3000, ingest_workers=2)
+        try:
+            it = iter(pipe)
+            deadline = time.monotonic() + 60
+            # both producers streaming: a restart needs a first life
+            while min(s.received for s in pipe.shards) < 2:
+                assert time.monotonic() < deadline, "a producer never sent"
+                next(it)
+            first = ln.processes[1]
+            os.kill(first.pid, signal.SIGKILL)
+            first.wait(timeout=10)
+            deadline = time.monotonic() + 60
+            while pipe.restarts == 0:
+                assert time.monotonic() < deadline, "no restart counted"
+                next(it)
+            for _ in range(8):  # training goes on
+                next(it)
+        finally:
+            pipe.stop()
+        assert ln.processes[1].pid != first.pid
+        assert ln.processes[1].poll() is None
+    assert pipe.restarts == 1
+    assert pipe.seq_gaps == 0 and pipe.reorders == 0
+    from blendjax_torch.obs.lineage import lineage
+
+    assert lineage.report()["1"]["restarts"] == 1
+    assert lineage.report()["0"]["restarts"] == 0
+
+
+def test_a_callers_on_timeout_wins_over_the_launcher():
+    from blendjax_torch.data import StreamDataPipeline
+
+    class Launcher:
+        def assert_alive(self):
+            raise AssertionError("not consulted")
+
+    hook = lambda: False  # noqa: E731
+    pipe = StreamDataPipeline(["ipc:///nonexistent"], batch_size=2,
+                              device="cpu", launcher=Launcher(),
+                              on_timeout=hook, ingest_workers=1)
+    assert not pipe._auto_timeout and pipe.stream.on_timeout is hook
