@@ -41,12 +41,27 @@ spans; ``echo.inserted``, ``echo.fresh``, ``echo.echoed``,
 batch's first slot; the first draw of that slot stamps it
 ``reservoir_sample`` and carries it to the step (an overwritten slot drops
 its trace). :meth:`EchoingPipeline.doctor` names the bound; :attr:`stats`
-keeps the instance counters. Left out of this port (ROADMAP): ``mesh`` /
-``sharding`` (the multi-GPU slice, Queue A item 5) and the scenario hooks.
+keeps the instance counters. Left out of this port (ROADMAP): the
+scenario hooks.
+
+On a mesh (``mesh=`` or ``sharding=``): the ring's capacity axis is split
+over the batch axes (:mod:`blendjax_torch.data.ring`), every rank inserts
+its rows of each fresh global batch and gets its rows of each draw, and
+slots, draw indices and the accounting stay global, as on one card. Every
+rank runs the same host composition, so the ranks insert the same fresh
+batches at the same points: the drain thread keeps pulling the inner
+pipeline as on one card, and before each draw the ranks agree
+(:class:`~blendjax_torch.parallel.mesh.RankAgreement`) to insert as many
+pending fresh batches as the rank with the fewest has, and end together.
+The inserts (an all-gather each) and the draws stay in the iterating
+thread, in one order on every rank. A draw is gathered and augmented
+whole on every rank and cut to its rows, so it augments as the one-card
+draw of the same counter: N ranks do N times the augmentation work.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import logging
@@ -60,10 +75,11 @@ import torch
 
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.data.ring import (
-    MULTI_GPU,
     allocate_ring,
     make_ring_insert,
     ring_gather,
+    ring_ways,
+    validate_ring_capacity,
 )
 from blendjax_torch.device import resolve_device
 from blendjax_torch.obs.trace import TRACES_KEY
@@ -100,6 +116,12 @@ class SampleReservoir:
     ``fold_seed(rng, counter)`` of an internal draw counter, so two draws
     of one slot augment differently, and each draw's augmentation is a
     pure function of (construction ``rng``, counter).
+
+    ``sharding`` (:func:`blendjax_torch.parallel.ring_sharding`) splits the
+    ring over the batch axes: :meth:`insert` takes this rank's rows of a
+    global batch, slots and draw indices are global, and a draw is
+    gathered whole on every rank, augmented whole and cut to this rank's
+    rows, so it augments as the one-card draw of the same counter does.
     """
 
     def __init__(self, capacity: int, augment=None, rng: int = 0,
@@ -107,14 +129,15 @@ class SampleReservoir:
         self.capacity = int(capacity)
         if self.capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if sharding is not None:
-            raise NotImplementedError(MULTI_GPU)
+        validate_ring_capacity(self.capacity, sharding)
+        self.sharding = sharding
+        self.ways = ring_ways(sharding)
         self.device = resolve_device(device)
         self.augment = augment
         self._seed = int(rng)
         self._buffers: dict | None = None
         self._spec: dict | None = None  # field -> (row shape, dtype)
-        self._insert_fn = make_ring_insert(self.capacity)
+        self._insert_fn = make_ring_insert(self.capacity, sharding)
         self._cursor = 0
         self.size = 0  # filled slots (== capacity once wrapped)
         self.inserts = 0  # samples inserted, lifetime
@@ -130,14 +153,19 @@ class SampleReservoir:
         if not batch:
             raise ValueError("insert() needs at least one array field")
         batch = {k: _on_device(v, self.device) for k, v in batch.items()}
-        lead = next(iter(batch.values())).shape[0]
+        lead = next(iter(batch.values())).shape[0] * self.ways
         if lead > self.capacity:
+            if self.ways > 1:
+                raise ValueError(
+                    f"a global batch of {lead} rows does not fit a sharded "
+                    f"ring of {self.capacity}")
             batch = {k: v[-self.capacity:] for k, v in batch.items()}
             lead = self.capacity
         if self._buffers is None:
             self._spec = {k: (tuple(v.shape[1:]), v.dtype)
                           for k, v in batch.items()}
             self._buffers = allocate_ring(self.capacity, batch,
+                                          sharding=self.sharding,
                                           device=self.device)
         else:
             if set(batch) != set(self._spec):
@@ -167,10 +195,19 @@ class SampleReservoir:
             raise RuntimeError("reservoir is empty: insert() first")
 
     def _draw_body(self, buffers, idx, counter):
-        out = ring_gather(buffers, idx)
+        out = ring_gather(buffers, idx, sharding=self.sharding,
+                          capacity=self.capacity)
         if self.augment is not None:
             out = self.augment(fold_seed(self._seed, int(counter)), out)
-        return out
+        return self._local(out)
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's rows of a whole draw (all of it off a mesh)."""
+        if self.ways <= 1:
+            return batch
+        from blendjax_torch.parallel.sharding import local_rows
+
+        return {k: local_rows(v, self.sharding) for k, v in batch.items()}
 
     def draw_generators(self) -> list:
         """The generators a draw's augmentation takes its random numbers
@@ -210,7 +247,9 @@ class SampleReservoir:
     def gather(self, idx) -> dict:
         """Raw gather of ``idx`` rows: no augmentation, no counter advance."""
         self._require()
-        return ring_gather(self._buffers, idx)
+        return self._local(ring_gather(self._buffers, idx,
+                                       sharding=self.sharding,
+                                       capacity=self.capacity))
 
     def draw(self, buffers, idx, counter) -> dict:
         """The gather + augment body that
@@ -278,6 +317,7 @@ class SampleReservoir:
             return
         bufs = {k: np.asarray(v) for k, v in d["buffers"].items()}
         self._buffers = allocate_ring(self.capacity, initial=bufs,
+                                      sharding=self.sharding,
                                       device=self.device)
         self._spec = {k: (tuple(v.shape[1:]), v.dtype)
                       for k, v in self._buffers.items()}
@@ -321,8 +361,18 @@ class EchoingPipeline:
                  rng: int = 0, warm_start=None,
                  warm_start_allow_pickle: bool = False, mesh=None,
                  sharding=None, emit_draws: bool = False, device=None):
-        if mesh is not None or sharding is not None:
-            raise NotImplementedError(MULTI_GPU)
+        from blendjax_torch.parallel.sharding import (
+            check_sharding,
+            ring_sharding,
+        )
+
+        if mesh is not None:
+            from blendjax_torch.parallel.mesh import check_mesh
+
+            check_mesh(mesh)
+            if sharding is None:
+                sharding = ring_sharding(mesh)
+        check_sharding(sharding)
         self.pipeline = pipeline
         self.warm_start = warm_start
         self.warm_start_allow_pickle = bool(warm_start_allow_pickle)
@@ -356,8 +406,15 @@ class EchoingPipeline:
         self.emit_draws = bool(emit_draws)
         if device is None:
             device = getattr(pipeline, "device", None)
+        ways = ring_ways(sharding)
+        if ways > 1 and self.batch_size and self.batch_size % ways:
+            raise ValueError(
+                f"batch_size={self.batch_size} must divide evenly over the "
+                f"{ways}-way batch axis: every card takes an equal share of "
+                "each drawn batch")
         self.reservoir = SampleReservoir(self.capacity, augment=augment,
-                                         rng=rng, device=device)
+                                         rng=rng, sharding=sharding,
+                                         device=device)
         self.device = self.reservoir.device
         self._np_rng = np.random.default_rng(int(rng))
         # host-side per-slot accounting (numpy, never device values)
@@ -370,6 +427,16 @@ class EchoingPipeline:
         self._err_lock = threading.Lock()
         self._inner_error: BaseException | None = None
         self._inner_done = False
+        # on a mesh of several ranks: the agreement on fresh inserts, the
+        # fresh batches taken off the queue but not inserted yet, and
+        # whether this rank's drain thread has finished
+        self._agreement = None
+        if sharding is not None and sharding.mesh.mesh.numel() > 1:
+            from blendjax_torch.parallel.mesh import RankAgreement
+
+            self._agreement = RankAgreement(sharding.mesh)
+        self._pending: collections.deque = collections.deque()
+        self._drained = False
         self._warned_sidecars = False
         self._warned_partial = False
         # sampled frame traces parked on the first slot of their batch
@@ -453,7 +520,7 @@ class EchoingPipeline:
                 "from echoed batches", sorted(fields), dropped,
             )
         if self.batch_size is None:
-            self.batch_size = int(lead)
+            self.batch_size = int(lead) * self.reservoir.ways
         trs = trace_pop(batch)
         slots = self.reservoir.insert(fields)
         if self._slot_traces:
@@ -476,6 +543,8 @@ class EchoingPipeline:
         entry, so a fast fleet cannot starve the draws); with
         ``block=True`` wait up to ``timeout`` for one when none is
         pending. Returns whether anything was inserted."""
+        if self._agreement is not None:
+            return self._poll_agreed(block, timeout)
         got = False
         for _ in range(max(self._queue.qsize(), 1)):
             try:
@@ -499,6 +568,58 @@ class EchoingPipeline:
             self._insert_fresh(b)
             got = True
         return got
+
+    def _take_pending(self, block: bool, timeout: float) -> None:
+        """Move fresh batches off the queue (at most 2 held), waiting up to
+        ``timeout`` for one with ``block=True`` when none is held."""
+        while len(self._pending) < 2 and not self._drained:
+            try:
+                b = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if b is self._DONE:
+                self._drained = True
+            else:
+                self._pending.append(b)
+        if block and not self._pending and not self._drained:
+            try:
+                with metrics.span("echo.wait_fresh"):
+                    b = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                return
+            if b is self._DONE:
+                self._drained = True
+            else:
+                self._pending.append(b)
+
+    def _poll_agreed(self, block: bool, timeout: float) -> bool:
+        """:meth:`_poll_fresh` on a mesh: every rank inserts as many of its
+        pending fresh batches as the rank with the fewest holds, so the
+        ranks' reservoirs, accounting and draws stay the same; the stream
+        ends for all when a finished rank has none left (the others drop
+        what they hold), and a failed one raises on every rank."""
+        self._take_pending(block, timeout)
+        with self._err_lock:
+            err = self._inner_error
+        got = self._agreement.gather(
+            [len(self._pending), int(self._drained), int(err is not None)])
+        if got[:, 2].any():
+            if err is not None:
+                raise err  # a crashed stream is not a clean end of stream
+            raise RuntimeError(
+                "the inner stream of mesh rank(s) "
+                f"{np.flatnonzero(got[:, 2]).tolist()} failed")
+        n = int(got[:, 0].min())
+        for _ in range(n):
+            self._insert_fresh(self._pending.popleft())
+        if (got[:, 1].astype(bool) & (got[:, 0] == n)).any():
+            if self._pending:
+                logger.warning(
+                    "echo on a mesh: a rank's stream ended; this rank drops "
+                    "%d fresh batches it holds", len(self._pending))
+                self._pending.clear()
+            self._inner_done = True
+        return n > 0
 
     # -- draw composition -----------------------------------------------------
 
@@ -558,11 +679,12 @@ class EchoingPipeline:
             self._poll_fresh(block=False)
             with self._err_lock:
                 err = self._inner_error
-            if err is not None:
+            if err is not None and self._agreement is None:
                 raise err  # a crashed stream is not a clean end of stream
             idx = self._compose_draw()
             if idx is None:
-                if self._inner_done and self._queue.empty():
+                if self._inner_done and (self._agreement is not None
+                                         or self._queue.empty()):
                     return
                 if not waiting and self._filled.any():
                     waiting = True  # one count per wait episode
@@ -616,6 +738,7 @@ class EchoingPipeline:
         warm = StreamDataPipeline.from_recording(
             self.warm_start, batch_size=self.batch_size,
             allow_pickle=self.warm_start_allow_pickle, device=self.device,
+            sharding=self.reservoir.sharding,
         )
         budget = math.ceil(self.capacity / self.batch_size)
         with warm:

@@ -18,9 +18,30 @@ decoded form (``emit_packed=False``, the default, as in the JAX package:
 every chunk group decoded on the card by K1/K2 as it arrives; with
 ``chunk=1`` the input of the echo reservoir, with ``chunk=K`` (K, B, ...)
 superbatches). A finite stream's ``_partial`` tail is bucket-padded with
-a ``_mask`` before the host stage (``pad_partial=True``). Multi-host
-assembly and mesh shardings wait for the multi-GPU slice (ROADMAP Queue A
-item 5).
+a ``_mask`` before the host stage (``pad_partial=True``).
+
+On a mesh (``mesh=``, one process per card): ``batch_size`` is the global
+batch, which must divide the batch axes, and every rank runs its own
+pipeline and yields its rows of each global batch, the JAX package's
+multi-host form (``make_array_from_process_local_data``). Where the rows
+come from depends on the source:
+
+- Live producers (``addresses``): each rank's pipeline assembles its own
+  ``batch_size / ways`` rows from the producers it connects to, as each
+  JAX process feeds its local rows. Before each batch the ranks agree
+  (:class:`~blendjax_torch.parallel.mesh.RankAgreement`) that every one has
+  one of the same form: they end together when any rank's stream ends (a
+  tail ends it too), and batches of different forms raise instead of
+  issuing unmatched collectives. Every rank must hold its own rows, so the
+  batch axes must cover the mesh (a ``tp`` or ``seq`` axis replays a
+  recording).
+- A recording or an iterable: every rank reads the same stream and keeps
+  the rows the batch sharding (:func:`blendjax_torch.parallel.batch_sharding`,
+  ``data`` with ``fsdp`` folded in) gives it, those the JAX mesh places on
+  its device. The feeder places a raw batch's rows of this rank; a packed
+  tile group travels whole (bytes cannot split) and each rank decodes its
+  rows with K1 or K2 (:func:`~blendjax_torch.ops.tiles.decode_packed_superbatch`
+  with ``mesh``). A partial tail pads to a bucket the batch axes divide.
 
 Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX package's names and
 sites): the ``feed.place`` span and the ``place`` frame-trace stamp of each
@@ -50,6 +71,52 @@ from blendjax_torch.utils.metrics import metrics
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
 
+def _batch_layout(mesh, data_axis: str, sharding):
+    """The batch sharding of a mesh run (``sharding`` or the mesh's
+    :func:`~blendjax_torch.parallel.batch_sharding`), checked; None off a
+    mesh."""
+    if mesh is None and sharding is None:
+        return None
+    from blendjax_torch.parallel.sharding import (
+        batch_sharding,
+        check_sharding,
+        validate_batch_sharding,
+    )
+
+    if sharding is None:
+        from blendjax_torch.parallel.mesh import check_mesh
+
+        sharding = batch_sharding(check_mesh(mesh), axis=data_axis)
+    return validate_batch_sharding(check_sharding(sharding),
+                                   data_axis=data_axis)
+
+
+def _lead_axes(sharding) -> tuple:
+    from blendjax_torch.parallel.sharding import leading_axes
+
+    return leading_axes(sharding)
+
+
+def _signature(batch: dict) -> int:
+    """A 62-bit hash of what decides the step program a batch runs: each
+    array field's shape and dtype, the chunk group's length and its decode
+    plan."""
+    parts = []
+    for k in sorted(batch):
+        v = batch[k]
+        if hasattr(v, "shape") and hasattr(v, "dtype"):
+            parts.append((k, tuple(v.shape), str(v.dtype)))
+        elif k == "_meta":
+            parts.append((k, len(v)))
+        elif k in ("_spec", "_names", "_geoms", "_rle", "_pal"):
+            parts.append((k, repr(v)))
+        elif k == "_refs":
+            parts.append((k, sorted((n, tuple(r.shape))
+                                    for n, r in v.items())))
+    digest = hashlib.blake2b(repr(parts).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 2
+
+
 class DeviceFeeder:
     """Places host batch dicts on ``device`` with a prefetch ring.
 
@@ -59,11 +126,17 @@ class DeviceFeeder:
     side stream; one event per batch orders the compute stream after the
     copies. On the CPU the arrays are wrapped without a copy. ``_meta``
     and scalar sidecars stay on the host.
+
+    With ``mesh`` (or a batch ``sharding``) every array field but a packed
+    group's buffer keeps this rank's rows (:func:`~blendjax_torch.parallel.sharding.local_rows`)
+    before the copy: the one placement per batch of this rank's share.
     """
 
     PINNED_KEYS_LIMIT = 64
 
-    def __init__(self, device=None, prefetch: int = 2):
+    def __init__(self, device=None, prefetch: int = 2, mesh=None,
+                 data_axis: str = "data", sharding=None):
+        self.sharding = _batch_layout(mesh, data_axis, sharding)
         self.device = resolve_device(device)
         self.prefetch = max(1, int(prefetch))
         self._cuda = self.device.type == "cuda"
@@ -102,6 +175,11 @@ class DeviceFeeder:
             k: v for k, v in batch.items()
             if k != "_meta" and isinstance(v, np.ndarray) and v.ndim >= 1
         }
+        if self.sharding is not None:
+            from blendjax_torch.parallel.sharding import local_rows
+
+            arrays = {k: v if k == "__packed__" else local_rows(
+                v, self.sharding) for k, v in arrays.items()}
         out = {k: v for k, v in batch.items() if k not in arrays}
         if not self._cuda:
             for k, v in arrays.items():
@@ -158,10 +236,24 @@ class TileStreamDecoder:
     ``emit_packed=False`` decodes each group on the card in
     :meth:`device_stage`: plain batches with ``chunk=1``, (K', B, ...)
     superbatches with their ``_meta`` otherwise.
+
+    ``sharding`` (the batch sharding of a mesh) makes each rank decode only
+    its rows of every group. ``multihost`` is the JAX package's name for
+    that form and the only one the port has (one process per card):
+    ``multihost=False`` with a split batch raises.
     """
 
     def __init__(self, device=None, chunk: int = 1,
-                 emit_packed: bool = False):
+                 emit_packed: bool = False, sharding=None,
+                 multihost: bool | None = None):
+        from blendjax_torch.parallel.sharding import leading_shard_count
+
+        if multihost is False and leading_shard_count(sharding) > 1:
+            raise ValueError(
+                "multihost=False: the port runs one process per card, so a "
+                "split batch is always assembled per rank (the multi-host "
+                "form)")
+        self.sharding = sharding
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
         self.emit_packed = bool(emit_packed)
@@ -384,16 +476,19 @@ class TileStreamDecoder:
                         db[k] = v[None]
                 yield db
                 continue
+            mesh = getattr(self.sharding, "mesh", None)
+            axes = _lead_axes(self.sharding)
             with metrics.span("decode.dispatch"):
                 if plan[0] == "palchunk":
                     _, spec, rests, pal_groups, rle_groups = plan
                     fields = T.decode_packed_pal_superbatch(
-                        db["__packed__"], spec, pal_groups, rle_groups)
+                        db["__packed__"], spec, pal_groups, rle_groups,
+                        mesh=mesh, data_axis=axes)
                 else:
                     _, names, spec, rests, refs, geoms, rle_groups = plan
                     fields = T.decode_packed_superbatch(
                         db["__packed__"], refs, spec, names, geoms,
-                        rle_groups)
+                        rle_groups, mesh=mesh, data_axis=axes)
             if self.chunk > 1:
                 out = {"_meta": rests, **fields}
             else:
@@ -433,6 +528,13 @@ class StreamDataPipeline:
     arguments go to the stream (``record_path_prefix`` tees every
     message received to a recording, per shard).
 
+    ``mesh`` (or a batch ``sharding``; ``data_axis`` names the batch axis)
+    makes ``batch_size`` the global batch and yields this rank's rows (the
+    module docstring): with producer addresses each rank's pipeline takes
+    ``batch_size / ways`` rows from its own producers (:attr:`rank_batch`)
+    and the ranks agree before each batch; a recording is read whole on
+    every rank, which keeps its rows.
+
     With a ``launcher`` (a :class:`~blendjax_torch.launcher.ProcessLauncher`
     whose producers publish on ``addresses``) and no ``on_timeout`` of the
     caller's, a receive timeout becomes a health check of the producers:
@@ -447,8 +549,41 @@ class StreamDataPipeline:
                  place_in_driver: bool = False, ingest_workers: int = 1,
                  inflate_workers: int = 2, emit_partial_final: bool = False,
                  pad_partial: bool = True, max_items: int | None = None,
-                 launcher=None, **stream_kwargs):
+                 launcher=None, mesh=None, data_axis: str = "data",
+                 sharding=None, **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
+        from blendjax_torch.parallel.sharding import leading_shard_count
+
+        sharding = _batch_layout(mesh, data_axis, sharding)
+        ways = leading_shard_count(sharding)
+        if ways > 1 and int(batch_size) % ways:
+            raise ValueError(
+                f"batch_size={batch_size} must divide evenly over the "
+                f"{ways}-way batch axis of the mesh: every card takes an "
+                "equal shard of each global batch")
+        self.mesh = getattr(sharding, "mesh", None)
+        self.sharding = sharding
+        live = not (hasattr(addresses, "__iter__") and not isinstance(
+            addresses, (list, tuple, str)))
+        # live producers on a split batch: this rank's own rows, agreed
+        self.local_rows = live and ways > 1
+        self.rank_batch = int(batch_size) // (ways if self.local_rows else 1)
+        self._agreement = None
+        if self.local_rows:
+            ranks = int(self.mesh.mesh.numel())
+            if ways != ranks:
+                from blendjax_torch.parallel.mesh import mesh_shape
+
+                raise ValueError(
+                    f"live producers on mesh {mesh_shape(self.mesh)}: each "
+                    "rank assembles its own rows from its own producers, so "
+                    f"the batch axes must cover the mesh ({ways} ways for "
+                    f"{ranks} ranks). Replay a recording on every rank, or "
+                    "fold the model axis into the batch (fsdp)")
+            from blendjax_torch.parallel.mesh import RankAgreement
+
+            self._agreement = RankAgreement(self.mesh)
+            sharding = None  # the rows are this rank's already
 
         self.launcher = launcher
         self._auto_timeout = (
@@ -495,9 +630,11 @@ class StreamDataPipeline:
         self.batch_size = int(batch_size)
         self.prefetch = prefetch
         self.ingest = None
-        self.feeder = DeviceFeeder(device=self.device, prefetch=prefetch)
+        self.feeder = DeviceFeeder(device=self.device, prefetch=prefetch,
+                                   sharding=sharding)
         self.tiles = TileStreamDecoder(
-            device=self.device, chunk=chunk, emit_packed=emit_packed
+            device=self.device, chunk=chunk, emit_packed=emit_packed,
+            sharding=sharding,
         )
 
     def _launcher_on_timeout(self):
@@ -643,7 +780,7 @@ class StreamDataPipeline:
 
             self.shards = streams
             self.ingest = ShardedHostIngest(
-                streams, batch_size=self.batch_size, prefetch=self.prefetch,
+                streams, batch_size=self.rank_batch, prefetch=self.prefetch,
                 emit_partial_final=self.emit_partial_final,
                 max_messages=self.max_items,
                 inflate_workers=self.inflate_workers,
@@ -651,31 +788,97 @@ class StreamDataPipeline:
         else:
             self.shards = [self.stream]
             self.ingest = HostIngest(
-                self.stream, batch_size=self.batch_size,
+                self.stream, batch_size=self.rank_batch,
                 prefetch=self.prefetch,
                 emit_partial_final=self.emit_partial_final,
             ).start()
         self.tiles.reset()
-        source = (self._pad_partial_stage(self.ingest) if self.pad_partial
-                  else self.ingest)
+        source = self.ingest
+        if self.local_rows:
+            source = self._until_tail(source)
+        elif self.pad_partial:
+            source = self._pad_partial_stage(source)
         host = self.tiles.host_stage(source)
         if self.place_in_driver:
             # host batches with their decode plans: the driver's place
             # (``TrainDriver(place=pipeline.feeder.place)``) copies each
             # to the card right before its step
-            return iter(self.tiles.device_stage(host))
-        return iter(self.tiles.device_stage(self.feeder(host)))
+            out = self.tiles.device_stage(host)
+        else:
+            out = self.tiles.device_stage(self.feeder(host))
+        if self._agreement is not None:
+            out = self._agreed(out)
+        return iter(out)
+
+    def _agreed(self, batches):
+        """Live producers on a mesh: before each batch the ranks agree
+        that every one of them has one, of the same form
+        (:func:`_signature`). They all stop when one rank's stream ends or
+        fails (the batches the others hold then are dropped, with a
+        warning); batches of different forms raise. Either way no rank
+        issues a step the others do not."""
+        it = iter(batches)
+        while True:
+            try:
+                batch = next(it)
+            except StopIteration:
+                batch = None
+            except BaseException:
+                self._agreement.gather([-2])  # let the others stop too
+                raise
+            mine = -1 if batch is None else _signature(batch)
+            got = self._agreement.gather([mine])[:, 0]
+            if (got == -2).any():
+                raise RuntimeError(
+                    "the stream of mesh rank(s) "
+                    f"{np.flatnonzero(got == -2).tolist()} failed")
+            if (got < 0).any():
+                if batch is not None:
+                    logger.warning(
+                        "live mesh pipeline: a rank's stream ended; this "
+                        "rank drops the batch it holds and stops with it")
+                    metrics.count("feed.mesh_dropped_batches")
+                return
+            if (got != got[0]).any():
+                raise RuntimeError(
+                    "live mesh pipeline: the ranks' batches differ in form "
+                    "(shapes, chunk length or decode plan), so their steps "
+                    "would issue different collectives; make every rank's "
+                    "producers send the same layout")
+            yield batch
+
+    def _until_tail(self, batches):
+        """Live producers on a mesh: a rank's ragged tail ends its stream
+        (its mask would add a collective to its step that the other ranks'
+        full batches do not issue)."""
+        for hb in batches:
+            if hb.get("_partial"):
+                logger.warning(
+                    "live mesh pipeline: a ragged tail ends this rank's "
+                    "stream")
+                metrics.count("feed.mesh_dropped_batches")
+                return
+            yield hb
 
     def _pad_partial_stage(self, batches):
         """Zero-pad each ``_partial`` tail batch to its bucket of
         ``batch_size`` on the host and add its float32 ``_mask``, before
         the tile handling and the placement, so every later stage sees a
-        bucket shape."""
-        from blendjax_torch.data.batcher import pad_to_bucket
+        bucket shape. On a mesh the buckets are the multiples of the batch
+        axes' size, so every rank keeps an equal share of a padded tail."""
+        from blendjax_torch.data.batcher import bucket_sizes, pad_to_bucket
+        from blendjax_torch.parallel.sharding import leading_shard_count
 
+        buckets = None
+        ways = leading_shard_count(self.sharding)
+        if ways > 1:
+            # never empty: the constructor enforced batch_size % ways
+            buckets = tuple(b for b in bucket_sizes(self.batch_size)
+                            if b % ways == 0)
         for hb in batches:
             if hb.get("_partial"):
-                hb = pad_to_bucket(hb, batch_size=self.batch_size)
+                hb = pad_to_bucket(hb, batch_size=self.batch_size,
+                                   buckets=buckets)
             yield hb
 
     def stop(self) -> None:

@@ -14,8 +14,18 @@ on the caller's current CUDA stream, so an insert queued after a step
 that gathered from the ring cannot overwrite the rows before the step
 read them (stream order).
 
-Sharded rings (``sharding=``) wait for the multi-GPU slice (ROADMAP
-Queue A item 5) and raise ``NotImplementedError``.
+A sharded ring (``sharding=``, a
+:class:`~blendjax_torch.parallel.Sharding` such as
+:func:`~blendjax_torch.parallel.ring_sharding`) splits the capacity axis
+over the batch axes, as the JAX package's: rank ``r`` of ``w`` holds the
+global slots ``[r * C/w, (r + 1) * C/w)``. Slots and draw indices stay
+global (the host bookkeeping is the one-card one); an insert all-gathers
+the ranks' rows of the global batch and each rank writes the rows its
+slots own; a gather fills the rows this rank owns, sums over the batch
+axes (exactly one rank owns each row) and keeps the rows the batch
+sharding gives this rank (:func:`make_ring_gather`), the rows the feeder
+would place on it. A sharded draw reads its indices on the host (which
+rank owns which row), so a step over it runs eagerly, not in a graph.
 """
 
 from __future__ import annotations
@@ -23,15 +33,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-MULTI_GPU = (
-    "a sharded ring waits for the multi-GPU slice of the port "
-    "(ROADMAP Queue A item 5)"
-)
 
 
-def _no_sharding(sharding) -> None:
+def ring_ways(sharding) -> int:
+    """How many ways ``sharding`` splits the capacity axis (1 for None)."""
+    from blendjax_torch.parallel.sharding import (
+        check_sharding,
+        leading_shard_count,
+    )
+
+    return leading_shard_count(check_sharding(sharding))
+
+
+def validate_ring_capacity(capacity: int, sharding) -> None:
+    """Raise when ``capacity`` cannot split evenly over the sharded ring
+    axis, or when the ring sharding puts a model axis on it."""
+    from blendjax_torch.parallel.sharding import validate_batch_sharding
+
+    ways = ring_ways(sharding)
     if sharding is not None:
-        raise NotImplementedError(MULTI_GPU)
+        validate_batch_sharding(sharding, what="ring")
+    if ways > 1 and capacity % ways:
+        raise ValueError(
+            f"capacity={capacity} must divide evenly over the {ways}-way "
+            "sharded ring axis: every card holds an equal slice of the "
+            "reservoir")
+
+
+def _shard_range(capacity: int, sharding) -> tuple:
+    """``(first global slot, slots)`` this rank holds."""
+    from blendjax_torch.parallel.mesh import axes_index
+    from blendjax_torch.parallel.sharding import leading_axes
+
+    ways = ring_ways(sharding)
+    if ways <= 1:
+        return 0, int(capacity)
+    local = int(capacity) // ways
+    return axes_index(sharding.mesh, leading_axes(sharding)) * local, local
 
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -51,14 +89,19 @@ def allocate_ring(capacity: int, fields: dict | None = None, sharding=None,
                   initial: dict | None = None, device=None) -> dict:
     """Preallocate the ring (zeros shaped from ``fields``' rows, on
     ``device`` or the fields' own device), or place a restored snapshot
-    ``initial`` (copied) directly, without a zeros pass first."""
-    _no_sharding(sharding)
+    ``initial`` (copied) directly, without a zeros pass first. A sharded
+    ring holds this rank's ``capacity / ways`` slots; a restored
+    ``initial`` is the whole ring, of which it keeps its slots."""
+    validate_ring_capacity(capacity, sharding)
+    first, local = _shard_range(capacity, sharding)
     if initial is not None:
         tensors = {k: torch.as_tensor(v) for k, v in initial.items()}
-        return {k: t.to(device or t.device, copy=True)
+        return {k: t[first:first + local].to(device or t.device, copy=True)
+                if int(t.shape[0]) == int(capacity) and local != capacity
+                else t.to(device or t.device, copy=True)
                 for k, t in tensors.items()}
     return {
-        k: torch.zeros((int(capacity), *v.shape[1:]), dtype=v.dtype,
+        k: torch.zeros((local, *v.shape[1:]), dtype=v.dtype,
                        device=device or v.device)
         for k, v in fields.items()
     }
@@ -84,11 +127,37 @@ def ring_slot_update(capacity: int, buffers: dict, batch: dict,
 
 
 def make_ring_insert(capacity: int, sharding=None):
-    """``insert(buffers, batch, cursor) -> buffers``, updating in place."""
-    _no_sharding(sharding)
+    """``insert(buffers, batch, cursor) -> buffers``, updating in place.
+    With a sharding, ``batch`` holds this rank's rows of the global batch
+    (the batch sharding's); the global batch's row ``j`` lands in global
+    slot ``(cursor + j) % capacity`` on the rank that holds it."""
+    validate_ring_capacity(capacity, sharding)
+    if ring_ways(sharding) <= 1:
+        def insert(buffers, batch, cursor):
+            return ring_slot_update(capacity, buffers, batch, cursor)
+
+        return insert
+    from blendjax_torch.parallel.collectives import all_gather
+    from blendjax_torch.parallel.sharding import leading_axes
+
+    first, local = _shard_range(capacity, sharding)
+    axes = leading_axes(sharding)
 
     def insert(buffers, batch, cursor):
-        return ring_slot_update(capacity, buffers, batch, cursor)
+        rows = {k: all_gather(v, sharding.mesh, axes, differentiable=False)
+                for k, v in batch.items()}
+        b = int(next(iter(rows.values())).shape[0])
+        if b > capacity:
+            raise ValueError(f"{b} rows do not fit a ring of {capacity}")
+        slots = (int(cursor) + np.arange(b)) % capacity
+        mine = np.flatnonzero((slots >= first) & (slots < first + local))
+        if len(mine):
+            dev = next(iter(buffers.values())).device
+            src = _index_tensor(mine, dev)
+            dst = _index_tensor(slots[mine] - first, dev)
+            for k, buf in buffers.items():
+                buf.index_copy_(0, dst, rows[k].index_select(0, src))
+        return buffers
 
     return insert
 
@@ -113,19 +182,53 @@ def _index_tensor(idx, device) -> torch.Tensor:
     return t
 
 
-def ring_gather(buffers: dict, idx) -> dict:
+def ring_gather(buffers: dict, idx, sharding=None, capacity=None) -> dict:
     """Rows ``idx`` of every ring field (a copy: a later insert does not
-    change what was gathered)."""
+    change what was gathered). With a sharding (and the ring's global
+    ``capacity``), ``idx`` are global slots and every rank gets every row
+    of the draw: each fills the rows its slots own and the ranks sum."""
     dev = next(iter(buffers.values())).device
-    rows = _index_tensor(idx, dev)
-    return {k: v.index_select(0, rows) for k, v in buffers.items()}
+    if ring_ways(sharding) <= 1:
+        rows = _index_tensor(idx, dev)
+        return {k: v.index_select(0, rows) for k, v in buffers.items()}
+    from blendjax_torch.parallel.collectives import all_reduce_sum
+    from blendjax_torch.parallel.sharding import leading_axes
+
+    first, local = _shard_range(capacity, sharding)
+    idx = np.asarray(idx, np.int64)
+    mine = np.flatnonzero((idx >= first) & (idx < first + local))
+    src = _index_tensor(idx[mine] - first, dev)
+    dst = _index_tensor(mine, dev)
+    out = {}
+    for k, v in buffers.items():
+        rows = v.new_zeros((len(idx), *v.shape[1:]))
+        rows.index_copy_(0, dst, v.index_select(0, src))
+        out[k] = all_reduce_sum(rows, sharding.mesh, leading_axes(sharding),
+                                differentiable=False)
+    return out
+
+
+def make_ring_gather(capacity: int | None = None, sharding=None):
+    """``gather(buffers, idx) -> batch``: rows ``idx`` (global slots) as
+    the batch sharding places them, i.e. this rank's rows of the draw."""
+    from blendjax_torch.parallel.sharding import local_rows
+
+    def gather(buffers, idx):
+        rows = ring_gather(buffers, idx, sharding=sharding, capacity=capacity)
+        if sharding is None:
+            return rows
+        return {k: local_rows(v, sharding) for k, v in rows.items()}
+
+    return gather
 
 
 __all__ = [
-    "MULTI_GPU",
     "allocate_ring",
+    "make_ring_gather",
     "make_ring_insert",
     "ring_gather",
     "ring_slot_update",
     "ring_spec",
+    "ring_ways",
+    "validate_ring_capacity",
 ]

@@ -18,9 +18,22 @@ purpose:
   the final LayerNorm, the mean over tokens and the head run in f32.
 
 The token count T is fixed by ``image_shape`` at construction (flax takes
-it from the example input at ``init``). Sequence parallelism (ring,
-ulysses, a mesh), mixture-of-experts blocks and ``remat`` wait for the
-multi-GPU slice (ROADMAP Queue A item 5) and raise ``NotImplementedError``.
+it from the example input at ``init``).
+
+Sequence parallelism (``use_ring=True`` or ``sp_mode="ulysses"``, with a
+``mesh`` from :func:`blendjax_torch.parallel.create_mesh`): every rank of
+the ``seq`` axis runs the model on the same rows (its batch rows), so all
+but attention is computed whole on each; attention takes this rank's
+sequence block of q, k, v
+(:func:`~blendjax_torch.parallel.collectives.scatter_to_axis`, whose
+backward all-gathers the block gradients), runs
+:func:`~blendjax_torch.parallel.ulysses_attention` or
+:func:`~blendjax_torch.parallel.ring_attention` over the axis, and
+all-gathers the output blocks (whose backward keeps this rank's block).
+Without a ``seq`` axis on the mesh both fall back as the JAX package's do
+(Ulysses to the local attention, ring to exact plain attention).
+Mixture-of-experts blocks and ``remat`` wait for ROADMAP Queue A item 5b
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,8 +48,8 @@ from blendjax_torch.ops.image import maybe_normalize_uint8
 from blendjax_torch.precision import default_compute_dtype
 
 LATER_SLICE = (
-    "waits for the multi-GPU slice of the port (ROADMAP Queue A item 5); only "
-    "the local, dense StreamFormer path is ported"
+    "waits for the next multi-GPU slice of the port (ROADMAP Queue A item "
+    "5b: mixture of experts, pipeline parallelism, remat)"
 )
 
 
@@ -64,16 +77,60 @@ def _dense(layer: nn.Linear, x, dtype):
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, dtype=None,
-                 causal: bool = False, attn_backend: str = "auto"):
+                 causal: bool = False, attn_backend: str = "auto",
+                 use_ring: bool = False, mesh=None, seq_axis: str = "seq",
+                 batch_axis: str = "data", sp_mode: str = "ring"):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} must divide into {num_heads} heads")
+        if sp_mode not in ("ring", "ulysses"):
+            raise ValueError(
+                f"unknown sp_mode {sp_mode!r}; use 'ring' or 'ulysses'")
+        # use_ring gates sequence parallelism; asking for the non-default
+        # strategy enables it too
+        self.use_sp = bool(use_ring) or sp_mode == "ulysses"
+        if self.use_sp and mesh is None:
+            raise ValueError("sequence parallelism needs a mesh")
         self.num_heads = int(num_heads)
         self.dtype = dtype
         self.causal = bool(causal)
         self.attn_backend = attn_backend
+        self.mesh = mesh
+        self.seq_axis = seq_axis
+        self.batch_axis = batch_axis
+        self.sp_mode = sp_mode
         self.qkv = nn.Linear(dim, 3 * dim)  # DenseGeneral (C, 3, H, D)
         self.proj = nn.Linear(dim, dim)
+
+    def _sequence_parallel(self, q, k, v):
+        from blendjax_torch.parallel import (
+            all_gather,
+            ring_attention,
+            scatter_to_axis,
+            ulysses_attention,
+        )
+        from blendjax_torch.parallel.mesh import mesh_shape
+
+        mesh, axis = self.mesh, self.seq_axis
+        n = mesh_shape(mesh).get(axis, 1)
+        if axis in mesh_shape(mesh):
+            if q.shape[1] % n:
+                raise ValueError(
+                    f"{q.shape[1]} tokens do not split over the {n}-way "
+                    f"{axis!r} axis")
+            q, k, v = (scatter_to_axis(x, mesh, axis, dim=1)
+                       for x in (q, k, v))
+        if self.sp_mode == "ulysses":
+            o = ulysses_attention(q, k, v, mesh, axis=axis,
+                                  causal=self.causal,
+                                  batch_axis=self.batch_axis,
+                                  backend=self.attn_backend)
+        else:
+            o = ring_attention(q, k, v, mesh, axis=axis, causal=self.causal,
+                               batch_axis=self.batch_axis)
+        if axis in mesh_shape(mesh):
+            o = all_gather(o, mesh, axis, dim=1)
+        return o
 
     def forward(self, x):
         dtype = default_compute_dtype(self.dtype)
@@ -81,19 +138,24 @@ class MultiHeadAttention(nn.Module):
         h = self.num_heads
         qkv = _dense(self.qkv, x, dtype).reshape(b, t, 3, h, c // h)
         q, k, v = (qkv[:, :, i] for i in range(3))  # (B, T, H, D) views
-        o = local_attention(q, k, v, causal=self.causal,
-                            backend=self.attn_backend)
+        if self.use_sp:
+            o = self._sequence_parallel(q, k, v)
+        else:
+            o = local_attention(q, k, v, causal=self.causal,
+                                backend=self.attn_backend)
         return _dense(self.proj, o.to(dtype).reshape(b, t, c), dtype)
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
-                 dtype=None, causal: bool = False, attn_backend: str = "auto"):
+                 dtype=None, causal: bool = False, attn_backend: str = "auto",
+                 **sp):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm(dim)
         self.attn = MultiHeadAttention(dim, num_heads, dtype=dtype,
-                                       causal=causal, attn_backend=attn_backend)
+                                       causal=causal, attn_backend=attn_backend,
+                                       **sp)
         self.norm2 = LayerNorm(dim)
         self.fc1 = nn.Linear(dim, dim * mlp_ratio)
         self.fc2 = nn.Linear(dim * mlp_ratio, dim)
@@ -114,17 +176,22 @@ class StreamFormer(nn.Module):
                  num_heads: int = 8, num_outputs: int = 16, dtype=None,
                  attn_backend: str = "auto", image_shape=(480, 640),
                  in_channels: int = 4, use_ring: bool = False, mesh=None,
+                 seq_axis: str = "seq", batch_axis: str = "data",
                  sp_mode: str = "ring", num_experts: int = 0,
-                 remat: bool = False):
+                 moe_every: int = 2, remat: bool = False):
         super().__init__()
-        for name, asked in (("use_ring", use_ring), ("mesh", mesh is not None),
-                            ("sp_mode='ulysses'", sp_mode == "ulysses"),
-                            ("num_experts > 0", num_experts > 0),
+        for name, asked in (("num_experts > 0", num_experts > 0),
                             ("remat", remat)):
             if asked:
                 raise NotImplementedError(f"StreamFormer {name} {LATER_SLICE}")
-        if sp_mode != "ring":
+        if sp_mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_mode {sp_mode!r}; use 'ring' or 'ulysses'")
+        if mesh is not None:
+            from blendjax_torch.parallel.mesh import check_mesh
+
+            check_mesh(mesh)
+        sp = dict(use_ring=use_ring, mesh=mesh, seq_axis=seq_axis,
+                  batch_axis=batch_axis, sp_mode=sp_mode)
         self.patch = int(patch)
         self.dtype = dtype
         self.image_shape = tuple(int(s) for s in image_shape)
@@ -134,11 +201,25 @@ class StreamFormer(nn.Module):
             torch.zeros(1, self.grid[0] * self.grid[1], dim)
         )
         self.blocks = nn.ModuleList(
-            Block(dim, num_heads, dtype=dtype, attn_backend=attn_backend)
+            Block(dim, num_heads, dtype=dtype, attn_backend=attn_backend, **sp)
             for _ in range(depth)
         )
         self.norm = LayerNorm(dim)
         self.head = nn.Linear(dim, num_outputs)
+
+    def partition_rules(self) -> tuple:
+        """The Megatron-style tensor-parallel layout of this parameter tree
+        (the JAX package's): :data:`~blendjax_torch.parallel.DEFAULT_TP_RULES`
+        plus the output head column-split over ``tp``, on the flax paths
+        of :func:`blendjax_torch.weights.flax_params`."""
+        from blendjax_torch.parallel.sharding import (
+            DEFAULT_TP_RULES,
+            PartitionRule,
+        )
+
+        return DEFAULT_TP_RULES + (
+            PartitionRule(r"^Dense_0/kernel$", ("tp",)),  # output head
+        )
 
     @property
     def tokens(self) -> int:

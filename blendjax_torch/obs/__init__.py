@@ -1,6 +1,5 @@
 """blendjax_torch.obs — end-to-end pipeline telemetry (the port of
-``blendjax/obs``; the fleet view of many processes waits for the
-multi-GPU slice, ROADMAP Queue A item 5).
+``blendjax/obs``).
 
 - :mod:`~blendjax_torch.obs.lineage` — frame lineage: per-producer
   staleness histograms, exact gap/reorder/restart counts and the
@@ -9,6 +8,8 @@ multi-GPU slice, ROADMAP Queue A item 5).
   bound from one metrics snapshot.
 - :mod:`~blendjax_torch.obs.devledger` — the device ledger: per-graph
   FLOPs and memory, live HBM gauges, the retrace audit (``device.*``).
+- :mod:`~blendjax_torch.obs.fleetview` — one report over every rank of a
+  mesh run (``all_gather_object`` of each rank's snapshot).
 - :mod:`~blendjax_torch.obs.exporters` — Prometheus text over a stdlib
   HTTP endpoint, JSONL snapshots, Chrome/Perfetto traces.
 - :mod:`~blendjax_torch.obs.reporter` — ``StatsReporter``, the thread that
@@ -47,6 +48,11 @@ from blendjax_torch.obs.exporters import (  # noqa: F401
     prometheus_text,
     start_http_exporter,
     write_chrome_trace,
+)
+from blendjax_torch.obs.fleetview import (  # noqa: F401
+    fleet_report,
+    gather_fleet_snapshots,
+    process_snapshot,
 )
 from blendjax_torch.obs.lineage import (  # noqa: F401
     FrameLineage,
@@ -90,6 +96,9 @@ __all__ = [
     "prometheus_text",
     "start_http_exporter",
     "write_chrome_trace",
+    "fleet_report",
+    "gather_fleet_snapshots",
+    "process_snapshot",
     "FrameLineage",
     "lineage",
     "strip_stamps",

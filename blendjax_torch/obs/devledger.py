@@ -14,8 +14,15 @@ of each compiled step. The port's counterparts, per captured CUDA graph
    ``ctypes``, which the counter does not see), gathered through the
    capture's launch tally; argument bytes are the graph's static batch
    buffers and the train state it updates in place, output bytes its loss,
-   temp bytes its private memory pool. One card has no collectives
-   (``collective_bytes`` 0). Registration is wired into
+   temp bytes its private memory pool. Collectives are counted from the
+   port's own collective wrappers (:mod:`blendjax_torch.parallel.collectives`),
+   not parsed from a program: the tally of one call's collectives (a
+   captured graph's, recorded at its capture; an eager step's, through
+   :meth:`ExecutableLedger.register_collectives`), in result bytes per
+   kind (``device.collective.{all_reduce,all_gather,reduce_scatter,
+   collective_permute,all_to_all}_bytes``, the JAX package's names) and
+   per mesh axis, summed in ``device.collective_bytes``. A step off a mesh
+   issues none (0). Registration is wired into
    :func:`~blendjax_torch.train.aot.build_aot_step`, into each new
    signature of :class:`~blendjax_torch.train.aot.CapturedStep` and, through
    ``ledger_entries``, into ``TrainDriver.build(aot=True)``, whose
@@ -31,10 +38,6 @@ of each compiled step. The port's counterparts, per captured CUDA graph
    captured mid-run, or an eager fallback on a shape outside an AOT set)
    counts ``device.retraces`` with the signature attributed. A signature
    taken ahead by ``CapturedStep.prepare`` is warm, not a retrace.
-
-Waiting for the multi-GPU slice (ROADMAP Queue A item 5): the HLO
-collective parser and the mesh half of the accounting, with
-``torch.distributed``.
 
 Failure policy: every extraction is guarded; a failed one records
 ``"unavailable"`` and counts ``device.ledger_failures``, never raising
@@ -264,6 +267,25 @@ def _nbytes(tree) -> int:
         tree, "element_size") else 0
 
 
+def _collectives(tally, mesh=None) -> dict:
+    """A ledger entry's ``collectives``: the kinds in the JAX package's
+    order, the per-axis bytes (axes of ``mesh``, a folded group under its
+    joined name) and the mesh's shape."""
+    out = {"total_bytes": 0, "ops": 0,
+           "per_kind": {k: 0 for k in COLLECTIVE_KINDS}, "per_axis": {}}
+    if tally:
+        out["total_bytes"] = int(tally["total_bytes"])
+        out["ops"] = int(tally["ops"])
+        for k in COLLECTIVE_KINDS:
+            out["per_kind"][k] = int(tally["per_kind"].get(k, 0))
+        out["per_axis"] = {k: int(v) for k, v in tally["per_axis"].items()}
+    if mesh is not None:
+        from blendjax_torch.parallel.mesh import mesh_shape
+
+        out["mesh"] = mesh_shape(mesh)
+    return out
+
+
 class ExecutableLedger:
     """Per-signature device accounting plus the runtime HBM poll and the
     retrace event log. One process-wide instance (:data:`ledger`) mirrors
@@ -286,7 +308,7 @@ class ExecutableLedger:
 
     def register(self, name: str, captured, signature=None,
                  batch_images: int | None = None,
-                 segments: list | None = None) -> dict:
+                 segments: list | None = None, mesh=None) -> dict:
         """Account one captured graph (a :class:`blendjax_torch.train.aot`
         ``_Graph``: its ``flops`` and kernel ``work``, its static inputs,
         loss, state bytes and private pool, sized from ``segments``, a
@@ -332,12 +354,26 @@ class ExecutableLedger:
             failures += 1
             logger.debug("memory accounting unavailable for %s", name,
                          exc_info=True)
-        entry["collectives"] = {
-            "total_bytes": 0, "ops": 0,
-            "per_kind": {k: 0 for k in COLLECTIVE_KINDS}, "per_axis": {},
-        }
+        entry["collectives"] = _collectives(
+            getattr(captured, "collectives", None), mesh)
         if failures:
             self.registry.count("device.ledger_failures", failures)
+        with self._lock:
+            self._entries.append(entry)
+        self._publish(entry)
+        return entry
+
+    def register_collectives(self, name: str, tally: dict | None,
+                             mesh=None, batch_images: int | None = None
+                             ) -> dict:
+        """Account the collectives of one eager step call (``tally`` from
+        :func:`blendjax_torch.parallel.collectives.recording`) and publish
+        the ``device.collective*`` gauges; the entry has no FLOP or memory
+        figures."""
+        entry = {"name": name, "signature": None,
+                 "batch_images": int(batch_images) if batch_images else None,
+                 "flops": UNAVAILABLE,
+                 "collectives": _collectives(tally, mesh)}
         with self._lock:
             self._entries.append(entry)
         self._publish(entry)

@@ -872,7 +872,19 @@ def select_decode_kernel(th: int, tw: int, c: int) -> str:
     return "scatter" if th == tw else "spatial"
 
 
-def decode_tile_delta(ref_tiles, idx, tiles, shape):
+def _rank_rows(mesh, data_axis, b: int):
+    """``(start, size)`` of this rank's rows of a ``b``-row batch split
+    over ``data_axis`` of ``mesh`` (None: not split); a batch the axis
+    does not divide raises."""
+    if mesh is None:
+        return None
+    from blendjax_torch.parallel.sharding import rank_range
+
+    return rank_range(mesh, data_axis, b)
+
+
+def decode_tile_delta(ref_tiles, idx, tiles, shape, mesh=None,
+                      data_axis="data"):
     """Reconstruct exact frames on the device of ``ref_tiles``.
 
     ``ref_tiles``: (N, th, tw, C) from :func:`tile_ref`; ``idx``: (B, K)
@@ -881,10 +893,21 @@ def decode_tile_delta(ref_tiles, idx, tiles, shape):
     gather, sentinel rows clamped to a real tile). ``K == 0`` returns the
     reference broadcast without launching a kernel. Otherwise
     :func:`select_decode_kernel` picks K1 or K2. Returns (B, H, W, C)
-    uint8, bit-exact."""
+    uint8, bit-exact.
+
+    With ``mesh`` (one process per card) the batch is split over
+    ``data_axis`` and this rank decodes only its rows, against the
+    reference every rank holds (the JAX package's ``shard_map`` of the
+    kernel over the batch): it returns (B / ways, H, W, C), this rank's
+    rows of the one-card result. ``B`` must divide."""
     import torch
 
     from blendjax_torch.kernels.decode import decode_scatter, decode_spatial
+
+    rows = _rank_rows(mesh, data_axis, int(idx.shape[0]))
+    if rows is not None:
+        idx = idx[rows[0]:rows[0] + rows[1]]
+        tiles = tiles[rows[0]:rows[0] + rows[1]]
 
     h, w, c = (int(s) for s in shape)
     th, tw, ct = (int(s) for s in tiles.shape[-3:])
@@ -910,12 +933,32 @@ def decode_tile_delta(ref_tiles, idx, tiles, shape):
     ).reshape(b, h, w, c)
 
 
-def decode_packed_superbatch(packed, refs, spec, names, geoms, rle_groups=()):
+def _local_fields(fields: dict, rows, b: int) -> dict:
+    """This rank's rows (dim 1) of every (K', B, ...) field; a tile
+    group's palette is per batch (K', colors, C) and stays whole."""
+    if rows is None:
+        return fields
+    start, size = rows
+    return {k: (v[:, start:start + size]
+                if getattr(v, "ndim", 0) >= 2 and v.shape[1] == b
+                and not k.endswith(PALETTE_SUFFIX) else v)
+            for k, v in fields.items()}
+
+
+def decode_packed_superbatch(packed, refs, spec, names, geoms, rle_groups=(),
+                             mesh=None, data_axis="data"):
     """Decode a stacked chunk group ``packed`` (K', total) uint8 to full
     fields: every name's tiles decode flattened over K'*B in one kernel
     call. Returns ``{field: (K', B, ...)}``; sidecar fields keep their
-    (K', ...) shapes."""
+    (K', ...) shapes. With ``mesh`` the packed buffer is every rank's and
+    each rank decodes (and keeps) only its rows of the batch axis, as
+    :func:`decode_tile_delta` with ``mesh``."""
     fields = expand_rle_fields(unpack_fields(packed, spec), rle_groups)
+    b_all = next((int(fields[n + TILEIDX_SUFFIX].shape[1]) for n in names),
+                 None)
+    rows = (_rank_rows(mesh, data_axis, b_all) if b_all is not None
+            else None)
+    fields = _local_fields(fields, rows, b_all)
     for name, geom in zip(names, geoms):
         idx = fields.pop(name + TILEIDX_SUFFIX)
         tiles = pop_tile_payload(fields, name, geom, expand_palette_tiles)
@@ -940,9 +983,14 @@ def decode_packed_pal_batch(packed, spec, pal_groups, rle_groups=()):
     return fields
 
 
-def decode_packed_pal_superbatch(packed, spec, pal_groups, rle_groups=()):
+def decode_packed_pal_superbatch(packed, spec, pal_groups, rle_groups=(),
+                                 mesh=None, data_axis="data"):
     """(K', total) stacked palette buffers -> (K', B, ...) fields; each
     group member gathers through its own palette (the device functions
     above treat leading dims as rows, which is the JAX package's vmap
-    over the chunk axis)."""
-    return decode_packed_pal_batch(packed, spec, pal_groups, rle_groups)
+    over the chunk axis). With ``mesh`` each rank keeps its rows."""
+    fields = decode_packed_pal_batch(packed, spec, pal_groups, rle_groups)
+    if mesh is None or not pal_groups:
+        return fields
+    b = int(fields[pal_groups[0][0]].shape[1])
+    return _local_fields(fields, _rank_rows(mesh, data_axis, b), b)

@@ -11,6 +11,12 @@ from blendjax_torch.train.aot import (
 )
 from blendjax_torch.train.checkpoint import CheckpointManager
 from blendjax_torch.train.driver import TrainDriver
+from blendjax_torch.train.mesh_driver import (
+    MeshTrainDriver,
+    make_mesh_echo_fused_step,
+    make_mesh_fused_step,
+    make_mesh_supervised_step,
+)
 from blendjax_torch.train.steps import (
     TrainState,
     corner_loss,
@@ -26,6 +32,7 @@ __all__ = [
     "AotStepSet",
     "CapturedStep",
     "CheckpointManager",
+    "MeshTrainDriver",
     "TrainDriver",
     "TrainState",
     "batch_specs_for_ladder",
@@ -37,6 +44,9 @@ __all__ = [
     "make_echo_fused_step",
     "make_eval_step",
     "make_fused_tile_step",
+    "make_mesh_echo_fused_step",
+    "make_mesh_fused_step",
+    "make_mesh_supervised_step",
     "make_supervised_step",
     "make_train_state",
 ]

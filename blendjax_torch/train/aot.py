@@ -365,7 +365,8 @@ class _Graph:
     def __init__(self, step, graph, static, loss, updates, launches,
                  variants, generators, stager, flops=None, work=None,
                  state_bytes: int = 0, images: int | None = None,
-                 op_flops_per_image: float | None = None):
+                 op_flops_per_image: float | None = None,
+                 collectives: dict | None = None):
         self.step = step
         self.graph = graph
         self.static = static
@@ -380,6 +381,8 @@ class _Graph:
         self.state_bytes = int(state_bytes)
         self.images = images
         self.op_flops_per_image = op_flops_per_image
+        # the collectives one replay issues (a mesh step's), by kind/axis
+        self.collectives = collectives
         # host launches of the last call: the input copies, two fills per
         # registered generator (the replay writes its seed and offset), the
         # graph launch and the loss clone
@@ -393,6 +396,10 @@ class _Graph:
         self.graph.replay()
         state.step += self.updates
         add_launches(self.launches, self.variants)
+        if self.collectives and self.collectives["ops"]:
+            from blendjax_torch.parallel.collectives import add_counts
+
+            add_counts(self.collectives)
         self.host_launches = copies + 2 * len(self.generators) + 2
         return state, {"loss": self.loss.clone()}
 
@@ -408,6 +415,7 @@ def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
     ``op_flops_per_image`` x images when given, else counted over the
     last warm-up call (:func:`~blendjax_torch.obs.devledger.count_flops`)."""
     from blendjax_torch.kernels.counting import diverted
+    from blendjax_torch.parallel.collectives import recording
 
     device = state_device(state)
     static = _make_static(batch, device)
@@ -418,7 +426,9 @@ def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
     step0 = state.step
     try:
         stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
+        # the warm-up's collectives are not the run's; a mesh step's first
+        # one (its process group's first use) happens here, before capture
+        with torch.cuda.stream(stream), recording():
             for _ in range(_WARMUP - 1):
                 _reseed(step, state, static)
                 with diverted(stream):
@@ -437,8 +447,9 @@ def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
         for gen in generators:
             graph.register_generator_state(gen)
         steps1 = state.step
-        with diverted(stream) as tally, torch.cuda.graph(
-                graph, stream=stream, capture_error_mode=mode):
+        with diverted(stream) as tally, recording() as coll, \
+                torch.cuda.graph(graph, stream=stream,
+                                 capture_error_mode=mode):
             _, out = step(state, static)
         updates = state.step - steps1
     finally:
@@ -450,7 +461,8 @@ def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
     return _Graph(step, graph, static, out["loss"], updates,
                   tally["launches"], tally["variants"], generators, stager,
                   flops=flops, work=work, state_bytes=state_bytes,
-                  images=images, op_flops_per_image=op_flops_per_image)
+                  images=images, op_flops_per_image=op_flops_per_image,
+                  collectives=coll)
 
 
 def pool_bytes(graph, segments: list | None = None) -> int:
@@ -623,8 +635,9 @@ class CapturedStep:
     ``_cache_size`` (the graphs captured) is what
     :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches."""
 
-    def __init__(self, step):
+    def __init__(self, step, mesh=None):
         self.step = step
+        self.mesh = mesh  # a mesh step's: the ledger's per-axis attribution
         self._graphs: dict = {}
         self._stream = None
         self._stager = _HostStager()
@@ -660,7 +673,7 @@ class CapturedStep:
             try:
                 self.ledger_entries.append(ledger.register(
                     "captured_step", graph, signature=sig,
-                    batch_images=graph.images))
+                    batch_images=graph.images, mesh=self.mesh))
             except Exception:  # accounting only
                 logger.debug("device ledger registration failed",
                              exc_info=True)

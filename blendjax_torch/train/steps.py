@@ -20,6 +20,16 @@ work). Update ``k`` of a call draws from slot ``k`` of the augmentation
 (:class:`~blendjax_torch.ops.augment.SeededAugment`) with the seed
 ``fold_seed(augment_rng, state.step)`` of that update, the port's
 ``fold_in(base_rng, state.step)``.
+
+On a mesh (:mod:`blendjax_torch.train.mesh_driver`) each builder takes
+``state_sharding=`` (:func:`blendjax_torch.parallel.state_shardings` of
+the state): the step then issues the collectives the JAX package's jit
+inserts, in the step, with no DDP hook: one all-reduce of the gradients'
+mean over the batch axes per update, and of the loss, so the reported
+loss is the global batch's. A masked (padded) batch weighs each rank's
+loss by its share of the real rows first. A state sharded over a model
+axis (``state.shards``, :class:`~blendjax_torch.parallel.ShardedParams`)
+gathers its parameters before the update and updates its shards after.
 """
 
 from __future__ import annotations
@@ -38,19 +48,45 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # a state split over a model axis: the parameters' and moments' shards
+    shards: object = None
 
 
 def make_train_state(model, optimizer=None, learning_rate: float = 1e-3,
-                     device=None, capturable=None) -> TrainState:
+                     device=None, capturable=None, mesh=None,
+                     rules=None) -> TrainState:
     """Move ``model`` to ``device`` (``cuda`` unless ``device="cpu"``)
     and pair it with AdamW at ``optax.adamw``'s defaults: betas (0.9,
     0.999), eps 1e-8, weight decay 1e-4 (torch's own default is 0.01).
 
     ``capturable`` (``None``: ``True`` on a CUDA device) builds the AdamW
     that a CUDA graph can capture: its step count lives on the card.
-    torch refuses it for CPU parameters, where it stays off."""
+    torch refuses it for CPU parameters, where it stays off.
+
+    With ``mesh`` and partition ``rules`` that split some parameter over a
+    model axis (``fsdp``/``tp``), the state is sharded: its parameters and
+    AdamW moments live as this rank's shards (:class:`~blendjax_torch.parallel.ShardedParams`,
+    ``state.shards``) and ``state.optimizer`` updates those. Every rank
+    must hold the same initial parameters (one seed)."""
     device = resolve_device(device)
     model = model.to(device)
+    if mesh is not None:
+        from blendjax_torch.parallel.sharding import (
+            ShardedParams,
+            model_shardings,
+        )
+
+        rules = tuple(rules or ())
+        if any(sh.sharded for *_rest, sh in model_shardings(model, mesh,
+                                                           rules)):
+            if optimizer is not None:
+                raise ValueError(
+                    "a state sharded over a model axis makes its own AdamW "
+                    "over the shards; pass learning_rate, not optimizer")
+            shards = ShardedParams(model, mesh, rules=rules,
+                                   optimizer_kwargs={"lr": learning_rate})
+            return TrainState(model=model, optimizer=shards.optimizer,
+                              shards=shards)
     if capturable is None:
         capturable = device.type == "cuda"
     if optimizer is None:
@@ -160,15 +196,36 @@ def _grads(state, batch, loss_fn, policy, accum_steps: int):
             tuple(g / accum_steps for g in grad_sum))
 
 
+def _weighted(loss_fn, weight):
+    def weighted(model, batch):
+        return loss_fn(model, batch) * weight
+
+    return weighted
+
+
 def _update(state: TrainState, batch: dict, loss_fn, policy,
-            accum_steps: int = 1) -> torch.Tensor:
-    """One optimizer update on ``batch``; returns its (detached) loss."""
+            accum_steps: int = 1, sharding=None) -> torch.Tensor:
+    """One optimizer update on ``batch``; returns its (detached) loss.
+    ``sharding`` (a :class:`~blendjax_torch.parallel.sharding.StateShardings`)
+    averages the gradients and the loss over the batch axes."""
+    shards = state.shards
+    if shards is not None:
+        shards.gather()
+    if (sharding is not None and sharding.batch_ways > 1
+            and batch.get("_mask") is not None):
+        loss_fn = _weighted(loss_fn, sharding.row_weight(batch["_mask"]))
     loss, grads = _grads(state, batch, loss_fn, policy, accum_steps)
-    state.optimizer.zero_grad(set_to_none=True)
-    params = [p for p in state.model.parameters() if p.requires_grad]
-    for p, g in zip(params, grads):
-        p.grad = g
-    state.optimizer.step()
+    if sharding is not None:
+        grads = sharding.reduce_grads(grads)
+        loss = sharding.reduce_loss(loss)
+    if shards is not None:
+        shards.step(grads)
+    else:
+        state.optimizer.zero_grad(set_to_none=True)
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.optimizer.step()
     state.step += 1
     return loss
 
@@ -205,7 +262,8 @@ def _with_hooks(step, augment=None, base: int = 0, slots=lambda b: 1):
 
 
 def make_supervised_step(loss_fn=None, accum_steps: int = 1, augment=None,
-                         augment_rng=None, precision=None):
+                         augment_rng=None, precision=None,
+                         state_sharding=None):
     """``step(state, batch)``: one optimizer update on ``batch``.
 
     - ``accum_steps=N`` splits the batch's leading axis into N
@@ -217,7 +275,9 @@ def make_supervised_step(loss_fn=None, accum_steps: int = 1, augment=None,
       ``fold_seed(augment_rng, state.step)`` (``augment_rng`` defaults to
       0);
     - ``precision`` names a policy of :mod:`blendjax_torch.precision`
-      (``None``: the default, bf16-compute).
+      (``None``: the default, bf16-compute);
+    - ``state_sharding`` (a mesh run's state shardings) adds the mean of
+      the gradients and the loss over the batch axes.
     """
     loss_fn = loss_fn or _default_loss
     policy = resolve_policy(precision)
@@ -227,17 +287,18 @@ def make_supervised_step(loss_fn=None, accum_steps: int = 1, augment=None,
     def step(state, batch):
         batch = _augmented(batch, augment, base, state, 0)
         return state, {"loss": _update(state, batch, loss_fn, policy,
-                                       accum_steps)}
+                                       accum_steps, state_sharding)}
 
     return _with_hooks(step, augment, base)
 
 
 def make_chunked_supervised_step(loss_fn=None, augment=None, augment_rng=None,
-                                 precision=None):
+                                 precision=None, state_sharding=None):
     """``step(state, superbatch)`` over (K, B, ...) fields: K sequential
     updates (the JAX package's ``lax.scan``); ``loss`` is the K-vector.
-    ``augment``, ``augment_rng`` and ``precision`` as in
-    :func:`make_supervised_step`, update ``k`` augmenting in slot ``k``."""
+    ``augment``, ``augment_rng``, ``precision`` and ``state_sharding`` as
+    in :func:`make_supervised_step`, update ``k`` augmenting in slot
+    ``k``."""
     loss_fn = loss_fn or _default_loss
     policy = resolve_policy(precision)
     base = int(augment_rng or 0)
@@ -247,7 +308,8 @@ def make_chunked_supervised_step(loss_fn=None, augment=None, augment_rng=None,
         for i in range(_lead(superbatch)):
             batch = _augmented({n: v[i] for n, v in superbatch.items()},
                                augment, base, state, i)
-            losses.append(_update(state, batch, loss_fn, policy))
+            losses.append(_update(state, batch, loss_fn, policy,
+                                  sharding=state_sharding))
         return state, {"loss": torch.stack(losses)}
 
     return _with_hooks(step, augment, base, _lead)
@@ -265,32 +327,45 @@ def _raw_fields(batch) -> dict:
 
 
 def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
-                         precision=None):
+                         precision=None, state_sharding=None,
+                         superbatch_constraint=None):
     """``step(state, batch)`` over what ``StreamDataPipeline`` yields: a
     packed chunk group is decoded on the card (tile groups through the
     CUDA decode kernels, full-frame palette groups through the byte-LUT
     gather, deferred run-length buffers first) and trained with K
     updates in the same call; a batch without ``_packed`` (a lone raw
-    batch) trains on its fields directly. ``augment``, ``augment_rng``
-    and ``precision`` as in :func:`make_chunked_supervised_step`."""
+    batch) trains on its fields directly. ``augment``, ``augment_rng``,
+    ``precision`` and ``state_sharding`` as in
+    :func:`make_chunked_supervised_step`.
+
+    ``superbatch_constraint`` (a batch :class:`~blendjax_torch.parallel.Sharding`
+    or None) makes each rank decode (with K1/K2) and train on only its rows
+    of every packed group, which travels whole. A raw batch arrives with
+    this rank's rows already (the feeder's)."""
     from blendjax_torch.ops.tiles import (
         decode_packed_pal_superbatch,
         decode_packed_superbatch,
     )
+    from blendjax_torch.parallel.sharding import check_sharding, leading_axes
 
     chunked = make_chunked_supervised_step(loss_fn, augment, augment_rng,
-                                           precision)
+                                           precision, state_sharding)
+    mesh, axes = None, "data"
+    if check_sharding(superbatch_constraint) is not None:
+        mesh = superbatch_constraint.mesh
+        axes = leading_axes(superbatch_constraint)
 
     def step(state, batch):
         if "_pal" in batch:
             superbatch = decode_packed_pal_superbatch(
                 batch["_packed"], batch["_spec"], batch["_pal"],
-                batch.get("_rle", ()),
+                batch.get("_rle", ()), mesh=mesh, data_axis=axes,
             )
         elif "_packed" in batch:
             superbatch = decode_packed_superbatch(
                 batch["_packed"], batch["_refs"], batch["_spec"],
                 batch["_names"], batch["_geoms"], batch.get("_rle", ()),
+                mesh=mesh, data_axis=axes,
             )
         else:
             superbatch = _raw_fields(batch)
@@ -299,7 +374,8 @@ def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
     return _with_hooks(step, augment, int(augment_rng or 0), _chunk_of)
 
 
-def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None):
+def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None,
+                         state_sharding=None, buffer_sharding=None):
     """``step(state, batch)`` over what ``EchoingPipeline(emit_draws=True)``
     yields: a draw token ``{"_echo_buffers", "_echo_idx", "_echo_counter"}``
     is gathered from the ring and augmented by ``reservoir_draw``
@@ -310,12 +386,23 @@ def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None):
 
     When ``reservoir_draw`` is a reservoir's bound ``draw``, the step's
     host hooks check the token against the ring and seed the draw's
-    generators from its counter (:meth:`SampleReservoir.seed_draw`)."""
+    generators from its counter (:meth:`SampleReservoir.seed_draw`).
+
+    On a mesh: ``state_sharding`` as in :func:`make_supervised_step`;
+    ``buffer_sharding`` is the ring's sharding the step was built for (a
+    reservoir of another layout raises); a draw yields this rank's rows."""
     loss_fn = loss_fn or _default_loss
     policy = resolve_policy(precision)
-    fallback = make_supervised_step(loss_fn, precision=precision)
+    fallback = make_supervised_step(loss_fn, precision=precision,
+                                    state_sharding=state_sharding)
     reservoir = getattr(reservoir_draw, "__self__", None)
     hooked = hasattr(reservoir, "seed_draw")
+    if (buffer_sharding is not None
+            and getattr(reservoir, "sharding", buffer_sharding)
+            != buffer_sharding):
+        raise ValueError(
+            f"the reservoir ring is laid out as {reservoir.sharding!r}, not "
+            f"the {buffer_sharding!r} this step was built for")
 
     def step(state, batch):
         idx = batch.get("_echo_idx")
@@ -325,7 +412,8 @@ def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None):
             return fallback(state, fields)
         drawn = reservoir_draw(batch["_echo_buffers"], idx,
                                batch["_echo_counter"])
-        return state, {"loss": _update(state, drawn, loss_fn, policy)}
+        return state, {"loss": _update(state, drawn, loss_fn, policy,
+                                       sharding=state_sharding)}
 
     def generators(state, batch):
         if hooked and "_echo_idx" in batch:

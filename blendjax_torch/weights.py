@@ -110,15 +110,63 @@ def _cube_params(model) -> list:
     return out
 
 
-def _params(model) -> list:
-    """The flax-named parameters of a ``CubeRegressor``; any other model
-    keeps its own parameter names, untransposed (a snapshot only this
-    package reads)."""
-    from blendjax_torch.models import CubeRegressor
+def _streamformer_params(model) -> list:
+    """``(flax path, parameter, layout)`` of a ``StreamFormer``, in the
+    order of the flax tree (keys sorted at every level, as flax flattens
+    them): the reverse of :func:`streamformer_from_flax`. The qkv
+    ``DenseGeneral`` kernel is ``("general", (3, H, D))`` ((3HD, C) here,
+    (C, 3, H, D) there) and its bias ``("reshape", (3, H, D))``."""
+    out = []
+
+    def add(keys, p, layout=None):
+        out.append((keys, p, layout))
+
+    def dense(keys, layer):
+        add(keys + ("bias",), layer.bias)
+        add(keys + ("kernel",), layer.weight, "dense")
+
+    def norm(keys, ln):
+        add(keys + ("bias",), ln.bias)
+        add(keys + ("scale",), ln.weight)
+
+    dense(("Dense_0",), model.head)
+    norm(("LayerNorm_0",), model.norm)
+    for i, blk in enumerate(model.blocks):
+        pre = (f"block{i}",)
+        dense(pre + ("Dense_0",), blk.fc1)
+        dense(pre + ("Dense_1",), blk.fc2)
+        norm(pre + ("LayerNorm_0",), blk.norm1)
+        norm(pre + ("LayerNorm_1",), blk.norm2)
+        attn = pre + ("MultiHeadAttention_0",)
+        dense(attn + ("proj",), blk.attn.proj)
+        h = blk.attn.num_heads
+        d = blk.attn.proj.in_features // h
+        add(attn + ("qkv", "bias"), blk.attn.qkv.bias, ("reshape", (3, h, d)))
+        add(attn + ("qkv", "kernel"), blk.attn.qkv.weight,
+            ("general", (3, h, d)))
+    add(("patch_embed", "bias"), model.patch_embed.bias)
+    add(("patch_embed", "kernel"), model.patch_embed.weight, "conv")
+    add(("pos_embed",), model.pos_embed)
+    out.sort(key=lambda e: e[0])
+    return [("".join(f"['{k}']" for k in keys), p, layout)
+            for keys, p, layout in out]
+
+
+def flax_params(model) -> list:
+    """``(flax path, parameter, layout)`` of every parameter: the flax names
+    of a ``CubeRegressor`` or a ``StreamFormer``; any other model keeps its
+    own parameter names, untransposed (a snapshot only this package
+    reads)."""
+    from blendjax_torch.models import CubeRegressor, StreamFormer
 
     if isinstance(model, CubeRegressor):
         return _cube_params(model)
+    if isinstance(model, StreamFormer):
+        return _streamformer_params(model)
     return [(f"['{name}']", p, None) for name, p in model.named_parameters()]
+
+
+_params = flax_params
 
 
 def _to_flax(t: torch.Tensor, layout):
@@ -126,6 +174,10 @@ def _to_flax(t: torch.Tensor, layout):
         return t.permute(2, 3, 1, 0)
     if layout == "dense":
         return t.t()
+    if isinstance(layout, tuple) and layout[0] == "general":
+        return t.t().reshape(t.shape[1], *layout[1])
+    if isinstance(layout, tuple) and layout[0] == "reshape":
+        return t.reshape(layout[1])
     return t
 
 
@@ -134,7 +186,38 @@ def _from_flax(a: np.ndarray, layout) -> np.ndarray:
         return a.transpose(3, 2, 0, 1)
     if layout == "dense":
         return a.T
+    if isinstance(layout, tuple) and layout[0] == "general":
+        return a.reshape(a.shape[0], -1).T
+    if isinstance(layout, tuple) and layout[0] == "reshape":
+        return a.reshape(-1)
     return a
+
+
+def _full_shape(state, p) -> tuple:
+    """A parameter's shape; a sharded state's module parameters are empty
+    between steps, so their full shapes come from its shards."""
+    shards = getattr(state, "shards", None)
+    if shards is not None:
+        for q, shard in zip(shards.params, shards.shards):
+            if q is p:
+                return tuple(shard.shape)
+    return tuple(p.shape)
+
+
+def train_state_specs(state) -> list:
+    """``(leaf path, flax-view shape)`` of every leaf of
+    :func:`train_state_leaves`, in its order, without reading a value."""
+    from blendjax_torch.parallel.sharding import _flax_shape
+
+    shapes = [(path, _flax_shape(_full_shape(state, p), layout))
+              for path, p, layout in flax_params(state.model)]
+    out = [(".step", ())]
+    out += [(".params" + path, shape) for path, shape in shapes]
+    out.append((".opt_state[0].count", ()))
+    for key in ("mu", "nu"):
+        out += [(f".opt_state[0].{key}" + path, shape)
+                for path, shape in shapes]
+    return out
 
 
 def train_state_leaves(state) -> dict:
@@ -145,11 +228,19 @@ def train_state_leaves(state) -> dict:
     ``.opt_state[0].mu[...]`` (``exp_avg``) and ``.opt_state[0].nu[...]``
     (``exp_avg_sq``), kernels transposed to flax's layouts.
 
-    A model other than ``CubeRegressor`` keeps its own parameter names,
+    ``CubeRegressor`` and ``StreamFormer`` take the flax names
+    (:func:`flax_params`); another model keeps its own parameter names,
     untransposed: a snapshot the port restores and the JAX package does
     not. The tensors are views of the live state (the snapshot manager
     clones them); no value leaves the card here. An optimizer that has not
-    stepped yet contributes zero moments and count 0, as optax's init."""
+    stepped yet contributes zero moments and count 0, as optax's init.
+
+    A state sharded over a model axis (``state.shards``, a
+    :class:`~blendjax_torch.parallel.ShardedParams`) gathers to the same
+    full leaves: every rank calls this (all-gathers), and every rank gets
+    the leaves one card would hold."""
+    if getattr(state, "shards", None) is not None:
+        return _sharded_leaves(state)
     model, opt = state.model, state.optimizer
     params = _params(model)
     out = {".step": np.asarray(state.step, np.int32)}
@@ -176,7 +267,11 @@ def load_train_state_leaves(state, leaves: dict) -> None:
     ``no_grad``, so a CUDA graph captured over this state replays on the
     restored values (a new tensor would leave the graph on the old
     memory). AdamW entries that do not exist yet are made as AdamW makes
-    them; the one optax ``count`` goes into every parameter's ``step``."""
+    them; the one optax ``count`` goes into every parameter's ``step``.
+    A sharded state (``state.shards``) takes this rank's slice of each
+    leaf into its shards."""
+    if getattr(state, "shards", None) is not None:
+        return _load_sharded(state, leaves)
     model, opt = state.model, state.optimizer
     group = opt.param_groups[0]
     on_device = bool(group.get("capturable") or group.get("fused"))
@@ -206,4 +301,38 @@ def load_train_state_leaves(state, leaves: dict) -> None:
                 _from_flax(leaves[".opt_state[0].mu" + path], layout))
             put(entry["exp_avg_sq"],
                 _from_flax(leaves[".opt_state[0].nu" + path], layout))
+    state.step = int(np.asarray(leaves[".step"]))
+
+
+def _sharded_leaves(state) -> dict:
+    full = {id(p): rest for p, *rest in state.shards.full_leaves()}
+    params = [(path, layout, full[id(p)])
+              for path, p, layout in _params(state.model)]
+    out = {".step": np.asarray(state.step, np.int32)}
+    for path, layout, (value, _mu, _nu, _step) in params:
+        out[".params" + path] = _to_flax(value, layout)
+    step = params[0][2][3] if params else None
+    out[".opt_state[0].count"] = (np.asarray(0, np.int32) if step is None
+                                  else step.detach().to(torch.int32))
+    for key, i in (("mu", 1), ("nu", 2)):
+        for path, layout, vals in params:
+            out[f".opt_state[0].{key}" + path] = _to_flax(vals[i], layout)
+    return out
+
+
+def _load_sharded(state, leaves: dict) -> None:
+    shards = state.shards
+    layouts = {id(p): (path, layout)
+               for path, p, layout in _params(state.model)}
+
+    def full(prefix, p, like):
+        path, layout = layouts[id(p)]
+        a = np.ascontiguousarray(_from_flax(leaves[prefix + path], layout))
+        return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
+
+    values = []
+    for p, shard in zip(shards.params, shards.shards):
+        values.append(tuple(full(pre, p, shard) for pre in (
+            ".params", ".opt_state[0].mu", ".opt_state[0].nu")))
+    shards.load_full(values, int(np.asarray(leaves[".opt_state[0].count"])))
     state.step = int(np.asarray(leaves[".step"]))

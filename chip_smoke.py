@@ -212,6 +212,28 @@ no retrace on the prewarmed legs, then exactly one for an unprepared
 signature fed twice, attributed to it; the HBM gauges after a reporter
 tick, printed beside the allocator's figures and the ladder's pool bytes.
 
+Phase 5g (after the launched, gym and duplex legs), the mesh path on
+``torch.distributed``: an NCCL process group of world size 1 on the card
+(``FileStore`` in the run's temp directory; a failed init ends the run).
+The mesh flagship leg: ``MeshTrainDriver.build(CubeRegressor(),
+create_mesh({"data": -1}), fused=True, aot=True)`` live from the flagship
+stream through ``StreamDataPipeline(mesh=)``, 32 + 96 steps: one graph
+replay per step call, K1 launched, the data axis and world size and its
+img/s beside the single-card flagship's printed; the first step call's
+``device.collective.all_reduce_bytes`` must equal the gradient and loss
+bytes its updates reduce; on the replay leg's recording (deterministic
+algorithms) its losses must be bit-equal to the single-card
+``TrainDriver``'s. The sequence-parallel legs: the full-width
+StreamFormer with ``use_ring=True, sp_mode="ulysses"`` on ``{"data": 1,
+"seq": 1}``, flash attention, eager, 2 + 16 chunk groups of the
+recording: every K4a, K4b and K4c launch inside ``ulysses_attention``
+(each depth x updates times, as many as Ulysses' flash calls), losses
+within K4's bar of the non-mesh step's; then ``sp_mode="ring"`` on the
+same groups, held at the bf16 bar of ``tests/test_torch_parallel.py``
+and at the tighter bar of a one-block ring (world size 1: no hop); then
+one all-to-all and attention through Ulysses against local attention,
+timed. The group is destroyed after.
+
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
 """
@@ -270,6 +292,23 @@ FORMER = {"patch": 20, "dim": 512, "depth": 8, "num_heads": 4,
           "num_outputs": 16}
 # the long-sequence shape of bench.py:1146 (960x1280 frames -> 3072 tokens)
 LONG_ATTN = (4, 3072)
+# the mesh phase (phase 5g), NCCL at world size 1 on the card: the live
+# flagship leg through MeshTrainDriver (fewer steps than the single-card
+# flagship leg: it proves the path, the flagship leg measures the rate),
+# then the sequence-parallel legs of the full-width StreamFormer on the
+# flagship recording, eager (every K4 launch counted through Ulysses)
+MESH_FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 32}
+MESH_SP = {"steps": 16, "warmup": 2}
+# K4's existing bar (the streamformer leg's flash against xla loss bar)
+K4_LOSS_REL = 1e-2
+# ring attention's losses against the flash kernels' in bf16: the bar
+# tests/test_torch_parallel.py states (BF16_LOSS_REL) for a ring of 2 hops
+BF16_LOSS_REL = 2e-2
+# at world size 1 the ring runs one block with no hop (exact attention
+# with an f32 softmax), so the card holds it to a bar set from its
+# readings: rel 3.3e-6 to 5.2e-6 on an H100 (PERF.md); the multi-hop
+# streaming correction and the P2P path are shown by the gloo tests only
+RING_ONE_BLOCK_REL = 1e-4
 # steps of each step builder run eagerly and through its graph from one
 # state in the graph-parity phase
 PARITY_STEPS = 4
@@ -1231,7 +1270,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
             inflate_workers: int = 2, graph_step=None,
             alone: bool = True, record: str | None = None,
             keep_first: int = 0, obs: str | None = None,
-            stages: bool = False) -> dict:
+            stages: bool = False, mesh=None, driver=None) -> dict:
     """One producer leg through the captured fused step (one CUDA graph per
     packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
     graph-parity phase. ``producers`` cube producers publish on ``wire``
@@ -1245,7 +1284,9 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
     start from zero for the leg (:func:`fresh_registry`); its stages and
     verdict are printed (the whole ``stages`` line with ``stages`` or
     ``obs``). ``obs`` (a directory) adds the reporter, the exporter and the
-    Chrome trace (:class:`ObsLeg`)."""
+    Chrome trace (:class:`ObsLeg`). ``mesh`` gives the pipeline a mesh and
+    ``driver`` (a ``MeshTrainDriver`` over ``graph_step`` and ``state``)
+    runs the leg in place of a new ``TrainDriver``."""
     import collections
 
     import torch
@@ -1276,12 +1317,16 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         addrs, batch_size=BATCH, chunk=CHUNK, emit_packed=True,
         timeoutms=60_000, ingest_workers=ingest_workers,
         inflate_workers=inflate_workers,
-        on_timeout=producer_watch(label, procs, logs), **rec,
+        on_timeout=producer_watch(label, procs, logs), mesh=mesh, **rec,
     )
     step = graph_step.step
     replays0 = graph_step.graph_replays
     tap = _FirstLosses(graph_step, keep_first)
-    drv = TrainDriver(tap, state, inflight=2, sync_every=4)
+    if driver is not None:
+        driver.step = tap
+        drv = driver
+    else:
+        drv = TrainDriver(tap, state, inflight=2, sync_every=4)
     total = leg["warmup"] + leg["steps"]
     images = 0
     updates = 0  # optimizer updates submitted: the chunk sizes summed
@@ -2702,6 +2747,334 @@ def duplex_leg(tmp: str, card: str) -> dict:
 # -- phase 5b: graph parity and the supervised AOT set ---------------------------
 
 
+# -- phase 5g: the mesh phase ----------------------------------------------------
+
+
+def init_mesh_group(tmp: str) -> None:
+    """The NCCL process group of world size 1 on card 0, through a
+    ``FileStore`` in the run's temp directory. A failure raises: there is
+    no fallback to another backend."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "nccl-store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", 0))
+
+
+def recorded_losses(prefix: str, n: int, mesh=None) -> dict:
+    """The first ``n`` chunk groups of the flagship recording through a
+    captured fused step from ``CubeRegressor().init_params(0)``: a
+    single-card ``TrainDriver`` or, with ``mesh``, ``MeshTrainDriver.build``
+    (each prewarmed); returns the per-update losses, the launches and the
+    replays."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        CapturedStep,
+        MeshTrainDriver,
+        TrainDriver,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    if mesh is None:
+        state = make_train_state(CubeRegressor().init_params(0))
+        graph_step = CapturedStep(make_fused_tile_step())
+        drv = TrainDriver(graph_step, state, inflight=2, sync_every=4)
+    else:
+        drv = MeshTrainDriver.build(CubeRegressor(), mesh, rng=0, fused=True,
+                                    aot=True, inflight=2, sync_every=4)
+        graph_step, state = drv.step, drv.state
+    prewarm(graph_step, state, FLAGSHIP)
+    tap = _FirstLosses(graph_step, n)
+    drv.step = tap
+    pipe = StreamDataPipeline.from_recording(prefix, batch_size=BATCH,
+                                             emit_packed=True, chunk=CHUNK,
+                                             mesh=mesh)
+    reset_launch_counts()
+    replays0 = graph_step.graph_replays
+    try:
+        for i, batch in enumerate(pipe):
+            drv.submit(batch)
+            if i + 1 >= n:
+                break
+        drv.drain()
+        torch.cuda.synchronize()
+    finally:
+        pipe.stop()
+    return {"losses": tap.values(), "launches": launch_counts(),
+            "replays": graph_step.graph_replays - replays0,
+            "steps": drv.steps}
+
+
+def mesh_flagship_leg(tmp: str, prefix: str, mesh, flagship: dict,
+                      card: str) -> dict:
+    """Phase 5g leg 1: ``MeshTrainDriver.build(CubeRegressor(), mesh,
+    fused=True, aot=True)`` on ``create_mesh({"data": -1})`` (NCCL, world
+    size 1), live from the flagship stream through
+    ``StreamDataPipeline(mesh=)``; one graph replay per step call and K1
+    launched. On the replay leg's recording, its losses must be bit-equal
+    to the single-card ``TrainDriver``'s (both captured, deterministic
+    algorithms). The first step call's all-reduce bytes, which the device
+    ledger publishes, must be the gradient and loss bytes its updates
+    reduce."""
+    import torch.distributed as dist
+
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.parallel.mesh import mesh_shape
+    from blendjax_torch.train import MeshTrainDriver
+
+    drv = MeshTrainDriver.build(CubeRegressor(), mesh, rng=0, fused=True,
+                                aot=True, inflight=2, sync_every=4)
+    leg = run_leg("mesh flagship leg", MESH_FLAGSHIP, drv.state, tmp,
+                  graph_step=drv.step, mesh=mesh, driver=drv, alone=False,
+                  stages=True)
+    if leg["launches"]["decode_spatial"] <= 0:
+        fail("mesh flagship leg never launched decode_spatial (K1)")
+    if leg["dispatch_per_step"] != 1.0:
+        fail(f"mesh flagship leg: {leg['dispatch_per_step']} step calls per "
+             "chunk group")
+    # the collective ledger gate
+    params = sum(p.numel() for p in drv.state.model.parameters())
+    updates = drv.collective_images // BATCH
+    want = updates * (params + 1) * 4  # f32 gradients and the loss
+    tally = drv.collective_tally
+    gauge = leg["obs"]["report"]["gauges"].get(
+        "device.collective.all_reduce_bytes")
+    if tally["per_kind"]["all-reduce"] != want or gauge != want:
+        fail(f"mesh flagship leg: all-reduce bytes {tally['per_kind']} "
+             f"(gauge {gauge}) for {updates} updates of {params} f32 "
+             f"parameters and the loss: want {want}")
+    # bit-equality with the single-card driver on the recording
+    n = REPLAY["compare"]
+    _deterministic(True)
+    try:
+        one = recorded_losses(prefix, n)
+        mesh_run = recorded_losses(prefix, n, mesh)
+    finally:
+        _deterministic(False)
+    if mesh_run["losses"] != one["losses"] or not one["losses"]:
+        diff = max(abs(a - b) for a, b in zip(mesh_run["losses"],
+                                              one["losses"]))
+        fail(f"mesh flagship leg: losses on the recording differ from the "
+             f"single-card TrainDriver's (max |diff| {diff:.3e})")
+    if mesh_run["replays"] != mesh_run["steps"]:
+        fail("mesh flagship leg: not one graph replay per step on the "
+             "recording")
+    shape = mesh_shape(mesh)
+    out = {**leg, "data_axis": shape["data"],
+           "world": dist.get_world_size(), "tally": tally,
+           "replay_launches": mesh_run["launches"],
+           "compared": len(one["losses"])}
+    log(f"mesh flagship leg on {card}: data axis {shape['data']}, world size "
+        f"{out['world']} (NCCL); live {leg['img_s']:.1f} img/s beside the "
+        f"single-card flagship's {flagship['img_s']:.1f} img/s; "
+        f"{producer_text(leg['producers'])}; verdict {leg['verdict']}; "
+        f"{leg['steps']} steps, one graph replay per step call; launches "
+        f"{leg['launches']}; first step call's collectives {tally} "
+        f"({updates} updates x ({params} parameters + the loss) x 4 bytes "
+        f"all-reduced); on the recording the first {len(one['losses'])} "
+        f"updates' losses bit-equal to the single-card TrainDriver's; stats "
+        f"{ {k: drv.stats[k] for k in ('chips', 'processes', 'layout', 'data_axis_size')} }")
+    return out
+
+
+def first_groups(prefix: str, n: int) -> list:
+    """Copies of the recording's first ``n`` packed chunk groups."""
+    from blendjax_torch.data import StreamDataPipeline
+
+    pipe = StreamDataPipeline.from_recording(prefix, batch_size=BATCH,
+                                             emit_packed=True, chunk=CHUNK)
+    out = []
+    try:
+        for batch in pipe:
+            out.append({**batch, "_packed": batch["_packed"].clone()})
+            if len(out) >= n:
+                break
+    finally:
+        pipe.stop()
+    return out
+
+
+def sp_phase(prefix: str, card: str) -> dict:
+    """Phase 5g leg 2: the full-width StreamFormer with ``use_ring=True``,
+    ``sp_mode="ulysses"`` on ``create_mesh({"data": 1, "seq": 1})``, flash
+    attention, through ``MeshTrainDriver.build(fused=True)`` (eager) on the
+    recording's first ``warmup + steps`` chunk groups: every K4a, K4b and
+    K4c launch is Ulysses' (each kernel depth x updates times, as many as
+    Ulysses' flash calls), and the per-update losses match the non-mesh
+    step's on the same groups within K4's bar. Then the same groups with
+    ``sp_mode="ring"``: its largest loss difference, held at the bf16
+    bar and at the one-block bar (``RING_ONE_BLOCK_REL``)."""
+    import torch
+
+    from blendjax_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        variant_counts,
+    )
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import create_mesh, ulysses
+    from blendjax_torch.train import (
+        MeshTrainDriver,
+        TrainDriver,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    mesh = create_mesh({"data": 1, "seq": 1})
+    groups = first_groups(prefix, MESH_SP["warmup"] + MESH_SP["steps"])
+    base = StreamFormer(**FORMER, attn_backend="flash",
+                        image_shape=SHAPE).init_params(0)
+    weights = {k: v.clone() for k, v in base.state_dict().items()}
+
+    def run(label, model, mesh_run):
+        model.load_state_dict(weights)
+        if mesh_run:
+            drv = MeshTrainDriver.build(model, mesh, fused=True,
+                                        loss_fn=former_loss, inflight=2,
+                                        sync_every=4)
+        else:
+            drv = TrainDriver(make_fused_tile_step(former_loss),
+                              make_train_state(model), inflight=2,
+                              sync_every=4)
+        seen, inner = [], drv.step
+
+        def tap(state, batch):
+            state, m = inner(state, batch)
+            seen.append(m["loss"])
+            return state, m
+
+        drv.step = tap
+        updates = 0
+        reset_launch_counts()
+        ulysses.reset_counts()
+        for i, g in enumerate(groups):
+            if i == MESH_SP["warmup"]:
+                drv.drain()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                images = 0
+            drv.submit(g)
+            updates += int(g["_packed"].shape[0])
+            if i >= MESH_SP["warmup"]:
+                images += int(g["_packed"].shape[0]) * BATCH
+        drv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [x for v in seen for x in v.float().reshape(-1).tolist()]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{label}: non-finite loss in {losses}")
+        return {"losses": losses, "launches": launch_counts(),
+                "variants": variant_counts(), "updates": updates,
+                "ulysses_flash_calls": ulysses.flash_calls,
+                "img_s": images / wall, "wall_s": wall}
+
+    def sp_model(mode):
+        return StreamFormer(**FORMER, attn_backend="flash", image_shape=SHAPE,
+                            use_ring=True, sp_mode=mode, mesh=mesh)
+
+    uly = run("ulysses leg", sp_model("ulysses"), True)
+    plain = run("non-mesh streamformer", StreamFormer(
+        **FORMER, attn_backend="flash", image_shape=SHAPE), False)
+    ring = run("ring leg", sp_model("ring"), True)
+    want = FORMER["depth"] * uly["updates"]
+    counts = uly["launches"]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        if counts[name] != want or uly["ulysses_flash_calls"] != want:
+            fail(f"ulysses leg: {name} launched {counts[name]} times and "
+                 f"Ulysses ran {uly['ulysses_flash_calls']} flash calls, not "
+                 f"depth x updates = {want}")
+    if ring["launches"]["flash_attention_fwd"]:
+        fail(f"ring leg launched the flash kernels: {ring['launches']}")
+    if counts["decode_spatial"] <= 0:
+        fail("ulysses leg never launched decode_spatial (K1)")
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+    u_rel = rel(uly["losses"], plain["losses"])
+    r_rel = rel(ring["losses"], plain["losses"])
+    # where the Ulysses step's time goes: one all-to-all, and attention
+    # forward and backward through Ulysses and locally, at the leg's shape
+    from blendjax_torch.ops.attention import local_attention
+    from blendjax_torch.parallel import all_to_all, ulysses_attention
+
+    heads = FORMER["num_heads"]
+    shape = (BATCH, base.tokens, heads, FORMER["dim"] // heads)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(shape, device="cuda", dtype=torch.bfloat16,
+                               generator=gen) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def through(attend):
+        def call():
+            attend().backward(do)
+        return call
+
+    a2a = time_ms(lambda: all_to_all(q.detach(), mesh, "seq", 2, 1),
+                  reps=10, windows=5)
+    via = time_ms(through(lambda: ulysses_attention(
+        q, k, v, mesh, backend="flash")), reps=5, windows=5)
+    local = time_ms(through(lambda: local_attention(
+        q, k, v, backend="flash")), reps=5, windows=5)
+    if not u_rel <= K4_LOSS_REL:
+        fail(f"ulysses leg: per-update losses differ from the non-mesh "
+             f"step's by rel {u_rel:.3e} (bar {K4_LOSS_REL})")
+    if not r_rel <= min(BF16_LOSS_REL, RING_ONE_BLOCK_REL):
+        fail(f"ring leg: per-update losses differ from the non-mesh step's "
+             f"by rel {r_rel:.3e} (one-block bar {RING_ONE_BLOCK_REL}, bf16 "
+             f"bar {BF16_LOSS_REL})")
+    log(f"sequence-parallel legs on {card}: StreamFormer {FORMER} on "
+        f"{ {'data': 1, 'seq': 1} } (NCCL), {uly['updates']} updates each; "
+        f"ulysses: K4a/K4b/K4c launches "
+        f"{[counts[k] for k in ('flash_attention_fwd', 'flash_attention_bwd_dkv', 'flash_attention_bwd_dq')]}"
+        f" = Ulysses' flash calls {uly['ulysses_flash_calls']} = depth x "
+        f"updates {want}, variants {uly['variants']}; "
+        f"{uly['img_s']:.1f} img/s eager over {MESH_SP['steps']} steps "
+        f"beside the non-mesh step's {plain['img_s']:.1f}; largest per-update "
+        f"loss difference against the non-mesh step: ulysses rel {u_rel:.3e} "
+        f"(bar {K4_LOSS_REL}), ring rel {r_rel:.3e} (one-block bar "
+        f"{RING_ONE_BLOCK_REL}, bf16 bar {BF16_LOSS_REL}, ring "
+        f"{ring['img_s']:.1f} img/s)")
+    log(f"ulysses at {shape} bf16 on {card}: one all-to-all (NCCL, one "
+        f"rank) {a2a['ms']:.4f} ms on the card ({a2a['min_ms']:.4f}-"
+        f"{a2a['max_ms']:.4f}), {a2a['host_ms']:.4f} ms of host per call; "
+        f"attention forward and backward through ulysses_attention "
+        f"{via['ms']:.4f} ms (host {via['host_ms']:.4f}) against "
+        f"local_attention's {local['ms']:.4f} ms (host "
+        f"{local['host_ms']:.4f})")
+    return {"ulysses": uly, "plain": plain, "ring": ring,
+            "ulysses_rel": u_rel, "ring_rel": r_rel,
+            "a2a": a2a, "via_ulysses": via, "local": local}
+
+
+def mesh_phase(tmp: str, prefix: str, flagship: dict, card: str) -> dict:
+    """Phase 5g: the NCCL group, the mesh flagship leg, the
+    sequence-parallel legs; the group is destroyed after."""
+    import torch.distributed as dist
+
+    from blendjax_torch.parallel import create_mesh
+
+    init_mesh_group(tmp)
+    try:
+        mesh = create_mesh({"data": -1})
+        return {"flagship": mesh_flagship_leg(tmp, prefix, mesh, flagship,
+                                              card),
+                "sp": sp_phase(prefix, card)}
+    finally:
+        dist.destroy_process_group()
+
+
 def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
     """``make_step()`` run ``len(batches)`` times eagerly on one state and
     through ``CapturedStep(make_step())`` on another made the same way:
@@ -3251,6 +3624,10 @@ def main() -> None:
         duplex = duplex_leg(tmp, card)
         log(f"launched, gym and duplex legs in "
             f"{time.perf_counter() - t0:.1f} s")
+        # phase 5g: the mesh phase (NCCL, world size 1)
+        t0 = time.perf_counter()
+        mesh = mesh_phase(tmp, recording, legs["flagship"], card)
+        log(f"mesh phase in {time.perf_counter() - t0:.1f} s")
     ab = {w: [r["img_s"] for r in ingest["runs"] if r["ingest_workers"] == w]
           for w in sorted(set(INGEST["order"]))}
     log(f"ingest A/B on {card}: live img/s with four producers, by ingest "
@@ -3384,10 +3761,13 @@ def main() -> None:
     for name, meta in KERNELS.items():
         m = measured[name]
         launches = legs[leg_of.get(name, "streamformer")]["launches"][name]
-        if name == "decode_spatial":  # the input side, replay, launched
+        if name == "decode_spatial":  # input side, replay, launched, mesh
             launches += (ingest["k1_launches"]
                          + replay["launches"]["decode_spatial"]
-                         + launched["launches"]["decode_spatial"])
+                         + launched["launches"]["decode_spatial"]
+                         + mesh["flagship"]["launches"]["decode_spatial"])
+        elif name.startswith("flash_attention"):  # the Ulysses leg
+            launches += mesh["sp"]["ulysses"]["launches"][name]
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],

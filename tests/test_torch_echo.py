@@ -219,9 +219,9 @@ def test_ring_insert_and_gather_match_jax():
 
 
 def test_ring_refuses_a_sharding_and_overfull_batches():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
+    with pytest.raises(TypeError, match="Sharding"):
         R.allocate_ring(4, {"x": torch.zeros(1)}, sharding=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="Sharding"):
         R.make_ring_insert(4, sharding=object())
     bufs = R.allocate_ring(2, {"x": torch.zeros(1, 3)})
     with pytest.raises(ValueError, match="do not fit"):
@@ -470,8 +470,9 @@ def test_echo_pipeline_refuses_what_it_cannot_echo():
                                 emit_packed=True)
     with pytest.raises(ValueError, match="emit_packed=False"):
         EchoingPipeline(packed, device="cpu")
-    for kw in ({"mesh": object()}, {"sharding": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
+    for kw, what in (({"mesh": object()}, "DeviceMesh"),
+                     ({"sharding": object()}, "Sharding")):
+        with pytest.raises(TypeError, match=what):
             EchoingPipeline([], device="cpu", **kw)
     with pytest.raises(ValueError, match="min_fresh_fraction"):
         EchoingPipeline([], device="cpu", min_fresh_fraction=1.5)

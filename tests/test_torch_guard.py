@@ -140,6 +140,30 @@ def test_the_control_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+MESH_MODULES = [
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+    "parallel/collectives.py", "parallel/ulysses.py", "parallel/ring.py",
+    "train/mesh_driver.py", "obs/fleetview.py",
+]
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_the_multi_gpu_slice_modules_are_scanned(module):
+    """The meshes, shardings, collectives, sequence parallelism, the mesh
+    driver and the fleet view are in the scan above, and each imports
+    nothing of JAX or of the JAX package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_the_rank_helper_of_the_mesh_tests_imports_no_jax():
+    """``spawn`` re-imports the rank bodies' module in every rank: it must
+    import neither JAX nor the JAX package."""
+    path = os.path.join(REPO, "tests", "torch_dist_ranks.py")
+    assert _forbidden_imports(path) == []
+
+
 TORCH_FREE = ("producer", "launcher", "transport", "env")
 
 

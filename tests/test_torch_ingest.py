@@ -458,6 +458,14 @@ def test_the_stream_records_exactly_what_it_received(tmp_path, decode_ahead):
         if pool is not None:
             pool.shutdown()
     feeder.join(timeout=10)
+    if feeder.is_alive():
+        # the stream stopped at max_items before every item left the
+        # publisher: give the blocked sends a peer, so the socket is not
+        # closed under the sending thread
+        sink = zmq.Context.instance().socket(zmq.PULL)
+        sink.connect(pub.addr)
+        feeder.join(timeout=10)
+        sink.close(linger=0)
     pub.close()
     assert got == list(range(7))
     path = str(tmp_path / "rec_00.bjr")

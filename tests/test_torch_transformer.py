@@ -291,5 +291,13 @@ def test_converter_names_match_a_real_flax_tree():
     {"num_experts": 2}, {"remat": True},
 ])
 def test_later_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
+    """Mixture of experts and remat wait for Queue A item 5b; sequence
+    parallelism is ported and needs a torch DeviceMesh."""
+    if "num_experts" in kwargs or "remat" in kwargs:
+        err, match = NotImplementedError, "ROADMAP Queue A item 5b"
+    elif "mesh" in kwargs:
+        err, match = TypeError, "DeviceMesh"
+    else:
+        err, match = ValueError, "needs a mesh"
+    with pytest.raises(err, match=match):
         StreamFormer(**SMALL, **kwargs)
