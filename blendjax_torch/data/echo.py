@@ -267,6 +267,7 @@ class SampleReservoir:
         uses; no device work happens here."""
         self._require()
         token = {
+            "_by_reference": ("_echo_buffers",),
             "_echo_buffers": self._buffers,
             "_echo_idx": np.asarray(idx, np.int64),
             "_echo_counter": self._draws,
@@ -338,8 +339,9 @@ class EchoingPipeline:
     - ``augment``: ``"default"`` (:func:`default_echo_augment`), ``None``
       (raw repeats) or ``fn(seed, batch) -> batch``.
     - ``emit_draws``: yield draw tokens ``{"_echo_buffers", "_echo_idx",
-      "_echo_counter"}`` for ``make_echo_fused_step`` instead of gathered
-      batches; composition, accounting and augmentation are the same.
+      "_echo_counter", "_by_reference"}`` for ``make_echo_fused_step``
+      instead of gathered batches; composition, accounting and
+      augmentation are the same.
     - ``device``: where the reservoir lives; ``None`` takes the inner
       pipeline's device, else ``cuda`` (raises without a GPU).
     - ``warm_start``: a recording (path, list or prefix) that fills the

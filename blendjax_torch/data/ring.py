@@ -201,10 +201,13 @@ def ring_gather(buffers: dict, idx, sharding=None, capacity=None) -> dict:
     dst = _index_tensor(mine, dev)
     out = {}
     for k, v in buffers.items():
-        rows = v.new_zeros((len(idx), *v.shape[1:]))
-        rows.index_copy_(0, dst, v.index_select(0, src))
-        out[k] = all_reduce_sum(rows, sharding.mesh, leading_axes(sharding),
-                                differentiable=False)
+        # a bool field sums as bytes (one rank owns each row)
+        w = v.view(torch.uint8) if v.dtype == torch.bool else v
+        rows = w.new_zeros((len(idx), *w.shape[1:]))
+        rows.index_copy_(0, dst, w.index_select(0, src))
+        rows = all_reduce_sum(rows, sharding.mesh, leading_axes(sharding),
+                              differentiable=False)
+        out[k] = rows.view(torch.bool) if v.dtype == torch.bool else rows
     return out
 
 

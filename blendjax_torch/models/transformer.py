@@ -1,5 +1,5 @@
 """StreamFormer: a compact vision transformer over image streams (port of
-``blendjax/models/transformer.py``, the local dense path).
+``blendjax/models/transformer.py``).
 
 Takes the streamed frames as they arrive, NHWC uint8 (B, H, W, C), and
 returns (B, num_outputs) f32. Behaviours of the flax original kept on
@@ -32,8 +32,15 @@ backward all-gathers the block gradients), runs
 all-gathers the output blocks (whose backward keeps this rank's block).
 Without a ``seq`` axis on the mesh both fall back as the JAX package's do
 (Ulysses to the local attention, ring to exact plain attention).
-Mixture-of-experts blocks and ``remat`` wait for ROADMAP Queue A item 5b
-and raise ``NotImplementedError``.
+
+Mixture of experts (``num_experts > 0``): block ``i`` with
+``i % moe_every == 0`` takes a :class:`~blendjax_torch.models.moe.MoEMLP`
+in place of its dense MLP (flax path ``block{i}/MoEMLP_0``). ``remat=True``
+runs each block under ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``: its activations are recomputed in the backward
+pass (attention's forward kernel runs twice per block and update), and
+the parameter names do not change, as the reference's explicit
+``block{i}`` names promise.
 """
 
 from __future__ import annotations
@@ -41,17 +48,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from blendjax_torch.models.cnn import lecun_normal_, same_pads
+from blendjax_torch.models.moe import MoEMLP
 from blendjax_torch.ops.attention import local_attention
 from blendjax_torch.ops.image import maybe_normalize_uint8
 from blendjax_torch.precision import default_compute_dtype
-
-LATER_SLICE = (
-    "waits for the next multi-GPU slice of the port (ROADMAP Queue A item "
-    "5b: mixture of experts, pipeline parallelism, remat)"
-)
-
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=jnp.float32)``: f32 statistics with the
@@ -147,9 +150,12 @@ class MultiHeadAttention(nn.Module):
 
 
 class Block(nn.Module):
+    """LayerNorm, attention, LayerNorm, then a dense MLP or, with
+    ``num_experts > 0``, a Switch mixture of experts (``self.moe``)."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype=None, causal: bool = False, attn_backend: str = "auto",
-                 **sp):
+                 num_experts: int = 0, **sp):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm(dim)
@@ -157,12 +163,18 @@ class Block(nn.Module):
                                        causal=causal, attn_backend=attn_backend,
                                        **sp)
         self.norm2 = LayerNorm(dim)
-        self.fc1 = nn.Linear(dim, dim * mlp_ratio)
-        self.fc2 = nn.Linear(dim * mlp_ratio, dim)
+        if num_experts > 0:
+            self.moe = MoEMLP(dim, num_experts, mlp_ratio=mlp_ratio,
+                              dtype=dtype)
+        else:
+            self.fc1 = nn.Linear(dim, dim * mlp_ratio)
+            self.fc2 = nn.Linear(dim * mlp_ratio, dim)
 
     def forward(self, x):
         dtype = default_compute_dtype(self.dtype)
         x = x + self.attn(self.norm1(x))
+        if hasattr(self, "moe"):
+            return x + self.moe(self.norm2(x))
         y = F.gelu(_dense(self.fc1, self.norm2(x), dtype), approximate="tanh")
         return x + _dense(self.fc2, y, dtype)
 
@@ -180,10 +192,6 @@ class StreamFormer(nn.Module):
                  sp_mode: str = "ring", num_experts: int = 0,
                  moe_every: int = 2, remat: bool = False):
         super().__init__()
-        for name, asked in (("num_experts > 0", num_experts > 0),
-                            ("remat", remat)):
-            if asked:
-                raise NotImplementedError(f"StreamFormer {name} {LATER_SLICE}")
         if sp_mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_mode {sp_mode!r}; use 'ring' or 'ulysses'")
         if mesh is not None:
@@ -200,9 +208,14 @@ class StreamFormer(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.zeros(1, self.grid[0] * self.grid[1], dim)
         )
+        self.num_experts = int(num_experts)
+        self.moe_every = max(1, int(moe_every))
+        self.remat = bool(remat)
         self.blocks = nn.ModuleList(
-            Block(dim, num_heads, dtype=dtype, attn_backend=attn_backend, **sp)
-            for _ in range(depth)
+            Block(dim, num_heads, dtype=dtype, attn_backend=attn_backend,
+                  num_experts=(self.num_experts if self.num_experts > 0
+                               and i % self.moe_every == 0 else 0), **sp)
+            for i in range(depth)
         )
         self.norm = LayerNorm(dim)
         self.head = nn.Linear(dim, num_outputs)
@@ -227,8 +240,9 @@ class StreamFormer(nn.Module):
 
     def init_params(self, seed: int = 0) -> "StreamFormer":
         """flax's default initialisation, from an explicit generator:
-        LeCun-normal kernels (truncated; the qkv fan-in is C), zero biases,
-        ``pos_embed`` normal(0.02), LayerNorm scale 1 and bias 0."""
+        LeCun-normal kernels (truncated; the qkv fan-in is C, an expert
+        kernel's E x its input dim), zero biases, ``pos_embed``
+        normal(0.02), LayerNorm scale 1 and bias 0."""
         gen = torch.Generator().manual_seed(int(seed))
         with torch.no_grad():
             for mod in self.modules():
@@ -238,6 +252,12 @@ class StreamFormer(nn.Module):
                 elif isinstance(mod, LayerNorm):
                     mod.weight.fill_(1.0)
                     mod.bias.zero_()
+                elif isinstance(mod, MoEMLP):
+                    # flax's fan-in of an (E, in, out) kernel is E * in
+                    for w in (mod.expert_wi, mod.expert_wo):
+                        lecun_normal_(w.permute(2, 0, 1), gen)
+                    mod.expert_bi.zero_()
+                    mod.expert_bo.zero_()
             pos = torch.empty(self.pos_embed.shape)
             nn.init.normal_(pos, std=0.02, generator=gen)
             self.pos_embed.copy_(pos)
@@ -258,6 +278,12 @@ class StreamFormer(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         x = x + self.pos_embed.to(dtype)
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                # the blocks draw no random numbers: no RNG state to keep
+                # (saving it would read the generator inside a capture)
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x)
         x = self.norm(x).mean(dim=1)
         return _dense(self.head, x, torch.float32)

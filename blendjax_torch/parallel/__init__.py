@@ -1,13 +1,11 @@
 """Multi-GPU parallelism on ``torch.distributed`` (port of
 ``blendjax/parallel``): device meshes, shardings, partition rules and
 layouts, collectives over a named axis, and sequence parallelism (ring
-and Ulysses attention).
+and Ulysses attention) and GPipe pipeline parallelism (:mod:`.pipeline`).
 
 One process per card: the JAX package drives every device from one
 process, the port runs one process per card, so its mesh path is the JAX
-package's multi-host form even on one host (:mod:`.mesh`). Pipeline
-parallelism (``blendjax/parallel/pipeline.py``) is ported in a later slice
-(ROADMAP Queue A item 5b).
+package's multi-host form even on one host (:mod:`.mesh`).
 """
 
 from blendjax_torch.parallel.collectives import (
@@ -19,6 +17,7 @@ from blendjax_torch.parallel.collectives import (
     scatter_to_axis,
 )
 from blendjax_torch.parallel.mesh import MeshSpec, create_mesh
+from blendjax_torch.parallel.pipeline import pipeline_apply, stack_stage_params
 from blendjax_torch.parallel.ring import ring_attention
 from blendjax_torch.parallel.sharding import (
     DEFAULT_TP_RULES,
@@ -59,6 +58,7 @@ __all__ = [
     "leading_shard_count",
     "mesh_chip_count",
     "param_sharding_rules",
+    "pipeline_apply",
     "replicated",
     "resolve_layout",
     "resolve_rules",
@@ -67,6 +67,7 @@ __all__ = [
     "ring_sharding",
     "scatter_to_axis",
     "shard_params",
+    "stack_stage_params",
     "state_resident_bytes",
     "state_shardings",
     "ulysses_attention",

@@ -30,12 +30,15 @@ one-process-per-card form a batch sharding says which rows a rank keeps
 :class:`StateShardings`, which also carries the explicit collectives the
 step issues where the JAX package's jit puts them: the gradient and loss
 means over the batch axes. :class:`ShardedParams` holds a state sharded
-over a model axis (``fsdp``/``tp``): each rank keeps its shard of every
-parameter and AdamW moment as a plain tensor, gathers the full parameters
-for the step (gather on use) and updates its shard (ZeRO-3; AdamW is
-elementwise, so the update is the replicated one). Both axes split the
-state only: ``tp`` has the rules' placements but no split of the matmuls,
-so the ranks of a ``tp`` group compute the same step (ROADMAP item 5b).
+over a model axis (``fsdp``/``tp``/``expert``): each rank keeps its shard
+of every parameter and AdamW moment as a plain tensor, gathers the full
+parameters for the step (gather on use) and updates its shard (ZeRO-3;
+AdamW is elementwise, so the update is the replicated one). These axes
+split the state only: ``tp`` has the rules' placements but no split of
+the matmuls, and ``expert`` places a mixture of experts' ``expert_*``
+weights on dim 0 with no all-to-all of the tokens to their experts' ranks,
+so the ranks of a ``tp`` or ``expert`` group compute the same step
+(ROADMAP item 5c).
 """
 
 from __future__ import annotations
@@ -575,7 +578,7 @@ class ShardedParams:
     the batch (its ranks train on their own rows), while the ranks of a
     ``tp`` group train on the same rows with the same gathered parameters.
     ``tp`` is a state-only layout here, the rules' placements with no
-    column or row split of the matmuls (ROADMAP item 5b)."""
+    column or row split of the matmuls (ROADMAP item 5c)."""
 
     def __init__(self, model, mesh, rules=(), optimizer_kwargs=None):
         import torch

@@ -43,6 +43,11 @@ class PrecisionPolicy:
     grad_reduce_dtype: torch.dtype | None = None
     accum_dtype: torch.dtype = torch.float32
 
+    def module_kwargs(self) -> dict:
+        """Constructor kwargs for the port's models
+        (``CubeRegressor(**policy.module_kwargs())``)."""
+        return {"dtype": self.compute_dtype}
+
 
 F32 = PrecisionPolicy("f32", compute_dtype=torch.float32)
 BF16_COMPUTE = PrecisionPolicy("bf16-compute", compute_dtype=torch.bfloat16)
@@ -102,10 +107,15 @@ class _Bound(torch.nn.Module):
         return self.loss_fn(self.model, batch)
 
 
-def policy_value_and_grad(loss_fn, model, batch, policy: PrecisionPolicy):
+def policy_value_and_grad(loss_fn, model, batch, policy: PrecisionPolicy,
+                          has_aux: bool = False):
     """``(loss, grads)`` of ``loss_fn(model, batch)`` under ``policy``, the
     one gradient path every step builder shares; ``grads`` lines up with
     the model's parameters that require a gradient.
+
+    ``has_aux`` mirrors ``jax.value_and_grad``: ``loss_fn`` returns
+    ``(loss, aux)`` and so does the value side, ``((loss, aux), grads)``
+    (the RL steps carry each row's TD error out of the loss this way).
 
     With ``grad_reduce_dtype`` unset this is the plain backward pass. With
     it set (``bf16-grads``) the loss is taken with every floating
@@ -116,13 +126,15 @@ def policy_value_and_grad(loss_fn, model, batch, policy: PrecisionPolicy):
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
     if policy.grad_reduce_dtype is None:
-        loss = loss_fn(model, batch)
-        return loss, torch.autograd.grad(loss, params)
+        value = loss_fn(model, batch)
+        loss = value[0] if has_aux else value
+        return value, torch.autograd.grad(loss, params)
     low = {f"model.{n}": p.detach().to(policy.grad_reduce_dtype)
            .requires_grad_() for n, p in named}
-    loss = torch.func.functional_call(_Bound(model, loss_fn), low, (batch,))
+    value = torch.func.functional_call(_Bound(model, loss_fn), low, (batch,))
+    loss = value[0] if has_aux else value
     grads = torch.autograd.grad(loss, list(low.values()))
-    return loss, tuple(g.to(p.dtype) for g, p in zip(grads, params))
+    return value, tuple(g.to(p.dtype) for g, p in zip(grads, params))
 
 
 __all__ = [

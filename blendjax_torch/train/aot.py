@@ -12,8 +12,9 @@ AdamW), replayed with one launch per step call.
   and returns an :class:`AotStepSet`; a batch outside the set runs the
   eager step and counts ``aot_fallbacks``, as the JAX set falls back to
   jit.
-- :class:`CapturedStep` wraps the fused tile step and the echo step: their
-  signature includes the packed group's static host plan (``_spec``,
+- :class:`CapturedStep` wraps the fused tile step, the echo step and the
+  RL learner steps (:mod:`blendjax_torch.rl.steps`): their signature
+  includes the packed group's static host plan (``_spec``,
   ``_names``, ``_geoms``, ``_rle``, ``_pal``), the counterpart of jit's
   cache keyed on static arguments, so each new plan is captured the first
   time it is seen and replayed on that same batch.
@@ -57,7 +58,6 @@ built in that directory.
 
 from __future__ import annotations
 
-import collections
 import hashlib
 import json
 import logging
@@ -71,6 +71,7 @@ import torch
 
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.data.batcher import bucket_sizes
+from blendjax_torch.device import HostStager
 from blendjax_torch.obs.devledger import count_flops, ledger
 from blendjax_torch.train.steps import batch_images, state_device
 from blendjax_torch.utils.metrics import metrics
@@ -93,10 +94,17 @@ _MANIFEST = "aot_manifest.json"
 _WARMUP = 2
 # host sidecars that never enter a graph: the draw counter reaches the
 # graph through the generators' seeds, ``_meta`` is host bookkeeping
-_UNKEYED = ("_meta", "_echo_counter")
-# the echo ring is read in place: its storage never moves, and a copy of
-# it per call would move the whole ring
-_BY_REFERENCE = ("_echo_buffers",)
+# host bookkeeping; ``_by_reference`` is the token's own list of the
+# entries read in place
+_UNKEYED = ("_meta", "_echo_counter", "_by_reference")
+
+
+def _by_reference(batch: dict) -> tuple:
+    """The entries a draw token lists under ``_by_reference``: device
+    state read in place (a ring, a priority vector the step updates),
+    whose storage never moves and a copy of which per call would move the
+    whole ring."""
+    return tuple(batch.get("_by_reference", ()))
 
 
 # -- persistent cache wiring --------------------------------------------------
@@ -231,13 +239,15 @@ def _plan_signature(batch: dict) -> tuple:
     and dtype, each host plan entry by value, the echo ring by its
     storage, and nothing of ``_meta`` or the draw counter."""
     out = []
+    by_ref = _by_reference(batch)
     for k in sorted(batch):
         v = batch[k]
         if k in _UNKEYED:
             continue
-        if k in _BY_REFERENCE:
+        if k in by_ref:
+            tensors = sorted(v.items()) if isinstance(v, dict) else [("", v)]
             out.append((k, tuple((n, t.data_ptr(), tuple(t.shape), str(t.dtype))
-                                 for n, t in sorted(v.items()))))
+                                 for n, t in tensors)))
         elif isinstance(v, (torch.Tensor, np.ndarray)):
             out.append((k, tuple(v.shape), str(v.dtype)))
         elif isinstance(v, dict):
@@ -250,57 +260,28 @@ def _plan_signature(batch: dict) -> tuple:
 
 # -- static inputs ------------------------------------------------------------
 
-class _HostStager:
-    """Host arrays -> device tensors through a ring of pinned buffers per
-    shape and dtype, each reused once the copy that last read it is done,
-    so a copy never waits for the queued steps."""
-
-    SLOTS = 4
-
-    def __init__(self):
-        self._rings: dict = {}
-
-    def copy(self, dst: torch.Tensor, arr) -> None:
-        src = torch.from_numpy(np.ascontiguousarray(arr))
-        if dst.device.type != "cuda":
-            dst.copy_(src)
-            return
-        ring = self._rings.setdefault((src.shape, src.dtype),
-                                      collections.deque())
-        if len(ring) < self.SLOTS:
-            entry = [torch.empty(src.shape, dtype=src.dtype).pin_memory(),
-                     None]
-        else:
-            entry = ring.popleft()
-            entry[1].synchronize()  # the copy out of it has finished
-        ring.append(entry)
-        entry[0].copy_(src)
-        dst.copy_(entry[0], non_blocking=True)
-        entry[1] = torch.cuda.Event()
-        entry[1].record()
-
-
-def _make_static(value, device, key: str = ""):
+def _make_static(value, device):
     """The static counterpart of a batch value: tensors and host arrays
-    become device tensors of their own, dicts recurse, the echo ring and
-    host plan entries pass as they are."""
-    if key in _BY_REFERENCE or key in _UNKEYED:
-        return value
+    become device tensors of their own, dicts recurse, a token's
+    by-reference entries and host plan entries pass as they are."""
     if isinstance(value, torch.Tensor):
         return value.detach().to(device, copy=True)
     if isinstance(value, np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(value)).to(device)
     if isinstance(value, dict):
-        return {k: _make_static(v, device, k) for k, v in value.items()}
+        keep = _UNKEYED + _by_reference(value)
+        return {k: v if k in keep else _make_static(v, device)
+                for k, v in value.items()}
     return value
 
 
-def _load(static: dict, batch: dict, stager: _HostStager) -> int:
+def _load(static: dict, batch: dict, stager: HostStager) -> int:
     """Copy ``batch`` into ``static`` on the current stream; returns the
     number of copies queued."""
     copies = 0
+    keep = _UNKEYED + _by_reference(batch)
     for k, dst in static.items():
-        if k in _BY_REFERENCE or k in _UNKEYED:
+        if k in keep:
             continue
         src = batch[k]
         if isinstance(dst, dict):
@@ -316,12 +297,18 @@ def _load(static: dict, batch: dict, stager: _HostStager) -> int:
 
 # -- capture ------------------------------------------------------------------
 
-def _state_tensors(state) -> list:
+def _state_tensors(state, step=None, batch=None) -> list:
     """The model's parameters and buffers, then every tensor of the
-    optimizer's state, as ``(key, tensor)`` in a fixed order."""
+    optimizer's state, as ``(key, tensor)`` in a fixed order; with
+    ``step``, also what its ``in_place(state, batch)`` hook lists (the
+    tensors it updates in place beyond the model and the optimizer, such
+    as a target network or a priority vector)."""
     model = state.model
     out = [(("param", i), p) for i, p in enumerate(model.parameters())]
     out += [(("buffer", i), b) for i, b in enumerate(model.buffers())]
+    hook = getattr(step, "in_place", None)
+    if hook is not None:
+        out += [(("in_place", i), t) for i, t in enumerate(hook(state, batch))]
     index = {id(p): i for i, p in enumerate(model.parameters())}
     for p, entry in state.optimizer.state.items():
         for name, t in entry.items():
@@ -330,13 +317,14 @@ def _state_tensors(state) -> list:
     return out
 
 
-def _snapshot(state) -> dict:
-    return {key: t.detach().clone() for key, t in _state_tensors(state)}
+def _snapshot(state, step=None, batch=None) -> dict:
+    return {key: t.detach().clone()
+            for key, t in _state_tensors(state, step, batch)}
 
 
-def _restore(state, snap: dict) -> None:
+def _restore(state, snap: dict, step=None, batch=None) -> None:
     with torch.no_grad():
-        for key, t in _state_tensors(state):
+        for key, t in _state_tensors(state, step, batch):
             if key in snap:
                 t.copy_(snap[key])
             else:  # made during warm-up: a fresh Adam entry is zeros
@@ -404,7 +392,7 @@ class _Graph:
         return state, {"loss": self.loss.clone()}
 
 
-def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
+def _capture(step, state, batch, stream, mode: str, stager: HostStager,
              op_flops_per_image: float | None = None) -> _Graph:
     """Warm up ``step`` on ``batch`` (as static buffers) on ``stream``,
     capture one call into a new graph with its own memory pool, and put
@@ -420,9 +408,8 @@ def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
     device = state_device(state)
     static = _make_static(batch, device)
     images = batch_images(batch)
-    snap = _snapshot(state)
-    state_bytes = sum(t.numel() * t.element_size()
-                      for _k, t in _state_tensors(state))
+    snap = _snapshot(state, step, batch)
+    state_bytes = sum(t.numel() * t.element_size() for t in snap.values())
     step0 = state.step
     try:
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -453,7 +440,7 @@ def _capture(step, state, batch, stream, mode: str, stager: _HostStager,
             _, out = step(state, static)
         updates = state.step - steps1
     finally:
-        _restore(state, snap)
+        _restore(state, snap, step, batch)
         state.step = step0
     work = dict(tally.get("work", {}))
     flops = (op_flops_per_image * images
@@ -574,7 +561,7 @@ def build_aot_step(step, state, example_batch: dict, *,
     on_card = device.type == "cuda"
     built = on_card and bool(cache_dir) and _libraries_built()
     stream = torch.cuda.Stream(device) if on_card else None
-    stager = _HostStager()
+    stager = HostStager()
     graphs: dict = {}
     capture_ms: dict = {}
     op_flops_per_image = None
@@ -640,7 +627,7 @@ class CapturedStep:
         self.mesh = mesh  # a mesh step's: the ledger's per-axis attribution
         self._graphs: dict = {}
         self._stream = None
-        self._stager = _HostStager()
+        self._stager = HostStager()
         self._op_flops_per_image = None  # counted on the first capture
         self.capture_ms: dict = {}
         self.aot_fallbacks = 0  # never: a new signature is captured

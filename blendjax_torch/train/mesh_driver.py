@@ -23,11 +23,16 @@ captures into one CUDA graph with its collectives (the data layout).
 Layouts: ``data`` (replicated state) captures one graph per plan
 signature, one replay per step call, as on one card; the process group is
 used eagerly (the capture's warm-up steps) before any capture.
-``data×fsdp`` and ``data×tp`` shard the state over the model axis
-(:class:`~blendjax_torch.parallel.ShardedParams`: gather on use, each rank
-updating its shard) and run eagerly: the gather replaces the module's
-parameter storage every step, which a captured graph cannot follow, so
-``build(aot=True)`` raises for them instead of running eagerly unasked.
+``data×fsdp``, ``data×tp`` and ``data×expert`` shard the state over the
+model axis (:class:`~blendjax_torch.parallel.ShardedParams`: gather on use,
+each rank updating its shard) and run eagerly: the gather replaces the
+module's parameter storage every step, which a captured graph cannot
+follow, so ``build(aot=True)`` raises for them instead of running eagerly
+unasked. The ``expert`` layout (a mixture-of-experts StreamFormer's
+``expert_*`` weights on dim 0 over ``expert``) is state-only, as ``tp``
+is: every rank computes its rows with the whole expert set gathered; the
+all-to-all of tokens to the experts' ranks that GSPMD inserts on the JAX
+side is ROADMAP item 5c.
 """
 
 from __future__ import annotations
@@ -49,9 +54,14 @@ def _check_axis(mesh, data_axis: str) -> None:
 
 
 def _state_shardings(state, mesh, data_axis: str = "data"):
+    """The state's shardings; a mixture of experts in the model routes
+    over the global batch those batch axes split (as under GSPMD)."""
+    from blendjax_torch.models.moe import route_over_batch
     from blendjax_torch.parallel.sharding import state_shardings
 
-    return state_shardings(state, mesh=mesh, data_axis=data_axis)
+    sharding = state_shardings(state, mesh=mesh, data_axis=data_axis)
+    route_over_batch(state.model, mesh, sharding.batch_axes)
+    return sharding
 
 
 def make_mesh_supervised_step(state, mesh, loss_fn=None, augment=None,
@@ -140,6 +150,9 @@ class MeshTrainDriver(TrainDriver):
       ``data_axis_size``;
     - :meth:`fleet_snapshots` / :meth:`fleet_report` gather every rank's
       observability snapshot (:mod:`blendjax_torch.obs.fleetview`).
+
+    ``mesh=None`` is one card without a process group: the base driver's
+    work with no collective (one chip, layout ``"single"``).
     """
 
     def __init__(self, step, state, mesh, *, data_axis: str = "data",
@@ -156,13 +169,17 @@ class MeshTrainDriver(TrainDriver):
             mesh_chip_count,
         )
 
-        _check_axis(mesh, data_axis)
         self.mesh = mesh
         self.data_axis = data_axis
-        self.chips = mesh_chip_count(mesh)
-        self.batch_ways = leading_shard_count(
-            batch_sharding(mesh, axis=data_axis))
-        self.layout = layout or "×".join(mesh.mesh_dim_names)
+        if mesh is None:
+            self.chips = self.batch_ways = 1
+            self.layout = layout or "single"
+        else:
+            _check_axis(mesh, data_axis)
+            self.chips = mesh_chip_count(mesh)
+            self.batch_ways = leading_shard_count(
+                batch_sharding(mesh, axis=data_axis))
+            self.layout = layout or "×".join(mesh.mesh_dim_names)
         # the first step call's collectives, and the images it trained on
         self.collective_tally = None
         self.collective_images = 0
@@ -186,7 +203,7 @@ class MeshTrainDriver(TrainDriver):
     def submit(self, batch, post: bool = True) -> None:
         """As :meth:`TrainDriver.submit`; the first call's collectives (an
         eager step's, or the graph capture's) go to the device ledger."""
-        if self.collective_tally is not None:
+        if self.mesh is None or self.collective_tally is not None:
             return super().submit(batch, post=post)
         from blendjax_torch.obs.devledger import ledger
         from blendjax_torch.parallel.collectives import (
@@ -265,11 +282,13 @@ class MeshTrainDriver(TrainDriver):
                                  mesh=mesh, rules=rules)
         if aot and state.shards is not None:
             raise ValueError(
-                "aot=True: a state sharded over a model axis (fsdp, tp) runs "
-                "eagerly in this port: each step gathers the parameters into "
-                "new storage, which a captured CUDA graph cannot follow. "
-                "Build with aot=False, or use the data layout to capture")
-        axes = [ax for ax in (data_axis, "fsdp", "tp", "tensor", "seq")
+                "aot=True: a state sharded over a model axis (fsdp, tp, "
+                "expert) runs eagerly in this port: each step gathers the "
+                "parameters into new storage, which a captured CUDA graph "
+                "cannot follow. Build with aot=False, or use the data layout "
+                "to capture")
+        axes = [ax for ax in (data_axis, "fsdp", "tp", "tensor", "seq",
+                              "expert")
                 if ax in (getattr(mesh, "mesh_dim_names", None) or ())]
         sharding = state_shardings(state, mesh=mesh, data_axis=data_axis)
         if sharding.batch_axes:

@@ -19,7 +19,12 @@ as the eager step does before it draws (a graph replays only device
 work). Update ``k`` of a call draws from slot ``k`` of the augmentation
 (:class:`~blendjax_torch.ops.augment.SeededAugment`) with the seed
 ``fold_seed(augment_rng, state.step)`` of that update, the port's
-``fold_in(base_rng, state.step)``.
+``fold_in(base_rng, state.step)``. A step that updates tensors in place
+beyond the model and its optimizer (an RL step's target network and
+priority vector) lists them in a third hook, ``step.in_place(state,
+batch)``, which a capture snapshots and restores around its warm-up. A
+draw token names the entries a capture reads in place, never copying
+them, under ``_by_reference``.
 
 On a mesh (:mod:`blendjax_torch.train.mesh_driver`) each builder takes
 ``state_sharding=`` (:func:`blendjax_torch.parallel.state_shardings` of
@@ -377,7 +382,7 @@ def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
 def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None,
                          state_sharding=None, buffer_sharding=None):
     """``step(state, batch)`` over what ``EchoingPipeline(emit_draws=True)``
-    yields: a draw token ``{"_echo_buffers", "_echo_idx", "_echo_counter"}``
+    yields: a draw token (``_echo_buffers``, ``_echo_idx``, ``_echo_counter``)
     is gathered from the ring and augmented by ``reservoir_draw``
     (:meth:`blendjax_torch.data.echo.SampleReservoir.draw`), then the loss
     and the AdamW update run, all in this one call; the gathered batch

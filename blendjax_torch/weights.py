@@ -6,6 +6,8 @@ paths of the JAX package's snapshots."""
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -63,12 +65,18 @@ def _layer_norm(state, prefix, tree):
     state[f"{prefix}.bias"] = _f32(tree["bias"])
 
 
+#: A MoE block's stacked expert weights, kept in the flax layout
+MOE_LEAVES = ("expert_bi", "expert_bo", "expert_wi", "expert_wo")
+
+
 def streamformer_from_flax(params_np: dict) -> dict:
     """The JAX package's ``StreamFormer`` parameter tree as numpy arrays
     (``patch_embed``, ``pos_embed``, ``block{i}/{LayerNorm_0,
-    MultiHeadAttention_0/{qkv, proj}, LayerNorm_1, Dense_0, Dense_1}``,
-    a top-level ``LayerNorm_0`` and ``Dense_0``) -> a ``state_dict`` of
-    :class:`blendjax_torch.models.StreamFormer`.
+    MultiHeadAttention_0/{qkv, proj}, LayerNorm_1, Dense_0, Dense_1}`` or,
+    in a mixture-of-experts block, ``block{i}/MoEMLP_0/{router,
+    expert_wi, expert_bi, expert_wo, expert_bo}`` in place of the two
+    ``Dense``, a top-level ``LayerNorm_0`` and ``Dense_0``) -> a
+    ``state_dict`` of :class:`blendjax_torch.models.StreamFormer`.
 
     The patch kernel goes from HWIO to OIHW; the qkv ``DenseGeneral``
     kernel (C, 3, H, D) flattens to (3*H*D, C) in (3, H, D) order, which is
@@ -86,8 +94,14 @@ def streamformer_from_flax(params_np: dict) -> dict:
         _dense(state, f"{pre}.attn.qkv", tree["MultiHeadAttention_0"]["qkv"])
         _dense(state, f"{pre}.attn.proj", tree["MultiHeadAttention_0"]["proj"])
         _layer_norm(state, f"{pre}.norm2", tree["LayerNorm_1"])
-        _dense(state, f"{pre}.fc1", tree["Dense_0"])
-        _dense(state, f"{pre}.fc2", tree["Dense_1"])
+        if "MoEMLP_0" in tree:
+            moe = tree["MoEMLP_0"]
+            _dense(state, f"{pre}.moe.router", moe["router"])
+            for name in MOE_LEAVES:
+                state[f"{pre}.moe.{name}"] = _f32(moe[name])
+        else:
+            _dense(state, f"{pre}.fc1", tree["Dense_0"])
+            _dense(state, f"{pre}.fc2", tree["Dense_1"])
     _layer_norm(state, "norm", params_np["LayerNorm_0"])
     _dense(state, "head", params_np["Dense_0"])
     return state
@@ -133,8 +147,14 @@ def _streamformer_params(model) -> list:
     norm(("LayerNorm_0",), model.norm)
     for i, blk in enumerate(model.blocks):
         pre = (f"block{i}",)
-        dense(pre + ("Dense_0",), blk.fc1)
-        dense(pre + ("Dense_1",), blk.fc2)
+        moe = getattr(blk, "moe", None)
+        if moe is not None:
+            dense(pre + ("MoEMLP_0", "router"), moe.router)
+            for name in MOE_LEAVES:
+                add(pre + ("MoEMLP_0", name), getattr(moe, name))
+        else:
+            dense(pre + ("Dense_0",), blk.fc1)
+            dense(pre + ("Dense_1",), blk.fc2)
         norm(pre + ("LayerNorm_0",), blk.norm1)
         norm(pre + ("LayerNorm_1",), blk.norm2)
         attn = pre + ("MultiHeadAttention_0",)
@@ -152,18 +172,74 @@ def _streamformer_params(model) -> list:
             for keys, p, layout in out]
 
 
+def _policy_params(model) -> list:
+    """``(flax path, parameter, layout)`` of a ``QNetwork`` or a
+    ``PolicyValueNet``: its linear layers are flax's ``Dense_{i}`` in
+    creation order (:meth:`flax_names`), a ``log_std`` stays as it is."""
+    out = []
+    for name, layer in model.flax_names():
+        out += [(f"['{name}']['bias']", layer.bias, None),
+                (f"['{name}']['kernel']", layer.weight, "dense")]
+    if hasattr(model, "log_std"):
+        out.append(("['log_std']", model.log_std, None))
+    out.sort(key=lambda e: e[0])
+    return out
+
+
 def flax_params(model) -> list:
     """``(flax path, parameter, layout)`` of every parameter: the flax names
-    of a ``CubeRegressor`` or a ``StreamFormer``; any other model keeps its
-    own parameter names, untransposed (a snapshot only this package
-    reads)."""
-    from blendjax_torch.models import CubeRegressor, StreamFormer
+    of a ``CubeRegressor``, a ``StreamFormer``, a ``QNetwork`` or a
+    ``PolicyValueNet``; any other model keeps its own parameter names,
+    untransposed (a snapshot only this package reads)."""
+    from blendjax_torch.models import (
+        CubeRegressor,
+        PolicyValueNet,
+        QNetwork,
+        StreamFormer,
+    )
 
     if isinstance(model, CubeRegressor):
         return _cube_params(model)
     if isinstance(model, StreamFormer):
         return _streamformer_params(model)
+    if isinstance(model, (QNetwork, PolicyValueNet)):
+        return _policy_params(model)
     return [(f"['{name}']", p, None) for name, p in model.named_parameters()]
+
+
+def policy_from_flax(params_np: dict) -> dict:
+    """A flax ``QNetwork`` / ``PolicyValueNet`` parameter tree (numpy:
+    ``{"Dense_0": {"kernel", "bias"}, ..., "log_std"}``) -> a
+    ``state_dict`` of the port's model of the same shape (kernels (in,
+    out) -> weights (out, in))."""
+    state = {}
+    for name in sorted((k for k in params_np if k.startswith("Dense_")),
+                       key=lambda k: int(k.split("_")[1])):
+        _dense(state, f"dense.{name.split('_')[1]}", params_np[name])
+    if "log_std" in params_np:
+        state["log_std"] = _f32(params_np["log_std"])
+    return state
+
+
+def flax_tree(model) -> dict:
+    """The flax parameter tree of ``model`` as nested dicts of host numpy
+    arrays (kernels in flax's layouts), from one device-to-host copy of
+    every parameter: what :func:`blendjax_torch.rl.np_mlp_forward`
+    evaluates."""
+    leaves = [(path, _to_flax(p.detach(), layout))
+              for path, p, layout in flax_params(model)]
+    flat = torch.cat([v.reshape(-1).float() for _, v in leaves]).cpu()
+    out: dict = {}
+    at = 0
+    for path, v in leaves:
+        n = v.numel()
+        keys = re.findall(r"\['([^']*)'\]", path)
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = flat[at:at + n].reshape(v.shape).numpy()
+        at += n
+    return out
 
 
 _params = flax_params
@@ -217,16 +293,32 @@ def train_state_specs(state) -> list:
     for key in ("mu", "nu"):
         out += [(f".opt_state[0].{key}" + path, shape)
                 for path, shape in shapes]
+    target = getattr(state, "target", None)
+    if target is not None:
+        out += [(".target_params" + path, _flax_shape(p.shape, layout))
+                for path, p, layout in flax_params(target)]
+    return out
+
+
+def _target_leaves(state, out: dict) -> dict:
+    """An RL state's target network (:class:`blendjax_torch.rl.RLTrainState`)
+    under ``.target_params``, as the flax ``RLTrainState`` holds it."""
+    target = getattr(state, "target", None)
+    if target is not None:
+        for path, p, layout in flax_params(target):
+            out[".target_params" + path] = _to_flax(p.detach(), layout)
     return out
 
 
 def train_state_leaves(state) -> dict:
     """A port ``TrainState`` -> ``{leaf path: tensor or array}`` under the
     paths the JAX package's snapshot writes for a flax ``TrainState`` with
-    ``optax.adamw``: ``.step``, ``.params[...]``, ``.opt_state[0].count``
+    ``optax.adamw`` (or ``optax.adam``: the same first state):
+    ``.step``, ``.params[...]``, ``.opt_state[0].count``
     (one int32 scalar; AdamW keeps one ``step`` per parameter, all equal),
     ``.opt_state[0].mu[...]`` (``exp_avg``) and ``.opt_state[0].nu[...]``
-    (``exp_avg_sq``), kernels transposed to flax's layouts.
+    (``exp_avg_sq``), kernels transposed to flax's layouts; an RL state's
+    target network adds ``.target_params[...]``.
 
     ``CubeRegressor`` and ``StreamFormer`` take the flax names
     (:func:`flax_params`); another model keeps its own parameter names,
@@ -240,7 +332,7 @@ def train_state_leaves(state) -> dict:
     full leaves: every rank calls this (all-gathers), and every rank gets
     the leaves one card would hold."""
     if getattr(state, "shards", None) is not None:
-        return _sharded_leaves(state)
+        return _target_leaves(state, _sharded_leaves(state))
     model, opt = state.model, state.optimizer
     params = _params(model)
     out = {".step": np.asarray(state.step, np.int32)}
@@ -256,7 +348,7 @@ def train_state_leaves(state) -> dict:
             entry = opt.state.get(p)
             t = entry[name] if entry and name in entry else torch.zeros_like(p)
             out[f".opt_state[0].{key}" + path] = _to_flax(t.detach(), layout)
-    return out
+    return _target_leaves(state, out)
 
 
 def load_train_state_leaves(state, leaves: dict) -> None:
@@ -270,6 +362,7 @@ def load_train_state_leaves(state, leaves: dict) -> None:
     them; the one optax ``count`` goes into every parameter's ``step``.
     A sharded state (``state.shards``) takes this rank's slice of each
     leaf into its shards."""
+    _load_target(state, leaves)
     if getattr(state, "shards", None) is not None:
         return _load_sharded(state, leaves)
     model, opt = state.model, state.optimizer
@@ -302,6 +395,21 @@ def load_train_state_leaves(state, leaves: dict) -> None:
             put(entry["exp_avg_sq"],
                 _from_flax(leaves[".opt_state[0].nu" + path], layout))
     state.step = int(np.asarray(leaves[".step"]))
+
+
+def _load_target(state, leaves: dict) -> None:
+    target = getattr(state, "target", None)
+    if target is None:
+        return
+    with torch.no_grad():
+        for path, p, layout in flax_params(target):
+            src = torch.from_numpy(np.ascontiguousarray(
+                _from_flax(np.asarray(leaves[".target_params" + path]),
+                           layout)))
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"snapshot leaf {tuple(src.shape)} does not "
+                                 f"fit {tuple(p.shape)}")
+            p.copy_(src.to(p.dtype))
 
 
 def _sharded_leaves(state) -> dict:

@@ -232,7 +232,41 @@ within K4's bar of the non-mesh step's; then ``sp_mode="ring"`` on the
 same groups, held at the bf16 bar of ``tests/test_torch_parallel.py``
 and at the tighter bar of a one-block ring (world size 1: no hop); then
 one all-to-all and attention through Ulysses against local attention,
-timed. The group is destroyed after.
+timed. Phase 5h's pipeline leg runs on the same group before it is
+destroyed: ``pipeline_apply`` over ``create_mesh({"pipe": 1})`` with one
+full-width StreamFormer ``Block`` (flash) as the stage through
+``torch.func.functional_call``, 4 microbatches of (8, 768, 512) bf16: the
+output and the input gradient must be bit-equal to the block called on
+each microbatch, and each of K4a-c launched once per microbatch inside it.
+
+Phase 5h (after the mesh phase), mixture of experts and remat: the MoE
+leg runs ``StreamFormer(**FORMER, num_experts=4, moe_every=2)`` (MoE in
+blocks 0, 2, 4, 6) live on the flagship stream through its captured fused
+step, the streamformer leg's 2 + 16 step calls: one replay per step call,
+K1 launched and K4a-c depth x updates times, finite losses, each MoE
+block's aux loss read once after the window, and 4 recorded groups eager
+against captured bit for bit; its img/s and step alone are printed beside
+the dense leg's. The remat leg runs the dense model with ``remat=True``
+and ``False`` through captured steps on the streamformer leg's recorded
+groups from its initial state: losses and parameters bit-equal, K4a
+launched twice as often under remat and K4b/K4c as often; it prints the
+peak ``max_memory_allocated`` of one eager step call of each and both
+graphs' step alone.
+
+Phase 5i, RL (``bench.py``'s live RL leg): two of the port's cartpole
+producers under ``BatchedRemoteEnv`` -> ``ActorPool(HostQPolicy(3,
+eps_steps=1500))`` -> ``TrajectoryReservoir(512)`` -> ``RLTrainDriver``
+with ``CapturedStep(make_dqn_step)``, ``QNetwork((32, 32))``, batch 32,
+``min_fill`` 64, ``sync_every`` 8, 300 learner steps, a uniform and a
+prioritized leg: one graph replay per learner step, the ring, priorities,
+parameters, target and Adam moments unmoved across the window, fresh +
+replayed == draws x batch, env steps == transitions inserted, the best
+leg's mean return (the later half of its episodes, the actors run on to
+8 ended episodes) >= 15; learner steps/s, ``rl.sample_waits`` and the RL
+doctor's verdict printed. The resume leg snapshots every 4 steps, stops
+after the first commit, restores it into a fresh stack and continues to
+48 steps from the snapshot's step, inserts and env steps. The PG leg: 4
+``make_pg_step`` graph replays bit-equal to the eager steps.
 
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
@@ -299,6 +333,33 @@ LONG_ATTN = (4, 3072)
 # flagship recording, eager (every K4 launch counted through Ulysses)
 MESH_FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 32}
 MESH_SP = {"steps": 16, "warmup": 2}
+# phase 5h: the streamformer leg's configuration with Switch MoE MLPs in
+# blocks 0, 2, 4, 6 (4 experts) on the flagship stream through the
+# captured fused step (its step budget), the dense model under remat on
+# the streamformer leg's recorded groups, and one full-width Block per
+# pipeline stage (M microbatches of the flagship's token count)
+MOE_FORMER = {**FORMER, "num_experts": 4, "moe_every": 2}
+PIPE = {"microbatches": 4, "rows": 8}
+# phase 5i: the reference's live RL leg (bench.py:3504-3600): 2 cartpole
+# producers, reservoir 512, QNetwork (32, 32) x 3 actions, Adam 1e-3,
+# gamma 0.98, batch 32, min_fill 64, sync_every 8, inflight 2,
+# HostQPolicy(3, eps_steps=1500), actions [-2, 0, 2], 300 learner steps
+RL = {"envs": 2, "capacity": 512, "hidden": (32, 32), "lr": 1e-3,
+      "gamma": 0.98, "batch": 32, "min_fill": 64, "sync_every": 8,
+      "inflight": 2, "eps_steps": 1500, "steps": 300, "warmup": 3}
+RL_ACTIONS = (-2.0, 0.0, 2.0)
+# bench.py:196: well below a random policy's return on this cartpole
+RL_RETURN_FLOOR = 15.0
+# the learner outruns the actors (1-2 episodes ended in a 300-step window
+# on an H100, PERF.md): after the window the actors run on with the
+# last policy until this many episodes have ended, or for at most
+# RL_EPISODE_WAIT_S, so the return gate reads more than one episode
+RL_EPISODES = 8
+RL_EPISODE_WAIT_S = 30.0
+# the resume leg: a snapshot every 4 learner steps, stopped after the first
+# commit, continued to this step budget in a fresh stack
+RL_RESUME = {"every": 4, "budget": 48}
+PG_STEPS = 4
 # K4's existing bar (the streamformer leg's flash against xla loss bar)
 K4_LOSS_REL = 1e-2
 # ring attention's losses against the flash kernels' in bf16: the bar
@@ -3068,11 +3129,471 @@ def mesh_phase(tmp: str, prefix: str, flagship: dict, card: str) -> dict:
     init_mesh_group(tmp)
     try:
         mesh = create_mesh({"data": -1})
-        return {"flagship": mesh_flagship_leg(tmp, prefix, mesh, flagship,
-                                              card),
-                "sp": sp_phase(prefix, card)}
+        out = {"flagship": mesh_flagship_leg(tmp, prefix, mesh, flagship,
+                                             card),
+               "sp": sp_phase(prefix, card)}
+        # phase 5h's pipeline leg, on this group
+        out["pipeline"] = pipeline_leg(card)
+        return out
     finally:
         dist.destroy_process_group()
+
+
+# -- phase 5h: mixture of experts, remat and the pipeline ----------------------
+
+
+def moe_values(model) -> list:
+    """Each MoE block's load-balancing loss from its last forward (the
+    ``aux_loss`` buffers the captured graph writes in place): one
+    device-to-host read."""
+    import torch
+
+    from blendjax_torch.models import MoEMLP
+
+    mods = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    return torch.stack([m.aux_loss for m in mods]).tolist()
+
+
+def moe_leg(tmp: str, dense: dict, card: str) -> dict:
+    """The MoE StreamFormer (``MOE_FORMER``) live on the flagship stream
+    through ``CapturedStep(make_fused_tile_step)``, the streamformer leg's
+    2 + 16 step calls: one replay per step call, K1 and each of K4a-c
+    launched (K4a-c depth x updates times), finite losses; the aux losses
+    read once after the window; then the graph against the eager step on
+    the leg's recorded groups from one state, bit for bit."""
+    import torch
+
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.train import make_fused_tile_step, make_train_state
+
+    model = StreamFormer(**MOE_FORMER, attn_backend="flash",
+                         image_shape=SHAPE).init_params(0)
+    state = make_train_state(model)
+    fresh = copy.deepcopy(state)
+    leg = run_leg("moe streamformer leg", STREAMFORMER, state, tmp,
+                  former_loss, alone=False)
+    counts, want = leg["launches"], MOE_FORMER["depth"] * leg["updates"]
+    if counts["decode_spatial"] <= 0:
+        fail("moe streamformer leg never launched decode_spatial (K1)")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        if counts[name] != want:
+            fail(f"moe streamformer leg: {name} launched {counts[name]} "
+                 f"times, not depth x updates = {want}")
+    aux = moe_values(state.model)
+    if not all(math.isfinite(a) for a in aux):
+        fail(f"moe streamformer leg: aux losses {aux}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        parity = eager_against_graph(
+            "moe streamformer K1 + K4a-c", lambda: make_fused_tile_step(
+                former_loss), lambda: copy.deepcopy(fresh), leg["recorded"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"phase 5h moe leg on {card}: {leg['img_s']:.1f} img/s live beside "
+        f"the dense streamformer leg's {dense['img_s']:.1f} (same run, "
+        f"{leg['images']} images, {leg['wall_s']:.2f} s); graph step alone "
+        f"{leg['graph_alone_ms']:.2f} ms per chunk group "
+        f"({leg['graph_alone_img_s']:.1f} img/s) beside the dense "
+        f"{dense['graph_alone_ms']:.2f} ms; one graph replay for each of "
+        f"{leg['steps']} step calls; launches {dict((k, v) for k, v in counts.items() if v)};"
+        f" aux loss per MoE block after the window {[round(a, 4) for a in aux]}"
+        f" (1.0 when balanced); {parity['steps']} recorded groups bit-equal "
+        f"eager against captured; final loss {leg['losses'][-1]:.5f}")
+    leg["aux"] = aux
+    return leg
+
+
+def remat_leg(sf: dict, card: str) -> dict:
+    """The dense streamformer model with ``remat=True`` against
+    ``remat=False``, both through ``CapturedStep(make_fused_tile_step)``
+    from the leg's initial state on its recorded groups (cuDNN
+    deterministic): losses and parameters bit-equal, K4a launched twice
+    as often under remat (its forward runs again in the backward), K4b/K4c
+    as often; the peak ``max_memory_allocated`` of one eager step call of
+    each and each graph's step alone."""
+    import torch
+
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.train import CapturedStep, make_fused_tile_step
+
+    groups = sf["recorded"]
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            st = copy.deepcopy(sf["fresh"])
+            st.model.remat = remat
+            eager = copy.deepcopy(st)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            make_fused_tile_step(former_loss)(eager, dict(groups[-1]))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del eager
+            graph = CapturedStep(make_fused_tile_step(former_loss))
+            for g in groups:
+                graph.prepare(st, g)
+            reset_launch_counts()
+            losses = [graph(st, dict(g))[1]["loss"] for g in groups]
+            torch.cuda.synchronize()
+            out[remat] = {"losses": losses, "state": st,
+                          "counts": launch_counts(), "peak": peak,
+                          "graph": graph, "replays": graph.graph_replays}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = out[False], out[True]
+    for i, (x, y) in enumerate(zip(a["losses"], b["losses"])):
+        if not torch.equal(x, y):
+            fail(f"remat leg: group {i} loss {y.tolist()} != remat=False "
+                 f"{x.tolist()}")
+    for (name, p), q in zip(a["state"].model.named_parameters(),
+                            b["state"].model.parameters()):
+        if not torch.equal(p, q):
+            fail(f"remat leg: parameter {name} differs from remat=False")
+    fwd = "flash_attention_fwd"
+    if b["counts"][fwd] != 2 * a["counts"][fwd] or a["counts"][fwd] <= 0:
+        fail(f"remat leg: K4a launched {b['counts'][fwd]} times under remat, "
+             f"not twice the {a['counts'][fwd]} without")
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        if b["counts"][name] != a["counts"][name]:
+            fail(f"remat leg: {name} {b['counts'][name]} under remat, "
+                 f"{a['counts'][name]} without")
+    if b["replays"] != len(groups):
+        fail(f"remat leg: {b['replays']} replays for {len(groups)} groups")
+    for leg in (a, b):  # the step alone, after the comparisons
+        leg["ms"] = alone_ms(lambda: leg["graph"](leg["state"],
+                                                  dict(groups[-1])), 5)
+    log(f"phase 5h remat leg on {card}: {len(groups)} recorded groups "
+        f"through the captured step with remat=True bit-equal to "
+        f"remat=False (losses and all parameters); K4a launches "
+        f"{b['counts'][fwd]} against {a['counts'][fwd]} (x2), K4b/K4c "
+        f"{b['counts']['flash_attention_bwd_dkv']}/"
+        f"{b['counts']['flash_attention_bwd_dq']}; peak max_memory_allocated "
+        f"of one eager step call {b['peak'] / 2**20:.1f} MiB against "
+        f"{a['peak'] / 2**20:.1f} MiB; graph step alone {b['ms']:.2f} ms "
+        f"against {a['ms']:.2f} ms per chunk group")
+    return {"launches": b["counts"], "dense_launches": a["counts"],
+            "peak_bytes": b["peak"], "dense_peak_bytes": a["peak"],
+            "ms": b["ms"], "dense_ms": a["ms"]}
+
+
+def pipeline_leg(card: str) -> dict:
+    """``pipeline_apply`` over ``create_mesh({"pipe": 1})`` (the mesh
+    phase's NCCL group): one full-width StreamFormer ``Block`` (flash) as
+    the stage through ``torch.func.functional_call`` over the stacked
+    block parameters, ``PIPE["microbatches"]`` microbatches of
+    (``PIPE["rows"]``, tokens, dim) bf16. The output and the input
+    gradient must be bit-equal to the block called on each microbatch,
+    and each of K4a-c launched once per microbatch inside the pipeline."""
+    import torch
+
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import (
+        create_mesh,
+        pipeline_apply,
+        stack_stage_params,
+    )
+
+    former = StreamFormer(**FORMER, attn_backend="flash",
+                          image_shape=SHAPE).init_params(0)
+    block = former.blocks[0].cuda()
+    m, rows = PIPE["microbatches"], PIPE["rows"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, rows, former.tokens, FORMER["dim"]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    mesh = create_mesh({"pipe": 1})
+
+    def stage_fn(params, v):
+        return torch.func.functional_call(block, params, (v,))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        xa = x.clone().requires_grad_()
+        stacked = stack_stage_params([dict(block.named_parameters())])
+        reset_launch_counts()
+        y = pipeline_apply(stage_fn, stacked, xa, mesh, axis="pipe")
+        y.backward(g)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        block.zero_grad()
+        xb = x.clone().requires_grad_()
+        ref = torch.stack([block(xb[i]) for i in range(m)])
+        ref.backward(g)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not torch.equal(y, ref):
+        fail(f"pipeline leg: output differs from the block, max |diff| "
+             f"{(y.float() - ref.float()).abs().max().item()}")
+    if not torch.equal(xa.grad, xb.grad):
+        fail("pipeline leg: input gradient differs from the block's, max "
+             f"|diff| {(xa.grad.float() - xb.grad.float()).abs().max().item()}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        if counts[name] != m:
+            fail(f"pipeline leg: {name} launched {counts[name]} times inside "
+                 f"the pipeline, not once per microbatch ({m})")
+    xt = x.clone().requires_grad_()
+    ms = alone_ms(lambda: pipeline_apply(stage_fn, stacked, xt, mesh,
+                                         axis="pipe").backward(g), 3)
+    log(f"phase 5h pipeline leg on {card}: pipeline_apply over pipe=1 (NCCL)"
+        f", {m} microbatches of {tuple(x.shape[1:])} bf16 through one "
+        f"full-width Block: output and input gradient bit-equal to the block "
+        f"per microbatch; K4a-c launches inside {counts['flash_attention_fwd']}"
+        f"/{counts['flash_attention_bwd_dkv']}/{counts['flash_attention_bwd_dq']}"
+        f"; forward and backward {ms:.2f} ms (information)")
+    return {"launches": counts, "ms": ms}
+
+
+# -- phase 5i: the RL actor-learner stack --------------------------------------
+
+
+def rl_pointers(driver) -> dict:
+    """``data_ptr()`` of the ring leaves, the priorities, the parameters,
+    the target and the Adam moments."""
+    st = driver.state
+    out = {f"ring.{k}": v for k, v in driver.reservoir.data_ptrs().items()}
+    out.update({f"param.{n}": p.data_ptr()
+                for n, p in st.model.named_parameters()})
+    out.update({f"target.{n}": p.data_ptr()
+                for n, p in st.target.named_parameters()})
+    for i, entry in enumerate(st.optimizer.state.values()):
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"adam.{i}.{k}"] = entry[k].data_ptr()
+    return out
+
+
+def rl_stack(venv, prioritized: bool, checkpoint=None, every: int = 0):
+    """Reservoir, captured DQN step, actor pool and learner driver of the
+    reference's live RL leg (``RL``)."""
+    import numpy as np
+
+    from blendjax_torch.models import QNetwork
+    from blendjax_torch.rl import (
+        ActorPool,
+        HostQPolicy,
+        RLTrainDriver,
+        TrajectoryReservoir,
+        make_dqn_step,
+        make_rl_train_state,
+    )
+    from blendjax_torch.train import CapturedStep
+
+    res = TrajectoryReservoir(RL["capacity"], rng=0, prioritized=prioritized)
+    state = make_rl_train_state(
+        QNetwork(hidden=RL["hidden"], n_actions=3).init_params(0),
+        learning_rate=RL["lr"])
+    step = CapturedStep(make_dqn_step(res, gamma=RL["gamma"]))
+    pool = ActorPool(venv, res, HostQPolicy(3, eps_steps=RL["eps_steps"],
+                                            seed=0),
+                     action_map=np.array(RL_ACTIONS, np.float32))
+    drv = RLTrainDriver(step, state, res, actors=pool, batch_size=RL["batch"],
+                        min_fill=RL["min_fill"], sync_every=RL["sync_every"],
+                        inflight=RL["inflight"], checkpoint=checkpoint,
+                        checkpoint_every=every)
+    return res, step, pool, drv
+
+
+def rl_leg(venv, prioritized: bool, card: str) -> dict:
+    """One learner leg: warm-up steps (the capture), then the window to
+    ``RL["steps"]``: one graph replay per learner step, no buffer moved,
+    ``fresh + replayed == draws x batch``, the actors' env steps equal to
+    the transitions inserted (read after they stop). The actors then run
+    on to ``RL_EPISODES`` ended episodes (at most ``RL_EPISODE_WAIT_S``)
+    for the mean return of the later half of the leg's episodes."""
+    import numpy as np
+
+    from blendjax_torch.rl import diagnose_rl
+    from blendjax_torch.utils.metrics import metrics
+
+    label = f"rl {'prioritized' if prioritized else 'uniform'} leg"
+    res, step, pool, drv = rl_stack(venv, prioritized)
+    with pool:
+        for _ in range(RL["warmup"]):
+            drv.train_step()
+        drv.drain()
+        ptrs = rl_pointers(drv)
+        metrics.reset()
+        replays0, steps0 = step.graph_replays, drv.steps
+        fresh0, replayed0, draws0 = res.fresh, res.replayed, res.stats["draws"]
+        t0 = time.perf_counter()
+        while drv.steps < RL["steps"]:
+            drv.train_step()
+        final = drv.drain()
+        dt = time.perf_counter() - t0
+        after = rl_pointers(drv)
+        verdict = diagnose_rl(metrics.report())
+        window_episodes = pool.episodes
+        deadline = time.monotonic() + RL_EPISODE_WAIT_S
+        while pool.episodes < RL_EPISODES and time.monotonic() < deadline:
+            pool.check()
+            time.sleep(0.02)
+    window = drv.steps - steps0
+    drawn = (res.fresh - fresh0) + (res.replayed - replayed0)
+    if step.graph_replays - replays0 != window or drv.dispatches != drv.steps:
+        fail(f"{label}: {step.graph_replays - replays0} graph replays and "
+             f"{drv.dispatches} step calls for {window} / {drv.steps} steps")
+    if after != ptrs:
+        moved = sorted(k for k in ptrs if after.get(k) != ptrs[k])
+        fail(f"{label}: buffers moved in the window: {moved}")
+    if drawn != window * RL["batch"] or res.stats["draws"] - draws0 != window:
+        fail(f"{label}: fresh + replayed {drawn} != {window} x {RL['batch']}")
+    if pool.env_steps != res.inserts:
+        fail(f"{label}: env steps {pool.env_steps} != transitions inserted "
+             f"{res.inserts}")
+    if not math.isfinite(final):
+        fail(f"{label}: final loss {final}")
+    returns = [r for _, r in pool.episode_returns]
+    half = len(returns) // 2
+    recent = returns[half:] if half else returns
+    mean_return = float(np.mean(recent)) if recent else 0.0
+    out = {"steps_s": window / dt, "seconds": dt, "window": window,
+           "mean_return": mean_return, "episodes": pool.episodes,
+           "window_episodes": window_episodes,
+           "env_steps": pool.env_steps, "sample_waits": drv.sample_waits,
+           "replay_ratio": res.stats["replay_ratio"],
+           "policy_syncs": pool.policy_version, "final_loss": final,
+           "verdict": verdict.render()}
+    log(f"phase 5i {label} on {card}: {out['steps_s']:.1f} learner steps/s "
+        f"({window} steps in {dt:.3f} s, one graph replay each; buffers "
+        f"unmoved); fresh + replayed = {drawn} = {window} x {RL['batch']}; "
+        f"env steps {pool.env_steps} = transitions inserted {res.inserts}; "
+        f"episodes ended {window_episodes} by the window's end, "
+        f"{pool.episodes} in all; mean return of the later half "
+        f"{mean_return:.2f}; rl.sample_waits {drv.sample_waits}; replay "
+        f"ratio {res.stats['replay_ratio']}; policy syncs "
+        f"{pool.policy_version}; final loss {final:.5f}; {verdict.render()}")
+    return out
+
+
+def rl_resume_leg(tmp: str, venv, card: str) -> dict:
+    """A snapshot every ``RL_RESUME["every"]`` learner steps, stopped after
+    the first committed snapshot; a fresh stack restores it (train state
+    in place before its capture, then the session) and continues to
+    ``RL_RESUME["budget"]`` steps. It must start where the snapshot ended:
+    the snapshot's step count, its reservoir's inserts and its actors' env
+    steps."""
+    from blendjax_torch.checkpoint import SnapshotManager, committed_steps
+    from blendjax_torch.weights import (
+        load_train_state_leaves,
+        train_state_leaves,
+    )
+
+    directory = os.path.join(tmp, "rl-ckpt")
+    mgr = SnapshotManager(directory)
+    try:
+        res, _step, pool, drv = rl_stack(venv, True, checkpoint=mgr,
+                                         every=RL_RESUME["every"])
+        with pool:
+            while not committed_steps(directory):
+                if drv.steps >= RL_RESUME["budget"]:
+                    fail("rl resume leg: no snapshot committed within the "
+                         "budget")
+                drv.train_step()
+        drv.drain()
+        mgr.wait()
+        first = committed_steps(directory)[0]
+        res2, step2, pool2, drv2 = rl_stack(venv, True)
+        r = mgr.restore(train_state_leaves(drv2.state), step=first)
+        load_train_state_leaves(drv2.state, r.state)
+        names = drv2.restore_session(r.session)
+        start = (drv2.steps, res2.inserts, pool2.env_steps)
+        saved = r.session["replay"]
+        if (sorted(names) != ["actor", "driver", "replay"] or start[0] != first
+                or start[1] != int(saved["inserts"])
+                or start[2] != int(r.session["actor"]["env_steps"])):
+            fail(f"rl resume leg: restored {names} at (steps, inserts, env "
+                 f"steps) {start}, the snapshot of step {first} holds "
+                 f"{saved['inserts']} inserts")
+        with pool2:
+            while drv2.steps < RL_RESUME["budget"]:
+                drv2.train_step()
+        final = drv2.drain()
+        if (drv2.steps != RL_RESUME["budget"] or not math.isfinite(final)
+                or step2.graph_replays != RL_RESUME["budget"] - first):
+            fail(f"rl resume leg: {drv2.steps} steps, {step2.graph_replays} "
+                 f"replays after the restore at {first}, final loss {final}")
+    finally:
+        mgr.close()
+    log(f"phase 5i rl resume leg on {card}: first snapshot committed at step "
+        f"{first} (killed there, {drv.steps} steps submitted); a fresh stack "
+        f"restored it at steps {start[0]}, inserts {start[1]}, env steps "
+        f"{start[2]} and continued to {drv2.steps} steps "
+        f"({step2.graph_replays} replays); final loss {final:.5f}")
+    return {"snapshot_step": first, "final_loss": final}
+
+
+def pg_leg(card: str) -> dict:
+    """``make_pg_step`` on scripted transitions carrying ``ret``:
+    ``PG_STEPS`` eager steps and as many graph replays from twin
+    reservoirs and states, losses, parameters and priorities bit-equal."""
+    import numpy as np
+    import torch
+
+    from blendjax_torch.models import QNetwork
+    from blendjax_torch.rl import (
+        TrajectoryReservoir,
+        make_pg_step,
+        make_rl_train_state,
+    )
+    from blendjax_torch.train import CapturedStep
+
+    rng = np.random.default_rng(0)
+    n = RL["capacity"] // 4
+    rows = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "action": rng.integers(0, 3, n).astype(np.int32),
+            "reward": rng.normal(size=n).astype(np.float32),
+            "done": rng.random(n) < 0.05,
+            "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "ret": rng.normal(size=n).astype(np.float32)}
+    model = QNetwork(hidden=RL["hidden"]).init_params(1)
+    out = []
+    for captured in (False, True):
+        res = TrajectoryReservoir(RL["capacity"], rng=2, prioritized=True)
+        res.insert(rows)
+        state = make_rl_train_state(copy.deepcopy(model), target=False)
+        step = make_pg_step(res)
+        if captured:
+            step = CapturedStep(step)
+        losses = [step(state, res.draw_token(*res.compose(RL["batch"])))[1]
+                  ["loss"] for _ in range(PG_STEPS)]
+        torch.cuda.synchronize()
+        out.append((losses, state, res, step))
+    (la, a, ra, _), (lb, b, rb, graph) = out
+    same = (all(torch.equal(x, y) for x, y in zip(la, lb))
+            and all(torch.equal(p, q) for p, q in zip(
+                a.model.parameters(), b.model.parameters()))
+            and torch.equal(ra._priorities, rb._priorities))
+    if not same or graph.graph_replays != PG_STEPS:
+        fail(f"pg leg: {graph.graph_replays} replays; eager losses "
+             f"{[x.item() for x in la]} graph {[y.item() for y in lb]}")
+    log(f"phase 5i pg leg on {card}: {PG_STEPS} make_pg_step graph replays "
+        f"bit-equal to the eager steps (losses, parameters, priorities); "
+        f"losses {[round(x.item(), 6) for x in lb]}")
+    return {"losses": [x.item() for x in lb]}
+
+
+def rl_phase(tmp: str, card: str) -> dict:
+    """Phase 5i: two of the port's cartpole producers under
+    ``BatchedRemoteEnv``, a uniform and a prioritized learner leg, the
+    resume leg, then the policy-gradient leg. The best leg's mean return
+    must reach ``RL_RETURN_FLOOR``."""
+    from blendjax_torch.env import BatchedRemoteEnv
+
+    with BatchedRemoteEnv(CARTPOLE_SCRIPT, num_envs=RL["envs"], seed=0,
+                          timeoutms=30_000) as venv:
+        legs = {"uniform": rl_leg(venv, False, card),
+                "prioritized": rl_leg(venv, True, card)}
+        resume = rl_resume_leg(tmp, venv, card)
+    best = max(leg["mean_return"] for leg in legs.values())
+    if best < RL_RETURN_FLOOR:
+        fail(f"rl phase: best mean return {best:.2f} < {RL_RETURN_FLOOR}")
+    pg = pg_leg(card)
+    return {**legs, "resume": resume, "pg": pg, "best_return": best}
 
 
 def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
@@ -3628,6 +4149,18 @@ def main() -> None:
         t0 = time.perf_counter()
         mesh = mesh_phase(tmp, recording, legs["flagship"], card)
         log(f"mesh phase in {time.perf_counter() - t0:.1f} s")
+        # phase 5h: mixture of experts and remat (the pipeline leg ran in
+        # the mesh phase, on its NCCL group)
+        t0 = time.perf_counter()
+        moe = moe_leg(tmp, legs["streamformer"], card)
+        remat = remat_leg(legs["streamformer"], card)
+        log(f"phase 5h: moe and remat legs in {time.perf_counter() - t0:.1f} "
+            "s")
+        # phase 5i: RL
+        t0 = time.perf_counter()
+        rl = rl_phase(tmp, card)
+        log(f"phase 5i: rl phase in {time.perf_counter() - t0:.1f} s; best "
+            f"mean return {rl['best_return']:.2f} (floor {RL_RETURN_FLOOR})")
     ab = {w: [r["img_s"] for r in ingest["runs"] if r["ingest_workers"] == w]
           for w in sorted(set(INGEST["order"]))}
     log(f"ingest A/B on {card}: live img/s with four producers, by ingest "
@@ -3761,13 +4294,18 @@ def main() -> None:
     for name, meta in KERNELS.items():
         m = measured[name]
         launches = legs[leg_of.get(name, "streamformer")]["launches"][name]
-        if name == "decode_spatial":  # input side, replay, launched, mesh
+        if name == "decode_spatial":
+            # input side, replay, launched, mesh, and the MoE leg's stream
             launches += (ingest["k1_launches"]
                          + replay["launches"]["decode_spatial"]
                          + launched["launches"]["decode_spatial"]
-                         + mesh["flagship"]["launches"]["decode_spatial"])
-        elif name.startswith("flash_attention"):  # the Ulysses leg
-            launches += mesh["sp"]["ulysses"]["launches"][name]
+                         + mesh["flagship"]["launches"]["decode_spatial"]
+                         + moe["launches"][name])
+        elif name.startswith("flash_attention"):
+            # the Ulysses leg, the MoE and remat legs, the pipeline stage
+            launches += (mesh["sp"]["ulysses"]["launches"][name]
+                         + moe["launches"][name] + remat["launches"][name]
+                         + mesh["pipeline"]["launches"][name])
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],

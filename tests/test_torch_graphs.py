@@ -330,3 +330,82 @@ def test_snapshots_of_a_captured_run_hold_each_step_on_card(cuda_card,
     for name, v in host(train_state_leaves(other)).items():
         np.testing.assert_array_equal(v, want[1][name], err_msg=name)
     mgr.close()
+
+
+def _former(card, **kw):
+    from blendjax_torch.models import StreamFormer
+
+    return StreamFormer(patch=16, dim=128, depth=2, num_heads=2,
+                        num_outputs=16, attn_backend="flash",
+                        image_shape=(64, 128), **kw).init_params(0).to(card)
+
+
+def _former_loss(m, batch):
+    return S.corner_loss(m(batch["image"]).reshape(-1, 8, 2), batch["xy"],
+                         image_shape=tuple(batch["image"].shape[1:3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"num_experts": 2}, {"remat": True}],
+                         ids=["moe", "remat"])
+def test_captured_moe_and_remat_steps_are_the_eager_step_on_card(cuda_card,
+                                                                 kw):
+    """A MoE StreamFormer (MoE in block 0) and a remat one through the
+    fused step: captured against eager, bit for bit; under remat the
+    forward kernel runs twice per block and update."""
+    from blendjax_torch.kernels import variant_counts
+
+    batches = _fused_case(cuda_card, (16, 32), seed=5)[:4]
+    model = _former(cuda_card, **kw)
+    _eager_and_graph(lambda: S.make_fused_tile_step(_former_loss),
+                     lambda: S.make_train_state(copy.deepcopy(model)),
+                     batches)
+    per_update = 2 if kw.get("remat") else 1
+    assert variant_counts()["flash_attention_fwd"]["sm90"] == (
+        per_update * 2 * 2 * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dqn", "pg"])
+def test_captured_rl_step_is_the_eager_step_on_card(cuda_card, kind):
+    """The DQN and policy-gradient learner steps captured into one graph
+    each: 4 replays against 4 eager steps from twin reservoirs and states,
+    losses, parameters, target and priorities bit-equal; the ring and the
+    priorities never move."""
+    from blendjax_torch.models import QNetwork
+    from blendjax_torch.rl import (
+        TrajectoryReservoir,
+        make_dqn_step,
+        make_pg_step,
+        make_rl_train_state,
+    )
+
+    rng = np.random.default_rng(0)
+    rows = {"obs": rng.normal(size=(64, 4)).astype(np.float32),
+            "action": rng.integers(0, 3, 64).astype(np.int32),
+            "reward": rng.normal(size=64).astype(np.float32),
+            "done": rng.random(64) < 0.2,
+            "next_obs": rng.normal(size=(64, 4)).astype(np.float32),
+            "ret": rng.normal(size=64).astype(np.float32)}
+    model = QNetwork(hidden=(32, 32)).init_params(0)
+    out = []
+    for captured in (False, True):
+        res = TrajectoryReservoir(64, rng=1, prioritized=True,
+                                  device=cuda_card)
+        res.insert(rows)
+        ptrs = res.data_ptrs()
+        state = make_rl_train_state(copy.deepcopy(model), target=kind == "dqn")
+        step = (make_dqn_step(res) if kind == "dqn" else make_pg_step(res))
+        if captured:
+            step = aot.CapturedStep(step)
+        losses = [step(state, res.draw_token(*res.compose(32)))[1]["loss"]
+                  for _ in range(4)]
+        torch.cuda.synchronize()
+        assert res.data_ptrs() == ptrs
+        out.append((losses, state, res))
+    (la, a, ra), (lb, b, rb) = out
+    _assert_bit_equal(a, b, la, lb)
+    assert torch.equal(ra._priorities, rb._priorities)
+    if kind == "dqn":
+        for p, q in zip(a.target.parameters(), b.target.parameters()):
+            assert torch.equal(p, q)

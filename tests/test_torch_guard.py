@@ -157,6 +157,23 @@ def test_the_multi_gpu_slice_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+MOE_RL_MODULES = [
+    "models/moe.py", "models/policy.py", "models/transformer.py",
+    "parallel/pipeline.py", "rl/__init__.py", "rl/replay.py", "rl/actor.py",
+    "rl/steps.py", "rl/learner.py", "rl/doctor.py",
+]
+
+
+@pytest.mark.parametrize("module", MOE_RL_MODULES)
+def test_the_moe_pipeline_and_rl_modules_are_scanned(module):
+    """Mixture of experts, the policy networks, pipeline parallelism and
+    the RL stack are in the scan above, and each imports nothing of JAX or
+    of the JAX package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
 def test_the_rank_helper_of_the_mesh_tests_imports_no_jax():
     """``spawn`` re-imports the rank bodies' module in every rank: it must
     import neither JAX nor the JAX package."""

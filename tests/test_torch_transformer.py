@@ -291,11 +291,15 @@ def test_converter_names_match_a_real_flax_tree():
     {"num_experts": 2}, {"remat": True},
 ])
 def test_later_slice_options_raise(kwargs):
-    """Mixture of experts and remat wait for Queue A item 5b; sequence
-    parallelism is ported and needs a torch DeviceMesh."""
+    """Mixture of experts and remat are ported and build (MoE in block 0,
+    remat on every block); sequence parallelism is ported and needs a
+    torch DeviceMesh."""
     if "num_experts" in kwargs or "remat" in kwargs:
-        err, match = NotImplementedError, "ROADMAP Queue A item 5b"
-    elif "mesh" in kwargs:
+        model = StreamFormer(**SMALL, **kwargs)
+        assert hasattr(model.blocks[0], "moe") == ("num_experts" in kwargs)
+        assert model.remat == ("remat" in kwargs)
+        return
+    if "mesh" in kwargs:
         err, match = TypeError, "DeviceMesh"
     else:
         err, match = ValueError, "needs a mesh"

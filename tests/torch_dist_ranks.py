@@ -680,6 +680,289 @@ def case_snapshot(params_np, axes, layout, path):
             "sharded": any(s.sharded for s in drv.state.shards.specs)}
 
 
+# -- cases: pipeline and expert parallelism ------------------------------------------------
+
+
+def pipe_inputs(n_stages, m=4, mb=4, dim=8, seed=0):
+    """Per-stage ``{"w", "b"}`` of a shape-preserving MLP stage and the
+    (M, mb, dim) microbatches (the JAX pipeline tests' shapes)."""
+    rng = np.random.default_rng(seed)
+    stages = [{"w": (rng.normal(size=(dim, dim)) / np.sqrt(dim)
+                     ).astype(np.float32),
+               "b": (rng.normal(size=dim) * 0.1).astype(np.float32)}
+              for _ in range(n_stages)]
+    x = rng.normal(size=(m, mb, dim)).astype(np.float32)
+    return stages, x
+
+
+def pipe_stage(params, x):
+    """One shape-preserving MLP stage: gelu(x @ w + b) in its tanh form
+    (``jax.nn.gelu``'s default, the JAX pipeline tests' stage)."""
+    import torch
+
+    return torch.nn.functional.gelu(x @ params["w"] + params["b"],
+                                    approximate="tanh")
+
+
+def case_pipeline(axes, n_stages, seed=0, m=4, mb=4):
+    """``pipeline_apply`` over ``axes``: the outputs, the loss mean(y^2)
+    (over this rank's rows: a ``data`` axis splits the microbatch dim), the
+    input gradient and the stacked parameters' gradients summed over the
+    ``pipe`` axis (each rank holds its stage's slice); the same through
+    the stages applied one after another on this rank."""
+    import torch
+
+    from blendjax_torch.parallel import (
+        all_reduce_sum,
+        pipeline_apply,
+        stack_stage_params,
+    )
+    from blendjax_torch.parallel.mesh import axes_index, mesh_shape
+
+    mesh = _mesh(axes)
+    shape = mesh_shape(mesh)
+    stages, x = pipe_inputs(n_stages, m=m, mb=mb, seed=seed)
+    nd = shape.get("data", 1)
+    di = axes_index(mesh, "data") if "data" in shape else 0
+    rows = slice(di * (mb // nd), (di + 1) * (mb // nd))
+    out = {"where": (di, nd)}
+    for name in ("pipe", "sequential"):
+        st = {k: v.detach().clone().requires_grad_() for k, v in
+              stack_stage_params([{k: torch.from_numpy(v) for k, v in
+                                   s.items()} for s in stages]).items()}
+        xt = torch.from_numpy(x[:, rows].copy()).requires_grad_()
+        if name == "pipe":
+            y = pipeline_apply(pipe_stage, st, xt, mesh, axis="pipe")
+        else:
+            y = pipeline_apply(pipe_stage, st, xt, mesh, axis="no-such-axis")
+        (y ** 2).mean().backward()
+        grads = {k: v.grad for k, v in st.items()}
+        if name == "pipe" and "pipe" in shape:
+            grads = {k: all_reduce_sum(g, mesh, "pipe", differentiable=False)
+                     for k, g in grads.items()}
+        out[name] = {"y": _np(y), "dx": _np(xt.grad),
+                     "dw": _np(grads["w"]), "db": _np(grads["b"])}
+    return out
+
+
+def case_pipeline_blocks(axes, seed=0):
+    """A StreamFormer ``Block`` per stage through ``functional_call`` over
+    the stacked block parameters (the documented recipe): outputs and the
+    input gradient against the blocks applied one after another, and the
+    blocks' own ``.grad`` filled through ``torch.stack``."""
+    import torch
+
+    from blendjax_torch.models import Block
+    from blendjax_torch.parallel import (
+        all_reduce_sum,
+        pipeline_apply,
+        stack_stage_params,
+    )
+    from blendjax_torch.parallel.mesh import mesh_shape
+
+    mesh = _mesh(axes)
+    n = mesh_shape(mesh)["pipe"]
+    torch.manual_seed(seed)
+    blocks = [Block(16, 4, dtype=torch.float32, attn_backend="xla")
+              for _ in range(n)]
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(3, 2, 8, 16)).astype(np.float32))
+
+    def stage_fn(params, v):
+        return torch.func.functional_call(blocks[0], params, (v,))
+
+    stacked = stack_stage_params([dict(b.named_parameters()) for b in blocks])
+    xa = x.clone().requires_grad_()
+    y = pipeline_apply(stage_fn, stacked, xa, mesh, axis="pipe")
+    (y ** 2).mean().backward()
+    got = {name: all_reduce_sum(p.grad if p.grad is not None
+                                else torch.zeros_like(p), mesh, "pipe",
+                                differentiable=False)
+           for i, b in enumerate(blocks)
+           for name, p in ((f"{i}.{k}", q) for k, q in b.named_parameters())}
+    for b in blocks:
+        b.zero_grad()
+    xb = x.clone().requires_grad_()
+    ys = []
+    for m in range(x.shape[0]):
+        v = xb[m]
+        for b in blocks:
+            v = b(v)
+        ys.append(v)
+    (torch.stack(ys) ** 2).mean().backward()
+    want = {f"{i}.{k}": q.grad for i, b in enumerate(blocks)
+            for k, q in b.named_parameters()}
+    return {"dy": float((y - torch.stack(ys)).abs().max()),
+            "dx": float((xa.grad - xb.grad).abs().max()),
+            "dparams": max(float((got[k] - want[k]).abs().max())
+                           for k in want)}
+
+
+def case_pipeline_mismatch(axes, n_stages):
+    """Stacked stages that do not match the ``pipe`` axis raise."""
+    import torch
+
+    from blendjax_torch.parallel import pipeline_apply, stack_stage_params
+
+    stages, x = pipe_inputs(n_stages)
+    st = stack_stage_params([{k: torch.from_numpy(v) for k, v in s.items()}
+                             for s in stages])
+    try:
+        pipeline_apply(pipe_stage, st, torch.from_numpy(x), _mesh(axes))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def former_messages(n=4, batch=8, hw=32, seed=5):
+    """Recorded prebatched messages for the MoE StreamFormer cases."""
+    rng = np.random.default_rng(seed)
+    return [{"_prebatched": True, "btid": 0,
+             "image": rng.integers(0, 255, (batch, hw, hw, 4), np.uint8),
+             "xy": (rng.random((batch, 8, 2)) * hw).astype(np.float32)}
+            for _ in range(n)]
+
+
+FORMER_MOE = dict(patch=8, dim=32, depth=2, num_heads=4, num_outputs=16,
+                  num_experts=4)
+
+
+def former_loss(model, batch):
+    from blendjax_torch.train import corner_loss
+
+    return corner_loss(model(batch["image"]).reshape(-1, 8, 2), batch["xy"],
+                       image_shape=tuple(batch["image"].shape[1:3]))
+
+
+def case_expert(params_np, axes, n_msgs=4):
+    """A MoE StreamFormer through ``MeshTrainDriver.build`` on a ``data``
+    or ``data x expert`` mesh (the state-only expert layout: ``expert_*``
+    sharded, gathered before each update), its losses, the shard specs,
+    the refusal of ``aot=True``, and the first batch's loss with each rank
+    routing its own tokens alone (``local_first_loss``: per-rank capacity
+    and queue positions, which the mesh step must not use)."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.models.moe import apply_with_aux, route_over_batch
+    from blendjax_torch.parallel import all_reduce_mean
+    from blendjax_torch.parallel.sharding import batch_sharding, local_rows
+    from blendjax_torch.train import MeshTrainDriver
+    from blendjax_torch.weights import streamformer_from_flax
+
+    mesh = _mesh(axes)
+
+    def model():
+        m = StreamFormer(**FORMER_MOE, dtype=torch.float32,
+                         attn_backend="xla", image_shape=(32, 32))
+        m.load_state_dict(streamformer_from_flax(params_np))
+        return m
+
+    first = {k: local_rows(torch.from_numpy(v), batch_sharding(mesh))
+             for k, v in former_messages(n_msgs)[0].items()
+             if k in ("image", "xy")}
+    with torch.no_grad():
+        local_first = float(all_reduce_mean(
+            former_loss(model(), first), mesh, "data"))
+    # the aux loss routed over the global batch, and block 0's router
+    # gradient of it averaged over the ranks (as the mesh step averages)
+    m = model()
+    route_over_batch(m, mesh, ("data",))
+    _out, aux = apply_with_aux(m, first["image"], aux_weight=1.0)
+    aux.backward()
+    router_grad = all_reduce_mean(m.blocks[0].moe.router.weight.grad, mesh,
+                                  "data")
+
+    drv = MeshTrainDriver.build(model(), mesh, device="cpu",
+                                loss_fn=former_loss, sync_every=1,
+                                inflight=1)
+    with StreamDataPipeline(iter(former_messages(n_msgs)), batch_size=8,
+                            mesh=mesh, device="cpu") as pipe:
+        for sb in pipe:
+            drv.submit(sb)
+    drv.finish()
+    refused = None
+    if "expert" in axes:  # a state sharded over a model axis
+        try:
+            MeshTrainDriver.build(model(), mesh, device="cpu",
+                                  loss_fn=former_loss, aot=True)
+        except ValueError as e:
+            refused = str(e)
+    shards = drv.state.shards
+    names = {id(p): n for n, p in drv.state.model.named_parameters()}
+    return {"losses": np.asarray(drv.losses),
+            "specs": {str(sh.spec) for sh in shards.specs if sh.sharded}
+            if shards else set(),
+            "expert_local": [tuple(s.shape) for p, s in zip(
+                shards.params, shards.shards) if ".expert_" in names[id(p)]]
+            if shards else [],
+            "layout": drv.stats["layout"], "refused": refused,
+            "local_first_loss": local_first, "aux": float(aux),
+            "aux_router_grad": router_grad.numpy().T.copy()}
+
+
+# -- cases: RL -----------------------------------------------------------------------------
+
+
+def rl_inserts(n=6, rows=8, seed=0, with_ret=False):
+    """A scripted sequence of transition batches (the reference test's
+    fields)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"obs": rng.normal(size=(rows, 4)).astype(np.float32),
+             "action": rng.integers(0, 3, size=rows).astype(np.int32),
+             "reward": rng.normal(size=rows).astype(np.float32),
+             "done": rng.random(rows) < 0.2,
+             "next_obs": rng.normal(size=(rows, 4)).astype(np.float32)}
+        if with_ret:
+            b["ret"] = rng.normal(size=rows).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
+                 steps_per_insert=2, seed=0):
+    """The mesh learner on a scripted insert sequence: rank 0 inserts (the
+    actor rank), every rank agrees on the inserts before each compose,
+    trains its rows of each draw and all-reduces the gradients; the
+    losses, the final parameters, the priorities and the accounting."""
+    import torch.distributed as dist
+
+    from blendjax_torch.models import QNetwork
+    from blendjax_torch.rl import (
+        RLTrainDriver,
+        TrajectoryReservoir,
+        make_dqn_step,
+        make_rl_train_state,
+        mesh_rl_step_kwargs,
+    )
+    from blendjax_torch.weights import flax_tree, policy_from_flax
+
+    mesh = _mesh({"data": -1})
+    res = TrajectoryReservoir(capacity, rng=seed, mesh=mesh, device="cpu",
+                              prioritized=prioritized)
+    model = QNetwork(hidden=(16,), n_actions=3)
+    model.load_state_dict(policy_from_flax(params_np))
+    state = make_rl_train_state(model, device="cpu", mesh=mesh)
+    step = make_dqn_step(res, gamma=0.98, **mesh_rl_step_kwargs(state, mesh))
+    drv = RLTrainDriver(step, state, res, mesh=mesh, batch_size=batch,
+                        min_fill=8, sync_every=1, inflight=1,
+                        sample_timeout_s=30.0)
+    for ins in rl_inserts():
+        if dist.get_rank() == 0:
+            res.insert(ins)
+        for _ in range(steps_per_insert):
+            drv.train_step()
+    drv.drain()
+    return {"losses": np.asarray(drv.losses), "params": flax_tree(model),
+            "target": flax_tree(state.target),
+            "prio": res._priorities.numpy().copy(), "stats": res.stats,
+            "ring_rows": int(res._buffers["obs"].shape[0]),
+            "steps": drv.steps, "images": drv.images_retired}
+
+
 CASES = {
     "live": case_live,
     "live_refused": case_live_refused,
@@ -698,4 +981,9 @@ CASES = {
     "reservoir": case_reservoir,
     "echo": case_echo,
     "snapshot": case_snapshot,
+    "pipeline": case_pipeline,
+    "pipeline_blocks": case_pipeline_blocks,
+    "pipeline_mismatch": case_pipeline_mismatch,
+    "expert": case_expert,
+    "rl_mesh": case_rl_mesh,
 }
