@@ -3,19 +3,26 @@ components (the port's copy of ``blendjax/checkpoint/session.py``).
 
 The train state (parameters and optimizer moments) is half of a
 resumable run; the other half is what the consumer side accumulates: the
-echo reservoir's ring, slot accounting and generator states, the driver's
-counters. Each component has ``state_dict() -> dict`` and
-``load_state_dict(dict)`` with pickle-free values, and this module
-composes them:
+echo reservoir's ring, slot accounting, scenario stamps and generator
+states, the scenario ledger and curriculum, the per-producer lineage
+positions, the fleet's membership, the driver's counters. Each component
+has ``state_dict() -> dict`` and ``load_state_dict(dict)`` with
+pickle-free values, and this module composes them:
 
->>> session = collect_session(echo=echo)
+>>> session = collect_session(
+...     echo=echo, scenario=accounting, curriculum=curriculum,
+...     lineage=lineage, fleet=controller,
+... )
 >>> mgr.save_async(step, leaves, session=session)
 >>> restored = mgr.restore(template)
->>> restore_session(restored.session, echo=echo)
+>>> restore_session(restored.session, echo=echo, scenario=accounting,
+...                 curriculum=curriculum, lineage=lineage,
+...                 fleet=controller)
 
 A component's ``load_state_dict`` leaves it bitwise-continuable: the
 resumed echo pipeline draws the same slots with the same augmentation as
-the uninterrupted run.
+the uninterrupted run, the curriculum resumes the same evidence windows,
+and the lineage reads the producers' fresh numbering as restarts.
 """
 
 from __future__ import annotations

@@ -41,8 +41,13 @@ spans; ``echo.inserted``, ``echo.fresh``, ``echo.echoed``,
 batch's first slot; the first draw of that slot stamps it
 ``reservoir_sample`` and carries it to the step (an overwritten slot drops
 its trace). :meth:`EchoingPipeline.doctor` names the bound; :attr:`stats`
-keeps the instance counters. Left out of this port (ROADMAP): the
-scenario hooks.
+keeps the instance counters.
+
+Scenarios (:mod:`blendjax_torch.scenario`): each slot remembers the
+``_scenario`` stamp of the row that filled it (a host list; rows without a
+stamp clear their slots), and every draw carries its rows' stamps as
+``_scenario_rows`` and accounts them, fresh or echoed, in the process-wide
+ledger, so an echoed row counts under the scenario that rendered it.
 
 On a mesh (``mesh=`` or ``sharding=``): the ring's capacity axis is split
 over the batch axes (:mod:`blendjax_torch.data.ring`), every rank inserts
@@ -93,6 +98,11 @@ from blendjax_torch.ops.augment import (
     random_crop_with_points,
     random_flip_with_points,
 )
+from blendjax_torch.scenario.accounting import (
+    SCENARIO_ROWS_KEY,
+    batch_row_scenarios,
+)
+from blendjax_torch.scenario.accounting import accounting as scenario_accounting
 from blendjax_torch.utils.metrics import metrics
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
@@ -423,6 +433,9 @@ class EchoingPipeline:
         self._use = np.zeros(self.capacity, np.int64)
         self._t_insert = np.zeros(self.capacity, np.float64)
         self._filled = np.zeros(self.capacity, bool)
+        # per-slot scenario stamps (host; None for unstamped rows)
+        self._slot_scen: list = [None] * self.capacity
+        self._scen_active = False
         self._queue: queue.Queue = queue.Queue(maxsize=2)
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -524,7 +537,24 @@ class EchoingPipeline:
         if self.batch_size is None:
             self.batch_size = int(lead) * self.reservoir.ways
         trs = trace_pop(batch)
+        scen_rows = batch_row_scenarios(batch, int(lead))
+        if scen_rows is not None and self.reservoir.ways > 1:
+            # a rank holds its rows' stamps only; the global slots of a
+            # sharded ring would need every rank's (ROADMAP item 5c)
+            raise NotImplementedError(
+                "scenario-stamped batches into an echo ring sharded over "
+                "a mesh: the cross-rank stamps are not ported")
         slots = self.reservoir.insert(fields)
+        if scen_rows is not None:
+            self._scen_active = True
+            # a batch larger than the ring kept its newest rows only
+            for s, r in zip(slots, scen_rows[-len(slots):]):
+                self._slot_scen[int(s)] = r
+        elif self._scen_active:
+            # unstamped rows overwrite stamped slots: never leak a dead
+            # scenario onto a new sample
+            for s in slots:
+                self._slot_scen[int(s)] = None
         if self._slot_traces:
             # overwritten slots drop their parked traces with their frames
             for s in slots:
@@ -714,7 +744,14 @@ class EchoingPipeline:
             # one fresh and one echo
             first = np.zeros(len(idx), bool)
             first[np.unique(idx, return_index=True)[1]] = True
-            fresh_n = int((first & (self._use[idx] == 0)).sum())
+            fresh_rows = first & (self._use[idx] == 0)
+            fresh_n = int(fresh_rows.sum())
+            if self._scen_active:
+                # each drawn row carries its slot's stamp, into the batch
+                # and the ledger
+                scen = [self._slot_scen[int(i)] for i in idx]
+                batch[SCENARIO_ROWS_KEY] = scen
+                scenario_accounting.observe_rows(scen, fresh=fresh_rows)
             np.add.at(self._use, idx, 1)
             self.max_uses = max(self.max_uses, int(self._use[idx].max()))
             self.steps += 1
@@ -757,8 +794,9 @@ class EchoingPipeline:
 
     def state_dict(self) -> dict:
         """What a resumed echo pipeline needs to go on bitwise: the
-        reservoir (ring and draw counter), the per-slot use counts and
-        fill, the host generator's bit state and the counters. Insert
+        reservoir (ring and draw counter), the per-slot use counts, fill
+        and scenario stamps, the host generator's bit state and the
+        counters. Insert
         times are stored as ages (a monotonic clock does not survive the
         process). The arrays are copies: this thread keeps updating its
         own while the writer encodes them."""
@@ -768,6 +806,8 @@ class EchoingPipeline:
             "use": self._use.copy(),
             "filled": self._filled.copy(),
             "age_s": now - self._t_insert,
+            "slot_scen": list(self._slot_scen),
+            "scen_active": self._scen_active,
             "rng": self._np_rng.bit_generator.state,
             "batch_size": self.batch_size,
             "steps": self.steps,
@@ -788,6 +828,8 @@ class EchoingPipeline:
         self._use = np.asarray(d["use"], np.int64).copy()
         self._filled = np.asarray(d["filled"], bool).copy()
         self._t_insert = time.monotonic() - np.asarray(d["age_s"], np.float64)
+        self._slot_scen = list(d.get("slot_scen") or [None] * self.capacity)
+        self._scen_active = bool(d.get("scen_active", False))
         self._np_rng.bit_generator.state = d["rng"]
         if d.get("batch_size"):
             self.batch_size = int(d["batch_size"])

@@ -121,11 +121,20 @@ class DeviceFeeder:
     """Places host batch dicts on ``device`` with a prefetch ring.
 
     On CUDA every ndarray field (rank >= 1) is written into a pinned host
-    buffer (a small ring per shape and dtype, reused once the copy that
+    buffer (a ring per shape and dtype, a buffer reused once the copy that
     last read it has finished) and copied with ``non_blocking=True`` on a
     side stream; one event per batch orders the compute stream after the
-    copies. On the CPU the arrays are wrapped without a copy. ``_meta``
-    and scalar sidecars stay on the host.
+    copies. On the CPU the arrays are wrapped without a copy. ``_meta``,
+    the scenario stamps (``_scenario``, ``_scenario_rows``) and other
+    non-array sidecars stay on the host as they are.
+
+    ``throttle`` (the JAX feeder's name and default, 8) bounds the
+    transfers outstanding: it is the number of pinned buffers per shape
+    and dtype, so a placement waits only when all ``throttle`` of them
+    still hold a copy the card has not finished. Each such wait counts
+    ``feed.throttle_blocks`` and runs under the ``feed.throttle_wait``
+    span, the doctor's feed-bound evidence. ``throttle=0`` (or None)
+    removes the bound: a busy ring grows by one buffer instead of waiting.
 
     With ``mesh`` (or a batch ``sharding``) every array field but a packed
     group's buffer keeps this rank's rows (:func:`~blendjax_torch.parallel.sharding.local_rows`)
@@ -135,30 +144,49 @@ class DeviceFeeder:
     PINNED_KEYS_LIMIT = 64
 
     def __init__(self, device=None, prefetch: int = 2, mesh=None,
-                 data_axis: str = "data", sharding=None):
+                 data_axis: str = "data", sharding=None, throttle: int = 8):
         self.sharding = _batch_layout(mesh, data_axis, sharding)
         self.device = resolve_device(device)
         self.prefetch = max(1, int(prefetch))
+        self.throttle = max(0, int(throttle or 0))
         self._cuda = self.device.type == "cuda"
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self._cuda else None
         )
         self._pinned: dict = {}
-        self._ring = self.prefetch + 2
+
+    @staticmethod
+    def _pinned_buffer(arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.empty_like(arr)).pin_memory()
 
     def _pinned_slot(self, arr: np.ndarray):
+        """A pinned buffer for ``arr``: the oldest of its ring once the
+        copy out of it has finished, a new one while the ring is short of
+        ``throttle``, else the oldest after a counted wait. The entry
+        handed out holds no event until its placement records one, so a
+        second field of the same shape and dtype in that placement never
+        gets the same buffer (the ring grows past ``throttle`` if one
+        batch holds more such fields)."""
         key = (arr.shape, arr.dtype.str)
         slots = self._pinned.get(key)
         if slots is None:
             if len(self._pinned) >= self.PINNED_KEYS_LIMIT:
                 self._pinned.clear()
             slots = self._pinned[key] = collections.deque()
-        if len(slots) < self._ring:
-            entry = [torch.from_numpy(np.empty_like(arr)).pin_memory(), None]
+        # entries are handed out oldest first, so a head with no event
+        # means every entry of the ring is taken by this placement
+        head = slots[0][1] if slots else None
+        if head is not None and head.query():
+            entry = slots.popleft()
+        elif (not self.throttle or len(slots) < self.throttle
+              or head is None):
+            entry = [self._pinned_buffer(arr), None]
         else:
             entry = slots.popleft()
-            if entry[1] is not None:
-                entry[1].synchronize()  # the last copy out of it is done
+            metrics.count("feed.throttle_blocks")
+            with metrics.span("feed.throttle_wait"):
+                head.synchronize()  # the last copy out of it is done
+        entry[1] = None  # taken until this placement records its copies
         slots.append(entry)
         return entry
 
@@ -189,16 +217,20 @@ class DeviceFeeder:
             return out
         compute = torch.cuda.current_stream(self.device)
         entries = []
-        with torch.cuda.stream(self._copy_stream):
-            for k, v in arrays.items():
-                entry = self._pinned_slot(v)
-                entry[0].numpy()[...] = v
-                out[k] = entry[0].to(self.device, non_blocking=True)
-                entries.append(entry)
+        try:
+            with torch.cuda.stream(self._copy_stream):
+                for k, v in arrays.items():
+                    entry = self._pinned_slot(v)
+                    entries.append(entry)
+                    entry[0].numpy()[...] = v
+                    out[k] = entry[0].to(self.device, non_blocking=True)
+        finally:
+            # every buffer taken, even by a placement that failed, is
+            # free again once the copies queued so far have finished
             done = torch.cuda.Event()
             done.record(self._copy_stream)
-        for entry in entries:
-            entry[1] = done
+            for entry in entries:
+                entry[1] = done
         compute.wait_event(done)
         for k in arrays:
             # allocated on the side stream, used on the compute stream
@@ -237,6 +269,9 @@ class TileStreamDecoder:
     :meth:`device_stage`: plain batches with ``chunk=1``, (K', B, ...)
     superbatches with their ``_meta`` otherwise.
 
+    ``chunk_strict=True`` makes that non-tile batch raise instead
+    (``RuntimeError``), for a consumer that takes superbatches only.
+
     ``sharding`` (the batch sharding of a mesh) makes each rank decode only
     its rows of every group. ``multihost`` is the JAX package's name for
     that form and the only one the port has (one process per card):
@@ -245,7 +280,7 @@ class TileStreamDecoder:
 
     def __init__(self, device=None, chunk: int = 1,
                  emit_packed: bool = False, sharding=None,
-                 multihost: bool | None = None):
+                 multihost: bool | None = None, chunk_strict: bool = False):
         from blendjax_torch.parallel.sharding import leading_shard_count
 
         if multihost is False and leading_shard_count(sharding) > 1:
@@ -257,6 +292,7 @@ class TileStreamDecoder:
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
         self.emit_packed = bool(emit_packed)
+        self.chunk_strict = bool(chunk_strict)
         self._warned_mixed = False
         self._refs: dict = {}        # (name, btid) -> device ref tiles
         self._host_refs: dict = {}   # (name, btid) -> host copy
@@ -356,6 +392,13 @@ class TileStreamDecoder:
                 continue
             if not names:
                 if self.chunk > 1 or self.emit_packed:
+                    if self.chunk_strict:
+                        raise RuntimeError(
+                            "chunk>1 requires an all-tile-encoded stream: a "
+                            "non-tile message arrived, and the chunked step "
+                            "consumer expects (K, B, ...) superbatches only "
+                            "(chunk_strict=True)"
+                        )
                     if not self._warned_mixed:
                         self._warned_mixed = True
                         logger.warning(
@@ -524,9 +567,18 @@ class StreamDataPipeline:
     ``emit_partial_final`` emits a finite stream's ragged tail as a
     ``_partial`` batch, which ``pad_partial`` (on by default) zero-pads to
     its bucket with a float32 ``_mask`` before the host stage;
-    ``pad_partial=False`` keeps the exact ragged tail. Other keyword
-    arguments go to the stream (``record_path_prefix`` tees every
-    message received to a recording, per shard).
+    ``pad_partial=False`` keeps the exact ragged tail. ``schema`` (a
+    :class:`~blendjax_torch.data.schema.StreamSchema`) fixes the stream's
+    contract instead of inferring it from the first item;
+    ``chunk_strict=True`` raises on a non-tile message in a chunked or
+    packed stream instead of sending it as a K'=1 superbatch. Other keyword
+    arguments go to the producers' stream (``record_path_prefix`` tees
+    every message received to a recording, per shard); a source that is an
+    iterable or a recording takes none, and any raises ``TypeError``.
+
+    :meth:`connect` and :meth:`disconnect` change the producer set while
+    the pipeline runs (the fleet controller's membership calls); an
+    iterable or a recording refuses them.
 
     ``mesh`` (or a batch ``sharding``; ``data_axis`` names the batch axis)
     makes ``batch_size`` the global batch and yields this rank's rows (the
@@ -550,9 +602,18 @@ class StreamDataPipeline:
                  inflate_workers: int = 2, emit_partial_final: bool = False,
                  pad_partial: bool = True, max_items: int | None = None,
                  launcher=None, mesh=None, data_axis: str = "data",
-                 sharding=None, **stream_kwargs):
+                 sharding=None, schema=None, chunk_strict: bool = False,
+                 **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
         from blendjax_torch.parallel.sharding import leading_shard_count
+
+        live = not (hasattr(addresses, "__iter__") and not isinstance(
+            addresses, (list, tuple, str)))
+        if not live and stream_kwargs:
+            raise TypeError(
+                f"options {sorted(stream_kwargs)} go to a producers' "
+                "stream; an iterable or recorded source takes none of them"
+            )
 
         sharding = _batch_layout(mesh, data_axis, sharding)
         ways = leading_shard_count(sharding)
@@ -563,8 +624,6 @@ class StreamDataPipeline:
                 "equal shard of each global batch")
         self.mesh = getattr(sharding, "mesh", None)
         self.sharding = sharding
-        live = not (hasattr(addresses, "__iter__") and not isinstance(
-            addresses, (list, tuple, str)))
         # live producers on a split batch: this rank's own rows, agreed
         self.local_rows = live and ways > 1
         self.rank_batch = int(batch_size) // (ways if self.local_rows else 1)
@@ -628,13 +687,17 @@ class StreamDataPipeline:
         self.max_items = max_items
         self.shards: list = [self.stream]
         self.batch_size = int(batch_size)
+        self.schema = schema
         self.prefetch = prefetch
         self.ingest = None
+        # a chunked stream already makes K-fold fewer transfers: no
+        # throttle (the JAX package's choice)
         self.feeder = DeviceFeeder(device=self.device, prefetch=prefetch,
-                                   sharding=sharding)
+                                   sharding=sharding,
+                                   throttle=0 if chunk > 1 else 8)
         self.tiles = TileStreamDecoder(
             device=self.device, chunk=chunk, emit_packed=emit_packed,
-            sharding=sharding,
+            sharding=sharding, chunk_strict=chunk_strict,
         )
 
     def _launcher_on_timeout(self):
@@ -690,6 +753,36 @@ class StreamDataPipeline:
 
     def queue_depth(self) -> int:
         return 0 if self.ingest is None else self.ingest.queue_depth()
+
+    # -- elastic membership ---------------------------------------------------
+
+    def connect(self, addr: str) -> None:
+        """Admit one producer endpoint while the pipeline runs: to the
+        sharded ingest pool when one is live, else to the stream (the
+        socket operation runs on the thread that owns the socket). The
+        address list keeps a later iteration in step."""
+        if self._addresses is not None and addr not in self._addresses:
+            self._addresses.append(addr)
+        target = (self.ingest if hasattr(self.ingest, "connect")
+                  else self.stream)
+        connect = getattr(target, "connect", None)
+        if connect is None:
+            raise RuntimeError(
+                "this pipeline's source does not support runtime "
+                "membership (an iterable or a recording)")
+        connect(addr)
+
+    def disconnect(self, addr: str) -> None:
+        """Drop one producer endpoint while the pipeline runs. Retire the
+        producer first and keep receiving through a grace window: zmq
+        drops the messages still queued on the endpoint's pipe."""
+        if self._addresses is not None and addr in self._addresses:
+            self._addresses.remove(addr)
+        target = (self.ingest if hasattr(self.ingest, "disconnect")
+                  else self.stream)
+        disconnect = getattr(target, "disconnect", None)
+        if disconnect is not None:
+            disconnect(addr)
 
     def doctor(self, driver=None):
         """One-line bottleneck verdict for the live pipeline
@@ -780,7 +873,8 @@ class StreamDataPipeline:
 
             self.shards = streams
             self.ingest = ShardedHostIngest(
-                streams, batch_size=self.rank_batch, prefetch=self.prefetch,
+                streams, batch_size=self.rank_batch, schema=self.schema,
+                prefetch=self.prefetch,
                 emit_partial_final=self.emit_partial_final,
                 max_messages=self.max_items,
                 inflate_workers=self.inflate_workers,
@@ -788,7 +882,7 @@ class StreamDataPipeline:
         else:
             self.shards = [self.stream]
             self.ingest = HostIngest(
-                self.stream, batch_size=self.rank_batch,
+                self.stream, batch_size=self.rank_batch, schema=self.schema,
                 prefetch=self.prefetch,
                 emit_partial_final=self.emit_partial_final,
             ).start()

@@ -11,11 +11,17 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from blendjax_torch.scenario.accounting import SCENARIO_KEY
+
 
 @dataclass(frozen=True)
 class FieldSpec:
     shape: tuple
     dtype: np.dtype
+
+    def __repr__(self):
+        return (f"FieldSpec(shape={self.shape}, "
+                f"dtype={np.dtype(self.dtype).name})")
 
 
 class SchemaError(ValueError):
@@ -24,9 +30,14 @@ class SchemaError(ValueError):
 
 class StreamSchema:
     """Mapping ``key -> FieldSpec`` for the tensor fields of a stream;
-    ``meta_keys`` (e.g. ``btid``) ride per batch in ``_meta`` instead."""
+    ``meta_keys`` (e.g. ``btid``) ride per batch in ``_meta`` instead.
 
-    DEFAULT_META_KEYS = ("btid",)
+    The scenario stamp ``_scenario`` is a default meta key, not only one
+    inferred from the first item: a mixed fleet's first item may be
+    unstamped, and a schema frozen from it would drop every later stamp
+    at batch assembly."""
+
+    DEFAULT_META_KEYS = ("btid", SCENARIO_KEY)
 
     def __init__(self, fields: dict, meta_keys=DEFAULT_META_KEYS):
         self.fields = {
@@ -66,3 +77,15 @@ class StreamSchema:
                 raise SchemaError(
                     f"field {k!r}: dtype {v.dtype} != schema {spec.dtype}"
                 )
+
+    def batch_shapes(self, batch_size: int) -> dict:
+        """``{key: (batch_size, *per-item shape)}``."""
+        return {
+            k: (batch_size, *spec.shape) for k, spec in self.fields.items()
+        }
+
+    def keys(self):
+        return self.fields.keys()
+
+    def __repr__(self):
+        return f"StreamSchema({self.fields}, meta={self.meta_keys})"

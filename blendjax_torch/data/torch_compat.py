@@ -26,12 +26,12 @@ from blendjax_torch import constants
 from blendjax_torch.constants import LOGGER_NAME
 from blendjax_torch.data.batcher import batched_views
 from blendjax_torch.data.stream import RemoteStream
+from blendjax_torch.scenario.accounting import SCENARIO_KEY
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
-# the JAX package's sampled frame-trace and scenario stamp keys
+# the sampled frame-trace stamp key (the JAX package's)
 TRACE_KEY = "_trace"
-SCENARIO_KEY = "_scenario"
 
 # consecutive tile messages skipped for want of a reference before the
 # dataset gives up

@@ -1,6 +1,7 @@
 """Models of the port."""
 
 from blendjax_torch.models.cnn import CubeRegressor
+from blendjax_torch.models.discriminator import Discriminator
 from blendjax_torch.models.moe import MoEMLP, apply_with_aux, collect_aux_loss
 from blendjax_torch.models.policy import PolicyValueNet, QNetwork
 from blendjax_torch.models.transformer import (
@@ -10,6 +11,6 @@ from blendjax_torch.models.transformer import (
     StreamFormer,
 )
 
-__all__ = ["Block", "CubeRegressor", "LayerNorm", "MoEMLP",
+__all__ = ["Block", "CubeRegressor", "Discriminator", "LayerNorm", "MoEMLP",
            "MultiHeadAttention", "PolicyValueNet", "QNetwork", "StreamFormer",
            "apply_with_aux", "collect_aux_loss"]

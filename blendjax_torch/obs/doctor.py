@@ -387,7 +387,7 @@ def diagnose(
                     f"(wait_fresh share={shares['echo.wait_fresh']:.0%}, "
                     f"echo factor {factor}): the reservoir can't echo "
                     "any further under its budget",
-                    "raise producer instances (blendjax.fleet autoscales "
+                    "raise producer instances (blendjax_torch.fleet autoscales "
                     "on this verdict), reservoir capacity, or "
                     "max_echo_factor",
                     shares,
@@ -409,9 +409,9 @@ def diagnose(
             f"{shares['ingest.queue_wait']:.0%}) while frames arrive "
             f"fresh ({fresh}): producers don't render fast enough",
             "launch more producer instances — by hand or via "
-            "blendjax.fleet.FleetController, which autoscales on this "
+            "blendjax_torch.fleet.FleetController, which autoscales on this "
             "verdict — cheapen the scene/render, or absorb the gap "
-            "with data echoing (blendjax.data.EchoingPipeline)",
+            "with data echoing (blendjax_torch.data.EchoingPipeline)",
             shares,
         )
 

@@ -198,6 +198,13 @@ class Rasterizer:
         self.last_drawn = (None if self._rect_out[0] < 0
                            else tuple(int(v) for v in self._rect_out))
 
+    def invalidate(self) -> None:
+        """Forget the dirty-rect state: the next render clears the whole
+        target (after the background changed, or after the last target
+        was written from outside)."""
+        self._prev_target = None
+        self.last_drawn = None
+
     def _clear(self, target, new_bbox) -> None:
         rect = None
         if self._prev_target is target:
@@ -290,17 +297,53 @@ class SimScene:
 
 class CubeScene(SimScene):
     """The benchmark scene: a cube, randomly rotated and recoloured every
-    frame (``step``), seen by a fixed camera."""
+    frame (``step``), seen by a fixed camera.
+
+    The domain-randomization hooks (:mod:`blendjax_torch.scenario`):
+    :meth:`apply_scenario` sets the cube's size, the label noise
+    ``xy_jitter`` (pixels of Gaussian noise on the corner labels, the knob
+    that makes a scenario irreducibly harder) and the background grey."""
 
     def __init__(self, shape=(480, 640), seed: int = 0,
                  half_extent: float = 1.0, native: bool = True):
         self.half_extent = float(half_extent)
         self.rotation = np.eye(3)
         self.color = np.array([200, 80, 40], np.uint8)
+        self.xy_jitter = 0.0
         super().__init__(shape=shape, seed=seed, native=native)
+        # what apply_scenario reverts unnamed known params to: a draw is a
+        # complete description, never a delta on the previous draw
+        self._scenario_defaults = {
+            "half_extent": float(half_extent),
+            "background": self.raster.background.copy(),
+        }
 
     def reset(self) -> None:
         self.rotation = np.eye(3)
+
+    def apply_scenario(self, params: dict) -> None:
+        """Apply one sampled scenario-parameter dict (the
+        :class:`~blendjax_torch.producer.scenario.ScenarioApplicator`
+        hook). Known params: ``half_extent``, ``xy_jitter`` (clamped at
+        0) and ``bg`` (background grey 0-255); others are ignored (a space
+        may carry params for several kinds of scene). Known params the
+        draw does not name go back to their defaults, so no scenario
+        inherits the previous draw's noise."""
+        self.half_extent = float(
+            params.get("half_extent", self._scenario_defaults["half_extent"])
+        )
+        self.xy_jitter = max(0.0, float(params.get("xy_jitter", 0.0)))
+        bg = params.get("bg")
+        g = (
+            self._scenario_defaults["background"] if bg is None
+            else np.ascontiguousarray(
+                [int(np.clip(float(bg), 0, 255))] * 3 + [255], np.uint8
+            )
+        )
+        if not np.array_equal(g, self.raster.background):
+            self.raster.background = g
+            # dirty-rect clears assume a constant background
+            self.raster.invalidate()
 
     def step(self, frame: int) -> None:
         del frame
@@ -319,8 +362,12 @@ class CubeScene(SimScene):
         return self.raster.render(self.camera, tris, colors, out=out)
 
     def _label_xy(self) -> np.ndarray:
-        """The corners' pixel coordinates (8, 2)."""
-        return self.camera.world_to_pixel(self.corners_world())
+        """The corners' pixel coordinates (8, 2), with ``xy_jitter``
+        pixels of Gaussian label noise when a scenario set it."""
+        xy = self.camera.world_to_pixel(self.corners_world())
+        if self.xy_jitter:
+            xy = xy + self.rng.normal(0.0, self.xy_jitter, xy.shape)
+        return xy
 
     def observation(self, frame: int) -> dict:
         return {"image": self.render(),

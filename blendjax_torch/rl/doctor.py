@@ -21,8 +21,9 @@ rl-idle          no ``rl.*`` evidence yet.
 
 :func:`diagnose_rl` is pure over a plain ``Metrics.report()`` dict and
 returns the pipeline doctor's :class:`~blendjax_torch.obs.doctor.Verdict`.
-The fleet controller that scales on these verdicts waits for the port of
-``blendjax/fleet`` (ROADMAP Queue A item 7).
+A fleet controller scales env producers on these verdicts:
+``FleetController(diagnose=diagnose_rl_current, policy=FleetPolicy.rl())``
+(:mod:`blendjax_torch.fleet`).
 """
 
 from __future__ import annotations

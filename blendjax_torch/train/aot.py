@@ -93,10 +93,11 @@ _MANIFEST = "aot_manifest.json"
 # will (the optimizer's state present)
 _WARMUP = 2
 # host sidecars that never enter a graph: the draw counter reaches the
-# graph through the generators' seeds, ``_meta`` is host bookkeeping
-# host bookkeeping; ``_by_reference`` is the token's own list of the
+# graph through the generators' seeds, ``_meta`` and the scenario stamps
+# are host bookkeeping; ``_by_reference`` is the token's own list of the
 # entries read in place
-_UNKEYED = ("_meta", "_echo_counter", "_by_reference")
+_UNKEYED = ("_meta", "_echo_counter", "_by_reference", "_scenario",
+            "_scenario_rows")
 
 
 def _by_reference(batch: dict) -> tuple:

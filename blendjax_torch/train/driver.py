@@ -34,7 +34,8 @@ captured.
 
 Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX driver's names): the
 ``train.dispatch`` span around each step call and ``train.dispatches``;
-``driver.ring_wait`` and ``train.host_blocks`` for a genuine ring-full
+the ``train.inflight_hwm`` gauge (``gauge_max`` on every dispatch);
+``ckpt.preemptions`` when a preemption is honoured; ``driver.ring_wait`` and ``train.host_blocks`` for a genuine ring-full
 wait; ``driver.loss_sync`` around each loss fetch; each retired entry's
 dispatch-to-retirement time in ``train.step_device_ms`` (an upper bound of
 the step's device time: a finished entry is seen within one submit); and,
@@ -47,7 +48,10 @@ ring entry and are stamped ``step_retire`` and completed at retirement. A
 for signatures met after warm-up. A step that carries device-ledger entries
 (:meth:`build`'s AOT set, a captured step) gives the cost-model FLOPs per
 image (``mfu_source`` ``"cost-model"``) unless ``flops_per_image`` is
-passed by hand (``"hand-fed"``).
+passed by hand (``"hand-fed"``). Scenario stamps (``_scenario`` and the
+echo draw's per-row ``_scenario_rows``, :mod:`blendjax_torch.scenario`) are
+host sidecars and come off the batch before the step call, as traces do;
+the caller's batch keeps them for the accounting.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from blendjax_torch.obs.trace import (
     tracer,
 )
 from blendjax_torch.train.steps import batch_images
+from blendjax_torch.scenario.accounting import SCENARIO_KEY, SCENARIO_ROWS_KEY
 from blendjax_torch.utils.metrics import metrics
 
 
@@ -300,6 +305,11 @@ class TrainDriver:
         if traces:
             for tr in traces:
                 trace_stage(tr, "step_dispatch")
+        if SCENARIO_ROWS_KEY in batch or SCENARIO_KEY in batch:
+            # host sidecars (strings, None): a new dict, so the caller's
+            # batch keeps them for the scenario accounting
+            batch = {k: v for k, v in batch.items()
+                     if k not in (SCENARIO_ROWS_KEY, SCENARIO_KEY)}
         images = self._batch_images(batch)
         if self._t_first_dispatch is None:
             self._t_first_dispatch = time.monotonic()
@@ -317,6 +327,8 @@ class TrainDriver:
         self.steps += 1
         self._pending.append((loss, event, images, time.monotonic(), traces))
         self.inflight_hwm = max(self.inflight_hwm, len(self._pending))
+        # every dispatch, so a registry reset mid-run still sees the gauge
+        metrics.gauge_max("train.inflight_hwm", len(self._pending))
         if post:
             self.post_dispatch()
 
@@ -371,6 +383,7 @@ class TrainDriver:
                 f"snapshot FAILED ({err!r}); resuming from the last "
                 "committed step" if err is not None else "snapshot committed"
             )
+        metrics.count("ckpt.preemptions")
         raise PreemptionRequested(
             f"preemption honored at step {self.steps}: {outcome}")
 

@@ -29,7 +29,7 @@ A publisher may compress large arrays (``compress_level``: zlib "ndz";
 write them into a shared-memory ring (``shm``,
 :mod:`blendjax_torch.transport.shm`) and send only a descriptor. A message
 that outgrows its ring slot goes on the wire codecs and is counted in
-``shm_fallbacks``.
+``shm_fallbacks`` and in the registry's ``wire.shm_fallbacks``.
 """
 
 from __future__ import annotations
@@ -292,7 +292,10 @@ class DataPublisherSocket(_Channel):
         try:
             desc = ring.write(arrs, timeout_s=self._shm_timeout_s)
         except ShmCapacityError:
+            from blendjax_torch.utils.metrics import metrics
+
             self.shm_fallbacks += 1
+            metrics.count("wire.shm_fallbacks")
             return None
         small = {k: v for k, v in data.items() if k not in arrs}
         small["_shm"] = desc
@@ -339,8 +342,10 @@ class DataPublisherSocket(_Channel):
 class DataReceiverSocket(_Channel):
     """Consumer end: PULL, connected to every producer address.
 
-    ``recv`` returns the decoded message dict or raises
-    :class:`ReceiveTimeoutError`. Receive and decode are also separate
+    ``recv`` returns ``(message, raw_buffers)``, the decoded dict and the
+    frame buffers it came from (so a recorder can keep the exact wire
+    bytes), or raises :class:`ReceiveTimeoutError`. Receive and decode are
+    also separate
     calls (:meth:`recv_frames`, :meth:`decode_frames`), so a stream with
     an inflate pool decodes one message while it receives the next.
     ``allow_pickle`` admits pickled messages and embedded pickles. The
@@ -391,7 +396,9 @@ class DataReceiverSocket(_Channel):
         return buffers
 
     def recv(self, timeoutms: int | None = None, copy_arrays: bool = False):
-        return self.decode_frames(self.recv_frames(timeoutms), copy_arrays)
+        """One message: ``(decoded dict, raw frame buffers)``."""
+        buffers = self.recv_frames(timeoutms)
+        return self.decode_frames(buffers, copy_arrays), buffers
 
     def connect(self, addr: str) -> None:
         """Add a producer endpoint (on the thread that owns the socket)."""

@@ -1,6 +1,7 @@
 """Parameter and train-state conversion between the port and the JAX
-package's flax trees: :func:`from_flax` and :func:`streamformer_from_flax`
-for parameters, :func:`train_state_leaves` and
+package's flax trees: :func:`from_flax`, :func:`streamformer_from_flax`,
+:func:`policy_from_flax` and :func:`discriminator_from_flax` for
+parameters, :func:`train_state_leaves` and
 :func:`load_train_state_leaves` for the whole train state under the leaf
 paths of the JAX package's snapshots."""
 
@@ -41,6 +42,25 @@ def from_flax(params_np: dict) -> dict:
         state[f"{torch_name}.bias"] = torch.from_numpy(
             np.asarray(params_np[flax_name]["bias"], np.float32).copy()
         )
+    return state
+
+
+def discriminator_from_flax(params_np: dict) -> dict:
+    """The JAX package's ``Discriminator`` parameter tree (numpy:
+    ``{"Conv_i": {"kernel"}, "GroupNorm_i": {"scale", "bias"},
+    "Dense_0": {"kernel", "bias"}}``) -> a ``state_dict`` of
+    :class:`blendjax_torch.models.Discriminator`: convolution kernels from
+    HWIO to OIHW, the dense kernel transposed."""
+    state = {}
+    convs = sorted((k for k in params_np if k.startswith("Conv_")),
+                   key=lambda k: int(k.split("_")[1]))
+    for i, name in enumerate(convs):
+        kernel = np.asarray(params_np[name]["kernel"], np.float32)
+        state[f"convs.{i}.weight"] = _f32(kernel.transpose(3, 2, 0, 1))
+        norm = params_np[f"GroupNorm_{i}"]
+        state[f"norms.{i}.weight"] = _f32(norm["scale"])
+        state[f"norms.{i}.bias"] = _f32(norm["bias"])
+    _dense(state, "head", params_np["Dense_0"])
     return state
 
 
@@ -172,6 +192,20 @@ def _streamformer_params(model) -> list:
             for keys, p, layout in out]
 
 
+def _discriminator_params(model) -> list:
+    """``(flax path, parameter, layout)`` of a ``Discriminator``: the
+    reverse of :func:`discriminator_from_flax`, in the flax tree's order."""
+    out = []
+    for i, (conv, norm) in enumerate(zip(model.convs, model.norms)):
+        out += [(f"['Conv_{i}']['kernel']", conv.weight, "conv"),
+                (f"['GroupNorm_{i}']['bias']", norm.bias, None),
+                (f"['GroupNorm_{i}']['scale']", norm.weight, None)]
+    out += [("['Dense_0']['bias']", model.head.bias, None),
+            ("['Dense_0']['kernel']", model.head.weight, "dense")]
+    out.sort(key=lambda e: e[0])
+    return out
+
+
 def _policy_params(model) -> list:
     """``(flax path, parameter, layout)`` of a ``QNetwork`` or a
     ``PolicyValueNet``: its linear layers are flax's ``Dense_{i}`` in
@@ -188,11 +222,13 @@ def _policy_params(model) -> list:
 
 def flax_params(model) -> list:
     """``(flax path, parameter, layout)`` of every parameter: the flax names
-    of a ``CubeRegressor``, a ``StreamFormer``, a ``QNetwork`` or a
-    ``PolicyValueNet``; any other model keeps its own parameter names,
-    untransposed (a snapshot only this package reads)."""
+    of a ``CubeRegressor``, a ``StreamFormer``, a ``QNetwork``, a
+    ``PolicyValueNet`` or a ``Discriminator``; any other model keeps its
+    own parameter names, untransposed (a snapshot only this package
+    reads)."""
     from blendjax_torch.models import (
         CubeRegressor,
+        Discriminator,
         PolicyValueNet,
         QNetwork,
         StreamFormer,
@@ -200,6 +236,8 @@ def flax_params(model) -> list:
 
     if isinstance(model, CubeRegressor):
         return _cube_params(model)
+    if isinstance(model, Discriminator):
+        return _discriminator_params(model)
     if isinstance(model, StreamFormer):
         return _streamformer_params(model)
     if isinstance(model, (QNetwork, PolicyValueNet)):

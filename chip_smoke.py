@@ -268,6 +268,44 @@ after the first commit, restores it into a fresh stack and continues to
 48 steps from the snapshot's step, inserts and env steps. The PG leg: 4
 ``make_pg_step`` graph replays bit-equal to the eager steps.
 
+Phase 5j (after 5i), scoring, the scenario loop and the elastic fleet
+(``bench.py``'s ``measure_live_scenario`` and ``measure_live_fleet``,
+and densityopt's critic). The scenario and fleet paths stream raw frames,
+so the phase launches none of K1-K4c. The scoring leg: ``GaussianSimParams``
+on the card samples 32 supershape parameter pairs with a CUDA generator,
+``SupershapeScene`` renders them (256x256x4), ``DeviceFeeder`` places the
+producer's batch (``image``, and ``shape_id`` and ``frameid``, both (B,)
+int64) three times behind a sleep on its copy stream, every field intact,
+and the full-width ``Discriminator()`` (bf16 compute) runs forward and
+backward eagerly: finite logits and gradients, the logits within
+``DISC_REL`` of the plain path's f32 run on the CPU with the same weights,
+there and on 8 frames at 250x250 (odd sides from the second layer on, where
+SAME padding is uneven), and one REINFORCE update from the per-sample
+losses moves ``mu``; it prints ms per forward+backward (``time_ms``). The scenario legs: 2 ``synthetic_fleet(scenario=True)``
+producers (32x32, batch 4, 60 frames/s) get the space
+``easy:half_extent=u(0.8,1.2) / hard:half_extent=u(0.8,1.2),xy_jitter=16``
+from a ``ScenarioService`` -> ``StreamDataPipeline(batch_size=8)`` ->
+``EchoingPipeline(capacity=64, max_echo_factor=4, emit_draws=True)`` ->
+the captured echo-fused step on ``CubeRegressor()``, each step's loss
+attributed to its rows' scenarios; ``fixed`` freezes the curriculum,
+``curriculum`` adapts every 10 steps (``min_rows=4``). Each fails unless
+fresh + echoed == steps x batch over the declared ids, >= 2 ids seen, no
+gap, reorder or restart, one graph replay per step call, finite losses,
+and (curriculum) space version >= 2 with the weight moved toward
+``hard``; over 160 steps (the bench's 40, lengthened so the frames queued
+during the first step's capture drain), it prints img/s over the replays
+after the first step (the first frames and the graph's capture, timed
+apart) and the settled img/s over the last half of the steps. The fleet legs: producers capped at 40
+frames/s (32x32, batch 4), a fixed fleet of 2 against one autoscaled from
+1 (``FleetPolicy(up_after=2, cooldown_s=2.0)``, at most 4), the
+``FleetController`` ticking on ``pipe.doctor()`` every 0.5 s from the
+main thread for 10 s (the bench's 12, cut), the pipeline placing on the
+card: the autoscaled
+leg must scale up, neither may count a gap, and no process, directory or
+shared-memory segment may be left; each prints the instance trajectory,
+the verdict runs and the settled img/s (second half), and the phase the
+settled ratio.
+
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
 """
@@ -373,6 +411,32 @@ RING_ONE_BLOCK_REL = 1e-4
 # steps of each step builder run eagerly and through its graph from one
 # state in the graph-parity phase
 PARITY_STEPS = 4
+# Phase 5j (bench.py's measure_live_scenario and measure_live_fleet, and
+# densityopt's critic). Scoring: the full-width Discriminator on a batch of
+# SupershapeScene frames at its default shape, and on a few at an odd size
+# (250 -> 125 -> 63: SAME padding pads unevenly there); the card's bf16
+# logits against the plain path's f32 ones on the CPU, within DISC_REL of
+# the largest (at least 1): about 3x the gap read on an H100 (5.0e-3)
+DISC = {"batch": 32, "shape": (256, 256), "odd_batch": 8,
+        "odd_shape": (250, 250), "mu": (6.0, 1.0), "log_sigma": (-0.7, -1.6),
+        "reps": 5, "windows": 5, "placements": 3}
+DISC_REL = 1.5e-2
+# Scenario: 2 rate-capped synthetic producers at 32x32 (xy_jitter is half
+# the side: the curriculum gate is calibrated to it), the bench's spec;
+# 160 steps (the bench's 40, lengthened: the frames queued while the first
+# step captures its graph drain within ~40 steps, and the second half of
+# the window reads the settled rate)
+SCENARIO = {"producers": 2, "shape": (32, 32), "batch": 4, "rate": 60.0,
+            "train_batch": 8, "capacity": 64, "max_echo_factor": 4,
+            "every_steps": 10, "min_rows": 4, "min_steps": 160,
+            "time_cap": 20.0,
+            "spec": "easy:half_extent=u(0.8,1.2) / "
+                    "hard:half_extent=u(0.8,1.2),xy_jitter=16"}
+# Fleet: a fixed fleet of 2 producers capped at 40 frames/s against an
+# autoscaled one from 1 (at most 4), the controller ticking every 0.5 s;
+# 10 s per leg (the bench's 12, cut to keep the phase near a minute)
+FLEET = {"shape": (32, 32), "batch": 4, "rate": 40.0, "max": 4,
+         "time_cap": 10.0, "tick_s": 0.5}
 # Device-memory rates for the bytes bound (NVIDIA data sheets); an
 # unlisted H100 name takes the SXM part's 3.35 TB/s.
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -3596,6 +3660,451 @@ def rl_phase(tmp: str, card: str) -> dict:
     return {**legs, "resume": resume, "pg": pg, "best_return": best}
 
 
+# -- phase 5j: scoring, the scenario loop and the elastic fleet ------------------
+
+
+def supershape_frames(thetas, shape=None) -> "np.ndarray":
+    """One SupershapeScene frame (RGBA, its default 256x256 unless
+    ``shape``) per row of ``thetas`` (m, n1); n2 = n3 = 1, n1 kept >= 0.2
+    so every radius is finite."""
+    import numpy as np
+
+    from blendjax_torch.producer.sim import SupershapeScene
+
+    shape = tuple(shape or DISC["shape"])
+    scene = SupershapeScene(shape=shape, seed=0)
+    out = np.empty((len(thetas), *shape, 4), np.uint8)
+    for i, (m, n1) in enumerate(thetas):
+        scene.set_params([m, max(float(n1), 0.2), 1.0, 1.0], shape_id=i)
+        out[i] = scene.render()
+    return out
+
+
+def placed_supershape_batches(frames, label: str) -> dict:
+    """The supershape producer's batch (``image``, ``shape_id`` and
+    ``frameid``, the last two both (B,) int64) placed ``placements`` times
+    by the port's ``DeviceFeeder``, each placement's copies queued behind
+    a sleep on its side stream; every field must arrive with its own
+    values (``shape_id`` is how densityopt matches frames to draws).
+    Returns the last placement."""
+    import numpy as np
+    import torch
+
+    from blendjax_torch.data.pipeline import DeviceFeeder
+
+    n = len(frames)
+    feeder = DeviceFeeder(device="cuda")
+    hosts, outs = [], []
+    for i in range(DISC["placements"]):
+        host = {"image": frames,
+                "shape_id": np.arange(n, dtype=np.int64),
+                "frameid": np.arange(n, dtype=np.int64) + 1000 * (i + 1)}
+        with torch.cuda.stream(feeder._copy_stream):
+            torch.cuda._sleep(int(0.02 * SLEEP_HZ))
+        hosts.append(host)
+        outs.append(feeder.place(host))
+    torch.cuda.synchronize()
+    for i, (host, out) in enumerate(zip(hosts, outs)):
+        for k, v in host.items():
+            if not np.array_equal(out[k].cpu().numpy(), v):
+                fail(f"{label}: placement {i} delivered another field's "
+                     f"values as {k!r}")
+    return outs[-1]
+
+
+def disc_gap(disc, x, frames) -> tuple:
+    """The card's logits for ``x`` against the plain path's f32 run on
+    the CPU with the same weights: (card logits, max abs gap, bar)."""
+    import torch
+
+    from blendjax_torch.models import Discriminator
+
+    logits = disc(x)
+    ref = Discriminator(dtype=torch.float32)
+    ref.load_state_dict({k: v.cpu() for k, v in disc.state_dict().items()})
+    with torch.no_grad():
+        want = ref(torch.from_numpy(frames))
+    err = float((logits.detach().float().cpu() - want).abs().max())
+    return logits, err, DISC_REL * max(1.0, float(want.abs().max()))
+
+
+def scoring_leg(card: str) -> dict:
+    """densityopt's consumer on the card: ``GaussianSimParams`` samples
+    supershape parameters with a CUDA generator, the host renders them,
+    ``DeviceFeeder`` places the producer's batch, the full-width
+    ``Discriminator()`` (bf16 compute) scores the frames forward and
+    backward, and one REINFORCE update moves the sampling distribution.
+    Gates: every placed field intact, finite logits and gradients, the
+    card's logits within ``DISC_REL`` of the plain path's on the CPU (f32,
+    same weights) at the default size and at an odd one, ``mu`` moved and
+    finite. Launches no K kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from blendjax_torch.models import Discriminator
+    from blendjax_torch.train.score import GaussianSimParams
+
+    label = "scoring leg"
+    sim = GaussianSimParams(DISC["mu"], DISC["log_sigma"],
+                            learning_rate=0.05)
+    gen = torch.Generator(device=sim.device).manual_seed(0)
+    theta = sim.sample(gen, DISC["batch"])
+    frames = supershape_frames(theta.cpu().numpy())
+    distinct = len({f.tobytes() for f in frames})
+    disc = Discriminator().init_params(0).cuda()
+    x = placed_supershape_batches(frames, label)["image"]
+    odd = supershape_frames(theta[:DISC["odd_batch"]].cpu().numpy(),
+                            DISC["odd_shape"])
+    with torch.no_grad():
+        _, odd_err, odd_bar = disc_gap(disc, torch.from_numpy(odd).cuda(),
+                                       odd)
+    logits, err, bar = disc_gap(disc, x, frames)
+    losses = F.binary_cross_entropy_with_logits(
+        logits, torch.ones_like(logits), reduction="none")
+    losses.mean().backward()
+    grads = [p.grad for p in disc.parameters()]
+    mu0 = sim.mu.clone()
+    mean_loss = sim.update(theta, losses.detach())
+    checks = [
+        (distinct > 1, f"{distinct} distinct frames for {DISC['batch']} draws"),
+        (bool(torch.isfinite(logits).all()), "non-finite logits"),
+        (all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+         "a missing or non-finite gradient"),
+        (err <= bar, f"logits {err:.3e} off the CPU's (bar {bar:.3e})"),
+        (odd_err <= odd_bar, f"logits at {DISC['odd_shape']} {odd_err:.3e} "
+         f"off the CPU's (bar {odd_bar:.3e})"),
+        (bool(torch.isfinite(sim.mu).all())
+         and not torch.equal(sim.mu, mu0), f"mu {mu0} -> {sim.mu}"),
+        (math.isfinite(mean_loss), f"mean loss {mean_loss}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"{label}: {what}")
+
+    def fwd_bwd():
+        disc.zero_grad(set_to_none=True)
+        out = disc(x)
+        F.binary_cross_entropy_with_logits(
+            out, torch.ones_like(out)).backward()
+
+    t = time_ms(fwd_bwd, reps=DISC["reps"], windows=DISC["windows"])
+    log(f"{label} on {card}: Discriminator() features "
+        f"{disc.features}, bf16 compute, {DISC['batch']} SupershapeScene "
+        f"frames {DISC['shape'][0]}x{DISC['shape'][1]}x4 ({distinct} "
+        f"distinct), placed {DISC['placements']} times with every field "
+        f"intact; forward+backward {spread(t)} per call (host "
+        f"{t['host_ms']:.3f} ms); logits max |card - CPU f32| {err:.3e} "
+        f"(bar {bar:.3e}), at {DISC['odd_shape'][0]}x{DISC['odd_shape'][1]} "
+        f"({DISC['odd_batch']} frames) {odd_err:.3e} (bar {odd_bar:.3e}); "
+        f"mean loss {mean_loss:.5f}; mu {mu0.tolist()} -> {sim.mu.tolist()}")
+    return {"time_ms": t["ms"], "time": t, "max_abs_err": err, "bar": bar,
+            "odd_max_abs_err": odd_err, "odd_bar": odd_bar,
+            "mean_loss": mean_loss, "mu": sim.mu.tolist()}
+
+
+def scenario_leg(adaptive: bool, card: str) -> dict:
+    """One leg of ``bench.py:measure_live_scenario`` on the port: 2
+    synthetic producers render the 2-scenario space the service publishes,
+    ``StreamDataPipeline`` -> ``EchoingPipeline(emit_draws=True)`` -> the
+    captured echo-fused step on a fresh full-width ``CubeRegressor()``,
+    each step's loss attributed to its rows' scenarios; the curriculum is
+    frozen (``fixed``) or republishes adapted weights (``curriculum``)."""
+    import numpy as np
+    import torch
+
+    from blendjax_torch.data import EchoingPipeline, StreamDataPipeline
+    from blendjax_torch.fleet import synthetic_fleet
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.scenario import (
+        ScenarioCurriculum,
+        ScenarioService,
+        ScenarioSpace,
+        accounting,
+    )
+    from blendjax_torch.train import (
+        CapturedStep,
+        make_echo_fused_step,
+        make_train_state,
+    )
+    from blendjax_torch.utils.metrics import metrics
+
+    cfg = SCENARIO
+    label = f"scenario leg ({'curriculum' if adaptive else 'fixed'})"
+    fresh_registry()
+    accounting.reset()
+    space = ScenarioSpace.parse(cfg["spec"])
+    w0 = space.weights()
+    svc = ScenarioService(space)
+    shm_before = set(os.listdir("/dev/shm"))
+    state = make_train_state(CubeRegressor().init_params(0))
+    steps, losses, stamps = 0, [], []
+    try:
+        with synthetic_fleet(cfg["producers"], shape=cfg["shape"],
+                             batch=cfg["batch"], rate=cfg["rate"],
+                             scenario=True, bind_grace_s=0.5) as launcher:
+            pids = [p.pid for p in launcher.processes]
+            dirs = [launcher._ipc_dir, launcher._shm_registry]
+            for i, addr in enumerate(launcher.addresses["CTRL"]):
+                svc.attach(i, addr)
+            acked = svc.wait_acked(timeout=15)
+            pipe = StreamDataPipeline(launcher.addresses["DATA"],
+                                      batch_size=cfg["train_batch"],
+                                      timeoutms=30_000)
+            echo = EchoingPipeline(pipe, capacity=cfg["capacity"],
+                                   max_echo_factor=cfg["max_echo_factor"],
+                                   emit_draws=True)
+            graph_step = CapturedStep(
+                make_echo_fused_step(echo.reservoir.draw))
+            curriculum = ScenarioCurriculum(
+                space, service=svc, every_steps=cfg["every_steps"],
+                min_rows=cfg["min_rows"], adapt_params=False,
+                frozen=not adaptive)
+
+            def one_step(token):
+                nonlocal state, steps
+                with metrics.span("train.dispatch"):
+                    state, m = graph_step(state, token)
+                # the curriculum's evidence: one loss fetch per step
+                loss = float(m["loss"])
+                losses.append(loss)
+                accounting.account_batch(token, loss=loss)
+                curriculum.step(1)
+                steps += 1
+                stamps.append(time.perf_counter())
+
+            with echo:
+                it = iter(echo)
+                # the first step (the producers' first frames, the graph's
+                # capture) is accounted and gated but not timed
+                t_first = time.perf_counter()
+                one_step(next(it))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first_s = t0 - t_first
+                while True:
+                    one_step(next(it))
+                    dt = time.perf_counter() - t0
+                    if steps >= cfg["min_steps"] and (
+                            not adaptive or curriculum.updates >= 1):
+                        break
+                    if dt > cfg["time_cap"]:
+                        break
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            gaps = pipe.seq_gaps + pipe.reorders + pipe.restarts
+            pids = sorted(set(pids) | {p.pid for p in launcher.processes})
+    finally:
+        svc.stop()
+    fleet_gone(label, pids, dirs, shm_before)
+    report = metrics.report()
+    ledger = accounting.report()
+    totals = accounting.totals()
+    declared_rows = sum(f + e for sid, (f, e) in totals.items()
+                        if sid in space.names)
+    wf = space.weights()
+    half = steps // 2  # the settled rate: the last half of the steps
+    out = {
+        "steps": steps, "seconds": dt, "first_step_s": first_s,
+        # the replays after the first step
+        "img_s": (steps - 1) * cfg["train_batch"] / max(dt, 1e-9),
+        "settled_img_s": (steps - 1 - half) * cfg["train_batch"]
+        / max(stamps[-1] - stamps[half], 1e-9),
+        "acked_before_start": acked, "space_version": space.version,
+        "curriculum_updates": curriculum.updates,
+        "weights_initial": w0, "weights_final": wf,
+        "weight_shifted": wf["hard"] > w0["hard"] + 0.02,
+        "distinct_ids": len(totals),
+        "per_scenario": {
+            sid: {"fresh": f, "echoed": e,
+                  "loss_p50": ledger["scenarios"].get(sid, {}).get(
+                      "loss", {}).get("p50"),
+                  "versions": ledger["scenarios"].get(sid, {}).get(
+                      "versions", {})}
+            for sid, (f, e) in sorted(totals.items())},
+        "accounting_exact": declared_rows == steps * cfg["train_batch"],
+        "dispatch_per_step": report["spans"].get(
+            "train.dispatch", {}).get("count", 0) / max(steps, 1),
+        "graph_replays": graph_step.graph_replays,
+        "aot_fallbacks": graph_step.aot_fallbacks,
+        "seq_gaps": gaps,
+        "scenario_counters": {k: int(v) for k, v in
+                              report["counters"].items()
+                              if k.startswith("scenario.")},
+        "echo_saturated_waits": int(report["counters"].get(
+            "echo.saturated_waits", 0)),
+        "finite": all(math.isfinite(v) for v in losses),
+    }
+    checks = [
+        (acked, "the producers never acked the space"),
+        (out["accounting_exact"], f"fresh + echoed over the declared ids "
+         f"{declared_rows} != steps {steps} x batch {cfg['train_batch']}"),
+        (out["distinct_ids"] >= 2, f"ids seen {sorted(totals)}"),
+        (gaps == 0, f"{gaps} sequence gaps, reorders and restarts"),
+        (out["finite"], "a non-finite loss"),
+        (graph_step.graph_replays == steps
+         and graph_step.aot_fallbacks == 0
+         and out["dispatch_per_step"] == 1.0,
+         f"{graph_step.graph_replays} replays and "
+         f"{graph_step.aot_fallbacks} fallbacks for {steps} step calls"),
+    ]
+    if adaptive:
+        checks += [
+            (space.version >= 2, f"space version {space.version}"),
+            (out["weight_shifted"], f"weights {w0} -> {wf}: no shift "
+             "toward hard"),
+        ]
+    for ok, what in checks:
+        if not ok:
+            fail(f"{label}: {what}")
+    log(f"{label} on {card}: {out['img_s']:.1f} img/s into the step over "
+        f"{steps - 1} replays ({dt:.2f} s) after a first step (frames, "
+        f"capture) of {first_s:.2f} s, settled {out['settled_img_s']:.1f} "
+        f"img/s (last half); per scenario {out['per_scenario']}; "
+        f"space version {space.version}, weights "
+        f"{ {k: round(v, 4) for k, v in wf.items()} } (from "
+        f"{ {k: round(v, 4) for k, v in w0.items()} }); graph replays "
+        f"{graph_step.graph_replays}; seq_gaps {gaps}; counters "
+        f"{out['scenario_counters']}; saturated waits "
+        f"{out['echo_saturated_waits']}")
+    return out
+
+
+def compress_runs(seq) -> list:
+    """``[kind, count]`` runs of a verdict sequence."""
+    runs: list = []
+    for kind in seq:
+        if runs and runs[-1][0] == kind:
+            runs[-1][1] += 1
+        else:
+            runs.append([kind, 1])
+    return runs
+
+
+def fleet_leg(autoscale: bool, card: str) -> dict:
+    """One leg of ``bench.py:measure_live_fleet`` on the port: rate-capped
+    synthetic producers (2 fixed, or 1 autoscaled up to ``FLEET["max"]``)
+    into ``StreamDataPipeline`` placing on the card, the
+    ``FleetController`` ticking from this thread on ``pipe.doctor()``."""
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.fleet import (
+        FleetController,
+        FleetPolicy,
+        synthetic_fleet,
+    )
+    from blendjax_torch.utils.metrics import metrics
+
+    cfg = FLEET
+    label = f"fleet leg ({'autoscaled' if autoscale else 'fixed 2'})"
+    n_start = 1 if autoscale else 2
+    args = ["--shape", str(cfg["shape"][0]), str(cfg["shape"][1]),
+            "--batch", str(cfg["batch"]), "--rate", str(cfg["rate"])]
+    fresh_registry()
+    shm_before = set(os.listdir("/dev/shm"))
+    trajectory, verdicts = [], []
+    with synthetic_fleet(n_start, shape=cfg["shape"], batch=cfg["batch"],
+                         rate=cfg["rate"], bind_grace_s=0.5) as launcher:
+        dirs = [launcher._ipc_dir, launcher._shm_registry]
+        pipe = StreamDataPipeline(launcher.addresses["DATA"],
+                                  batch_size=2 * cfg["batch"],
+                                  timeoutms=30_000)
+        ctrl = FleetController(
+            launcher, connector=pipe, diagnose=lambda: pipe.doctor(),
+            instance_args=args,
+            policy=FleetPolicy(min_instances=n_start,
+                               max_instances=(cfg["max"] if autoscale
+                                              else n_start),
+                               up_after=2, cooldown_s=2.0))
+        with pipe:
+            it = iter(pipe)
+            first = next(it)  # producers up, first batch on the card
+            device = first["image"].device
+            t0 = time.perf_counter()
+            n = n_half = 0
+            last_tick = 0.0
+            while True:
+                n += int(next(it)["image"].shape[0])
+                now = time.perf_counter() - t0
+                if not n_half and now >= cfg["time_cap"] / 2:
+                    n_half = n
+                if now - last_tick >= cfg["tick_s"]:
+                    last_tick = now
+                    d = ctrl.tick()
+                    verdicts.append(d["verdict"])
+                    trajectory.append((round(now, 1), d["instances"]))
+                if now >= cfg["time_cap"]:
+                    break
+            dt = time.perf_counter() - t0
+            instances = ctrl.state()["instances"]
+            gaps = pipe.seq_gaps + pipe.reorders + pipe.restarts
+        pids = [p.pid for p in launcher.processes]
+    fleet_gone(label, pids, dirs, shm_before)
+    counters = metrics.report()["counters"]
+    settled = ((n - n_half) / (dt - cfg["time_cap"] / 2) if n_half
+               else n / dt)
+    out = {
+        "img_s": n / dt, "settled_img_s": settled, "frames": n,
+        "seconds": dt, "instances_final": instances,
+        "trajectory": trajectory, "verdicts": compress_runs(verdicts),
+        "scale_events": [e["action"] for e in ctrl.scale_events()],
+        "scale_ups": sum(e["action"] == "scale_up"
+                         for e in ctrl.scale_events()),
+        "seq_gaps": gaps, "device": str(device),
+        "fleet_counters": {k: int(v) for k, v in counters.items()
+                           if k.startswith("fleet.")},
+    }
+    if gaps:
+        fail(f"{label}: {gaps} sequence gaps, reorders and restarts")
+    if device.type != "cuda":
+        fail(f"{label}: the pipeline placed on {device}")
+    log(f"{label} on {card}: {out['img_s']:.1f} img/s over {dt:.2f} s, "
+        f"settled {settled:.1f} img/s (second half); instances "
+        f"{instances}; trajectory (s, instances) {trajectory}; verdicts "
+        f"{out['verdicts']}; scale events {out['scale_events']}; counters "
+        f"{out['fleet_counters']}; seq_gaps {gaps}")
+    return out
+
+
+def phase_5j(card: str) -> dict:
+    """Phase 5j: the scoring leg, the scenario legs (fixed, then
+    curriculum) and the fleet legs (fixed 2, then autoscaled). The
+    scenario and fleet paths stream raw frames, so the phase launches no K
+    kernel (none of K1-K4c is on them)."""
+    t0 = time.perf_counter()
+    marks = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        marks[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    scoring = timed("scoring", scoring_leg, card)
+    scenario = {"fixed": timed("scenario fixed", scenario_leg, False, card),
+                "curriculum": timed("scenario curriculum", scenario_leg,
+                                    True, card)}
+    fleet = {"fixed2": timed("fleet fixed 2", fleet_leg, False, card),
+             "autoscaled": timed("fleet autoscaled", fleet_leg, True, card)}
+    if fleet["autoscaled"]["scale_ups"] < 1:
+        fail("fleet leg: the autoscaled fleet never scaled up (verdicts "
+             f"{fleet['autoscaled']['verdicts']})")
+    ratio = (fleet["autoscaled"]["settled_img_s"]
+             / max(fleet["fixed2"]["settled_img_s"], 1e-9))
+    wall = time.perf_counter() - t0
+    log(f"phase 5j on {card}: discriminator forward+backward "
+        f"{scoring['time_ms']:.3f} ms; scenario img/s (settled) fixed "
+        f"{scenario['fixed']['img_s']:.1f} "
+        f"({scenario['fixed']['settled_img_s']:.1f}), curriculum "
+        f"{scenario['curriculum']['img_s']:.1f} "
+        f"({scenario['curriculum']['settled_img_s']:.1f}) (hard weight "
+        f"{scenario['curriculum']['weights_final']['hard']:.4f}); fleet "
+        f"settled img/s fixed 2 {fleet['fixed2']['settled_img_s']:.1f}, "
+        f"autoscaled {fleet['autoscaled']['settled_img_s']:.1f} (ratio "
+        f"{ratio:.3f}, {fleet['autoscaled']['scale_ups']} scale-ups); "
+        f"{wall:.1f} s, by leg {marks}")
+    return {"scoring": scoring, "scenario": scenario, "fleet": fleet,
+            "fleet_ratio": ratio, "seconds": wall}
+
+
 def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
     """``make_step()`` run ``len(batches)`` times eagerly on one state and
     through ``CapturedStep(make_step())`` on another made the same way:
@@ -4161,6 +4670,8 @@ def main() -> None:
         rl = rl_phase(tmp, card)
         log(f"phase 5i: rl phase in {time.perf_counter() - t0:.1f} s; best "
             f"mean return {rl['best_return']:.2f} (floor {RL_RETURN_FLOOR})")
+        # phase 5j: scoring, the scenario loop and the elastic fleet
+        phase_5j(card)
     ab = {w: [r["img_s"] for r in ingest["runs"] if r["ingest_workers"] == w]
           for w in sorted(set(INGEST["order"]))}
     log(f"ingest A/B on {card}: live img/s with four producers, by ingest "

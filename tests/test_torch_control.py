@@ -160,7 +160,7 @@ def test_publish_tracked_through_a_ring_is_done_at_once(tmp_path, monkeypatch):
         img = np.arange(4096, dtype=np.uint8).reshape(64, 64)
         tracker = pub.publish_tracked(image=img)
         assert tracker.done and tracker.wait() is None
-        got = recv.recv()
+        got, _ = recv.recv()
         np.testing.assert_array_equal(got["image"], img)
         assert recv.counts.shm_reads == 1
     finally:

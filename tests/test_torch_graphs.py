@@ -409,3 +409,69 @@ def test_captured_rl_step_is_the_eager_step_on_card(cuda_card, kind):
     if kind == "dqn":
         for p, q in zip(a.target.parameters(), b.target.parameters()):
             assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_the_feeders_throttle_waits_on_the_card(cuda_card):
+    """``DeviceFeeder(throttle=2)``: with the side stream's copies held
+    behind a sleep, the third placement of one shape finds both pinned
+    buffers still copying and waits once, counted for the doctor; every
+    placed batch still arrives whole."""
+    from blendjax_torch.data.pipeline import DeviceFeeder
+    from blendjax_torch.utils.metrics import metrics
+
+    metrics.reset()
+    feeder = DeviceFeeder(device=cuda_card, throttle=2)
+    batches = [{"image": np.full((4, 64, 64, 4), i, np.uint8)}
+               for i in range(3)]
+    with torch.cuda.stream(feeder._copy_stream):
+        torch.cuda._sleep(int(2e8))  # the copies queue behind ~0.1 s
+    outs = [feeder.place(b) for b in batches]
+    torch.cuda.synchronize()
+    report = metrics.report()
+    assert report["counters"]["feed.throttle_blocks"] == 1
+    assert report["spans"]["feed.throttle_wait"]["count"] == 1
+    for i, out in enumerate(outs):
+        assert bool((out["image"] == i).all())
+    metrics.reset()
+
+
+@pytest.mark.cuda
+def test_the_feeder_keeps_same_shaped_fields_apart_on_the_card(cuda_card):
+    """``shape_id`` and ``frameid``, both (B,) int64, in each of several
+    placements whose copies queue behind a sleep on the side stream: each
+    field arrives with its own values (two fields never share a pinned
+    buffer while a copy out of it may still be queued)."""
+    from blendjax_torch.data.pipeline import DeviceFeeder
+
+    feeder = DeviceFeeder(device=cuda_card)
+    batches = [{"shape_id": np.arange(8, dtype=np.int64) + 100 * i,
+                "frameid": np.arange(8, dtype=np.int64) * -1 - 100 * i,
+                "image": np.full((8, 16, 16, 4), i, np.uint8)}
+               for i in range(4)]
+    outs = []
+    for b in batches:
+        with torch.cuda.stream(feeder._copy_stream):
+            torch.cuda._sleep(int(5e7))  # this batch's copies queue
+        outs.append(feeder.place(b))
+    torch.cuda.synchronize()
+    for b, out in zip(batches, outs):
+        for k, v in b.items():
+            assert np.array_equal(out[k].cpu().numpy(), v), k
+
+
+@pytest.mark.cuda
+def test_the_discriminator_on_card_matches_the_cpu(cuda_card):
+    """The f32 discriminator (TF32 off) on the card against its plain run
+    on the CPU at an odd size, within 1e-4."""
+    from blendjax_torch.models import Discriminator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = Discriminator(features=(8, 16), dtype=torch.float32).init_params(3)
+    card = copy.deepcopy(cpu).to(cuda_card)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 30, 22, 4), dtype=np.uint8))
+    with torch.no_grad():
+        want, got = cpu(x), card(x.to(cuda_card)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4

@@ -174,6 +174,61 @@ def test_the_moe_pipeline_and_rl_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+SCENARIO_FLEET_MODULES = [
+    "scenario/__init__.py", "scenario/space.py", "scenario/accounting.py",
+    "scenario/service.py", "scenario/curriculum.py", "fleet/__init__.py",
+    "fleet/admission.py", "fleet/controller.py", "fleet/synthetic.py",
+    "producer/scenario.py", "train/score.py", "models/discriminator.py",
+]
+
+
+@pytest.mark.parametrize("module", SCENARIO_FLEET_MODULES)
+def test_the_scoring_scenario_and_fleet_modules_are_scanned(module):
+    """Scoring, the discriminator, the scenario subsystem and the fleet
+    are in the scan above, and each imports nothing of JAX or of the JAX
+    package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+def test_the_synthetic_producer_run_as_a_file_imports_no_jax(tmp_path):
+    """``python blendjax_torch/fleet/synthetic.py`` (a launcher's way)
+    imports neither torch nor anything of JAX or the JAX package
+    (``-X importtime`` lists every module it loads), and publishes."""
+    import subprocess
+    import sys
+
+    from blendjax_torch.transport import DataReceiverSocket
+
+    addr = f"ipc://{tmp_path}/synthetic.sock"
+    recv = DataReceiverSocket([addr], timeoutms=60_000)
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime",
+         os.path.join(REPO, "blendjax_torch", "fleet", "synthetic.py"),
+         "--bind", addr, "--btid", "7", "--frames", "4", "--batch", "4",
+         "--shape", "16", "16"],
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    try:
+        msg, _ = recv.recv()
+        _out, err = proc.communicate(timeout=60)
+    finally:
+        recv.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    assert proc.returncode == 0, err[-2000:]
+    assert msg["btid"] == "7" and msg["image"].shape == (4, 16, 16, 4)
+    loaded = {line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+              if line.startswith("import time:")}
+    assert "blendjax_torch.fleet.synthetic" not in loaded  # run as __main__
+    assert "blendjax_torch.producer.sim" in loaded
+    bad = sorted(m for m in loaded
+                 if m.split(".")[0] in FORBIDDEN + ("torch", "triton"))
+    assert not bad, bad
+
+
 def test_the_rank_helper_of_the_mesh_tests_imports_no_jax():
     """``spawn`` re-imports the rank bodies' module in every rank: it must
     import neither JAX nor the JAX package."""
@@ -181,7 +236,7 @@ def test_the_rank_helper_of_the_mesh_tests_imports_no_jax():
     assert _forbidden_imports(path) == []
 
 
-TORCH_FREE = ("producer", "launcher", "transport", "env")
+TORCH_FREE = ("producer", "launcher", "transport", "env", "fleet")
 
 
 def _torch_imports(path):
@@ -198,8 +253,9 @@ def _torch_imports(path):
 
 @pytest.mark.parametrize("package", TORCH_FREE)
 def test_the_host_side_packages_import_no_torch(package):
-    """No module of ``producer/``, ``launcher/``, ``transport/`` or
-    ``env/`` imports torch, at its top or inside a function: a producer
+    """No module of ``producer/``, ``launcher/``, ``transport/``,
+    ``env/`` or ``fleet/`` imports torch, at its top or inside a function:
+    a producer
     process never pays for it, and a launcher's producers come up within
     its bind grace window."""
     root = os.path.join(REPO, "blendjax_torch", package)

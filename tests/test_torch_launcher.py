@@ -73,7 +73,7 @@ def _recv_all(addrs, n):
     try:
         seen = {}
         while len(seen) < n:
-            msg = recv.recv()
+            msg, _ = recv.recv()
             seen[msg["btid"]] = msg
         return seen
     finally:

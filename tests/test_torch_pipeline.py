@@ -532,3 +532,273 @@ def test_a_callers_on_timeout_wins_over_the_launcher():
                               device="cpu", launcher=Launcher(),
                               on_timeout=hook, ingest_workers=1)
     assert not pipe._auto_timeout and pipe.stream.on_timeout is hook
+
+
+# -- the registry sites, the receiver's pair, the stream options (C6-C8) -------
+
+
+def _names_messages(n=6):
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        yield {"_batched": True, "btid": 0, "frameid": np.arange(4) + 4 * i,
+               "image": rng.integers(0, 255, (4, 16, 16, 4), np.uint8),
+               "xy": (rng.random((4, 8, 2)) * 16).astype(np.float32)}
+
+
+def _names_run(pkg, directory):
+    """A short recorded driver run: six messages through the pipeline into
+    a ``TrainDriver`` with a snapshot manager, preempted after three
+    steps; returns the registry's counter, gauge and span names."""
+    if pkg == "port":
+        from blendjax_torch.checkpoint import (
+            PreemptionGuard,
+            PreemptionRequested,
+            SnapshotManager,
+        )
+        from blendjax_torch.data import StreamDataPipeline
+        from blendjax_torch.models import CubeRegressor
+        from blendjax_torch.train import (
+            TrainDriver,
+            make_supervised_step,
+            make_train_state,
+        )
+        from blendjax_torch.utils.metrics import metrics
+        state = make_train_state(CubeRegressor(features=(8,)).init_params(0),
+                                 device="cpu")
+        kw = {"device": "cpu"}
+    else:
+        from blendjax.checkpoint import (
+            PreemptionGuard,
+            PreemptionRequested,
+            SnapshotManager,
+        )
+        from blendjax.data import StreamDataPipeline
+        from blendjax.models import CubeRegressor
+        from blendjax.train import (
+            TrainDriver,
+            make_supervised_step,
+            make_train_state,
+        )
+        from blendjax.utils.metrics import metrics
+        state = make_train_state(CubeRegressor(features=(8,)),
+                                 np.zeros((4, 16, 16, 4), np.uint8))
+        kw = {}
+    metrics.reset()
+    drv = TrainDriver(make_supervised_step(), state, inflight=2,
+                      sync_every=1, checkpoint=SnapshotManager(directory),
+                      checkpoint_every=0)
+    guard = PreemptionGuard(drv, signals=())
+    preempted = False
+    try:
+        with StreamDataPipeline(_names_messages(), batch_size=4,
+                                **kw) as pipe:
+            for i, b in enumerate(pipe):
+                if i == 0:
+                    time.sleep(0.5)  # the ingest queue fills on both sides
+                if i == 3:
+                    guard.request()
+                drv.submit({k: b[k] for k in ("image", "xy")})
+    except PreemptionRequested:
+        preempted = True
+    finally:
+        guard.uninstall()
+        drv.checkpoint.close()
+    report = metrics.report()
+    metrics.reset()
+    assert preempted
+    return {k: set(report[k]) for k in ("counters", "gauges", "spans")}
+
+
+def test_a_driver_run_emits_the_reference_registry_names(tmp_path):
+    """C6: the port's registry holds every counter, gauge and span name the
+    JAX package's holds after the same run (``train.inflight_hwm`` on
+    every dispatch, ``ckpt.preemptions`` before the preemption raises)."""
+    got = _names_run("port", str(tmp_path / "port"))
+    want = _names_run("jax", str(tmp_path / "jax"))
+    for kind in ("counters", "gauges", "spans"):
+        assert want[kind] <= got[kind], (kind, sorted(want[kind] - got[kind]))
+    assert "train.inflight_hwm" in got["gauges"]
+    assert "ckpt.preemptions" in got["counters"]
+
+
+def test_a_driver_gauges_its_inflight_high_water_mark():
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.train import (
+        TrainDriver,
+        make_supervised_step,
+        make_train_state,
+    )
+    from blendjax_torch.utils.metrics import metrics
+
+    metrics.reset()
+    drv = TrainDriver(make_supervised_step(), make_train_state(
+        CubeRegressor(features=(8,)).init_params(0), device="cpu"),
+        inflight=3, sync_every=0)
+    batch = {"image": torch.zeros((2, 16, 16, 4), dtype=torch.uint8),
+             "xy": torch.zeros((2, 8, 2))}
+    for _ in range(3):
+        drv.submit(batch)
+    metrics.reset()  # a measured window starts: the gauge comes back
+    drv.submit(batch)
+    assert metrics.report()["gauges"]["train.inflight_hwm"] >= 1
+    drv.finish()
+    metrics.reset()
+
+
+class _Event:
+    """A pinned buffer's copy event that has not finished."""
+
+    def __init__(self):
+        self.waits = 0
+
+    def query(self):
+        return False
+
+    def synchronize(self):
+        self.waits += 1
+
+
+def test_the_feeders_throttle_counts_its_waits_for_the_doctor():
+    """C6: ``DeviceFeeder(throttle=)`` is the pinned ring's length; a
+    placement that finds all of them still copying waits on the oldest,
+    counted as ``feed.throttle_blocks`` under the ``feed.throttle_wait``
+    span, which the doctor reads as feed-bound evidence. (The ring exists
+    on the card only; its buffers are stood in for here.)"""
+    from blendjax_torch.data.pipeline import DeviceFeeder
+    from blendjax_torch.obs.doctor import diagnose
+    from blendjax_torch.utils.metrics import metrics
+
+    metrics.reset()
+    feeder = DeviceFeeder(device="cpu", throttle=2)
+    assert feeder.throttle == 2 and DeviceFeeder(device="cpu").throttle == 8
+    arr = np.zeros((4, 4), np.uint8)
+    events = [_Event(), _Event()]
+    bufs = [torch.zeros(4, 4), torch.zeros(4, 4)]
+    feeder._pinned[(arr.shape, arr.dtype.str)] = __import__(
+        "collections").deque([[b, e] for b, e in zip(bufs, events)])
+    entry = feeder._pinned_slot(arr)
+    assert entry[0] is bufs[0] and events[0].waits == 1
+    assert entry[1] is None  # taken until its placement records a copy
+    report = metrics.report()
+    assert report["counters"]["feed.throttle_blocks"] == 1
+    assert report["spans"]["feed.throttle_wait"]["count"] == 1
+    verdict = diagnose(report)
+    assert verdict.shares["feed.throttle_wait"] > 0
+    metrics.reset()
+
+
+def test_a_finished_copy_frees_its_buffer_without_a_wait():
+    from blendjax_torch.data.pipeline import DeviceFeeder
+    from blendjax_torch.utils.metrics import metrics
+
+    class Done(_Event):
+        def query(self):
+            return True
+
+    metrics.reset()
+    feeder = DeviceFeeder(device="cpu", throttle=0)
+    arr = np.zeros((4, 4), np.uint8)
+    done = Done()
+    buf = torch.zeros(4, 4)
+    slots = __import__("collections").deque([[buf, done]])
+    feeder._pinned[(arr.shape, arr.dtype.str)] = slots
+    assert feeder._pinned_slot(arr)[0] is buf and len(slots) == 1
+    assert "feed.throttle_blocks" not in metrics.report()["counters"]
+
+
+@pytest.mark.parametrize("throttle", [0, 1, 8])
+def test_two_fields_of_one_shape_never_share_a_pinned_buffer(
+        monkeypatch, throttle):
+    """Two fields of one placement with the same shape and dtype (a
+    supershape stream's ``shape_id`` and ``frameid``, both (B,) int64)
+    get two pinned buffers, on the first batch and once the ring holds
+    finished copies; at ``throttle=1`` the ring grows past it rather than
+    hand one buffer out twice."""
+    from blendjax_torch.data.pipeline import DeviceFeeder
+    from blendjax_torch.utils.metrics import metrics
+
+    class Done(_Event):
+        def query(self):
+            return True
+
+    metrics.reset()
+    feeder = DeviceFeeder(device="cpu", throttle=throttle)
+    monkeypatch.setattr(feeder, "_pinned_buffer",
+                        lambda arr: torch.from_numpy(np.empty_like(arr)))
+    arr = np.zeros(8, np.int64)
+    for _ in range(3):  # a first batch, then the steady state
+        taken = [feeder._pinned_slot(arr) for _ in range(2)]
+        assert taken[0][0] is not taken[1][0]
+        assert all(e[1] is None for e in taken)
+        for e in taken:  # the placement records its finished copies
+            e[1] = Done()
+    assert len(feeder._pinned[(arr.shape, arr.dtype.str)]) == 2
+    assert "feed.throttle_blocks" not in metrics.report()["counters"]
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_chunk_strict_rejects_raw_messages(pkg):
+    """C8: the JAX package's case (``tests/test_tiles.py``) on both
+    packages: a non-tile message in a chunked stream raises."""
+    if pkg == "port":
+        from blendjax_torch.data import StreamDataPipeline
+        kw = {"device": "cpu"}
+    else:
+        from blendjax.data import StreamDataPipeline
+        kw = {}
+
+    def messages():
+        yield {"_batched": True, "btid": 0,
+               "image": np.zeros((4, 32, 32, 4), np.uint8)}
+
+    pipe = StreamDataPipeline(messages(), batch_size=4, chunk=4,
+                              chunk_strict=True, **kw)
+    with pytest.raises(RuntimeError, match="all-tile"):
+        list(pipe)
+
+
+def test_without_chunk_strict_a_raw_message_degrades():
+    from blendjax_torch.data import StreamDataPipeline
+
+    def messages():
+        yield {"_batched": True, "btid": 0,
+               "image": np.zeros((4, 32, 32, 4), np.uint8)}
+
+    got = list(StreamDataPipeline(messages(), batch_size=4, chunk=4,
+                                  device="cpu"))
+    assert len(got) == 1 and got[0]["image"].shape == (1, 4, 32, 32, 4)
+
+
+@pytest.mark.parametrize("source", ["iterable", "addresses"])
+def test_an_unknown_stream_option_raises(source):
+    """C8: options meant for a producers' stream raise ``TypeError`` on an
+    iterable source too, instead of being kept and never read."""
+    from blendjax_torch.data import StreamDataPipeline
+
+    src = iter([]) if source == "iterable" else ["tcp://127.0.0.1:5555"]
+    with pytest.raises(TypeError):
+        StreamDataPipeline(src, batch_size=4, device="cpu",
+                           no_such_option=1)
+    if source == "iterable":
+        with pytest.raises(TypeError, match="timeoutms"):
+            StreamDataPipeline(iter([]), batch_size=4, device="cpu",
+                               timeoutms=5)
+
+
+def test_a_given_schema_is_the_streams_contract():
+    """C8: ``schema=`` fixes the contract: an item that breaks it raises
+    at ingest instead of being inferred."""
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.data.schema import SchemaError, StreamSchema
+
+    schema = StreamSchema({"image": ((8, 8, 4), np.uint8)})
+    assert schema.batch_shapes(2) == {"image": (2, 8, 8, 4)}
+    good = [{"btid": 0, "image": np.zeros((8, 8, 4), np.uint8)}] * 2
+    pipe = StreamDataPipeline(iter(good), batch_size=2, device="cpu",
+                              schema=schema)
+    assert pipe.schema is schema
+    assert list(pipe)[0]["image"].shape == (2, 8, 8, 4)
+    bad = [{"btid": 0, "image": np.zeros((4, 4, 4), np.uint8)}] * 2
+    with pytest.raises(SchemaError):
+        list(StreamDataPipeline(iter(bad), batch_size=2, device="cpu",
+                                schema=schema))

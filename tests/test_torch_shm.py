@@ -371,3 +371,41 @@ def test_no_resource_tracker_leak_warnings():
     assert res.returncode == 0, res.stderr
     assert "resource_tracker" not in res.stderr
     assert "leaked" not in res.stderr
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_publisher_oversize_falls_back_to_wire(pkg):
+    """The JAX package's case (``tests/test_shm.py``) on both packages: a
+    message that outgrows its ring slot goes on the wire codecs, arrives
+    whole, and counts ``wire.shm_fallbacks`` once in the registry."""
+    if pkg == "port":
+        from blendjax_torch.data import RemoteStream
+        from blendjax_torch.transport.shm import ShmRing
+        from blendjax_torch.utils.metrics import metrics
+        publisher = DataPublisherSocket
+    else:
+        from blendjax.data import RemoteStream
+        from blendjax.transport import DataPublisherSocket as publisher
+        from blendjax.transport.shm import ShmRing
+        from blendjax.utils.metrics import metrics
+    metrics.reset()
+    ring = ShmRing(slots=2, slot_bytes=64)
+    pub = publisher(WILD, btid=0, shm=ring)
+    big = {"frameid": 0, "image": np.arange(64 * 64 * 4,
+                                            dtype=np.uint8).reshape(64, 64, 4)}
+    t = threading.Thread(target=lambda: pub.publish(**big), daemon=True)
+    t.start()
+    got = list(RemoteStream([pub.addr], max_items=1, timeoutms=8000))
+    t.join(timeout=10)
+    try:
+        np.testing.assert_array_equal(got[0]["image"], big["image"])
+        counters = metrics.report()["counters"]
+        assert counters.get("wire.shm_fallbacks") == 1
+        assert counters.get("wire.shm_reads") is None
+        if pkg == "port":
+            assert pub.shm_fallbacks == 1
+    finally:
+        pub.close()
+        ring.close()
+        ring.unlink()
+        metrics.reset()

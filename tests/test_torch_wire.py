@@ -216,7 +216,7 @@ def test_publisher_codecs_reach_the_receiver():
                                   allow_pickle=allow)
         t = threading.Thread(target=lambda: pub.publish(**msg))
         t.start()
-        got = recv.recv()
+        got, _ = recv.recv()
         t.join()
         np.testing.assert_array_equal(got["image"], msg["image"])
         assert got["frameid"] == 3 and got["btid"] == 1
@@ -241,3 +241,39 @@ def test_pickle_codec_raises_without_allow_pickle_on_the_receiver():
     t.join()
     recv.close()
     pub.close()
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax", "port-from-jax"])
+def test_push_pull_stream_and_fan_in(pkg):
+    """C7: the JAX package's fan-in case (``tests/test_transport.py``) on
+    both packages, and a port receiver under JAX publishers: ``recv``
+    returns ``(message, raw frame buffers)``, and the raw buffers decode
+    to the same message."""
+    import blendjax.transport as J
+    import blendjax_torch.transport as P
+
+    pubs = J if pkg == "port-from-jax" else (P if pkg == "port" else J)
+    recvs = J if pkg == "jax" else P
+    decode = (jwire if pkg == "jax" else wire).decode_message
+    wild = "tcp://127.0.0.1:*"
+    pub_a = pubs.DataPublisherSocket(wild, btid=0)
+    pub_b = pubs.DataPublisherSocket(wild, btid=1)
+    recv = recvs.DataReceiverSocket([pub_a.addr, pub_b.addr], timeoutms=5000)
+    img = np.random.default_rng(0).integers(0, 255, (8, 8, 4), np.uint8)
+    try:
+        for i in range(4):
+            pub_a.publish(image=img, frameid=i)
+            pub_b.publish(image=img, frameid=i)
+        seen = set()
+        for _ in range(8):
+            msg, raw = recv.recv()
+            assert msg["image"].shape == (8, 8, 4)
+            again = decode([bytes(b) for b in raw])
+            np.testing.assert_array_equal(again["image"], msg["image"])
+            assert again["frameid"] == msg["frameid"]
+            seen.add((msg["btid"], msg["frameid"]))
+        assert seen == {(b, i) for b in (0, 1) for i in range(4)}
+    finally:
+        recv.close()
+        pub_a.close()
+        pub_b.close()
