@@ -104,6 +104,7 @@ from blendjax_torch.scenario.accounting import (
 )
 from blendjax_torch.scenario.accounting import accounting as scenario_accounting
 from blendjax_torch.utils.metrics import metrics
+from blendjax_torch.utils.tg import guard
 
 logger = logging.getLogger(f"{LOGGER_NAME}.data")
 
@@ -424,10 +425,16 @@ class EchoingPipeline:
                 f"batch_size={self.batch_size} must divide evenly over the "
                 f"{ways}-way batch axis: every card takes an equal share of "
                 "each drawn batch")
-        self.reservoir = SampleReservoir(self.capacity, augment=augment,
-                                         rng=rng, sharding=sharding,
-                                         device=device)
-        self.device = self.reservoir.device
+        reservoir = SampleReservoir(self.capacity, augment=augment, rng=rng,
+                                    sharding=sharding, device=device)
+        self.device = reservoir.device
+        # first-use affinity: the reservoir (ring + draw counter) is
+        # single-thread by contract, bound to whichever thread first draws
+        # or inserts (the iterating thread; the drain thread only feeds
+        # the queue) and snapshot by state_dict on that same thread.
+        # threadguard enforces it when BLENDJAX_THREADGUARD=1.
+        self.reservoir = guard(reservoir, name="echo.reservoir",
+                               affinity="first-use")
         self._np_rng = np.random.default_rng(int(rng))
         # host-side per-slot accounting (numpy, never device values)
         self._use = np.zeros(self.capacity, np.int64)

@@ -22,6 +22,13 @@ def resolve_device(device=None):
     return torch.device(device)
 
 
+def device_flag(value: str):
+    """An entry point's ``--device`` value: ``"cuda"`` (the default of
+    every example) is :func:`resolve_device` of ``None``, so it raises when
+    no GPU is present; any other value names its device (``"cpu"``)."""
+    return resolve_device(None if value in (None, "cuda") else value)
+
+
 class HostStager:
     """Host arrays -> device tensors through a ring of pinned buffers per
     shape and dtype, each reused once the copy that last read it is done,

@@ -94,6 +94,45 @@ def create_mesh(spec=None, devices=None):
                             mesh_dim_names=tuple(sizes))
 
 
+def init_group(device, single: bool = False, store_dir: str | None = None,
+               timeout_s: float = 120.0) -> bool:
+    """Open the default process group for an entry point (the examples),
+    unless one is open already: under ``torchrun`` (``WORLD_SIZE`` > 1) from
+    the environment (``env://``); else, with ``single=True``, a group of
+    world size 1 through a ``FileStore`` in ``store_dir``. NCCL on a CUDA
+    ``device`` (this rank's card, ``LOCAL_RANK``), gloo on the CPU. Returns
+    whether this call opened the group (its caller then destroys it); a
+    failure raises, with no fallback to another backend."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    env_world = int(os.environ.get("WORLD_SIZE", "1"))
+    if env_world <= 1 and not single:
+        return False
+    cuda = torch.device(device).type == "cuda"
+    kw = {"timeout": datetime.timedelta(seconds=timeout_s)}
+    if cuda:
+        card = int(os.environ.get("LOCAL_RANK", "0")) if env_world > 1 else 0
+        torch.cuda.set_device(card)
+        kw["device_id"] = torch.device("cuda", card)
+    backend = "nccl" if cuda else "gloo"
+    if env_world > 1:
+        dist.init_process_group(backend, init_method="env://", **kw)
+    else:
+        if store_dir is None:
+            raise ValueError("a world-1 group needs a store_dir")
+        dist.init_process_group(
+            backend, store=dist.FileStore(
+                os.path.join(store_dir, "group-store"), 1),
+            rank=0, world_size=1, **kw)
+    return True
+
+
 # -- mesh queries shared by the port's mesh path --------------------------------
 
 

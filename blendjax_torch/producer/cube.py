@@ -1,18 +1,30 @@
-"""Cube producer process: streams tile-delta batches of the rotating cube.
+"""Cube producer process: streams the rotating cube as raw frames, tile
+deltas or palette-compressed frames.
 
-The port's copy of the tile branch of ``examples/datagen/cube_producer.py``.
-The frames run through an
+The port of ``examples/datagen/cube_producer.py``, with every flag of it
+and its meaning. The frames run through an
 :class:`~blendjax_torch.producer.AnimationController` over a
 :class:`~blendjax_torch.producer.sim.SimEngine`: each frame the engine
-re-randomises the scene, and a ``post_frame`` handler renders it into a
-reused framebuffer, scans it for tiles that differ from the background and
-adds it to a :class:`~blendjax_torch.producer.TileBatchPublisher`, which
-pushes one prebatched message per ``--batch`` frames.
+re-randomises the scene, and a ``post_frame`` handler publishes it by
+``--encoding``:
+
+- ``raw`` (the default): with ``--batch 1`` (its default) one message per
+  frame; with ``--batch B > 1`` one ``(B, H, W, 4)`` message per ``B``
+  frames, rendered straight into a pool of batch buffers that a slot
+  reuses only once the socket is done with it (``publish_tracked``);
+- ``tile``: the frame is rendered into a reused framebuffer, scanned for
+  tiles that differ from the background and added to a
+  :class:`~blendjax_torch.producer.TileBatchPublisher`, which pushes one
+  prebatched message per ``--batch`` frames (needs ``--batch > 1``);
+- ``pal``: ``--batch`` whole frames are palette-compressed, one palette per
+  frame (:func:`blendjax_torch.ops.tiles.palettize_frames`), and pushed as
+  one prebatched message; a batch with a frame of more than 256 colours
+  goes raw (needs ``--batch > 1``).
 
 Started by hand, it binds ``--bind`` and takes ``--btid`` and ``--seed``:
 
     python -m blendjax_torch.producer.cube --bind 'tcp://127.0.0.1:*' \\
-        --addr-file /tmp/p0.addr --btid 0 --seed 0 --shape 480 640 \\
+        --addr-file p0.addr --btid 0 --seed 0 --shape 480 640 \\
         --batch 8 --encoding tile --tile 16 32 --tile-rgba --tile-capacity 160
 
 Started by a launcher (``PythonProducerLauncher(script=<this file>,
@@ -23,7 +35,7 @@ of those three flags; the flags of ``instance_args`` follow it.
 The bound address (wildcard ports resolve at bind time) is written to
 ``--addr-file`` so the consumer can connect. ``--frames N`` stops after N
 frames and flushes the partial batch; the default streams until killed.
-``--wire`` picks the encoding: ``raw`` (default), zlib ``ndz``,
+``--wire`` picks the wire form of every encoding: ``raw`` (default), zlib ``ndz``,
 run-length ``ndr`` (``--rle-cap N`` pins its capacity) or ``shm``, a
 shared-memory ring of 4 slots for a consumer on this host (a ring that
 cannot be created stops the producer). Under ``$BLENDJAX_SHM_REGISTRY``
@@ -41,9 +53,8 @@ On stderr (or appended to ``--log FILE``) the producer says once, at
 start, which path it runs (a line
 ``blendjax_torch.producer.cube path native ...`` or ``... path numpy``),
 and every 64 frames prints ``blendjax_torch.producer.cube stats`` and a
-JSON object of its btid and seed and its totals: frames, the ms per frame
-spent rendering,
-encoding and publishing (serialising and sending: the send waits while the
+JSON object of its btid, seed and encoding and its totals: frames, the ms
+per frame spent rendering, encoding and publishing (serialising and sending: the send waits while the
 consumer's queue is full, so a long publish means the consumer is the
 bound), its own rate without the publish (``own_frames_s``), its wire
 with the shared-memory ring's fallbacks and reclaims, whether the fused
@@ -51,7 +62,7 @@ path is on (``fused``) and the mean array bytes per message
 (``msg_bytes``, the reference image left out) with ``frames_per_msg``.
 The publisher stamps lineage, a telemetry snapshot every 64 messages
 (carrying the controller's ``producer.frame`` span, the scene step) and a
-sampled frame trace every 64 messages, its defaults.
+sampled frame trace every ``--trace-every`` messages (64; 0 stamps none).
 """
 
 from __future__ import annotations
@@ -100,8 +111,16 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--shape", nargs=2, type=int, default=[480, 640])
     parser.add_argument("--frames", type=int, default=-1)
-    parser.add_argument("--batch", type=int, default=8)
-    parser.add_argument("--encoding", choices=["tile"], default="tile")
+    parser.add_argument(
+        "--batch", type=int, default=1,
+        help="publish one (B, H, W, 4) message per B frames instead of B "
+        "per-frame messages (renders straight into the batch buffer)")
+    parser.add_argument(
+        "--encoding", choices=["raw", "tile", "pal"], default="raw",
+        help="'raw' ships full frames; 'tile' ships only the tiles that "
+        "changed against the scene background (lossless; decoded on the "
+        "card by the consumer); 'pal' palette-compresses whole frames. "
+        "'tile' and 'pal' need --batch > 1")
     parser.add_argument("--tile", nargs="+", type=int, default=[16, 32],
                         help="one side (square) or rows cols")
     parser.add_argument("--tile-rgba", action="store_true",
@@ -111,6 +130,10 @@ def parse_args(argv=None):
     parser.add_argument("--tile-capacity", type=int, default=0,
                         help="pin the per-frame changed-tile capacity "
                         "(0 = per-stream high-water mark)")
+    parser.add_argument(
+        "--trace-every", type=int, default=64,
+        help="stamp every Nth published message with a sampled "
+        "distributed-trace context (blendjax_torch.obs.trace). 0 disables.")
     parser.add_argument(
         "--wire", choices=("raw", "ndz", "ndr", "shm"), default="raw",
         help="raw frames (default); zlib 'ndz' (inflated on the "
@@ -134,8 +157,10 @@ def parse_args(argv=None):
         opts.bind = launch.btsockets["DATA"]
         opts.btid = launch.btid
         opts.seed = launch.btseed
-    if opts.batch < 2:
-        parser.error("--encoding tile requires --batch > 1")
+    if opts.encoding != "raw" and opts.batch < 2:
+        parser.error(f"--encoding {opts.encoding} requires --batch > 1")
+    if opts.batch < 1:
+        parser.error("--batch must be at least 1")
     if len(opts.tile) > 2:
         parser.error("--tile takes one side or two (rows cols) values")
     return opts
@@ -155,20 +180,30 @@ class _TimedPublisher:
         self.messages = 0
         self.array_bytes = 0
 
-    def publish(self, **msg) -> None:
+    def _count(self, msg: dict) -> None:
         self.messages += 1
         self.array_bytes += sum(
             v.nbytes for k, v in msg.items()
             if isinstance(v, np.ndarray) and not k.endswith("__tileref"))
+
+    def publish(self, **msg) -> None:
+        self._count(msg)
         t0 = time.perf_counter()
         self.pub.publish(**msg)
         self.seconds += time.perf_counter() - t0
 
+    def publish_tracked(self, **msg):
+        self._count(msg)
+        t0 = time.perf_counter()
+        tracker = self.pub.publish_tracked(**msg)
+        self.seconds += time.perf_counter() - t0
+        return tracker
+
 
 def wire_kwargs(opts) -> dict:
     """The publisher's wire settings for ``--wire`` (the mapping of the
-    JAX package's synthetic producer). Tile messages are prebatched
-    whatever the wire."""
+    JAX package's synthetic producer). Tile and palette messages are
+    prebatched whatever the wire."""
     kw = {}
     if opts.wire in ("ndz", "ndr"):
         kw["compress_min_bytes"] = 1024
@@ -191,6 +226,133 @@ def _say(line: str, log: str | None = None) -> None:
             f.write(line + "\n")
 
 
+def _tile_publish(opts, scene, timed, native, mark):
+    """``(publish(frame), flush, fused)`` of ``--encoding tile``; each
+    helper calls ``mark()`` once the frame is rendered."""
+    h, w = opts.shape
+    tile = opts.tile[0] if len(opts.tile) == 1 else tuple(opts.tile)
+    tiles = TileBatchPublisher(
+        timed, scene.background_image(), opts.batch, tile=tile,
+        alpha_slice=not opts.tile_rgba, ref_interval=opts.ref_interval,
+        capacity=opts.tile_capacity or None, native=native,
+    )
+    framebuf = np.empty((h, w, 4), np.uint8)
+
+    def publish(frame: int) -> None:
+        scene.render(out=framebuf)
+        mark()
+        tiles.add(
+            framebuf,
+            # outside the rect just drawn the frame is background
+            hint=scene.raster.last_drawn,
+            xy=scene.camera.world_to_pixel(
+                scene.corners_world()
+            ).astype(np.float32),
+            frameid=np.int64(frame),
+        )
+
+    return publish, tiles.flush, lambda: tiles._fused_ok
+
+
+def _batch_buffers(b: int, h: int, w: int) -> dict:
+    return {"image": np.empty((b, h, w, 4), np.uint8),
+            "xy": np.empty((b, 8, 2), np.float32),
+            "frameid": np.empty((b,), np.int64)}
+
+
+def _pal_publish(opts, scene, timed, mark):
+    """``(publish(frame), flush)`` of ``--encoding pal``: whole frames,
+    one palette per frame, raw when a frame outgrows 256 colours."""
+    from blendjax_torch.ops.tiles import (
+        FRAMEPAL_SUFFIXES,
+        FRAMESHAPE_SUFFIX,
+        PALETTE_SUFFIX,
+        palettize_frames,
+    )
+
+    b, (h, w) = opts.batch, opts.shape
+    buf = _batch_buffers(b, h, w)
+    cursor = {"i": 0}
+
+    def ship(filled: dict) -> None:
+        # the socket sends arrays by reference: what the next frame
+        # renders into again (xy, frameid, the whole batch when it goes
+        # raw) is copied; packed and palette are fresh per batch
+        out = palettize_frames(filled["image"])
+        if out is None:  # the scene outgrew the palette: stay lossless
+            timed.publish(_batched=True,
+                          **{k: v.copy() for k, v in filled.items()})
+            return
+        packed, pal, bits = out
+        timed.publish(
+            _prebatched=True,
+            **{"image" + FRAMEPAL_SUFFIXES[bits]: packed,
+               "xy": filled["xy"].copy(),
+               "frameid": filled["frameid"].copy(),
+               "image" + PALETTE_SUFFIX: pal,
+               "image" + FRAMESHAPE_SUFFIX: np.array([h, w, 4, bits],
+                                                     np.int32)},
+        )
+
+    def publish(frame: int) -> None:
+        scene.observation_into(frame, buf, cursor["i"])
+        mark()
+        cursor["i"] += 1
+        if cursor["i"] == b:
+            ship(buf)
+            cursor["i"] = 0
+
+    def flush() -> None:
+        i = cursor["i"]
+        if i > 0:
+            ship({k: v[:i] for k, v in buf.items()})
+
+    return publish, flush
+
+
+def _raw_publish(opts, scene, timed, send_hwm: int, mark):
+    """``(publish(frame), flush)`` of ``--encoding raw``: per-frame
+    messages, or with ``--batch B > 1`` a pool of ``send_hwm + 2`` batch
+    buffers (queued, in flight, being rendered), a slot rendered into again
+    only once its tracker says the socket is done with it."""
+    b, (h, w) = opts.batch, opts.shape
+    if b == 1:
+        def publish(frame: int) -> None:
+            obs = scene.observation(frame)
+            mark()
+            timed.publish(**obs)
+
+        return publish, None
+    pool = [_batch_buffers(b, h, w) for _ in range(send_hwm + 2)]
+    trackers = [None] * len(pool)
+    cursor = {"slot": 0, "i": 0}
+
+    def publish(frame: int) -> None:
+        slot = cursor["slot"]
+        if cursor["i"] == 0 and trackers[slot] is not None:
+            trackers[slot].wait()  # backpressure: the slot is in flight
+            trackers[slot] = None
+        buf = pool[slot]
+        scene.observation_into(frame, buf, cursor["i"])
+        mark()
+        cursor["i"] += 1
+        if cursor["i"] == b:
+            trackers[slot] = timed.publish_tracked(_batched=True, **buf)
+            cursor["i"] = 0
+            cursor["slot"] = (slot + 1) % len(pool)
+
+    def flush() -> None:
+        # the filled prefix of a partial batch (--frames not a multiple of
+        # --batch); the consumer's ingest re-batches mismatched sizes
+        i = cursor["i"]
+        if i > 0:
+            buf = pool[cursor["slot"]]
+            timed.publish(_batched=True,
+                          **{k: v[:i].copy() for k, v in buf.items()})
+
+    return publish, flush
+
+
 def main(argv=None) -> None:
     opts = parse_args(argv)
     native = not opts.no_native
@@ -203,58 +365,55 @@ def main(argv=None) -> None:
              f"({libs['rasterizer']}, {libs['tiledelta']})", opts.log)
     else:
         _say("path numpy: numpy render, tile scan and palettizer", opts.log)
+    send_hwm = 2
     pub = DataPublisherSocket(opts.bind, btid=opts.btid, lingerms=10000,
-                              send_hwm=2, **wire_kwargs(opts))
+                              send_hwm=send_hwm,
+                              trace_every=opts.trace_every,
+                              **wire_kwargs(opts))
     if opts.addr_file:
         tmp = f"{opts.addr_file}.tmp"
         with open(tmp, "w") as f:
             f.write(pub.addr)
         os.replace(tmp, opts.addr_file)
     timed = _TimedPublisher(pub)
-    tile = opts.tile[0] if len(opts.tile) == 1 else tuple(opts.tile)
-    tiles = TileBatchPublisher(
-        timed, scene.background_image(), opts.batch, tile=tile,
-        alpha_slice=not opts.tile_rgba, ref_interval=opts.ref_interval,
-        capacity=opts.tile_capacity or None, native=native,
-    )
-    h, w = opts.shape
-    framebuf = np.empty((h, w, 4), np.uint8)
+    clock = {"t0": 0.0, "t1": 0.0, "render_s": 0.0, "add_s": 0.0}
+
+    def mark() -> None:
+        clock["t1"] = time.perf_counter()
+
+    fused = lambda: False  # noqa: E731
+    if opts.encoding == "tile":
+        add, flush, fused = _tile_publish(opts, scene, timed, native, mark)
+    elif opts.encoding == "pal":
+        add, flush = _pal_publish(opts, scene, timed, mark)
+    else:
+        add, flush = _raw_publish(opts, scene, timed, send_hwm, mark)
     ctrl = AnimationController(SimEngine(scene))
-    clock = {"t0": 0.0, "render_s": 0.0, "add_s": 0.0}
 
     def start_frame(frame: int) -> None:
         clock["t0"] = time.perf_counter()
 
     def publish(frame: int) -> None:
         # the engine stepped the scene (the controller's producer.frame
-        # span): render it, scan and add the frame
-        scene.render(out=framebuf)
-        t1 = time.perf_counter()
-        tiles.add(
-            framebuf,
-            # outside the rect just drawn the frame is background
-            hint=scene.raster.last_drawn,
-            xy=scene.camera.world_to_pixel(
-                scene.corners_world()
-            ).astype(np.float32),
-            frameid=np.int64(frame),
-        )
+        # span): render, encode and publish the frame
+        add(frame)
         t2 = time.perf_counter()
-        clock["render_s"] += t1 - clock["t0"]  # scene step + render
-        clock["add_s"] += t2 - t1
+        clock["render_s"] += clock["t1"] - clock["t0"]  # step + render
+        clock["add_s"] += t2 - clock["t1"]
         if frame % REPORT_EVERY == 0:
             render_s, add_s = clock["render_s"], clock["add_s"]
             encode_s = add_s - timed.seconds
             _say("stats " + json.dumps({
                 "btid": opts.btid, "seed": opts.seed,
                 "path": "native" if native else "numpy",
+                "encoding": opts.encoding,
                 "frames": frame,
                 "render_ms": render_s / frame * 1e3,
                 "encode_ms": encode_s / frame * 1e3,
                 "publish_ms": timed.seconds / frame * 1e3,
                 "own_frames_s": frame / (render_s + encode_s),
                 "wire": opts.wire,
-                "fused": tiles._fused_ok,
+                "fused": fused(),
                 "msg_bytes": timed.array_bytes / max(timed.messages, 1),
                 "frames_per_msg": opts.batch,
                 "shm_fallbacks": pub.shm_fallbacks,
@@ -268,7 +427,8 @@ def main(argv=None) -> None:
     end = opts.frames if opts.frames > 0 else 2_147_483_647
     try:
         ctrl.play(frame_range=(1, end), num_episodes=-1)
-        tiles.flush()
+        if flush is not None:
+            flush()
     finally:
         pub.close()
         term_context()  # block until the tail is flushed (bounded by linger)

@@ -56,8 +56,8 @@ class ScenarioService:
         self._space_wire: dict | None = None
         self._version = 0
         self.space: ScenarioSpace | None = None
-        # membership/ack bookkeeping only under `_lock` (the port's
-        # guard() is the identity: no sanitizer checks it, ROADMAP item 8)
+        # membership/ack bookkeeping only under `_lock` (checked by the
+        # sanitizer under BLENDJAX_THREADGUARD=1, blendjax_torch.utils.tg)
         self._members: dict = guard(  # btid -> addr (bookkeeping view)
             {}, name="scenario.members", lock=self._lock
         )

@@ -178,10 +178,10 @@ class Metrics:
 
     def __init__(self):
         self._lock = threading.Lock()
-        # threadguard wiring (blendjax_torch.utils.tg): the port's guard()
-        # is the identity, so these are the plain tables; the calls keep
-        # the JAX package's statement of each table's lock contract. The
-        # read-only dict surface of the two public tables is exempt: tests
+        # threadguard wiring (blendjax_torch.utils.tg): under
+        # BLENDJAX_THREADGUARD=1 a table touched without `_lock` held
+        # raises at the access site; disabled, guard() is the identity
+        # and these are the plain tables. The read-only dict surface of the two public tables is exempt: tests
         # and debug code read counters after quiescing, and the consistent-
         # snapshot path is report(), not the raw dict.
         reads = (

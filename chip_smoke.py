@@ -306,6 +306,28 @@ shared-memory segment may be left; each prints the instance trajectory,
 the verdict runs and the settled img/s (second half), and the phase the
 settled ratio.
 
+Phase 5k (last, after phase 7), the port's examples
+(``blendjax_torch/examples``), each ``main(argv)`` loaded by path and run
+in this process with its standard output captured and the launch counts
+zeroed just before and read just after; none may leave a child process
+(nor, for the control legs, a ``/dev/shm`` segment or temp entry). It
+runs last because the examples capture signatures nobody prepared, which
+the device ledger counts as retraces. ``datagen/train.py`` at 480x640,
+batch 8, ``--encoding tile --chunk 4 --inflight 2 --steps 64``,
+recording and snapshotting: one graph replay per step call, K1 launched
+inside the captured fused step at least once per call, finite losses, the
+printed img/s. Then 3 chunk groups of that recording replayed from the
+step-64 snapshot on the card and with ``--device cpu``: the first and
+last updates' losses within ``EX_REPLAY_REL`` of each other (both
+bf16-compute). Then ``--encoding pal --chunk 4 --inflight 2``, raw and
+``--echo 4``, 16 steps each, one replay per step call.
+``datagen/train_transformer.py`` at StreamFormer's full width (patch 20,
+dim 512, depth 8, 4 heads, 16 steps, on a mesh ``{"data": 1}`` over an
+NCCL group of world size 1 it opens and closes): 16 replays, K4a-c each
+depth x steps times, all sm90. ``control/train_dqn.py --steps 300``
+(300 replays, a mean return printed), ``control/train_reinforce.py`` and
+``densityopt/densityopt.py`` (3 iterations each, ``mu`` printed, finite).
+
 The last lines of standard output are the kernels JSON object and the
 device JSON object ``{"ok": true, "device": {...}}``.
 """
@@ -4105,6 +4127,282 @@ def phase_5j(card: str) -> dict:
             "fleet_ratio": ratio, "seconds": wall}
 
 
+# -- phase 5k: the examples on the card --------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "blendjax_torch", "examples")
+EX_SHAPE = ["--shape", str(SHAPE[0]), str(SHAPE[1])]
+# train.py's tile leg at the flagship's full width and its replay:
+# chunk groups of CHUNK replayed from the tile leg's exit snapshot, on the
+# card and with --device cpu
+EX_TILE = ["--batch", str(BATCH), "--encoding", "tile", "--chunk",
+           str(CHUNK), "--inflight", "2", "--steps", "64"]
+EX_REPLAY_STEPS = 3
+# the replays' losses, card against CPU, both under the example's default
+# precision policy (bf16-compute; the two backends round bf16 products and
+# sum in different orders): relative bar over <= 12 AdamW updates
+EX_REPLAY_REL = 3e-2
+EX_SHORT = 16  # steps of the pal, raw and echo legs
+EX_FORMER = ["--patch", "20", "--dim", "512", "--depth", "8", "--heads",
+             "4", "--steps", "16"]
+EX_DQN_STEPS = 300
+EX_ITERS = 3  # train_reinforce and densityopt iterations
+
+
+def load_example(relpath: str):
+    """A port example's module, loaded by path (as its tests load it)."""
+    import importlib.util
+
+    path = os.path.join(EXAMPLES_DIR, relpath)
+    name = "example_" + relpath.replace("/", "_")[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def live_children() -> set:
+    """PIDs of this process's children that are not zombies."""
+    me, out = os.getpid(), set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me and fields[0] != "Z":
+            out.add(int(d))
+    return out
+
+
+def run_example(label: str, relpath: str, argv: list,
+                files: bool = False) -> dict:
+    """``main(argv)`` of one port example in this process, its standard
+    output captured (returned as ``text``) beside the dict it returns, the
+    launch counts zeroed just before and read just after, and no child
+    process left behind (with ``files``, no new ``/dev/shm`` segment or
+    temp entry either)."""
+    import contextlib
+    import io
+
+    from blendjax_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        variant_counts,
+    )
+
+    fresh_registry()
+    mod = load_example(relpath)
+    shm0 = set(os.listdir("/dev/shm"))
+    tmp0 = set(os.listdir(tempfile.gettempdir()))
+    kids0 = live_children()
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = dict(mod.main(argv) or {})
+    except BaseException as e:  # noqa: BLE001 - any end but a return fails
+        print(buf.getvalue(), file=sys.stderr, flush=True)
+        fail(f"{label}: {relpath} {' '.join(argv)} raised {e!r}")
+    out.update(text=buf.getvalue(), wall_s=time.perf_counter() - t0,
+               launches=launch_counts(), variants=variant_counts())
+    deadline = time.monotonic() + 10
+    while live_children() - kids0 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    kids = sorted(live_children() - kids0)
+    shm = sorted(set(os.listdir("/dev/shm")) - shm0) if files else []
+    tmp = (sorted(set(os.listdir(tempfile.gettempdir())) - tmp0) if files
+           else [])
+    if kids or shm or tmp:
+        fail(f"{label}: left behind child processes {kids}, shared-memory "
+             f"segments {shm}, temp entries {tmp}")
+    return out
+
+
+def example_lines(text: str, *keys) -> str:
+    return " | ".join(ln.strip() for ln in text.splitlines()
+                      if any(k in ln for k in keys))
+
+
+def graph_gates(label: str, out: dict, steps: int) -> None:
+    """One graph replay per step call, no fallback, finite losses and the
+    printed rate."""
+    step = out["step"]
+    if step.graph_replays != steps or step.aot_fallbacks:
+        fail(f"{label}: {step.graph_replays} graph replays for {steps} step "
+             f"calls, {step.aot_fallbacks} fallbacks")
+    losses = [*out["losses"], out.get("last_loss", 0.0)]
+    if not out["losses"] or not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: losses {losses}")
+    if "images/sec" not in out["text"]:
+        fail(f"{label}: no images/sec line printed")
+
+
+def example_train_legs(tmp: str, card: str) -> dict:
+    """``datagen/train.py`` on the card: the full-width tile leg (K1 inside
+    the captured fused step, recording and snapshotting), its replay on the
+    card and with ``--device cpu``, then pal, raw and echo."""
+    import shutil
+
+    prefix = os.path.join(tmp, "ex-rec")
+    ckpt = os.path.join(tmp, "ex-ckpt")
+    label = "phase 5k train.py tile"
+    tile = run_example(label, "datagen/train.py", EX_SHAPE + EX_TILE + [
+        "--record", prefix, "--checkpoint", ckpt, "--checkpoint-every", "0"])
+    drv = tile["driver"]
+    graph_gates(label, tile, drv.dispatches)
+    k1 = tile["launches"]["decode_spatial"]
+    if drv.steps != 64 or k1 < drv.dispatches:
+        fail(f"{label}: {drv.steps} steps, K1 launched {k1} times for "
+             f"{drv.dispatches} step calls (one per call inside the graph)")
+    log(f"{label} on {card}: {tile['img_s']:.1f} img/s live over "
+        f"{tile['images']} images, {drv.steps} step calls = "
+        f"{tile['step'].graph_replays} graph replays over "
+        f"{len(tile['step'].signatures)} captured signatures (capture "
+        f"{sum(tile['step'].capture_ms.values()):.0f} ms in all), K1 "
+        f"{k1} launches, final loss {tile['last_loss']:.5f}, seq_gaps "
+        f"{tile['seq_gaps']}; {tile['wall_s']:.1f} s; printed: "
+        + example_lines(tile["text"], "images/sec", "checkpoints in"))
+
+    replay = {}
+    for dev in ("cuda", "cpu"):
+        ck = os.path.join(tmp, f"ex-ckpt-{dev}")
+        shutil.copytree(ckpt, ck)
+        label = f"phase 5k train.py replay ({dev})"
+        argv = EX_SHAPE + ["--batch", str(BATCH), "--encoding", "tile",
+                           "--chunk", str(CHUNK), "--steps",
+                           str(EX_REPLAY_STEPS), "--replay", prefix,
+                           "--checkpoint", ck, "--resume",
+                           "--checkpoint-every", "0", "--device", dev]
+        out = run_example(label, "datagen/train.py", argv)
+        if "resumed from snapshot step 64" not in out["text"]:
+            fail(f"{label}: did not resume from the tile leg's snapshot: "
+                 + example_lines(out["text"], "resumed", "snapshot"))
+        if dev == "cuda":
+            graph_gates(label, out, EX_REPLAY_STEPS)
+            if out["launches"]["decode_spatial"] <= 0:
+                fail(f"{label}: K1 never launched")
+        replay[dev] = out
+    got = [replay["cuda"]["losses"][0], replay["cuda"]["last_loss"]]
+    want = [replay["cpu"]["losses"][0], replay["cpu"]["last_loss"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not rel <= EX_REPLAY_REL:
+        fail(f"phase 5k replay: card losses {got} against the CPU's {want} "
+             f"(rel {rel:.3e} > {EX_REPLAY_REL})")
+    log(f"phase 5k train.py replay of {EX_REPLAY_STEPS} chunk groups from "
+        f"the tile leg's step-64 snapshot: card {got} ({replay['cuda']['wall_s']:.1f} s), "
+        f"CPU {want} ({replay['cpu']['wall_s']:.1f} s), first and last "
+        f"update's losses within rel {rel:.3e} (bar {EX_REPLAY_REL}, "
+        f"bf16-compute); card K1 "
+        f"{replay['cuda']['launches']['decode_spatial']} launches in the "
+        f"pipeline's decode, on {card}")
+
+    legs = {"tile": tile, "replay": replay["cuda"]}
+    for name, extra in (
+            ("pal", ["--encoding", "pal", "--chunk", str(CHUNK),
+                     "--inflight", "2"]),
+            ("raw", []),
+            ("echo", ["--echo", "4"])):
+        label = f"phase 5k train.py {name}"
+        out = run_example(label, "datagen/train.py", EX_SHAPE + [
+            "--batch", str(BATCH), "--steps", str(EX_SHORT), *extra])
+        drv = out["driver"]
+        graph_gates(label, out, drv.dispatches if drv else EX_SHORT)
+        if name == "echo" and out["echo"]["steps"] < EX_SHORT:
+            fail(f"{label}: echo stats {out['echo']}")
+        log(f"{label} on {card}: {out['img_s']:.1f} img/s over "
+            f"{out['images']} images, {out['step'].graph_replays} graph "
+            f"replays, last loss {out['last_loss']:.5f}, seq_gaps "
+            f"{out['seq_gaps']}; {out['wall_s']:.1f} s"
+            + (f"; echo {out['echo']}" if name == "echo" else ""))
+        legs[name] = out
+    return legs
+
+
+def example_former_leg(card: str) -> dict:
+    """``datagen/train_transformer.py`` at StreamFormer's full width: K4a-c
+    through their sm90 variants inside the captured step, depth x steps
+    launches each."""
+    label = "phase 5k train_transformer.py"
+    out = run_example(label, "datagen/train_transformer.py",
+                      EX_SHAPE + EX_FORMER)
+    steps = int(EX_FORMER[EX_FORMER.index("--steps") + 1])
+    depth = int(EX_FORMER[EX_FORMER.index("--depth") + 1])
+    graph_gates(label, out, steps)
+    want = depth * steps
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        if (out["launches"][name] != want
+                or out["variants"][name] != {"sm90": want, "simple": 0}):
+            fail(f"{label}: {name} launched {out['launches'][name]} times "
+                 f"({out['variants'][name]}), not {want} through sm90")
+    log(f"{label} on {card}: {out['img_s']:.1f} img/s over mesh "
+        f"{out['mesh']}, {out['step'].graph_replays} graph replays, K4a-c "
+        f"{want} sm90 launches each, losses {out['losses']}; "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
+def example_control_legs(card: str) -> dict:
+    """``control/train_dqn.py``, ``control/train_reinforce.py`` and
+    ``densityopt/densityopt.py`` on the card: each ends normally and prints
+    its figures."""
+    label = "phase 5k train_dqn.py"
+    dqn = run_example(label, "control/train_dqn.py",
+                      ["--steps", str(EX_DQN_STEPS)], files=True)
+    if (dqn["steps"] != EX_DQN_STEPS or "final:" not in dqn["text"]
+            or "mean_return=" not in dqn["text"]
+            or dqn["step"].graph_replays != EX_DQN_STEPS
+            or not math.isfinite(dqn["loss"])):
+        fail(f"{label}: {dqn['steps']} steps, {dqn['step'].graph_replays} "
+             f"replays, loss {dqn['loss']}: "
+             + example_lines(dqn["text"], "final"))
+    label = "phase 5k train_reinforce.py"
+    pg = run_example(label, "control/train_reinforce.py",
+                     ["--iters", str(EX_ITERS)], files=True)
+    if (len(pg["history"]) != EX_ITERS
+            or not all(math.isfinite(v) for h in pg["history"] for v in h)):
+        fail(f"{label}: {pg['history']}")
+    label = "phase 5k densityopt.py"
+    dens = run_example(label, "densityopt/densityopt.py",
+                       ["--iters", str(EX_ITERS)], files=True)
+    mus = [h["mu"] for h in dens["history"]]
+    if len(mus) != EX_ITERS or not all(math.isfinite(m) for m in mus):
+        fail(f"{label}: mu {mus}")
+    log(f"phase 5k control on {card}: train_dqn {EX_DQN_STEPS} learner steps "
+        f"({dqn['step'].graph_replays} graph replays) in {dqn['wall_s']:.1f} "
+        f"s: " + example_lines(dqn["text"], "final:")
+        + f"; train_reinforce {EX_ITERS} iterations in {pg['wall_s']:.1f} s: "
+        + example_lines(pg["text"], f"iter {EX_ITERS - 1}:")
+        + f"; densityopt {EX_ITERS} iterations in {dens['wall_s']:.1f} s: "
+        + example_lines(dens["text"], f"iter {EX_ITERS - 1}:"))
+    return {"dqn": dqn, "reinforce": pg, "densityopt": dens}
+
+
+def phase_5k(tmp: str, card: str) -> dict:
+    """Phase 5k: the port's examples run in this process, each ``main()``
+    loaded by path with its argv (see the module docstring)."""
+    t0 = time.perf_counter()
+    legs = example_train_legs(tmp, card)
+    t1 = time.perf_counter()
+    former = example_former_leg(card)
+    t2 = time.perf_counter()
+    control = example_control_legs(card)
+    wall = time.perf_counter() - t0
+    launches = {"decode_spatial": sum(
+        leg["launches"]["decode_spatial"] for leg in legs.values())}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        launches[name] = former["launches"][name]
+    log(f"phase 5k (the examples) in {wall:.1f} s: train.py legs "
+        f"{t1 - t0:.1f} s, train_transformer.py {t2 - t1:.1f} s, control "
+        f"and densityopt {wall - (t2 - t0):.1f} s; launches {launches}")
+    return {"legs": legs, "former": former, "control": control,
+            "launches": launches, "seconds": wall}
+
+
 def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
     """``make_step()`` run ``len(batches)`` times eagerly on one state and
     through ``CapturedStep(make_step())`` on another made the same way:
@@ -4798,6 +5096,12 @@ def main() -> None:
     # phase 7: reference checks
     reference_phase(legs["flagship"]["last"])
 
+    # phase 5k: the examples, last: their steps capture signatures nobody
+    # prepared, which the device ledger counts as retraces (phase 5e gates
+    # on none across the prewarmed legs)
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = phase_5k(tmp, card)
+
     legs["echo"] = echo
     leg_of = {"decode_spatial": "flagship", "decode_scatter": "square",
               "gamma_normalize": "echo"}
@@ -4811,12 +5115,14 @@ def main() -> None:
                          + replay["launches"]["decode_spatial"]
                          + launched["launches"]["decode_spatial"]
                          + mesh["flagship"]["launches"]["decode_spatial"]
-                         + moe["launches"][name])
+                         + moe["launches"][name]
+                         + examples["launches"][name])
         elif name.startswith("flash_attention"):
             # the Ulysses leg, the MoE and remat legs, the pipeline stage
             launches += (mesh["sp"]["ulysses"]["launches"][name]
                          + moe["launches"][name] + remat["launches"][name]
-                         + mesh["pipeline"]["launches"][name])
+                         + mesh["pipeline"]["launches"][name]
+                         + examples["launches"][name])
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],

@@ -192,6 +192,58 @@ def test_the_scoring_scenario_and_fleet_modules_are_scanned(module):
     assert _forbidden_imports(path) == []
 
 
+EXAMPLE_MODULES = [
+    "examples/__init__.py", "examples/datagen/__init__.py",
+    "examples/datagen/minimal.py", "examples/datagen/train.py",
+    "examples/datagen/train_transformer.py",
+    "examples/datagen/cube_producer.py",
+    "examples/datagen/falling_cubes_producer.py",
+    "examples/datagen/cube.blend.py", "examples/datagen/falling_cubes.blend.py",
+    "examples/control/__init__.py", "examples/control/cartpole.py",
+    "examples/control/cartpole_producer.py",
+    "examples/control/cartpole.blend.py",
+    "examples/control/train_reinforce.py", "examples/control/train_dqn.py",
+    "examples/densityopt/__init__.py", "examples/densityopt/densityopt.py",
+    "examples/densityopt/supershape_producer.py",
+    "examples/densityopt/supershape.blend.py",
+    "testing/__init__.py", "testing/threadguard.py",
+]
+# the scripts that run inside a producer process or Blender's Python
+TORCH_FREE_EXAMPLES = [m for m in EXAMPLE_MODULES
+                       if m.endswith(("producer.py", ".blend.py"))]
+
+
+@pytest.mark.parametrize("module", EXAMPLE_MODULES)
+def test_the_examples_and_the_sanitizer_are_scanned(module):
+    """The examples (their ``.blend.py`` scene scripts too, parsed as
+    source: they are not importable names) and the threadguard sanitizer
+    are in the scan above, and each imports nothing of JAX or of the JAX
+    package."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+
+
+@pytest.mark.parametrize("module", TORCH_FREE_EXAMPLES + [
+    "testing/threadguard.py", "utils/tg.py"])
+def test_producer_side_examples_import_no_torch(module):
+    """Producer and Blender scripts run where torch is not installed, and
+    the sanitizer is stdlib only: none of them imports torch (nor numpy,
+    for the sanitizer)."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            mods.add((node.module or "").split(".")[0])
+    assert "torch" not in mods
+    if module in ("testing/threadguard.py", "utils/tg.py"):
+        assert mods <= {"__future__", "threading", "os", "blendjax_torch"}
+
+
 def test_the_synthetic_producer_run_as_a_file_imports_no_jax(tmp_path):
     """``python blendjax_torch/fleet/synthetic.py`` (a launcher's way)
     imports neither torch nor anything of JAX or the JAX package
@@ -484,7 +536,8 @@ def test_the_producers_raise_when_the_cpp_fails_to_build(monkeypatch,
 
     monkeypatch.setattr(cube, "DataPublisherSocket", Socket)
     monkeypatch.setattr(cube, "term_context", lambda: None)
-    args = ["--shape", "32", "64", "--frames", "2"]
+    args = ["--shape", "32", "64", "--frames", "2", "--encoding", "tile",
+            "--batch", "8"]
     with pytest.raises(RuntimeError, match="_native/"):
         cube.main(args)
     assert not sent

@@ -103,7 +103,7 @@ def test_parallel_assembler_loses_and_duplicates_no_slot():
     import sys
 
     schema = StreamSchema.infer(_item(0))
-    asm = ParallelBatchAssembler(schema, batch_size=8, num_buffers=24)
+    asm = ParallelBatchAssembler(schema, batch_size=8)
     seen, sizes = [], []
     lock = threading.Lock()
 
@@ -133,8 +133,7 @@ def test_parallel_assembler_loses_and_duplicates_no_slot():
 
 
 def test_parallel_assembler_flush_partial():
-    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=4,
-                                 num_buffers=3)
+    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=4)
     assert asm.flush() is None
     for i in range(3):
         assert asm.add(_item(i)) is None
@@ -521,8 +520,9 @@ def _cube_producer(tmp, wire, extra=()):
     proc = subprocess.Popen(
         [sys.executable, "-m", "blendjax_torch.producer.cube",
          "--addr-file", addr_file, "--btid", "0", "--seed", "3",
-         "--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
-         "--tile-rgba", "--tile-capacity", "16", "--wire", wire, *extra],
+         "--shape", "64", "128", "--batch", "4", "--encoding", "tile",
+         "--tile", "16", "32", "--tile-rgba", "--tile-capacity", "16",
+         "--wire", wire, *extra],
         cwd=repo, env=env)
     deadline = time.monotonic() + 60
     while not os.path.exists(addr_file):

@@ -479,7 +479,8 @@ def test_fused_publisher_messages_match_jax(channels, alpha_slice, tile,
 
 # -- the cube producer on the producer runtime ---------------------------------
 
-PRODUCER_ARGS = ["--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
+PRODUCER_ARGS = ["--shape", "64", "128", "--batch", "4", "--encoding", "tile",
+                 "--tile", "16", "32",
                  "--tile-rgba", "--tile-capacity", "16", "--ref-interval", "2",
                  "--frames", "22"]
 STAMPS = ("_seq", "_pub_wall", "_pub_mono", "_telemetry", "_trace")

@@ -224,8 +224,9 @@ def _producer(tmp, i, frames=-1):
     proc = subprocess.Popen(
         [sys.executable, "-m", "blendjax_torch.producer.cube",
          "--addr-file", addr_file, "--btid", str(i), "--seed", str(i),
-         "--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
-         "--tile-rgba", "--tile-capacity", "16", "--frames", str(frames)],
+         "--shape", "64", "128", "--batch", "4", "--encoding", "tile",
+         "--tile", "16", "32", "--tile-rgba", "--tile-capacity", "16",
+         "--frames", str(frames)],
         cwd=REPO, env=env,
     )
     deadline = time.monotonic() + 60
@@ -284,6 +285,26 @@ def _items(n):
 
 def _host(v):
     return np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+
+
+def test_cpu_batches_keep_their_frames_while_later_ones_assemble():
+    """C10: every assembled batch has buffers of its own (the assembler
+    once rotated a pool of three, which it filled again while the CPU
+    feeder's tensors, wrapped without a copy, still pointed at them): a
+    consumer holding every batch (a recording replayed, a loop behind the
+    ingest) sees each batch's own frames, in the stream's order."""
+    from blendjax_torch.data import StreamDataPipeline
+
+    msgs = [{"btid": 0, "_seq": i, "frameid": np.int64(i + 1),
+             "image": np.full((4, 6, 4), i + 1, np.uint8)}
+            for i in range(40)]
+    batches = list(StreamDataPipeline(iter(msgs), batch_size=8,
+                                      device="cpu"))
+    assert len(batches) == 5
+    for k, b in enumerate(batches):
+        want = np.arange(8 * k + 1, 8 * k + 9)
+        np.testing.assert_array_equal(b["frameid"].numpy(), want)
+        np.testing.assert_array_equal(b["image"][:, 0, 0, 0].numpy(), want)
 
 
 @pytest.mark.parametrize("emit_packed", [False, True])
@@ -401,7 +422,8 @@ def test_decoded_chunked_form_stacks_decoded_superbatches():
 # -- StreamDataPipeline(launcher=) -----------------------------------------------
 
 CUBE = os.path.join(REPO, "blendjax_torch", "producer", "cube.py")
-CUBE_ARGS = ["--shape", "64", "128", "--batch", "4", "--tile", "16", "32",
+CUBE_ARGS = ["--shape", "64", "128", "--batch", "4", "--encoding", "tile",
+             "--tile", "16", "32",
              "--tile-rgba", "--tile-capacity", "16"]
 
 
