@@ -155,33 +155,26 @@ def prebatched_lead(item: dict) -> int:
 
 
 class BatchAssembler:
-    """Packs per-item dicts into preallocated batch dicts.
+    """Packs per-item dicts into a pool of ``num_buffers`` preallocated
+    batch dicts, cycled so a completed batch stays valid while it is
+    transferred."""
 
-    Every batch is assembled in buffers of its own, allocated when its
-    first item arrives: a batch handed out is never written again, however
-    long the consumer holds it (on the CPU the feeder's tensors are its
-    copies, and a recording replayed faster than the steps keeps several
-    batches alive). The JAX package's assembler rotates a pool of
-    ``num_buffers`` instead."""
-
-    def __init__(self, schema: StreamSchema, batch_size: int):
+    def __init__(self, schema: StreamSchema, batch_size: int,
+                 num_buffers: int = 3):
         self.schema = schema
         self.batch_size = int(batch_size)
-        self._buf: dict | None = None
+        self._pool = [
+            {k: np.empty((self.batch_size, *spec.shape), spec.dtype)
+             for k, spec in schema.fields.items()}
+            for _ in range(num_buffers)
+        ]
         self._meta: list = []
         self._cursor = 0
-
-    def _buffers(self) -> dict:
-        if self._buf is None:
-            self._buf = {
-                k: np.empty((self.batch_size, *spec.shape), spec.dtype)
-                for k, spec in self.schema.fields.items()
-            }
-        return self._buf
+        self._active = 0
 
     def add(self, item: dict):
         """Add one item; returns the completed batch when full, else None."""
-        buf = self._buffers()
+        buf = self._pool[self._active]
         for k in self.schema.fields:
             buf[k][self._cursor] = item[k]
         self._meta.append(
@@ -192,9 +185,9 @@ class BatchAssembler:
             return None
         batch = dict(buf)
         batch["_meta"] = self._meta
-        self._buf = None
         self._meta = []
         self._cursor = 0
+        self._active = (self._active + 1) % len(self._pool)
         return batch
 
     def flush(self):
@@ -202,13 +195,13 @@ class BatchAssembler:
         ``_partial=True``), or None when nothing is pending."""
         if self._cursor == 0:
             return None
-        buf = self._buffers()
+        buf = self._pool[self._active]
         batch = {k: buf[k][: self._cursor] for k in self.schema.fields}
         batch["_meta"] = self._meta
         batch["_partial"] = True
-        self._buf = None
         self._meta = []
         self._cursor = 0
+        self._active = (self._active + 1) % len(self._pool)
         return batch
 
 
@@ -311,7 +304,12 @@ class HostIngest:
                 if self.schema is None:
                     self.schema = infer_schema(item, batched)
                 if assembler is None:
-                    assembler = BatchAssembler(self.schema, self.batch_size)
+                    # the queue's `prefetch` batches, the one the consumer
+                    # is placing and the one being assembled
+                    assembler = BatchAssembler(
+                        self.schema, self.batch_size,
+                        num_buffers=self.prefetch + 2,
+                    )
                 if batched:
                     whole = passthrough_batch(item, self.schema, self.batch_size)
                     if whole is not None:

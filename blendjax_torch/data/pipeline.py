@@ -210,10 +210,11 @@ class DeviceFeeder:
                 v, self.sharding) for k, v in arrays.items()}
         out = {k: v for k, v in batch.items() if k not in arrays}
         if not self._cuda:
+            # a copy: the assembler fills its buffers again while the
+            # consumer may still hold this batch (on the card the pinned
+            # stager copies the batch out)
             for k, v in arrays.items():
-                out[k] = torch.from_numpy(
-                    v if v.flags.writeable else v.copy()
-                ).to(self.device)
+                out[k] = torch.from_numpy(v.copy()).to(self.device)
             return out
         compute = torch.cuda.current_stream(self.device)
         entries = []

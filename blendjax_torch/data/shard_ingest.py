@@ -71,16 +71,21 @@ class ParallelBatchAssembler:
     :meth:`reserve` hands out ``(pending, slot)`` under a short lock (the
     cursor and the buffer rotation only); :meth:`write` copies the item
     into its slot with no lock held and returns the completed batch when
-    it filled the batch's last outstanding slot. Every batch is assembled
-    in buffers of its own, allocated at its first reservation, so a batch
-    handed out is never written again (the JAX package's rotates a pool
-    of ``num_buffers``).
+    it filled the batch's last outstanding slot. Size the buffer pool to
+    at least the pending batches + the queue depth + 1.
     """
 
-    def __init__(self, schema: StreamSchema, batch_size: int):
+    def __init__(self, schema: StreamSchema, batch_size: int,
+                 num_buffers: int = 4):
         self.schema = schema
         self.batch_size = int(batch_size)
+        self._pool = [
+            {k: np.empty((self.batch_size, *spec.shape), spec.dtype)
+             for k, spec in schema.fields.items()}
+            for _ in range(num_buffers)
+        ]
         self._lock = threading.Lock()
+        self._active = 0
         self._cursor = 0
         self._pending: _PendingBatch | None = None
 
@@ -88,10 +93,9 @@ class ParallelBatchAssembler:
         """Claim one slot; returns ``(pending, slot_index)``."""
         with self._lock:
             if self._pending is None:
-                self._pending = _PendingBatch(
-                    {k: np.empty((self.batch_size, *spec.shape), spec.dtype)
-                     for k, spec in self.schema.fields.items()},
-                    self.batch_size)
+                self._pending = _PendingBatch(self._pool[self._active],
+                                              self.batch_size)
+                self._active = (self._active + 1) % len(self._pool)
                 self._cursor = 0
             pending = self._pending
             slot = self._cursor
@@ -256,8 +260,12 @@ class ShardedHostIngest:
             if self.schema is None:
                 self.schema = infer_schema(item, batched)
             if self._assembler is None:
+                # every worker may hold a pending batch while the queue
+                # holds `prefetch` and the consumer one more
                 self._assembler = ParallelBatchAssembler(
-                    self.schema, self.batch_size)
+                    self.schema, self.batch_size,
+                    num_buffers=self.prefetch + len(self.streams) + 2,
+                )
         return self._assembler
 
     def _consume(self, idx: int, item: dict) -> None:

@@ -195,17 +195,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _mesh(device):
     """The mesh ``{"data": -1}`` of a run under ``torchrun`` with more than
-    one rank (the group opened from the environment), else None."""
+    one rank (the group opened from the environment), else None; and
+    whether this call opened the group (its caller then destroys it)."""
     import torch.distributed as dist
 
     from blendjax_torch.parallel import create_mesh
     from blendjax_torch.parallel.mesh import init_group
 
-    init_group(device)
+    opened = init_group(device)
     if not dist.is_initialized() or dist.get_world_size() <= 1:
-        return None
+        return None, opened
     return create_mesh({"data": -1},
-                       devices="cpu" if device.type == "cpu" else None)
+                       devices="cpu" if device.type == "cpu" else None), opened
 
 
 def main(argv=None) -> dict:
@@ -247,10 +248,25 @@ def main(argv=None) -> dict:
     if args.flight_dir and not args.slo:
         ap.error("--flight-dir needs at least one --slo rule to breach")
 
+    from blendjax_torch.device import device_flag
+
+    device = device_flag(args.device)
+    mesh, opened = _mesh(device)
+    try:
+        return _train(ap, args, fleet_bounds, device, mesh)
+    finally:
+        if opened:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(ap, args, fleet_bounds, device, mesh) -> dict:
+    """The body of :func:`main` on ``device`` (and ``mesh``, under
+    ``torchrun``), once its flags are checked."""
     import torch
 
     from blendjax_torch.data import StreamDataPipeline
-    from blendjax_torch.device import device_flag
     from blendjax_torch.launcher import PythonProducerLauncher
     from blendjax_torch.models import CubeRegressor
     from blendjax_torch.train import (
@@ -261,8 +277,6 @@ def main(argv=None) -> dict:
     )
     from blendjax_torch.train.steps import batch_images
 
-    device = device_flag(args.device)
-    mesh = _mesh(device)
     if mesh is not None:
         for flag in ("record", "checkpoint", "fleet", "scenarios"):
             if getattr(args, flag):

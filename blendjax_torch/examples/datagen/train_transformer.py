@@ -91,7 +91,7 @@ def main(argv=None) -> dict:
     h, w = args.shape
     result: dict = {"losses": []}
     with tempfile.TemporaryDirectory() as store:
-        opened = init_group(device, single=True, store_dir=store)
+        opened = init_group(device, store_dir=store)
         try:
             mesh = create_mesh(
                 parse_mesh(args.mesh),

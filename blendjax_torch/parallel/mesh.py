@@ -94,12 +94,11 @@ def create_mesh(spec=None, devices=None):
                             mesh_dim_names=tuple(sizes))
 
 
-def init_group(device, single: bool = False, store_dir: str | None = None,
-               timeout_s: float = 120.0) -> bool:
+def init_group(device, store_dir: str | None = None) -> bool:
     """Open the default process group for an entry point (the examples),
     unless one is open already: under ``torchrun`` (``WORLD_SIZE`` > 1) from
-    the environment (``env://``); else, with ``single=True``, a group of
-    world size 1 through a ``FileStore`` in ``store_dir``. NCCL on a CUDA
+    the environment (``env://``); else, given a ``store_dir``, a group of
+    world size 1 through a ``FileStore`` there; else none. NCCL on a CUDA
     ``device`` (this rank's card, ``LOCAL_RANK``), gloo on the CPU. Returns
     whether this call opened the group (its caller then destroys it); a
     failure raises, with no fallback to another backend."""
@@ -112,10 +111,10 @@ def init_group(device, single: bool = False, store_dir: str | None = None,
     if dist.is_initialized():
         return False
     env_world = int(os.environ.get("WORLD_SIZE", "1"))
-    if env_world <= 1 and not single:
+    if env_world <= 1 and store_dir is None:
         return False
     cuda = torch.device(device).type == "cuda"
-    kw = {"timeout": datetime.timedelta(seconds=timeout_s)}
+    kw = {"timeout": datetime.timedelta(seconds=120)}
     if cuda:
         card = int(os.environ.get("LOCAL_RANK", "0")) if env_world > 1 else 0
         torch.cuda.set_device(card)
@@ -124,8 +123,6 @@ def init_group(device, single: bool = False, store_dir: str | None = None,
     if env_world > 1:
         dist.init_process_group(backend, init_method="env://", **kw)
     else:
-        if store_dir is None:
-            raise ValueError("a world-1 group needs a store_dir")
         dist.init_process_group(
             backend, store=dist.FileStore(
                 os.path.join(store_dir, "group-store"), 1),

@@ -103,7 +103,7 @@ def test_parallel_assembler_loses_and_duplicates_no_slot():
     import sys
 
     schema = StreamSchema.infer(_item(0))
-    asm = ParallelBatchAssembler(schema, batch_size=8)
+    asm = ParallelBatchAssembler(schema, batch_size=8, num_buffers=24)
     seen, sizes = [], []
     lock = threading.Lock()
 
@@ -133,7 +133,8 @@ def test_parallel_assembler_loses_and_duplicates_no_slot():
 
 
 def test_parallel_assembler_flush_partial():
-    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=4)
+    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=4,
+                                 num_buffers=3)
     assert asm.flush() is None
     for i in range(3):
         assert asm.add(_item(i)) is None

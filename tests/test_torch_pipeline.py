@@ -288,11 +288,11 @@ def _host(v):
 
 
 def test_cpu_batches_keep_their_frames_while_later_ones_assemble():
-    """C10: every assembled batch has buffers of its own (the assembler
-    once rotated a pool of three, which it filled again while the CPU
-    feeder's tensors, wrapped without a copy, still pointed at them): a
-    consumer holding every batch (a recording replayed, a loop behind the
-    ingest) sees each batch's own frames, in the stream's order."""
+    """C10: the CPU feeder copies each batch out of the assembler's pool
+    (it once wrapped the pool's arrays without a copy, and the assembler
+    filled them again while the consumer still held them): a consumer
+    holding every batch (a recording replayed, a loop behind the ingest)
+    sees each batch's own frames, in the stream's order."""
     from blendjax_torch.data import StreamDataPipeline
 
     msgs = [{"btid": 0, "_seq": i, "frameid": np.int64(i + 1),
@@ -305,6 +305,33 @@ def test_cpu_batches_keep_their_frames_while_later_ones_assemble():
         want = np.arange(8 * k + 1, 8 * k + 9)
         np.testing.assert_array_equal(b["frameid"].numpy(), want)
         np.testing.assert_array_equal(b["image"][:, 0, 0, 0].numpy(), want)
+
+
+def test_a_batch_taken_from_the_ingest_stays_whole_while_it_runs_ahead():
+    """C10: the ingest's pool holds the queue's batches, the one the
+    consumer is placing and the one being assembled (it once held one
+    fewer, and the ingest assembled into the batch the consumer had just
+    taken as soon as the queue had room)."""
+    from blendjax_torch.data.batcher import HostIngest
+
+    msgs = [{"frameid": np.int64(i + 1),
+             "image": np.full((4, 6, 4), i + 1, np.uint8)}
+            for i in range(48)]
+    ingest = HostIngest(iter(msgs), batch_size=8, prefetch=2)
+    try:
+        for k, b in enumerate(ingest):
+            # the ingest fills the queue again and assembles one more
+            ahead = min(len(msgs), 8 * (k + 4))
+            deadline = time.monotonic() + 10
+            while ingest.items_in < ahead and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert ingest.items_in >= ahead
+            want = np.arange(8 * k + 1, 8 * k + 9)
+            np.testing.assert_array_equal(b["frameid"], want)
+            np.testing.assert_array_equal(b["image"][:, 0, 0, 0], want)
+        assert k == 5
+    finally:
+        ingest.stop()
 
 
 @pytest.mark.parametrize("emit_packed", [False, True])
