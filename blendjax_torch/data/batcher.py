@@ -177,9 +177,14 @@ class BatchAssembler:
         buf = self._pool[self._active]
         for k in self.schema.fields:
             buf[k][self._cursor] = item[k]
+        # Thread-confined: an assembler is owned and driven solely by the
+        # one ingest thread iterating its stream (the sharded pool keeps
+        # per-slot pending state under its own lock instead).
+        # bjx: ignore[BJX117] — thread-confined, as blendjax/data/batcher.py:218
         self._meta.append(
             {k: item[k] for k in self.schema.meta_keys if k in item}
         )
+        # bjx: ignore[BJX117] — thread-confined, as blendjax/data/batcher.py:220
         self._cursor += 1
         if self._cursor < self.batch_size:
             return None
@@ -187,6 +192,7 @@ class BatchAssembler:
         batch["_meta"] = self._meta
         self._meta = []
         self._cursor = 0
+        # bjx: ignore[BJX117] — thread-confined, as blendjax/data/batcher.py:228
         self._active = (self._active + 1) % len(self._pool)
         return batch
 
@@ -333,6 +339,10 @@ class HostIngest:
                 if tail is not None:
                     self._emit(tail)
         except BaseException as e:  # re-raised in the consumer thread
+            # Publication sequenced by the _DONE sentinel: written before the
+            # undroppable put below, read by the consumer only after get()
+            # returns _DONE.
+            # bjx: ignore[BJX117] — as blendjax/data/batcher.py:415
             self._error = e
         finally:
             while True:  # the sentinel must be delivered (or stop() wins)

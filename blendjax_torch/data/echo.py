@@ -36,7 +36,8 @@ Metrics (:mod:`blendjax_torch.utils.metrics`, the JAX package's names and
 sites): the ``echo.insert``, ``echo.sample`` and ``echo.wait_fresh``
 spans; ``echo.inserted``, ``echo.fresh``, ``echo.echoed``,
 ``echo.saturated_waits`` and ``echo.skipped_partial``; the
-``echo.reservoir_fill`` gauge. A sampled frame trace is stamped
+``echo.reservoir_fill``, ``echo.unique_fraction`` and ``echo.factor``
+gauges; the ``echo.sample_age_s`` histogram. A sampled frame trace is stamped
 ``reservoir_insert`` when its batch enters the ring and parked on the
 batch's first slot; the first draw of that slot stamps it
 ``reservoir_sample`` and carries it to the step (an overwritten slot drops
@@ -65,6 +66,9 @@ draw of the same counter: N ranks do N times the augmentation work.
 """
 
 from __future__ import annotations
+
+# bjx: driver-hot-path (the drain thread and the draw loop: BJX109 and
+# BJX116 hold in this module)
 
 import collections
 import contextlib
@@ -290,9 +294,11 @@ class SampleReservoir:
     def fields(self) -> tuple:
         return tuple(self._spec) if self._spec else ()
 
-    def data_ptrs(self) -> dict:
-        """``{field: data_ptr()}`` of the ring: constant for the run."""
-        return {k: v.data_ptr() for k, v in (self._buffers or {}).items()}
+    def device_buffers(self) -> dict:
+        """``{field: tensor}`` of the ring: the same tensors for the run,
+        written in place (the input of
+        :class:`blendjax_torch.testing.DonationAudit`)."""
+        return dict(self._buffers or {})
 
     # -- session snapshot (blendjax_torch.checkpoint) ------------------------
 
@@ -484,6 +490,9 @@ class EchoingPipeline:
             with ctx:
                 for b in iter(self.pipeline):
                     # this thread's CPU seconds so far (its host share)
+                    # single-writer observability float: one atomic reference
+                    # store per batch, read by report()
+                    # bjx: ignore[BJX117] — as blendjax/data/shard_ingest.py:311
                     self.drain_busy_s = time.thread_time() - cpu0
                     while not self._stop.is_set():
                         try:
@@ -761,11 +770,22 @@ class EchoingPipeline:
                 scenario_accounting.observe_rows(scen, fresh=fresh_rows)
             np.add.at(self._use, idx, 1)
             self.max_uses = max(self.max_uses, int(self._use[idx].max()))
+            # one registry call for the whole age vector
+            metrics.observe_many(
+                "echo.sample_age_s", time.monotonic() - self._t_insert[idx])
             self.steps += 1
             self.fresh += fresh_n
             self.echoed += len(idx) - fresh_n
             metrics.count("echo.fresh", fresh_n)
             metrics.count("echo.echoed", len(idx) - fresh_n)
+            # the gauges read the registry's counters, so they agree with
+            # the windowed echo.* counters after a metrics.reset()
+            f = metrics.counter_value("echo.fresh")
+            drawn = f + metrics.counter_value("echo.echoed")
+            metrics.gauge("echo.unique_fraction",
+                          round(f / drawn, 4) if drawn else 0.0)
+            metrics.gauge("echo.factor", round(
+                drawn / max(metrics.counter_value("echo.inserted"), 1), 4))
             yield batch
 
     # -- warm start ------------------------------------------------------------

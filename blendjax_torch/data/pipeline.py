@@ -711,6 +711,9 @@ class StreamDataPipeline:
 
         def on_timeout():
             with self._launcher_lock:
+                # Runs only once the stream has already stalled (a receive
+                # timeout), so the bounded liveness check costs no throughput.
+                # bjx: ignore[BJX110] — as blendjax/data/pipeline.py:1416
                 launcher.assert_alive()  # raises, or respawns the dead
             # every producer alive but silent: wait again a bounded
             # number of times (a slow start or a respawn), then fail

@@ -29,6 +29,9 @@ batch that holds its message's first item.
 
 from __future__ import annotations
 
+# bjx: hot-path (the parallel receive/decode/assemble loop: BJX107,
+# BJX109, BJX110 and BJX116 hold in this module)
+
 import concurrent.futures
 import queue
 import threading
@@ -245,6 +248,7 @@ class ShardedHostIngest:
         while not self._consumer_stop:
             try:
                 self._queue.put(batch, timeout=0.25)
+                # bjx: ignore[BJX117] — per-slot single-writer, as blendjax/data/shard_ingest.py:311
                 self.shard_batches[idx] += 1
                 metrics.count("ingest.batches")
                 return
@@ -275,6 +279,7 @@ class ShardedHostIngest:
         if item.pop("_prebatched", False):
             lead = prebatched_lead(item)
             warn_prebatched_lead(self, lead)
+            # bjx: ignore[BJX117] — per-slot single-writer, as blendjax/data/shard_ingest.py:365
             self.shard_items[idx] += lead
             metrics.count("ingest.items", lead)
             if tr is not None:
@@ -332,6 +337,7 @@ class ShardedHostIngest:
         # one series per shard, bounded by the pool's size
         span_name = f"ingest.recv.shard{idx}"
         while True:
+            # bjx: ignore[BJX107] — one series per shard, as blendjax/data/shard_ingest.py:434
             with metrics.span(span_name):
                 try:
                     item = next(stream_it)
@@ -339,6 +345,10 @@ class ShardedHostIngest:
                     return
             if not self._take_budget():
                 return
+            # Advisory racy read: worst case one extra item is consumed; the
+            # authoritative error read in __iter__ is sequenced by the _DONE
+            # sentinel.
+            # bjx: ignore[BJX117] — as blendjax/data/shard_ingest.py:444
             if self._consumer_stop or self._error is not None:
                 return
             self._consume(idx, item)
@@ -438,6 +448,9 @@ class ShardedHostIngest:
             yield batch
 
     def stop(self, timeout: float = 10.0):
+        # Monotonic bool flag, single writer (the consumer); reads see it
+        # within one queue item.
+        # bjx: ignore[BJX117] — as blendjax/data/shard_ingest.py:573
         self._consumer_stop = True
         self._request_stop_all()
         if not self._threads:

@@ -27,6 +27,9 @@ decode-ahead too, so a recording holds exactly the ``received`` messages
 
 from __future__ import annotations
 
+# bjx: hot-path (the live receive loop: BJX107, BJX109, BJX110 and
+# BJX116 hold in this module)
+
 import collections
 import concurrent.futures
 import logging

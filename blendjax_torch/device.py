@@ -49,6 +49,11 @@ class HostStager:
         if dst.device.type != "cuda":
             dst.copy_(src)
             return
+        # Each stager has one owner that calls it on one thread, or under
+        # its own lock (TrajectoryReservoir's, in rl/replay.py _write).
+        # The JAX package has no counterpart: jax.device_put stages
+        # inside the runtime.
+        # bjx: ignore[BJX117] — one owner per instance
         ring = self._rings.setdefault((src.shape, src.dtype),
                                       collections.deque())
         if len(ring) < self.SLOTS:

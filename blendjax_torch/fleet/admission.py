@@ -88,9 +88,11 @@ class AdmissionServer:
         except BaseException as e:  # bad bind addr: surface in start()
             # published through the _ready Event: written before set(),
             # read in start() only after wait()
+            # bjx: ignore[BJX117] — sequenced by the _ready Event, as blendjax/fleet/admission.py:94
             self._startup_error = e
             self._ready.set()
             raise
+        # bjx: ignore[BJX117] — sequenced by the _ready Event, as blendjax/fleet/admission.py:98
         self.addr = server.addr
         self._ready.set()
         try:

@@ -100,6 +100,8 @@ def _free_port(host: str) -> int:
         return s.getsockname()[1]
 
 
+# bjx: thread-shared (the fleet controller's control thread scales the
+# membership while the owner polls/retires: `_lock` guards it — BJX117)
 class ProcessLauncher:
     """Launch ``num_instances`` producer processes speaking the handshake.
 

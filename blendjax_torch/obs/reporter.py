@@ -145,7 +145,7 @@ class StatsReporter:
         )
         # Lock-free observability publish: one atomic reference
         # swap per tick; /healthz reads whole verdict objects.
-        # bjx: ignore[BJX117] — atomic reference publish
+        # bjx: ignore[BJX117] — atomic reference publish, as blendjax/obs/reporter.py:148
         self.last_verdict = verdict
         self.log.info("%s", verdict.render())
         self.history.append({

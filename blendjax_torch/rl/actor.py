@@ -172,7 +172,7 @@ class ActorPool:
         a reference swap, no lock needed for the reader)."""
         # Deliberate lock-free publish: a single atomic reference
         # swap; the actor reads whole snapshots only.
-        # bjx: ignore[BJX117] — atomic reference publish
+        # bjx: ignore[BJX117] — atomic reference publish, as blendjax/rl/actor.py:194
         self._snapshot = snapshot
         # ...but the version counter is read-modify-write: share the
         # accounting cut's lock so stats() reads a consistent pair
@@ -254,7 +254,7 @@ class ActorPool:
             if not self._stop.is_set():
                 # Single-writer atomic reference publish; check()
                 # only ever reads None -> exception.
-                # bjx: ignore[BJX117] — atomic reference publish
+                # bjx: ignore[BJX117] — atomic reference publish, as blendjax/rl/actor.py:276
                 self._error = e
                 logger.exception("actor loop died")
 

@@ -32,6 +32,9 @@ together), so they compose the same indices; rank 0 runs the actors.
 
 from __future__ import annotations
 
+# bjx: driver-hot-path (BJX109/BJX116 hold here exactly as in
+# driver.py)
+
 import time
 
 import torch

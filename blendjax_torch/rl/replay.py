@@ -45,6 +45,9 @@ Metrics (the reference's ``rl.*`` names): counters ``rl.transitions``,
 
 from __future__ import annotations
 
+# bjx: driver-hot-path (accounting runs on host-chosen indices: BJX109
+# and BJX116 hold in this module)
+
 import contextlib
 import threading
 import time
@@ -62,6 +65,8 @@ def _as_numpy(v) -> np.ndarray:
     return np.asarray(v)
 
 
+# bjx: thread-shared (actor pool inserts from its thread while the
+# learner draws: every public entry point must hold `lock` — BJX117)
 class TrajectoryReservoir:
     """Ring of the last ``capacity`` transitions on the card.
 
@@ -82,7 +87,10 @@ class TrajectoryReservoir:
                  prioritized: bool = False, alpha: float = 0.6,
                  beta: float = 0.4, priority_eps: float = 1e-3,
                  priority_refresh_every: int = 16, device=None):
-        from blendjax_torch.data.ring import validate_ring_capacity
+        from blendjax_torch.data.ring import (
+            make_ring_gather,
+            validate_ring_capacity,
+        )
 
         self.capacity = int(capacity)
         if self.capacity < 1:
@@ -108,7 +116,9 @@ class TrajectoryReservoir:
         self._prio_store = None  # (capacity + 1,): the last slot is spare
         self._priorities = None  # view of the first capacity slots
         self._spec: dict | None = None
-        self._gather_fn = None
+        # fixed by the capacity and the layout, so set before the ring is
+        # shared: draw() reads it without the lock
+        self._gather_fn = make_ring_gather(self.capacity, sharding)
         self._pinned = HostStager()
         self._agreement = None
         self._pending: list = []  # a mesh rank's queued inserts
@@ -136,11 +146,7 @@ class TrajectoryReservoir:
     def _build(self, fields: dict, initial=None, prio_initial=None) -> None:
         """Allocate the ring from one example batch of host arrays (or
         place a restored ``initial``) and the priority vector."""
-        from blendjax_torch.data.ring import (
-            allocate_ring,
-            make_ring_gather,
-            ring_spec,
-        )
+        from blendjax_torch.data.ring import allocate_ring, ring_spec
 
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v[:1]))
                    for k, v in fields.items()}
@@ -161,7 +167,6 @@ class TrajectoryReservoir:
                 np.asarray(prio_initial, np.float32))
         self._prio_store = store.to(self.device)
         self._priorities = self._prio_store[:self.capacity]
-        self._gather_fn = make_ring_gather(self.capacity, self.sharding)
 
     def _on_stream(self):
         """Queue the work inside on :attr:`stream` (the learner's)."""
@@ -270,11 +275,12 @@ class TrajectoryReservoir:
 
         with self.lock:
             pending, self._pending = self._pending, []
-        if self._agreement is None:
-            self._agreement = RankAgreement(self.sharding.mesh)
-        gathered: list = [None] * len(self._agreement.ranks)
+            if self._agreement is None:
+                self._agreement = RankAgreement(self.sharding.mesh)
+            agreement = self._agreement
+        gathered: list = [None] * len(agreement.ranks)
         dist.all_gather_object(gathered, (int(flag), pending),
-                               group=self._agreement.group)
+                               group=agreement.group)
         with self.lock:
             for _flag, batches in gathered:
                 for rows in batches:
@@ -400,12 +406,14 @@ class TrajectoryReservoir:
             with metrics.span("rl.sample"):
                 return self._gather_fn(self._buffers, idx)
 
-    def data_ptrs(self) -> dict:
-        """Storage addresses of the ring fields and the priorities."""
+    def device_buffers(self) -> dict:
+        """``{field: tensor}`` of the ring, with the priority store under
+        ``_priorities``: the same tensors for the run, written in place
+        (the input of :class:`blendjax_torch.testing.DonationAudit`)."""
         with self.lock:
-            out = {k: v.data_ptr() for k, v in (self._buffers or {}).items()}
+            out = dict(self._buffers or {})
             if self._prio_store is not None:
-                out["_priorities"] = self._prio_store.data_ptr()
+                out["_priorities"] = self._prio_store
             return out
 
     @property

@@ -37,6 +37,8 @@ side is ROADMAP item 5c.
 
 from __future__ import annotations
 
+# bjx: driver-hot-path (BJX109/BJX116 hold here exactly as in driver.py)
+
 import time
 
 from blendjax_torch.train.driver import TrainDriver

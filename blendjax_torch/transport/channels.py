@@ -34,6 +34,9 @@ that outgrows its ring slot goes on the wire codecs and is counted in
 
 from __future__ import annotations
 
+# bjx: hot-path (recv/decode sits on the ingest critical path: BJX107,
+# BJX109, BJX110 and BJX116 hold in this module)
+
 import os
 import threading
 import time

@@ -79,7 +79,9 @@ Phases (any failure exits non-zero):
    through ``uint8_gamma_normalize`` on the card (K3). It fails unless
    fresh + echoed == steps x batch exactly, echoed > 0, no sample is drawn
    more than 4 times, seq_gaps == 0, losses are finite, one step call per
-   driver step, the ring's ``data_ptr()``s never move, and K1 and K3 each
+   driver step, a donation audit (``blendjax_torch.testing.DonationAudit``)
+   of the state and the ring that reads stable over the window, and K1 and
+   K3 each
    launched once per decoded fresh batch (on the drain thread, outside the
    step's graph), one graph replay per step and no fallback; it prints
    live img/s into the step, the fresh frame rate and the unique fraction,
@@ -169,7 +171,13 @@ Phases (any failure exits non-zero):
    (written into the leg's directory) that echoes each ``CTRL`` message
    through ``DuplexChannel`` on ``SimEngine`` frames, sends 1000
    ``PairChannel`` messages (round trip p50/p99), and fails unless every
-   ``btmid`` comes back from btid 0;
+   ``btmid`` comes back from btid 0. The fake-Blender leg: the port's
+   ``BlenderLauncher`` starts ``examples/datagen/cube.blend.py`` through a
+   wrapper of the port's ``write_fake_blender`` with the UI on (offscreen
+   frames of the stock 1920x1080 scene), and 4 captured steps of
+   ``train.py``'s direct loop train on its frames in batches of 2; it
+   fails unless at least 8 messages arrived, the losses are finite and no
+   process, directory or segment is left;
 6. K3 (gamma normalize) against its plain version over all 256 uint8
    values, at (1, 37, 8, 4) and at that shape from byte offset 1 (the
    element path), gamma 2.2 and 1.0, f32 and bf16 (bit-exact, so within
@@ -183,6 +191,13 @@ Phases (any failure exits non-zero):
    full-width StreamFormer forward (through the simple f32 flash forward,
    which f32 always takes) on the card against the CPU (TF32 off, rtol
    1e-4).
+
+Donation audits (``blendjax_torch.testing.DonationAudit``): the flagship
+leg (the state over its window), the echo leg (the state and the ring),
+the resume phase (C's state across its in-place restore and a step) and
+both RL legs each snapshot their buffers' storage addresses at the
+window's start and end, set the ``train.donation_reuse`` gauge, print the
+audit's report on their line and fail unless every label is stable.
 
 Observability (the metrics registry and ``blendjax_torch.obs``): every
 live leg zeroes the process-wide registry, frame lineage and trace
@@ -258,8 +273,9 @@ producers under ``BatchedRemoteEnv`` -> ``ActorPool(HostQPolicy(3,
 eps_steps=1500))`` -> ``TrajectoryReservoir(512)`` -> ``RLTrainDriver``
 with ``CapturedStep(make_dqn_step)``, ``QNetwork((32, 32))``, batch 32,
 ``min_fill`` 64, ``sync_every`` 8, 300 learner steps, a uniform and a
-prioritized leg: one graph replay per learner step, the ring, priorities,
-parameters, target and Adam moments unmoved across the window, fresh +
+prioritized leg: one graph replay per learner step, a donation audit of
+the ring, priorities, parameters, target and Adam moments stable across
+the window, fresh +
 replayed == draws x batch, env steps == transitions inserted, the best
 leg's mean return (the later half of its episodes, the actors run on to
 8 ended episodes) >= 15; learner steps/s, ``rl.sample_waits`` and the RL
@@ -1256,6 +1272,19 @@ def fresh_registry() -> None:
     tracer.reset()
 
 
+def audit_verdict(label: str, audit) -> float:
+    """Publish a leg's donation audit as the ``train.donation_reuse``
+    gauge, print its report on the leg's line, and fail unless every
+    audited label kept its buffers."""
+    value = audit.publish()
+    report = audit.report()
+    log(f"{label}: train.donation_reuse {value} {json.dumps(report)}")
+    if value != 1.0:
+        moved = sorted(k for k, v in report.items() if not v["stable"])
+        fail(f"{label}: the donation audit reads unstable for {moved}")
+    return value
+
+
 STAGE_PREFIXES = ("tiles.", "pal.", "rle.", "ingest.", "wire.", "train.",
                   "feed.", "decode.", "device.", "echo.", "trace.")
 # the sampled trace's stages on the fused path, in order (the place stamp
@@ -1419,7 +1448,8 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
             inflate_workers: int = 2, graph_step=None,
             alone: bool = True, record: str | None = None,
             keep_first: int = 0, obs: str | None = None,
-            stages: bool = False, mesh=None, driver=None) -> dict:
+            stages: bool = False, mesh=None, driver=None,
+            audit: bool = False) -> dict:
     """One producer leg through the captured fused step (one CUDA graph per
     packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
     graph-parity phase. ``producers`` cube producers publish on ``wire``
@@ -1435,7 +1465,10 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
     ``obs``). ``obs`` (a directory) adds the reporter, the exporter and the
     Chrome trace (:class:`ObsLeg`). ``mesh`` gives the pipeline a mesh and
     ``driver`` (a ``MeshTrainDriver`` over ``graph_step`` and ``state``)
-    runs the leg in place of a new ``TrainDriver``."""
+    runs the leg in place of a new ``TrainDriver``. ``audit`` snapshots
+    the state's buffers (parameters, AdamW moments and counts) at the
+    window's start and end and fails unless the graph replays updated them
+    in place (:func:`audit_verdict`)."""
     import collections
 
     import torch
@@ -1452,11 +1485,14 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         make_fused_tile_step,
     )
 
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
+
     if graph_step is None:
         graph_step = CapturedStep(make_fused_tile_step(loss_fn))
     if not graph_step.signatures:
         prewarm(graph_step, state, leg)
     fresh_registry()
+    audits = DonationAudit() if audit else None
     watch = ObsLeg(obs) if obs else None
     procs, addrs, logs = start_producers(tmp, leg["tile"], leg["capacity"],
                                          count=producers, wire=wire)
@@ -1498,6 +1534,8 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
                 t0 = time.perf_counter()
                 window0 = (graph_step.aot_fallbacks,
                            len(graph_step.signatures))
+                if audits is not None:
+                    audits.snapshot("train.state", state_tree(state))
             elif drv.steps > leg["warmup"]:
                 images += k * BATCH
                 if watch is not None and drv.steps == total - leg["steps"] // 2:
@@ -1509,11 +1547,15 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         wall = time.perf_counter() - t0
         counts = launch_counts()
         variants = variant_counts()
+        if audits is not None:
+            audits.snapshot("train.state", state_tree(state))
     finally:
         pipe.stop()
         stop_producers(procs)
         segments = reap_segments(logs)
     gaps, reorders, restarts = pipe.seq_gaps, pipe.reorders, pipe.restarts
+    if audits is not None:
+        audit_verdict(label, audits)
     from blendjax_torch.obs import tracer
 
     files = watch.finish() if watch is not None else None
@@ -1749,6 +1791,7 @@ def echo_leg(tmp: str) -> dict:
     from blendjax_torch.data import EchoingPipeline, StreamDataPipeline
     from blendjax_torch.kernels import launch_counts, reset_launch_counts
     from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
     from blendjax_torch.train import (
         CapturedStep,
         TrainDriver,
@@ -1758,6 +1801,7 @@ def echo_leg(tmp: str) -> dict:
 
     state = make_train_state(CubeRegressor().init_params(0))
     fresh_registry()
+    audit = DonationAudit()
     procs, addrs, logs = start_producers(tmp, ECHO["tile"], ECHO["capacity"])
     pipe = StreamDataPipeline(addrs, batch_size=BATCH, chunk=1,
                               emit_packed=False, timeoutms=60_000)
@@ -1783,7 +1827,9 @@ def echo_leg(tmp: str) -> dict:
                 drv.drain()
                 t0 = time.perf_counter()
                 s0 = dict(echo.stats)
-                ptrs0 = echo.reservoir.data_ptrs()
+                audit.snapshot("echo.state", state_tree(state))
+                audit.snapshot("echo.reservoir",
+                               echo.reservoir.device_buffers())
                 sigs0 = len(graph_step.signatures)
             if drv.steps >= total:
                 break
@@ -1793,7 +1839,8 @@ def echo_leg(tmp: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         s1 = dict(echo.stats)
-        ptrs1 = echo.reservoir.data_ptrs()
+        audit.snapshot("echo.state", state_tree(state))
+        audit.snapshot("echo.reservoir", echo.reservoir.device_buffers())
         echo.stop()  # joins the drain thread: no decode runs after this
         counts = launch_counts()
         gaps = pipe.seq_gaps + pipe.reorders + pipe.restarts
@@ -1815,7 +1862,6 @@ def echo_leg(tmp: str) -> dict:
         (all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}"),
         (calls[0] == drv.steps == drv.dispatches,
          f"{calls[0]} step calls for {drv.steps} driver steps"),
-        (ptrs0 == ptrs1, f"the ring moved: {ptrs0} -> {ptrs1}"),
         (decoded > 0 and counts["decode_spatial"] == decoded,
          f"K1 launched {counts['decode_spatial']} times for {decoded} "
          "decoded fresh batches"),
@@ -1830,6 +1876,7 @@ def echo_leg(tmp: str) -> dict:
     for ok, what in checks:
         if not ok:
             fail(f"echo leg: {what}")
+    audit_verdict("echo leg", audit)
     fresh = s1["fresh"] - s0["fresh"]
     drawn = fresh + s1["echoed"] - s0["echoed"]
     drain_busy = s1["drain_busy_s"] - s0["drain_busy_s"]
@@ -2340,7 +2387,9 @@ def resume_phase(prefix: str, tmp: str, card: str) -> dict:
       steps N..2N: its losses and final parameters must equal Y's;
     - C, built and captured, trains 2 steps, is restored in place from the
       same snapshot (``load_train_state_leaves``) and replays step N: its
-      loss must equal B's.
+      loss must equal B's, and a donation audit of its state (parameters,
+      AdamW moments and counts) before the restore, after it and after
+      the step must read stable.
 
     Then two more drivers time ``RESUME["window"]`` steps each, without
     and with ``checkpoint_every`` (order plain, snapshots, snapshots,
@@ -2352,6 +2401,7 @@ def resume_phase(prefix: str, tmp: str, card: str) -> dict:
     from blendjax_torch.checkpoint import SnapshotManager
     from blendjax_torch.data import StreamDataPipeline
     from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
     from blendjax_torch.train import TrainDriver
     from blendjax_torch.weights import (
         load_train_state_leaves,
@@ -2406,14 +2456,17 @@ def resume_phase(prefix: str, tmp: str, card: str) -> dict:
         _submit_all(c, batches[:2])
         c.drain()
         restored = mgr.restore(train_state_leaves(c.state))
-        ptrs = [p.data_ptr() for p in c.state.model.parameters()]
+        audit = DonationAudit()
+        audit.snapshot("resume.state", state_tree(c.state))
         load_train_state_leaves(c.state, restored.state)
         c.load_state_dict(restored.session["driver"])
-        if [p.data_ptr() for p in c.state.model.parameters()] != ptrs:
-            fail("resume phase: the in-place restore moved a parameter")
+        audit.snapshot("resume.state", state_tree(c.state))
         c_loss = _submit_all(c, batches[n:n + 1])[0]
         c.drain()
         torch.cuda.synchronize()
+        audit.snapshot("resume.state", state_tree(c.state))
+        audit_verdict("resume phase (C restored in place, then a step)",
+                      audit)
         yv = [float(v) for v in y_losses + y_more]
         av = [float(v) for v in a_losses]
         bv = [float(v) for v in b_losses]
@@ -2484,6 +2537,10 @@ CARTPOLE_SCRIPT = os.path.join(ROOT, "blendjax_torch", "producer", "scripts",
 LAUNCHED = {"tile": (16, 32), "capacity": 160, "steps": 192, "warmup": 64,
             "after": 64, "timeoutms": 5000, "before_kill": 16}
 GYM = {"warmup": 100, "seconds": 3.0, "steps": 200, "seed": 7}
+# the fake-Blender leg: the example cube scene under the port's Blender
+# double, one instance with the UI on (the offscreen path renders its
+# stock 1920x1080 scene), batches of 2 frames into 4 captured steps
+BLENDER = {"batch": 2, "steps": 4}
 DUPLEX = {"messages": 1000}
 
 # The duplex leg's producer (written into the leg's directory): a CTRL
@@ -2770,6 +2827,85 @@ def launched_leg(tmp: str, card: str) -> dict:
             "images": images, "restart_s": restart_s, "raise_s": raise_s,
             "verdict": verdict.render(),
             "launches": {k: counts[k] + counts2[k] for k in counts}}
+
+
+def fake_blender_leg(tmp: str, card: str) -> dict:
+    """The port's ``BlenderLauncher`` starts the example scene script
+    ``blendjax_torch/examples/datagen/cube.blend.py`` through a ``blender``
+    wrapper written by the port's ``write_fake_blender`` (``python -m
+    blendjax_torch.testing.fake_blender``), with the UI on, so the scene
+    publishes offscreen-rendered RGB frames beside its corners. The frames
+    go through ``StreamDataPipeline(batch_size=BLENDER["batch"])`` onto the
+    card and train ``BLENDER["steps"]`` steps of ``train.py``'s direct loop
+    (``CapturedStep(make_supervised_step())`` on a full-width
+    ``CubeRegressor(in_channels=3)``). Fails unless it received at least
+    ``steps x batch`` messages, every loss is finite, and no process,
+    directory or ``/dev/shm`` segment is left."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.launcher import BlenderLauncher
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.testing import write_fake_blender
+    from blendjax_torch.train import (
+        CapturedStep,
+        make_supervised_step,
+        make_train_state,
+    )
+
+    label = "fake-blender leg"
+    t0 = time.perf_counter()
+    bindir = os.path.join(tmp, "fake-blender-bin")
+    write_fake_blender(bindir)
+    shm_before = set(os.listdir("/dev/shm"))
+    kids0 = live_children()
+    state = make_train_state(CubeRegressor(in_channels=3).init_params(0))
+    step = CapturedStep(make_supervised_step())
+    losses, shapes = [], set()
+    launcher = BlenderLauncher(
+        script=os.path.join(EXAMPLES_DIR, "datagen", "cube.blend.py"),
+        num_instances=1, named_sockets=["DATA"], seed=0, background=False,
+        blend_path=[bindir])
+    with launcher:
+        pids = list(launcher.launch_info.processes)
+        dirs = [launcher._ipc_dir, launcher._shm_registry]
+        pipe = StreamDataPipeline(launcher.addresses["DATA"],
+                                  batch_size=BLENDER["batch"],
+                                  timeoutms=60_000)
+        try:
+            for batch in pipe:
+                shapes.add(tuple(batch["image"].shape))
+                state, m = step(state, {"image": batch["image"],
+                                        "xy": batch["xy"]})
+                losses.append(m["loss"].reshape(-1)[-1])
+                if len(losses) >= BLENDER["steps"]:
+                    break
+            torch.cuda.synchronize()
+            messages = pipe.messages
+        finally:
+            pipe.stop()
+    deadline = time.monotonic() + 10
+    while live_children() - kids0 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    kids = sorted(live_children() - kids0)
+    fleet_gone(label, pids, dirs, shm_before)
+    values = [float(v) for v in losses]
+    wall = time.perf_counter() - t0
+    if len(values) < BLENDER["steps"] or not all(
+            math.isfinite(v) for v in values):
+        fail(f"{label}: losses {values} over {BLENDER['steps']} steps")
+    if messages < BLENDER["steps"] * BLENDER["batch"]:
+        fail(f"{label}: {messages} messages for {BLENDER['steps']} steps of "
+             f"{BLENDER['batch']}")
+    if kids:
+        fail(f"{label}: left behind child processes {kids}")
+    log(f"{label} on {card}: cube.blend.py under the port's fake Blender "
+        f"(UI on), {messages} messages received, frames {sorted(shapes)}, "
+        f"{len(values)} captured steps trained (losses "
+        f"{[round(v, 5) for v in values]}); {wall:.2f} s in all; left over: "
+        "0 processes, 0 directories, 0 segments")
+    return {"messages": messages, "steps": len(values), "losses": values,
+            "wall_s": wall, "shapes": sorted(shapes)}
 
 
 def gym_leg(tmp: str, card: str) -> dict:
@@ -3440,21 +3576,6 @@ def pipeline_leg(card: str) -> dict:
 # -- phase 5i: the RL actor-learner stack --------------------------------------
 
 
-def rl_pointers(driver) -> dict:
-    """``data_ptr()`` of the ring leaves, the priorities, the parameters,
-    the target and the Adam moments."""
-    st = driver.state
-    out = {f"ring.{k}": v for k, v in driver.reservoir.data_ptrs().items()}
-    out.update({f"param.{n}": p.data_ptr()
-                for n, p in st.model.named_parameters()})
-    out.update({f"target.{n}": p.data_ptr()
-                for n, p in st.target.named_parameters()})
-    for i, entry in enumerate(st.optimizer.state.values()):
-        for k in ("exp_avg", "exp_avg_sq"):
-            out[f"adam.{i}.{k}"] = entry[k].data_ptr()
-    return out
-
-
 def rl_stack(venv, prioritized: bool, checkpoint=None, every: int = 0):
     """Reservoir, captured DQN step, actor pool and learner driver of the
     reference's live RL leg (``RL``)."""
@@ -3496,15 +3617,19 @@ def rl_leg(venv, prioritized: bool, card: str) -> dict:
     import numpy as np
 
     from blendjax_torch.rl import diagnose_rl
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
     from blendjax_torch.utils.metrics import metrics
 
     label = f"rl {'prioritized' if prioritized else 'uniform'} leg"
     res, step, pool, drv = rl_stack(venv, prioritized)
+    audit = DonationAudit()
     with pool:
         for _ in range(RL["warmup"]):
             drv.train_step()
         drv.drain()
-        ptrs = rl_pointers(drv)
+        # after the warm-up: the AdamW moments exist from the first step
+        audit.snapshot("rl.ring", res.device_buffers())
+        audit.snapshot("rl.state", state_tree(drv.state))
         metrics.reset()
         replays0, steps0 = step.graph_replays, drv.steps
         fresh0, replayed0, draws0 = res.fresh, res.replayed, res.stats["draws"]
@@ -3513,7 +3638,8 @@ def rl_leg(venv, prioritized: bool, card: str) -> dict:
             drv.train_step()
         final = drv.drain()
         dt = time.perf_counter() - t0
-        after = rl_pointers(drv)
+        audit.snapshot("rl.ring", res.device_buffers())
+        audit.snapshot("rl.state", state_tree(drv.state))
         verdict = diagnose_rl(metrics.report())
         window_episodes = pool.episodes
         deadline = time.monotonic() + RL_EPISODE_WAIT_S
@@ -3525,9 +3651,7 @@ def rl_leg(venv, prioritized: bool, card: str) -> dict:
     if step.graph_replays - replays0 != window or drv.dispatches != drv.steps:
         fail(f"{label}: {step.graph_replays - replays0} graph replays and "
              f"{drv.dispatches} step calls for {window} / {drv.steps} steps")
-    if after != ptrs:
-        moved = sorted(k for k in ptrs if after.get(k) != ptrs[k])
-        fail(f"{label}: buffers moved in the window: {moved}")
+    audit_verdict(label, audit)
     if drawn != window * RL["batch"] or res.stats["draws"] - draws0 != window:
         fail(f"{label}: fresh + replayed {drawn} != {window} x {RL['batch']}")
     if pool.env_steps != res.inserts:
@@ -4944,7 +5068,8 @@ def main() -> None:
             "flagship": run_leg("flagship (16,32) leg", FLAGSHIP, state, tmp,
                                 record=recording,
                                 keep_first=REPLAY["compare"],
-                                obs=os.path.join(tmp, "obs-flagship")),
+                                obs=os.path.join(tmp, "obs-flagship"),
+                                audit=True),
             "square": run_leg("square 16x16 leg", SQUARE, state, tmp),
             "streamformer": streamformer_leg(tmp, card),
         }
@@ -4968,7 +5093,8 @@ def main() -> None:
         launched = launched_leg(tmp, card)
         gym = gym_leg(tmp, card)
         duplex = duplex_leg(tmp, card)
-        log(f"launched, gym and duplex legs in "
+        fake_blender_leg(tmp, card)
+        log(f"launched, gym, duplex and fake-Blender legs in "
             f"{time.perf_counter() - t0:.1f} s")
         # phase 5g: the mesh phase (NCCL, world size 1)
         t0 = time.perf_counter()

@@ -23,6 +23,7 @@ from blendjax.ops import augment as JA
 from blendjax.ops import image as JI
 from blendjax_torch.data import ring as R
 from blendjax_torch.ops import augment as A
+from blendjax_torch.testing.donation import tree_pointers
 
 B, H, W = 4, 16, 32
 
@@ -285,12 +286,12 @@ def test_a_token_held_across_an_insert_is_refused():
 
     res = SampleReservoir(4, augment=None, device="cpu")
     res.insert(_ring_batch(0, 4))
-    ptrs = res.data_ptrs()
+    ptrs = tree_pointers(res.device_buffers())
     tok = res.draw_token([0, 1])
     before = res.draw(tok["_echo_buffers"], tok["_echo_idx"],
                       tok["_echo_counter"])
     res.insert(_ring_batch(1, 2))  # overwrites slots 0 and 1
-    assert res.data_ptrs() == ptrs
+    assert tree_pointers(res.device_buffers()) == ptrs
     with pytest.raises(RuntimeError, match="outlived an insert"):
         res.draw(tok["_echo_buffers"], tok["_echo_idx"], tok["_echo_counter"])
     # what the step gathered before the insert is unchanged by it
@@ -453,14 +454,14 @@ def test_echo_pipeline_trains_end_to_end_from_recorded_messages():
     with echo:
         for token in echo:
             drv.submit(token)
-            ptrs = ptrs or echo.reservoir.data_ptrs()
+            ptrs = ptrs or tree_pointers(echo.reservoir.device_buffers())
     _, loss = drv.finish()
     s = echo.stats
     assert s["fresh"] + s["echoed"] == s["steps"] * 2 == drv.steps * 2
     assert s["echoed"] > 0 and s["max_uses"] <= 3 and s["inserted"] == 12
     assert drv.dispatches == drv.steps and np.isfinite(loss)
     assert all(np.isfinite(v) for v in drv.losses)
-    assert echo.reservoir.data_ptrs() == ptrs
+    assert tree_pointers(echo.reservoir.device_buffers()) == ptrs
 
 
 def test_echo_pipeline_refuses_what_it_cannot_echo():

@@ -17,7 +17,7 @@
 - The cube producer's encodings (raw per frame, raw batched, tile, pal)
   deliver, through the port's pipeline, the frames of the JAX package's
   cube producer with the same seed, byte for byte.
-- The Blender scene scripts run under the JAX package's fake Blender with
+- The Blender scene scripts run under the port's fake Blender with
   the port's launcher; the falling-cubes producer runs raw and tiled.
 - Every example that places tensors raises without a card unless given
   ``--device cpu``.
@@ -454,7 +454,7 @@ def test_falling_cubes_producer_streams(encoding):
 def fake_dir(tmp_path_factory):
     if sys.platform == "win32":  # pragma: no cover
         pytest.skip("the fake blender wrapper is a POSIX shell script")
-    from blendjax.testing import write_fake_blender
+    from blendjax_torch.testing import write_fake_blender
 
     d = str(tmp_path_factory.mktemp("fake-blender-bin"))
     write_fake_blender(d)
@@ -486,7 +486,7 @@ def test_cube_scene_streams_annotations_in_the_background(fake_dir):
 
 
 def test_cube_scene_renders_frames_with_the_ui(fake_dir):
-    from blendjax.testing.fake_gpu import BACKGROUND
+    from blendjax_torch.testing.fake_gpu import BACKGROUND
 
     with _blender(fake_dir, "datagen/cube.blend.py", background=False,
                   num_instances=1, named_sockets=["DATA"],

@@ -3,14 +3,14 @@
 - The port's ``BlenderLauncher`` runs port producer scripts (written into
   ``tmp_path``: the handshake, the duplex echo, the animation lifecycle
   over ``BpyEngine``, a remote env over ``BpyEngine`` and a bpy camera)
-  through the JAX package's fake Blender CLI
-  (``blendjax.testing.write_fake_blender``), with the port's consumers.
-- ``bpy_engine`` and ``offscreen`` run in-process under the JAX package's
+  through the port's fake Blender CLI
+  (``blendjax_torch.testing.write_fake_blender``), with the port's
+  consumers.
+- ``bpy_engine`` and ``offscreen`` run in-process under the port's
   ``fake_bpy`` and give what the JAX package's modules give on the same
   fake scene.
 
-The tests may import ``blendjax.testing``; the port never does. Every
-receive has its own timeout.
+Every receive has its own timeout.
 """
 
 import math
@@ -24,8 +24,8 @@ if sys.platform == "win32":  # pragma: no cover
     pytest.skip("the fake blender wrapper is a POSIX shell script",
                 allow_module_level=True)
 
-from blendjax.testing import install_fake_bpy, reset_fake_bpy
-from blendjax.testing import write_fake_blender
+from blendjax_torch.testing import install_fake_bpy, reset_fake_bpy
+from blendjax_torch.testing import write_fake_blender
 from blendjax_torch.data.stream import RemoteStream
 from blendjax_torch.launcher import BlenderLauncher, discover_blender
 
@@ -436,7 +436,7 @@ def test_offscreen_renders_as_the_reference(bpy, mode, origin):
     ref = JOff(mode=mode, origin=origin).render()
     assert port.shape == ref.shape == (120, 160, 4 if mode == "rgba" else 3)
     np.testing.assert_array_equal(port, ref)
-    from blendjax.testing.fake_gpu import BACKGROUND
+    from blendjax_torch.testing.fake_gpu import BACKGROUND
 
     assert (port != np.array(BACKGROUND[:port.shape[-1]])).any()
 

@@ -20,6 +20,7 @@ import torch
 
 from blendjax_torch.models import CubeRegressor
 from blendjax_torch.ops import augment as A
+from blendjax_torch.testing.donation import tree_pointers
 from blendjax_torch.train import aot
 from blendjax_torch.train import steps as S
 from blendjax_torch.train.driver import TrainDriver
@@ -393,7 +394,7 @@ def test_captured_rl_step_is_the_eager_step_on_card(cuda_card, kind):
         res = TrajectoryReservoir(64, rng=1, prioritized=True,
                                   device=cuda_card)
         res.insert(rows)
-        ptrs = res.data_ptrs()
+        ptrs = tree_pointers(res.device_buffers())
         state = make_rl_train_state(copy.deepcopy(model), target=kind == "dqn")
         step = (make_dqn_step(res) if kind == "dqn" else make_pg_step(res))
         if captured:
@@ -401,7 +402,7 @@ def test_captured_rl_step_is_the_eager_step_on_card(cuda_card, kind):
         losses = [step(state, res.draw_token(*res.compose(32)))[1]["loss"]
                   for _ in range(4)]
         torch.cuda.synchronize()
-        assert res.data_ptrs() == ptrs
+        assert tree_pointers(res.device_buffers()) == ptrs
         out.append((losses, state, res))
     (la, a, ra), (lb, b, rb) = out
     _assert_bit_equal(a, b, la, lb)

@@ -5,6 +5,7 @@ test holds the CUDA kernels against their twins on a card and skips here.
 
 import ast
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -242,6 +243,56 @@ def test_producer_side_examples_import_no_torch(module):
     assert "torch" not in mods
     if module in ("testing/threadguard.py", "utils/tg.py"):
         assert mods <= {"__future__", "threading", "os", "blendjax_torch"}
+
+
+TESTING_MODULES = [
+    "testing/__init__.py", "testing/fake_bpy.py", "testing/fake_gpu.py",
+    "testing/fake_blender.py", "testing/equivalence.py",
+    "testing/donation.py", "testing/threadguard.py",
+]
+ANALYSIS_MODULES = sorted(
+    os.path.relpath(os.path.join(d, n), os.path.join(REPO, "blendjax_torch"))
+    for d, _s, names in os.walk(os.path.join(REPO, "blendjax_torch",
+                                             "analysis"))
+    for n in names if n.endswith(".py"))
+BLENDER_DOUBLES = ("testing/fake_bpy.py", "testing/fake_gpu.py",
+                   "testing/fake_blender.py")
+
+
+def _top_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module or "")
+    return mods
+
+
+@pytest.mark.parametrize("module", TESTING_MODULES + ANALYSIS_MODULES)
+def test_the_testing_and_analysis_modules_are_scanned(module):
+    """The Blender doubles, the equivalence scaffold, the donation audit and
+    the analyzer are in the scan above and import nothing of JAX or of the
+    JAX package; the analyzer imports the standard library and itself
+    only, and the Blender doubles import no torch (they load in Blender's
+    Python)."""
+    path = os.path.join(REPO, "blendjax_torch", module)
+    assert path in _port_files()
+    assert _forbidden_imports(path) == []
+    mods = _top_modules(path)
+    if module.startswith("analysis/"):
+        outside = {m for m in mods
+                   if m.split(".")[0] not in sys.stdlib_module_names
+                   and not m.startswith("blendjax_torch.analysis")}
+        assert not outside, outside
+    if module in BLENDER_DOUBLES:
+        assert not {m for m in mods if m.split(".")[0] in ("torch",
+                                                           "triton")}
+        assert mods <= {"__future__", "contextlib", "hashlib", "types",
+                        "math", "sys", "os", "runpy", "stat", "numpy",
+                        "blendjax_torch.testing"}
 
 
 def test_the_synthetic_producer_run_as_a_file_imports_no_jax(tmp_path):

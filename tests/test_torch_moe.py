@@ -2,10 +2,10 @@
 remat StreamFormer against the JAX package's flax modules (CPU, f32).
 
 The same numpy inputs, made from seeds, go to both sides; flax weights go
-across through ``blendjax_torch.weights``. Bars: the JAX package's
-equivalence contract (``blendjax/testing/equivalence.py``), ``tol_loss``
-1e-5 on outputs, losses and the aux loss, ``tol_grad`` 1e-4 on gradients
-(relative); routing decisions identical where the top two router
+across through ``blendjax_torch.weights``. Bars: the equivalence
+contract (``blendjax_torch.testing.equivalence``, the JAX package's bars),
+``TOL_LOSS`` 1e-5 on outputs, losses and the aux loss, ``TOL_GRAD`` 1e-4
+on gradients (relative); routing decisions identical where the top two router
 probabilities differ by at least ``MARGIN``.
 """
 
@@ -21,6 +21,7 @@ from blendjax.models import MoEMLP as JaxMoE
 from blendjax.models import StreamFormer as JaxFormer
 from blendjax.models import apply_with_aux as jax_apply_with_aux
 from blendjax_torch.models import MoEMLP, StreamFormer, apply_with_aux
+from blendjax_torch.testing.equivalence import TOL_GRAD, TOL_LOSS
 from blendjax_torch.weights import (
     flax_params,
     load_train_state_leaves,
@@ -28,8 +29,6 @@ from blendjax_torch.weights import (
     train_state_leaves,
 )
 
-TOL_LOSS = 1e-5
-TOL_GRAD = 1e-4
 MARGIN = 1e-3
 B, T, C, E = 2, 16, 32, 4
 SMALL = dict(patch=8, dim=32, depth=2, num_heads=4, num_outputs=16)

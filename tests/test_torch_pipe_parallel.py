@@ -27,6 +27,7 @@ from blendjax.parallel import create_mesh as jax_create_mesh
 from blendjax.parallel import pipeline_apply as jax_pipeline_apply
 from blendjax.parallel import stack_stage_params as jax_stack
 from blendjax.train import MeshTrainDriver as JaxMeshDriver
+from blendjax_torch.testing.equivalence import TOL_GRAD, TOL_LOSS
 
 F32_EXACT_ATOL = 5e-6
 CROSS_LAYOUT_ATOL = 5e-5
@@ -326,9 +327,10 @@ def test_expert_aux_loss_is_the_global_batchs(ranks, world, case, axes):
     """``apply_with_aux`` on a mesh: the load-balancing loss of the global
     batch, and its router gradient averaged over the ranks (as the mesh
     step averages gradients) the JAX package's on the whole batch, within
-    the f32 bars of ``blendjax.testing.equivalence`` (1e-5 / 1e-4)."""
+    the f32 bars of ``blendjax_torch.testing.equivalence`` (``TOL_LOSS``
+    1e-5 / ``TOL_GRAD`` 1e-4, the JAX package's)."""
     want, want_grad = _jax_first_aux(True)
     for per in _result(ranks, world, case):
-        assert abs(per["aux"] - want) <= 1e-5
+        assert abs(per["aux"] - want) <= TOL_LOSS
         np.testing.assert_allclose(per["aux_router_grad"], want_grad,
-                                   rtol=0, atol=1e-4)
+                                   rtol=0, atol=TOL_GRAD)

@@ -46,6 +46,7 @@ from blendjax_torch.rl import (
     make_rl_train_state,
     np_mlp_forward,
 )
+from blendjax_torch.testing.donation import tree_pointers
 from blendjax_torch.utils.metrics import metrics
 from blendjax_torch.weights import (
     flax_params,
@@ -165,12 +166,12 @@ def test_reservoir_insert_gather_round_trip_and_wraparound():
 def test_reservoir_storage_is_allocated_once():
     res = _res(8)
     res.insert(_batch(8))
-    before = res.data_ptrs()
-    assert set(before) == {"obs", "action", "reward", "done", "next_obs",
-                           "_priorities"}
+    before = tree_pointers(res.device_buffers())
+    assert set(res.device_buffers()) == {"obs", "action", "reward", "done",
+                                         "next_obs", "_priorities"}
     res.insert(_batch(8, seed=1))
     res.insert(_batch(5, seed=2))
-    assert res.data_ptrs() == before
+    assert tree_pointers(res.device_buffers()) == before
 
 
 def test_reservoir_rejects_shape_and_structure_drift():

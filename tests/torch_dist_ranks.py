@@ -573,6 +573,7 @@ def case_reservoir(params_np, axes):
     """The sharded reservoir: local layout, stable storage, capacity
     divisibility, scripted draws through a mesh step."""
     from blendjax_torch.data import SampleReservoir
+    from blendjax_torch.testing.donation import tree_pointers
     from blendjax_torch.parallel import ring_sharding
     from blendjax_torch.parallel.sharding import local_rows
     from blendjax_torch.train import MeshTrainDriver
@@ -594,13 +595,13 @@ def case_reservoir(params_np, axes):
         rows = {"image": local_rows(hb["image"], sh),
                 "xy": local_rows(hb["xy"], sh)}
         res.insert(rows)
-        ptrs = ptrs or res.data_ptrs()
+        ptrs = ptrs or tree_pointers(res.device_buffers())
         for _ in range(2):
             idx = idx_rng.integers(0, res.size, B)
             drv.submit(res.sample(idx))
     drv.finish()
     out["ring_rows"] = int(res._buffers["image"].shape[0])
-    out["stable"] = res.data_ptrs() == ptrs
+    out["stable"] = tree_pointers(res.device_buffers()) == ptrs
     out["losses"] = np.asarray(drv.losses)
     out["drawn_lead"] = int(res.sample(np.arange(B))["image"].shape[0])
     out["gather"] = res.gather(np.arange(B))["xy"].numpy().copy()
@@ -963,6 +964,44 @@ def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
             "steps": drv.steps, "images": drv.images_retired}
 
 
+def case_equivalence(layout, seed=0):
+    """``assert_sharded_matches_single_device`` of the port's equivalence
+    scaffold on ``layout``'s mesh: two CubeRegressors from one seed, one
+    batch from ``seed`` (every rank the same), the sharded one through
+    ``make_train_state(mesh=)``. Returns the loss and gradient differences
+    and whether some parameter's layout names ``fsdp``."""
+    import torch
+
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.parallel import resolve_layout
+    from blendjax_torch.parallel.sharding import model_shardings
+    from blendjax_torch.testing.equivalence import (
+        assert_sharded_matches_single_device,
+        loss_and_grads,
+        normalized_spec,
+    )
+
+    mesh = resolve_layout(layout).create_mesh(devices="cpu")
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (B // 2, HW, HW, 4), dtype=np.uint8)
+    xy = (rng.random((B // 2, 8, 2)) * HW).astype(np.float32)
+
+    def model():
+        return CubeRegressor(features=FEATURES,
+                             dtype=torch.float32).init_params(seed)
+
+    specs = [normalized_spec(sh) for *_rest, sh in
+             model_shardings(model(), mesh)]
+    loss_diff, grad_diff = assert_sharded_matches_single_device(
+        model(), model(), mesh, images, xy)
+    ref_loss, ref_grads = loss_and_grads(model(), images, xy)
+    return {"loss_diff": loss_diff, "grad_diff": grad_diff,
+            "loss_scale": max(1.0, abs(ref_loss)),
+            "grad_scale": max(1.0, max(float(np.abs(g).max())
+                                       for g in ref_grads.values())),
+            "fsdp": any("fsdp" in s for s in specs)}
+
+
 CASES = {
     "live": case_live,
     "live_refused": case_live_refused,
@@ -986,4 +1025,5 @@ CASES = {
     "pipeline_mismatch": case_pipeline_mismatch,
     "expert": case_expert,
     "rl_mesh": case_rl_mesh,
+    "equivalence": case_equivalence,
 }
