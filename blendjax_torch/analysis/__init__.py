@@ -1,36 +1,50 @@
 """blendjax_torch.analysis — the port's static analyzer (``bjx-lint``),
 the port of ``blendjax/analysis/``.
 
-The streaming path's safety contract rests on invariants no runtime
-test covers cheaply: pickle only behind explicit ``allow_pickle`` gates,
-ZMQ sockets used only on the thread that created them, every socket and
-context closed on every path, bounded metric names, monotonic durations,
-no launcher lifecycle on an ingest thread, no raw inflate on the hot
-path, and every attribute that threads share guarded by a common lock.
-This package turns them into an AST-level gate over the port::
+The port's performance and safety contract rests on invariants no
+runtime test covers cheaply: no host side effect inside a captured step,
+no host sync inside the streaming and driver hot loops, captured state
+written in place and never read through a stale view, bounded graph
+signatures, pickle only behind explicit ``allow_pickle`` gates, ZMQ
+sockets used only on the thread that created them, every socket and
+context closed on every path, bounded metric names, monotonic
+durations, and every attribute that threads share guarded by a common
+lock. This package turns them into an AST-level gate over the port::
 
     python -m blendjax_torch.analysis blendjax_torch/
 
 It imports the standard library only, so it runs anywhere, Blender's
-Python included. The rules of this package are the JAX package's rules
-that hold for the port unchanged:
+Python included. It registers the JAX analyzer's rule ids
+(``blendjax_torch/docs/static-analysis.md``):
 
-- per file: ``BJX103`` unsafe-deserialization, ``BJX104``
-  zmq-thread-affinity, ``BJX105`` socket-leak, ``BJX107``
-  metric-name-cardinality, ``BJX109`` wall-clock-duration, ``BJX110``
-  fleet-thread-affinity, ``BJX113`` scenario-id-cardinality, ``BJX116``
-  host-inflate-in-hot-path and ``BJX126`` mesh-axis-literal;
+- per file: ``BJX101`` capture-purity, ``BJX102``
+  host-sync-in-hot-path, ``BJX103`` unsafe-deserialization, ``BJX104``
+  zmq-thread-affinity, ``BJX105`` socket-leak, ``BJX106``
+  sync-on-inflight-step, ``BJX107`` metric-name-cardinality, ``BJX108``
+  reservoir-host-materialization, ``BJX109`` wall-clock-duration,
+  ``BJX110`` fleet-thread-affinity, ``BJX111`` mesh-placement,
+  ``BJX112`` state-rebound-in-captured-step, ``BJX113``
+  scenario-id-cardinality, ``BJX114`` checkpoint-in-hot-path, ``BJX115``
+  host-materialization-in-actor-loop, ``BJX116``
+  host-inflate-in-hot-path, ``BJX125`` cold-capture-in-hot-loop and
+  ``BJX126`` mesh-axis-literal;
 - whole program, over one :class:`~blendjax_torch.analysis.project.
-  ProjectContext` (shared AST cache, thread-spawn graph, locksets):
-  ``BJX117`` unlocked-shared-mutation, ``BJX118`` lock-order-inversion
-  and ``BJX119`` blocking-call-under-lock. ``--no-project`` skips them.
-  The runtime complement is :mod:`blendjax_torch.testing.threadguard`
-  (``BLENDJAX_THREADGUARD=1``).
+  ProjectContext` (shared AST cache, thread-spawn graph, locksets and
+  the value-provenance dataflow layer): ``BJX117``
+  unlocked-shared-mutation, ``BJX118`` lock-order-inversion, ``BJX119``
+  blocking-call-under-lock, and the captured-step dataflow rules
+  ``BJX120`` stamp-leak-into-capture, ``BJX121`` stale-alias-after-capture
+  and ``BJX122`` recapture-risk. ``--no-project`` skips them. The runtime
+  complements are :mod:`blendjax_torch.testing.threadguard`
+  (``BLENDJAX_THREADGUARD=1``), :mod:`blendjax_torch.testing.donation`
+  and ``chip_smoke.py``'s sync census.
 
-The rules that need the port's own vocabulary of host syncs (BJX102,
-106, 108, 111, 114, 115) and of captured steps (BJX101, 112, 120, 121,
-122, 125) are not here yet (``ROADMAP.md``, Queue A item 9.2); their ids
-are unknown rule ids to ``--select``.
+The rules on host syncs and captured steps are ported by meaning: the
+sync vocabulary (``.item()``, ``.cpu()``, ``float()`` of a tensor,
+``torch.cuda.synchronize()``, stream and event waits) lives in
+:mod:`~blendjax_torch.analysis.rules.driver_sync`, and a captured
+callable (``CapturedStep``, ``build_aot_step``,
+``make_graphed_callables``) stands where the JAX rules read ``jax.jit``.
 
 Two flag-gated passes ride the same parse: ``--contracts`` (``BJX123``:
 metric names, wire stamp keys and ``BLENDJAX_*`` env knobs
@@ -40,7 +54,7 @@ its justification).
 
 Suppress one finding with an inline ``# bjx: ignore[BJX117]`` and a
 reason; the committed baseline ``blendjax_torch/analysis/baseline.json``
-is empty.
+holds one entry, the counterpart of the JAX package's one.
 """
 
 from __future__ import annotations

@@ -96,7 +96,7 @@ def render_sarif(findings: list[Finding]) -> str:
                 "tool": {
                     "driver": {
                         "name": "bjx-lint",
-                        "informationUri": "docs/static-analysis.md",
+                        "informationUri": "blendjax_torch/docs/static-analysis.md",
                         "rules": rules,
                     }
                 },
@@ -110,8 +110,8 @@ def render_sarif(findings: list[Finding]) -> str:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m blendjax_torch.analysis",
-        description="bjx-lint: thread, socket and contract checks for "
-        "blendjax_torch",
+        description="bjx-lint: capture, host-sync, thread, socket and "
+        "contract checks for blendjax_torch",
     )
     parser.add_argument(
         "paths", nargs="*", default=None,
@@ -247,7 +247,7 @@ def main(argv: list[str] | None = None) -> int:
 
     _emit(findings, args.format, footer=(
         "Suppress one site with '# bjx: ignore[RULE]' or grandfather "
-        "all with --write-baseline (see docs/static-analysis.md)."
+        "all with --write-baseline (see blendjax_torch/docs/static-analysis.md)."
     ))
     return _budget_exit(args, t0, bool(findings))
 

@@ -67,8 +67,10 @@ draw of the same counter: N ranks do N times the augmentation work.
 
 from __future__ import annotations
 
-# bjx: driver-hot-path (the drain thread and the draw loop: BJX109 and
-# BJX116 hold in this module)
+# bjx: driver-hot-path (the drain thread and the draw loop: BJX106/BJX108
+# — no same-iteration host syncs, no host fetch of reservoir results,
+# accounting runs on host-chosen indices — and BJX109, BJX114, BJX116
+# and BJX125 hold in this module)
 
 import collections
 import contextlib
@@ -578,6 +580,9 @@ class EchoingPipeline:
         if trs:
             for tr in trs:
                 trace_stage(tr, "reservoir_insert")
+            # insert() returns host numpy slots, as
+            # blendjax/data/echo.py:637: this int() reads a host value
+            # bjx: ignore[BJX108] — host slot index, not a card fetch
             self._slot_traces[int(slots[0])] = trs
         self._use[slots] = 0
         self._t_insert[slots] = time.monotonic()
@@ -769,6 +774,9 @@ class EchoingPipeline:
                 batch[SCENARIO_ROWS_KEY] = scen
                 scenario_accounting.observe_rows(scen, fresh=fresh_rows)
             np.add.at(self._use, idx, 1)
+            # idx and _use are host numpy (_compose_draw), as
+            # blendjax/data/echo.py:799,802: no card value is read here
+            # bjx: ignore[BJX106] — host accounting on the host index vector
             self.max_uses = max(self.max_uses, int(self._use[idx].max()))
             # one registry call for the whole age vector
             metrics.observe_many(

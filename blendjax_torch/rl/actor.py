@@ -20,6 +20,10 @@ Metrics: counter ``rl.env_steps``, histograms ``rl.episode_return`` and
 
 from __future__ import annotations
 
+# bjx: actor-hot-path (BJX115: no .item(), wait or host fetch of policy
+# or reservoir outputs inside the step loop — actions come from the
+# host-side snapshot, accounting from host scalars)
+
 import threading
 
 import numpy as np

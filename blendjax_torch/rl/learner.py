@@ -32,8 +32,8 @@ together), so they compose the same indices; rank 0 runs the actors.
 
 from __future__ import annotations
 
-# bjx: driver-hot-path (BJX109/BJX116 hold here exactly as in
-# driver.py)
+# bjx: driver-hot-path (BJX106, BJX108, BJX109, BJX114, BJX116 and
+# BJX125 hold here exactly as in driver.py)
 
 import time
 

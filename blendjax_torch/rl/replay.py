@@ -45,8 +45,9 @@ Metrics (the reference's ``rl.*`` names): counters ``rl.transitions``,
 
 from __future__ import annotations
 
-# bjx: driver-hot-path (accounting runs on host-chosen indices: BJX109
-# and BJX116 hold in this module)
+# bjx: driver-hot-path (BJX106/BJX108: accounting runs on host-chosen
+# indices; the one priority-mirror fetch is cadence-bounded, see
+# _refresh_priorities; BJX109, BJX116 and BJX125 hold in this module)
 
 import contextlib
 import threading

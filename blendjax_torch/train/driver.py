@@ -376,7 +376,8 @@ class TrainDriver:
         if self.checkpoint is not None:
             self._dispatch_checkpoint()
             # the one synchronous snapshot wait on the step path: the
-            # process is about to exit
+            # process is about to exit, as blendjax/train/driver.py:553
+            # bjx: ignore[BJX114] — an unflushed write would race teardown
             self.checkpoint.wait()
             err = getattr(self.checkpoint, "last_error", None)
             outcome = (
@@ -395,6 +396,8 @@ class TrainDriver:
         self.drain()
         self._dispatch_checkpoint()
         if wait:
+            # teardown flush, as blendjax/train/driver.py:581
+            # bjx: ignore[BJX114] — same reason as _preempt_flush
             self.checkpoint.wait()
             err = getattr(self.checkpoint, "last_error", None)
             if err is not None:

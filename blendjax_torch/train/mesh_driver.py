@@ -37,7 +37,10 @@ side is ROADMAP item 5c.
 
 from __future__ import annotations
 
-# bjx: driver-hot-path (BJX109/BJX116 hold here exactly as in driver.py)
+# bjx: driver-hot-path (BJX106, BJX108, BJX109, BJX112, BJX114, BJX116
+# and BJX125 hold here exactly as in driver.py)
+# bjx: mesh-hot-path (BJX111: no per-device placement loops, no host
+# materialization of gathered tensors in the dispatch loop)
 
 import time
 

@@ -199,6 +199,21 @@ both RL legs each snapshot their buffers' storage addresses at the
 window's start and end, set the ``train.donation_reuse`` gauge, print the
 audit's report on their line and fail unless every label is stable.
 
+Sync census (:class:`SyncCensus`): the flagship leg's, the echo leg's and
+the prioritized RL leg's steady windows (after their captures and
+warm-up) run under ``torch.cuda.set_sync_debug_mode("warn")``, with the
+warnings caught process-wide (the drain and actor threads too). Each
+reported sync is attributed to the innermost frame in
+``blendjax_torch/`` and looked up in the port's analyzer (the findings of
+BJX102, 106, 108, 111 and 115 on the tree, inline-suppressed ones
+included): each leg prints its syncs per step and every site with its
+count and verdict, ``flagged``, ``sanctioned`` (``CENSUS_SANCTIONED``,
+each with the rule sentence that allows it) or ``outside`` (no hot
+module), beside the driver's ``train.host_blocks`` and the feeder's
+``feed.throttle_blocks`` (``Event.synchronize()``, which the detector
+does not see); a hot module's site that is neither flagged nor
+sanctioned fails the run.
+
 Observability (the metrics registry and ``blendjax_torch.obs``): every
 live leg zeroes the process-wide registry, frame lineage and trace
 collector before its producers start (each leg's producers number from 0
@@ -353,6 +368,7 @@ device JSON object ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -1285,6 +1301,182 @@ def audit_verdict(label: str, audit) -> float:
     return value
 
 
+# -- the sync census: torch's own sync reports against the analyzer -----------
+
+#: the rules whose findings (suppressed ones included) make a reported
+#: sync site "flagged"
+CENSUS_RULES = ("BJX102", "BJX106", "BJX108", "BJX111", "BJX115")
+#: unflagged sync sites of hot modules that a rule allows by design, by
+#: qualified name: (the rule, the sentence of its docstring that allows it)
+CENSUS_SANCTIONED = {
+    "blendjax_torch.train.driver.TrainDriver._sync_oldest": (
+        "BJX106", "The sanctioned pattern is completion tracking: retire "
+        "finished entries with non-blocking ``event.query()`` polls, block "
+        "only on the entry dispatched ``inflight`` iterations back, and "
+        "fetch losses at ``sync_every`` boundaries"),
+    "blendjax_torch.rl.replay.TrajectoryReservoir._refresh_priorities": (
+        "BJX115", "The sanctioned cadence-bounded syncs (the learner's "
+        "policy snapshot copy, the reservoir's priority-mirror refresh) "
+        "live in learner/replay modules, outside this rule's scope."),
+}
+#: waits torch's detector does not report (``cudaEventSynchronize``): each
+#: leg prints the counters that count them instead
+CENSUS_UNSEEN = ("Event.synchronize(): the driver's ring wait "
+                 "(train.host_blocks) and the feeder's throttle wait "
+                 "(feed.throttle_blocks)")
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+@functools.cache
+def census_index(root: str = ROOT) -> tuple:
+    """``({(relpath, line): [rule, ...]}, hot relpaths)`` of the port's
+    tree: every finding of :data:`CENSUS_RULES`, inline-suppressed ones
+    included (a justified suppression is a flagged site), and the modules
+    any hot-path marker opts in."""
+    from blendjax_torch.analysis.core import all_rules, parse_paths
+    from blendjax_torch.analysis.rules import markers
+
+    modules, errors = parse_paths([os.path.join(root, "blendjax_torch")],
+                                  root=root)
+    if errors:
+        fail(f"census: the analyzer cannot parse {errors[0].render()}")
+    rules = all_rules()
+    found: dict = {}
+    for m in modules:
+        for rid in CENSUS_RULES:
+            for f in rules[rid].check(m):
+                found.setdefault((f.path, f.line), []).append(rid)
+    hot = {m.relpath for m in modules
+           if markers._is_hot(m) or markers._is_driver_hot(m)
+           or markers._is_mesh_hot(m) or markers._is_actor_hot(m)}
+    return found, hot
+
+
+def census_site(frames, root: str = ROOT) -> tuple:
+    """``(relpath, line, qualified name)`` of the innermost frame of
+    ``frames`` (``(filename, line, co_qualname)``, innermost first) that
+    lies in ``blendjax_torch/``; else of the innermost frame outside
+    Python's ``warnings`` module."""
+    outer = None
+    for filename, line, qual in frames:
+        rel = os.path.relpath(filename, root)
+        if rel.startswith("blendjax_torch" + os.sep):
+            mod = rel[:-3].replace(os.sep, ".")
+            return rel.replace(os.sep, "/"), line, f"{mod}.{qual}"
+        if outer is None and os.path.basename(filename) != "warnings.py":
+            outer = (rel.replace(os.sep, "/"), line, qual)
+    return outer or ("<unknown>", 0, "<unknown>")
+
+
+def census_verdicts(sites, found: dict, hot: set) -> list:
+    """One row per reported site: ``flagged`` (a finding, or a justified
+    suppression, of :data:`CENSUS_RULES` on its line), ``sanctioned``
+    (listed in :data:`CENSUS_SANCTIONED`), ``outside`` (no hot module) or
+    ``unflagged`` (a hot module's sync no rule knows: the run fails)."""
+    rows = []
+    for (rel, line, qual), n in sorted(sites.items()):
+        rules = found.get((rel, line))
+        if rules:
+            verdict, why = "flagged", "+".join(sorted(set(rules)))
+        elif qual in CENSUS_SANCTIONED:
+            verdict, why = "sanctioned", CENSUS_SANCTIONED[qual][0]
+        elif rel not in hot:
+            verdict, why = "outside", ""
+        else:
+            verdict, why = "unflagged", ""
+        rows.append({"site": f"{rel}:{line}", "qual": qual, "count": n,
+                     "verdict": verdict, "rule": why})
+    return rows
+
+
+class SyncCensus:
+    """torch's sync debug mode (``"warn"``) over a leg's steady window,
+    with the warnings caught process-wide (Python 3.12's
+    ``catch_warnings`` swaps the module's global hook, so the drain and
+    actor threads report here too); each reported sync is attributed
+    by :func:`census_site` on the reporting thread's own stack.
+    ``card=False`` catches the warnings without switching torch's mode
+    (the CPU tests of the bookkeeping)."""
+
+    def __init__(self, label: str, card: bool = True):
+        import collections
+        import threading
+
+        self.label = label
+        self.card = card
+        self.sites = collections.Counter()
+        self._lock = threading.Lock()
+        self.active = False
+
+    def _hook(self, message, category, filename, lineno, file=None,
+              line=None):
+        if SYNC_WARNING not in str(message):
+            return self._show(message, category, filename, lineno, file,
+                              line)
+        frames = []
+        f = sys._getframe(1)
+        while f is not None:
+            frames.append((f.f_code.co_filename, f.f_lineno,
+                           f.f_code.co_qualname))
+            f = f.f_back
+        site = census_site(frames)
+        with self._lock:
+            self.sites[site] += 1
+
+    def __enter__(self) -> "SyncCensus":
+        import warnings
+
+        import torch
+
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.filterwarnings("always", message=f".*{SYNC_WARNING}")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._hook
+        if self.card:
+            torch.cuda.set_sync_debug_mode("warn")
+        self.active = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch
+
+        if self.card:
+            torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+        self.active = False
+
+    def report(self, steps: int, host_blocks: int) -> dict:
+        """Print the leg's census line; ``unflagged`` lists the sites that
+        fail the run at its end (:func:`census_gate`)."""
+        from blendjax_torch.utils.metrics import metrics
+
+        found, hot = census_index()
+        rows = census_verdicts(self.sites, found, hot)
+        total = sum(self.sites.values())
+        throttle = metrics.counter_value("feed.throttle_blocks")
+        out = {"syncs": total, "steps": steps,
+               "per_step": total / steps if steps else None,
+               "host_blocks": host_blocks, "throttle_blocks": throttle,
+               "sites": rows, "label": self.label,
+               "unflagged": [r for r in rows if r["verdict"] == "unflagged"]}
+        log(f"census {self.label}: {total} reported syncs in {steps} steps "
+            f"({out['per_step']:.3f} per step); unseen by the detector: "
+            f"{CENSUS_UNSEEN}: train.host_blocks {host_blocks}, "
+            f"feed.throttle_blocks {throttle}; sites {json.dumps(rows)}")
+        return out
+
+
+def census_gate(*reports) -> None:
+    """Fail on a hot-module site that no rule flags or sanctions, after
+    every phase has run and printed."""
+    bad = [f"census {r['label']}: {r['unflagged']}" for r in reports
+           if r["unflagged"]]
+    if bad:
+        fail("sync sites in hot modules that no rule flags or sanctions: "
+             + "; ".join(bad))
+
+
 STAGE_PREFIXES = ("tiles.", "pal.", "rle.", "ingest.", "wire.", "train.",
                   "feed.", "decode.", "device.", "echo.", "trace.")
 # the sampled trace's stages on the fused path, in order (the place stamp
@@ -1449,7 +1641,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
             alone: bool = True, record: str | None = None,
             keep_first: int = 0, obs: str | None = None,
             stages: bool = False, mesh=None, driver=None,
-            audit: bool = False) -> dict:
+            audit: bool = False, census: bool = False) -> dict:
     """One producer leg through the captured fused step (one CUDA graph per
     packed plan); keeps the last ``PARITY_STEPS`` chunk groups for the
     graph-parity phase. ``producers`` cube producers publish on ``wire``
@@ -1468,7 +1660,8 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
     runs the leg in place of a new ``TrainDriver``. ``audit`` snapshots
     the state's buffers (parameters, AdamW moments and counts) at the
     window's start and end and fails unless the graph replays updated them
-    in place (:func:`audit_verdict`)."""
+    in place (:func:`audit_verdict`). ``census`` runs the window under
+    :class:`SyncCensus` and prints its sites."""
     import collections
 
     import torch
@@ -1519,6 +1712,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
     recorded = collections.deque(maxlen=PARITY_STEPS)
     first = []
     t0 = None
+    syncs = SyncCensus(label) if census else None
     try:
         reset_launch_counts()
         for batch in pipe:
@@ -1536,12 +1730,16 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
                            len(graph_step.signatures))
                 if audits is not None:
                     audits.snapshot("train.state", state_tree(state))
+                if syncs is not None:
+                    syncs.__enter__()
             elif drv.steps > leg["warmup"]:
                 images += k * BATCH
                 if watch is not None and drv.steps == total - leg["steps"] // 2:
                     watch.scrape()
             if drv.steps >= total:
                 break
+        if syncs is not None:
+            syncs.__exit__(None, None, None)
         drv.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1550,9 +1748,13 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         if audits is not None:
             audits.snapshot("train.state", state_tree(state))
     finally:
+        if syncs is not None and syncs.active:
+            syncs.__exit__(None, None, None)
         pipe.stop()
         stop_producers(procs)
         segments = reap_segments(logs)
+    census_rep = (syncs.report(leg["steps"], drv.host_blocks)
+                  if syncs is not None else None)
     gaps, reorders, restarts = pipe.seq_gaps, pipe.reorders, pipe.restarts
     if audits is not None:
         audit_verdict(label, audits)
@@ -1614,7 +1816,7 @@ def run_leg(label: str, leg: dict, state, tmp: str, loss_fn=None,
         "first_losses": tap.values(),
         "producers": producers_rep,
         "shards": shards, "segments": segments, "wire": wire,
-        "ingest_workers": ingest_workers,
+        "ingest_workers": ingest_workers, "census": census_rep,
     }
 
 
@@ -1819,6 +2021,7 @@ def echo_leg(tmp: str) -> dict:
 
     drv = TrainDriver(step, state, inflight=2, sync_every=4)
     total = ECHO["warmup"] + ECHO["steps"]
+    syncs = SyncCensus("echo leg")
     try:
         reset_launch_counts()
         for token in echo:
@@ -1831,8 +2034,10 @@ def echo_leg(tmp: str) -> dict:
                 audit.snapshot("echo.reservoir",
                                echo.reservoir.device_buffers())
                 sigs0 = len(graph_step.signatures)
+                syncs.__enter__()
             if drv.steps >= total:
                 break
+        syncs.__exit__(None, None, None)
         if drv.steps < total:
             fail(f"echo leg: the stream ended after {drv.steps} steps")
         drv.drain()
@@ -1845,8 +2050,11 @@ def echo_leg(tmp: str) -> dict:
         counts = launch_counts()
         gaps = pipe.seq_gaps + pipe.reorders + pipe.restarts
     finally:
+        if syncs.active:
+            syncs.__exit__(None, None, None)
         echo.stop()
         stop_producers(procs)
+    census = syncs.report(ECHO["steps"], drv.host_blocks)
     verdict = stages_line("echo leg", echo, drv, full=False)["verdict"]
     producers = producer_report("echo leg", logs)
     losses = drv.losses
@@ -1905,7 +2113,7 @@ def echo_leg(tmp: str) -> dict:
         "alone": alone, "profile": alone["profile"],
         "gamma_last": tap.last, "producers": producers,
         "reservoir": echo.reservoir, "tokens": tokens,
-        "verdict": verdict.render(),
+        "verdict": verdict.render(), "census": census,
     }
 
 
@@ -3607,13 +3815,14 @@ def rl_stack(venv, prioritized: bool, checkpoint=None, every: int = 0):
     return res, step, pool, drv
 
 
-def rl_leg(venv, prioritized: bool, card: str) -> dict:
+def rl_leg(venv, prioritized: bool, card: str, census: bool = False) -> dict:
     """One learner leg: warm-up steps (the capture), then the window to
     ``RL["steps"]``: one graph replay per learner step, no buffer moved,
     ``fresh + replayed == draws x batch``, the actors' env steps equal to
     the transitions inserted (read after they stop). The actors then run
     on to ``RL_EPISODES`` ended episodes (at most ``RL_EPISODE_WAIT_S``)
-    for the mean return of the later half of the leg's episodes."""
+    for the mean return of the later half of the leg's episodes.
+    ``census`` runs the window under :class:`SyncCensus`."""
     import numpy as np
 
     from blendjax_torch.rl import diagnose_rl
@@ -3634,6 +3843,11 @@ def rl_leg(venv, prioritized: bool, card: str) -> dict:
         replays0, steps0 = step.graph_replays, drv.steps
         fresh0, replayed0, draws0 = res.fresh, res.replayed, res.stats["draws"]
         t0 = time.perf_counter()
+        syncs = SyncCensus(label) if census else None
+        if syncs is not None:
+            with syncs:
+                while drv.steps < RL["steps"]:
+                    drv.train_step()
         while drv.steps < RL["steps"]:
             drv.train_step()
         final = drv.drain()
@@ -3647,6 +3861,8 @@ def rl_leg(venv, prioritized: bool, card: str) -> dict:
             pool.check()
             time.sleep(0.02)
     window = drv.steps - steps0
+    census_rep = (syncs.report(window, drv.host_blocks)
+                  if syncs is not None else None)
     drawn = (res.fresh - fresh0) + (res.replayed - replayed0)
     if step.graph_replays - replays0 != window or drv.dispatches != drv.steps:
         fail(f"{label}: {step.graph_replays - replays0} graph replays and "
@@ -3669,7 +3885,7 @@ def rl_leg(venv, prioritized: bool, card: str) -> dict:
            "env_steps": pool.env_steps, "sample_waits": drv.sample_waits,
            "replay_ratio": res.stats["replay_ratio"],
            "policy_syncs": pool.policy_version, "final_loss": final,
-           "verdict": verdict.render()}
+           "verdict": verdict.render(), "census": census_rep}
     log(f"phase 5i {label} on {card}: {out['steps_s']:.1f} learner steps/s "
         f"({window} steps in {dt:.3f} s, one graph replay each; buffers "
         f"unmoved); fresh + replayed = {drawn} = {window} x {RL['batch']}; "
@@ -3799,7 +4015,7 @@ def rl_phase(tmp: str, card: str) -> dict:
     with BatchedRemoteEnv(CARTPOLE_SCRIPT, num_envs=RL["envs"], seed=0,
                           timeoutms=30_000) as venv:
         legs = {"uniform": rl_leg(venv, False, card),
-                "prioritized": rl_leg(venv, True, card)}
+                "prioritized": rl_leg(venv, True, card, census=True)}
         resume = rl_resume_leg(tmp, venv, card)
     best = max(leg["mean_return"] for leg in legs.values())
     if best < RL_RETURN_FLOOR:
@@ -5069,7 +5285,7 @@ def main() -> None:
                                 record=recording,
                                 keep_first=REPLAY["compare"],
                                 obs=os.path.join(tmp, "obs-flagship"),
-                                audit=True),
+                                audit=True, census=True),
             "square": run_leg("square 16x16 leg", SQUARE, state, tmp),
             "streamformer": streamformer_leg(tmp, card),
         }
@@ -5281,6 +5497,8 @@ def main() -> None:
             **{k: m[k] for k in ("bf16", "same_buffer", "output_fill")
                if k in m},
         })
+    census_gate(legs["flagship"]["census"], echo["census"],
+                rl["prioritized"]["census"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
