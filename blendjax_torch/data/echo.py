@@ -60,9 +60,9 @@ pipeline as on one card, and before each draw the ranks agree
 (:class:`~blendjax_torch.parallel.mesh.RankAgreement`) to insert as many
 pending fresh batches as the rank with the fewest has, and end together.
 The inserts (an all-gather each) and the draws stay in the iterating
-thread, in one order on every rank. A draw is gathered and augmented
-whole on every rank and cut to its rows, so it augments as the one-card
-draw of the same counter: N ranks do N times the augmentation work.
+thread, in one order on every rank. A draw is cut to each rank's rows,
+which the standard ops augment alone with the one-card draw's numbers;
+each insert all-gathers the ranks' scenario stamps (host objects).
 """
 
 from __future__ import annotations
@@ -104,6 +104,7 @@ from blendjax_torch.ops.augment import (
     random_crop_with_points,
     random_flip_with_points,
 )
+from blendjax_torch.parallel.sharding import leading_axes
 from blendjax_torch.scenario.accounting import (
     SCENARIO_ROWS_KEY,
     batch_row_scenarios,
@@ -137,8 +138,10 @@ class SampleReservoir:
     ``sharding`` (:func:`blendjax_torch.parallel.ring_sharding`) splits the
     ring over the batch axes: :meth:`insert` takes this rank's rows of a
     global batch, slots and draw indices are global, and a draw is
-    gathered whole on every rank, augmented whole and cut to this rank's
-    rows, so it augments as the one-card draw of the same counter does.
+    gathered whole on every rank and cut to this rank's rows, which a
+    row-local augmentation (:attr:`~blendjax_torch.ops.augment.SeededAugment.row_local`)
+    augments alone with their numbers of the one-card draw of the same
+    counter; any other ``augment`` runs on the whole draw before the cut.
     """
 
     def __init__(self, capacity: int, augment=None, rng: int = 0,
@@ -214,9 +217,17 @@ class SampleReservoir:
     def _draw_body(self, buffers, idx, counter):
         out = ring_gather(buffers, idx, sharding=self.sharding,
                           capacity=self.capacity)
-        if self.augment is not None:
-            out = self.augment(fold_seed(self._seed, int(counter)), out)
-        return self._local(out)
+        if self.augment is None:
+            return self._local(out)
+        seed = fold_seed(self._seed, int(counter))
+        if self.ways > 1 and getattr(self.augment, "row_local", False):
+            from blendjax_torch.parallel.sharding import rank_range
+
+            out = self._local(out)
+            start, _n = rank_range(self.sharding.mesh,
+                                   leading_axes(self.sharding), len(idx))
+            return self.augment(seed, out, rows=(start, len(idx)))
+        return self._local(self.augment(seed, out))
 
     def _local(self, batch: dict) -> dict:
         """This rank's rows of a whole draw (all of it off a mesh)."""
@@ -517,7 +528,10 @@ class EchoingPipeline:
 
     # -- reservoir feeding ----------------------------------------------------
 
-    def _insert_fresh(self, batch: dict) -> None:
+    def _insert_fresh(self, batch: dict, stamped: bool = True) -> None:
+        """Insert one fresh batch. On a sharded ring its rows' stamps are
+        all-gathered unless ``stamped`` is false (no rank's batch of this
+        insert carries any, as the ranks agreed)."""
         if "_packed" in batch or "__packed__" in batch:
             raise ValueError(
                 "EchoingPipeline received a packed (emit_packed) batch; "
@@ -556,12 +570,8 @@ class EchoingPipeline:
             self.batch_size = int(lead) * self.reservoir.ways
         trs = trace_pop(batch)
         scen_rows = batch_row_scenarios(batch, int(lead))
-        if scen_rows is not None and self.reservoir.ways > 1:
-            # a rank holds its rows' stamps only; the global slots of a
-            # sharded ring would need every rank's (ROADMAP item 5c)
-            raise NotImplementedError(
-                "scenario-stamped batches into an echo ring sharded over "
-                "a mesh: the cross-rank stamps are not ported")
+        if self.reservoir.ways > 1 and stamped:
+            scen_rows = self._global_stamps(scen_rows, int(lead))
         slots = self.reservoir.insert(fields)
         if scen_rows is not None:
             self._scen_active = True
@@ -590,6 +600,25 @@ class EchoingPipeline:
         self.inserted += len(slots)
         metrics.count("echo.inserted", len(slots))
         metrics.gauge("echo.reservoir_fill", int(self._filled.sum()))
+
+    def _global_stamps(self, mine, lead: int):
+        """Every row's stamp of a global batch on a sharded ring: the
+        ranks all-gather their rows' stamps (``mine``, this rank's
+        ``lead`` rows, or None) and order them by their place on the batch
+        axes (the ranks of a model axis hold the same rows; the first
+        rank's stand). None when no rank's rows are stamped."""
+        from blendjax_torch.parallel.mesh import axes_index
+
+        sh = self.reservoir.sharding
+        where = axes_index(sh.mesh, leading_axes(sh))
+        got = self._agreement.gather_objects((where, mine))
+        if all(rows is None for _w, rows in got):
+            return None
+        by_place: dict = {}
+        for w, rows in got:
+            by_place.setdefault(w, rows if rows is not None
+                                else [None] * lead)
+        return [r for w in sorted(by_place) for r in by_place[w]]
 
     def _poll_fresh(self, block: bool, timeout: float = 0.25) -> bool:
         """Insert pending fresh batches (at most the backlog present at
@@ -650,12 +679,17 @@ class EchoingPipeline:
         pending fresh batches as the rank with the fewest holds, so the
         ranks' reservoirs, accounting and draws stay the same; the stream
         ends for all when a finished rank has none left (the others drop
-        what they hold), and a failed one raises on every rank."""
+        what they hold), and a failed one raises on every rank. A bit per
+        held batch says whether it carries scenario stamps, so that an
+        insert gathers the stamps only when some rank's batch has them."""
         self._take_pending(block, timeout)
         with self._err_lock:
             err = self._inner_error
+        stamps = sum(1 << i for i, b in enumerate(self._pending)
+                     if batch_row_scenarios(b, 1) is not None)
         got = self._agreement.gather(
-            [len(self._pending), int(self._drained), int(err is not None)])
+            [len(self._pending), int(self._drained), int(err is not None),
+             stamps])
         if got[:, 2].any():
             if err is not None:
                 raise err  # a crashed stream is not a clean end of stream
@@ -663,8 +697,9 @@ class EchoingPipeline:
                 "the inner stream of mesh rank(s) "
                 f"{np.flatnonzero(got[:, 2]).tolist()} failed")
         n = int(got[:, 0].min())
-        for _ in range(n):
-            self._insert_fresh(self._pending.popleft())
+        for i in range(n):
+            self._insert_fresh(self._pending.popleft(),
+                               stamped=bool((got[:, 3] >> i & 1).any()))
         if (got[:, 1].astype(bool) & (got[:, 0] == n)).any():
             if self._pending:
                 logger.warning(

@@ -26,15 +26,15 @@ pipeline and yields its rows of each global batch, the JAX package's
 multi-host form (``make_array_from_process_local_data``). Where the rows
 come from depends on the source:
 
-- Live producers (``addresses``): each rank's pipeline assembles its own
-  ``batch_size / ways`` rows from the producers it connects to, as each
-  JAX process feeds its local rows. Before each batch the ranks agree
-  (:class:`~blendjax_torch.parallel.mesh.RankAgreement`) that every one has
-  one of the same form: they end together when any rank's stream ends (a
-  tail ends it too), and batches of different forms raise instead of
-  issuing unmatched collectives. Every rank must hold its own rows, so the
-  batch axes must cover the mesh (a ``tp`` or ``seq`` axis replays a
-  recording).
+- Live producers (``addresses``): each data group (one rank, or the
+  ranks of a model axis outside the batch) assembles its own
+  ``batch_size / ways`` rows from its producers, as each JAX process feeds
+  its local rows; on a model axis its first rank ingests and broadcasts
+  each host batch to the group before the host stage
+  (:class:`~blendjax_torch.parallel.mesh.ModelAxisGroup`). Before each
+  batch the ranks agree (:class:`~blendjax_torch.parallel.mesh.RankAgreement`)
+  that each has one of the same form: they end together when any data
+  group's stream ends, and different forms raise (no unmatched collective).
 - A recording or an iterable: every rank reads the same stream and keeps
   the rows the batch sharding (:func:`blendjax_torch.parallel.batch_sharding`,
   ``data`` with ``fsdp`` folded in) gives it, those the JAX mesh places on
@@ -137,8 +137,8 @@ class DeviceFeeder:
     removes the bound: a busy ring grows by one buffer instead of waiting.
 
     With ``mesh`` (or a batch ``sharding``) every array field but a packed
-    group's buffer keeps this rank's rows (:func:`~blendjax_torch.parallel.sharding.local_rows`)
-    before the copy: the one placement per batch of this rank's share.
+    group's buffer keeps this rank's rows (:func:`~blendjax_torch.parallel.sharding.local_rows`),
+    as does a per-row ``_meta`` or ``_scenario_rows``, before the copy.
     """
 
     PINNED_KEYS_LIMIT = 64
@@ -203,12 +203,21 @@ class DeviceFeeder:
             k: v for k, v in batch.items()
             if k != "_meta" and isinstance(v, np.ndarray) and v.ndim >= 1
         }
+        out = {k: v for k, v in batch.items() if k not in arrays}
         if self.sharding is not None:
             from blendjax_torch.parallel.sharding import local_rows
 
+            leads = {v.shape[0] for k, v in arrays.items()
+                     if k != "__packed__"}
             arrays = {k: v if k == "__packed__" else local_rows(
                 v, self.sharding) for k, v in arrays.items()}
-        out = {k: v for k, v in batch.items() if k not in arrays}
+            for k in ("_meta", "_scenario_rows"):
+                side = out.get(k)
+                if (len(leads) == 1 and isinstance(side, list)
+                        and len(side) in leads):
+                    # a per-row sidecar follows its rows
+                    rows = local_rows(np.arange(len(side)), self.sharding)
+                    out[k] = [side[i] for i in rows]
         if not self._cuda:
             # a copy: the assembler fills its buffers again while the
             # consumer may still hold this batch (on the card the pinned
@@ -625,25 +634,26 @@ class StreamDataPipeline:
                 "equal shard of each global batch")
         self.mesh = getattr(sharding, "mesh", None)
         self.sharding = sharding
-        # live producers on a split batch: this rank's own rows, agreed
-        self.local_rows = live and ways > 1
+        # live producers on a mesh of several ranks: this data group's own
+        # rows, agreed; on a model axis its first rank ingests them
+        self.local_rows = (live and self.mesh is not None
+                           and int(self.mesh.mesh.numel()) > 1)
         self.rank_batch = int(batch_size) // (ways if self.local_rows else 1)
         self._agreement = None
+        self._group = None
         if self.local_rows:
-            ranks = int(self.mesh.mesh.numel())
-            if ways != ranks:
-                from blendjax_torch.parallel.mesh import mesh_shape
-
-                raise ValueError(
-                    f"live producers on mesh {mesh_shape(self.mesh)}: each "
-                    "rank assembles its own rows from its own producers, so "
-                    f"the batch axes must cover the mesh ({ways} ways for "
-                    f"{ranks} ranks). Replay a recording on every rank, or "
-                    "fold the model axis into the batch (fsdp)")
-            from blendjax_torch.parallel.mesh import RankAgreement
+            from blendjax_torch.parallel.mesh import (
+                ModelAxisGroup,
+                RankAgreement,
+            )
+            from blendjax_torch.parallel.sharding import leading_axes
 
             self._agreement = RankAgreement(self.mesh)
+            if ways != int(self.mesh.mesh.numel()):
+                self._group = ModelAxisGroup(self.mesh,
+                                             leading_axes(sharding))
             sharding = None  # the rows are this rank's already
+        ingests = self._group is None or self._group.is_leader
 
         self.launcher = launcher
         self._auto_timeout = (
@@ -668,6 +678,10 @@ class StreamDataPipeline:
             addresses, (list, tuple, str)
         ):
             self.stream = addresses
+        elif not ingests:
+            # a model-axis group's other ranks receive its leader's
+            # batches: no socket of theirs may take the producers' messages
+            self.stream = None
         else:
             self._addresses = (
                 [addresses] if isinstance(addresses, str) else list(addresses)
@@ -686,7 +700,7 @@ class StreamDataPipeline:
                                        **stream_kwargs)
         self._stream_kwargs = dict(stream_kwargs)
         self.max_items = max_items
-        self.shards: list = [self.stream]
+        self.shards: list = [self.stream] if ingests else []
         self.batch_size = int(batch_size)
         self.schema = schema
         self.prefetch = prefetch
@@ -871,6 +885,9 @@ class StreamDataPipeline:
     def __iter__(self):
         from blendjax_torch.data.batcher import HostIngest
 
+        if self.stream is None:  # a model-axis group's rank that receives
+            self.tiles.reset()
+            return self._stages(self._shared(None))
         streams = self._shard_streams()
         if streams is not None:
             from blendjax_torch.data.shard_ingest import ShardedHostIngest
@@ -892,6 +909,13 @@ class StreamDataPipeline:
             ).start()
         self.tiles.reset()
         source = self.ingest
+        if self._group is not None:
+            source = self._shared(source)
+        return self._stages(source)
+
+    def _stages(self, source):
+        """Host stage, feeder, device stage and the ranks' agreement over
+        the ingested host batches ``source``."""
         if self.local_rows:
             source = self._until_tail(source)
         elif self.pad_partial:
@@ -907,6 +931,32 @@ class StreamDataPipeline:
         if self._agreement is not None:
             out = self._agreed(out)
         return iter(out)
+
+    def _shared(self, batches):
+        """A model-axis group's host batches: the leader ingests
+        (``batches``) and broadcasts each over the group, then its end or
+        its failure; the others (``batches`` None) yield what arrives."""
+        group = self._group
+        if batches is None:
+            while True:
+                got = group.share()
+                if got is None:
+                    return
+                if isinstance(got, str):
+                    raise RuntimeError(
+                        f"the ingest of model-axis group leader rank "
+                        f"{group.leader} failed: {got}")
+                yield got
+        try:
+            for hb in batches:
+                group.share(hb)
+                yield hb
+        except GeneratorExit:
+            raise  # the consumers of every rank stopped at this batch
+        except BaseException as e:
+            group.share(f"{type(e).__name__}: {e}")
+            raise
+        group.share(None)
 
     def _agreed(self, batches):
         """Live producers on a mesh: before each batch the ranks agree

@@ -16,6 +16,14 @@ purpose:
 Parameters are stored in torch layouts (OIHW convolutions, (out, in)
 dense); :func:`blendjax_torch.weights.from_flax` converts the JAX
 package's parameter tree.
+
+On a ``tp`` axis (a state sharded by :meth:`CubeRegressor.partition_rules`,
+the JAX package's rules) each rank computes with its blocks in place, as
+the JAX package's compiled step does (``blendjax_torch/docs/mesh-split.md``):
+a convolution split on its output channels makes this rank's channels,
+which the next convolution (and the pooled features) all-gathers; the
+hidden ``Dense`` is column-split and the head row-split, its partial
+products summed over ``tp``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from blendjax_torch.ops.image import maybe_normalize_uint8
+from blendjax_torch.parallel.sharding import split_of
+from blendjax_torch.parallel.tensor import (
+    column_bias,
+    enter,
+    gather_columns,
+    row_sum,
+)
 from blendjax_torch.precision import default_compute_dtype
 
 
@@ -48,7 +63,30 @@ def lecun_normal_(weight: torch.Tensor, gen: torch.Generator) -> None:
     weight.copy_(w)
 
 
+def _split_linear(x, have, layer: nn.Linear, dtype, res):
+    """``layer`` on ``x`` in ``dtype`` with its weight whole or split over
+    tp (``res``) by its outputs (column: returns this rank's outputs, and
+    ``res``) or its inputs (row: this rank's inputs, the products summed
+    over tp); ``have`` is the split ``x``'s columns come in (None: whole).
+    Returns ``(y, the split y's columns come in)``."""
+    if res is not None and res.flax_dim == 0:  # row-split
+        if have is None:
+            from blendjax_torch.parallel.collectives import scatter_to_axis
+
+            x = scatter_to_axis(x, res.mesh, res.axis, dim=1)
+        y = row_sum(F.linear(x.to(dtype), layer.weight.to(dtype)), res)
+        return y + layer.bias.to(dtype), None
+    x = enter(gather_columns(x, have), res)
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    column_bias(layer.bias, res).to(dtype)), res
+
+
 class CubeRegressor(nn.Module):
+    #: the kernels it computes with split over ``tp`` in place: the
+    #: convolutions by output channels, the two Dense by either dim
+    SPLIT_PARAMS = {"tp": {r"convs\.\d+\.weight": (3,),
+                           "dense.weight": (0, 1), "head.weight": (0, 1)}}
+
     def __init__(self, features=(32, 64, 128, 256), num_points: int = 8,
                  dtype=None, in_channels: int = 4, hidden: int = 256):
         super().__init__()
@@ -63,6 +101,19 @@ class CubeRegressor(nn.Module):
         )
         self.dense = nn.Linear(self.features[-1], hidden)
         self.head = nn.Linear(hidden, self.num_points * 2)
+
+    def partition_rules(self) -> tuple:
+        """The JAX package's tensor-parallel layout of this parameter tree:
+        the pooled MLP a Megatron pair (the hidden ``Dense_0`` column-split
+        over ``tp``, the head ``Dense_1`` row-split); the convolutions take
+        the generic defaults (output channels over ``tp`` when it divides
+        them, ``fsdp`` on the largest free dim)."""
+        from blendjax_torch.parallel.sharding import PartitionRule
+
+        return (
+            PartitionRule(r"^Dense_0/kernel$", ("tp",)),       # hidden
+            PartitionRule(r"^Dense_1/kernel$", ("tp", None)),  # head, row
+        )
 
     def init_params(self, seed: int = 0) -> "CubeRegressor":
         """flax's default initialisation, from an explicit generator:
@@ -79,20 +130,25 @@ class CubeRegressor(nn.Module):
         """``images``: (B, H, W, C) uint8 (or float in [0, 1])."""
         dtype = default_compute_dtype(self.dtype)
         x = maybe_normalize_uint8(images, dtype).permute(0, 3, 1, 2)
-        for conv in self.convs:
+        have = None  # the split whose channels x holds (None: all of them)
+        for i, conv in enumerate(self.convs):
+            res = split_of(self, f"convs.{i}.weight")
+            x = enter(gather_columns(x, have, dim=1), res)
             top, bottom = same_pads(x.shape[2], 3, 2)
             left, right = same_pads(x.shape[3], 3, 2)
             x = F.pad(x, (left, right, top, bottom))
             x = F.conv2d(
-                x, conv.weight.to(dtype), conv.bias.to(dtype), stride=2
+                x, conv.weight.to(dtype),
+                column_bias(conv.bias, res).to(dtype), stride=2
             )
             x = F.gelu(x, approximate="tanh")
-        x = x.mean(dim=(2, 3))  # global average pool
-        x = F.gelu(
-            F.linear(x, self.dense.weight.to(dtype), self.dense.bias.to(dtype)),
-            approximate="tanh",
-        )
+            have = res
+        x = gather_columns(x.mean(dim=(2, 3)), have)  # global average pool
+        x, have = _split_linear(x, None, self.dense, dtype,
+                                split_of(self, "dense.weight"))
+        x = F.gelu(x, approximate="tanh")
         # .float(): the parameters may be bf16 copies (the bf16-grads policy)
-        out = F.linear(x.float(), self.head.weight.float(),
-                       self.head.bias.float())
+        out, have = _split_linear(x.float(), have, self.head, torch.float32,
+                                  split_of(self, "head.weight"))
+        out = gather_columns(out, have)
         return out.reshape(-1, self.num_points, 2)

@@ -27,6 +27,19 @@ the global batch's, as it is under the JAX package's GSPMD jit: the
 capacity counts every rank's tokens, a token's queue position counts the
 tokens of the ranks before it (one all-gather of each rank's per-expert
 counts), and the aux loss is the global one.
+
+On an ``expert`` axis (a train state whose ``expert_*`` weights are split
+on dim 0, :class:`~blendjax_torch.parallel.ShardedParams`) each rank holds
+its ``E / ways`` experts and never gathers the others. The ranks of an
+``expert`` group hold the same tokens (the batch is not split over
+``expert``) and route them alike (the router is replicated); each runs
+the expert einsums on its experts only (``dispatch[:, local]``,
+``combine[:, local]``), and the outputs are summed over ``expert``: the
+combine contracts the split expert dim, as in the JAX package's compiled
+step (``blendjax_torch/docs/mesh-split.md``; no token travels to another
+rank). The tokens and the gates enter the expert region through
+:func:`~blendjax_torch.parallel.collectives.copy_to_axis`, so their
+gradients sum over ``expert``.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from blendjax_torch.parallel.sharding import split_of
+from blendjax_torch.parallel.tensor import enter, row_sum
 from blendjax_torch.precision import default_compute_dtype
 
 
@@ -42,6 +57,12 @@ class MoEMLP(nn.Module):
     """Drop-in replacement for a transformer MLP block: (B, T, C) in and
     out, each token routed top-1 to one of ``num_experts`` expert MLPs
     (``C -> C * mlp_ratio -> C``, tanh GELU)."""
+
+    #: the expert weights it computes with split over ``expert`` in place
+    #: (their expert dim), all four together
+    SPLIT_PARAMS = {"expert": {n: (0,) for n in (
+        "expert_wi", "expert_bi", "expert_wo", "expert_bo")}}
+    SPLIT_GROUPS = (tuple(SPLIT_PARAMS["expert"]),)
 
     def __init__(self, dim: int, num_experts: int, mlp_ratio: int = 4,
                  capacity_factor: float = 1.25, dtype=None):
@@ -132,7 +153,12 @@ class MoEMLP(nn.Module):
             self.aux_loss.copy_(aux.detach())
         if self._recording:
             self._aux = aux
-        xt = tokens.to(dtype)
+        res = split_of(self, "expert_wi")
+        xt = enter(tokens.to(dtype), res)
+        if res is not None:  # this rank's experts
+            first = res.index * res.size
+            dispatch = dispatch[:, first:first + res.size]
+            gate = enter(gate, res)
         xe = torch.einsum("nec,nd->ecd", dispatch.to(dtype), xt)
         he = F.gelu(
             torch.einsum("ecd,edh->ech", xe, self.expert_wi.to(dtype))
@@ -140,7 +166,7 @@ class MoEMLP(nn.Module):
         ye = (torch.einsum("ech,ehd->ecd", he, self.expert_wo.to(dtype))
               + self.expert_bo[:, None].to(dtype))
         combine = dispatch * gate[:, None, None]
-        y = torch.einsum("nec,ecd->nd", combine.to(dtype), ye)
+        y = row_sum(torch.einsum("nec,ecd->nd", combine.to(dtype), ye), res)
         return y.reshape(b, t, c)
 
 

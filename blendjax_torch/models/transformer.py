@@ -33,6 +33,20 @@ all-gathers the output blocks (whose backward keeps this rank's block).
 Without a ``seq`` axis on the mesh both fall back as the JAX package's do
 (Ulysses to the local attention, ring to exact plain attention).
 
+Tensor parallelism (a train state sharded over ``tp`` by
+``StreamFormer.partition_rules()``, :class:`~blendjax_torch.parallel.ShardedParams`):
+each rank of the ``tp`` axis holds its block of the split kernels and
+computes with it in place, the Megatron split the JAX package's GSPMD jit
+compiles (``blendjax_torch/docs/mesh-split.md``). ``qkv`` is column-split
+by heads (each rank runs attention, K4a-c on the card, on its ``H / tp``
+heads; its bias, split on the head dim by the generic rule, reaches the
+heads by one all-to-all), ``proj`` row-split and summed over ``tp``; the
+MLP's ``fc1`` column-split (its bias sliced at use) and ``fc2`` row-split
+and summed; the patch embedding and ``pos_embed`` column-split on the
+channels and all-gathered; the head column-split and its outputs
+all-gathered. The residual stream stays whole on every rank. A head
+count ``tp`` does not divide raises ``ValueError``.
+
 Mixture of experts (``num_experts > 0``): block ``i`` with
 ``i % moe_every == 0`` takes a :class:`~blendjax_torch.models.moe.MoEMLP`
 in place of its dense MLP (flax path ``block{i}/MoEMLP_0``). ``remat=True``
@@ -54,6 +68,13 @@ from blendjax_torch.models.cnn import lecun_normal_, same_pads
 from blendjax_torch.models.moe import MoEMLP
 from blendjax_torch.ops.attention import local_attention
 from blendjax_torch.ops.image import maybe_normalize_uint8
+from blendjax_torch.parallel.sharding import split_of
+from blendjax_torch.parallel.tensor import (
+    column_bias,
+    enter,
+    gather_columns,
+    row_sum,
+)
 from blendjax_torch.precision import default_compute_dtype
 
 class LayerNorm(nn.Module):
@@ -79,6 +100,14 @@ def _dense(layer: nn.Linear, x, dtype):
 
 
 class MultiHeadAttention(nn.Module):
+    #: the kernels it computes with split over ``tp`` in place, by flax
+    #: dim: qkv (C, 3, H, D) by heads, its bias (3, H, D) by heads or D
+    #: (the generic rule's), proj (H*D, C) by its rows; qkv and proj go
+    #: together
+    SPLIT_PARAMS = {"tp": {"qkv.weight": (2,), "qkv.bias": (1, 2),
+                           "proj.weight": (0,)}}
+    SPLIT_GROUPS = (("qkv.weight", "proj.weight"),)
+
     def __init__(self, dim: int, num_heads: int, dtype=None,
                  causal: bool = False, attn_backend: str = "auto",
                  use_ring: bool = False, mesh=None, seq_axis: str = "seq",
@@ -135,23 +164,69 @@ class MultiHeadAttention(nn.Module):
             o = all_gather(o, mesh, axis, dim=1)
         return o
 
+    def check_split(self, found: dict) -> None:
+        """A ``tp`` axis the rules put on the attention must divide the
+        head count (``ValueError``)."""
+        for _dim, _axis, ways in found.values():
+            if self.num_heads % ways:
+                raise ValueError(
+                    f"{self.num_heads} attention heads do not split over "
+                    f"the {ways}-way tensor-parallel axis: tp must divide "
+                    "the head count")
+
+    def _split_qkv_bias(self, res, d: int):
+        """This rank's heads' (3 * H/tp * D,) qkv bias: the generic rule
+        splits the bias on D, so one all-to-all moves it onto the heads
+        (as the JAX package's compiled step does); a replicated bias is
+        sliced."""
+        from blendjax_torch.parallel.collectives import all_to_all
+
+        h = self.num_heads
+        bias = self.qkv.bias
+        sb = split_of(self, "qkv.bias")
+        if sb is None:
+            return column_bias(bias.reshape(3, h, d), res, dim=1).reshape(-1)
+        if sb.flax_dim == 1:  # already this rank's heads
+            return bias
+        if sb.flax_dim != 2:
+            raise ValueError(f"qkv bias split on dim {sb.flax_dim}")
+        return all_to_all(bias.reshape(3, h, d // sb.ways), res.mesh,
+                          res.axis, split_dim=1, concat_dim=2).reshape(-1)
+
     def forward(self, x):
         dtype = default_compute_dtype(self.dtype)
         b, t, c = x.shape
         h = self.num_heads
-        qkv = _dense(self.qkv, x, dtype).reshape(b, t, 3, h, c // h)
+        res = split_of(self, "qkv.weight")
+        if res is None:
+            qkv = _dense(self.qkv, x, dtype).reshape(b, t, 3, h, c // h)
+        else:  # this rank's heads
+            h //= res.ways
+            qkv = F.linear(enter(x.to(dtype), res),
+                           self.qkv.weight.to(dtype),
+                           self._split_qkv_bias(res, c // self.num_heads)
+                           .to(dtype)).reshape(b, t, 3, h, -1)
         q, k, v = (qkv[:, :, i] for i in range(3))  # (B, T, H, D) views
         if self.use_sp:
             o = self._sequence_parallel(q, k, v)
         else:
             o = local_attention(q, k, v, causal=self.causal,
                                 backend=self.attn_backend)
-        return _dense(self.proj, o.to(dtype).reshape(b, t, c), dtype)
+        o = o.to(dtype).reshape(b, t, -1)
+        if res is None:
+            return _dense(self.proj, o, dtype)
+        y = row_sum(F.linear(o, self.proj.weight.to(dtype)), res)
+        return y + self.proj.bias.to(dtype)
 
 
 class Block(nn.Module):
     """LayerNorm, attention, LayerNorm, then a dense MLP or, with
     ``num_experts > 0``, a Switch mixture of experts (``self.moe``)."""
+
+    #: the MLP kernels it computes with split over ``tp`` in place:
+    #: fc1 (C, 4C) by its outputs, fc2 (4C, C) by its rows, together
+    SPLIT_PARAMS = {"tp": {"fc1.weight": (1,), "fc2.weight": (0,)}}
+    SPLIT_GROUPS = (("fc1.weight", "fc2.weight"),)
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype=None, causal: bool = False, attn_backend: str = "auto",
@@ -175,14 +250,27 @@ class Block(nn.Module):
         x = x + self.attn(self.norm1(x))
         if hasattr(self, "moe"):
             return x + self.moe(self.norm2(x))
-        y = F.gelu(_dense(self.fc1, self.norm2(x), dtype), approximate="tanh")
-        return x + _dense(self.fc2, y, dtype)
+        res = split_of(self, "fc1.weight")
+        if res is None:
+            y = F.gelu(_dense(self.fc1, self.norm2(x), dtype),
+                       approximate="tanh")
+            return x + _dense(self.fc2, y, dtype)
+        y = F.gelu(F.linear(
+            enter(self.norm2(x).to(dtype), res), self.fc1.weight.to(dtype),
+            column_bias(self.fc1.bias, res).to(dtype)), approximate="tanh")
+        y = row_sum(F.linear(y, self.fc2.weight.to(dtype)), res)
+        return x + (y + self.fc2.bias.to(dtype))
 
 
 class StreamFormer(nn.Module):
     """Patchify -> transformer blocks -> head; ``num_outputs=16`` regresses
     the 8 cube corners, so it trains on the same stream as
     :class:`~blendjax_torch.models.CubeRegressor`."""
+
+    #: the embedding and head kernels it computes with split over ``tp``
+    #: in place, by their output channels
+    SPLIT_PARAMS = {"tp": {"patch_embed.weight": (3,), "pos_embed": (2,),
+                           "head.weight": (1,)}}
 
     def __init__(self, patch: int = 16, dim: int = 256, depth: int = 4,
                  num_heads: int = 8, num_outputs: int = 16, dtype=None,
@@ -269,14 +357,21 @@ class StreamFormer(nn.Module):
         x = maybe_normalize_uint8(images, dtype).permute(0, 3, 1, 2)
         top, bottom = same_pads(x.shape[2], self.patch, self.patch)
         left, right = same_pads(x.shape[3], self.patch, self.patch)
+        res = split_of(self, "patch_embed.weight")  # this rank's channels
         x = F.conv2d(
             F.pad(x, (left, right, top, bottom)),
-            self.patch_embed.weight.to(dtype), self.patch_embed.bias.to(dtype),
+            self.patch_embed.weight.to(dtype),
+            column_bias(self.patch_embed.bias, res).to(dtype),
             stride=self.patch,
         )
         b, c, hh, ww = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
-        x = x + self.pos_embed.to(dtype)
+        pos, pres = self.pos_embed, split_of(self, "pos_embed")
+        if res is None and pres is not None:
+            pos = gather_columns(pos, pres)
+        elif res is not None:
+            pos = column_bias(pos, res, pres, dim=2)
+        x = gather_columns(x + pos.to(dtype), res)
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
                 # the blocks draw no random numbers: no RNG state to keep
@@ -286,4 +381,9 @@ class StreamFormer(nn.Module):
             else:
                 x = block(x)
         x = self.norm(x).mean(dim=1)
-        return _dense(self.head, x, torch.float32)
+        res = split_of(self, "head.weight")  # this rank's outputs
+        if res is None:
+            return _dense(self.head, x, torch.float32)
+        out = F.linear(enter(x, res), self.head.weight.float(),
+                       column_bias(self.head.bias, res).float())
+        return gather_columns(out, res)

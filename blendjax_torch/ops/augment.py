@@ -19,10 +19,21 @@ folds the key with ``i``. The composed :class:`SeededAugment` keeps its
 generators, so a CUDA graph can register them and have them re-seeded
 on the host before each replay. Images are NHWC, uint8 or float in
 [0, 1].
+
+Row-local application (a draw sharded over a mesh): the standard ops'
+draws depend only on the generator and the draw's row count, so
+``augment(seed, x, rows=(start, total))`` draws the random numbers of a
+draw of ``total`` rows, the one-card draw's, keeps those of rows ``start
+: start + len(x)`` and applies them to ``x`` alone. Each rank's rows then
+equal its rows of the one-card draw bit for bit, for 1/ways of the apply's
+work (:attr:`SeededAugment.row_local` says whether every op can; a uint8
+colour jitter takes its per-sample mean from an exact integer sum, so no
+reduction order depends on the row count).
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 
 import torch
@@ -112,8 +123,15 @@ def apply_color_jitter(images, bright, contr):
     x = images.to(torch.float32)
     if is_int:
         x = x / 255.0
+        # the exact mean of the scaled pixels, rounded once: an integer sum
+        # has no reduction order, so a sample's mean never depends on how
+        # many samples the call holds
+        total = images.sum(dim=(1, 2), keepdim=True, dtype=torch.int64)
+        mean = (total.to(torch.float64)
+                / (255.0 * images.shape[1] * images.shape[2])).float()
+    else:
+        mean = x.mean(dim=(1, 2), keepdim=True)
     shape = (images.shape[0],) + (1,) * (images.ndim - 1)
-    mean = x.mean(dim=(1, 2), keepdim=True)
     x = torch.clamp(
         (x - mean) * contr.to(x.device).reshape(shape) + mean
         + bright.to(x.device).reshape(shape), 0.0, 1.0,
@@ -185,6 +203,73 @@ def random_crop_with_points(gen, images, points, pad: int = 4):
     return apply_crop(images, offsets, pad), shift_points(points, offsets, pad)
 
 
+# -- draw/apply splits of the composed ops (row-local application) ---------
+
+
+def _flip_draw(gen, b, shape, axis: int = 2):
+    return _flip_bits(gen, b)
+
+
+_SPLITS = {
+    # op: (draw(gen, rows, image shape, **kw), apply(images, [points,]
+    # draws, **kw))
+    random_crop: (lambda gen, b, shape, pad=4: crop_offsets(gen, b, pad),
+                  lambda x, d, pad=4: apply_crop(x, d, pad)),
+    color_jitter: (lambda gen, b, shape, brightness=0.2, contrast=0.2:
+                   jitter_factors(gen, b, brightness, contrast),
+                   lambda x, d, brightness=0.2, contrast=0.2:
+                   apply_color_jitter(x, *d)),
+    random_cutout: (lambda gen, b, shape, size=16, fill=0:
+                    cutout_centres(gen, b, shape[1], shape[2]),
+                    lambda x, d, size=16, fill=0:
+                    apply_cutout(x, d, size, fill)),
+    random_flip: (_flip_draw,
+                  lambda x, d, axis=2: apply_flip(x, d, axis)),
+    random_flip_with_points: (
+        _flip_draw,
+        lambda x, p, d, axis=2: apply_flip_with_points(x, p, d, axis)),
+    random_crop_with_points: (
+        lambda gen, b, shape, pad=4: crop_offsets(gen, b, pad),
+        lambda x, p, d, pad=4: (apply_crop(x, d, pad),
+                                shift_points(p, d, pad))),
+}
+
+
+def op_split(op):
+    """``(draw, apply)`` of a standard op (keywords of a
+    ``functools.partial`` bound): ``draw(gen, rows, image_shape)`` makes
+    its random numbers for ``rows`` samples, ``apply(images, [points,]
+    draws)`` applies them; None for any other op."""
+    kw: dict = {}
+    fn = op
+    while isinstance(fn, functools.partial):
+        if fn.args:
+            return None
+        kw = {**fn.keywords, **kw}
+        fn = fn.func
+    entry = _SPLITS.get(fn)
+    if entry is None:
+        return None
+    draw, apply = entry
+    return (functools.partial(draw, **kw), functools.partial(apply, **kw))
+
+
+def _rows_of(draws, start: int, n: int):
+    """Rows ``start : start + n`` of an op's draws (a tensor or a tuple)."""
+    if isinstance(draws, tuple):
+        return tuple(d[start:start + n] for d in draws)
+    return draws[start:start + n]
+
+
+def _local_draws(op, gen, images, rows):
+    """The draws of ``images``' rows of a draw of ``rows = (start,
+    total)`` rows."""
+    start, total = rows
+    draw, apply = op_split(op)
+    d = draw(gen, total, (total, *images.shape[1:]))
+    return apply, _rows_of(d, start, images.shape[0])
+
+
 def _n_required(op) -> int:
     empty = inspect.Parameter.empty
     positional = (inspect.Parameter.POSITIONAL_ONLY,
@@ -210,10 +295,16 @@ class SeededAugment:
 
     def __init__(self, ops, apply, image_key: str | None = None):
         self.ops = tuple(ops)
-        self._apply = apply  # (generators, x) -> x
+        self._apply = apply  # (generators, x, rows) -> x
         # None: x is the images; else x is a batch dict holding them there
         self.image_key = image_key
         self._gens: dict = {}
+
+    @property
+    def row_local(self) -> bool:
+        """Whether every op splits into a draw and an apply, so a call
+        with ``rows=`` applies to the given rows alone."""
+        return all(op_split(op) is not None for op in self.ops)
 
     def generators(self, device, slot: int = 0) -> list:
         """The generators op by op for ``device`` and ``slot``."""
@@ -230,15 +321,23 @@ class SeededAugment:
         for i, gen in enumerate(self.generators(device, slot)):
             gen.manual_seed(fold_seed(seed, i))
 
-    def __call__(self, seed, x, slot: int = 0):
+    def __call__(self, seed, x, slot: int = 0, rows=None):
+        """Augment ``x`` with the draws of ``seed``; ``rows=(start,
+        total)`` says ``x`` holds rows ``start : start + len(x)`` of a draw
+        of ``total`` rows, which are drawn whole and applied to ``x`` alone
+        (:attr:`row_local` ops only)."""
         images = x if self.image_key is None else x.get(self.image_key)
         if images is None:  # a batch without the image field
             return x
+        if rows is not None and not self.row_local:
+            raise ValueError(
+                "rows= needs ops that split into a draw and an apply (the "
+                "standard ops of blendjax_torch.ops.augment)")
         device = images.device
         if not (device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             self.seed(seed, device, slot)
-        return self._apply(self.generators(device, slot), x)
+        return self._apply(self.generators(device, slot), x, rows)
 
 
 def call_augment(augment, seed: int, x, slot: int = 0):
@@ -266,7 +365,7 @@ def make_batch_augment(*ops, image_key: str = "image",
             "the label field they co-transform"
         )
 
-    def apply(gens, batch):
+    def apply(gens, batch, rows=None):
         images = batch[image_key]
         points = batch.get(points_key) if points_key is not None else None
         if points is None and any(paired):
@@ -275,7 +374,13 @@ def make_batch_augment(*ops, image_key: str = "image",
                 f"is missing (batch fields: {sorted(batch)})"
             )
         for gen, op, pair in zip(gens, ops, paired):
-            if pair:
+            if rows is not None:
+                fn, d = _local_draws(op, gen, images, rows)
+                if pair:
+                    images, points = fn(images, points, d)
+                else:
+                    images = fn(images, d)
+            elif pair:
                 images, points = op(gen, images, points)
             else:
                 images = op(gen, images)
@@ -292,9 +397,13 @@ def make_augment(*ops) -> SeededAugment:
     """Compose ops into one ``augment(seed, images)``; op ``i`` draws from
     ``fold_seed(seed, i)``."""
 
-    def apply(gens, images):
+    def apply(gens, images, rows=None):
         for gen, op in zip(gens, ops):
-            images = op(gen, images)
+            if rows is not None:
+                fn, d = _local_draws(op, gen, images, rows)
+                images = fn(images, d)
+            else:
+                images = op(gen, images)
         return images
 
     return SeededAugment(ops, apply)
@@ -312,6 +421,7 @@ __all__ = [
     "jitter_factors",
     "make_augment",
     "make_batch_augment",
+    "op_split",
     "random_crop",
     "random_crop_with_points",
     "random_cutout",

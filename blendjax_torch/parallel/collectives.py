@@ -20,6 +20,21 @@ whose backward passes are the JAX package's transposes in its global view:
 rank's slice of a replicated tensor; backward: all-gather), the boundary
 between a replicated region and a sharded one.
 
+The two boundaries of a Megatron split over a model axis (``tp``,
+``expert``), where every rank of the axis holds the same rows:
+:func:`copy_to_axis` enters the split region (forward: the identity;
+backward: the sum over the axis of the ranks' partial input gradients),
+and :func:`all_reduce_sum` leaves it (forward: the sum of the ranks'
+partial outputs; backward: the identity, every rank holding the same
+output cotangent). These are the transposes the JAX package's GSPMD
+jit compiles for the same layouts (``blendjax_torch/docs/mesh-split.md``).
+
+On a gloo group (two ranks on one card, where NCCL refuses a second rank
+of one device) gloo takes CUDA tensors for every collective but the
+point-to-point pair of :func:`ring_permute`, which therefore runs on a
+host copy there: the stage is explicit, never applies to an NCCL group,
+and is counted by kind (:func:`staged_counts`).
+
 Every collective adds its result bytes to a tally, per kind (the JAX
 package's ledger kinds: ``all-reduce``, ``all-gather``,
 ``reduce-scatter``, ``collective-permute``, ``all-to-all``) and per mesh
@@ -32,6 +47,7 @@ as ``device.collective.*_bytes`` (:mod:`blendjax_torch.obs.devledger`).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 
@@ -42,6 +58,8 @@ from blendjax_torch.parallel.mesh import _axes, axes_group, axes_size
 
 _lock = threading.Lock()
 _recorders: list = []
+
+_staged: collections.Counter = collections.Counter()
 
 
 def _empty_tally() -> dict:
@@ -117,6 +135,24 @@ def reset_collective_counts() -> None:
     with _lock:
         _counts.clear()
         _counts.update(_empty_tally())
+        _staged.clear()
+
+
+def staged_counts() -> dict:
+    """``{kind: ops}`` that ran on a host copy on a gloo group since the
+    last :func:`reset_collective_counts`."""
+    with _lock:
+        return dict(_staged)
+
+
+def _host_stage(group, x) -> bool:
+    """Whether a permute of ``x`` runs on a host copy: a CUDA tensor on a
+    gloo group (never an NCCL group), counted."""
+    if x.device.type != "cuda" or str(_dist().get_backend(group)) != "gloo":
+        return False
+    with _lock:
+        _staged["collective-permute"] += 1
+    return True
 
 
 def _key(mesh, axes) -> str:
@@ -173,10 +209,14 @@ def _permute(x, mesh, axes, shift: int):
     if n == 1:
         out.copy_(x)
     else:
-        ops = [dist.P2POp(dist.isend, x, dst, group=group),
-               dist.P2POp(dist.irecv, out, src, group=group)]
+        host = _host_stage(group, x)
+        send, recv = (x.cpu(), out.cpu()) if host else (x, out)
+        ops = [dist.P2POp(dist.isend, send, dst, group=group),
+               dist.P2POp(dist.irecv, recv, src, group=group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+        if host:
+            out.copy_(recv)
     _record("collective-permute", _key(mesh, axes), _nbytes(out))
     return out
 
@@ -208,6 +248,18 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (g * ctx.scale if ctx.scale != 1.0 else g), None, None, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return _all_reduce(g.contiguous(), mesh, axes), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -270,6 +322,15 @@ def all_reduce_sum(x, mesh, axis="data", differentiable: bool = True):
     return _AllReduceSum.apply(x, mesh, axis, 1.0)
 
 
+def copy_to_axis(x, mesh, axis="tp"):
+    """``x`` unchanged, entering a region split over ``axis`` whose ranks
+    each compute a part from it (a column-split matmul, this rank's
+    experts): the backward pass sums the ranks' input gradients over
+    ``axis`` (one all-reduce), the transpose of the JAX package's
+    replicated operand."""
+    return _CopyToAxis.apply(x, mesh, axis)
+
+
 def all_reduce_mean(x, mesh, axis="data"):
     return _AllReduceSum.apply(x, mesh, axis, 1.0 / axes_size(mesh, axis))
 
@@ -323,10 +384,12 @@ __all__ = [
     "all_reduce_sum",
     "all_to_all",
     "collective_counts",
+    "copy_to_axis",
     "flat_all_reduce_mean",
     "recording",
     "reset_collective_counts",
     "ring_permute",
     "scatter_to_axis",
+    "staged_counts",
     "tally_diff",
 ]

@@ -94,14 +94,19 @@ def create_mesh(spec=None, devices=None):
                             mesh_dim_names=tuple(sizes))
 
 
-def init_group(device, store_dir: str | None = None) -> bool:
+def init_group(device, store_dir: str | None = None,
+               backend: str | None = None, rank: int = 0,
+               world_size: int = 1) -> bool:
     """Open the default process group for an entry point (the examples),
     unless one is open already: under ``torchrun`` (``WORLD_SIZE`` > 1) from
     the environment (``env://``); else, given a ``store_dir``, a group of
-    world size 1 through a ``FileStore`` there; else none. NCCL on a CUDA
-    ``device`` (this rank's card, ``LOCAL_RANK``), gloo on the CPU. Returns
-    whether this call opened the group (its caller then destroys it); a
-    failure raises, with no fallback to another backend."""
+    ``world_size`` ranks (this one ``rank``) through a ``FileStore`` there;
+    else none. ``backend`` ``None`` is NCCL on a CUDA ``device`` (this
+    rank's card, ``LOCAL_RANK``) and gloo on the CPU; an explicit
+    ``"gloo"`` on a CUDA device opens gloo over the card's tensors (the
+    form in which several ranks share one card, which NCCL refuses).
+    Returns whether this call opened the group (its caller then destroys
+    it); a failure raises, with no fallback to another backend."""
     import datetime
     import os
 
@@ -114,19 +119,20 @@ def init_group(device, store_dir: str | None = None) -> bool:
     if env_world <= 1 and store_dir is None:
         return False
     cuda = torch.device(device).type == "cuda"
+    backend = backend or ("nccl" if cuda else "gloo")
     kw = {"timeout": datetime.timedelta(seconds=120)}
     if cuda:
         card = int(os.environ.get("LOCAL_RANK", "0")) if env_world > 1 else 0
         torch.cuda.set_device(card)
-        kw["device_id"] = torch.device("cuda", card)
-    backend = "nccl" if cuda else "gloo"
+        if backend == "nccl":
+            kw["device_id"] = torch.device("cuda", card)
     if env_world > 1:
         dist.init_process_group(backend, init_method="env://", **kw)
     else:
         dist.init_process_group(
             backend, store=dist.FileStore(
-                os.path.join(store_dir, "group-store"), 1),
-            rank=0, world_size=1, **kw)
+                os.path.join(store_dir, "group-store"), int(world_size)),
+            rank=int(rank), world_size=int(world_size), **kw)
     return True
 
 
@@ -218,19 +224,28 @@ class RankAgreement:
     call (:meth:`gather`), over a gloo group of its own.
 
     The live pipeline (:class:`~blendjax_torch.data.StreamDataPipeline`)
-    and the echo pipeline use it so that ranks fed by different producers
-    take the same decisions: how many batches exist, how many fresh
-    batches to insert before a draw. Its own group keeps these calls apart
-    from the step's collectives, which may run on another thread. It moves
-    no device memory and is not a device collective (never tallied).
-    Constructing one is collective: every rank of the default group makes
-    its agreements in the same order."""
+    and the echo pipeline use it so that ranks fed by different streams
+    (each data group's) take the same decisions: how many batches exist,
+    how many fresh batches to insert before a draw. Its own group keeps
+    these calls apart from the step's collectives, which may run on
+    another thread. It moves no device memory and is not a device
+    collective (never tallied). Constructing one is collective: every rank
+    of the default group makes its agreements in the same order."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
 
         self.ranks = [int(r) for r in check_mesh(mesh).mesh.flatten().tolist()]
         self.group = dist.new_group(self.ranks, backend="gloo")
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order (host objects: the
+        echo ring's scenario stamps)."""
+        import torch.distributed as dist
+
+        out = [None] * len(self.ranks)
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
     def gather(self, values) -> np.ndarray:
         """Every rank's ``values`` (integers), as an int64 array of shape
@@ -244,6 +259,42 @@ class RankAgreement:
         return torch.stack(out).numpy()
 
 
-__all__ = ["MeshSpec", "RankAgreement", "axes_group", "check_mesh",
-           "axes_index", "axes_size", "axis_names", "create_mesh",
-           "mesh_shape"]
+class ModelAxisGroup:
+    """The ranks of ``mesh`` that share this rank's rows of a batch split
+    over ``batch_axes`` (its model-axis group: the ranks along ``tp``,
+    ``seq``, ``expert``, ``pipe``), with a gloo group of their own to
+    hand host objects from the group's first rank, the :attr:`leader`, to
+    the others (:meth:`share`). Constructing one is collective: every rank
+    makes every group, in the same order."""
+
+    def __init__(self, mesh, batch_axes):
+        import torch.distributed as dist
+
+        names = axis_names(check_mesh(mesh))
+        keep = [names.index(a) for a in _axes(batch_axes, mesh)]
+        model = [d for d in range(mesh.mesh.ndim) if d not in keep]
+        width = int(np.prod([mesh.mesh.shape[d] for d in model],
+                            dtype=np.int64))
+        rows = mesh.mesh.permute(*keep, *model).reshape(-1, width).tolist()
+        me = dist.get_rank()
+        self.group = None
+        for row in rows:  # every rank makes every group
+            g = dist.new_group(row, backend="gloo")
+            if me in row:
+                self.ranks, self.group = [int(r) for r in row], g
+        self.leader = self.ranks[0]
+        self.is_leader = me == self.leader
+
+    def share(self, obj=None):
+        """The leader's ``obj`` on every rank of the group (the leader
+        passes it, the others pass nothing)."""
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+
+__all__ = ["MeshSpec", "ModelAxisGroup", "RankAgreement", "axes_group",
+           "check_mesh", "axes_index", "axes_size", "axis_names",
+           "create_mesh", "mesh_shape"]

@@ -31,14 +31,15 @@ one-process-per-card form a batch sharding says which rows a rank keeps
 step issues where the JAX package's jit puts them: the gradient and loss
 means over the batch axes. :class:`ShardedParams` holds a state sharded
 over a model axis (``fsdp``/``tp``/``expert``): each rank keeps its shard
-of every parameter and AdamW moment as a plain tensor, gathers the full
-parameters for the step (gather on use) and updates its shard (ZeRO-3;
-AdamW is elementwise, so the update is the replicated one). These axes
-split the state only: ``tp`` has the rules' placements but no split of
-the matmuls, and ``expert`` places a mixture of experts' ``expert_*``
-weights on dim 0 with no all-to-all of the tokens to their experts' ranks,
-so the ranks of a ``tp`` or ``expert`` group compute the same step
-(ROADMAP item 5c).
+of every parameter and AdamW moment as a plain tensor and updates its
+shard (AdamW is elementwise, so the update is the replicated one). A
+``tp`` or ``expert`` split that the parameter's module computes with
+(its ``SPLIT_PARAMS``) is resident: the module computes with this rank's
+block in place (the Megatron split of the attention, the MLP, the
+embedding and the head; each rank's experts), the way the JAX package's
+GSPMD jit compiles those layouts (``blendjax_torch/docs/mesh-split.md``),
+also on an axis of size 1, where its collectives run over one rank.
+An ``fsdp`` split is gathered for the step (gather on use, ZeRO-3).
 """
 
 from __future__ import annotations
@@ -171,23 +172,26 @@ def _path_str(path: tuple) -> str:
                     for k in path)
 
 
-def _mesh_axis(mesh, name):
+def _mesh_axis(mesh, name, unit: bool = False):
     """A rule's axis on the mesh (``tp`` and ``tensor`` interchangeable);
-    None when absent or of size 1."""
+    None when absent or, unless ``unit``, of size 1."""
     if name in ("tp", "tensor"):
         name = tensor_axis(mesh)
     shape = mesh_shape(mesh)
     if name is None or name not in shape:
         return None
-    return name if shape[name] > 1 else None
+    return name if unit or shape[name] > 1 else None
 
 
-def param_sharding_rules(mesh, path: tuple, value, rules=()) -> Sharding:
+def param_sharding_rules(mesh, path: tuple, value, rules=(),
+                         unit: bool = False) -> Sharding:
     """The layout of one parameter (given by its flax path and flax-view
     ``value`` or shape): the first matching rule, then the generic
     defaults (``expert_*`` on dim 0 over ``expert``; the last dim over
     ``tp``; the largest free divisible dim over ``fsdp``; small leaves
-    replicated), as the JAX package's."""
+    replicated), as the JAX package's. ``unit`` keeps a model axis of
+    size 1 where the rules put it (the split a module computes with at
+    one rank, :class:`ShardedParams`)."""
     shape = tuple(getattr(value, "shape", value if isinstance(
         value, tuple) else ()))
     sizes = mesh_shape(mesh)
@@ -204,7 +208,7 @@ def param_sharding_rules(mesh, path: tuple, value, rules=()) -> Sharding:
                 dim = len(shape) - 1 - i
                 if dim < 0 or ax is None:
                     continue
-                ax = _mesh_axis(mesh, ax)
+                ax = _mesh_axis(mesh, ax, unit)
                 if ax is not None and shape[dim] % sizes[ax] == 0:
                     spec[dim] = ax
             break
@@ -215,7 +219,7 @@ def param_sharding_rules(mesh, path: tuple, value, rules=()) -> Sharding:
         tp = tensor_axis(mesh)
         if not matched and tp is not None:
             ways = sizes[tp]
-            if ways > 1 and shape[-1] % ways == 0:
+            if (ways > 1 or unit) and shape[-1] % ways == 0:
                 spec[-1] = tp
         fs = sizes.get("fsdp", 1)
         if fs > 1:
@@ -524,7 +528,7 @@ def state_shardings(state, mesh=None, rules=None, layout=None,
 def state_resident_bytes(state) -> int:
     """Bytes one rank holds of a train state: every parameter and AdamW
     tensor at its local shard (a sharded state's module parameters are
-    empty between steps)."""
+    empty between steps, or share their resident shard's storage)."""
     import torch
 
     seen = set()
@@ -532,9 +536,12 @@ def state_resident_bytes(state) -> int:
 
     def add(t):
         nonlocal total
-        if not isinstance(t, torch.Tensor) or id(t) in seen:
+        if not isinstance(t, torch.Tensor) or not t.numel():
             return
-        seen.add(id(t))
+        key = (t.untyped_storage().data_ptr(), t.storage_offset())
+        if key in seen:
+            return
+        seen.add(key)
         total += int(t.numel()) * t.element_size()
 
     for p in state.model.parameters():
@@ -547,10 +554,11 @@ def state_resident_bytes(state) -> int:
     return total
 
 
-def model_shardings(model, mesh, rules=()) -> list:
+def model_shardings(model, mesh, rules=(), unit: bool = False) -> list:
     """``(parameter, flax path, layout, Sharding of its flax view)`` of
     every parameter of ``model``, in ``model.parameters()`` order (the
-    order its gradients come in)."""
+    order its gradients come in); ``unit`` as in
+    :func:`param_sharding_rules`."""
     from blendjax_torch.weights import flax_params
 
     names = {id(p): (path, layout) for path, p, layout in flax_params(model)}
@@ -559,26 +567,167 @@ def model_shardings(model, mesh, rules=()) -> list:
         path, layout = names[id(p)]
         keys = _leaf_path_keys(".params" + path)[1:]
         out.append((p, path, layout, param_sharding_rules(
-            mesh, keys, _flax_shape(p.shape, layout), rules)))
+            mesh, keys, _flax_shape(p.shape, layout), rules, unit)))
     return out
 
 
+def _kind(axis: str):
+    """The split kind of a model axis a module can compute on in place:
+    ``tp`` (its legacy spelling ``tensor`` too) or ``expert``."""
+    return "tp" if axis in ("tp", "tensor") else (
+        "expert" if axis == "expert" else None)
+
+
+def resident_params(model) -> dict:
+    """``{id(parameter): (module, name, {kind: flax dims})}``: the
+    parameters whose split over a model axis their module can compute with
+    in place, and on which flax dims, from each module's ``SPLIT_PARAMS``
+    (``{kind: {regex of a parameter name relative to the module: flax
+    dims}}``, kinds ``tp`` and ``expert``)."""
+    out: dict = {}
+    for _name, mod in model.named_modules():
+        table = getattr(type(mod), "SPLIT_PARAMS", None)
+        if not table:
+            continue
+        for rel, p in mod.named_parameters():
+            kinds = {kind: dims for kind, names in table.items()
+                     for pat, dims in names.items() if re.fullmatch(pat, rel)}
+            if kinds:
+                out[id(p)] = (mod, rel, kinds)
+    return out
+
+
+def _view_of(shape, layout) -> tuple:
+    """``(view, flax dim -> view dim, torch dim -> its view dims)`` of a
+    torch parameter of ``shape``: the view in which each flax dim is a dim
+    of its own (a ``DenseGeneral`` kernel's (3, H, D) output unflattened),
+    so a split of one flax dim is a narrow of one view dim."""
+    shape = tuple(shape)
+    if layout == "conv":  # flax (H, W, I, O) -> torch (O, I, H, W)
+        return shape, {0: 2, 1: 3, 2: 1, 3: 0}, [(0,), (1,), (2,), (3,)]
+    if layout == "dense":
+        return shape, {0: 1, 1: 0}, [(0,), (1,)]
+    if isinstance(layout, tuple) and layout[0] == "general":
+        out = tuple(layout[1])  # torch (prod(out), C), flax (C, *out)
+        k = len(out)
+        return ((*out, shape[1]), {0: k, **{i + 1: i for i in range(k)}},
+                [tuple(range(k)), (k,)])
+    if isinstance(layout, tuple) and layout[0] == "reshape":
+        view = tuple(layout[1])
+        return (view, {i: i for i in range(len(view))},
+                [tuple(range(len(view)))])
+    return shape, {i: i for i in range(len(shape))}, [(i,) for i in
+                                                      range(len(shape))]
+
+
+class Resident:
+    """A parameter's split over one model axis that its module computes
+    with in place (the ranks of the axis never gather it): this rank's
+    block of flax dim :attr:`flax_dim` (view dim :attr:`dim` of the
+    parameter's unflattened view). The module reads it with
+    :func:`split_of` (by name, so a ``functional_call`` that swaps the
+    parameter tensors keeps it)."""
+
+    def __init__(self, mesh, axis: str, shape, layout, flax_dim: int):
+        self.mesh, self.axis, self.flax_dim = mesh, axis, int(flax_dim)
+        self.shape = tuple(shape)
+        self.view, where, groups = _view_of(shape, layout)
+        self.dim = where[self.flax_dim]
+        self.ways = axes_size(mesh, axis)
+        self.index = axes_index(mesh, axis)
+        self.size = self.view[self.dim] // self.ways
+        self.local_view = tuple(self.size if i == self.dim else n
+                                for i, n in enumerate(self.view))
+        self.local_shape = tuple(int(np.prod([self.local_view[i] for i in g],
+                                             dtype=np.int64)) for g in groups)
+
+    def local(self, t):
+        """This rank's block of the full tensor ``t`` (a copy)."""
+        return (t.reshape(self.view).narrow(self.dim, self.index * self.size,
+                                            self.size)
+                .contiguous().reshape(self.local_shape))
+
+    def full(self, local):
+        """The full tensor from every rank's block (one all-gather)."""
+        from blendjax_torch.parallel.collectives import all_gather
+
+        return all_gather(local.reshape(self.local_view), self.mesh,
+                          self.axis, dim=self.dim,
+                          differentiable=False).reshape(self.shape)
+
+
+def _resident_split(flax_spec, allowed: dict):
+    """``(flax dim, axis)`` of the spec's one axis of a kind ``allowed``
+    (``{kind: flax dims}``) on one of its dims, None when there is none,
+    and the spec without it."""
+    found, rest = None, []
+    for d, entry in enumerate(flax_spec):
+        keep = []
+        for ax in _entry_axes(entry):
+            if found is None and d in allowed.get(_kind(ax), ()):
+                found = (d, ax)
+            else:
+                keep.append(ax)
+        rest.append(tuple(keep) if len(keep) > 1 else
+                    (keep[0] if keep else None))
+    return found, tuple(rest)
+
+
+def splits_state(model, mesh, rules=()) -> bool:
+    """Whether ``model``'s train state on ``mesh`` under ``rules`` is a
+    :class:`ShardedParams`: some parameter is split over more than one
+    rank, or its module computes with it split over a ``tp`` or
+    ``expert`` axis of the mesh, of any size (at size 1 the split runs
+    with its collectives over one rank)."""
+    can = resident_params(model)
+    return any(sh.sharded or (id(p) in can and _resident_split(
+        sh.spec, can[id(p)][2])[0] is not None)
+        for p, _path, _layout, sh in model_shardings(model, mesh, rules,
+                                                     unit=True))
+
+
+def _drop_broken_groups(mesh, can: dict, found: dict) -> None:
+    """A module's ``SPLIT_GROUPS`` (names it computes with split only all
+    together, a Megatron pair) lose their resident splits, to gathered
+    shards, unless every member has one. A module's ``check_split(found)``
+    (``{name: (flax dim, axis, ways)}`` of its candidates) runs first and
+    raises on a split it cannot compute."""
+    by_mod: dict = {}
+    for pid, (mod, rel, _kinds) in can.items():
+        by_mod.setdefault(id(mod), (mod, {}))[1][rel] = pid
+    for mod, names in by_mod.values():
+        mine = {rel: (*found[pid], axes_size(mesh, found[pid][1]))
+                for rel, pid in names.items() if found.get(pid) is not None}
+        check = getattr(mod, "check_split", None)
+        if check is not None:
+            check(mine)
+        for group in getattr(type(mod), "SPLIT_GROUPS", ()):
+            if 0 < sum(n in mine for n in group) < len(group):
+                for n in group:
+                    found[names[n]] = None
+
+
 class ShardedParams:
-    """A train state split over a model axis (``fsdp``/``tp``): the
-    module's parameters are empty between steps; each rank keeps its shard
-    of each parameter, placed on the parameter's own dims from the spec of
-    its flax view (:attr:`specs`), as a plain tensor that an AdamW of its
-    own updates (AdamW is elementwise: the shards need no DTensor).
+    """A train state split over model axes (``fsdp``/``tp``/``expert``):
+    each rank keeps its shard of each parameter and AdamW moment as a plain
+    tensor that an AdamW of its own updates (AdamW is elementwise: the
+    shards need no DTensor). A shard is one of two kinds:
 
-    :meth:`gather` all-gathers the full parameters into the module before a
-    step; :meth:`step` takes this rank's slice of each (already reduced)
-    gradient, updates the shards and empties the module again.
+    - **resident**: a split over ``tp`` or ``expert`` that the parameter's
+      module computes with in place (``SPLIT_PARAMS``; the Megatron split
+      of :class:`~blendjax_torch.models.StreamFormer` and
+      :class:`~blendjax_torch.models.CubeRegressor`, the experts of
+      :class:`~blendjax_torch.models.MoEMLP`): the module's parameter IS
+      this rank's block (:class:`Resident`, :func:`split_of`), never
+      gathered; its gradient is this rank's block's;
+    - **gathered**: an ``fsdp`` split (and a model-axis split of a
+      parameter no module computes with): :meth:`gather` all-gathers it
+      into the module before a step (gather on use), :meth:`step` takes
+      this rank's slice of the reduced gradient.
 
-    Both model axes split the state, not the compute: ``fsdp`` also splits
-    the batch (its ranks train on their own rows), while the ranks of a
-    ``tp`` group train on the same rows with the same gathered parameters.
-    ``tp`` is a state-only layout here, the rules' placements with no
-    column or row split of the matmuls (ROADMAP item 5c)."""
+    :attr:`specs` are the full layouts (each parameter's flax-view spec on
+    its torch dims); :meth:`full_leaves` and :meth:`load_full` give and
+    take full values, so a snapshot reads the same in both packages."""
 
     def __init__(self, model, mesh, rules=(), optimizer_kwargs=None):
         import torch
@@ -589,16 +738,42 @@ class ShardedParams:
         self.shards: list = []   # this rank's shard of each
         self.specs: list = []    # Sharding of each on its torch dims
         self.leaf_specs: dict = {}  # leaf path -> Sharding (flax view)
-        for p, path, layout, flax_sh in model_shardings(model, mesh, rules):
+        self.residents: list = []  # Resident or None, per parameter
+        self.gathered: list = []  # Sharding of the gathered axes, per one
+        self.full_shapes: list = []
+        can = resident_params(model)
+        for mod, _rel, _kinds in can.values():
+            mod._bjx_splits = {}
+        layers = model_shardings(model, mesh, rules)
+        # the layouts with the model axes of size 1 kept: a module computes
+        # with its split over one rank as over several
+        units = [sh.spec for *_rest, sh in model_shardings(model, mesh,
+                                                           rules, unit=True)]
+        found = {id(p): _resident_split(spec, can[id(p)][2])[0]
+                 for (p, *_rest), spec in zip(layers, units) if id(p) in can}
+        _drop_broken_groups(mesh, can, found)
+        for (p, path, layout, flax_sh), unit_spec in zip(layers, units):
             for prefix in (".params", ".opt_state[0].mu",
                            ".opt_state[0].nu"):
                 self.leaf_specs[prefix + path] = flax_sh
-            torch_sh = Sharding(mesh, _torch_spec(flax_sh.spec, p.ndim,
-                                                  layout))
-            shard = torch.nn.Parameter(torch_sh.local(p.detach()).clone())
+            self.specs.append(Sharding(mesh, _torch_spec(
+                flax_sh.spec, p.ndim, layout)))
+            owner = can.get(id(p))
+            allowed = owner[2] if owner and found.get(id(p)) else {}
+            where, rest = _resident_split(unit_spec, allowed)
+            res = None if where is None else Resident(
+                mesh, where[1], p.shape, layout, where[0])
+            full = p.detach()
+            local = full if res is None else res.local(full)
+            gsh = Sharding(mesh, _torch_spec(rest, local.ndim, layout))
+            shard = torch.nn.Parameter(gsh.local(local).clone())
+            if res is not None:
+                owner[0]._bjx_splits[owner[1]] = res
             self.params.append(p)
+            self.full_shapes.append(tuple(p.shape))
             self.shards.append(shard)
-            self.specs.append(torch_sh)
+            self.residents.append(res)
+            self.gathered.append(gsh)
         kw = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
         kw.update(optimizer_kwargs or {})
         kw["foreach"] = False
@@ -607,26 +782,45 @@ class ShardedParams:
         self.optimizer = torch.optim.AdamW(self.shards, **kw)
         self.release()
 
+    def full_shape(self, p) -> tuple:
+        """The full (unsplit) shape of module parameter ``p``."""
+        for q, shape in zip(self.params, self.full_shapes):
+            if q is p:
+                return shape
+        return tuple(p.shape)
+
     def release(self) -> None:
-        """Empty the module's parameters (their shards hold the values)."""
+        """Point each module parameter at its shard: the shard itself when
+        nothing of it is gathered, else an empty tensor until
+        :meth:`gather`."""
         import torch
 
-        for p in self.params:
-            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        for p, shard, gsh in zip(self.params, self.shards, self.gathered):
+            if gsh.sharded:
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+            else:
+                p.data = shard.data
 
     def gather(self) -> None:
-        """All-gather every parameter's full value into the module."""
-        for p, shard, sh in zip(self.params, self.shards, self.specs):
-            p.data = gather_full(shard.detach(), sh)
+        """All-gather every gathered shard into its module parameter (a
+        resident one stays this rank's block)."""
+        for p, shard, gsh in zip(self.params, self.shards, self.gathered):
+            if gsh.sharded:
+                p.data = gather_full(shard.detach(), gsh)
 
     def step(self, grads) -> None:
-        """AdamW on the shards from this rank's slice of each full
-        gradient, then :meth:`release`."""
-        for shard, g, sh in zip(self.shards, grads, self.specs):
-            shard.grad = sh.local(g).contiguous()
+        """AdamW on the shards from this rank's slice of each (already
+        reduced) gradient, then :meth:`release`."""
+        for shard, g, gsh in zip(self.shards, grads, self.gathered):
+            shard.grad = gsh.local(g).contiguous()
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.release()
+
+    def _full(self, local, i):
+        t = gather_full(local, self.gathered[i])
+        res = self.residents[i]
+        return t if res is None else res.full(t)
 
     def full_leaves(self) -> list:
         """``(parameter, full value, full exp_avg, full exp_avg_sq, step)``
@@ -634,17 +828,22 @@ class ShardedParams:
         import torch
 
         out = []
-        for p, shard, sh in zip(self.params, self.shards, self.specs):
+        for i, (p, shard) in enumerate(zip(self.params, self.shards)):
             entry = self.optimizer.state.get(shard, {})
             moments = []
             for name in ("exp_avg", "exp_avg_sq"):
                 t = entry.get(name)
                 local = t if t is not None else torch.zeros_like(shard)
-                moments.append(gather_full(local.detach(), sh))
+                moments.append(self._full(local.detach(), i))
             step = entry.get("step")
-            out.append((p, gather_full(shard.detach(), sh), *moments,
+            out.append((p, self._full(shard.detach(), i), *moments,
                         None if step is None else step))
         return out
+
+    def _local(self, value, i):
+        res = self.residents[i]
+        return self.gathered[i].local(value if res is None
+                                      else res.local(value))
 
     def load_full(self, values: list, count: int) -> None:
         """Write full values ``[(param, exp_avg, exp_avg_sq)]`` (the order
@@ -652,17 +851,24 @@ class ShardedParams:
         import torch
 
         with torch.no_grad():
-            for shard, sh, (value, mu, nu) in zip(self.shards, self.specs,
-                                                   values):
-                shard.copy_(sh.local(value))
+            for i, (shard, (value, mu, nu)) in enumerate(zip(self.shards,
+                                                              values)):
+                shard.copy_(self._local(value, i))
                 entry = self.optimizer.state[shard]
                 if not entry:
                     entry["step"] = torch.zeros((), dtype=torch.float32)
                     entry["exp_avg"] = torch.zeros_like(shard)
                     entry["exp_avg_sq"] = torch.zeros_like(shard)
                 entry["step"].fill_(count)
-                entry["exp_avg"].copy_(sh.local(mu))
-                entry["exp_avg_sq"].copy_(sh.local(nu))
+                entry["exp_avg"].copy_(self._local(mu, i))
+                entry["exp_avg_sq"].copy_(self._local(nu, i))
+
+
+def split_of(module, name: str):
+    """The :class:`Resident` split of ``module``'s parameter ``name`` (a
+    name relative to it, as in its ``SPLIT_PARAMS``); None when this rank
+    holds the parameter whole."""
+    return module.__dict__.get("_bjx_splits", {}).get(name)
 
 
 def gather_full(local, sh: Sharding):
@@ -727,6 +933,7 @@ __all__ = [
     "Layout",
     "PartitionRule",
     "ShardedParams",
+    "Resident",
     "Sharding",
     "StateShardings",
     "batch_sharding",
@@ -735,6 +942,7 @@ __all__ = [
     "leading_shard_count",
     "local_rows",
     "model_shardings",
+    "splits_state",
     "rank_range",
     "mesh_chip_count",
     "param_sharding_rules",
@@ -743,6 +951,7 @@ __all__ = [
     "resolve_rules",
     "ring_sharding",
     "shard_params",
+    "split_of",
     "state_resident_bytes",
     "state_shardings",
     "tensor_axis",

@@ -119,6 +119,37 @@ def _params(model) -> dict:
     return {path: p for path, p, _layout in flax_params(model)}
 
 
+def _full_params(state) -> dict:
+    """The state's parameters whole: a sharded state's resident blocks
+    gathered (a collective: every rank calls it)."""
+    shards = getattr(state, "shards", None)
+    if shards is None:
+        return _params(state.model)
+    from blendjax_torch.weights import flax_params
+
+    full = {id(p): v for p, v, *_moments in shards.full_leaves()}
+    return {path: full[id(p)] for path, p, _l in flax_params(state.model)}
+
+
+def _full_grads(state, grads: dict) -> dict:
+    """``grads`` (by flax path) whole: a resident block's gradient
+    gathered from every rank of its axis."""
+    import torch
+
+    from blendjax_torch.weights import flax_params
+
+    shards = getattr(state, "shards", None)
+    if shards is None:
+        return grads
+    res = {id(p): r for p, r in zip(shards.params, shards.residents)}
+    out = dict(grads)
+    for path, p, _layout in flax_params(state.model):
+        r = res.get(id(p))
+        if r is not None:
+            out[path] = _numpy(r.full(torch.as_tensor(grads[path]).float()))
+    return out
+
+
 def assert_sharded_matches_single_device(
     sharded_model,
     single_model,
@@ -151,7 +182,7 @@ def assert_sharded_matches_single_device(
         shards.gather()
     try:
         assert max_tree_diff(_params(single_model),
-                             _params(state.model)) == 0.0, (
+                             _full_params(state)) == 0.0, (
             "ref/sharded init diverged — models are not identical")
         ref_loss, ref_grads = loss_and_grads(single_model, images, xy)
         sh = batch_sharding(mesh)
@@ -159,6 +190,7 @@ def assert_sharded_matches_single_device(
             state.model, sh.local(torch.as_tensor(images)),
             sh.local(torch.as_tensor(xy)),
             reduce=state_shardings(state, mesh=mesh, rules=rules))
+        sh_grads = _full_grads(state, sh_grads)
     finally:
         if shards is not None:
             shards.release()

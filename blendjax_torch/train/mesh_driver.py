@@ -24,15 +24,19 @@ Layouts: ``data`` (replicated state) captures one graph per plan
 signature, one replay per step call, as on one card; the process group is
 used eagerly (the capture's warm-up steps) before any capture.
 ``data×fsdp``, ``data×tp`` and ``data×expert`` shard the state over the
-model axis (:class:`~blendjax_torch.parallel.ShardedParams`: gather on use,
-each rank updating its shard) and run eagerly: the gather replaces the
+model axis (:class:`~blendjax_torch.parallel.ShardedParams`) and run
+eagerly; ``build(aot=True)`` raises for them instead of running eagerly
+unasked. On ``tp`` and ``expert`` the work splits as the JAX package's
+compiled step splits it (``blendjax_torch/docs/mesh-split.md``): the ranks
+of a ``tp`` group train on the same rows, each with its block of the split
+kernels (its heads of attention, its slice of the MLP, the embedding and
+the head), and sum the row-split outputs over ``tp``; the ranks of an
+``expert`` group route the same tokens and each runs its experts, the
+outputs summed over ``expert``. Those blocks stay on their rank (never
+gathered); their gradients are averaged over the batch axes like every
+other. ``fsdp`` gathers its shards on use: the gather replaces the
 module's parameter storage every step, which a captured graph cannot
-follow, so ``build(aot=True)`` raises for them instead of running eagerly
-unasked. The ``expert`` layout (a mixture-of-experts StreamFormer's
-``expert_*`` weights on dim 0 over ``expert``) is state-only, as ``tp``
-is: every rank computes its rows with the whole expert set gathered; the
-all-to-all of tokens to the experts' ranks that GSPMD inserts on the JAX
-side is ROADMAP item 5c.
+follow.
 """
 
 from __future__ import annotations
@@ -254,7 +258,8 @@ class MeshTrainDriver(TrainDriver):
         signature at first sight (:class:`~blendjax_torch.train.CapturedStep`),
         the supervised step for every bucket-ladder shape of ``aot_batch``
         (:func:`~blendjax_torch.train.build_aot_step`). A state sharded
-        over a model axis (fsdp, tp) runs eagerly and ``aot=True`` raises.
+        over a model axis (fsdp, tp, expert) runs eagerly and ``aot=True``
+        raises.
         """
         from blendjax_torch.parallel.sharding import (
             resolve_layout,
@@ -288,10 +293,11 @@ class MeshTrainDriver(TrainDriver):
         if aot and state.shards is not None:
             raise ValueError(
                 "aot=True: a state sharded over a model axis (fsdp, tp, "
-                "expert) runs eagerly in this port: each step gathers the "
-                "parameters into new storage, which a captured CUDA graph "
-                "cannot follow. Build with aot=False, or use the data layout "
-                "to capture")
+                "expert) runs eagerly in this port (an fsdp step gathers "
+                "its shards into new storage, which a captured CUDA graph "
+                "cannot follow; a capture of a tp or expert state is not "
+                "tried). Build with aot=False, or use the data layout to "
+                "capture")
         axes = [ax for ax in (data_axis, "fsdp", "tp", "tensor", "seq",
                               "expert")
                 if ax in (getattr(mesh, "mesh_dim_names", None) or ())]

@@ -34,7 +34,9 @@ mean over the batch axes per update, and of the loss, so the reported
 loss is the global batch's. A masked (padded) batch weighs each rank's
 loss by its share of the real rows first. A state sharded over a model
 axis (``state.shards``, :class:`~blendjax_torch.parallel.ShardedParams`)
-gathers its parameters before the update and updates its shards after.
+gathers its ``fsdp`` shards before the update (its ``tp`` and ``expert``
+blocks stay in place, computed with by their modules) and updates its
+shards after.
 """
 
 from __future__ import annotations
@@ -69,7 +71,9 @@ def make_train_state(model, optimizer=None, learning_rate: float = 1e-3,
     torch refuses it for CPU parameters, where it stays off.
 
     With ``mesh`` and partition ``rules`` that split some parameter over a
-    model axis (``fsdp``/``tp``), the state is sharded: its parameters and
+    model axis (``fsdp``/``tp``/``expert``; a ``tp`` or ``expert`` axis of
+    size 1 too, when a module computes with the split), the state is
+    sharded: its parameters and
     AdamW moments live as this rank's shards (:class:`~blendjax_torch.parallel.ShardedParams`,
     ``state.shards``) and ``state.optimizer`` updates those. Every rank
     must hold the same initial parameters (one seed)."""
@@ -78,12 +82,11 @@ def make_train_state(model, optimizer=None, learning_rate: float = 1e-3,
     if mesh is not None:
         from blendjax_torch.parallel.sharding import (
             ShardedParams,
-            model_shardings,
+            splits_state,
         )
 
         rules = tuple(rules or ())
-        if any(sh.sharded for *_rest, sh in model_shardings(model, mesh,
-                                                           rules)):
+        if splits_state(model, mesh, rules):
             if optimizer is not None:
                 raise ValueError(
                     "a state sharded over a model axis makes its own AdamW "

@@ -308,13 +308,12 @@ def _from_flax(a: np.ndarray, layout) -> np.ndarray:
 
 
 def _full_shape(state, p) -> tuple:
-    """A parameter's shape; a sharded state's module parameters are empty
-    between steps, so their full shapes come from its shards."""
+    """A parameter's full shape; a sharded state's module parameters are
+    empty between steps or hold their block, so a sharded state's come
+    from its shards' record."""
     shards = getattr(state, "shards", None)
     if shards is not None:
-        for q, shard in zip(shards.params, shards.shards):
-            if q is p:
-                return tuple(shard.shape)
+        return shards.full_shape(p)
     return tuple(p.shape)
 
 

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --startup 5   # only the start-up probe
+    python3 chip_smoke.py --two-rank-phase  # the build and two-rank leg
 
 Phases (any failure exits non-zero):
 
@@ -268,6 +269,35 @@ full-width StreamFormer ``Block`` (flash) as the stage through
 ``torch.func.functional_call``, 4 microbatches of (8, 768, 512) bf16: the
 output and the input gradient must be bit-equal to the block called on
 each microbatch, and each of K4a-c launched once per microbatch inside it.
+
+Phase 5g's two-rank leg (after the NCCL group is destroyed): two
+processes on the one card (``--two-rank RANK DIR``, each
+``torch.cuda.set_device(0)``), one gloo group over the card's tensors
+(``init_group(backend="gloo")``; NCCL refuses two ranks of one device).
+A probe beside them (a pair of processes per collective kind) reads
+which collectives gloo refuses on CUDA tensors: of the port's kinds it
+must refuse the permute alone, the one the port stages through the host.
+The ranks run (a) the full-width StreamFormer on
+``{"data": 1, "tp": 2}`` (2 heads of 128 per rank: K4a-c on each rank's
+heads), fed live by the flagship's 2 producers (rank 0 ingests, records
+and broadcasts each host batch; both decode with K1) for 6 chunk groups,
+(b) the MoE StreamFormer on ``{"data": 1, "expert": 2}`` on 3 groups of
+(a)'s recording, (c) ``CubeRegressor()``'s echo on ``{"data": 2}`` from
+one synthetic scenario producer per rank, the default paired
+augmentation applied to each rank's rows, (d) one ``ring_permute`` of a
+CUDA tensor and its backward (staged twice, both right). This process
+then runs (a) and (b) on one rank from the recording, and (e) the same
+two models split over a ``tp`` and an ``expert`` axis of size 1 on an
+NCCL group of world size 1 (the split's collectives as NCCL calls over
+one rank): each update's loss of (a), (b) and (e) within 1e-4 of the
+one-rank loss (``TWO_RANK["loss_rel"]``), K1 and depth x updates of each
+of K4a-c launched on each rank, each rank's state below a replicated
+rank's, (e)'s sums over its axis in the tally; (c) exact per-scenario
+accounting and the same slot stamps on both ranks, the apply on half
+the rows, and checked draws' rows bit-equal to the one-card draw's. It
+prints per rank the launches, the collectives by kind and axis, the
+gloo stages, the resident bytes and the wall seconds. ``python3
+chip_smoke.py --two-rank-phase`` runs the build and this leg alone.
 
 Phase 5h (after the mesh phase), mixture of experts and remat: the MoE
 leg runs ``StreamFormer(**FORMER, num_experts=4, moe_every=2)`` (MoE in
@@ -3571,6 +3601,676 @@ def mesh_phase(tmp: str, prefix: str, flagship: dict, card: str) -> dict:
         dist.destroy_process_group()
 
 
+# -- phase 5g, two ranks on one card: the split of the work --------------------
+
+# two processes on the one card, a gloo group over its tensors (NCCL
+# refuses two ranks of one device): (a) the full-width StreamFormer on
+# {"data": 1, "tp": 2} fed live by the flagship's 2 producers for
+# ``groups`` chunk groups (recorded), (b) the MoE StreamFormer on
+# {"data": 1, "expert": 2} on the first ``moe_groups`` of that recording,
+# (c) the echo of the flagship model on {"data": 2}, stamped batches from
+# one synthetic scenario producer per rank, ``echo_steps`` draws. The
+# losses of (a) and (b) against a one-rank run of the same recording on
+# the same card, update by update, within ``loss_rel`` of the one-rank
+# loss: bf16 compute, the row-split products summed in another order than
+# the whole product. Readings on one H100 80GB HBM3 at 700.00 W: largest
+# gaps 5.524e-06 to 1.127e-05 (tp, 18-20 updates) and 6.6e-07 to 1.8e-06
+# (expert, 11-12); a copy_to_axis with an identity backward read 2.168e-03
+TWO_RANK = {"groups": 6, "moe_groups": 3, "echo_steps": 48,
+            "echo_capacity": 64, "echo_factor": 4, "echo_batch": 8,
+            "checked_draws": 4, "loss_rel": 1e-4, "deadline_s": 300.0}
+# the collective kinds the port issues; the gloo probe reads which of them
+# gloo refuses on CUDA tensors (those must be the ones the port stages)
+PORT_KINDS = ("all-reduce", "all-gather", "all-to-all", "collective-permute")
+
+
+def _probe_op(kind: str) -> None:
+    """One raw collective of ``kind`` on CUDA tensors over the default
+    group (two ranks, the same call on both)."""
+    import torch
+    import torch.distributed as dist
+
+    peer = 1 - dist.get_rank()
+    x = torch.ones(4, device="cuda")
+    if kind == "all-reduce":
+        dist.all_reduce(x.clone())
+    elif kind == "all-gather":
+        dist.all_gather([torch.empty_like(x) for _ in range(2)], x)
+    elif kind == "all-to-all":
+        dist.all_to_all_single(torch.empty_like(x), x)
+    elif kind == "reduce-scatter":
+        dist.reduce_scatter_tensor(torch.empty(2, device="cuda"), x)
+    else:  # collective-permute: the P2P pair ring_permute issues
+        y = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, peer),
+               dist.P2POp(dist.irecv, y, peer)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    torch.cuda.synchronize()
+
+
+PROBE_KINDS = PORT_KINDS + ("reduce-scatter",)
+
+
+def gloo_probe_child(kind: str, rank: int, wdir: str) -> None:
+    """One rank of the probe of ``kind``: a gloo group of two of its own
+    (so a crash takes down this probe only); writes ``accepted`` or
+    ``refused: <reason>`` to ``wdir``."""
+    import torch
+
+    from blendjax_torch.parallel.mesh import init_group
+
+    torch.cuda.set_device(0)
+    init_group("cuda", store_dir=wdir, backend="gloo", rank=rank,
+               world_size=2)
+    try:
+        _probe_op(kind)
+        verdict = "accepted"
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        verdict = "refused: " + (str(e).strip().splitlines() or [""])[0][:160]
+    with open(os.path.join(wdir, f"rank{rank}.txt"), "w") as f:
+        f.write(verdict)
+
+
+def start_gloo_probe(tmp: str) -> dict:
+    """Start the probe of which raw collectives a gloo group of two ranks
+    takes on CUDA tensors: every kind at once, each in a pair of
+    processes of its own (:func:`gloo_probe_child`); collect the verdicts
+    with :func:`gloo_probe_verdicts`."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    runs = {}
+    for kind in PROBE_KINDS:
+        wdir = tempfile.mkdtemp(dir=tmp)
+        runs[kind] = (wdir, [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--gloo-probe", kind, str(r), wdir], cwd=ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            for r in range(2)])
+    return runs
+
+
+def gloo_probe_verdicts(runs: dict, timeout: float = 120.0) -> dict:
+    """Each probed kind's verdict: ``accepted``, ``refused: <reason>``, or
+    the two ranks' differing verdicts and exit codes (a rank that died
+    writes none)."""
+    deadline = time.monotonic() + timeout
+    out = {}
+    for kind, (wdir, procs) in runs.items():
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        verdicts = []
+        for r in range(2):
+            path = os.path.join(wdir, f"rank{r}.txt")
+            verdicts.append(open(path).read() if os.path.exists(path)
+                            else None)
+        codes = [p.returncode for p in procs]
+        if verdicts[0] == verdicts[1] and verdicts[0] and codes == [0, 0]:
+            out[kind] = verdicts[0]
+        else:
+            out[kind] = f"failed: verdicts {verdicts}, exit codes {codes}"
+    return out
+
+
+def _replicated_bytes(model) -> int:
+    """A replicated rank's train state: parameters and two AdamW moments,
+    f32."""
+    return 3 * 4 * sum(int(p.numel()) for p in model.parameters())
+
+
+def _split_run(label: str, model, mesh, batches) -> dict:
+    """``MeshTrainDriver.build(model, mesh, fused=True)`` over ``batches``
+    (eager: a state sharded over a model axis is not captured): the
+    per-update losses, this rank's launches, the collectives by kind and
+    axis, the gloo stages, the resident bytes beside a replicated rank's
+    and the wall seconds."""
+    import torch
+
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.parallel import state_resident_bytes
+    from blendjax_torch.parallel.collectives import (
+        collective_counts,
+        reset_collective_counts,
+        staged_counts,
+        tally_diff,
+    )
+    from blendjax_torch.train import MeshTrainDriver
+
+    replicated = _replicated_bytes(model)
+    drv = MeshTrainDriver.build(model, mesh, fused=True, loss_fn=former_loss,
+                                inflight=2, sync_every=4)
+    kept = _tap_losses(drv)
+    reset_launch_counts()
+    reset_collective_counts()
+    before = collective_counts()
+    t0 = time.perf_counter()
+    groups = 0
+    for batch in batches:
+        drv.submit(batch)
+        groups += 1
+    drv.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"label": label, "groups": groups,
+            "losses": _update_losses(kept),
+            "launches": launch_counts(), "wall_s": wall,
+            "tally": tally_diff(collective_counts(), before),
+            "staged": staged_counts(),
+            "resident": state_resident_bytes(drv.state),
+            "replicated": replicated}
+
+
+def _tap_losses(drv) -> list:
+    """Keep the loss tensor of every step call ``drv`` makes (read after
+    the run); returns the list they go to."""
+    kept, inner = [], drv.step
+
+    def step(state, batch):
+        state, m = inner(state, batch)
+        kept.append(m["loss"])
+        return state, m
+
+    drv.step = step
+    return kept
+
+
+def _update_losses(kept) -> list:
+    """Every update's loss of the kept K-vectors, in order."""
+    return [x for v in kept for x in v.float().reshape(-1).tolist()]
+
+
+def _first(pipe, n: int):
+    """The first ``n`` batches of ``pipe``, then stop it."""
+    try:
+        for i, batch in enumerate(pipe):
+            yield batch
+            if i + 1 >= n:
+                break
+    finally:
+        pipe.stop()
+
+
+def two_rank_tp(rank: int, wdir: str, prefix: str) -> dict:
+    """Sub-leg (a): the StreamFormer on {"data": 1, "tp": 2}, live; rank 0
+    (the tp group's leader) starts the producers, records what it
+    receives and broadcasts each host batch to rank 1."""
+    import torch.distributed as dist
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import create_mesh
+
+    mesh = create_mesh({"data": 1, "tp": 2}, devices="cuda")
+    model = StreamFormer(**FORMER, attn_backend="flash",
+                         image_shape=SHAPE).init_params(0)
+    procs, box, logs = [], [None], []
+    if rank == 0:
+        procs, box[0], logs = start_producers(wdir, FLAGSHIP["tile"],
+                                              FLAGSHIP["capacity"])
+    dist.broadcast_object_list(box, src=0)
+    try:
+        pipe = StreamDataPipeline(
+            box[0], batch_size=BATCH, chunk=CHUNK, emit_packed=True,
+            mesh=mesh, timeoutms=60_000,
+            record_path_prefix=prefix)
+        out = _split_run("tp", model, mesh,
+                         _first(pipe, TWO_RANK["groups"]))
+        out["messages"] = pipe.messages
+    finally:
+        stop_producers(procs)
+        if logs:
+            reap_segments(logs)
+    return out
+
+
+def two_rank_moe(prefix: str) -> dict:
+    """Sub-leg (b): the MoE StreamFormer on {"data": 1, "expert": 2} over
+    the first chunk groups of (a)'s recording, which both ranks read."""
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import create_mesh
+
+    mesh = create_mesh({"data": 1, "expert": 2}, devices="cuda")
+    model = StreamFormer(**MOE_FORMER, attn_backend="flash",
+                         image_shape=SHAPE).init_params(0)
+    pipe = StreamDataPipeline.from_recording(
+        prefix, batch_size=BATCH, emit_packed=True, chunk=CHUNK, mesh=mesh)
+    return _split_run("moe", model, mesh,
+                      _first(pipe, TWO_RANK["moe_groups"]))
+
+
+def two_rank_echo(rank: int) -> dict:
+    """Sub-leg (c): the flagship model's echo on {"data": 2}: each rank's
+    synthetic scenario producer feeds its rows, the ring is sharded over
+    the two ranks, the default paired augmentation applies to each rank's
+    rows alone. Returns the accounting, the slots' stamps, the rows each
+    apply ran on and, for ``checked_draws`` draws after the run, whether
+    this rank's rows equal its rows of the one-card draw of the same
+    counter (the whole draw gathered and augmented, then cut)."""
+    import numpy as np
+    import torch
+
+    import blendjax_torch.data.echo as echo_mod
+    from blendjax_torch.data import EchoingPipeline, StreamDataPipeline
+    from blendjax_torch.data.ring import ring_gather
+    from blendjax_torch.fleet import synthetic_fleet
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.ops.augment import fold_seed
+    from blendjax_torch.parallel import create_mesh
+    from blendjax_torch.parallel.collectives import (
+        collective_counts,
+        reset_collective_counts,
+        staged_counts,
+        tally_diff,
+    )
+    from blendjax_torch.parallel.sharding import local_rows
+    from blendjax_torch.scenario import (
+        ScenarioAccounting,
+        ScenarioService,
+        ScenarioSpace,
+    )
+    from blendjax_torch.train import MeshTrainDriver
+
+    cfg = SCENARIO
+    mesh = create_mesh({"data": 2}, devices="cuda")
+    led = ScenarioAccounting()
+    echo_mod.scenario_accounting = led
+    space = ScenarioSpace.parse(cfg["spec"])
+    svc = ScenarioService(space)
+    drv = MeshTrainDriver.build(CubeRegressor(), mesh, rng=0, inflight=2,
+                                sync_every=4)
+    kept = _tap_losses(drv)
+    applied = []
+    reset_collective_counts()
+    before = collective_counts()
+    t0 = time.perf_counter()
+    with synthetic_fleet(1, shape=cfg["shape"], batch=cfg["batch"],
+                         rate=cfg["rate"], scenario=True, seed=rank,
+                         bind_grace_s=0.5) as launcher:
+        svc.attach(0, launcher.addresses["CTRL"][0])
+        if not svc.wait_acked(timeout=15):
+            fail(f"two-rank echo leg, rank {rank}: the producer never "
+                 "acknowledged the scenario space")
+        pipe = StreamDataPipeline(launcher.addresses["DATA"],
+                                  batch_size=TWO_RANK["echo_batch"],
+                                  mesh=mesh, timeoutms=30_000)
+        echo = EchoingPipeline(pipe, capacity=TWO_RANK["echo_capacity"],
+                               max_echo_factor=TWO_RANK["echo_factor"],
+                               points_key="xy", mesh=mesh, rng=5)
+        res = echo.reservoir
+        aug = res.augment
+        inner = aug._apply
+
+        def spy(gens, batch, rows=None):
+            applied.append(int(batch["image"].shape[0]))
+            return inner(gens, batch, rows)
+
+        aug._apply = spy
+        with echo:
+            for batch in echo:
+                drv.submit(batch)
+                if echo.steps >= TWO_RANK["echo_steps"]:
+                    break
+        drv.finish()
+        run_applied = list(applied)  # the run's applies, not the check's
+        # the rows of a few draws against the one-card draw of the counter
+        equal = []
+        rng = np.random.default_rng(100)  # the same draws on both ranks
+        for i in range(TWO_RANK["checked_draws"]):
+            idx = rng.integers(0, res.size, TWO_RANK["echo_batch"])
+            counter = 10_000 + i
+            got = res._draw_body(res._buffers, idx, counter)
+            whole = aug(fold_seed(res._seed, counter), ring_gather(
+                res._buffers, idx, sharding=res.sharding,
+                capacity=res.capacity))
+            equal.append(all(torch.equal(got[k], local_rows(whole[k],
+                                                             res.sharding))
+                             for k in ("image", "xy")))
+    torch.cuda.synchronize()
+    return {"steps": echo.steps, "fresh": echo.fresh, "echoed": echo.echoed,
+            "inserted": echo.inserted, "totals": led.totals(),
+            "slots": list(echo._slot_scen), "applied": run_applied,
+            "equal": equal, "losses_finite": bool(np.isfinite(
+                _update_losses(kept)).all()),
+            "tally": tally_diff(collective_counts(), before),
+            "staged": staged_counts(), "wall_s": time.perf_counter() - t0,
+            "row_local": aug.row_local}
+
+
+def two_rank_permute(rank: int) -> dict:
+    """Sub-leg (d): one ``ring_permute`` of a CUDA tensor over the two
+    ranks and its backward. gloo refuses the point-to-point pair on CUDA
+    tensors, so both run on a host copy (two stages); the forward must
+    bring the other rank's tensor and the backward send each gradient
+    back to its sender."""
+    import torch
+
+    from blendjax_torch.parallel import create_mesh
+    from blendjax_torch.parallel.collectives import (
+        reset_collective_counts,
+        ring_permute,
+        staged_counts,
+    )
+
+    mesh = create_mesh({"data": 2}, devices="cuda")
+    reset_collective_counts()
+    x = (torch.arange(4, dtype=torch.float32, device="cuda")
+         + 10 * rank).requires_grad_()
+    y = ring_permute(x, mesh, "data")
+    (y * (rank + 1)).sum().backward()
+    other = 1 - rank
+    return {"forward": torch.equal(y.detach().cpu(),
+                                   torch.arange(4.0) + 10 * other),
+            "backward": torch.equal(x.grad.cpu(),
+                                    torch.full((4,), float(other + 1))),
+            "on_card": y.is_cuda and x.grad.is_cuda,
+            "staged": staged_counts()}
+
+
+def two_rank_child(rank: int, wdir: str) -> None:
+    """One rank of the two-rank leg: the gloo group of both ranks on the
+    card (``init_group(backend="gloo")``) and sub-legs (a)-(d);
+    its results pickled to ``wdir``. A failure writes its traceback there
+    and exits non-zero."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from blendjax_torch.parallel.mesh import init_group
+
+    out: dict = {}
+    try:
+        torch.cuda.set_device(0)
+        init_group("cuda", store_dir=wdir, backend="gloo", rank=rank,
+                   world_size=2)
+        prefix = os.path.join(wdir, "tp-rec")
+        for name, fn in (("tp", lambda: two_rank_tp(rank, wdir, prefix)),
+                         ("moe", lambda: two_rank_moe(prefix)),
+                         ("echo", lambda: two_rank_echo(rank)),
+                         ("permute", lambda: two_rank_permute(rank))):
+            out[name] = fn()
+            dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(wdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    sys.exit(1 if "error" in out else 0)
+
+
+def two_rank_alone() -> None:
+    """``python3 chip_smoke.py --two-rank-phase``: the build and the
+    two-rank leg alone (a quick proof of the split on the card)."""
+    import torch
+
+    from blendjax_torch.kernels.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    card = f"{torch.cuda.get_device_name(0)}, power limit " \
+        f"{smi.split(',')[-1].strip()}"
+    t0 = time.perf_counter()
+    build()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        two_rank_phase(tmp, card)
+        log(f"two-rank leg in {time.perf_counter() - t0:.1f} s")
+
+
+def one_rank_losses(cfg: dict, prefix: str, groups: int) -> list:
+    """A one-rank run of the recording's first ``groups`` chunk groups on
+    this card: ``make_fused_tile_step`` eager, from the same seed."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.train import (
+        TrainDriver,
+        make_fused_tile_step,
+        make_train_state,
+    )
+
+    state = make_train_state(StreamFormer(**cfg, attn_backend="flash",
+                                          image_shape=SHAPE).init_params(0))
+    drv = TrainDriver(make_fused_tile_step(former_loss), state, inflight=2,
+                      sync_every=4)
+    kept = _tap_losses(drv)
+    pipe = StreamDataPipeline.from_recording(prefix, batch_size=BATCH,
+                                             emit_packed=True, chunk=CHUNK)
+    for batch in _first(pipe, groups):
+        drv.submit(batch)
+    drv.finish()
+    torch.cuda.synchronize()
+    return _update_losses(kept)
+
+
+def _loss_gap(got: list, want: list) -> float:
+    if len(got) != len(want) or not want:
+        return math.inf
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+
+
+def nccl_unit_split(tmp: str, prefix: str) -> dict:
+    """Sub-leg (e), in this process after the ranks: an NCCL group of
+    world size 1 on the card, (a)'s StreamFormer on ``{"data": 1, "tp":
+    1}`` and (b)'s MoE StreamFormer on ``{"data": 1, "expert": 1}`` over
+    the same recorded groups: the split at one rank, each of its
+    collectives an NCCL call over one rank. Returns each run's
+    :func:`_split_run` and the group's backend."""
+    import torch.distributed as dist
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import create_mesh
+    from blendjax_torch.parallel.mesh import init_group
+
+    init_group("cuda", store_dir=tempfile.mkdtemp(dir=tmp))
+    try:
+        out = {"backend": str(dist.get_backend())}
+        for leg, cfg, axes, groups in (
+                ("tp", FORMER, {"data": 1, "tp": 1}, TWO_RANK["groups"]),
+                ("moe", MOE_FORMER, {"data": 1, "expert": 1},
+                 TWO_RANK["moe_groups"])):
+            mesh = create_mesh(axes, devices="cuda")
+            model = StreamFormer(**cfg, attn_backend="flash",
+                                 image_shape=SHAPE).init_params(0)
+            pipe = StreamDataPipeline.from_recording(
+                prefix, batch_size=BATCH, emit_packed=True, chunk=CHUNK,
+                mesh=mesh)
+            out[leg] = _split_run(leg, model, mesh, _first(pipe, groups))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def two_rank_phase(tmp: str, card: str) -> dict:
+    """Phase 5g's two-rank leg: two processes on the one card (each its
+    own rank, ``torch.cuda.set_device(0)``), a gloo group over the card's
+    tensors, with the gloo probe beside them. Each rank runs sub-legs (a)
+    tp, (b) expert, (c) echo (:data:`TWO_RANK`) and (d) one permute; this
+    process then runs the one-rank references of (a) and (b) on the
+    recording and (e) :func:`nccl_unit_split`, and fails unless every
+    sub-leg holds its bar: losses within ``loss_rel``, K1 and each of K4a-c
+    launched on each rank (K4a-c depth x updates times), no split kernel
+    gathered (each rank's state below a replicated rank's), gloo refusing
+    of the port's kinds only the permute on CUDA tensors, which (d) alone
+    stages, forward and backward right; in (c) exact per-scenario
+    accounting on both ranks, the same slot stamps, the apply on each
+    rank's rows alone and the checked draws' rows equal to the one-card
+    draw's; in (e) the sums over the axis of one rank in the tally."""
+    import pickle
+
+    t0 = time.perf_counter()
+    probing = start_gloo_probe(tmp)  # beside the ranks
+    wdir = tempfile.mkdtemp(dir=tmp)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    logs = [open(os.path.join(wdir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--two-rank",
+         str(r), wdir], cwd=ROOT, env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + TWO_RANK["deadline_s"]
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    alive = [p for p in procs if p.poll() is None]
+    for p in alive:
+        p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    results = []
+    for r in range(2):
+        path = os.path.join(wdir, f"rank{r}.pkl")
+        res = None
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                res = pickle.load(f)
+        results.append(res)
+    bad = [r for r, res in enumerate(results)
+           if alive or res is None or "error" in res]
+    if bad:
+        for _wdir, pair in probing.values():
+            for p in pair:
+                p.kill()
+                p.wait()
+        for r in range(2):
+            with open(os.path.join(wdir, f"rank{r}.log")) as f:
+                print(f"-- rank {r} (exit {procs[r].returncode}):\n"
+                      + f.read()[-6000:], file=sys.stderr)
+        res = results[bad[0]]
+        fail(f"two-rank leg: rank {bad[0]} "
+             + ("did not finish in time" if alive else "failed")
+             + (f": {res['error']}" if res and "error" in res else ""))
+    ranks_s = time.perf_counter() - t0
+    probe = gloo_probe_verdicts(probing)
+    refused = {k for k, v in probe.items() if v != "accepted"}
+    # the port stages the permute alone: gloo must take its other kinds
+    # on CUDA tensors, and only (d)'s permute, forward and backward, ran
+    # on a host copy
+    if refused & set(PORT_KINDS) != {"collective-permute"}:
+        fail(f"two-rank leg: the port stages only collective-permute on a "
+             f"gloo group, but the probe reads {probe}")
+    for r, res in enumerate(results):
+        perm = res["permute"]
+        staged = {leg: res[leg]["staged"] for leg in ("tp", "moe", "echo")
+                  if res[leg]["staged"]}
+        if (staged or perm["staged"] != {"collective-permute": 2}
+                or not (perm["forward"] and perm["backward"]
+                        and perm["on_card"])):
+            fail(f"two-rank permute, rank {r}: {perm}; stages in the other "
+                 f"sub-legs {staged}")
+    t1 = time.perf_counter()
+    prefix = os.path.join(wdir, "tp-rec")
+    refs = {"tp": one_rank_losses(FORMER, prefix, TWO_RANK["groups"]),
+            "moe": one_rank_losses(MOE_FORMER, prefix, TWO_RANK["moe_groups"])}
+    refs_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    unit = nccl_unit_split(tmp, prefix)
+    unit_s = time.perf_counter() - t1
+    out = {"probe": probe, "ranks": results, "wall_s": ranks_s,
+           "refs_s": refs_s, "unit": unit, "unit_s": unit_s, "launches": {}}
+    runs = list(enumerate(results)) + [("nccl", unit)]
+    for leg, cfg in (("tp", FORMER), ("moe", MOE_FORMER)):
+        for r, res in runs:
+            got = res[leg]
+            gap = _loss_gap(got["losses"], refs[leg])
+            updates = len(got["losses"])
+            counts = got["launches"]
+            if not math.isfinite(gap) or gap > TWO_RANK["loss_rel"]:
+                fail(f"two-rank {leg} leg, rank {r}: losses {got['losses']} "
+                     f"against the one-rank run's {refs[leg]} (largest rel "
+                     f"gap {gap:.3e}, bar {TWO_RANK['loss_rel']})")
+            if counts["decode_spatial"] <= 0:
+                fail(f"two-rank {leg} leg, rank {r}: K1 never launched")
+            for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                         "flash_attention_bwd_dq"):
+                if counts[name] != cfg["depth"] * updates:
+                    fail(f"two-rank {leg} leg, rank {r}: {name} launched "
+                         f"{counts[name]} times, not depth x updates = "
+                         f"{cfg['depth'] * updates}")
+            axis = "tp" if leg == "tp" else "expert"
+            if r == "nccl":
+                if (unit["backend"] != "nccl" or got["staged"]
+                        or not got["tally"]["per_axis"].get(axis)):
+                    fail(f"two-rank {leg} leg at one rank: backend "
+                         f"{unit['backend']}, stages {got['staged']}, "
+                         f"collectives by axis {got['tally']['per_axis']} "
+                         f"(none over {axis})")
+            elif got["resident"] >= got["replicated"]:
+                fail(f"two-rank {leg} leg, rank {r}: {got['resident']} "
+                     f"resident bytes, not below a replicated rank's "
+                     f"{got['replicated']}")
+            for name, n in counts.items():
+                out["launches"][name] = out["launches"].get(name, 0) + n
+            where = ("one rank, NCCL" if r == "nccl" else f"rank {r}")
+            log(f"two-rank {leg} leg on {card}, {where}: {got['groups']} "
+                f"chunk groups, {updates} updates in {got['wall_s']:.2f} s; "
+                f"losses against the one-rank run's: largest rel gap "
+                f"{gap:.3e} (bar {TWO_RANK['loss_rel']}); launches "
+                f"{ {k: v for k, v in counts.items() if v} }; collectives "
+                f"{got['tally']['per_kind']} by axis "
+                f"{got['tally']['per_axis']}; gloo host stages "
+                f"{got['staged']}; resident {got['resident']} bytes against "
+                f"{got['replicated']} replicated")
+    echoes = [r["echo"] for r in results]
+    batch = TWO_RANK["echo_batch"]
+    for r, e in enumerate(echoes):
+        drawn = sum(f + x for f, x in e["totals"].values())
+        problems = []
+        if drawn != e["steps"] * batch or e["fresh"] + e["echoed"] != drawn:
+            problems.append(f"accounting {e['totals']} for {e['steps']} "
+                            f"steps of {batch}")
+        if sum(f for f, _ in e["totals"].values()) != e["fresh"]:
+            problems.append("per-scenario fresh != fresh")
+        if e["totals"] != echoes[0]["totals"] or e["slots"] != echoes[0]["slots"]:
+            problems.append("totals or slot stamps differ between the ranks")
+        if not all(n == batch // 2 for n in e["applied"]) or not e["applied"]:
+            problems.append(f"applied to rows {sorted(set(e['applied']))}")
+        if not (e["equal"] and all(e["equal"])):
+            problems.append(f"rows against the one-card draw {e['equal']}")
+        if not e["losses_finite"] or not e["row_local"]:
+            problems.append("losses not finite or augmentation not row-local")
+        if len(e["totals"]) < 2:
+            problems.append(f"scenarios seen {sorted(e['totals'])}")
+        if problems:
+            fail(f"two-rank echo leg, rank {r}: " + "; ".join(problems))
+        log(f"two-rank echo leg on {card}, rank {r}: {e['steps']} draws of "
+            f"{batch} rows in {e['wall_s']:.2f} s, fresh {e['fresh']} + "
+            f"echoed {e['echoed']}, per scenario {e['totals']} (both ranks "
+            f"alike, slot stamps alike); the apply ran on "
+            f"{sorted(set(e['applied']))} rows per draw; "
+            f"{len(e['equal'])} checked draws bit-equal to the one-card "
+            f"draw's rows; collectives {e['tally']['per_kind']}; gloo host "
+            f"stages {e['staged']}")
+    log(f"two-rank leg on {card}: gloo probe on CUDA tensors {probe}; "
+        f"the port stages collective-permute alone through the host: "
+        f"(d)'s permute on each rank, forward and backward, right; ranks "
+        f"{ranks_s:.1f} s, one-rank references {refs_s:.1f} s, the split at "
+        f"one rank over NCCL {unit_s:.1f} s; two ranks "
+        "share one card and gloo crosses the host, so no figure here is a "
+        "scaling figure")
+    return out
+
+
 # -- phase 5h: mixture of experts, remat and the pipeline ----------------------
 
 
@@ -5316,6 +6016,10 @@ def main() -> None:
         t0 = time.perf_counter()
         mesh = mesh_phase(tmp, recording, legs["flagship"], card)
         log(f"mesh phase in {time.perf_counter() - t0:.1f} s")
+        # phase 5g's two-rank leg: two processes on the card, gloo
+        t0 = time.perf_counter()
+        two_rank = two_rank_phase(tmp, card)
+        log(f"two-rank leg in {time.perf_counter() - t0:.1f} s")
         # phase 5h: mixture of experts and remat (the pipeline leg ran in
         # the mesh phase, on its NCCL group)
         t0 = time.perf_counter()
@@ -5475,13 +6179,16 @@ def main() -> None:
                          + replay["launches"]["decode_spatial"]
                          + launched["launches"]["decode_spatial"]
                          + mesh["flagship"]["launches"]["decode_spatial"]
+                         + two_rank["launches"].get(name, 0)
                          + moe["launches"][name]
                          + examples["launches"][name])
         elif name.startswith("flash_attention"):
-            # the Ulysses leg, the MoE and remat legs, the pipeline stage
+            # the Ulysses leg, the two-rank leg's ranks, the MoE and
+            # remat legs, the pipeline stage
             launches += (mesh["sp"]["ulysses"]["launches"][name]
                          + moe["launches"][name] + remat["launches"][name]
                          + mesh["pipeline"]["launches"][name]
+                         + two_rank["launches"].get(name, 0)
                          + examples["launches"][name])
         rows.append({
             "name": name, "route": meta["route"], "source": meta["source"],
@@ -5508,5 +6215,11 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--startup"]:
         startup_probe(int(sys.argv[2]) if len(sys.argv) > 2 else 5)
+    elif sys.argv[1:2] == ["--two-rank"]:
+        two_rank_child(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--gloo-probe"]:
+        gloo_probe_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--two-rank-phase"]:
+        two_rank_alone()
     else:
         main()

@@ -121,7 +121,7 @@ def _cases(world, snap_dir):
                           "layout": "data2xtp2"}),
             ("snapshot", {"params_np": p, "axes": {"data": 2, "fsdp": 2},
                           "layout": "data2xfsdp2", "path": snap_dir}),
-            ("live_refused", {"axes": {"data": 2, "tp": 2}}),
+            ("live:tp", {"params_np": p, "axes": {"data": 2, "tp": 2}}),
         ]
     return cases
 
@@ -229,9 +229,37 @@ def test_live_ranks_end_together_when_one_stream_ends(ranks, world):
                                    atol=F32_EXACT_ATOL)
 
 
-def test_live_producers_refuse_a_model_axis_outside_the_batch(ranks):
-    for msg in _result(ranks, 4, "live_refused"):
-        assert msg is not None and "cover the mesh" in msg
+def test_live_producers_feed_a_tp_group_its_leaders_rows(ranks):
+    """Live producers on data2 x tp2: each data group's first rank ingests
+    from its producer and broadcasts every host batch over the tp group,
+    so both ranks of a tp group train on the same rows, every row of the
+    recorded stream appears once across the data groups, and no rank but
+    the leaders took a message off the producers."""
+    per = _result(ranks, 4, "live:tp")
+    by_group: dict = {}
+    for got in per:
+        assert got["rank_batch"] == W.B // 2
+        assert got["leads"] == [W.B // 2] * 10
+        assert got["messages"] == (10 if got["leader"] else 0)
+        by_group.setdefault(got["group"], []).append(got["xy"])
+    assert sorted(by_group) == [0, 1]
+    for xys in by_group.values():
+        assert len(xys) == 2
+        for a, b in zip(*xys):
+            np.testing.assert_array_equal(a, b)
+    want = np.concatenate([m["xy"] for m in W.messages(10)])
+    got = np.concatenate([np.concatenate([by_group[g][0][i] for g in (0, 1)])
+                          for i in range(10)])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_live_tp_group_trains_the_jax_replay_losses(ranks):
+    """The same live run's losses against the JAX package's replay of the
+    recorded stream (its 1-device mesh), within the cross-layout bar."""
+    want = _jax_losses("data")
+    for got in _result(ranks, 4, "live:tp"):
+        np.testing.assert_allclose(got["losses"], want, rtol=0,
+                                   atol=CROSS_LAYOUT_ATOL)
 
 
 # -- the fsdp and tp layouts ----------------------------------------------------------
@@ -239,9 +267,13 @@ def test_live_producers_refuse_a_model_axis_outside_the_batch(ranks):
 
 @pytest.mark.parametrize("layout,axis", [("fsdp", "fsdp"), ("tp", "tp")])
 def test_model_axis_layouts_train_the_same_losses(ranks, layout, axis):
-    """data2×fsdp2 and data2×tp2: the state sharded over the model axis
-    (gather on use), the losses of the replicated run within the
-    cross-layout bar, and less state resident per rank than replicated."""
+    """data2×fsdp2 and data2×tp2: the state sharded over the model axis,
+    the losses of the replicated run within the cross-layout bar, and less
+    state resident per rank than replicated. fsdp gathers its shards on
+    use; tp computes with its blocks in place (the convolutions make this
+    rank's channels, all-gathered into the next one; the hidden Dense is
+    column-split and the head row-split, summed over tp), gathering no
+    parameter (``blendjax_torch/docs/mesh-split.md``)."""
     want = _jax_losses("data")
     rep = _result(ranks, 4, "drive:data")[0]["resident"]
     for per in _result(ranks, 4, f"drive:{layout}"):
@@ -256,6 +288,12 @@ def test_model_axis_layouts_train_the_same_losses(ranks, layout, axis):
             assert per["resident"] < 0.6 * rep
         kinds = per["tally"]["per_kind"]
         assert kinds["all-gather"] > 0 and kinds["all-reduce"] > 0
+        if layout == "tp":
+            # the activations cross tp, never a kernel
+            assert per["gathers"] == 0
+            assert per["tally"]["per_axis"]["tp"] > 0
+        else:
+            assert per["gathers"] > 0
 
 
 # -- the sharded reservoir and echo ----------------------------------------------------

@@ -116,6 +116,8 @@ def _jax_expert_losses(axes: tuple = (("data", 2), ("expert", 2)),
     return np.asarray(drv.losses), specs
 
 
+# an expert axis of size 1: the split runs, over one rank
+UNIT = (("data", 2), ("expert", 1))
 # the overflow cases: (world, case, mesh axes)
 OVERFLOW = [
     (2, "expert:data2overflow", (("data", 2),)),
@@ -152,6 +154,8 @@ def _cases(world):
             ("pipeline:degenerate", {"axes": {"data": 2}, "n_stages": 3}),
             ("pipeline_mismatch", {"axes": {"pipe": 2}, "n_stages": 4}),
             ("pipeline_blocks", {"axes": {"pipe": 2}}),
+            ("expert:unit", {"params_np": _former_params(),
+                             "axes": {"data": 2, "expert": 1}}),
         ] + overflow
     return [
         ("pipeline:pipe4", {"axes": {"pipe": 4}, "n_stages": 4}),
@@ -184,6 +188,7 @@ def ranks(tmp_path_factory):
     _jax_pipeline((("pipe", 4),), 4)
     _jax_pipeline((("pipe", 2), ("data", 2)), 2)
     _jax_expert_losses()
+    _jax_expert_losses(UNIT)
     for _w, _case, axes in OVERFLOW:
         _jax_expert_losses(axes, overflow=True)
     _jax_first_aux(True)
@@ -302,6 +307,46 @@ def test_expert_layout_trains_the_jax_data_expert_losses(ranks):
             shape[0] == 2 for shape in per["expert_local"])
         assert per["layout"] == "data×expert"
         assert per["refused"] is not None and "expert" in per["refused"]
+
+
+def test_expert_ranks_compute_their_experts_and_gather_none(ranks):
+    """data2 x expert2: every dispatch einsum of a step sees this rank's
+    2 of the 4 experts, no expert weight is gathered during the steps, and
+    the first step call's collectives are the routing counts' all-gather
+    over data (one per MoE block) and all-reduces: over expert the
+    combine's output and the tokens' and gates' gradients, over data the
+    gradient mean (``blendjax_torch/docs/mesh-split.md``)."""
+    e, c = W.FORMER_MOE["num_experts"], W.FORMER_MOE["dim"]
+    tokens = 8 // 2 * (32 // W.FORMER_MOE["patch"]) ** 2  # a rank's rows
+    for per in _result(ranks, 4, "expert"):
+        assert per["einsum_experts"] == [e // 2]
+        assert per["gathers"] == 0
+        kinds, axes = per["tally"]["per_kind"], per["tally"]["per_axis"]
+        # one MoE block: the (2, 2E) f32 counts of the 2 data ranks
+        assert kinds["all-gather"] == 2 * 2 * e * 4
+        assert kinds["all-to-all"] == 0
+        # y forward; the tokens' and the gates' gradients backward
+        assert axes["expert"] == 2 * tokens * c * 4 + tokens * 4
+
+
+def test_expert_split_runs_over_an_axis_of_one_rank(ranks):
+    """data2 x expert1: the state is split (``aot=True`` refused), each
+    rank holds and computes all 4 experts, none is gathered, and the sums
+    over ``expert`` run over one rank (the bytes of data2 x expert2's);
+    the losses are the JAX package's on the same mesh."""
+    want, _specs = _jax_expert_losses(UNIT)
+    e, c = W.FORMER_MOE["num_experts"], W.FORMER_MOE["dim"]
+    tokens = 8 // 2 * (32 // W.FORMER_MOE["patch"]) ** 2  # a rank's rows
+    for per in _result(ranks, 2, "expert:unit"):
+        np.testing.assert_allclose(per["losses"], want, rtol=0,
+                                   atol=CROSS_LAYOUT_ATOL)
+        assert per["refused"] is not None and "expert" in per["refused"]
+        assert per["expert_local"] and all(
+            shape[0] == e for shape in per["expert_local"])
+        assert per["einsum_experts"] == [e]
+        assert per["gathers"] == 0
+        axes = per["tally"]["per_axis"]
+        assert axes["expert"] == 2 * tokens * c * 4 + tokens * 4
 
 
 @pytest.mark.parametrize("world,case,axes", OVERFLOW,

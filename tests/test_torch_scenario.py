@@ -341,18 +341,6 @@ def test_echo_unstamped_batches_clear_the_slot_sidecar(monkeypatch):
     assert rows[-1] == [None] * 4  # drawn after the overwrite
 
 
-def test_echo_on_a_sharded_ring_refuses_stamped_batches():
-    """A rank of a ring sharded over a mesh holds only its rows' stamps,
-    so a stamped batch raises instead of going unaccounted."""
-    from blendjax_torch.data.echo import EchoingPipeline
-
-    pipe = EchoingPipeline([], augment=None, batch_size=4, capacity=8,
-                           rng=0, device="cpu")
-    pipe.reservoir.ways = 2  # stands in for a 2-way data axis
-    with pytest.raises(NotImplementedError, match="sharded"):
-        pipe._insert_fresh(_stamped_batch("a", 1, n=4))
-
-
 def test_echo_state_dict_carries_the_sidecar():
     from blendjax_torch.data.echo import EchoingPipeline
 

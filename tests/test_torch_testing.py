@@ -192,7 +192,7 @@ def test_max_tree_diff_and_normalized_spec():
 
 
 WORLD = 2
-LAYOUTS = ["data", "data×fsdp"]
+LAYOUTS = ["data", "data×fsdp", "data×tp"]
 
 
 @pytest.fixture(scope="module")
@@ -206,10 +206,12 @@ def ranks(tmp_path_factory):
 def test_sharded_matches_single_device_over_gloo(ranks, layout):
     """``assert_sharded_matches_single_device`` on each rank of a gloo group
     of 2: the layout's train state (split over ``fsdp`` on the second
-    layout, gathered before the comparison) and the rank's rows of the
-    batch give the single-device loss and gradients within the JAX
-    package's relative bars (the scaffold asserts; this reads its
-    differences against the reference's magnitudes)."""
+    layout, gathered before the comparison; over ``tp`` on the third,
+    computed with in place and its blocks gathered for the comparison)
+    and the rank's rows of the batch give the single-device loss and
+    gradients within the JAX package's relative bars (the scaffold
+    asserts; this reads its differences against the reference's
+    magnitudes)."""
     from blendjax_torch.testing.equivalence import TOL_GRAD, TOL_LOSS
 
     for per in (r[f"equivalence:{layout}"] for r in ranks[WORLD]):

@@ -463,12 +463,13 @@ def _drive(params_np, axes, n_msgs=10, layout=None, fused=False,
     else:
         source = messages(n_msgs)
         batch = B
-    with StreamDataPipeline(iter(source), batch_size=batch, mesh=mesh,
-                            device="cpu", chunk=chunk,
-                            emit_packed=fused) as pipe:
-        for sb in pipe:
-            drv.submit(sb)
-    drv.finish()
+    with _param_gathers() as gathers:
+        with StreamDataPipeline(iter(source), batch_size=batch, mesh=mesh,
+                                device="cpu", chunk=chunk,
+                                emit_packed=fused) as pipe:
+            for sb in pipe:
+                drv.submit(sb)
+        drv.finish()
     fleet = drv.fleet_report()
     spans = metrics.report()["spans"]
     specs = [s.spec for s in (drv.state.shards.specs
@@ -485,7 +486,7 @@ def _drive(params_np, axes, n_msgs=10, layout=None, fused=False,
         "fleet": (fleet["processes"], sorted(fleet["verdicts"])),
         "specs": specs,
         "resident": state_resident_bytes(drv.state),
-        "tally": drv.collective_tally,
+        "tally": drv.collective_tally, "gathers": gathers[0],
         "lead": int(sb["image"].shape[0]) if "image" in sb else None,
         "grads_finite": all(bool(torch.isfinite(s).all())
                             for s in drv.state.model.parameters()),
@@ -497,57 +498,57 @@ def case_drive(params_np, axes, **kw):
 
 
 def case_live(params_np, axes, counts=None, n_msgs=10):
-    """Live producers on a mesh: each rank publishes its rows of the
-    recorded global batches from a publisher of its own (rank ``r``:
-    ``counts[r]`` messages) and trains on what its pipeline assembles from
-    that producer alone."""
+    """Live producers on a mesh: each data group publishes its rows of the
+    recorded global batches from a publisher of its own, in its first rank
+    (rank ``r`` of a data-only mesh: ``counts[r]`` messages), and every
+    rank trains on what its pipeline yields; on a model axis the group's
+    other ranks receive their leader's batches (they are handed the
+    leader's address too, which they must not connect to)."""
     import threading
 
     import torch.distributed as dist
 
     from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.parallel.mesh import axes_index, axes_size
     from blendjax_torch.producer.publisher import DataPublisher
     from blendjax_torch.train import MeshTrainDriver
 
     mesh = _mesh(axes)
-    rank, world = dist.get_rank(), dist.get_world_size()
-    rows = slice(rank * (B // world), (rank + 1) * (B // world))
+    rank = dist.get_rank()
+    ways, group = axes_size(mesh, "data"), axes_index(mesh, "data")
+    rows = slice(group * (B // ways), (group + 1) * (B // ways))
     n = counts[rank] if counts else n_msgs
-    pub = DataPublisher("tcp://127.0.0.1:*", btid=rank)
-    mine = [{"_prebatched": True, "image": m["image"][rows],
-             "xy": m["xy"][rows]} for m in messages(n_msgs)[:n]]
-    sender = threading.Thread(
-        target=lambda: [pub.publish(**m) for m in mine], daemon=True)
-    sender.start()
+    leader = all(axes_index(mesh, a) == 0 for a in axes if a != "data")
+    pub = sender = None
+    if leader:
+        pub = DataPublisher("tcp://127.0.0.1:*", btid=group)
+        mine = [{"_prebatched": True, "image": m["image"][rows],
+                 "xy": m["xy"][rows]} for m in messages(n_msgs)[:n]]
+        sender = threading.Thread(
+            target=lambda: [pub.publish(**m) for m in mine], daemon=True)
+        sender.start()
+    addrs = [None] * dist.get_world_size()
+    dist.all_gather_object(addrs, (group, pub.addr if pub else None))
+    addr = next(a for g, a in addrs if g == group and a)
     drv = MeshTrainDriver.build(_cube(params_np), mesh, None, device="cpu",
                                 sync_every=1, inflight=2)
-    leads = []
-    with StreamDataPipeline([pub.addr], batch_size=B, mesh=mesh,
+    leads, xy = [], []
+    with StreamDataPipeline([addr], batch_size=B, mesh=mesh,
                             device="cpu", max_items=n,
                             timeoutms=30_000) as pipe:
         for sb in pipe:
             leads.append(int(sb["image"].shape[0]))
+            xy.append(sb["xy"].numpy().copy())
             drv.submit(sb)
     drv.finish()
-    sender.join(30.0)
-    if not sender.is_alive():  # never close a socket under its sender
-        pub.close()
+    if sender is not None:
+        sender.join(30.0)
+        if not sender.is_alive():  # never close a socket under its sender
+            pub.close()
     return {"losses": np.asarray(drv.losses), "steps": drv.steps,
             "leads": leads, "rank_batch": pipe.rank_batch,
-            "messages": pipe.messages}
-
-
-def case_live_refused(axes):
-    """Live producers need every rank to hold its own rows: a model axis
-    that does not split the batch (tp) is refused, by name."""
-    from blendjax_torch.data import StreamDataPipeline
-
-    try:
-        StreamDataPipeline(["tcp://127.0.0.1:1"], batch_size=B,
-                           mesh=_mesh(axes), device="cpu")
-    except ValueError as e:
-        return str(e)
-    return None
+            "messages": pipe.messages, "xy": xy, "group": group,
+            "leader": leader}
 
 
 def case_pipeline_rules(axes):
@@ -835,13 +836,59 @@ def former_loss(model, batch):
                        image_shape=tuple(batch["image"].shape[1:3]))
 
 
+class _einsum_experts:
+    """Record the expert dim of every ``nec,nd->ecd`` dispatch einsum
+    run inside (the experts a rank computes)."""
+
+    def __enter__(self):
+        import torch
+
+        self.seen, self.orig = [], torch.einsum
+
+        def spy(eq, *ops):
+            if eq == "nec,nd->ecd":
+                self.seen.append(int(ops[0].shape[1]))
+            return self.orig(eq, *ops)
+
+        torch.einsum = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.einsum = self.orig
+
+
+class _param_gathers:
+    """Count ``ShardedParams``' all-gathers of parameter shards inside."""
+
+    def __enter__(self):
+        from blendjax_torch.parallel import sharding
+
+        self.count, self.orig = [0], sharding.gather_full
+
+        def spy(local, sh):
+            self.count[0] += 1
+            return self.orig(local, sh)
+
+        sharding.gather_full = spy
+        return self.count
+
+    def __exit__(self, *exc):
+        from blendjax_torch.parallel import sharding
+
+        sharding.gather_full = self.orig
+
+
 def case_expert(params_np, axes, n_msgs=4):
     """A MoE StreamFormer through ``MeshTrainDriver.build`` on a ``data``
-    or ``data x expert`` mesh (the state-only expert layout: ``expert_*``
-    sharded, gathered before each update), its losses, the shard specs,
-    the refusal of ``aot=True``, and the first batch's loss with each rank
-    routing its own tokens alone (``local_first_loss``: per-rank capacity
-    and queue positions, which the mesh step must not use)."""
+    or ``data x expert`` mesh (``expert_*`` split over ``expert``, each
+    rank computing its experts), its losses, the shard specs, the experts
+    each dispatch einsum saw, the parameter gathers and the first step
+    call's collectives, the refusal of ``aot=True``, and the first batch's
+    loss with each rank routing its own tokens alone
+    (``local_first_loss``: per-rank capacity and queue positions, which
+    the mesh step must not use)."""
     import torch
 
     from blendjax_torch.data import StreamDataPipeline
@@ -878,11 +925,12 @@ def case_expert(params_np, axes, n_msgs=4):
     drv = MeshTrainDriver.build(model(), mesh, device="cpu",
                                 loss_fn=former_loss, sync_every=1,
                                 inflight=1)
-    with StreamDataPipeline(iter(former_messages(n_msgs)), batch_size=8,
-                            mesh=mesh, device="cpu") as pipe:
-        for sb in pipe:
-            drv.submit(sb)
-    drv.finish()
+    with _einsum_experts() as experts, _param_gathers() as gathers:
+        with StreamDataPipeline(iter(former_messages(n_msgs)), batch_size=8,
+                                mesh=mesh, device="cpu") as pipe:
+            for sb in pipe:
+                drv.submit(sb)
+        drv.finish()
     refused = None
     if "expert" in axes:  # a state sharded over a model axis
         try:
@@ -900,7 +948,9 @@ def case_expert(params_np, axes, n_msgs=4):
             if shards else [],
             "layout": drv.stats["layout"], "refused": refused,
             "local_first_loss": local_first, "aux": float(aux),
-            "aux_router_grad": router_grad.numpy().T.copy()}
+            "aux_router_grad": router_grad.numpy().T.copy(),
+            "einsum_experts": sorted(set(experts)), "gathers": gathers[0],
+            "tally": drv.collective_tally}
 
 
 # -- cases: RL -----------------------------------------------------------------------------
@@ -1002,9 +1052,259 @@ def case_equivalence(layout, seed=0):
             "fsdp": any("fsdp" in s for s in specs)}
 
 
+# -- cases: the split of the work over model axes ---------------------------------------------
+
+
+FORMER_TP = dict(patch=8, dim=32, depth=2, num_heads=4, num_outputs=16)
+
+
+def case_tp(params_np, axes, n_msgs=4, cfg=None):
+    """A StreamFormer through ``MeshTrainDriver.build`` on a mesh with a
+    ``tp`` axis (``FORMER_TP``, or ``cfg``): its losses, each split
+    kernel's shape on this rank beside its full shape, the parameter
+    gathers during the steps, the first step call's collectives by kind
+    and axis, and the resident bytes; or the build's refusal."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import state_resident_bytes
+    from blendjax_torch.train import MeshTrainDriver
+    from blendjax_torch.weights import streamformer_from_flax
+
+    mesh = _mesh(axes)
+    cfg = dict(cfg or FORMER_TP)
+    model = StreamFormer(**cfg, dtype=torch.float32, attn_backend="xla",
+                         image_shape=(32, 32))
+    if params_np is not None:
+        model.load_state_dict(streamformer_from_flax(params_np))
+    full = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    try:
+        drv = MeshTrainDriver.build(model, mesh, device="cpu",
+                                    loss_fn=former_loss, sync_every=1,
+                                    inflight=1)
+    except ValueError as e:
+        return {"refused": str(e)}
+    with _param_gathers() as gathers:
+        with StreamDataPipeline(iter(former_messages(n_msgs)), batch_size=8,
+                                mesh=mesh, device="cpu") as pipe:
+            for sb in pipe:
+                drv.submit(sb)
+        drv.finish()
+    local = {n: tuple(p.shape) for n, p in drv.state.model.named_parameters()}
+    return {"losses": np.asarray(drv.losses), "full": full, "local": local,
+            "gathers": gathers[0], "tally": drv.collective_tally,
+            "resident": state_resident_bytes(drv.state),
+            "lead": int(sb["image"].shape[0]), "refused": None}
+
+
+def case_tp_block(params_np, x, g, axes):
+    """One StreamFormer ``Block`` (flax weights) with its attention and MLP
+    kernels split over ``tp`` as ``ShardedParams`` splits them (this
+    rank's block of each, the qkv bias on D): the output for the
+    replicated input ``x`` and the input gradient of ``sum(out * g)``."""
+    import torch
+
+    from blendjax_torch.models import Block
+    from blendjax_torch.parallel.sharding import Resident
+
+    mesh = _mesh(axes)
+    c = x.shape[-1]
+    h = 4
+    blk = Block(c, h, dtype=torch.float32, attn_backend="xla")
+    a = params_np["MultiHeadAttention_0"]
+    state = {
+        "norm1.weight": params_np["LayerNorm_0"]["scale"],
+        "norm1.bias": params_np["LayerNorm_0"]["bias"],
+        "norm2.weight": params_np["LayerNorm_1"]["scale"],
+        "norm2.bias": params_np["LayerNorm_1"]["bias"],
+        "attn.qkv.weight": a["qkv"]["kernel"].reshape(c, -1).T,
+        "attn.qkv.bias": a["qkv"]["bias"].reshape(-1),
+        "attn.proj.weight": a["proj"]["kernel"].T,
+        "attn.proj.bias": a["proj"]["bias"],
+        "fc1.weight": params_np["Dense_0"]["kernel"].T,
+        "fc1.bias": params_np["Dense_0"]["bias"],
+        "fc2.weight": params_np["Dense_1"]["kernel"].T,
+        "fc2.bias": params_np["Dense_1"]["bias"],
+    }
+    blk.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in state.items()})
+    d = c // h
+    splits = (  # module, name, layout, flax dim
+        (blk.attn, "qkv.weight", ("general", (3, h, d)), 2),
+        (blk.attn, "qkv.bias", ("reshape", (3, h, d)), 2),
+        (blk.attn, "proj.weight", "dense", 0),
+        (blk, "fc1.weight", "dense", 1),
+        (blk, "fc2.weight", "dense", 0),
+    )
+    for mod, name, layout, dim in splits:
+        p = mod.get_parameter(name)
+        res = Resident(mesh, "tp", p.shape, layout, dim)
+        mod.__dict__.setdefault("_bjx_splits", {})[name] = res
+        p.data = res.local(p.data)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = blk(xt)
+    (out * torch.from_numpy(g)).sum().backward()
+    return {"out": _np(out), "dx": _np(xt.grad),
+            "qkv_local": tuple(blk.attn.qkv.weight.shape)}
+
+
+def _stamped(n_batches=8, rows=8):
+    """Scripted global batches of ``rows`` rows, each stamped with its
+    scenario (two, alternating) in every row's ``_meta``."""
+    out = []
+    for i in range(n_batches):
+        sid = "even" if i % 2 == 0 else "odd"
+        out.append({
+            "image": np.full((rows, 4, 4, 3), i, np.uint8),
+            "_meta": [{"btid": 0, "_scenario": {"id": sid, "ver": 1}}
+                      for _ in range(rows)]})
+    return out
+
+
+def stamped_echo_run(batches, mesh=None, capacity=32, factor=4, rng=3):
+    """An ``EchoingPipeline(augment=None)`` over ``batches``, each yielded
+    only once the draw loop waited for it (as the one-card parity test
+    feeds both packages), on ``mesh`` (each rank its rows of every global
+    batch) or one card; returns each draw's stamps, the scenario ledger's
+    totals, (fresh, echoed, steps) and every slot's stamp."""
+    import time
+
+    import blendjax_torch.data.echo as mod
+    from blendjax_torch.parallel.sharding import batch_sharding, local_rows
+    from blendjax_torch.scenario import ScenarioAccounting
+
+    led = ScenarioAccounting()
+    orig, mod.scenario_accounting = mod.scenario_accounting, led
+    ref = [None]
+    sh = batch_sharding(mesh) if mesh is not None else None
+
+    def paced():
+        for i, b in enumerate(batches):
+            if i:
+                deadline = time.monotonic() + 60.0
+                while ref[0].saturated_waits < i:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("the draw loop never waited")
+                    time.sleep(0.002)
+            if sh is not None:
+                rows = local_rows(np.arange(len(b["_meta"])), sh)
+                b = {"image": local_rows(b["image"], sh),
+                     "_meta": [b["_meta"][j] for j in rows]}
+            yield b
+
+    try:
+        pipe = mod.EchoingPipeline(
+            paced(), augment=None, batch_size=len(batches[0]["_meta"]),
+            rng=rng, capacity=capacity, max_echo_factor=factor,
+            device="cpu", mesh=mesh)
+        ref[0] = pipe
+        rows = []
+        with pipe:
+            for b in pipe:
+                rows.append(b.get("_scenario_rows"))
+    finally:
+        mod.scenario_accounting = orig
+    return {"rows": rows, "totals": led.totals(),
+            "counts": (pipe.fresh, pipe.echoed, pipe.steps),
+            "slots": list(pipe._slot_scen)}
+
+
+def case_echo_stamps():
+    """Stamped batches into an echo ring sharded over every rank: the
+    cross-rank stamps make the draws, the ledger and the slots the
+    one-card run's (which this rank computes too)."""
+    mesh = _mesh({"data": -1})
+    return {"mesh": stamped_echo_run(_stamped(), mesh),
+            "one": stamped_echo_run(_stamped())}
+
+
+def _mixed_stamps(n_batches=8, rows=8):
+    """Scripted global batches: every 4th stamped in all rows, every 4th
+    (from the third) in its first half of rows only, the others
+    unstamped."""
+    out = []
+    for i in range(n_batches):
+        sid = {0: "all", 2: "half"}.get(i % 4)
+        stamped = rows if i % 4 == 0 else (rows // 2 if sid else 0)
+        out.append({
+            "image": np.full((rows, 4, 4, 3), i, np.uint8),
+            "_meta": [{"btid": 0, **({"_scenario": {"id": sid, "ver": 1}}
+                                     if r < stamped else {})}
+                      for r in range(rows)]})
+    return out
+
+
+def case_echo_stamp_gathers():
+    """Batches stamped in all rows, in the first half of rows (some ranks'
+    rows only) and not at all, into a ring sharded over every rank: the
+    run is the one-card run's, and the ranks all-gather the stamps of
+    the stamped inserts only."""
+    from blendjax_torch.parallel.mesh import RankAgreement
+
+    calls = [0]
+    inner = RankAgreement.gather_objects
+
+    def counted(self, obj):
+        calls[0] += 1
+        return inner(self, obj)
+
+    RankAgreement.gather_objects = counted
+    try:
+        mesh_run = stamped_echo_run(_mixed_stamps(), _mesh({"data": -1}))
+    finally:
+        RankAgreement.gather_objects = inner
+    return {"mesh": mesh_run, "one": stamped_echo_run(_mixed_stamps()),
+            "gathers": calls[0]}
+
+
+def case_echo_rows(n_draws=6):
+    """Draws of a ring sharded over every rank with the default paired
+    augmentation (flip and crop with the points, colour jitter): each
+    draw's rows on this rank against its rows of the one-card draw of the
+    same counter, and the rows each apply ran on."""
+    import torch
+
+    from blendjax_torch.data import SampleReservoir
+    from blendjax_torch.data.echo import default_echo_augment
+    from blendjax_torch.parallel import ring_sharding
+    from blendjax_torch.parallel.sharding import local_rows
+
+    mesh = _mesh({"data": -1})
+    sh = ring_sharding(mesh)
+    applied = []
+
+    def reservoir(sharding):
+        aug = default_echo_augment(points_key="xy")
+        inner = aug._apply
+
+        def spy(gens, batch, rows=None):
+            if sharding is not None:
+                applied.append(int(batch["image"].shape[0]))
+            return inner(gens, batch, rows)
+
+        aug._apply = spy
+        return SampleReservoir(64, augment=aug, rng=7, sharding=sharding,
+                               device="cpu")
+
+    mine, one = reservoir(sh), reservoir(None)
+    for hb in messages(4):
+        fields = {"image": hb["image"], "xy": hb["xy"]}
+        mine.insert({k: local_rows(v, sh) for k, v in fields.items()})
+        one.insert(fields)
+    idx_rng = np.random.default_rng(11)
+    equal = []
+    for _ in range(n_draws):
+        idx = idx_rng.integers(0, 64, B)
+        got, want = mine.sample(idx), one.sample(idx)
+        equal.append(all(torch.equal(got[k], local_rows(want[k], sh))
+                         for k in ("image", "xy")))
+    return {"equal": equal, "applied": applied,
+            "row_local": mine.augment.row_local}
+
+
 CASES = {
     "live": case_live,
-    "live_refused": case_live_refused,
     "mesh": case_mesh,
     "collectives": case_collectives,
     "attention": case_attention,
@@ -1026,4 +1326,9 @@ CASES = {
     "expert": case_expert,
     "rl_mesh": case_rl_mesh,
     "equivalence": case_equivalence,
+    "tp": case_tp,
+    "tp_block": case_tp_block,
+    "echo_stamps": case_echo_stamps,
+    "echo_stamp_gathers": case_echo_stamp_gathers,
+    "echo_rows": case_echo_rows,
 }
