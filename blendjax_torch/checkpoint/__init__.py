@@ -12,8 +12,11 @@ from blendjax_torch.checkpoint.preempt import (
     PreemptionRequested,
 )
 from blendjax_torch.checkpoint.session import (
+    MESH_KEY,
     SESSION_VERSION,
     collect_session,
+    gather_session,
+    rank_session,
     restore_session,
 )
 from blendjax_torch.checkpoint.snapshot import (
@@ -23,6 +26,7 @@ from blendjax_torch.checkpoint.snapshot import (
 )
 
 __all__ = [
+    "MESH_KEY",
     "SESSION_VERSION",
     "PreemptionGuard",
     "PreemptionRequested",
@@ -30,7 +34,9 @@ __all__ = [
     "SnapshotManager",
     "collect_session",
     "committed_steps",
+    "gather_session",
     "pack_session",
+    "rank_session",
     "restore_session",
     "unpack_session",
 ]

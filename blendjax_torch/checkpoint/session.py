@@ -75,4 +75,65 @@ def restore_session(session: dict, strict: bool = False,
     return restored
 
 
-__all__ = ["SESSION_VERSION", "collect_session", "restore_session"]
+#: The key under which a mesh snapshot keeps the sessions of ranks 1..N-1
+#: (rank 0's components stay where a one-card session puts them, so a
+#: one-card resume and either package's ``restore_session`` read them
+#: unchanged and pass this key by).
+MESH_KEY = "mesh"
+
+#: Session slices every rank shares (the driver's counters: each rank of a
+#: mesh steps in step with the others), kept once, at the top.
+SHARED_KEYS = ("driver",) + _META_KEYS
+
+
+def _host(obj):
+    """``obj`` with every tensor copied to a host array (before it crosses
+    a gloo gather, so no rank unpickles another's card tensor)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host(v) for v in obj)
+    return obj
+
+
+def gather_session(session: dict, agreement) -> dict | None:
+    """A mesh snapshot's session (a collective: every rank calls it at the
+    same step, with the :class:`~blendjax_torch.parallel.mesh.StepAgreement`
+    its steps share). Rank 0 gets its own ``session`` with the other ranks'
+    under :data:`MESH_KEY` (``{"world_size": N, "ranks": [rank 1's, ...]}``,
+    without the shared slices); the others get ``None`` (rank 0 writes)."""
+    sessions = agreement.gather_objects(_host(session))
+    if agreement.rank != agreement.ranks[0]:
+        return None
+    merged = dict(sessions[0])
+    merged[MESH_KEY] = {
+        "world_size": len(sessions),
+        "ranks": [{k: v for k, v in s.items() if k not in SHARED_KEYS}
+                  for s in sessions[1:]],
+    }
+    return merged
+
+
+def rank_session(session: dict, rank: int) -> tuple:
+    """This rank's slice of a (mesh or one-card) snapshot's ``session``:
+    ``(slice, world_size)``. Rank 0 takes the top level (without the
+    :data:`MESH_KEY`); rank ``r`` takes the saved rank ``r``'s components
+    with the shared slices beside them, or the shared slices alone when the
+    saved run had no rank ``r`` (its components then start fresh)."""
+    saved = session.get(MESH_KEY) or {}
+    world = int(saved.get("world_size", 1))
+    shared = {k: v for k, v in session.items() if k in SHARED_KEYS}
+    if rank == 0:
+        return {k: v for k, v in session.items() if k != MESH_KEY}, world
+    ranks = saved.get("ranks") or []
+    if rank - 1 < len(ranks):
+        return {**ranks[rank - 1], **shared}, world
+    return shared, world
+
+
+__all__ = ["MESH_KEY", "SESSION_VERSION", "SHARED_KEYS", "collect_session",
+           "gather_session", "rank_session", "restore_session"]

@@ -118,11 +118,17 @@ class SnapshotManager:
     ``TrainDriver(checkpoint=mgr, checkpoint_every=N, session_state=...)``
     snapshots at step boundaries. A state is a mapping from leaf path to
     tensor, array or scalar (:mod:`blendjax_torch.checkpoint.format`).
+
+    ``read_only=True`` restores and never writes, nor sweeps interrupted
+    stages: the manager of a mesh rank other than the writing rank 0, whose
+    stages it must not touch.
     """
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 read_only: bool = False):
         self.directory = os.path.abspath(directory)
         self.keep = max(1, int(keep))
+        self.read_only = bool(read_only)
         os.makedirs(self.directory, exist_ok=True)
         self._cv = threading.Condition()
         self._pending: tuple | None = None
@@ -141,7 +147,8 @@ class SnapshotManager:
         self.bytes = 0
         self.save_ms: list = []
         self.last_step: int | None = None
-        self._sweep_stale()
+        if not self.read_only:
+            self._sweep_stale()
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -170,6 +177,9 @@ class SnapshotManager:
         return at once: the tensors are cloned on their current streams
         before this returns, so the caller may update its own in place
         right after; the copy to the host and the files are the writer's."""
+        if self.read_only:
+            raise RuntimeError(
+                f"SnapshotManager({self.directory!r}) is read-only")
         refs = _clone_tensors(dict(state))
         session_refs = _clone_tensors(session) if session else {}
         ready = []

@@ -378,6 +378,11 @@ class EchoingPipeline:
       reservoir through the replay pipeline before the first draw, so
       the first steps do not wait for live frames;
       ``warm_start_allow_pickle`` admits a pickle-bearing recording.
+    - ``requests``: on a mesh, a
+      :class:`~blendjax_torch.parallel.mesh.StepAgreement` whose step
+      requests ride the agreement before each draw (the driver's, or a
+      direct loop's; the inner pipeline's agreement runs on the drain
+      thread and must not carry them).
 
     :attr:`stats`: ``fresh + echoed == steps * batch`` exactly;
     ``saturated_waits`` counts the waits for fresh frames with the budget
@@ -392,7 +397,8 @@ class EchoingPipeline:
                  image_key: str = "image", points_key: str | None = None,
                  rng: int = 0, warm_start=None,
                  warm_start_allow_pickle: bool = False, mesh=None,
-                 sharding=None, emit_draws: bool = False, device=None):
+                 sharding=None, emit_draws: bool = False, device=None,
+                 requests=None):
         from blendjax_torch.parallel.sharding import (
             check_sharding,
             ring_sharding,
@@ -472,6 +478,7 @@ class EchoingPipeline:
         # fresh batches taken off the queue but not inserted yet, and
         # whether this rank's drain thread has finished
         self._agreement = None
+        self.requests = requests
         if sharding is not None and sharding.mesh.mesh.numel() > 1:
             from blendjax_torch.parallel.mesh import RankAgreement
 
@@ -687,9 +694,13 @@ class EchoingPipeline:
             err = self._inner_error
         stamps = sum(1 << i for i, b in enumerate(self._pending)
                      if batch_row_scenarios(b, 1) is not None)
-        got = self._agreement.gather(
-            [len(self._pending), int(self._drained), int(err is not None),
-             stamps])
+        mine = [len(self._pending), int(self._drained), int(err is not None),
+                stamps]
+        if self.requests is not None:  # the step boundary's requests
+            mine.append(self.requests.carry())
+        got = self._agreement.gather(mine)
+        if self.requests is not None:
+            self.requests.settle(got[:, 4])
         if got[:, 2].any():
             if err is not None:
                 raise err  # a crashed stream is not a clean end of stream

@@ -613,7 +613,7 @@ class StreamDataPipeline:
                  pad_partial: bool = True, max_items: int | None = None,
                  launcher=None, mesh=None, data_axis: str = "data",
                  sharding=None, schema=None, chunk_strict: bool = False,
-                 **stream_kwargs):
+                 rank_source: bool = False, requests=None, **stream_kwargs):
         from blendjax_torch.data.stream import RemoteStream
         from blendjax_torch.parallel.sharding import leading_shard_count
 
@@ -634,11 +634,13 @@ class StreamDataPipeline:
                 "equal shard of each global batch")
         self.mesh = getattr(sharding, "mesh", None)
         self.sharding = sharding
-        # live producers on a mesh of several ranks: this data group's own
-        # rows, agreed; on a model axis its first rank ingests them
-        self.local_rows = (live and self.mesh is not None
+        # live producers (or a rank's own recording) on a mesh of several
+        # ranks: this data group's own rows, agreed; on a model axis its
+        # first rank ingests them
+        self.local_rows = ((live or rank_source) and self.mesh is not None
                            and int(self.mesh.mesh.numel()) > 1)
         self.rank_batch = int(batch_size) // (ways if self.local_rows else 1)
+        self.requests = requests
         self._agreement = None
         self._group = None
         if self.local_rows:
@@ -652,6 +654,15 @@ class StreamDataPipeline:
             if ways != int(self.mesh.mesh.numel()):
                 self._group = ModelAxisGroup(self.mesh,
                                              leading_axes(sharding))
+            if ways > 1 and stream_kwargs.get("record_path_prefix"):
+                # each data group records its own stream under a prefix
+                # of its own (its leader's; no two ranks write one file)
+                from blendjax_torch.data.replay import rank_prefix
+                from blendjax_torch.parallel.mesh import axes_index
+
+                stream_kwargs["record_path_prefix"] = rank_prefix(
+                    stream_kwargs["record_path_prefix"],
+                    axes_index(self.mesh, leading_axes(sharding)), ways)
             sharding = None  # the rows are this rank's already
         ingests = self._group is None or self._group.is_leader
 
@@ -674,9 +685,7 @@ class StreamDataPipeline:
         self.pad_partial = bool(pad_partial)
         self.device = resolve_device(device)
         self._addresses = None
-        if hasattr(addresses, "__iter__") and not isinstance(
-            addresses, (list, tuple, str)
-        ):
+        if not live and ingests:
             self.stream = addresses
         elif not ingests:
             # a model-axis group's other ranks receive its leader's
@@ -743,11 +752,50 @@ class StreamDataPipeline:
         ``record_path_prefix``; a reference ``.btr`` needs
         ``allow_pickle=True``) through the whole pipeline: a recorded
         tile stream decodes to the same frames as the live one, with no
-        producer running. ``loop=True`` replays it again and again."""
-        from blendjax_torch.data.replay import ReplayStream
+        producer running. ``loop=True`` replays it again and again.
 
-        return cls(ReplayStream(source, allow_pickle=allow_pickle, loop=loop),
-                   batch_size=batch_size, **kwargs)
+        A prefix recorded on a mesh of N data ranks (each rank's stream
+        under its own :func:`~blendjax_torch.data.replay.rank_prefix`):
+        on a mesh of N data ranks each rank replays its own stream, the
+        rows it trained live, agreed per batch as live rows are; on one
+        card the N streams assemble the same global batches, rank 0's rows
+        then rank 1's (:class:`RankRecordings`); at any other size it
+        raises, naming N."""
+        from blendjax_torch.data.replay import (
+            ReplayStream,
+            rank_prefix,
+            recorded_world,
+        )
+
+        world = recorded_world(source) if isinstance(source, str) else None
+        if world is None:
+            return cls(ReplayStream(source, allow_pickle=allow_pickle,
+                                    loop=loop),
+                       batch_size=batch_size, **kwargs)
+        from blendjax_torch.parallel.sharding import (
+            leading_axes,
+            leading_shard_count,
+        )
+
+        mesh = kwargs.get("mesh")
+        sharding = _batch_layout(mesh, kwargs.get("data_axis", "data"),
+                                 kwargs.get("sharding"))
+        ways = leading_shard_count(sharding)
+        ranks = 1 if sharding is None else int(sharding.mesh.mesh.numel())
+        if ways == world:
+            from blendjax_torch.parallel.mesh import axes_index
+
+            index = axes_index(sharding.mesh, leading_axes(sharding))
+            return cls(ReplayStream(rank_prefix(source, index, world),
+                                    allow_pickle=allow_pickle, loop=loop),
+                       batch_size=batch_size, rank_source=True, **kwargs)
+        if ranks == 1:
+            return RankRecordings(source, world, batch_size, loop=loop,
+                                  allow_pickle=allow_pickle, **kwargs)
+        raise ValueError(
+            f"{source} was recorded on a mesh of {world} data ranks (one "
+            f"stream per rank): replay it on {world} data ranks or on one "
+            f"card, not on {ways}")
 
     @property
     def seq_gaps(self) -> int:
@@ -928,9 +976,18 @@ class StreamDataPipeline:
             out = self.tiles.device_stage(host)
         else:
             out = self.tiles.device_stage(self.feeder(host))
+        if self.local_rows and self.tiles.emit_packed:
+            out = self._local_groups(out)
         if self._agreement is not None:
             out = self._agreed(out)
         return iter(out)
+
+    @staticmethod
+    def _local_groups(batches):
+        """Packed groups of this rank's own rows, marked so (a mesh fused
+        step decodes them whole, not its rows of them)."""
+        for b in batches:
+            yield {**b, T.LOCAL_ROWS_KEY: True} if "_packed" in b else b
 
     def _shared(self, batches):
         """A model-axis group's host batches: the leader ingests
@@ -972,10 +1029,17 @@ class StreamDataPipeline:
             except StopIteration:
                 batch = None
             except BaseException:
-                self._agreement.gather([-2])  # let the others stop too
+                # let the others stop too
+                self._agreement.gather([-2] if self.requests is None
+                                       else [-2, 0])
                 raise
             mine = -1 if batch is None else _signature(batch)
-            got = self._agreement.gather([mine])[:, 0]
+            if self.requests is None:
+                got = self._agreement.gather([mine])[:, 0]
+            else:  # the step boundary's requests ride this agreement
+                both = self._agreement.gather([mine, self.requests.carry()])
+                self.requests.settle(both[:, 1])
+                got = both[:, 0]
             if (got == -2).any():
                 raise RuntimeError(
                     "the stream of mesh rank(s) "
@@ -1032,6 +1096,80 @@ class StreamDataPipeline:
     def stop(self) -> None:
         if self.ingest is not None:
             self.ingest.stop()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def _join_rows(batches, axis: int) -> dict:
+    """One batch of the rows of ``batches`` in order: every array field
+    joined on the batch axis (``axis``: 0, or 1 for (K', B, ...)
+    superbatches), per-row lists joined on a plain batch, anything else
+    taken from the first."""
+    out = {}
+    for k, v in batches[0].items():
+        vals = [b[k] for b in batches]
+        if isinstance(v, torch.Tensor) and v.ndim > axis:
+            out[k] = torch.cat(vals, dim=axis)
+        elif isinstance(v, np.ndarray) and v.ndim > axis:
+            out[k] = np.concatenate(vals, axis=axis)
+        elif isinstance(v, list) and axis == 0:
+            out[k] = [x for val in vals for x in val]
+        else:
+            out[k] = v
+    return out
+
+
+class RankRecordings:
+    """A recording of ``world`` data ranks replayed on one card
+    (:meth:`StreamDataPipeline.from_recording`): one decoded pipeline per
+    recorded rank, each of ``batch_size / world`` rows with its own tile
+    references (as that rank decoded them), and every global batch is rank
+    0's rows, then rank 1's, ... (the rows the mesh trained together).
+    Packed groups of different ranks' references cannot join, so the
+    pipelines yield decoded batches whatever ``emit_packed`` asks
+    (``make_fused_tile_step`` trains decoded (K', B, ...) superbatches
+    through its decoded branch)."""
+
+    def __init__(self, prefix: str, world: int, batch_size: int,
+                 loop: bool = False, allow_pickle: bool = False,
+                 emit_packed: bool = False, place_in_driver: bool = False,
+                 requests=None, **kwargs):
+        # emit_packed, place_in_driver: decoded batches whatever is asked;
+        # requests: one card makes no agreement to carry them
+        from blendjax_torch.data.replay import ReplayStream, rank_prefix
+
+        if int(batch_size) % int(world):
+            raise ValueError(
+                f"batch_size={batch_size} does not split over the {world} "
+                f"ranks of the recording {prefix}")
+        self.world = int(world)
+        self.batch_size = int(batch_size)
+        self.chunk = max(1, int(kwargs.get("chunk", 1)))
+        self.parts = [
+            StreamDataPipeline(
+                ReplayStream(rank_prefix(prefix, r, world),
+                             allow_pickle=allow_pickle, loop=loop),
+                batch_size=self.batch_size // self.world, **kwargs)
+            for r in range(self.world)]
+        # what an EchoingPipeline reads of its inner pipeline
+        first = self.parts[0]
+        self.device, self.tiles = first.device, first.tiles
+
+    def __iter__(self):
+        axis = 1 if self.chunk > 1 else 0
+        for batches in zip(*(iter(p) for p in self.parts)):
+            yield _join_rows(batches, axis)
+
+    def doctor(self, driver=None):
+        return self.parts[0].doctor(driver)
+
+    def stop(self) -> None:
+        for p in self.parts:
+            p.stop()
 
     def __enter__(self):
         return self

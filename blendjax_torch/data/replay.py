@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import glob as globmod
 import os
+import re
 import struct
 
 from blendjax_torch.transport.wire import decode_message
@@ -305,6 +306,41 @@ def _glob_recordings(prefix: str) -> list[str]:
     return sorted(
         globmod.glob(f"{prefix}_*.bjr") + globmod.glob(f"{prefix}_*.btr")
     )
+
+
+def rank_prefix(prefix: str, rank: int, world: int) -> str:
+    """The recording prefix of rank ``rank`` of a mesh of ``world`` data
+    ranks: ``{prefix}.rank{rank}-of-{world}``, so each rank's stream writes
+    files of its own (``{prefix}.rank0-of-2_00.bjr``, ...), which the
+    one-card glob ``{prefix}_*.bjr`` does not match."""
+    return f"{prefix}.rank{int(rank)}-of-{int(world)}"
+
+
+_RANK_TAG = re.compile(r"\.rank(\d+)-of-(\d+)_\d+\.(?:bjr|btr)$")
+
+
+def recorded_world(prefix: str) -> int | None:
+    """The number of data ranks whose rank-tagged recordings
+    (:func:`rank_prefix`) sit under ``prefix``; ``None`` when there are
+    none (a one-card recording, a path). Raises when the files name more
+    than one world size, or miss a rank."""
+    found: dict = {}
+    for path in globmod.glob(f"{globmod.escape(prefix)}.rank*-of-*_*.*"):
+        m = _RANK_TAG.search(path)
+        if m is not None:
+            found.setdefault(int(m.group(2)), set()).add(int(m.group(1)))
+    if not found:
+        return None
+    if len(found) > 1:
+        raise ValueError(
+            f"recordings under {prefix} were made at several world sizes "
+            f"{sorted(found)}")
+    (world, ranks), = found.items()
+    if ranks != set(range(world)):
+        raise ValueError(
+            f"recordings under {prefix} were made by {world} ranks but hold "
+            f"ranks {sorted(ranks)} only")
+    return world
 
 
 class ReplayStream:

@@ -13,8 +13,12 @@ One process per card: with no process group the example trains on one card.
 Under ``torchrun`` with a world size above 1 it opens the group from the
 environment (NCCL on the card, gloo with ``--device cpu``), builds the mesh
 ``{"data": -1}`` over its ranks and trains with the mesh steps, each rank
-taking its rows of every global batch from producers of its own (``--record``,
-``--checkpoint``, ``--fleet`` and ``--scenarios`` are refused there).
+taking its rows of every global batch from producers of its own. Every flag
+runs there, under the rules across ranks of
+``blendjax_torch/docs/mesh-examples.md``: rank 0 writes one snapshot with
+every rank's session, and any rank's request snapshots every rank at the
+same step; each rank records its own stream; the curriculum sums its
+evidence over the ranks; the fleet controllers take one decision per tick.
 
 Run: ``python -m blendjax_torch.examples.datagen.train --steps 50`` (add
 ``--record PREFIX`` / ``--replay PREFIX`` for the record and replay flows).
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 
@@ -193,10 +198,11 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _mesh(device):
+def data_mesh(device):
     """The mesh ``{"data": -1}`` of a run under ``torchrun`` with more than
-    one rank (the group opened from the environment), else None; and
-    whether this call opened the group (its caller then destroys it)."""
+    one rank (the group opened from the environment) or in a group the
+    caller opened, else None; and whether this call opened the group (its
+    caller then destroys it)."""
     import torch.distributed as dist
 
     from blendjax_torch.parallel import create_mesh
@@ -251,7 +257,7 @@ def main(argv=None) -> dict:
     from blendjax_torch.device import device_flag
 
     device = device_flag(args.device)
-    mesh, opened = _mesh(device)
+    mesh, opened = data_mesh(device)
     try:
         return _train(ap, args, fleet_bounds, device, mesh)
     finally:
@@ -277,11 +283,20 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
     )
     from blendjax_torch.train.steps import batch_images
 
+    # On a mesh: the agreement at step boundaries (snapshot requests, the
+    # gathered sessions and scenario ledgers), this rank, and the rows of
+    # each global batch that this rank's producers send.
+    agree = None
+    rank, world = 0, 1
     if mesh is not None:
-        for flag in ("record", "checkpoint", "fleet", "scenarios"):
-            if getattr(args, flag):
-                ap.error(f"--{flag} on a mesh of several ranks is not "
-                         "ported: run it on one card")
+        from blendjax_torch.parallel.mesh import StepAgreement
+
+        agree = StepAgreement(mesh)
+        rank, world = agree.rank, len(agree.ranks)
+        if args.batch % world:
+            ap.error(f"--batch {args.batch} does not split over the "
+                     f"{world} ranks of the mesh")
+    rank_batch = args.batch // world
 
     # Observability: a live Prometheus scrape target + periodic doctor
     # verdicts, SLO watchdog + flight recorder, and/or a Chrome trace of
@@ -293,12 +308,17 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
     # each one is constructed.
     ckpt_refs: dict = {}
     scenario_ctx: dict = {}
-    result: dict = {"losses": [], "device": str(device)}
+    result: dict = {"losses": [], "device": str(device), "rank": rank,
+                    "world": world}
 
     def _ckpt_on_breach():
+        # the reporter's thread: it only raises a request (on a mesh the
+        # ranks agree on it at a step boundary)
         drv = ckpt_refs.get("driver")
         if drv is not None:
             drv.request_checkpoint()
+        elif agree is not None:
+            agree.request("checkpoint")
         else:
             ckpt_refs["breach"] = True
         return {"mode": "driver" if drv is not None else "direct"}
@@ -332,24 +352,36 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
     ckpt_mgr = None
     ckpt_session: dict = {}
     if args.checkpoint:
-        from blendjax_torch.checkpoint import SnapshotManager, restore_session
+        from blendjax_torch.checkpoint import (
+            SnapshotManager,
+            rank_session,
+            restore_session,
+        )
         from blendjax_torch.weights import (
             load_train_state_leaves,
             train_state_leaves,
         )
 
-        ckpt_mgr = SnapshotManager(args.checkpoint)
+        # on a mesh rank 0 alone writes (the others restore)
+        ckpt_mgr = SnapshotManager(args.checkpoint, read_only=rank != 0)
         if args.resume:
             restored = ckpt_mgr.restore(train_state_leaves(state))
             if restored is None:
                 print(f"no snapshot in {args.checkpoint}: starting fresh")
             else:
                 load_train_state_leaves(state, restored.state)
-                ckpt_session = restored.session
+                ckpt_session, saved_world = rank_session(restored.session,
+                                                         rank)
                 from blendjax_torch.obs.lineage import lineage
 
                 restore_session(ckpt_session, lineage=lineage)
-                print(f"resumed from snapshot step {restored.step}")
+                print(f"resumed from snapshot step {restored.step}"
+                      + (f" (saved by {saved_world} ranks)"
+                         if saved_world > 1 or mesh is not None else ""))
+                if rank >= saved_world:
+                    print(f"rank {rank}: the snapshot holds no session of "
+                          "this rank; its lineage, echo, scenario and fleet "
+                          "state start fresh")
 
     def _session_state() -> dict:
         from blendjax_torch.checkpoint import collect_session
@@ -377,7 +409,14 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
     def _save(steps_done: int, session: dict) -> None:
         from blendjax_torch.weights import train_state_leaves
 
-        ckpt_mgr.save_async(steps_done, train_state_leaves(state), session)
+        leaves = train_state_leaves(state)
+        if agree is not None:  # every rank's session; rank 0 writes
+            from blendjax_torch.checkpoint import gather_session
+
+            session = gather_session(session, agree)
+            if session is None:
+                return
+        ckpt_mgr.save_async(steps_done, leaves, session)
 
     augment = None
     if args.augment:
@@ -407,7 +446,8 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
             return TrainDriver(step, state, **drv_kwargs)
         from blendjax_torch.train import MeshTrainDriver
 
-        return MeshTrainDriver(step, state, mesh, **drv_kwargs)
+        return MeshTrainDriver(step, state, mesh, requests=agree,
+                               **drv_kwargs)
 
     if mesh is not None:
         from blendjax_torch.train import (
@@ -473,7 +513,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
             max_echo_factor=args.echo,
             warm_start=args.echo_warm_start,
             warm_start_allow_pickle=args.allow_pickle,
-            mesh=mesh, device=device,
+            mesh=mesh, device=device, requests=agree,
         )
         ckpt_refs["echo"] = echo
         if ckpt_session.get("echo"):
@@ -535,6 +575,8 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                     scenario_ctx["accounting"].account_batch(batch)
                 driver.submit(batch)
             else:
+                if agree is not None and ckpt_mgr is not None:
+                    agree.boundary()  # the requests every rank honours now
                 fields = {"image": batch["image"], "xy": batch["xy"]}
                 if "_mask" in batch:  # bucket-padded tail: loss-masked
                     fields["_mask"] = batch["_mask"]
@@ -565,13 +607,18 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                     # drain-free SIGTERM flush (no ring to drain here)
                     ckpt_refs["steps"] = i + 1
                     done = start_step + i + 1
-                    if (
-                        ckpt_refs.pop("breach", None)
-                        or (args.checkpoint_every
-                            and (i + 1) % args.checkpoint_every == 0)
-                    ):
+                    if agree is not None:
+                        if guard is not None and guard.requested:
+                            agree.request("preempt")
+                        breach = agree.take("checkpoint")
+                        preempt = agree.take("preempt")
+                    else:
+                        breach = ckpt_refs.pop("breach", None)
+                        preempt = guard is not None and guard.requested
+                    if breach or (args.checkpoint_every
+                                  and (i + 1) % args.checkpoint_every == 0):
                         _save(done, _direct_session(done))
-                    if guard is not None and guard.requested:
+                    if preempt:
                         _save(done, _direct_session(done))
                         ckpt_mgr.wait()
                         err = ckpt_mgr.last_error
@@ -596,6 +643,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                 args.replay, batch_size=args.batch, loop=True, chunk=chunk,
                 emit_packed=use_fused, allow_pickle=args.allow_pickle,
                 device=device, mesh=mesh,
+                requests=None if echo_mode else agree,
             )
             with wrap_echo(pipe) as source:
                 run_steps(iter(source))
@@ -606,7 +654,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
 
             script = SYNTHETIC_PRODUCER
             producer_args = [
-                "--shape", str(h), str(w), "--batch", str(args.batch),
+                "--shape", str(h), str(w), "--batch", str(rank_batch),
                 "--trace-every", str(args.trace_every),
             ]
             start_n = args.synthetic_producers
@@ -617,7 +665,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                              "--trace-every", str(args.trace_every)]
             if args.encoding in ("tile", "pal"):
                 producer_args += [
-                    "--batch", str(args.batch),
+                    "--batch", str(rank_batch),
                     "--encoding", args.encoding,
                 ]
             start_n = args.instances
@@ -643,6 +691,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                 record_path_prefix=args.record,
                 device=device,
                 mesh=mesh,
+                requests=None if echo_mode else agree,
             )
             svc = None
             if args.scenarios:
@@ -668,6 +717,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                     scenario_ctx["curriculum"] = ScenarioCurriculum(
                         space, service=svc,
                         every_steps=args.curriculum_every,
+                        agreement=agree,
                     )
                 if ckpt_session:
                     from blendjax_torch.checkpoint import restore_session
@@ -684,7 +734,13 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
 
                 # the controller's own thread runs the blocking launcher
                 # lifecycle; the pipeline applies the connect/disconnect
-                # ops from its socket-owning thread
+                # ops from its socket-owning thread; on a mesh the ranks'
+                # controllers agree per tick on a gloo group of their own
+                fleet_agreement = None
+                if mesh is not None:
+                    from blendjax_torch.parallel.mesh import RankAgreement
+
+                    fleet_agreement = RankAgreement(mesh)
                 ctrl = FleetController(
                     launcher, connector=pipe,
                     policy=FleetPolicy(
@@ -701,6 +757,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                     # receives the current space before its data address
                     # joins the fan-in
                     scenario_service=svc,
+                    agreement=fleet_agreement,
                 ).start()
                 ckpt_refs["fleet"] = ctrl
                 if ckpt_session.get("fleet"):
@@ -717,7 +774,9 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                         result["echo"] = source.stats
                         print(f"echo={source.stats}")
                     if scenario_ctx:
-                        rep = scenario_ctx["accounting"].report()
+                        rep = _scenario_report(scenario_ctx["accounting"],
+                                               agree)
+                        result["scenarios"] = rep
                         print(
                             f"scenario space v{rep['space_version']}: "
                             + ", ".join(
@@ -730,6 +789,7 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                         )
                         if "curriculum" in scenario_ctx:
                             wts = scenario_ctx["curriculum"].space.weights()
+                            result["curriculum_weights"] = wts
                             print(
                                 "curriculum weights: "
                                 + ", ".join(
@@ -738,7 +798,12 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
                             )
                     print(source.doctor(driver).render())
                     if ctrl is not None:
+                        if mesh is not None:
+                            # the ranks stop together (an agreed tick), so
+                            # each prints the count they all hold
+                            ctrl.stop()
                         st = ctrl.state()
+                        result["fleet"] = st
                         print(
                             f"fleet: instances={st['instances']} "
                             f"(bounds {st['min']}:{st['max']}), "
@@ -762,6 +827,12 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
             guard.uninstall()
         if ckpt_mgr is not None:
             ckpt_mgr.close()  # flushes the exit snapshot
+            if agree is not None and sys.exc_info()[0] is None:
+                # every rank returns once rank 0's writes have landed
+                agree.gather_objects(None)
+            result["checkpoint"] = {
+                "steps": ckpt_mgr.steps(), "saves": ckpt_mgr.saves,
+                "bytes": ckpt_mgr.bytes, "save_ms": list(ckpt_mgr.save_ms)}
             print(
                 f"checkpoints in {args.checkpoint}: "
                 f"steps {ckpt_mgr.steps()}"
@@ -775,6 +846,20 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
 
             n = write_chrome_trace(args.trace_export)
             print(f"wrote {n} span events to {args.trace_export}")
+
+
+def _scenario_report(ledger, agree) -> dict:
+    """The scenario ledger's report: this rank's, or on a mesh the sum over
+    every rank's (the same on every rank)."""
+    if agree is None:
+        return ledger.report()
+    from blendjax_torch.scenario import ScenarioAccounting
+    from blendjax_torch.scenario.accounting import merge_ledgers
+
+    merged = ScenarioAccounting()
+    merged.load_state_dict(merge_ledgers(
+        agree.gather_objects(ledger.state_dict())))
+    return merged.report()
 
 
 if __name__ == "__main__":

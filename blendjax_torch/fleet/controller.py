@@ -162,6 +162,17 @@ class FleetController:
     let ``start()`` run a daemon control thread every ``interval_s``:
     the home for the blocking subprocess lifecycle this class performs,
     away from the ingest and draw loops.
+
+    ``agreement`` (a :class:`~blendjax_torch.parallel.mesh.RankAgreement`
+    of the controller's own: a gloo group apart from the training's
+    collectives, which run on another thread) makes the controllers of a
+    mesh's ranks, each over its own launcher and bounds, take one decision
+    per tick: each tick gathers every rank's verdict, health and clock, and
+    every rank decides on the mesh's dominant verdict
+    (:func:`blendjax_torch.obs.fleetview.dominant_verdict`), every rank
+    healthy, and rank 0's clock, so every rank scales alike and holds the
+    same instance count. Every rank then ticks the same number of times: a
+    :meth:`stop` is agreed at a tick too. Respawns stay each rank's own.
     """
 
     def __init__(
@@ -180,8 +191,10 @@ class FleetController:
         event_log: int = 64,
         scenario_service=None,
         ctrl_socket_name: str = "CTRL",
+        agreement=None,
     ):
         self.launcher = launcher
+        self.agreement = agreement
         self.connector = connector
         self.policy = policy or FleetPolicy()
         self.socket_name = socket_name
@@ -209,6 +222,7 @@ class FleetController:
         self._pending_disconnects: list = []  # (due_t, addr, btid)
         self._ticks = 0
         self._lock = threading.RLock()
+        self._agreed_stop = False  # under _lock
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -355,6 +369,14 @@ class FleetController:
 
             verdict = diagnose_current()
         kind = _verdict_kind(verdict)
+        healthy = self._healthy()
+        clock = now
+        if self.agreement is not None:
+            kind, healthy, clock = self._agree(kind, healthy, now)
+            if self._stopping():  # a rank stops: no rank acts on this tick
+                return {"verdict": kind, "action": "stop",
+                        "instances": self._gauge_instances(),
+                        "respawned": respawned, "healthy": healthy}
         self.last_verdict_kind = kind
         if kind in p.scale_up_verdicts:
             self._up_streak += 1
@@ -369,11 +391,10 @@ class FleetController:
         active = self.launcher.active_count()
         in_cooldown = (
             self._last_scale_t is not None
-            and now - self._last_scale_t < p.cooldown_s
+            and clock - self._last_scale_t < p.cooldown_s
         )
         action = "hold"
         detail: dict = {}
-        healthy = self._healthy()
         if (
             self._up_streak >= p.up_after
             and not in_cooldown
@@ -391,7 +412,7 @@ class FleetController:
             removed = self._scale_down(now, kind)
             action, detail = "scale_down", {"removed": removed}
         if action != "hold":
-            self._last_scale_t = now
+            self._last_scale_t = clock
             self._up_streak = self._down_streak = 0
 
         n = self._gauge_instances()
@@ -405,6 +426,23 @@ class FleetController:
             "down_streak": self._down_streak,
             **detail,
         }
+
+    def _agree(self, kind, healthy: bool, now: float) -> tuple:
+        """The mesh's verdict, health and clock for this tick (every rank's
+        gathered on the controller's own group); notes a rank's stop."""
+        from blendjax_torch.obs.fleetview import dominant_verdict
+
+        got = self.agreement.gather_objects(
+            (kind, bool(healthy), float(now), self._stop.is_set()))
+        with self._lock:
+            self._agreed_stop = any(stop for *_, stop in got)
+        return (dominant_verdict([k for k, *_ in got]),
+                all(h for _, h, *_ in got), got[0][2])
+
+    def _stopping(self) -> bool:
+        """Whether a tick agreed that a rank stops."""
+        with self._lock:
+            return self._agreed_stop
 
     def _healthy(self) -> bool:
         if self.health is None:
@@ -526,6 +564,8 @@ class FleetController:
             ]
 
     def _run(self) -> None:
+        if self.agreement is not None:
+            return self._run_agreed()
         while not self._stop.wait(self.interval_s):
             try:
                 self.tick()
@@ -534,10 +574,25 @@ class FleetController:
                 # next tick re-reads fresh state
                 logger.exception("fleet controller tick failed")
 
+    def _run_agreed(self) -> None:
+        """The control loop of a mesh's rank: every rank ticks until a
+        tick agrees that one of them stops; a failed tick ends the loop
+        (its ranks can no longer stay in step)."""
+        while not self._stopping():
+            self._stop.wait(self.interval_s)
+            try:
+                self.tick()
+            except Exception:
+                logger.exception("fleet controller tick failed on a mesh; "
+                                 "this rank's control loop ends")
+                return
+
     def start(self) -> "FleetController":
         if self._thread is not None:
             raise RuntimeError("the fleet controller is already started")
         self._stop.clear()
+        with self._lock:
+            self._agreed_stop = False
         self._thread = threading.Thread(
             target=self._run, name="blendjax-torch-fleet-controller", daemon=True
         )
@@ -547,7 +602,9 @@ class FleetController:
     def stop(self) -> None:
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=5.0)
+            # on a mesh the last tick waits for every rank's next one
+            self._thread.join(timeout=5.0 if self.agreement is None
+                              else self.interval_s + 60.0)
             self._thread = None
 
     def __enter__(self) -> "FleetController":

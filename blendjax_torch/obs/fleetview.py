@@ -78,6 +78,20 @@ def gather_fleet_snapshots(snapshot: dict | None = None,
     return [json.loads(t) for t in out]
 
 
+def dominant_verdict(kinds):
+    """The most common actionable verdict kind of ``kinds`` (one per rank,
+    in rank order; not ``balanced`` or ``idle``), else the most common;
+    ties go to the first seen. ``None`` when there is none."""
+    counts: dict = {}
+    for kind in kinds:
+        if kind:
+            counts[kind] = counts.get(kind, 0) + 1
+    actionable = {k: n for k, n in counts.items()
+                  if k not in ("balanced", "idle")}
+    pool = actionable or counts
+    return max(pool, key=pool.get) if pool else None
+
+
 def fleet_report(snapshots: list) -> dict:
     """Aggregate per-rank snapshots into one fleet view: lineage entries
     re-keyed ``p{rank}/{btid}`` (never merged by btid), gap and trace
@@ -97,16 +111,9 @@ def fleet_report(snapshots: list) -> dict:
         trace_completed += int(tr.get("completed") or 0)
         trace_unordered += int(tr.get("unordered") or 0)
         verdicts[f"p{p}"] = snap.get("verdict")
-    kinds: dict = {}
-    for v in verdicts.values():
-        if not v:
-            continue
-        kind = v.split("—")[0].removeprefix("doctor:").strip()
-        kinds[kind] = kinds.get(kind, 0) + 1
-    actionable = {k: n for k, n in kinds.items()
-                  if k not in ("balanced", "idle")}
-    pool = actionable or kinds
-    dominant = max(pool, key=pool.get) if pool else None
+    dominant = dominant_verdict(
+        v.split("—")[0].removeprefix("doctor:").strip()
+        for v in verdicts.values() if v)
     return {
         "processes": len(snapshots),
         "verdicts": verdicts,
@@ -118,4 +125,5 @@ def fleet_report(snapshots: list) -> dict:
     }
 
 
-__all__ = ["fleet_report", "gather_fleet_snapshots", "process_snapshot"]
+__all__ = ["dominant_verdict", "fleet_report", "gather_fleet_snapshots",
+           "process_snapshot"]

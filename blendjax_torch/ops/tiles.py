@@ -945,6 +945,12 @@ def _local_fields(fields: dict, rows, b: int) -> dict:
             for k, v in fields.items()}
 
 
+#: A packed group's host flag: its rows are this rank's already (a mesh
+#: pipeline's live producers, or its rank's own recording), so a mesh
+#: fused step decodes the group whole instead of its rows of the group.
+LOCAL_ROWS_KEY = "_local_rows"
+
+
 def decode_packed_superbatch(packed, refs, spec, names, geoms, rle_groups=(),
                              mesh=None, data_axis="data"):
     """Decode a stacked chunk group ``packed`` (K', total) uint8 to full

@@ -259,6 +259,82 @@ class RankAgreement:
         return torch.stack(out).numpy()
 
 
+class StepAgreement:
+    """The ranks' agreement at step boundaries, on what one rank alone may
+    start: a snapshot that a thread of one rank requests (an SLO breach), a
+    SIGTERM that one rank sees. Every rank honours such a request at the
+    same step, so the collectives a snapshot issues always match.
+
+    :meth:`request` (any thread) raises a request on this rank. The next
+    per-batch agreement that the ranks already make carries it (a mesh
+    pipeline's, ``StreamDataPipeline(requests=)`` or
+    ``EchoingPipeline(requests=)``, through :meth:`carry` and
+    :meth:`settle`); when none carried one since the last step boundary,
+    :meth:`boundary` gathers it on the agreement's own gloo group.
+    :meth:`take` then tells every rank alike whether any rank raised the
+    request. :meth:`gather_objects` gathers host objects (each rank's
+    session at a snapshot, its scenario ledger) over the same group.
+    Constructing one is collective; every call but :meth:`request` belongs
+    to the thread that steps."""
+
+    KINDS = ("checkpoint", "preempt")
+
+    def __init__(self, mesh):
+        import threading
+
+        import torch.distributed as dist
+
+        self._agreement = RankAgreement(mesh)
+        self.ranks = self._agreement.ranks
+        self.rank = dist.get_rank()
+        self._lock = threading.Lock()
+        self._raised = 0
+        self._agreed = 0
+        self._carried = False
+
+    @classmethod
+    def _bit(cls, kind: str) -> int:
+        return 1 << cls.KINDS.index(kind)
+
+    def request(self, kind: str) -> None:
+        """Raise ``kind`` on this rank (thread-safe)."""
+        with self._lock:
+            self._raised |= self._bit(kind)
+
+    def carry(self) -> int:
+        """The requests raised since the last carry, as bits for a
+        gather (they leave this rank's queue)."""
+        with self._lock:
+            bits, self._raised = self._raised, 0
+        return bits
+
+    def settle(self, bits) -> None:
+        """Every rank's carried bits (one column of a gather): a request
+        any rank raised is agreed."""
+        for b in np.asarray(bits, np.int64).reshape(-1):
+            self._agreed |= int(b)
+        self._carried = True
+
+    def boundary(self) -> None:
+        """A step boundary: unless a pipeline's agreement carried the
+        requests since the last one, gather them here."""
+        if not self._carried:
+            self.settle(self._agreement.gather([self.carry()])[:, 0])
+        self._carried = False
+
+    def take(self, kind: str) -> bool:
+        """Whether ``kind`` is agreed (the same answer on every rank at the
+        same step); taking it clears it."""
+        bit = self._bit(kind)
+        hit = bool(self._agreed & bit)
+        self._agreed &= ~bit
+        return hit
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order."""
+        return self._agreement.gather_objects(obj)
+
+
 class ModelAxisGroup:
     """The ranks of ``mesh`` that share this rank's rows of a batch split
     over ``batch_axes`` (its model-axis group: the ranks along ``tp``,
@@ -295,6 +371,7 @@ class ModelAxisGroup:
         return box[0]
 
 
-__all__ = ["MeshSpec", "ModelAxisGroup", "RankAgreement", "axes_group",
+__all__ = ["MeshSpec", "ModelAxisGroup", "RankAgreement", "StepAgreement",
+           "axes_group",
            "check_mesh", "axes_index", "axes_size", "axis_names",
            "create_mesh", "mesh_shape"]

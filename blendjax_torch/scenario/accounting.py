@@ -291,6 +291,24 @@ class ScenarioAccounting:
                         st.win_rows = 0
         return out
 
+    def window_sums(self) -> dict:
+        """``{sid: (loss_sum, rows)}`` of every scenario's evidence window,
+        unfiltered and untouched (what a mesh sums over its ranks before a
+        curriculum update)."""
+        with self._lock:
+            return {sid: (st.win_loss_sum, st.win_rows)
+                    for sid, st in self._sc.items()}
+
+    def reset_windows(self, sids) -> None:
+        """Zero the evidence windows of ``sids`` (those a curriculum update
+        consumed)."""
+        with self._lock:
+            for sid in sids:
+                st = self._sc.get(sid)
+                if st is not None:
+                    st.win_loss_sum = 0.0
+                    st.win_rows = 0
+
     def theta_samples(self, sid: str, drain: bool = True) -> list:
         """Recorded ``(theta, loss)`` pairs for one scenario (drained by
         default so each curriculum update sees fresh evidence)."""
@@ -396,6 +414,53 @@ class ScenarioAccounting:
         metrics.gauge("scenario.space_version", self.space_version)
 
 
+def merge_ledgers(states: list) -> dict:
+    """One ledger's :meth:`ScenarioAccounting.state_dict` from several
+    (each rank's of a mesh, in rank order): counts, windows, version
+    attributions and loss histograms summed, theta rings joined, the
+    newest space version and every declared name."""
+    out = {"space_version": 0, "declared": set(), "scenarios": {}}
+    for st in states:
+        out["space_version"] = max(out["space_version"],
+                                   int(st.get("space_version", 0)))
+        out["declared"].update(st.get("declared", []))
+        for sid, e in st.get("scenarios", {}).items():
+            m = out["scenarios"].setdefault(sid, {
+                "rows": 0, "fresh": 0, "echoed": 0, "win_loss_sum": 0.0,
+                "win_rows": 0, "theta": [], "versions": {}, "loss": None})
+            for k in ("rows", "fresh", "echoed", "win_loss_sum", "win_rows"):
+                m[k] += e[k]
+            m["theta"] += list(e.get("theta", []))
+            for v, n in e.get("versions", {}).items():
+                m["versions"][int(v)] = m["versions"].get(int(v), 0) + int(n)
+            if "loss" in e:
+                m["loss"] = _merge_histograms(m["loss"], e["loss"])
+    out["declared"] = sorted(out["declared"])
+    for m in out["scenarios"].values():
+        if m["loss"] is None:
+            m["loss"] = Histogram().state_dict()
+    return out
+
+
+def _merge_histograms(a, b: dict) -> dict:
+    """The state of one histogram that saw what ``a`` and ``b`` (two
+    :meth:`Histogram.state_dict` s; ``a`` may be None) saw."""
+    if a is None:
+        return dict(b, buckets=dict(b["buckets"]))
+    out = {k: a[k] + b[k] for k in ("count", "sum")}
+    out["zeros"] = a.get("zeros", 0) + b.get("zeros", 0)
+    out["nonfinite"] = a.get("nonfinite", 0) + b.get("nonfinite", 0)
+    buckets = {int(k): int(v) for k, v in a["buckets"].items()}
+    for k, v in b["buckets"].items():
+        buckets[int(k)] = buckets.get(int(k), 0) + int(v)
+    out["buckets"] = buckets
+    lows = [d["min"] for d in (a, b) if "min" in d]
+    highs = [d["max"] for d in (a, b) if "max" in d]
+    if lows:
+        out["min"], out["max"] = min(lows), max(highs)
+    return out
+
+
 def _batch_lead(batch: dict) -> int:
     meta = batch.get("_meta")
     if isinstance(meta, list) and meta:
@@ -427,4 +492,5 @@ accounting = ScenarioAccounting()
 __all__ = [
     "SCENARIO_KEY", "SCENARIO_ROWS_KEY", "OVERFLOW_ID",
     "ScenarioAccounting", "accounting", "batch_row_scenarios",
+    "merge_ledgers",
 ]

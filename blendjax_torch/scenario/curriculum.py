@@ -48,6 +48,13 @@ class ScenarioCurriculum:
     - ``min_rows``: scenarios with fewer scored rows in the window are
       held out of that update (their weight is untouched).
     - ``frozen``: observe-only eval mode.
+    - ``agreement``: on a mesh of several ranks, a
+      :class:`~blendjax_torch.parallel.mesh.StepAgreement` (its
+      ``gather_objects``): each update first gathers every rank's evidence
+      windows and ``(theta, loss)`` pairs and sums them in rank order, so
+      every rank computes the same weights and parameters and publishes the
+      same space version to its own producers. Every rank calls
+      :meth:`step` at the same steps.
     """
 
     def __init__(
@@ -63,8 +70,11 @@ class ScenarioCurriculum:
         adapt_params: bool = True,
         min_rows: int = 8,
         frozen: bool = False,
+        agreement=None,
     ):
         self.space = space
+        self.agreement = agreement
+        self._gathered = None  # this update's evidence of every rank
         self.service = service
         self.ledger = ledger
         self.every_steps = max(1, int(every_steps))
@@ -120,9 +130,7 @@ class ScenarioCurriculum:
         # to adapt) must not drain the OTHER scenarios' windows — that
         # would bias the eventual first comparison toward whichever
         # side kept its history.
-        losses = self.ledger.window_losses(
-            reset=False, min_rows=self.min_rows
-        )
+        losses = self._window_losses()
         eligible = {
             sid: mean for sid, (mean, rows) in losses.items()
             if sid in self.space.scenarios
@@ -141,7 +149,10 @@ class ScenarioCurriculum:
             # accounting would fragment over versions that never
             # differed — and the untouched windows keep accumulating
             return None
-        self.ledger.window_losses(reset=True, min_rows=self.min_rows)
+        if self._gathered is None:
+            self.ledger.window_losses(reset=True, min_rows=self.min_rows)
+        else:
+            self.ledger.reset_windows(losses)
         version = self.space.bump()
         if self.service is not None:
             self.service.publish(self.space)
@@ -161,6 +172,36 @@ class ScenarioCurriculum:
         }
         logger.info("scenario curriculum update: %s", report)
         return report
+
+    def _window_losses(self) -> dict:
+        """``{sid: (mean_loss, rows)}`` of the windows with ``min_rows``
+        scored rows: this rank's (peeked, not consumed), or on a mesh the
+        sums over every rank's (gathered here, with the theta rings, once
+        per update)."""
+        if self.agreement is None:
+            return self.ledger.window_losses(reset=False,
+                                             min_rows=self.min_rows)
+        names = list(self.space.scenarios)
+        self._gathered = self.agreement.gather_objects((
+            self.ledger.window_sums(),
+            {n: self.ledger.theta_samples(n, drain=False) for n in names}))
+        total: dict = {}
+        for windows, _theta in self._gathered:
+            for sid, (loss_sum, rows) in windows.items():
+                acc = total.setdefault(sid, [0.0, 0])
+                acc[0] += loss_sum
+                acc[1] += rows
+        return {sid: (loss_sum / rows, rows)
+                for sid, (loss_sum, rows) in total.items()
+                if rows >= max(1, self.min_rows)}
+
+    def _theta_samples(self, name: str) -> list:
+        """The scenario's ``(theta, loss)`` pairs, this rank's or (on a
+        mesh) every rank's in rank order, peeked."""
+        if self._gathered is None:
+            return self.ledger.theta_samples(name, drain=False)
+        return [pair for _w, theta in self._gathered
+                for pair in theta.get(name, [])]
 
     def _update_weights(self, losses: dict) -> dict:
         """Multiplicative weights toward high loss, with an exploration
@@ -207,7 +248,7 @@ class ScenarioCurriculum:
                 continue
             # peek-then-drain: a scenario short of evidence KEEPS its
             # (bounded) theta ring accumulating for the next cadence
-            samples = self.ledger.theta_samples(name, drain=False)
+            samples = self._theta_samples(name)
             samples = [
                 (t, l) for t, l in samples if len(t) == len(gauss)
             ]

@@ -621,11 +621,22 @@ class CapturedStep:
     Each capture is timed in the ``train.compile_ms`` span and registered
     with the device ledger as ``"captured_step"`` (``ledger_entries``);
     ``_cache_size`` (the graphs captured) is what
-    :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches."""
+    :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches.
+
+    A mesh over a gloo process group (several ranks sharing one card, which
+    NCCL refuses) is not captured: gloo moves a card's tensors through the
+    host, which a capture forbids. Its step runs eagerly on the card,
+    counted in ``eager_calls``."""
 
     def __init__(self, step, mesh=None):
         self.step = step
         self.mesh = mesh  # a mesh step's: the ledger's per-axis attribution
+        self.eager_calls = 0
+        self.host_collectives = False
+        if mesh is not None and int(mesh.mesh.numel()) > 1:
+            import torch.distributed as dist
+
+            self.host_collectives = str(dist.get_backend()) == "gloo"
         self._graphs: dict = {}
         self._stream = None
         self._stager = HostStager()
@@ -672,12 +683,15 @@ class CapturedStep:
         running the step: the state is left as it was (a capture puts it
         back). A no-op on a CPU state or a signature already captured."""
         device = state_device(state)
-        if device.type == "cuda":
+        if device.type == "cuda" and not self.host_collectives:
             self._graph(state, batch, device)
 
     def __call__(self, state, batch):
         device = state_device(state)
         if device.type != "cuda":
+            return self.step(state, batch)
+        if self.host_collectives:
+            self.eager_calls += 1
             return self.step(state, batch)
         graph = self._graph(state, batch, device)
         out = graph(state, batch)

@@ -291,7 +291,7 @@ class TrainDriver:
         """Queue one step without waiting for its result. ``post=False``
         leaves the step-boundary work (:meth:`post_dispatch`) to the
         caller."""
-        if self.preempt is not None and self.preempt.requested:
+        if self._preempt_due():
             self._preempt_flush()
         if self.pad_partial and batch.get("_partial") and "_mask" not in batch:
             from blendjax_torch.data.batcher import pad_to_bucket
@@ -341,11 +341,10 @@ class TrainDriver:
         if self.sync_every and self.steps % self.sync_every == 0:
             self._sync_oldest()
         if self.checkpoint is not None and (
-            self._ckpt_request.is_set()
+            self._checkpoint_requested()
             or (self.checkpoint_every
                 and self.steps % self.checkpoint_every == 0)
         ):
-            self._ckpt_request.clear()
             self._dispatch_checkpoint()
 
     # -- checkpointing ----------------------------------------------------------
@@ -353,6 +352,18 @@ class TrainDriver:
     def request_checkpoint(self) -> None:
         """Thread-safe: snapshot at the next step boundary."""
         self._ckpt_request.set()
+
+    def _checkpoint_requested(self) -> bool:
+        """Whether a snapshot was requested since the last step boundary
+        (taking the request)."""
+        if not self._ckpt_request.is_set():
+            return False
+        self._ckpt_request.clear()
+        return True
+
+    def _preempt_due(self) -> bool:
+        """Whether this step boundary honours a preemption."""
+        return self.preempt is not None and self.preempt.requested
 
     def _dispatch_checkpoint(self) -> None:
         """Hand the state and the session to the snapshot manager."""

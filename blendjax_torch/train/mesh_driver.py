@@ -158,7 +158,17 @@ class MeshTrainDriver(TrainDriver):
     - :attr:`stats` adds ``chips``, ``processes``, ``layout`` and
       ``data_axis_size``;
     - :meth:`fleet_snapshots` / :meth:`fleet_report` gather every rank's
-      observability snapshot (:mod:`blendjax_torch.obs.fleetview`).
+      observability snapshot (:mod:`blendjax_torch.obs.fleetview`);
+    - with ``checkpoint=`` on a mesh of several ranks, a snapshot is one
+      step of every rank: a request that one rank raises (a thread's
+      :meth:`request_checkpoint`, a SIGTERM through its
+      :class:`~blendjax_torch.checkpoint.PreemptionGuard`) is agreed
+      through ``requests`` (a
+      :class:`~blendjax_torch.parallel.mesh.StepAgreement`; one of its own
+      unless given, which a pipeline's per-batch agreement can carry) and
+      honoured by every rank at the same step; each snapshot gathers every
+      rank's session (:func:`~blendjax_torch.checkpoint.gather_session`) and
+      rank 0 alone writes the state and the gathered session.
 
     ``mesh=None`` is one card without a process group: the base driver's
     work with no collective (one chip, layout ``"single"``).
@@ -171,7 +181,7 @@ class MeshTrainDriver(TrainDriver):
                  peak_flops_per_chip: float | None = None,
                  peak_flops: float | None = None, checkpoint=None,
                  checkpoint_every: int = 0, session_state=None, place=None,
-                 layout: str | None = None):
+                 layout: str | None = None, requests=None):
         from blendjax_torch.parallel.sharding import (
             batch_sharding,
             leading_shard_count,
@@ -203,6 +213,52 @@ class MeshTrainDriver(TrainDriver):
         if peak_flops is None and self.peak_flops:
             # the one-card default from the card's name, times the cards
             self.peak_flops *= self.chips
+        if (requests is None and checkpoint is not None and mesh is not None
+                and int(mesh.mesh.numel()) > 1):
+            from blendjax_torch.parallel.mesh import StepAgreement
+
+            requests = StepAgreement(mesh)
+        self.requests = requests
+
+    # -- snapshots agreed across the ranks --------------------------------------
+
+    def request_checkpoint(self) -> None:
+        """Thread-safe: snapshot at a step boundary, the same one on every
+        rank of the mesh."""
+        if self.requests is None:
+            return super().request_checkpoint()
+        self.requests.request("checkpoint")
+
+    def _preempt_due(self) -> bool:
+        if self.requests is None:
+            return super()._preempt_due()
+        if self.preempt is not None and self.preempt.requested:
+            self.requests.request("preempt")
+        self.requests.boundary()
+        return self.requests.take("preempt")
+
+    def _checkpoint_requested(self) -> bool:
+        if self.requests is None:
+            return super()._checkpoint_requested()
+        return self.requests.take("checkpoint")
+
+    def _dispatch_checkpoint(self) -> None:
+        """Every rank's session gathered at this step; rank 0 writes."""
+        if self.requests is None:
+            return super()._dispatch_checkpoint()
+        from blendjax_torch.checkpoint import gather_session
+        from blendjax_torch.weights import train_state_leaves
+
+        session = {}
+        if callable(self.session_state):
+            session = dict(self.session_state() or {})
+        session.setdefault("driver", self.state_dict())
+        # every rank takes the leaves: a split state gathers them
+        leaves = train_state_leaves(self.state)
+        merged = gather_session(session, self.requests)
+        if merged is not None:
+            self.checkpoint.save_async(self.steps, leaves, session=merged)
+        self.checkpoints += 1
 
     def _batch_images(self, batch) -> int:
         from blendjax_torch.train.steps import batch_images

@@ -349,8 +349,11 @@ def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
     ``superbatch_constraint`` (a batch :class:`~blendjax_torch.parallel.Sharding`
     or None) makes each rank decode (with K1/K2) and train on only its rows
     of every packed group, which travels whole. A raw batch arrives with
-    this rank's rows already (the feeder's)."""
+    this rank's rows already (the feeder's), and so does a packed group
+    marked ``ops.tiles.LOCAL_ROWS_KEY`` (a mesh pipeline's group of this
+    rank's own producers or recording), which is decoded whole."""
     from blendjax_torch.ops.tiles import (
+        LOCAL_ROWS_KEY,
         decode_packed_pal_superbatch,
         decode_packed_superbatch,
     )
@@ -364,16 +367,17 @@ def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
         axes = leading_axes(superbatch_constraint)
 
     def step(state, batch):
+        rows_of = None if batch.get(LOCAL_ROWS_KEY) else mesh
         if "_pal" in batch:
             superbatch = decode_packed_pal_superbatch(
                 batch["_packed"], batch["_spec"], batch["_pal"],
-                batch.get("_rle", ()), mesh=mesh, data_axis=axes,
+                batch.get("_rle", ()), mesh=rows_of, data_axis=axes,
             )
         elif "_packed" in batch:
             superbatch = decode_packed_superbatch(
                 batch["_packed"], batch["_refs"], batch["_spec"],
                 batch["_names"], batch["_geoms"], batch.get("_rle", ()),
-                mesh=mesh, data_axis=axes,
+                mesh=rows_of, data_axis=axes,
             )
         else:
             superbatch = _raw_fields(batch)

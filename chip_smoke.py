@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --startup 5   # only the start-up probe
-    python3 chip_smoke.py --two-rank-phase  # the build and two-rank leg
+    python3 chip_smoke.py --two-rank-phase  # the build, the two-rank
+                                            # leg and 5k's two-rank sub-leg
 
 Phases (any failure exits non-zero):
 
@@ -297,7 +298,8 @@ accounting and the same slot stamps on both ranks, the apply on half
 the rows, and checked draws' rows bit-equal to the one-card draw's. It
 prints per rank the launches, the collectives by kind and axis, the
 gloo stages, the resident bytes and the wall seconds. ``python3
-chip_smoke.py --two-rank-phase`` runs the build and this leg alone.
+chip_smoke.py --two-rank-phase`` runs the build, this leg and phase 5k's
+two-rank sub-leg alone.
 
 Phase 5h (after the mesh phase), mixture of experts and remat: the MoE
 leg runs ``StreamFormer(**FORMER, num_experts=4, moe_every=2)`` (MoE in
@@ -384,6 +386,28 @@ bf16-compute). Then ``--encoding pal --chunk 4 --inflight 2``, raw and
 ``--echo 4``, 16 steps each, one replay per step call. Every leg prints
 its captured signatures, each capture's ms and where a later signature
 differs from the first.
+Its two-rank sub-leg (``mesh_examples_leg``, the datagen examples on
+``{"data": 2}``, rules in ``blendjax_torch/docs/mesh-examples.md``): two
+processes on the card, each opening a gloo group of both
+(``init_group(backend="gloo")``) and calling ``train.main(argv)`` run
+after run, in f32 (TF32 off) under deterministic algorithms; a gloo mesh
+steps eagerly (no capture). The tile runs are 480x640, batch 8, chunk 4,
+``--inflight 1 --sync-every 1`` (every step's loss): live from one cube
+producer per rank for 16 steps with ``--record`` and ``--checkpoint
+--checkpoint-every 8`` (snapshots 8 and 16); each rank cuts its
+recording to the messages of the first 8 steps; ``--replay`` of the cut
+recording for 16 steps (its first 8 losses must equal the live run's and
+the next 8 loop it); ``--resume`` from the step-8 snapshot with that
+replay for 8 steps (equal to the replay's second 8); K1 launched on every
+rank of each. Then ``--synthetic-producers 1 --scenarios ... --curriculum
+--curriculum-every 4`` for 16 steps (the rows summed over the ranks =
+16 x 8; one report, version and weights on both) and ``--fleet 1:2`` for
+300 steps (one instance count within the bounds, as many ticks on both).
+This process then replays the cut recording and resumes the step-8
+snapshot on one card: within ``MESH_EX_REL`` of the two ranks' losses.
+No process, directory or shared-memory segment may be left. It prints per
+rank and run the wall seconds, img/s and K1 launches, and rank 0's
+snapshot bytes and writer ms.
 ``datagen/train_transformer.py`` at StreamFormer's full width (patch 20,
 dim 512, depth 8, 4 heads, 16 steps, on a mesh ``{"data": 1}`` over an
 NCCL group of world size 1 it opens and closes): 16 replays, K4a-c each
@@ -397,6 +421,7 @@ device JSON object ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -4006,8 +4031,9 @@ def two_rank_child(rank: int, wdir: str) -> None:
 
 
 def two_rank_alone() -> None:
-    """``python3 chip_smoke.py --two-rank-phase``: the build and the
-    two-rank leg alone (a quick proof of the split on the card)."""
+    """``python3 chip_smoke.py --two-rank-phase``: the build, the two-rank
+    leg and phase 5k's two-rank sub-leg alone (a quick proof of the split
+    and of the datagen examples on a mesh of two ranks, on the card)."""
     import torch
 
     from blendjax_torch.kernels.build import build
@@ -4029,6 +4055,10 @@ def two_rank_alone() -> None:
         t0 = time.perf_counter()
         two_rank_phase(tmp, card)
         log(f"two-rank leg in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_examples_leg(tmp, card)
+        log(f"phase 5k's two-rank sub-leg (the datagen examples) in "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def one_rank_losses(cfg: dict, prefix: str, groups: int) -> list:
@@ -5439,26 +5469,416 @@ def example_control_legs(card: str) -> dict:
     return {"dqn": dqn, "reinforce": pg, "densityopt": dens}
 
 
+# phase 5k's two-rank sub-leg: datagen/train.py on {"data": 2}, two
+# processes on the one card over gloo (NCCL refuses two ranks of one
+# device), each calling the example's main in its own group. The tile runs
+# sync every loss (inflight 1): each step's loss is then the same entry of
+# the driver's list in every run.
+MESH_EX = {"steps": 16, "every": 8, "scenario_steps": 16,
+           "fleet_steps": 300, "deadline_s": 420}
+MESH_EX_TILE = EX_SHAPE + ["--batch", str(BATCH), "--encoding", "tile",
+                           "--chunk", str(CHUNK), "--inflight", "1",
+                           "--sync-every", "1"]
+MESH_EX_SPACE = ("easy:half_extent=u(0.8,1.2) / "
+                 "hard:half_extent=u(0.8,1.2),xy_jitter=g(6,0.5)")
+# one card against two ranks: the ranks' gradient mean sums in another
+# order, and cuDNN picks its algorithms per batch shape (4 rows on a rank,
+# 8 on one card). The sub-leg computes in f32 with TF32 off (the
+# flagship's widths, the f32 policy): bit for bit within one world size,
+# and across world sizes the two-rank leg's card bar (TWO_RANK["loss_rel"];
+# the CPU tests hold 1e-5, and an H100 read 1.209e-05 over 8 steps)
+MESH_EX_REL = 1e-4
+def mesh_example_runs(wdir: str) -> list:
+    """The ranks' runs of ``datagen/train.py``, in order (``None`` argv:
+    the step between two runs that :func:`mesh_example_child` names)."""
+    rec, cut = os.path.join(wdir, "rec"), os.path.join(wdir, "rec-cut")
+    ckpt, first = os.path.join(wdir, "ckpt"), os.path.join(wdir, "ckpt-8")
+    steps, every = str(MESH_EX["steps"]), MESH_EX["every"]
+    synth = EX_SHAPE + ["--batch", str(BATCH), "--synthetic-producers", "1"]
+    return [
+        ("live", MESH_EX_TILE + ["--instances", "1", "--steps", steps,
+                                 "--record", rec, "--checkpoint", ckpt,
+                                 "--checkpoint-every", str(every)]),
+        ("cut", None),
+        ("replay", MESH_EX_TILE + ["--steps", steps, "--replay", cut]),
+        ("resume", MESH_EX_TILE + ["--steps", str(every), "--replay", cut,
+                                   "--checkpoint", first, "--resume",
+                                   "--checkpoint-every", "0"]),
+        ("scenarios", synth + ["--steps", str(MESH_EX["scenario_steps"]),
+                               "--scenarios", MESH_EX_SPACE, "--curriculum",
+                               "--curriculum-every", "4"]),
+        ("fleet", synth + ["--steps", str(MESH_EX["fleet_steps"]),
+                           "--fleet", "1:2"]),
+    ]
+
+
+@contextlib.contextmanager
+def f32_cube():
+    """``CubeRegressor`` computing in f32 as the examples import it, TF32
+    off, for the duration."""
+    import torch
+
+    import blendjax_torch.models as PM
+
+    base = PM.CubeRegressor
+
+    class F32Cube(base):
+        def __init__(self, *a, **kw):
+            kw.setdefault("dtype", torch.float32)
+            super().__init__(*a, **kw)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    PM.CubeRegressor = F32Cube
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        PM.CubeRegressor = base
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def cut_recording(src: str, dst: str, n: int) -> None:
+    """The first ``n`` messages of recording ``src`` as ``dst``."""
+    from blendjax_torch.data import FileReader, FileRecorder
+
+    reader = FileReader(src)
+    with FileRecorder(dst) as rec:
+        for i in range(n):
+            rec.save(reader.frames(i))
+    reader.close()
+
+
+def rank_example(argv: list) -> dict:
+    """One run of ``datagen/train.py`` on this rank: its printed text, the
+    plain values of what it returns, its wall time and the launch counts
+    zeroed just before and read just after."""
+    import contextlib
+    import io
+
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+    from blendjax_torch.scenario import accounting
+
+    fresh_registry()
+    accounting.reset()
+    mod = load_example("datagen/train.py")
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = dict(mod.main(argv) or {})
+    wall = time.perf_counter() - t0
+    keep = {k: out[k] for k in ("losses", "last_loss", "img_s", "images",
+                                "seq_gaps", "checkpoint", "scenarios",
+                                "curriculum_weights", "fleet") if k in out}
+    drv = out.get("driver")
+    if drv is not None:
+        keep.update(driver_losses=list(drv.losses), steps=drv.steps,
+                    eager_calls=getattr(drv.step, "eager_calls", None),
+                    images_retired=drv.images_retired)
+    return {**keep, "text": buf.getvalue(), "wall_s": wall,
+            "launches": launch_counts()}
+
+
+def _cut_and_copy(rank: int, wdir: str, every: int) -> int:
+    """Between the live run and the replay: this rank keeps the messages
+    of the live run's first ``every`` steps (a replay of them loops with
+    that period), and rank 0 copies the step-``every`` snapshot alone.
+    Returns the messages kept."""
+    import shutil
+
+    from blendjax_torch.checkpoint import SnapshotManager
+    from blendjax_torch.data.replay import rank_prefix
+
+    done = SnapshotManager(os.path.join(wdir, "ckpt"),
+                           read_only=True).restore(step=every)
+    # each update took one message of BATCH / 2 rows on each rank
+    messages = done.session["driver"]["images_retired"] // BATCH
+    cut_recording(
+        rank_prefix(os.path.join(wdir, "rec"), rank, 2) + "_00.bjr",
+        rank_prefix(os.path.join(wdir, "rec-cut"), rank, 2) + "_00.bjr",
+        messages)
+    if rank == 0:
+        shutil.copytree(os.path.join(wdir, "ckpt", f"step-{every:08d}"),
+                        os.path.join(wdir, "ckpt-8", f"step-{every:08d}"))
+    return messages
+
+
+def mesh_example_child(rank: int, wdir: str) -> None:
+    """One rank of phase 5k's two-rank sub-leg: the gloo group of both
+    ranks on the card, then :func:`mesh_example_runs` one after another,
+    in f32 (:func:`f32_cube`) under deterministic algorithms (the
+    same-world gates are bit for bit); results pickled to ``wdir``."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from blendjax_torch.parallel.mesh import init_group
+
+    out: dict = {}
+    try:
+        torch.cuda.set_device(0)
+        init_group("cuda", store_dir=wdir, backend="gloo", rank=rank,
+                   world_size=2)
+        _deterministic(True)
+        every = MESH_EX["every"]
+        with f32_cube():
+            for name, argv in mesh_example_runs(wdir):
+                if argv is None:
+                    out["cut_messages"] = _cut_and_copy(rank, wdir, every)
+                else:
+                    out[name] = rank_example(argv)
+                dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(wdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    sys.exit(1 if "error" in out else 0)
+
+
+def _mark_holders(mark: str) -> list:
+    """PIDs of live processes whose environment holds ``mark``."""
+    found = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as f:
+                env = f.read()
+            with open(f"/proc/{d}/stat") as f:
+                zombie = f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except OSError:
+            continue
+        if mark.encode() in env and not zombie:
+            found.append(int(d))
+    return found
+
+
+def _rel_gap(got: list, want: list) -> float:
+    if len(got) != len(want) or not got:
+        return math.inf
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+
+
+def mesh_examples_leg(tmp: str, card: str) -> dict:
+    """Phase 5k's two-rank sub-leg: ``datagen/train.py`` at 480x640 on
+    ``{"data": 2}``, two processes on the card over gloo
+    (:func:`mesh_example_child`), then the one-card runs of the same
+    recording and snapshot here. Gates: K1 launched on every rank of the
+    tile runs; the rank-tagged recordings; the replay of the cut
+    recording equal to the live losses and the resume from the step-8
+    snapshot equal to the replay's second period, bit for bit; the
+    one-card replay and resume within ``MESH_EX_REL``; the scenario rows
+    summed over the ranks equal to steps x batch, one space version and
+    one set of weights; one instance count within the bounds; no process,
+    directory or shared-memory segment left."""
+    import pickle
+    import shutil
+
+    wdir = tempfile.mkdtemp(dir=tmp)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    # the ranks and their producers keep their temporary files here: it
+    # must be empty at the end, and a process whose environment names it
+    # is one of theirs
+    mark = os.path.join(wdir, "tmp")
+    os.makedirs(mark)
+    env["TMPDIR"] = mark
+    env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    shm0 = set(os.listdir("/dev/shm"))
+    tmp0 = set(os.listdir(tempfile.gettempdir()))
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(wdir, f"rank{r}.log"), "w") for r in range(2)]
+    code = ("import sys, chip_smoke as cs; "
+            "cs.mesh_example_child(int(sys.argv[1]), sys.argv[2])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), wdir], cwd=ROOT, env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + MESH_EX["deadline_s"]
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    alive = [p for p in procs if p.poll() is None]
+    for p in alive:
+        p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    ranks_s = time.perf_counter() - t0
+    results = []
+    for r in range(2):
+        path = os.path.join(wdir, f"rank{r}.pkl")
+        res = None
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                res = pickle.load(f)
+        results.append(res)
+    bad = [r for r, res in enumerate(results)
+           if alive or res is None or "error" in res]
+    if bad:
+        for r in range(2):
+            with open(os.path.join(wdir, f"rank{r}.log")) as f:
+                print(f"-- rank {r} (exit {procs[r].returncode}):\n"
+                      + f.read()[-6000:], file=sys.stderr)
+        res = results[bad[0]]
+        fail(f"phase 5k mesh examples: rank {bad[0]} "
+             + ("did not finish in time" if alive else "failed")
+             + (f": {res['error']}" if res and "error" in res else ""))
+    label = "phase 5k mesh examples"
+    launches = {"decode_spatial": 0}
+    calls = {name: int(argv[argv.index("--steps") + 1])
+             for name, argv in mesh_example_runs(wdir) if argv}
+    for r, res in enumerate(results):
+        for run in ("live", "replay", "resume"):
+            k1 = res[run]["launches"]["decode_spatial"]
+            if k1 <= 0 or res[run]["eager_calls"] != calls[run]:
+                fail(f"{label}, rank {r}, {run}: K1 launched {k1} times, "
+                     f"{res[run]['eager_calls']} eager step calls for "
+                     f"{calls[run]} steps")
+        for run, out in res.items():
+            if isinstance(out, dict) and "launches" in out:
+                launches["decode_spatial"] += out["launches"][
+                    "decode_spatial"]
+    rec = sorted(n for n in os.listdir(wdir) if n.startswith("rec."))
+    if rec != ["rec.rank0-of-2_00.bjr", "rec.rank1-of-2_00.bjr"]:
+        fail(f"{label}: the live run's recordings are {rec}")
+    every = MESH_EX["every"]
+    for r, res in enumerate(results):
+        live = res["live"]["driver_losses"]
+        replay = res["replay"]["driver_losses"]
+        # a resumed driver's list starts with the snapshot's loss tail
+        resume = res["resume"]["driver_losses"][-every:]
+        if replay[:every] != live[:every]:
+            fail(f"{label}, rank {r}: the replay's losses {replay[:every]} "
+                 f"are not the live run's {live[:every]}")
+        if resume != replay[every:2 * every]:
+            fail(f"{label}, rank {r}: the resumed losses {resume} are not "
+                 f"the replay's second period {replay[every:2 * every]}")
+        if res["live"]["checkpoint"]["steps"][-2:] != [every,
+                                                       MESH_EX["steps"]]:
+            fail(f"{label}, rank {r}: snapshots "
+                 f"{res['live']['checkpoint']['steps']}")
+    if results[0]["live"]["driver_losses"] != results[1]["live"][
+            "driver_losses"]:
+        fail(f"{label}: the ranks' live losses differ")
+    # the one-card runs of the same recording and snapshot, here
+    _deterministic(True)
+    try:
+        with f32_cube():
+            cut = os.path.join(wdir, "rec-cut")
+            one_replay = run_example(
+                f"{label}, one card replay", "datagen/train.py",
+                MESH_EX_TILE + ["--steps", str(every), "--replay", cut])
+            ck = os.path.join(wdir, "ckpt-one")
+            shutil.copytree(os.path.join(wdir, "ckpt", f"step-{every:08d}"),
+                            os.path.join(ck, f"step-{every:08d}"))
+            one_resume = run_example(
+                f"{label}, one card resume", "datagen/train.py",
+                MESH_EX_TILE + ["--steps", str(every), "--replay", cut,
+                                "--checkpoint", ck, "--resume",
+                                "--checkpoint-every", "0"])
+    finally:
+        _deterministic(False)
+    for one in (one_replay, one_resume):
+        launches["decode_spatial"] += one["launches"]["decode_spatial"]
+    gaps = {
+        "replay": _rel_gap(list(one_replay["driver"].losses),
+                           results[0]["live"]["driver_losses"][:every]),
+        "resume": _rel_gap(list(one_resume["driver"].losses)[-every:],
+                           results[0]["resume"]["driver_losses"][-every:]),
+    }
+    if not all(g <= MESH_EX_REL for g in gaps.values()):
+        fail(f"{label}: one card against two ranks, largest rel gaps {gaps} "
+             f"(bar {MESH_EX_REL})")
+    if "(saved by 2 ranks)" not in one_resume["text"]:
+        fail(f"{label}: the one-card resume printed "
+             + example_lines(one_resume["text"], "resumed"))
+    scen = [res["scenarios"]["scenarios"] for res in results]
+    rows = sum(s["rows"] for s in scen[0]["scenarios"].values())
+    want_rows = MESH_EX["scenario_steps"] * BATCH
+    if (scen[0] != scen[1] or rows != want_rows
+            or results[0]["scenarios"]["curriculum_weights"]
+            != results[1]["scenarios"]["curriculum_weights"]):
+        fail(f"{label}: scenario reports {scen}, rows {rows} (want "
+             f"{want_rows}), weights "
+             f"{[res['scenarios']['curriculum_weights'] for res in results]}")
+    fleets = [res["fleet"]["fleet"] for res in results]
+    if (fleets[0]["instances"] != fleets[1]["instances"]
+            or not 1 <= fleets[0]["instances"] <= 2
+            or fleets[0]["ticks"] != fleets[1]["ticks"]):
+        fail(f"{label}: fleet states {fleets}")
+    deadline = time.monotonic() + 10
+    while _mark_holders(mark) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _mark_holders(mark)
+    shm = sorted(set(os.listdir("/dev/shm")) - shm0)
+    # torch makes its own per-user cache directory at the first use of
+    # some of its modules (torchinductor_<user>): not this leg's
+    tmps = sorted(n for n in (set(os.listdir(tempfile.gettempdir())) - tmp0)
+                  | set(os.listdir(mark))
+                  if not n.startswith("torchinductor_"))
+    if left or shm or tmps:
+        fail(f"{label}: left behind processes {left}, shared-memory "
+             f"segments {shm}, temp entries {tmps}")
+    shutil.rmtree(wdir)
+    r0 = results[0]
+    ck = r0["live"]["checkpoint"]
+    for r, res in enumerate(results):
+        log(f"{label} on {card}, rank {r}: "
+            + "; ".join(f"{run} {res[run]['wall_s']:.1f} s, "
+                        f"{res[run]['img_s']:.1f} img/s on this rank, K1 "
+                        f"{res[run]['launches']['decode_spatial']}"
+                        for run in ("live", "replay", "resume",
+                                    "scenarios", "fleet"))
+            + f"; cut at {res['cut_messages']} messages")
+    log(f"{label} on {card}: two ranks {ranks_s:.1f} s; live losses "
+        f"{r0['live']['driver_losses'][:3]}...; replay == live and resume == "
+        f"replay's second period, bit for bit, on both ranks; one card "
+        f"against two ranks: rel gaps {gaps} (bar {MESH_EX_REL}); snapshots "
+        f"{ck['steps']}, {ck['bytes']} bytes in {len(ck['save_ms'])} "
+        f"writes ({', '.join(f'{ms:.1f}' for ms in ck['save_ms'])} ms); "
+        f"scenario rows {rows} = {MESH_EX['scenario_steps']} x {BATCH}, "
+        f"space v{scen[0]['space_version']}, weights "
+        f"{r0['scenarios']['curriculum_weights']} on both ranks; fleet "
+        f"{fleets[0]['instances']} instances on both ranks after "
+        f"{fleets[0]['ticks']} agreed ticks (last verdict "
+        f"{fleets[0]['verdict']}); K1 launches {launches['decode_spatial']}")
+    return {"ranks": results, "launches": launches, "wall_s": ranks_s,
+            "gaps": gaps}
+
+
 def phase_5k(tmp: str, card: str) -> dict:
     """Phase 5k: the port's examples run in this process, each ``main()``
     loaded by path with its argv (see the module docstring)."""
     t0 = time.perf_counter()
     legs = example_train_legs(tmp, card)
     t1 = time.perf_counter()
-    former = example_former_leg(card)
+    mesh = mesh_examples_leg(tmp, card)
     t2 = time.perf_counter()
+    former = example_former_leg(card)
+    t3 = time.perf_counter()
     control = example_control_legs(card)
     wall = time.perf_counter() - t0
     launches = {"decode_spatial": sum(
-        leg["launches"]["decode_spatial"] for leg in legs.values())}
+        leg["launches"]["decode_spatial"] for leg in legs.values())
+        + mesh["launches"]["decode_spatial"]}
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         launches[name] = former["launches"][name]
     log(f"phase 5k (the examples) in {wall:.1f} s: train.py legs "
-        f"{t1 - t0:.1f} s, train_transformer.py {t2 - t1:.1f} s, control "
-        f"and densityopt {wall - (t2 - t0):.1f} s; launches {launches}")
-    return {"legs": legs, "former": former, "control": control,
-            "launches": launches, "seconds": wall}
+        f"{t1 - t0:.1f} s, the two-rank sub-leg {t2 - t1:.1f} s, "
+        f"train_transformer.py {t3 - t2:.1f} s, control and densityopt "
+        f"{wall - (t3 - t0):.1f} s; launches {launches}")
+    return {"legs": legs, "mesh": mesh, "former": former,
+            "control": control, "launches": launches, "seconds": wall}
 
 
 def eager_against_graph(label: str, make_step, make_state, batches) -> dict:

@@ -55,7 +55,9 @@ CATALOG_DIFFERENCES = {
     "metrics": {"feed.mesh_dropped_batches": "port",
                 # the JAX package's gauge is set by bench.py
                 "train.donation_reuse": "port"},
-    "stamps": {},
+    # a mesh pipeline's packed group of this rank's own rows (the port runs
+    # one process per card; the JAX package places one global batch)
+    "stamps": {"_local_rows": "port"},
     # the port's host C++ has no Python fallback to force
     "knobs": {"BLENDJAX_NO_NATIVE": "jax"},
 }

@@ -462,3 +462,81 @@ def test_other_models_snapshot_under_their_own_names(tmp_path):
     for p, q in zip(a.model.parameters(), b_.model.parameters()):
         assert torch.equal(p, q)
     mgr.close()
+
+
+# -- the session of a mesh's ranks ----------------------------------------------
+
+
+class _Agreement:
+    """What ``gather_session`` reads of a ``StepAgreement``: this rank, the
+    ranks, and a gather that hands back every rank's object."""
+
+    def __init__(self, rank, sessions):
+        self.rank, self.ranks, self.sessions = rank, [0, 1], sessions
+
+    def gather_objects(self, obj):
+        # this rank's object as it crosses; the others' as given
+        return [obj if r == self.rank else s
+                for r, s in enumerate(self.sessions)]
+
+
+def test_a_mesh_session_keeps_rank_0s_components_where_one_card_does():
+    """Rank 0 gets every rank's session, its own at the top and the
+    others' under ``mesh`` (without the shared driver slice); the others
+    get ``None``. Each rank takes its slice back, a rank the snapshot did
+    not have keeps the shared slices alone, and both packages'
+    ``restore_session(strict=False)`` pass the extra key by."""
+    from blendjax.checkpoint import restore_session as jax_restore
+    from blendjax.obs.lineage import FrameLineage as JaxLineage
+    from blendjax_torch.checkpoint import (
+        MESH_KEY,
+        gather_session,
+        rank_session,
+        restore_session,
+    )
+    from blendjax_torch.obs.lineage import FrameLineage
+
+    lineages = []
+    for r in range(2):
+        lin = FrameLineage()
+        lin.register(f"p{r}")
+        lineages.append(lin)
+    sessions = [collect_session(lineage=lin) for lin in lineages]
+    for s in sessions:
+        s["driver"] = {"steps": 7}
+        s["echo"] = {"ring": np.arange(4), "fill": 3}
+    sessions[0]["echo"]["ring"] = torch.arange(4)
+    assert gather_session(sessions[1], _Agreement(1, sessions)) is None
+    merged = gather_session(sessions[0], _Agreement(0, sessions))
+    assert merged[MESH_KEY]["world_size"] == 2
+    (other,) = merged[MESH_KEY]["ranks"]
+    assert "driver" not in other and set(other) == {"lineage", "echo"}
+    assert isinstance(merged["echo"]["ring"], np.ndarray)  # host copies
+    raw = unpack_session(pack_session(merged))  # pickle-free
+    zero, world = rank_session(raw, 0)
+    assert world == 2 and MESH_KEY not in zero
+    one, _ = rank_session(raw, 1)
+    assert one["driver"] == {"steps": 7}
+    assert one["lineage"] == lineages[1].state_dict()
+    assert set(rank_session(raw, 2)[0]) == {"driver", "_version",
+                                            "_wall_time"}
+    assert restore_session(raw, lineage=FrameLineage()) == ["lineage"]
+    assert jax_restore(raw, lineage=JaxLineage()) == ["lineage"]
+    # a one-card session is rank 0's slice of itself
+    assert rank_session(sessions[0], 0) == (sessions[0], 1)
+
+
+def test_a_read_only_manager_restores_and_never_writes(tmp_path):
+    """A mesh rank other than 0 restores through a read-only manager, which
+    leaves the writer's interrupted stages alone and refuses to save."""
+    d = str(tmp_path / "ck")
+    with SnapshotManager(d) as mgr:
+        mgr.save(3, {"w": np.arange(4, dtype=np.float32)})
+    stage = os.path.join(d, ".tmp-00000006-1")
+    os.makedirs(stage)
+    ro = SnapshotManager(d, read_only=True)
+    assert os.path.isdir(stage)
+    assert ro.restore().step == 3
+    with pytest.raises(RuntimeError, match="read-only"):
+        ro.save_async(6, {"w": np.zeros(4, np.float32)})
+

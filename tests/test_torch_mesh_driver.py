@@ -98,10 +98,13 @@ def _jax_echo():
             "echoed": echo.echoed, "steps": echo.steps, "draws": n}
 
 
-def _cases(world, snap_dir):
+def _cases(world, snap_dir, rank_rec=None):
     p = _params()
     data = {"axes": {"data": -1}}
     cases = [("drive:data", {"params_np": p, **data})]
+    if world == 2:
+        cases += [("agreed_requests", {"params_np": p, "prefix": rank_rec,
+                                       "tmp": snap_dir})]
     if world >= 2:
         cases += [
             ("drive:fused", {"params_np": p, **data, "fused": True,
@@ -132,9 +135,24 @@ def snap_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, snap_dir):
+def rank_rec(tmp_path_factory):
+    """A recording of two ranks' streams (raw frames at the harness's
+    size), each under its rank-tagged prefix."""
+    from blendjax_torch.data.replay import rank_prefix
+    from test_torch_mesh_examples import write_frames
+
+    prefix = str(tmp_path_factory.mktemp("rank-rec") / "rec")
+    for r in range(2):
+        write_frames(f"{rank_prefix(prefix, r, 2)}_00.bjr", 16, seed=r,
+                     hw=W.HW)
+    return prefix
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, snap_dir, rank_rec):
     """Every case, on worlds 1, 2 and 4 at once."""
-    return W.run_worlds({w: _cases(w, snap_dir) for w in (1, 2, 4)},
+    return W.run_worlds({w: _cases(w, snap_dir, rank_rec)
+                         for w in (1, 2, 4)},
                         str(tmp_path_factory.mktemp("ranks")))
 
 
@@ -429,3 +447,19 @@ def test_a_streamformer_snapshot_restores_in_the_jax_package(tmp_path):
     for p, v in flat:
         k = jax.tree_util.keystr(p)
         np.testing.assert_array_equal(np.asarray(v), leaves[k], err_msg=k)
+
+
+def test_a_request_on_one_rank_is_honoured_by_every_rank_at_one_step(ranks):
+    """``MeshTrainDriver(checkpoint=...)`` over each rank's own recording:
+    a snapshot requested on rank 1 alone after step 2 and a preemption on
+    rank 1 alone after step 5 ride the pipeline's per-batch agreement; both
+    ranks snapshot at step 3, drain, snapshot and stop at step 6, and rank
+    0 alone writes."""
+    r0, r1 = (r["agreed_requests"] for r in ranks[2])
+    assert "error" not in r0, r0.get("error")
+    assert "error" not in r1, r1.get("error")
+    assert r0["carried"] and r1["carried"]
+    assert r0["steps"] == [3, 6]
+    assert r0["checkpoints"] == r1["checkpoints"] == 2
+    assert r0["preempted"][0] == r1["preempted"][0] == 6
+

@@ -215,3 +215,55 @@ def test_echo_warm_start_fills_the_reservoir_from_a_recording(tmp_path):
     frames = {int(v) for d in draws for v in d["frameid"]}
     assert frames == set(range(1, 9))
     assert echo.fresh + echo.echoed == 16
+
+
+# -- recordings of a mesh's ranks ---------------------------------------------
+
+
+def test_each_rank_of_a_mesh_records_under_a_prefix_of_its_own(tmp_path):
+    """Rank-tagged prefixes: distinct files per rank, out of reach of the
+    one-card glob; the world size is read back, and a recording with a rank
+    missing or with two world sizes is refused."""
+    prefix = str(tmp_path / "rec")
+    names = [replay.rank_prefix(prefix, r, 2) for r in range(2)]
+    assert names == [f"{prefix}.rank0-of-2", f"{prefix}.rank1-of-2"]
+    assert replay.recorded_world(prefix) is None
+    _record(replay.FileRecorder, f"{names[0]}_00.bjr", _tile_messages(4))
+    with pytest.raises(ValueError, match="ranks \\[0\\] only"):
+        replay.recorded_world(prefix)
+    _record(replay.FileRecorder, f"{names[1]}_00.bjr", _tile_messages(4))
+    assert replay.recorded_world(prefix) == 2
+    with pytest.raises(FileNotFoundError):  # not a one-card recording
+        replay.ReplayStream(prefix)
+    _record(replay.FileRecorder,
+            f"{replay.rank_prefix(prefix, 0, 3)}_00.bjr", _tile_messages(4))
+    with pytest.raises(ValueError, match="several world sizes"):
+        replay.recorded_world(prefix)
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_a_two_rank_recording_assembles_global_batches_on_one_card(
+        tmp_path, chunk):
+    """On one card a two-rank tile recording replays as global batches of
+    rank 0's rows, then rank 1's, each decoded with its rank's own
+    references; the packed form asks for decoded batches instead."""
+    prefix = str(tmp_path / "rec")
+    for r in range(2):
+        _record(replay.FileRecorder,
+                f"{replay.rank_prefix(prefix, r, 2)}_00.bjr",
+                _tile_messages(seed=3 + r))
+    parts = [list(StreamDataPipeline.from_recording(
+        f"{replay.rank_prefix(prefix, r, 2)}_00.bjr", batch_size=2,
+        device="cpu", chunk=chunk)) for r in range(2)]
+    for packed in (False, True):
+        pipe = StreamDataPipeline.from_recording(
+            prefix, batch_size=4, device="cpu", chunk=chunk,
+            emit_packed=packed)
+        assert pipe.world == 2 and pipe.batch_size == 4
+        with pipe:
+            got = list(pipe)
+        assert len(got) == len(parts[0]) == 8 // chunk
+        for g, a, b in zip(got, *parts):
+            for k in ("image", "xy", "frameid"):
+                assert torch.equal(g[k], torch.cat([a[k], b[k]],
+                                                   dim=chunk - 1))

@@ -1303,7 +1303,314 @@ def case_echo_rows(n_draws=6):
             "row_local": mine.augment.row_local}
 
 
+# -- cases: the datagen examples on a mesh -------------------------------------------
+
+
+def f32_cube_regressor():
+    """The port's ``CubeRegressor`` computing in f32, as the examples import
+    it (the precision policy's default is bf16-compute), and TF32 off."""
+    import torch
+
+    import blendjax_torch.models as PM
+
+    base = PM.CubeRegressor
+    if getattr(base, "f32", False):
+        return
+
+    class PortF32(base):
+        f32 = True
+
+        def __init__(self, *a, **kw):
+            kw.setdefault("dtype", torch.float32)
+            super().__init__(*a, **kw)
+
+    PM.CubeRegressor = PortF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def case_example(argv, relpath="datagen/train.py", f32=True):
+    """``main(argv)`` of a port example on this rank's mesh (the group is
+    open, so the example builds ``{"data": -1}`` over it): its printed
+    text and the plain values of the dict it returns."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch.distributed as dist
+
+    from blendjax_torch.obs import lineage, tracer
+    from blendjax_torch.scenario import accounting
+    from blendjax_torch.utils.metrics import metrics
+
+    for reg in (metrics, lineage, tracer, accounting):
+        reg.reset()
+    if f32:
+        f32_cube_regressor()
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "blendjax_torch", "examples")
+    spec = importlib.util.spec_from_file_location(
+        "example_" + relpath.replace("/", "_")[:-3],
+        os.path.join(root, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(list(argv) + ["--device", "cpu"]) or {}
+    dist.barrier()
+    keep = ("losses", "last_loss", "images", "seq_gaps", "checkpoint",
+            "scenarios", "curriculum_weights", "fleet", "rank", "world")
+    res = {k: out[k] for k in keep if k in out}
+    drv = out.get("driver")
+    if drv is not None:
+        res["driver_losses"] = list(drv.losses)
+        res["steps"] = drv.steps
+    return {"text": buf.getvalue(), **res}
+
+
+def _fast_fleet():
+    """The example's fleet controller ticking every 0.5 s with a 1 s
+    cooldown (a short run sees several ticks)."""
+    import blendjax_torch.fleet as F
+
+    if getattr(F.FleetController, "fast", False):
+        return
+
+    class FastController(F.FleetController):
+        fast = True
+
+        def __init__(self, *a, **kw):
+            kw["interval_s"] = 0.5
+            super().__init__(*a, **kw)
+
+    class FastPolicy(F.FleetPolicy):
+        def __init__(self, **kw):
+            super().__init__(**{"cooldown_s": 1.0, **kw})
+
+    F.FleetController, F.FleetPolicy = FastController, FastPolicy
+
+
+def case_example_fleet(argv):
+    _fast_fleet()
+    return case_example(argv, f32=False)
+
+
+class _BreachOnRankOne:
+    """A stand-in for the example's ``StatsReporter``: on rank 1 its
+    thread calls the snapshot-on-breach arm once, as a sustained SLO breach
+    would; rank 0 sees no breach."""
+
+    def __init__(self, *a, checkpoint_on_breach=None, **kw):
+        self.arm = checkpoint_on_breach
+        self.fleet = None
+        self.healthy = True
+        self.thread = None
+
+    def health(self):
+        return True
+
+    def start(self):
+        import threading
+
+        import torch.distributed as dist
+
+        if dist.get_rank() == 1 and self.arm is not None:
+            self.thread = threading.Thread(target=self.arm, daemon=True)
+            self.thread.start()
+        return self
+
+    def stop(self):
+        if self.thread is not None:
+            self.thread.join(10.0)
+
+
+def case_example_breach(argv):
+    """The example with a breach raised on rank 1 alone."""
+    import blendjax_torch.obs as O
+
+    real = O.StatsReporter
+    O.StatsReporter = _BreachOnRankOne
+    try:
+        return case_example(argv)
+    finally:
+        O.StatsReporter = real
+
+
+def case_checkpoint_flow(prefix, tmp, every=10, steps=30, resumed_steps=20):
+    """The example over a looped recording of ``every`` global batches:
+    an uninterrupted run of ``steps`` with snapshots every ``every`` steps,
+    then a resume from the first snapshot (copied alone into a directory
+    of its own) for ``resumed_steps``: the resumed run meets the batches
+    the uninterrupted one met after that snapshot."""
+    import shutil
+
+    import torch.distributed as dist
+
+    base = ["--batch", "8", "--shape", "32", "32", "--replay", prefix]
+    full_dir = os.path.join(tmp, "ck-full")
+    full = case_example(base + ["--steps", str(steps), "--checkpoint",
+                                full_dir, "--checkpoint-every", str(every)])
+    first = os.path.join(tmp, "ck-first")  # kept as it is, for others
+    again = os.path.join(tmp, "ck-resumed")
+    if dist.get_rank() == 0:
+        name = f"step-{every:08d}"
+        shutil.copytree(os.path.join(full_dir, name),
+                        os.path.join(first, name))
+        shutil.copytree(first, again)
+    dist.barrier()
+    resumed = case_example(base + ["--steps", str(resumed_steps),
+                                   "--checkpoint", again, "--resume",
+                                   "--checkpoint-every", "0"])
+    return {"full": full, "resumed": resumed, "first": first}
+
+
+def case_recorded_rows(prefix, n=4, chunk=1):
+    """This rank's rows of the first ``n`` replayed batches of a
+    recording (decoded)."""
+    from blendjax_torch.data import StreamDataPipeline
+
+    mesh = _mesh({"data": -1})
+    rows = []
+    with StreamDataPipeline.from_recording(
+            prefix, batch_size=8, mesh=mesh, device="cpu",
+            chunk=chunk) as pipe:
+        for i, b in enumerate(pipe):
+            rows.append({k: _np(b[k]) if k != "image" else
+                         b[k].numpy().copy() for k in ("image", "xy")})
+            if i + 1 == n:
+                break
+    return {"rows": rows, "rank_batch": pipe.rank_batch,
+            "local": pipe.local_rows}
+
+
+def case_replay_refusal(prefix):
+    from blendjax_torch.data import StreamDataPipeline
+
+    try:
+        StreamDataPipeline.from_recording(prefix, batch_size=12,
+                                          mesh=_mesh({"data": -1}),
+                                          device="cpu")
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def case_agreed_requests(params_np, prefix, tmp):
+    """``MeshTrainDriver(checkpoint=...)`` over a rank's own recording
+    (its pipeline's agreement carries the requests): a snapshot requested
+    on rank 1 alone after step 2, then a preemption (its guard's request)
+    on rank 1 alone after step 5. Rank 0 alone writes."""
+    import torch.distributed as dist
+
+    from blendjax_torch.checkpoint import (
+        PreemptionGuard,
+        PreemptionRequested,
+        SnapshotManager,
+    )
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.train import MeshTrainDriver
+
+    rank = dist.get_rank()
+    mesh = _mesh({"data": -1})
+    ckpt = os.path.join(tmp, "agreed")
+    mgr = SnapshotManager(ckpt, read_only=rank != 0)
+    drv = MeshTrainDriver.build(_cube(params_np), mesh, None, device="cpu",
+                                sync_every=1, inflight=1, checkpoint=mgr,
+                                checkpoint_every=0)
+    guard = PreemptionGuard(drv, install=False)
+    preempted = None
+    with StreamDataPipeline.from_recording(
+            prefix, batch_size=8, mesh=mesh, device="cpu", loop=True,
+            requests=drv.requests) as pipe:
+        try:
+            for b in pipe:
+                drv.submit(b)
+                if rank == 1 and drv.steps == 2:
+                    drv.request_checkpoint()
+                if rank == 1 and drv.steps == 5:
+                    guard.request()
+                if drv.steps >= 12:
+                    break
+        except PreemptionRequested as e:
+            preempted = (drv.steps, str(e))
+    mgr.close()
+    dist.barrier()
+    return {"steps": mgr.steps(), "checkpoints": drv.checkpoints,
+            "preempted": preempted, "carried": pipe.local_rows}
+
+
+class _Launcher:
+    """A launcher with the elastic surface the controller drives and no
+    process behind it."""
+
+    def __init__(self, n):
+        self.active = list(range(n))
+        self.next = n
+
+    def active_indices(self):
+        return list(self.active)
+
+    def active_count(self):
+        return len(self.active)
+
+    def poll_processes(self):
+        return {i: None for i in self.active}
+
+    def add_instance(self, extra_args=None):
+        i, self.next = self.next, self.next + 1
+        self.active.append(i)
+        return i, {"DATA": f"inproc://{os.getpid()}-{i}"}
+
+    def retire_instance(self, i, drain=True):
+        self.active.remove(i)
+        return {"DATA": f"inproc://{os.getpid()}-{i}"}
+
+
+def case_fleet_agreed(verdicts, clock_rates, interval=0.05):
+    """Two ways of ticking ``FleetController(agreement=...)`` over a stub
+    launcher: by hand, this rank's scripted verdicts (``verdicts[rank]``)
+    one per tick on a clock of its own (``clock_rates[rank]`` seconds per
+    tick); then its thread, stopped at a different moment on each rank."""
+    import time as _time
+
+    import torch.distributed as dist
+
+    from blendjax_torch.fleet import FleetController, FleetPolicy
+    from blendjax_torch.parallel.mesh import RankAgreement
+
+    mesh = _mesh({"data": -1})
+    rank = dist.get_rank()
+    verdicts, clock_rate = verdicts[rank], clock_rates[rank]
+    policy = FleetPolicy(min_instances=1, max_instances=3, up_after=2,
+                         down_after=2, cooldown_s=1.5)
+    ctrl = FleetController(_Launcher(1), policy=policy,
+                           agreement=RankAgreement(mesh))
+    actions = []
+    for t, kind in enumerate(verdicts):
+        d = ctrl.tick(verdict=kind, now=clock_rate * t)
+        actions.append((d["verdict"], d["action"], d["instances"]))
+    threaded = FleetController(_Launcher(1), policy=policy,
+                               interval_s=interval,
+                               diagnose=lambda: verdicts[0],
+                               agreement=RankAgreement(mesh)).start()
+    _time.sleep(0.3 + 0.2 * rank)
+    threaded.stop()
+    return {"actions": actions, "events": [
+        (e["action"], e.get("instance")) for e in ctrl.scale_events()],
+        "instances": ctrl.launcher.active_count(),
+        "threaded_ticks": threaded.state()["ticks"],
+        "threaded_instances": threaded.launcher.active_count()}
+
+
 CASES = {
+    "example": case_example,
+    "example_fleet": case_example_fleet,
+    "example_breach": case_example_breach,
+    "checkpoint_flow": case_checkpoint_flow,
+    "recorded_rows": case_recorded_rows,
+    "replay_refusal": case_replay_refusal,
+    "agreed_requests": case_agreed_requests,
+    "fleet_agreed": case_fleet_agreed,
     "live": case_live,
     "mesh": case_mesh,
     "collectives": case_collectives,
