@@ -56,10 +56,11 @@ class _PendingBatch:
     """One batch being filled: its buffers and a countdown of slots; the
     writer of the last slot emits it."""
 
-    __slots__ = ("buffers", "meta", "remaining", "lock", "traces")
+    __slots__ = ("buffers", "index", "meta", "remaining", "lock", "traces")
 
-    def __init__(self, buffers: dict, batch_size: int):
+    def __init__(self, buffers: dict, batch_size: int, index: int = 0):
         self.buffers = buffers
+        self.index = index  # of ``buffers`` in the assembler's pool
         self.meta: list = [None] * batch_size
         self.remaining = batch_size
         self.lock = threading.Lock()
@@ -76,6 +77,14 @@ class ParallelBatchAssembler:
     into its slot with no lock held and returns the completed batch when
     it filled the batch's last outstanding slot. Size the buffer pool to
     at least the pending batches + the queue depth + 1.
+
+    The pool rotates over the buffers whose batch is complete: a buffer
+    whose batch still has a slot reserved and unwritten (its writer
+    descheduled while later batches fill) is skipped, and when every
+    buffer holds an incomplete batch :meth:`reserve` waits for one to
+    complete. Rotating blindly would hand that buffer to a new batch, and
+    the late write would land in the new batch while the old one came out
+    with the new one's rows.
     """
 
     def __init__(self, schema: StreamSchema, batch_size: int,
@@ -88,17 +97,30 @@ class ParallelBatchAssembler:
             for _ in range(num_buffers)
         ]
         self._lock = threading.Lock()
+        # notified when a batch completes and frees its buffer's turn
+        self._completed = threading.Condition(self._lock)
+        self._incomplete: set = set()  # pool indices of unfinished batches
         self._active = 0
         self._cursor = 0
         self._pending: _PendingBatch | None = None
 
     def reserve(self) -> tuple:
-        """Claim one slot; returns ``(pending, slot_index)``."""
+        """Claim one slot; returns ``(pending, slot_index)``. A new batch
+        takes the next buffer in rotation whose batch is complete, and
+        waits while none is."""
+        n = len(self._pool)
         with self._lock:
-            if self._pending is None:
-                self._pending = _PendingBatch(self._pool[self._active],
-                                              self.batch_size)
-                self._active = (self._active + 1) % len(self._pool)
+            while self._pending is None:
+                index = next((i % n for i in range(self._active,
+                                                   self._active + n)
+                              if i % n not in self._incomplete), None)
+                if index is None:
+                    self._completed.wait()
+                    continue
+                self._active = (index + 1) % n
+                self._incomplete.add(index)
+                self._pending = _PendingBatch(self._pool[index],
+                                              self.batch_size, index)
                 self._cursor = 0
             pending = self._pending
             slot = self._cursor
@@ -121,6 +143,9 @@ class ParallelBatchAssembler:
             done = pending.remaining == 0
         if not done:
             return None
+        with self._lock:
+            self._incomplete.discard(pending.index)
+            self._completed.notify()
         batch = dict(pending.buffers)
         batch["_meta"] = pending.meta
         if pending.traces:
@@ -138,6 +163,8 @@ class ParallelBatchAssembler:
         with self._lock:
             pending, filled = self._pending, self._cursor
             self._pending = None
+            if pending is not None:
+                self._incomplete.discard(pending.index)
         if pending is None or filled == 0:
             return None
         batch = {k: pending.buffers[k][:filled] for k in self.schema.fields}

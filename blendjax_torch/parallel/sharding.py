@@ -191,7 +191,8 @@ def param_sharding_rules(mesh, path: tuple, value, rules=(),
     ``tp``; the largest free divisible dim over ``fsdp``; small leaves
     replicated), as the JAX package's. ``unit`` keeps a model axis of
     size 1 where the rules put it (the split a module computes with at
-    one rank, :class:`ShardedParams`)."""
+    one rank, and the gather of an ``fsdp`` shard over one rank,
+    :class:`ShardedParams`)."""
     shape = tuple(getattr(value, "shape", value if isinstance(
         value, tuple) else ()))
     sizes = mesh_shape(mesh)
@@ -222,7 +223,7 @@ def param_sharding_rules(mesh, path: tuple, value, rules=(),
             if (ways > 1 or unit) and shape[-1] % ways == 0:
                 spec[-1] = tp
         fs = sizes.get("fsdp", 1)
-        if fs > 1:
+        if "fsdp" in sizes and (fs > 1 or unit):
             for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
                 if spec[i] is None and shape[i] % fs == 0:
                     spec[i] = "fsdp"
@@ -673,14 +674,22 @@ def _resident_split(flax_spec, allowed: dict):
     return found, tuple(rest)
 
 
+def _gathers(sh: Sharding) -> bool:
+    """Whether a shard of ``sh`` is gathered for a step: it is split over
+    more than one rank, or over an ``fsdp`` axis of any size (at size 1
+    the gather runs over one rank, as the split of a ``tp`` or ``expert``
+    axis of size 1 runs)."""
+    return sh.sharded or any("fsdp" in _entry_axes(e) for e in sh.spec)
+
+
 def splits_state(model, mesh, rules=()) -> bool:
     """Whether ``model``'s train state on ``mesh`` under ``rules`` is a
     :class:`ShardedParams`: some parameter is split over more than one
-    rank, or its module computes with it split over a ``tp`` or
-    ``expert`` axis of the mesh, of any size (at size 1 the split runs
-    with its collectives over one rank)."""
+    rank or over an ``fsdp`` axis, or its module computes with it split
+    over a ``tp`` or ``expert`` axis of the mesh, of any size (at size 1
+    the split, or the gather, runs with its collectives over one rank)."""
     can = resident_params(model)
-    return any(sh.sharded or (id(p) in can and _resident_split(
+    return any(_gathers(sh) or (id(p) in can and _resident_split(
         sh.spec, can[id(p)][2])[0] is not None)
         for p, _path, _layout, sh in model_shardings(model, mesh, rules,
                                                      unit=True))
@@ -720,16 +729,27 @@ class ShardedParams:
       :class:`~blendjax_torch.models.MoEMLP`): the module's parameter IS
       this rank's block (:class:`Resident`, :func:`split_of`), never
       gathered; its gradient is this rank's block's;
-    - **gathered**: an ``fsdp`` split (and a model-axis split of a
-      parameter no module computes with): :meth:`gather` all-gathers it
-      into the module before a step (gather on use), :meth:`step` takes
-      this rank's slice of the reduced gradient.
+    - **gathered**: an ``fsdp`` split, of any size (at size 1 the gather
+      runs over one rank), and a model-axis split of a parameter no module
+      computes with: :meth:`gather` all-gathers it into the module before
+      a step (gather on use), :meth:`step` takes this rank's slice of the
+      reduced gradient.
 
     :attr:`specs` are the full layouts (each parameter's flax-view spec on
     its torch dims); :meth:`full_leaves` and :meth:`load_full` give and
-    take full values, so a snapshot reads the same in both packages."""
+    take full values, so a snapshot reads the same in both packages.
 
-    def __init__(self, model, mesh, rules=(), optimizer_kwargs=None):
+    The AdamW (``optimizer_kwargs`` over ``optax.adamw``'s defaults; an RL
+    state's Adam is ``weight_decay=0``) is capturable on a CUDA device: its
+    step counts live on the card, so :mod:`blendjax_torch.train.aot`
+    captures a whole step, the gathers included. Inside a capture the
+    gathered tensors are the graph's own (its private pool): each replay
+    writes the gather where the captured forward reads it.
+    ``optimizer=False`` holds shards that no optimizer updates (an RL
+    state's target network, updated on its shards in place)."""
+
+    def __init__(self, model, mesh, rules=(), optimizer_kwargs=None,
+                 optimizer: bool = True):
         import torch
 
         self.mesh = mesh
@@ -740,6 +760,7 @@ class ShardedParams:
         self.leaf_specs: dict = {}  # leaf path -> Sharding (flax view)
         self.residents: list = []  # Resident or None, per parameter
         self.gathered: list = []  # Sharding of the gathered axes, per one
+        self.gathers: list = []   # whether each is gathered for a step
         self.full_shapes: list = []
         can = resident_params(model)
         for mod, _rel, _kinds in can.values():
@@ -774,12 +795,17 @@ class ShardedParams:
             self.shards.append(shard)
             self.residents.append(res)
             self.gathered.append(gsh)
-        kw = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-        kw.update(optimizer_kwargs or {})
-        kw["foreach"] = False
-        kw.pop("capturable", None)
-        kw.pop("fused", None)
-        self.optimizer = torch.optim.AdamW(self.shards, **kw)
+            self.gathers.append(_gathers(gsh))
+        self.optimizer = None
+        if optimizer:
+            kw = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                      weight_decay=1e-4)
+            kw.update(optimizer_kwargs or {})
+            kw["foreach"] = False
+            kw.pop("fused", None)
+            kw["capturable"] = bool(self.shards) and all(
+                t.device.type == "cuda" for t in self.shards)
+            self.optimizer = torch.optim.AdamW(self.shards, **kw)
         self.release()
 
     def full_shape(self, p) -> tuple:
@@ -795,8 +821,8 @@ class ShardedParams:
         :meth:`gather`."""
         import torch
 
-        for p, shard, gsh in zip(self.params, self.shards, self.gathered):
-            if gsh.sharded:
+        for p, shard, gathers in zip(self.params, self.shards, self.gathers):
+            if gathers:
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
             else:
                 p.data = shard.data
@@ -804,8 +830,9 @@ class ShardedParams:
     def gather(self) -> None:
         """All-gather every gathered shard into its module parameter (a
         resident one stays this rank's block)."""
-        for p, shard, gsh in zip(self.params, self.shards, self.gathered):
-            if gsh.sharded:
+        for p, shard, gsh, gathers in zip(self.params, self.shards,
+                                          self.gathered, self.gathers):
+            if gathers:
                 p.data = gather_full(shard.detach(), gsh)
 
     def step(self, grads) -> None:
@@ -816,6 +843,21 @@ class ShardedParams:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.release()
+
+    def full_params(self) -> list:
+        """The full value of every parameter, in :attr:`params` order
+        (all-gathers: every rank calls it)."""
+        return [self._full(shard.detach(), i)
+                for i, shard in enumerate(self.shards)]
+
+    def load_params(self, values: list) -> None:
+        """Write full parameter values (the order of :attr:`params`) into
+        this rank's shards, in place."""
+        import torch
+
+        with torch.no_grad():
+            for i, (shard, value) in enumerate(zip(self.shards, values)):
+                shard.copy_(self._local(value, i))
 
     def _full(self, local, i):
         t = gather_full(local, self.gathered[i])
@@ -850,13 +892,17 @@ class ShardedParams:
         of :attr:`params`) into this rank's shards, in place."""
         import torch
 
+        on_card = bool(self.optimizer.param_groups[0].get("capturable"))
         with torch.no_grad():
             for i, (shard, (value, mu, nu)) in enumerate(zip(self.shards,
                                                               values)):
                 shard.copy_(self._local(value, i))
                 entry = self.optimizer.state[shard]
                 if not entry:
-                    entry["step"] = torch.zeros((), dtype=torch.float32)
+                    # a capturable AdamW's count lives beside its shard
+                    entry["step"] = torch.zeros(
+                        (), dtype=torch.float32,
+                        device=shard.device if on_card else "cpu")
                     entry["exp_avg"] = torch.zeros_like(shard)
                     entry["exp_avg_sq"] = torch.zeros_like(shard)
                 entry["step"].fill_(count)
@@ -874,13 +920,14 @@ def split_of(module, name: str):
 def gather_full(local, sh: Sharding):
     """The full tensor from this rank's ``local`` shard of ``sh``: one
     all-gather per split dim (recorded as the collectives' all-gather
-    bytes, on the dim's axes)."""
+    bytes, on the dim's axes); a dim on an ``fsdp`` axis of size 1 too,
+    over one rank."""
     from blendjax_torch.parallel.collectives import all_gather
 
     t = local
     for d in reversed(range(len(sh.spec))):
         axes = _entry_axes(sh.spec[d])
-        if axes_size(sh.mesh, axes) > 1:
+        if axes_size(sh.mesh, axes) > 1 or "fsdp" in axes:
             t = all_gather(t, sh.mesh, axes, dim=d, differentiable=False)
     return t
 

@@ -24,7 +24,8 @@ metrics and checkpointing of :class:`~blendjax_torch.train.TrainDriver`.
 
 Without a mesh and without a process group the driver runs on one card
 (no collective). On a mesh of N ranks every rank runs a driver; the
-reservoir's ring is sharded and the ranks agree before each compose on
+reservoir's ring is sharded over the batch axes (whole on the ranks of a
+model axis) and the ranks agree before each compose on
 the inserts applied (:meth:`TrajectoryReservoir.sync_inserts`, which also
 carries each rank's timeout and dead-actor signals, so the ranks raise
 together), so they compose the same indices; rank 0 runs the actors.
@@ -94,7 +95,7 @@ class RLTrainDriver(MeshTrainDriver):
 
     def _agree(self, flag: int) -> int:
         """The ranks' queued inserts applied everywhere, and the largest
-        of their flags (``flag`` alone off a sharded ring)."""
+        of their flags (``flag`` alone off a mesh of several ranks)."""
         return self.reservoir.sync_inserts(flag)
 
     def _actor_flag(self) -> int:

@@ -29,8 +29,10 @@ learner step reads them where they are.
   that repeats a slot is deterministic where XLA's scatter is not).
 
 On a mesh (``mesh=`` / ``sharding=``) the ring is sharded over the batch
-axes (:func:`blendjax_torch.parallel.ring_sharding`); the priority vector
-stays whole on every rank. Inserts are queued on the rank that makes them
+axes (:func:`blendjax_torch.parallel.ring_sharding`; whole on every rank
+of a mesh whose batch axes have one rank, such as ``{"data": 1, "tp":
+2}``); the priority vector stays whole on every rank. On a mesh of
+several ranks inserts are queued on the rank that makes them
 and applied on every rank by :meth:`sync_inserts`, a collective the
 learner runs before each compose: the ranks all-gather their queued
 transitions over a gloo group of their own and apply them in rank order,
@@ -144,6 +146,16 @@ class TrajectoryReservoir:
 
         return ring_ways(self.sharding)
 
+    @property
+    def agrees(self) -> bool:
+        """Whether inserts are agreed across ranks: the ring's mesh has
+        more than one rank (a ring sharded over the batch axes, or whole
+        on every rank of a model axis, whose ranks train the same rows)."""
+        from blendjax_torch.parallel.sharding import mesh_chip_count
+
+        return (self.sharding is not None
+                and mesh_chip_count(self.sharding.mesh) > 1)
+
     def _build(self, fields: dict, initial=None, prio_initial=None) -> None:
         """Allocate the ring from one example batch of host arrays (or
         place a restored ``initial``) and the priority vector."""
@@ -219,8 +231,9 @@ class TrajectoryReservoir:
         """Write one batch of transitions (a flat dict of arrays sharing a
         leading dim); returns the host slot-index vector. Thread-safe: the
         actor pool calls this from its own thread while the learner draws.
-        On a sharded ring the batch is queued until :meth:`sync_inserts`
-        applies it on every rank (the slots it will take are returned)."""
+        On a mesh of several ranks the batch is queued until
+        :meth:`sync_inserts` applies it on every rank (the slots it will
+        take are returned)."""
         if not isinstance(transitions, dict) or not transitions:
             raise ValueError("insert() needs at least one array field")
         rows = {k: _as_numpy(v) for k, v in transitions.items()}
@@ -237,7 +250,7 @@ class TrajectoryReservoir:
                 self._build(rows)
             else:
                 self._check(rows)
-            if self.ways > 1:
+            if self.agrees:
                 queued = sum(int(next(iter(r.values())).shape[0])
                              for r in self._pending)
                 self._pending.append(rows)
@@ -266,9 +279,9 @@ class TrajectoryReservoir:
         collective over a gloo group of the mesh's ranks: every rank calls
         it, as often as the others). ``flag`` is a small int each rank
         contributes (the learner's timeout and dead-actor signals); the
-        largest is returned. A no-op returning ``flag`` off a sharded
-        ring."""
-        if self.ways <= 1:
+        largest is returned. A no-op returning ``flag`` off a mesh of
+        several ranks."""
+        if not self.agrees:
             return int(flag)
         import torch.distributed as dist
 

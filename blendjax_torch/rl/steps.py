@@ -34,6 +34,17 @@ the rows' TD errors are all-gathered so that every rank writes the whole
 priority vector, which stays whole on every rank. A sharded gather reads
 its indices on the host, so a mesh step of more than one rank runs
 eagerly.
+
+Partition rules that split a parameter over a model axis (``fsdp``,
+``tp``; :func:`make_rl_train_state` ``rules=`` / ``layout=``) shard the
+state as the supervised path's (:class:`~blendjax_torch.parallel.ShardedParams`,
+``state.shards``): each rank keeps its shard of every parameter and Adam
+moment, gathers the online network on use and updates its shards. The
+target network follows the online network's layout
+(``state.target_shards``, shards that no optimizer updates): it is
+gathered on use, and the Polyak update runs on the shards, elementwise
+as on the whole tensors. On the card a step at one rank is captured
+whole, gathers included.
 """
 
 from __future__ import annotations
@@ -59,6 +70,8 @@ class RLTrainState(TrainState):
     (:func:`blendjax_torch.weights.train_state_leaves`)."""
 
     target: torch.nn.Module | None = None
+    # the target's shards when the state is split over a model axis
+    target_shards: object = None
 
 
 def make_rl_train_state(model, example_obs=None, optimizer=None,
@@ -71,9 +84,15 @@ def make_rl_train_state(model, example_obs=None, optimizer=None,
     card) and, with ``target=True``, a target copy of it.
 
     ``example_obs`` is checked against the model's input width (the port's
-    models fix it at construction). On a mesh the state is replicated:
-    partition rules that would split a parameter over a model axis raise
-    (an RL state in this port is small and data-parallel)."""
+    models fix it at construction). On a mesh, partition rules (``rules``,
+    else ``layout``'s, else the model's) that split a parameter over a
+    model axis (``fsdp``, of any size, or ``tp``) shard the state: the
+    online network's parameters and Adam moments live as this rank's
+    shards (``state.shards``, an AdamW at the same betas and eps with no
+    weight decay, which is Adam) and the target network's as shards of
+    the same layout (``state.target_shards``); pass ``learning_rate``,
+    not ``optimizer``. Every rank must hold the same initial parameters
+    (one seed)."""
     device = resolve_device(device)
     if rng is not None:
         model.init_params(int(rng))
@@ -85,26 +104,40 @@ def make_rl_train_state(model, example_obs=None, optimizer=None,
                 f"example_obs has width {obs.shape[-1]}; the model takes "
                 f"{width[1]}")
     model = model.to(device)
+    tgt = None
+    if target:
+        tgt = copy.deepcopy(model)
+        tgt.requires_grad_(False)
     if mesh is not None:
         from blendjax_torch.parallel.sharding import (
-            model_shardings,
+            ShardedParams,
             resolve_rules,
+            splits_state,
         )
 
         rules = resolve_rules(rules=rules, layout=layout, model=model)
-        if any(sh.sharded for *_r, sh in model_shardings(model, mesh, rules)):
-            raise ValueError(
-                "an RL train state is replicated over the mesh in this port: "
-                "the partition rules split a parameter over a model axis")
+        if splits_state(model, mesh, rules):
+            if optimizer is not None:
+                raise ValueError(
+                    "an RL state sharded over a model axis makes its own "
+                    "Adam over the shards; pass learning_rate, not "
+                    "optimizer")
+            shards = ShardedParams(model, mesh, rules=rules, optimizer_kwargs={
+                "lr": learning_rate, "weight_decay": 0.0})
+            target_shards = None
+            if tgt is not None:
+                target_shards = ShardedParams(tgt, mesh, rules=rules,
+                                              optimizer=False)
+                for t in target_shards.shards:
+                    t.requires_grad_(False)
+            return RLTrainState(model=model, optimizer=shards.optimizer,
+                                shards=shards, target=tgt,
+                                target_shards=target_shards)
     if optimizer is None:
         optimizer = torch.optim.Adam(
             model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
             eps=1e-8, weight_decay=0.0,
             capturable=device.type == "cuda")
-    tgt = None
-    if target:
-        tgt = copy.deepcopy(model)
-        tgt.requires_grad_(False)
     return RLTrainState(model=model, optimizer=optimizer, target=tgt)
 
 
@@ -112,8 +145,11 @@ def mesh_rl_step_kwargs(state, mesh, data_axis: str = "data", rules=None,
                         layout=None) -> dict:
     """The mesh kwargs of either builder: ``state_sharding`` (the state's
     shardings, whose collectives average the gradients and the loss over
-    the batch axes). ``step = make_dqn_step(reservoir,
-    **mesh_rl_step_kwargs(state, mesh))``."""
+    the batch axes; ``rules`` / ``layout`` derive the leaves' layouts from
+    partition rules, else a sharded state's own are read). A state split
+    over a model axis gathers and updates its shards in the step.
+    ``step = make_dqn_step(reservoir, **mesh_rl_step_kwargs(state,
+    mesh))``."""
     from blendjax_torch.parallel.mesh import axis_names, mesh_shape
     from blendjax_torch.parallel.sharding import state_shardings
 
@@ -167,17 +203,38 @@ def _drawn(reservoir, token, state_sharding):
     return rows, weights, write, prio
 
 
+def _gather(state, target: bool = False) -> None:
+    """A sharded state's online network (and, with ``target``, its target
+    network) gathered into the modules for this step."""
+    if state.shards is not None:
+        state.shards.gather()
+        if target and state.target_shards is not None:
+            state.target_shards.gather()
+
+
 def _update(state, grads, loss, state_sharding):
     if state_sharding is not None:
         grads = state_sharding.reduce_grads(grads)
         loss = state_sharding.reduce_loss(loss)
-    state.optimizer.zero_grad(set_to_none=True)
-    params = [p for p in state.model.parameters() if p.requires_grad]
-    for p, g in zip(params, grads):
-        p.grad = g
-    state.optimizer.step()
+    if state.shards is not None:
+        state.shards.step(grads)
+    else:
+        state.optimizer.zero_grad(set_to_none=True)
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.optimizer.step()
     state.step += 1
     return loss
+
+
+def _target_tensors(state) -> tuple:
+    """``(target, online)`` tensors of the Polyak update: the shards of a
+    sharded state (one layout: the update is elementwise), else the
+    networks' parameters."""
+    if state.shards is not None:
+        return state.target_shards.shards, state.shards.shards
+    return list(state.target.parameters()), list(state.model.parameters())
 
 
 def _write_priorities(prio, write, per_row, eps, state_sharding) -> None:
@@ -207,6 +264,7 @@ def make_dqn_step(reservoir, apply_fn=None, gamma: float = 0.99,
 
     def step(state, token):
         rows, weights, write, prio = _drawn(reservoir, token, state_sharding)
+        _gather(state, target=True)
         obs = rows["obs"].float()
         act = rows["action"].long().reshape(-1)
         reward = rows["reward"].float().reshape(-1)
@@ -231,15 +289,16 @@ def make_dqn_step(reservoir, apply_fn=None, gamma: float = 0.99,
                                                   policy, has_aux=True)
         loss = _update(state, grads, loss.detach(), state_sharding)
         with torch.no_grad():
-            tp = list(state.target.parameters())
+            tp, pp = _target_tensors(state)
             torch._foreach_mul_(tp, 1.0 - tau)
-            torch._foreach_add_(tp, torch._foreach_mul(
-                list(state.model.parameters()), tau))
+            torch._foreach_add_(tp, torch._foreach_mul(pp, tau))
+        if state.target_shards is not None:
+            state.target_shards.release()
         _write_priorities(prio, write, td, priority_eps, state_sharding)
         return state, {"loss": loss}
 
     def in_place(state, token):
-        return [*state.target.parameters(), token["_rl_prio"]]
+        return [*_target_tensors(state)[0], token["_rl_prio"]]
 
     step.in_place = in_place
     return step
@@ -258,6 +317,7 @@ def make_pg_step(reservoir, apply_fn=None, entropy_coef: float = 0.01,
 
     def step(state, token):
         rows, weights, write, prio = _drawn(reservoir, token, state_sharding)
+        _gather(state)
         obs = rows["obs"].float()
         act = rows["action"].long().reshape(-1)
         ret = rows["ret"].float().reshape(-1)

@@ -77,15 +77,18 @@ def _flatten(tree, prefix: str = ""):
 
 def state_tree(state) -> dict:
     """The tensors a train state updates in place: its parameters (the
-    rank's shards of a state split over a model axis), its optimizer's
-    per-parameter state and, for an RL state, its target network. The
+    rank's shards of a state split over a model axis, one leaf of their
+    addresses in a fixed order, stable across a captured graph's replays
+    as across eager steps), its optimizer's per-parameter state and, for
+    an RL state, its target network (its shards, when split). The
     optimizer's moments appear at its first step: snapshot after it."""
     shards = getattr(state, "shards", None)
     tree = {"params": state.model if shards is None else shards,
             "optimizer": state.optimizer}
     target = getattr(state, "target", None)
     if target is not None:
-        tree["target"] = target
+        target_shards = getattr(state, "target_shards", None)
+        tree["target"] = target if target_shards is None else target_shards
     return tree
 
 

@@ -303,18 +303,24 @@ def _state_tensors(state, step=None, batch=None) -> list:
     optimizer's state, as ``(key, tensor)`` in a fixed order; with
     ``step``, also what its ``in_place(state, batch)`` hook lists (the
     tensors it updates in place beyond the model and the optimizer, such
-    as a target network or a priority vector)."""
+    as a target network or a priority vector).
+
+    A state split over a model axis (``state.shards``) lists this rank's
+    shards in place of the module's parameters: a gathered layer's
+    parameter is empty between steps, and a resident one shares its
+    shard's storage. Its optimizer's entries are keyed by shard."""
     model = state.model
-    out = [(("param", i), p) for i, p in enumerate(model.parameters())]
+    shards = getattr(state, "shards", None)
+    params = list(model.parameters()) if shards is None else shards.shards
+    out = [(("param", i), p) for i, p in enumerate(params)]
     out += [(("buffer", i), b) for i, b in enumerate(model.buffers())]
     hook = getattr(step, "in_place", None)
     if hook is not None:
         out += [(("in_place", i), t) for i, t in enumerate(hook(state, batch))]
-    index = {id(p): i for i, p in enumerate(model.parameters())}
-    for p, entry in state.optimizer.state.items():
-        for name, t in entry.items():
+    for i, p in enumerate(params):
+        for name, t in sorted(state.optimizer.state.get(p, {}).items()):
             if isinstance(t, torch.Tensor):
-                out.append((("opt", index.get(id(p), id(p)), name), t))
+                out.append((("opt", i, name), t))
     return out
 
 

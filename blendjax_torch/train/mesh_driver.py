@@ -20,23 +20,23 @@ captures into one CUDA graph with its collectives (the data layout).
   global batch, so ``images/s`` and MFU read the whole mesh, and the MFU
   peak is ``peak_flops_per_chip`` times the cards of the mesh.
 
-Layouts: ``data`` (replicated state) captures one graph per plan
-signature, one replay per step call, as on one card; the process group is
-used eagerly (the capture's warm-up steps) before any capture.
-``data×fsdp``, ``data×tp`` and ``data×expert`` shard the state over the
-model axis (:class:`~blendjax_torch.parallel.ShardedParams`) and run
-eagerly; ``build(aot=True)`` raises for them instead of running eagerly
-unasked. On ``tp`` and ``expert`` the work splits as the JAX package's
-compiled step splits it (``blendjax_torch/docs/mesh-split.md``): the ranks
-of a ``tp`` group train on the same rows, each with its block of the split
-kernels (its heads of attention, its slice of the MLP, the embedding and
-the head), and sum the row-split outputs over ``tp``; the ranks of an
-``expert`` group route the same tokens and each runs its experts, the
-outputs summed over ``expert``. Those blocks stay on their rank (never
-gathered); their gradients are averaged over the batch axes like every
-other. ``fsdp`` gathers its shards on use: the gather replaces the
-module's parameter storage every step, which a captured graph cannot
-follow.
+Layouts: ``data`` (replicated state), ``data×fsdp``, ``data×tp`` and
+``data×expert`` (the state split over the model axis,
+:class:`~blendjax_torch.parallel.ShardedParams`) all capture one graph
+per plan signature with ``build(aot=True)``, one replay per step call, as
+on one card; the process group is used eagerly (the capture's warm-up
+steps) before any capture. On ``tp`` and ``expert`` the work splits as
+the JAX package's compiled step splits it
+(``blendjax_torch/docs/mesh-split.md``): the ranks of a ``tp`` group train
+on the same rows, each with its block of the split kernels (its heads of
+attention, its slice of the MLP, the embedding and the head), and sum the
+row-split outputs over ``tp``; the ranks of an ``expert`` group route the
+same tokens and each runs its experts, the outputs summed over
+``expert``. Those blocks stay on their rank (never gathered); their
+gradients are averaged over the batch axes like every other. ``fsdp``
+gathers its shards on use (an axis of size 1 too, over one rank): in a
+graph the gathered parameters are tensors of the graph's own pool, which
+each replay refills before the captured forward reads them.
 """
 
 from __future__ import annotations
@@ -310,12 +310,17 @@ class MeshTrainDriver(TrainDriver):
         caller's shapes; ``aot_batch`` (a full batch dict, this rank's
         rows) is validated against the batch layout.
 
-        ``aot=True`` captures the step: the fused step per packed plan
-        signature at first sight (:class:`~blendjax_torch.train.CapturedStep`),
-        the supervised step for every bucket-ladder shape of ``aot_batch``
-        (:func:`~blendjax_torch.train.build_aot_step`). A state sharded
-        over a model axis (fsdp, tp, expert) runs eagerly and ``aot=True``
-        raises.
+        ``aot=True`` captures the step, on every layout: the fused step
+        per packed plan signature at first sight
+        (:class:`~blendjax_torch.train.CapturedStep`), the supervised step
+        for every bucket-ladder shape of ``aot_batch``
+        (:func:`~blendjax_torch.train.build_aot_step`, its manifest keyed
+        on the model, the mesh, the layout and its rules). On a state
+        split over a model axis (fsdp, tp, expert) the graph holds the
+        whole split step: the fsdp gathers, the split kernels' sums, the
+        gradient mean and the shards' update. A capture or replay that
+        fails raises; the fused step on a gloo group runs eagerly
+        (``eager_calls``).
         """
         from blendjax_torch.parallel.sharding import (
             resolve_layout,
@@ -346,14 +351,6 @@ class MeshTrainDriver(TrainDriver):
         state = make_train_state(model, optimizer=optimizer,
                                  learning_rate=learning_rate, device=device,
                                  mesh=mesh, rules=rules)
-        if aot and state.shards is not None:
-            raise ValueError(
-                "aot=True: a state sharded over a model axis (fsdp, tp, "
-                "expert) runs eagerly in this port (an fsdp step gathers "
-                "its shards into new storage, which a captured CUDA graph "
-                "cannot follow; a capture of a tp or expert state is not "
-                "tried). Build with aot=False, or use the data layout to "
-                "capture")
         axes = [ax for ax in (data_axis, "fsdp", "tp", "tensor", "seq",
                               "expert")
                 if ax in (getattr(mesh, "mesh_dim_names", None) or ())]
@@ -387,7 +384,8 @@ class MeshTrainDriver(TrainDriver):
                     step, state, aot_batch, buckets=buckets,
                     cache_dir=aot_cache_dir,
                     key=cache_key(model=model, precision=precision,
-                                  buckets=buckets) if aot_cache_dir else None,
+                                  mesh=mesh, buckets=buckets, layout=layout,
+                                  rules=rules) if aot_cache_dir else None,
                     ledger_name=f"{type(model).__name__}.mesh_supervised_step")
         drv = cls(step, state, mesh, layout=(
             resolve_layout(layout).name if layout is not None else None),

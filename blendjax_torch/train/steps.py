@@ -36,7 +36,9 @@ loss by its share of the real rows first. A state sharded over a model
 axis (``state.shards``, :class:`~blendjax_torch.parallel.ShardedParams`)
 gathers its ``fsdp`` shards before the update (its ``tp`` and ``expert``
 blocks stay in place, computed with by their modules) and updates its
-shards after.
+shards after, with a capturable AdamW on the card: the gathers, the
+gradient, the means over the batch axes and the shards' update issue no
+host sync, so one graph captures them all.
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ def make_train_state(model, optimizer=None, learning_rate: float = 1e-3,
     size 1 too, when a module computes with the split), the state is
     sharded: its parameters and
     AdamW moments live as this rank's shards (:class:`~blendjax_torch.parallel.ShardedParams`,
-    ``state.shards``) and ``state.optimizer`` updates those. Every rank
-    must hold the same initial parameters (one seed)."""
+    ``state.shards``) and ``state.optimizer`` updates those (capturable on
+    a CUDA device, whatever ``capturable`` says). Every rank must hold the
+    same initial parameters (one seed)."""
     device = resolve_device(device)
     model = model.to(device)
     if mesh is not None:

@@ -332,18 +332,25 @@ def train_state_specs(state) -> list:
                 for path, shape in shapes]
     target = getattr(state, "target", None)
     if target is not None:
-        out += [(".target_params" + path, _flax_shape(p.shape, layout))
-                for path, p, layout in flax_params(target)]
+        shards = getattr(state, "target_shards", None)
+        out += [(".target_params" + path, _flax_shape(
+            p.shape if shards is None else shards.full_shape(p), layout))
+            for path, p, layout in flax_params(target)]
     return out
 
 
 def _target_leaves(state, out: dict) -> dict:
     """An RL state's target network (:class:`blendjax_torch.rl.RLTrainState`)
-    under ``.target_params``, as the flax ``RLTrainState`` holds it."""
+    under ``.target_params``, as the flax ``RLTrainState`` holds it (a
+    sharded target gathered to its full values)."""
     target = getattr(state, "target", None)
     if target is not None:
+        shards = getattr(state, "target_shards", None)
+        full = {} if shards is None else {
+            id(p): v for p, v in zip(shards.params, shards.full_params())}
         for path, p, layout in flax_params(target):
-            out[".target_params" + path] = _to_flax(p.detach(), layout)
+            value = full.get(id(p), p.detach())
+            out[".target_params" + path] = _to_flax(value, layout)
     return out
 
 
@@ -438,15 +445,23 @@ def _load_target(state, leaves: dict) -> None:
     target = getattr(state, "target", None)
     if target is None:
         return
+    shards = getattr(state, "target_shards", None)
+    values = {}
     with torch.no_grad():
         for path, p, layout in flax_params(target):
             src = torch.from_numpy(np.ascontiguousarray(
                 _from_flax(np.asarray(leaves[".target_params" + path]),
                            layout)))
-            if tuple(src.shape) != tuple(p.shape):
+            shape = p.shape if shards is None else shards.full_shape(p)
+            if tuple(src.shape) != tuple(shape):
                 raise ValueError(f"snapshot leaf {tuple(src.shape)} does not "
-                                 f"fit {tuple(p.shape)}")
-            p.copy_(src.to(p.dtype))
+                                 f"fit {tuple(shape)}")
+            if shards is None:
+                p.copy_(src.to(p.dtype))
+            else:
+                values[id(p)] = src.to(device=p.device, dtype=p.dtype)
+    if shards is not None:
+        shards.load_params([values[id(p)] for p in shards.params])
 
 
 def _sharded_leaves(state) -> dict:

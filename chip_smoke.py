@@ -288,12 +288,19 @@ one synthetic scenario producer per rank, the default paired
 augmentation applied to each rank's rows, (d) one ``ring_permute`` of a
 CUDA tensor and its backward (staged twice, both right). This process
 then runs (a) and (b) on one rank from the recording, and (e) the same
-two models split over a ``tp`` and an ``expert`` axis of size 1 on an
-NCCL group of world size 1 (the split's collectives as NCCL calls over
-one rank): each update's loss of (a), (b) and (e) within 1e-4 of the
-one-rank loss (``TWO_RANK["loss_rel"]``), K1 and depth x updates of each
-of K4a-c launched on each rank, each rank's state below a replicated
-rank's, (e)'s sums over its axis in the tally; (c) exact per-scenario
+two models split over a ``tp``, an ``fsdp`` (the dense model) and an
+``expert`` axis of size 1 on an NCCL group of world size 1 (the split's
+collectives, and the fsdp gathers, as NCCL calls over one rank), each
+eagerly and with ``aot=True``: each update's loss of (a), (b) and (e)
+within 1e-4 of the one-rank loss (``TWO_RANK["loss_rel"]``), K1 and
+depth x updates of each of K4a-c launched on each rank, each rank's state
+below a replicated rank's, (e)'s sums over its axis in the tally; in (e)
+one graph replay per step call and no eager call, the captured losses
+bit-equal to the eager run's (cuDNN deterministic), the launches and the
+collectives by kind and axis equal, an all-gather inside the fsdp graph
+and the donation audit 1.0, printing each layout's ms per update eager
+and captured, the graphs' pool bytes and the resident bytes beside the
+data layout's; (c) exact per-scenario
 accounting and the same slot stamps on both ranks, the apply on half
 the rows, and checked draws' rows bit-equal to the one-card draw's. It
 prints per rank the launches, the collectives by kind and axis, the
@@ -329,7 +336,13 @@ leg's mean return (the later half of its episodes, the actors run on to
 doctor's verdict printed. The resume leg snapshots every 4 steps, stops
 after the first commit, restores it into a fresh stack and continues to
 48 steps from the snapshot's step, inserts and env steps. The PG leg: 4
-``make_pg_step`` graph replays bit-equal to the eager steps.
+``make_pg_step`` graph replays bit-equal to the eager steps. The split
+DQN leg: the state split over ``{"data": 1, "fsdp": 1}`` (NCCL, world
+size 1; the online and target networks gathered over one rank in the
+step), 16 steps on scripted transitions eagerly and through
+``CapturedStep``, bit-equal (losses, shards, priorities), one replay per
+step, the donation audit 1.0, the losses within 1e-5 of the replicated
+captured run's; each run's ms per step printed.
 
 Phase 5j (after 5i), scoring, the scenario loop and the elastic fleet
 (``bench.py``'s ``measure_live_scenario`` and ``measure_live_fleet``,
@@ -509,6 +522,11 @@ RL_EPISODE_WAIT_S = 30.0
 # commit, continued to this step budget in a fresh stack
 RL_RESUME = {"every": 4, "budget": 48}
 PG_STEPS = 4
+# the split DQN state: a replicated run, and one split over {"data": 1,
+# "fsdp": 1} eager and captured, this many steps each on scripted
+# transitions; the split runs' losses within the port's RL loss bar
+# (tests/test_torch_rl.py TOL_LOSS, relative) of the replicated run's
+RL_MESH = {"steps": 16, "loss_rel": 1e-5}
 # K4's existing bar (the streamformer leg's flash against xla loss bar)
 K4_LOSS_REL = 1e-2
 # ring attention's losses against the flash kernels' in bf16: the bar
@@ -3748,12 +3766,19 @@ def _replicated_bytes(model) -> int:
     return 3 * 4 * sum(int(p.numel()) for p in model.parameters())
 
 
-def _split_run(label: str, model, mesh, batches) -> dict:
-    """``MeshTrainDriver.build(model, mesh, fused=True)`` over ``batches``
-    (eager: a state sharded over a model axis is not captured): the
-    per-update losses, this rank's launches, the collectives by kind and
-    axis, the gloo stages, the resident bytes beside a replicated rank's
-    and the wall seconds."""
+def _split_run(label: str, model, mesh, batches, aot: bool = False) -> dict:
+    """``MeshTrainDriver.build(model, mesh, fused=True, aot=aot)`` over
+    ``batches``: the per-update losses, this rank's launches, the
+    collectives by kind and axis, the gloo stages, the resident bytes
+    beside a replicated rank's, the donation audit of the state between
+    the first step call and the end, the wall seconds and the ms per
+    update after the first step call. With ``aot`` (an NCCL group: gloo
+    runs the step eagerly) every plan signature of ``batches`` is captured
+    before the run (``CapturedStep.prepare``, as the legs' prewarm: a
+    signature first seen mid-run is a retrace to the device ledger), and
+    the result adds the graph replays and eager calls, each graph's
+    collectives, the capture ms and the bytes of the graphs' private
+    pools."""
     import torch
 
     from blendjax_torch.kernels import launch_counts, reset_launch_counts
@@ -3764,30 +3789,56 @@ def _split_run(label: str, model, mesh, batches) -> dict:
         staged_counts,
         tally_diff,
     )
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
     from blendjax_torch.train import MeshTrainDriver
+    from blendjax_torch.train.aot import pool_bytes
 
     replicated = _replicated_bytes(model)
     drv = MeshTrainDriver.build(model, mesh, fused=True, loss_fn=former_loss,
-                                inflight=2, sync_every=4)
+                                inflight=2, sync_every=4, aot=aot)
+    captured = drv.step
+    if aot:
+        batches = list(batches)
+        for batch in batches:
+            captured.prepare(drv.state, batch)
     kept = _tap_losses(drv)
     reset_launch_counts()
     reset_collective_counts()
     before = collective_counts()
+    audit = DonationAudit()
     t0 = time.perf_counter()
-    groups = 0
+    t1, groups = t0, 0
     for batch in batches:
         drv.submit(batch)
         groups += 1
+        if groups == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            audit.snapshot(label, state_tree(drv.state))
     drv.finish()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return {"label": label, "groups": groups,
-            "losses": _update_losses(kept),
-            "launches": launch_counts(), "wall_s": wall,
-            "tally": tally_diff(collective_counts(), before),
-            "staged": staged_counts(),
-            "resident": state_resident_bytes(drv.state),
-            "replicated": replicated}
+    t2 = time.perf_counter()
+    audit.snapshot(label, state_tree(drv.state))
+    losses = _update_losses(kept)
+    timed = len(losses) - (kept[0].numel() if kept else 0)
+    out = {"label": label, "groups": groups, "losses": losses,
+           "launches": launch_counts(), "wall_s": t2 - t0,
+           "ms_per_update": (t2 - t1) * 1e3 / max(timed, 1),
+           "tally": tally_diff(collective_counts(), before),
+           "staged": staged_counts(),
+           "resident": state_resident_bytes(drv.state),
+           "replicated": replicated, "audit": audit.report(),
+           "donation_reuse": 1.0 if audit.all_stable() else 0.0}
+    if aot:
+        graphs = list(captured._graphs.values())
+        segments = torch.cuda.memory_snapshot() if graphs else []
+        out.update(replays=captured.graph_replays,
+                   eager_calls=captured.eager_calls,
+                   graph_collectives=[g.collectives for g in graphs],
+                   pool_bytes=sum(pool_bytes(g, segments) for g in graphs),
+                   capture_ms=sum(captured.capture_ms.values()),
+                   graphs=len(graphs))
+    return out
 
 
 def _tap_losses(drv) -> list:
@@ -4094,13 +4145,26 @@ def _loss_gap(got: list, want: list) -> float:
     return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
 
 
+#: sub-leg (e)'s runs: (leg, model, mesh axes, recorded groups); each runs
+#: eagerly and captured (``{leg}_aot``)
+UNIT_SPLITS = (
+    ("tp", FORMER, {"data": 1, "tp": 1}, TWO_RANK["groups"]),
+    ("fsdp", FORMER, {"data": 1, "fsdp": 1}, TWO_RANK["groups"]),
+    ("moe", MOE_FORMER, {"data": 1, "expert": 1}, TWO_RANK["moe_groups"]),
+)
+
+
 def nccl_unit_split(tmp: str, prefix: str) -> dict:
     """Sub-leg (e), in this process after the ranks: an NCCL group of
     world size 1 on the card, (a)'s StreamFormer on ``{"data": 1, "tp":
-    1}`` and (b)'s MoE StreamFormer on ``{"data": 1, "expert": 1}`` over
-    the same recorded groups: the split at one rank, each of its
-    collectives an NCCL call over one rank. Returns each run's
-    :func:`_split_run` and the group's backend."""
+    1}`` and on ``{"data": 1, "fsdp": 1}`` and (b)'s MoE StreamFormer on
+    ``{"data": 1, "expert": 1}`` over the same recorded groups (read
+    before each run): the split at one rank, each of its collectives an
+    NCCL call over one rank, each run eagerly and with ``aot=True`` (one
+    CUDA graph per plan signature, the split step whole inside it), cuDNN
+    deterministic so that the two are bit-equal. Returns each run's :func:`_split_run` (``{leg}`` and
+    ``{leg}_aot``) and the group's backend."""
+    import torch
     import torch.distributed as dist
 
     from blendjax_torch.data import StreamDataPipeline
@@ -4109,22 +4173,85 @@ def nccl_unit_split(tmp: str, prefix: str) -> dict:
     from blendjax_torch.parallel.mesh import init_group
 
     init_group("cuda", store_dir=tempfile.mkdtemp(dir=tmp))
+    torch.backends.cudnn.deterministic = True
     try:
         out = {"backend": str(dist.get_backend())}
-        for leg, cfg, axes, groups in (
-                ("tp", FORMER, {"data": 1, "tp": 1}, TWO_RANK["groups"]),
-                ("moe", MOE_FORMER, {"data": 1, "expert": 1},
-                 TWO_RANK["moe_groups"])):
-            mesh = create_mesh(axes, devices="cuda")
-            model = StreamFormer(**cfg, attn_backend="flash",
-                                 image_shape=SHAPE).init_params(0)
-            pipe = StreamDataPipeline.from_recording(
-                prefix, batch_size=BATCH, emit_packed=True, chunk=CHUNK,
-                mesh=mesh)
-            out[leg] = _split_run(leg, model, mesh, _first(pipe, groups))
+        for leg, cfg, axes, groups in UNIT_SPLITS:
+            for aot in (False, True):
+                mesh = create_mesh(axes, devices="cuda")
+                model = StreamFormer(**cfg, attn_backend="flash",
+                                     image_shape=SHAPE).init_params(0)
+                pipe = StreamDataPipeline.from_recording(
+                    prefix, batch_size=BATCH, emit_packed=True, chunk=CHUNK,
+                    mesh=mesh)
+                # read ahead: the ms per update are the step's, not the
+                # recording's read
+                out[leg + ("_aot" if aot else "")] = _split_run(
+                    leg, model, mesh, list(_first(pipe, groups)), aot=aot)
     finally:
+        torch.backends.cudnn.deterministic = False
         dist.destroy_process_group()
     return out
+
+
+def unit_capture_gates(unit: dict, refs: dict, card: str) -> None:
+    """Sub-leg (e)'s captured runs against their eager runs: one graph
+    replay per step call and no eager call, the losses bit-equal, the
+    launches of K1 and K4a-c and the collectives by kind and axis equal,
+    an all-gather inside the fsdp graph, the donation audit 1.0 on both;
+    the fsdp run's losses within ``TWO_RANK["loss_rel"]`` of the one-rank
+    run's. Logs each layout's ms per update, eager and captured, the
+    graphs' pool bytes and the resident state bytes beside the data
+    layout's."""
+    kernels = ("decode_spatial", "flash_attention_fwd",
+               "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    gap = _loss_gap(unit["fsdp"]["losses"], refs["tp"])
+    if not math.isfinite(gap) or gap > TWO_RANK["loss_rel"]:
+        fail(f"sub-leg (e) fsdp: losses {unit['fsdp']['losses']} against "
+             f"the one-rank run's {refs['tp']} (largest rel gap {gap:.3e}, "
+             f"bar {TWO_RANK['loss_rel']})")
+    for leg, _cfg, axes, _groups in UNIT_SPLITS:
+        eager, graph = unit[leg], unit[leg + "_aot"]
+        problems = []
+        if graph["replays"] != graph["groups"] or graph["eager_calls"]:
+            problems.append(f"{graph['replays']} replays and "
+                            f"{graph['eager_calls']} eager calls for "
+                            f"{graph['groups']} step calls")
+        if graph["losses"] != eager["losses"] or not graph["losses"]:
+            problems.append(f"losses {graph['losses']} against eager "
+                            f"{eager['losses']}")
+        counts = {k: (graph["launches"][k], eager["launches"][k])
+                  for k in kernels}
+        if any(g != e or g <= 0 for g, e in counts.values()):
+            problems.append(f"launches (graph, eager) {counts}")
+        if (graph["tally"]["per_kind"] != eager["tally"]["per_kind"]
+                or graph["tally"]["per_axis"] != eager["tally"]["per_axis"]):
+            problems.append(f"collectives {graph['tally']} against eager "
+                            f"{eager['tally']}")
+        if leg == "fsdp" and not any(
+                (c or {}).get("per_kind", {}).get("all-gather", 0) > 0
+                for c in graph["graph_collectives"]):
+            problems.append("no all-gather inside the fsdp graph: "
+                            f"{graph['graph_collectives']}")
+        if graph["donation_reuse"] != 1.0 or eager["donation_reuse"] != 1.0:
+            problems.append(f"donation audit {graph['audit']} / eager "
+                            f"{eager['audit']}")
+        if problems:
+            fail(f"sub-leg (e) {leg} on {axes}, captured: "
+                 + "; ".join(problems))
+        log(f"sub-leg (e) {leg} on {axes} on {card}, NCCL at one rank: "
+            f"{graph['groups']} step calls, {len(graph['losses'])} updates; "
+            f"ms per update eager {eager['ms_per_update']:.3f}, captured "
+            f"{graph['ms_per_update']:.3f} (after the first call; "
+            f"{graph['graphs']} plan signatures captured before the run in "
+            f"{graph['capture_ms']:.0f} ms); one replay per step call, "
+            f"losses bit-equal, launches equal "
+            f"{ {k: g for k, (g, _e) in counts.items()} }, collectives "
+            f"equal {graph['tally']['per_kind']} by axis "
+            f"{graph['tally']['per_axis']}; graph pool {graph['pool_bytes']} "
+            f"bytes; resident {graph['resident']} bytes against the data "
+            f"layout's {graph['replicated']}; train.donation_reuse 1.0 "
+            "(both runs)")
 
 
 def two_rank_phase(tmp: str, card: str) -> dict:
@@ -4216,6 +4343,7 @@ def two_rank_phase(tmp: str, card: str) -> dict:
     t1 = time.perf_counter()
     unit = nccl_unit_split(tmp, prefix)
     unit_s = time.perf_counter() - t1
+    unit_capture_gates(unit, refs, card)
     out = {"probe": probe, "ranks": results, "wall_s": ranks_s,
            "refs_s": refs_s, "unit": unit, "unit_s": unit_s, "launches": {}}
     runs = list(enumerate(results)) + [("nccl", unit)]
@@ -4735,11 +4863,117 @@ def pg_leg(card: str) -> dict:
     return {"losses": [x.item() for x in lb]}
 
 
+def dqn_mesh_leg(tmp: str, card: str) -> dict:
+    """The DQN state split over ``{"data": 1, "fsdp": 1}`` (an NCCL group
+    of world size 1: the online and the target network gathered over one
+    rank inside the step) on scripted transitions, eager and through
+    ``CapturedStep``, beside the replicated state captured, from one model
+    and twin reservoirs, ``RL_MESH["steps"]`` steps each: the split
+    captured run one replay per step and its losses, priorities and
+    shards bit-equal to the split eager run's, its donation audit 1.0,
+    and both split runs' losses within ``RL_MESH["loss_rel"]`` of the
+    replicated run's. Logs each run's ms per step after the first (the
+    capture's)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from blendjax_torch.models import QNetwork
+    from blendjax_torch.parallel import create_mesh
+    from blendjax_torch.parallel.mesh import init_group
+    from blendjax_torch.rl import (
+        TrajectoryReservoir,
+        make_dqn_step,
+        make_rl_train_state,
+        mesh_rl_step_kwargs,
+    )
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
+    from blendjax_torch.train import CapturedStep
+
+    rng = np.random.default_rng(0)
+    n = RL["capacity"] // 4
+    rows = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+            "action": rng.integers(0, 3, n).astype(np.int32),
+            "reward": rng.normal(size=n).astype(np.float32),
+            "done": rng.random(n) < 0.05,
+            "next_obs": rng.normal(size=(n, 4)).astype(np.float32)}
+    model = QNetwork(hidden=RL["hidden"], n_actions=3).init_params(1)
+    init_group("cuda", store_dir=tempfile.mkdtemp(dir=tmp))
+    runs = {}
+    try:
+        mesh = create_mesh({"data": 1, "fsdp": 1}, devices="cuda")
+        for name, split, captured in (("replicated", False, True),
+                                      ("fsdp", True, False),
+                                      ("fsdp_aot", True, True)):
+            res = TrajectoryReservoir(RL["capacity"], rng=2, prioritized=True)
+            res.insert(rows)
+            state = make_rl_train_state(copy.deepcopy(model),
+                                        learning_rate=RL["lr"],
+                                        mesh=mesh if split else None)
+            kw = mesh_rl_step_kwargs(state, mesh) if split else {}
+            step = make_dqn_step(res, gamma=RL["gamma"], **kw)
+            if captured:
+                step = CapturedStep(step, mesh=mesh if split else None)
+            audit = DonationAudit()
+            losses = []
+            for i in range(RL_MESH["steps"]):
+                token = res.draw_token(*res.compose(RL["batch"]))
+                losses.append(step(state, token)[1]["loss"])
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    audit.snapshot(name, state_tree(state))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (RL_MESH["steps"] - 1)
+            audit.snapshot(name, state_tree(state))
+            runs[name] = {"losses": losses, "state": state, "res": res,
+                          "step": step, "ms": ms, "audit": audit}
+    finally:
+        dist.destroy_process_group()
+    ref, eager, graph = (runs[k] for k in ("replicated", "fsdp", "fsdp_aot"))
+    if graph["state"].shards is None or eager["state"].shards is None:
+        fail("dqn mesh leg: the fsdp rules did not split the RL state")
+    same = (all(torch.equal(x, y) for x, y in zip(eager["losses"],
+                                                   graph["losses"]))
+            and all(torch.equal(p, q) for p, q in zip(
+                eager["state"].shards.shards, graph["state"].shards.shards))
+            and all(torch.equal(p, q) for p, q in zip(
+                eager["state"].target_shards.shards,
+                graph["state"].target_shards.shards))
+            and torch.equal(eager["res"]._priorities,
+                            graph["res"]._priorities))
+    if not same or graph["step"].graph_replays != RL_MESH["steps"] \
+            or graph["step"].eager_calls:
+        fail(f"dqn mesh leg: {graph['step'].graph_replays} replays, "
+             f"{graph['step'].eager_calls} eager calls; eager losses "
+             f"{[x.item() for x in eager['losses']]} graph "
+             f"{[y.item() for y in graph['losses']]}")
+    want = [x.item() for x in ref["losses"]]
+    gaps = {k: _loss_gap([x.item() for x in runs[k]["losses"]], want)
+            for k in ("fsdp", "fsdp_aot")}
+    if not all(math.isfinite(g) and g <= RL_MESH["loss_rel"]
+               for g in gaps.values()):
+        fail(f"dqn mesh leg: split losses against the replicated run's: "
+             f"largest rel gaps {gaps} (bar {RL_MESH['loss_rel']})")
+    for name in ("fsdp", "fsdp_aot"):
+        audit_verdict(f"phase 5i dqn mesh leg ({name})", runs[name]["audit"])
+    log(f"phase 5i dqn mesh leg on {card}: {RL_MESH['steps']} make_dqn_step "
+        f"steps on {{'data': 1, 'fsdp': 1}} (NCCL at one rank), eager and "
+        f"one graph replay each, bit-equal (losses, online and target "
+        f"shards, priorities); against the replicated captured run's "
+        f"losses: largest rel gaps {gaps} (bar {RL_MESH['loss_rel']}); ms "
+        f"per step after the first: replicated captured {ref['ms']:.3f}, "
+        f"split eager {eager['ms']:.3f}, split captured {graph['ms']:.3f}")
+    return {k: {"ms": v["ms"], "losses": [x.item() for x in v["losses"]]}
+            for k, v in runs.items()}
+
+
 def rl_phase(tmp: str, card: str) -> dict:
     """Phase 5i: two of the port's cartpole producers under
     ``BatchedRemoteEnv``, a uniform and a prioritized learner leg, the
-    resume leg, then the policy-gradient leg. The best leg's mean return
-    must reach ``RL_RETURN_FLOOR``."""
+    resume leg, the policy-gradient leg, then the DQN state split over
+    an fsdp axis of one rank, eager and captured. The best leg's mean
+    return must reach ``RL_RETURN_FLOOR``."""
     from blendjax_torch.env import BatchedRemoteEnv
 
     with BatchedRemoteEnv(CARTPOLE_SCRIPT, num_envs=RL["envs"], seed=0,
@@ -4751,7 +4985,9 @@ def rl_phase(tmp: str, card: str) -> dict:
     if best < RL_RETURN_FLOOR:
         fail(f"rl phase: best mean return {best:.2f} < {RL_RETURN_FLOOR}")
     pg = pg_leg(card)
-    return {**legs, "resume": resume, "pg": pg, "best_return": best}
+    split = dqn_mesh_leg(tmp, card)
+    return {**legs, "resume": resume, "pg": pg, "split": split,
+            "best_return": best}
 
 
 # -- phase 5j: scoring, the scenario loop and the elastic fleet ------------------

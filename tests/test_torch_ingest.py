@@ -132,6 +132,80 @@ def test_parallel_assembler_loses_and_duplicates_no_slot():
     assert sizes == [8] * 100
 
 
+@pytest.mark.parametrize("num_buffers", [9, 10, 17])
+def test_parallel_assembler_holds_at_the_pool_rule_boundary(num_buffers):
+    """4 writer threads, a pool of at least ``2 * writers + 1`` (each
+    writer may hold a slot of a batch of its own and read a batch it
+    completed, plus the batch being filled), the same 1 us switch
+    interval: every item lands in exactly one slot of one batch."""
+    import sys
+
+    writers, per = 4, 80
+    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=8,
+                                 num_buffers=num_buffers)
+    seen, lock = [], threading.Lock()
+
+    def writer(lo, hi):
+        for i in range(lo, hi):
+            pending, slot = asm.reserve()
+            batch = asm.write(pending, slot, _item(i))
+            if batch is not None:
+                with lock:
+                    seen.extend(int(v) for v in batch["frameid"])
+
+    threads = [threading.Thread(target=writer, args=(k * per, (k + 1) * per))
+               for k in range(writers)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(seen) == list(range(writers * per))
+
+
+def test_parallel_assembler_skips_a_buffer_whose_batch_is_incomplete():
+    """A writer holds slot 0 of batch 0 while later batches fill the rest
+    of a 3-buffer pool and wrap around: the wrap skips batch 0's buffer,
+    so batch 0 comes out with its own items (rotating blindly, batch 3
+    took that buffer and batch 0 came out as [0, 7])."""
+    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=2,
+                                 num_buffers=3)
+    held, slot = asm.reserve()
+    out = []
+    for i in range(1, 8):
+        batch = asm.add(_item(i))
+        if batch is not None:
+            out.append([int(v) for v in batch["frameid"]])
+    assert out == [[2, 3], [4, 5], [6, 7]]
+    first = asm.write(held, slot, _item(0))
+    assert [int(v) for v in first["frameid"]] == [0, 1]
+
+
+def test_parallel_assembler_waits_while_every_buffer_is_incomplete():
+    """A one-buffer pool whose batch has a slot reserved and unwritten: a
+    reserve that needs a new buffer waits, and goes on once the write
+    completes the batch."""
+    asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=2,
+                                 num_buffers=1)
+    held, slot = asm.reserve()
+    assert asm.add(_item(1)) is None
+    got = []
+    waiter = threading.Thread(target=lambda: got.append(asm.add(_item(2))),
+                              daemon=True)
+    waiter.start()
+    waiter.join(timeout=0.3)
+    assert waiter.is_alive() and not got
+    first = asm.write(held, slot, _item(0))
+    assert [int(v) for v in first["frameid"]] == [0, 1]
+    waiter.join(timeout=10)
+    assert not waiter.is_alive() and got == [None]
+
+
 def test_parallel_assembler_flush_partial():
     asm = ParallelBatchAssembler(StreamSchema.infer(_item(0)), batch_size=4,
                                  num_buffers=3)

@@ -9,8 +9,10 @@ Bars: ``tol_loss`` 1e-5 on losses and priorities, 1e-4 relative (1e-6
 absolute) on parameters after an update (the JAX package's equivalence
 contract); the scripted learner runs, on one rank and on two, within
 ``F32_EXACT_ATOL = 5e-6`` of the JAX 1-device run
-(``tests/test_mesh_driver.py``). The reservoir's indices, weights and
-accounting match exactly.
+(``tests/test_mesh_driver.py``), and with the state split over ``fsdp``
+or ``tp`` at world 2 within the same bar of the JAX package's
+``make_rl_train_state(rules=...)`` on the same mesh. The reservoir's
+indices, weights and accounting match exactly.
 """
 
 import functools
@@ -34,6 +36,7 @@ from blendjax.rl import diagnose_rl as jax_diagnose_rl
 from blendjax.rl import make_dqn_step as jax_dqn_step
 from blendjax.rl import make_pg_step as jax_pg_step
 from blendjax.rl import make_rl_train_state as jax_rl_state
+from blendjax.rl import mesh_rl_step_kwargs as jax_mesh_rl_step_kwargs
 from blendjax_torch.models import PolicyValueNet, QNetwork
 from blendjax_torch.rl import (
     ActorPool,
@@ -565,11 +568,60 @@ def test_one_rank_learner_matches_the_jax_learner(prioritized):
     _close_tree(flax_tree(state.model), want["params"], "params")
 
 
+# the state split over a model axis at world 2: (mesh axes, rules as
+# (pattern, spec) pairs); QNetwork's kernels are (4, 16) and (16, 3).
+# fsdp: the default rule (each kernel's largest dim over fsdp; an explicit
+# fsdp entry would be placed a second time by that default)
+SPLIT_RL = {
+    "fsdp": ((("data", 1), ("fsdp", 2)), ()),
+    "tp": ((("data", 1), ("tp", 2)),
+           ((r"Dense_0/kernel$", (None, "tp")),
+            (r"Dense_1/kernel$", ("tp", None)))),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_split_scripted(name):
+    """The JAX learner with ``make_rl_train_state(rules=..., mesh=...)``
+    and ``mesh_rl_step_kwargs(rules=...)`` on the 2-device mesh of
+    ``SPLIT_RL[name]`` over the scripted insert sequence."""
+    from blendjax.parallel import PartitionRule as JaxRule
+
+    axes, pairs = SPLIT_RL[name]
+    rules = tuple(JaxRule(p, spec) for p, spec in pairs)
+    mesh = jax_create_mesh(dict(axes), devices=jax.devices()[:2])
+    model = JaxQ(hidden=HIDDEN, n_actions=3)
+    st = jax_rl_state(model, np.zeros((1, 4), np.float32), mesh=mesh,
+                      rules=rules)
+    p = jax.tree.map(lambda a, v: jax.device_put(jnp.asarray(v), a.sharding),
+                     st.params, _q_params())
+    st = st.replace(params=p, opt_state=st.tx.init(p),
+                    target_params=jax.tree.map(jnp.array, p))
+    specs = {str(v.sharding.spec) for v in jax.tree_util.tree_leaves(p)}
+    res = JaxReservoir(64, rng=0)
+    step = jax_dqn_step(res, model.apply, gamma=0.98,
+                        **jax_mesh_rl_step_kwargs(st, mesh, rules=rules))
+    drv = JaxRLDriver(step, st, res, mesh=mesh, batch_size=16, min_fill=8,
+                      sync_every=1, inflight=1)
+    for ins in W.rl_inserts():
+        res.insert(ins)
+        for _ in range(2):
+            drv.train_step()
+    drv.drain()
+    return {"losses": np.asarray(drv.losses), "params": drv.state.params,
+            "target": drv.state.target_params,
+            "prio": np.asarray(res._priorities), "stats": res.stats,
+            "specs": specs}
+
+
 @pytest.fixture(scope="module")
 def mesh_ranks(tmp_path_factory):
-    """The mesh learner at world 2 (gloo), while this process runs the JAX
-    side."""
-    cases = [("rl_mesh", {"params_np": _q_params()})]
+    """The mesh learner at world 2 (gloo), replicated and split over a
+    model axis, while this process runs the JAX side."""
+    cases = [("rl_mesh", {"params_np": _q_params()})] + [
+        (f"rl_mesh:{name}", {"params_np": _q_params(), "axes": dict(axes),
+                             "rules": rules})
+        for name, (axes, rules) in SPLIT_RL.items()]
     out: dict = {}
 
     def run():
@@ -582,6 +634,8 @@ def mesh_ranks(tmp_path_factory):
     t = threading.Thread(target=run, daemon=True)
     t.start()
     _jax_scripted(False)
+    for name in SPLIT_RL:
+        _jax_split_scripted(name)
     t.join(200.0)
     assert not t.is_alive(), "the ranks did not finish"
     if "error" in out:
@@ -608,6 +662,39 @@ def test_mesh_learner_at_world_2_matches_the_jax_learner(mesh_ranks, rank):
     np.testing.assert_allclose(per["prio"], want["prio"], rtol=1e-4,
                                atol=1e-6)
     other = mesh_ranks[2][1 - rank]["rl_mesh"]
+    np.testing.assert_array_equal(per["prio"], other["prio"])
+    np.testing.assert_array_equal(per["losses"], other["losses"])
+
+
+@pytest.mark.parametrize("name", list(SPLIT_RL))
+@pytest.mark.parametrize("rank", [0, 1])
+def test_split_rl_state_at_world_2_matches_the_jax_split_state(
+        mesh_ranks, rank, name):
+    """The DQN state split by fsdp or tp rules at world 2 (the online and
+    the target network each rank's shards, gathered on use; fsdp folds
+    into the batch: each rank trains its rows): the same draws, losses
+    within F32_EXACT_ATOL of the JAX package's split state on the same
+    2-device mesh, parameters and target within the parameter bar, the
+    priorities within it and alike on both ranks; the state's snapshot
+    leaves load into a split state of other weights and read back the
+    same."""
+    per = mesh_ranks[2][rank][f"rl_mesh:{name}"]
+    if "error" in per:
+        pytest.fail(per["error"])
+    want = _jax_split_scripted(name)
+    assert any(name in s for s in want["specs"]), want["specs"]
+    assert per["sharded"] and per["round_trip"]
+    halved = [a != b for a, b in zip(per["local"], per["full"])]
+    assert any(halved) and per["target_local"] == per["local"]
+    assert per["stats"] == want["stats"]
+    assert per["steps"] == 12 and per["images"] == 12 * 16
+    np.testing.assert_allclose(per["losses"], want["losses"], rtol=0,
+                               atol=F32_EXACT_ATOL)
+    _close_tree(per["params"], want["params"], "params")
+    _close_tree(per["target"], want["target"], "target")
+    np.testing.assert_allclose(per["prio"], want["prio"], rtol=1e-4,
+                               atol=1e-6)
+    other = mesh_ranks[2][1 - rank][f"rl_mesh:{name}"]
     np.testing.assert_array_equal(per["prio"], other["prio"])
     np.testing.assert_array_equal(per["losses"], other["losses"])
 

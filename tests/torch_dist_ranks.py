@@ -885,7 +885,9 @@ def case_expert(params_np, axes, n_msgs=4):
     or ``data x expert`` mesh (``expert_*`` split over ``expert``, each
     rank computing its experts), its losses, the shard specs, the experts
     each dispatch einsum saw, the parameter gathers and the first step
-    call's collectives, the refusal of ``aot=True``, and the first batch's
+    call's collectives, the losses of the same build with ``aot=True``
+    (on a split state; on the CPU its ladder runs the eager step), and
+    the first batch's
     loss with each rank routing its own tokens alone
     (``local_first_loss``: per-rank capacity and queue positions, which
     the mesh step must not use)."""
@@ -931,13 +933,17 @@ def case_expert(params_np, axes, n_msgs=4):
             for sb in pipe:
                 drv.submit(sb)
         drv.finish()
-    refused = None
-    if "expert" in axes:  # a state sharded over a model axis
-        try:
-            MeshTrainDriver.build(model(), mesh, device="cpu",
-                                  loss_fn=former_loss, aot=True)
-        except ValueError as e:
-            refused = str(e)
+    aot_losses = None
+    if "expert" in axes:  # a state sharded over a model axis, captured
+        aot = MeshTrainDriver.build(model(), mesh, device="cpu",
+                                    loss_fn=former_loss, sync_every=1,
+                                    inflight=1, aot=True, aot_batch=first)
+        with StreamDataPipeline(iter(former_messages(n_msgs)), batch_size=8,
+                                mesh=mesh, device="cpu") as pipe:
+            for sb in pipe:
+                aot.submit(sb)
+        aot.finish()
+        aot_losses = np.asarray(aot.losses)
     shards = drv.state.shards
     names = {id(p): n for n, p in drv.state.model.named_parameters()}
     return {"losses": np.asarray(drv.losses),
@@ -946,7 +952,7 @@ def case_expert(params_np, axes, n_msgs=4):
             "expert_local": [tuple(s.shape) for p, s in zip(
                 shards.params, shards.shards) if ".expert_" in names[id(p)]]
             if shards else [],
-            "layout": drv.stats["layout"], "refused": refused,
+            "layout": drv.stats["layout"], "aot_losses": aot_losses,
             "local_first_loss": local_first, "aux": float(aux),
             "aux_router_grad": router_grad.numpy().T.copy(),
             "einsum_experts": sorted(set(experts)), "gathers": gathers[0],
@@ -973,12 +979,28 @@ def rl_inserts(n=6, rows=8, seed=0, with_ret=False):
     return out
 
 
+def _nested(leaves: dict, prefix: str) -> dict:
+    """``{module: {leaf: array}}`` of the snapshot leaves under ``prefix``
+    (``.params['Dense_0']['kernel']`` -> ``["Dense_0"]["kernel"]``)."""
+    import re
+
+    out: dict = {}
+    for path, v in leaves.items():
+        if path.startswith(prefix + "["):
+            mod, leaf = re.findall(r"\['([^']*)'\]", path[len(prefix):])
+            out.setdefault(mod, {})[leaf] = np.asarray(v)
+    return out
+
+
 def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
-                 steps_per_insert=2, seed=0):
+                 steps_per_insert=2, seed=0, axes=None, rules=None):
     """The mesh learner on a scripted insert sequence: rank 0 inserts (the
     actor rank), every rank agrees on the inserts before each compose,
     trains its rows of each draw and all-reduces the gradients; the
-    losses, the final parameters, the priorities and the accounting."""
+    losses, the final parameters, the priorities and the accounting.
+    ``axes`` (default ``{"data": -1}``) and ``rules`` (``(pattern,
+    spec)`` pairs) split the state over a model axis: then also the
+    target's full values and this rank's shard shapes."""
     import torch.distributed as dist
 
     from blendjax_torch.models import QNetwork
@@ -991,13 +1013,22 @@ def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
     )
     from blendjax_torch.weights import flax_tree, policy_from_flax
 
-    mesh = _mesh({"data": -1})
+    from blendjax_torch.parallel import PartitionRule
+    from blendjax_torch.weights import (
+        load_train_state_leaves,
+        train_state_leaves,
+    )
+
+    mesh = _mesh(axes or {"data": -1})
     res = TrajectoryReservoir(capacity, rng=seed, mesh=mesh, device="cpu",
                               prioritized=prioritized)
     model = QNetwork(hidden=(16,), n_actions=3)
     model.load_state_dict(policy_from_flax(params_np))
-    state = make_rl_train_state(model, device="cpu", mesh=mesh)
-    step = make_dqn_step(res, gamma=0.98, **mesh_rl_step_kwargs(state, mesh))
+    rules = (None if rules is None
+             else tuple(PartitionRule(p, tuple(s)) for p, s in rules))
+    state = make_rl_train_state(model, device="cpu", mesh=mesh, rules=rules)
+    step = make_dqn_step(res, gamma=0.98, **mesh_rl_step_kwargs(
+        state, mesh, rules=rules))
     drv = RLTrainDriver(step, state, res, mesh=mesh, batch_size=batch,
                         min_fill=8, sync_every=1, inflight=1,
                         sample_timeout_s=30.0)
@@ -1007,11 +1038,34 @@ def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
         for _ in range(steps_per_insert):
             drv.train_step()
     drv.drain()
-    return {"losses": np.asarray(drv.losses), "params": flax_tree(model),
-            "target": flax_tree(state.target),
-            "prio": res._priorities.numpy().copy(), "stats": res.stats,
-            "ring_rows": int(res._buffers["obs"].shape[0]),
-            "steps": drv.steps, "images": drv.images_retired}
+    out = {"losses": np.asarray(drv.losses),
+           "prio": res._priorities.numpy().copy(), "stats": res.stats,
+           "ring_rows": int(res._buffers["obs"].shape[0]),
+           "steps": drv.steps, "images": drv.images_retired,
+           "sharded": state.shards is not None}
+    if state.shards is None:
+        out.update(params=flax_tree(model), target=flax_tree(state.target))
+        return out
+    def host(tree):
+        return {k: v.detach().cpu().numpy() if hasattr(v, "detach")
+                else np.asarray(v) for k, v in tree.items()}
+
+    leaves = host(train_state_leaves(state))
+    # the snapshot round trip: a split state of other weights takes the
+    # leaves into its shards (the target's too) and gives them back
+    fresh = make_rl_train_state(QNetwork(hidden=(16,), n_actions=3),
+                                device="cpu", mesh=mesh, rules=rules)
+    load_train_state_leaves(fresh, leaves)
+    again = host(train_state_leaves(fresh))
+    out.update(params=_nested(leaves, ".params"),
+               round_trip=set(again) == set(leaves) and all(
+                   np.array_equal(leaves[k], v) for k, v in again.items()),
+               target=_nested(leaves, ".target_params"),
+               local=[tuple(t.shape) for t in state.shards.shards],
+               target_local=[tuple(t.shape)
+                             for t in state.target_shards.shards],
+               full=[tuple(s) for s in state.shards.full_shapes])
+    return out
 
 
 def case_equivalence(layout, seed=0):
@@ -1050,6 +1104,112 @@ def case_equivalence(layout, seed=0):
             "grad_scale": max(1.0, max(float(np.abs(g).max())
                                        for g in ref_grads.values())),
             "fsdp": any("fsdp" in s for s in specs)}
+
+
+# -- cases: captured steps on split states ----------------------------------------------------
+
+
+def _split_tensors(state) -> list:
+    """This rank's shards and every tensor of their optimizer's state, in
+    a fixed order (read directly, not through the capture's own list)."""
+    shards = state.shards.shards
+    return list(shards) + [t for p in shards for _n, t in sorted(
+        state.optimizer.state.get(p, {}).items())]
+
+
+def case_mesh_aot(params_np, axes, layout=None, moe=False, n_msgs=4):
+    """A StreamFormer (``FORMER_TP``; ``FORMER_MOE`` with ``moe``) through
+    ``MeshTrainDriver.build(aot=True, aot_batch=...)`` on the mesh of
+    ``axes`` (named ``layout`` when given) and through the same build
+    without ``aot``, over the recorded messages: both runs' losses, what
+    the aot build made, the first step call's collectives, the bytes a
+    captured step would take as arguments (the state it updates in place
+    and the batch), and whether ``_snapshot`` / ``_restore`` give a split
+    state's shards back bit for bit after three updates."""
+    import torch
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import state_resident_bytes
+    from blendjax_torch.parallel.sharding import batch_sharding, local_rows
+    from blendjax_torch.train import MeshTrainDriver
+    from blendjax_torch.train.aot import _restore, _snapshot, _state_tensors
+    from blendjax_torch.weights import streamformer_from_flax
+
+    mesh = _mesh(axes)
+    cfg = FORMER_MOE if moe else FORMER_TP
+    first = {k: local_rows(torch.from_numpy(v), batch_sharding(mesh))
+             for k, v in former_messages(1)[0].items()
+             if k in ("image", "xy")}
+    out = {}
+    for aot in (False, True):
+        model = StreamFormer(**cfg, dtype=torch.float32, attn_backend="xla",
+                             image_shape=(32, 32))
+        model.load_state_dict(streamformer_from_flax(params_np))
+        drv = MeshTrainDriver.build(
+            model, mesh, device="cpu", loss_fn=former_loss, layout=layout,
+            aot=aot, aot_batch=first if aot else None, sync_every=1,
+            inflight=1)
+        # a pipeline takes its messages' stamps: each run its own copy
+        with StreamDataPipeline(iter(former_messages(n_msgs)), batch_size=8,
+                                mesh=mesh, device="cpu") as pipe:
+            for sb in pipe:
+                drv.submit(sb)
+        drv.finish()
+        out["aot" if aot else "eager"] = np.asarray(drv.losses)
+    state, step = drv.state, drv.step
+    out.update(
+        step=type(step).__name__, signatures=len(step.signatures),
+        fallbacks=step.aot_fallbacks, tally=drv.collective_tally,
+        layout=drv.stats["layout"], sharded=state.shards is not None,
+        resident=state_resident_bytes(state),
+        # a graph's argument bytes: the state it updates in place (what a
+        # capture snapshots) and its static batch
+        argument_bytes=sum(t.numel() * t.element_size() for t in (
+            *(t for _key, t in _state_tensors(state)), *first.values())))
+    if state.shards is not None:
+        before = [t.detach().clone() for t in _split_tensors(state)]
+        snap, step0 = _snapshot(state), state.step
+        for _ in range(3):
+            step(state, first)
+        moved = [not torch.equal(a, b)
+                 for a, b in zip(before, _split_tensors(state))]
+        _restore(state, snap)
+        state.step = step0
+        out["moved"] = sum(moved)
+        out["restored"] = all(torch.equal(a, b) for a, b in zip(
+            before, _split_tensors(state)))
+    return out
+
+
+def case_aot_cache(params_np, tmp, layouts):
+    """``MeshTrainDriver.build(aot=True, aot_cache_dir=...)`` once per
+    entry of ``layouts`` into one manifest of this rank's: each build's
+    ``(layout, cache hits, cache misses)``."""
+    import torch
+    import torch.distributed as dist
+
+    from blendjax_torch.models import StreamFormer
+    from blendjax_torch.parallel import resolve_layout
+    from blendjax_torch.parallel.sharding import batch_sharding, local_rows
+    from blendjax_torch.train import MeshTrainDriver
+    from blendjax_torch.weights import streamformer_from_flax
+
+    cache = os.path.join(tmp, f"aot-cache-rank{dist.get_rank()}")
+    out = []
+    for layout in layouts:
+        mesh = resolve_layout(layout).create_mesh(devices="cpu")
+        model = StreamFormer(**FORMER_TP, dtype=torch.float32,
+                             attn_backend="xla", image_shape=(32, 32))
+        model.load_state_dict(streamformer_from_flax(params_np))
+        first = {k: local_rows(torch.from_numpy(v), batch_sharding(mesh))
+                 for k, v in former_messages(1)[0].items()
+                 if k in ("image", "xy")}
+        drv = MeshTrainDriver.build(
+            model, mesh, layout=layout, device="cpu", loss_fn=former_loss,
+            aot=True, aot_batch=first, aot_cache_dir=cache)
+        out.append((layout, drv.step.cache_hits, drv.step.cache_misses))
+    return out
 
 
 # -- cases: the split of the work over model axes ---------------------------------------------
@@ -1632,6 +1792,8 @@ CASES = {
     "pipeline_mismatch": case_pipeline_mismatch,
     "expert": case_expert,
     "rl_mesh": case_rl_mesh,
+    "mesh_aot": case_mesh_aot,
+    "aot_cache": case_aot_cache,
     "equivalence": case_equivalence,
     "tp": case_tp,
     "tp_block": case_tp_block,
