@@ -62,7 +62,8 @@ pending fresh batches as the rank with the fewest has, and end together.
 The inserts (an all-gather each) and the draws stay in the iterating
 thread, in one order on every rank. A draw is cut to each rank's rows,
 which the standard ops augment alone with the one-card draw's numbers;
-each insert all-gathers the ranks' scenario stamps (host objects).
+each insert all-gathers the ranks' scenario stamps (host objects). A
+draw gathers on the card, so a fused echo step over it captures whole.
 """
 
 from __future__ import annotations
@@ -292,7 +293,9 @@ class SampleReservoir:
     def draw_token(self, idx) -> dict:
         """One fused-draw token: the ring (by reference), the host
         indices and this draw's counter. Advances the counter :meth:`sample`
-        uses; no device work happens here."""
+        uses; no device work happens here. A captured step copies the
+        indices into its static index buffer (``_echo_idx``) and its graph
+        gathers from that device tensor, on a sharded ring too."""
         self._require()
         token = {
             "_by_reference": ("_echo_buffers",),

@@ -21,11 +21,18 @@ over the batch axes, as the JAX package's: rank ``r`` of ``w`` holds the
 global slots ``[r * C/w, (r + 1) * C/w)``. Slots and draw indices stay
 global (the host bookkeeping is the one-card one); an insert all-gathers
 the ranks' rows of the global batch and each rank writes the rows its
-slots own; a gather fills the rows this rank owns, sums over the batch
-axes (exactly one rank owns each row) and keeps the rows the batch
-sharding gives this rank (:func:`make_ring_gather`), the rows the feeder
-would place on it. A sharded draw reads its indices on the host (which
-rank owns which row), so a step over it runs eagerly, not in a graph.
+slots own. A gather works on the card alone, with static shapes: each
+rank masks the draw to the slots it owns (``owned = (idx >= first) & (idx
+< first + local)``), reads them (``idx - first``, clamped into its slice),
+zeroes the rows it does not own, and one all-reduce over the batch axes
+sums the ranks' rows as bytes (exactly one rank owns each row, so the sum
+is that rank's bytes: bit for bit, whatever the dtype).
+:func:`make_ring_gather` keeps the rows the batch sharding gives this
+rank, the rows the feeder would place on it. The draw's indices are never
+read on the host, so a step over a sharded ring captures into one CUDA
+graph with its gather. A ring given a mesh sharding takes this gather
+whatever its ways, an axis of one rank too: its all-reduce runs over one
+rank, as the collectives of a graph captured at any size do.
 """
 
 from __future__ import annotations
@@ -182,33 +189,45 @@ def _index_tensor(idx, device) -> torch.Tensor:
     return t
 
 
-def ring_gather(buffers: dict, idx, sharding=None, capacity=None) -> dict:
-    """Rows ``idx`` of every ring field (a copy: a later insert does not
-    change what was gathered). With a sharding (and the ring's global
-    ``capacity``), ``idx`` are global slots and every rank gets every row
-    of the draw: each fills the rows its slots own and the ranks sum."""
-    dev = next(iter(buffers.values())).device
-    if ring_ways(sharding) <= 1:
-        rows = _index_tensor(idx, dev)
-        return {k: v.index_select(0, rows) for k, v in buffers.items()}
+def _sharded_gather(buffers: dict, rows: torch.Tensor, sharding,
+                    capacity: int) -> dict:
+    """Every row of the draw ``rows`` (global slots, a device tensor) on
+    every rank of a sharded ring: this rank's owned rows, the others
+    zero, all fields in one uint8 all-reduce over the batch axes."""
     from blendjax_torch.parallel.collectives import all_reduce_sum
     from blendjax_torch.parallel.sharding import leading_axes
 
     first, local = _shard_range(capacity, sharding)
-    idx = np.asarray(idx, np.int64)
-    mine = np.flatnonzero((idx >= first) & (idx < first + local))
-    src = _index_tensor(idx[mine] - first, dev)
-    dst = _index_tensor(mine, dev)
-    out = {}
-    for k, v in buffers.items():
-        # a bool field sums as bytes (one rank owns each row)
-        w = v.view(torch.uint8) if v.dtype == torch.bool else v
-        rows = w.new_zeros((len(idx), *w.shape[1:]))
-        rows.index_copy_(0, dst, w.index_select(0, src))
-        rows = all_reduce_sum(rows, sharding.mesh, leading_axes(sharding),
-                              differentiable=False)
-        out[k] = rows.view(torch.bool) if v.dtype == torch.bool else rows
+    owned = (rows >= first) & (rows < first + local)
+    src = (rows - first).clamp(0, local - 1)
+    n = int(rows.shape[0])
+    parts = [v.index_select(0, src).reshape(n, -1).view(torch.uint8)
+             for v in buffers.values()]
+    summed = all_reduce_sum(
+        torch.cat(parts, dim=1).masked_fill_(~owned[:, None], 0),
+        sharding.mesh, leading_axes(sharding), differentiable=False)
+    out, at = {}, 0
+    for (k, v), part in zip(buffers.items(), parts):
+        width = int(part.shape[1])
+        out[k] = (summed[:, at:at + width].contiguous().view(v.dtype)
+                  .reshape(n, *v.shape[1:]))
+        at += width
     return out
+
+
+def ring_gather(buffers: dict, idx, sharding=None, capacity=None) -> dict:
+    """Rows ``idx`` of every ring field (a copy: a later insert does not
+    change what was gathered). With a mesh sharding (and the ring's global
+    ``capacity``), ``idx`` are global slots and every rank gets every row
+    of the draw, computed on the card (the module's note): a device
+    ``idx`` is never read on the host."""
+    from blendjax_torch.parallel.sharding import leading_axes
+
+    dev = next(iter(buffers.values())).device
+    rows = _index_tensor(idx, dev)
+    if not leading_axes(sharding):
+        return {k: v.index_select(0, rows) for k, v in buffers.items()}
+    return _sharded_gather(buffers, rows, sharding, capacity)
 
 
 def make_ring_gather(capacity: int | None = None, sharding=None):

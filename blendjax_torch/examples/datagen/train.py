@@ -6,8 +6,9 @@ scene for real Blender), streams image + corner batches onto the card and
 trains :class:`~blendjax_torch.models.CubeRegressor`. On the card every
 step call is one CUDA graph replay (:class:`~blendjax_torch.train.CapturedStep`,
 captured the first time each batch signature is seen), the port's
-counterpart of the reference's jitted step; ``--device cpu`` runs the same
-steps eagerly with the kernels' plain versions.
+counterpart of the reference's jitted step, on a mesh too (the step's
+collectives inside the graph); ``--device cpu`` runs the same steps
+eagerly with the kernels' plain versions.
 
 One process per card: with no process group the example trains on one card.
 Under ``torchrun`` with a world size above 1 it opens the group from the
@@ -482,10 +483,16 @@ def _train(ap, args, fleet_bounds, device, mesh) -> dict:
     else:
         step = (make_supervised_step(augment=augment) if mesh is None
                 else make_mesh_supervised_step(state, mesh, augment=augment))
-    if driver is None and mesh is None:
-        # the direct loop: one CUDA graph per batch signature on the card
-        # (eager on the CPU); on a mesh it runs eagerly
-        step = CapturedStep(step)
+    if driver is None:
+        # the direct loop: one CUDA graph per batch signature on the card,
+        # on a mesh too, its collectives inside (eager on the CPU and over
+        # gloo); a mesh's communicators exist before the first capture
+        if mesh is not None:
+            from blendjax_torch.parallel.mesh import mesh_shape
+            from blendjax_torch.train.mesh_driver import warm_up_groups
+
+            warm_up_groups(mesh, list(mesh_shape(mesh)))
+        step = CapturedStep(step, mesh=mesh)
     result["step"] = driver.step if driver is not None else step
     result["driver"] = driver
 

@@ -15,8 +15,9 @@ One process per card. On one card the mesh (``data=-1`` resolves to
 ``data=1``) lives on a process group of world size 1 that the example opens
 (NCCL; gloo with ``--device cpu``) and closes; under ``torchrun`` the mesh
 spans the group's ranks. On the card the step is captured as one CUDA graph
-when the mesh has no ``seq`` axis above 1; sequence-parallel steps run
-eagerly.
+on every mesh, a sequence-parallel one too (the sequence split and gather,
+Ulysses' all-to-alls or the ring's permutes inside the graph); on the CPU
+and on a gloo group it runs eagerly.
 
 Run on one card:
 
@@ -111,11 +112,10 @@ def main(argv=None) -> dict:
                                    image_shape=(h, w))
 
             step = make_mesh_supervised_step(state, mesh, loss_fn=loss_fn)
-            if shape.get("seq", 1) == 1:
-                # one graph on the card (eager on the CPU); the
-                # communicators exist before the capture
-                warm_up_groups(mesh, list(shape))
-                step = CapturedStep(step, mesh=mesh)
+            # one graph on the card (eager on the CPU and over gloo); the
+            # communicators exist before the capture
+            warm_up_groups(mesh, list(shape))
+            step = CapturedStep(step, mesh=mesh)
             result["step"] = step
             producer = os.path.join(
                 os.path.dirname(os.path.abspath(__file__)),

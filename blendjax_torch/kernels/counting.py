@@ -16,6 +16,13 @@ A wrapper also declares the work of each launch (a callable giving
 the launch goes to a tally; a tally sums it per kernel under
 ``"work"``, so a captured graph knows the kernel work one replay does (the
 device ledger adds it to what ``FlopCounterMode`` counts).
+
+A host count of calls that a graph holds (a Python-side counter such as
+:data:`blendjax_torch.parallel.ulysses.flash_calls`) follows the same rule
+through :func:`count_call`: it registers an adder with
+:func:`register_counter`, a call inside :func:`diverted` goes to the
+tally's ``"calls"``, and each replay adds them back (:func:`add_calls`),
+so the count reads the same per step call, eager or replayed.
 """
 
 from __future__ import annotations
@@ -25,13 +32,19 @@ import contextlib
 import torch
 
 _tallies: dict = {}  # CUDA stream handle -> tally of launches queued there
+_counters: dict = {}  # name -> fn(n) adding n to a host count of calls
+
+
+def _diverted_tally():
+    """The tally of the current stream's :func:`diverted` context, if any."""
+    if not _tallies:
+        return None
+    return _tallies.get(torch.cuda.current_stream().cuda_stream)
 
 
 def count_launch(wrapper, variant: str | None = None,
                  work=None) -> None:
-    tally = None
-    if _tallies:
-        tally = _tallies.get(torch.cuda.current_stream().cuda_stream)
+    tally = _diverted_tally()
     if tally is None:
         wrapper.launches += 1
         if variant is not None:
@@ -49,12 +62,38 @@ def count_launch(wrapper, variant: str | None = None,
         by[variant] = by.get(variant, 0) + 1
 
 
+def register_counter(name: str, add) -> None:
+    """Count calls under ``name`` with ``add(n)``, which adds ``n`` to the
+    host count (see :func:`count_call`)."""
+    _counters[name] = add
+
+
+def count_call(name: str) -> None:
+    """One call under ``name``: to its host count, or, on a stream whose
+    launches are :func:`diverted`, to that tally's ``"calls"`` (a graph's
+    replays add them, :func:`add_calls`)."""
+    tally = _diverted_tally()
+    if tally is None:
+        _counters[name](1)
+        return
+    calls = tally.setdefault("calls", {})
+    calls[name] = calls.get(name, 0) + 1
+
+
+def add_calls(calls: dict) -> None:
+    """Add the calls a CUDA graph captured to their host counts, on each
+    replay."""
+    for name, n in calls.items():
+        _counters[name](n)
+
+
 @contextlib.contextmanager
 def diverted(stream):
     """Count the launches queued on ``stream`` (a ``torch.cuda.Stream``)
     into the yielded tally, ``{"launches": {name: n}, "variants": {name:
     {variant: n}}}`` and, once a launch declared its work, ``"work":
-    {name: (flops, bytes)}``, not into the wrappers."""
+    {name: (flops, bytes)}``, not into the wrappers; once a host count
+    was called, ``"calls": {name: n}`` (:func:`count_call`)."""
     tally = {"launches": {}, "variants": {}}
     key = stream.cuda_stream
     if key in _tallies:

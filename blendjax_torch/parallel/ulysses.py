@@ -18,15 +18,34 @@ and keeps the sequence sharded through the softmax.
 
 :data:`calls` counts this rank's calls that ran a local attention, and
 :data:`flash_calls` those that took the flash kernels (each such call
-launches K4a once, and its backward K4b and K4c once each).
+launches K4a once, and its backward K4b and K4c once each). They count as
+the kernels' launches do (:func:`blendjax_torch.kernels.counting.count_call`):
+a call inside a CUDA graph's warm-up or capture counts nothing, and each
+replay of the graph adds the calls it holds, so a captured step reads the
+same counts per step call as an eager one.
 """
 
 from __future__ import annotations
 
+from blendjax_torch.kernels.counting import count_call, register_counter
 from blendjax_torch.parallel.mesh import axis_names, mesh_shape
 
 calls = 0
 flash_calls = 0
+
+
+def _add_calls(n: int) -> None:
+    global calls
+    calls += n
+
+
+def _add_flash_calls(n: int) -> None:
+    global flash_calls
+    flash_calls += n
+
+
+register_counter("ulysses.calls", _add_calls)
+register_counter("ulysses.flash_calls", _add_flash_calls)
 
 
 def reset_counts() -> None:
@@ -45,7 +64,6 @@ def ulysses_attention(q, k, v, mesh, axis: str = "seq", causal: bool = False,
     ``batch_axis`` names the batch's axis (rows are per rank in the port:
     each rank passes its own). Without ``axis`` on the mesh this is the
     local attention of the whole tensors."""
-    global calls, flash_calls
     from blendjax_torch.ops import attention as A
     from blendjax_torch.parallel.collectives import all_to_all
 
@@ -64,10 +82,10 @@ def ulysses_attention(q, k, v, mesh, axis: str = "seq", causal: bool = False,
     # head-scatter / sequence-gather: (B, T/n, H, D) -> (B, T, H/n, D)
     qg, kg, vg = (all_to_all(x, mesh, axis, split_dim=2, concat_dim=1)
                   for x in (q, k, v))
-    calls += 1
+    count_call("ulysses.calls")
     if backend == "flash" or (backend == "auto"
                               and A.auto_picks_flash(qg, kg)):
-        flash_calls += 1
+        count_call("ulysses.flash_calls")
     o = A.local_attention(qg, kg, vg, causal=causal, scale=scale,
                           backend=backend)
     # sequence-scatter / head-gather back to (B, T/n, H, D)

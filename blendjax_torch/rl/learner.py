@@ -28,7 +28,11 @@ reservoir's ring is sharded over the batch axes (whole on the ranks of a
 model axis) and the ranks agree before each compose on
 the inserts applied (:meth:`TrajectoryReservoir.sync_inserts`, which also
 carries each rank's timeout and dead-actor signals, so the ranks raise
-together), so they compose the same indices; rank 0 runs the actors.
+together), so they compose the same indices; rank 0 runs the actors. A
+:class:`~blendjax_torch.train.CapturedStep` of the step (``mesh=``) is
+one CUDA graph replay per learner step on an NCCL mesh of any size, the
+sharded ring's gather inside it; on a gloo group it runs eagerly
+(``eager_calls``).
 """
 
 from __future__ import annotations

@@ -31,9 +31,13 @@ On a mesh (``state_sharding=``, :func:`mesh_rl_step_kwargs`) each rank
 trains on its rows of the drawn batch (the sharded ring's gather), the
 gradients and the loss are averaged over the batch axes in the step, and
 the rows' TD errors are all-gathered so that every rank writes the whole
-priority vector, which stays whole on every rank. A sharded gather reads
-its indices on the host, so a mesh step of more than one rank runs
-eagerly.
+priority vector, which stays whole on every rank. The sharded gather
+works on the card from the token's indices as a device tensor
+(:mod:`blendjax_torch.data.ring`), so on an NCCL mesh of any size
+:class:`~blendjax_torch.train.CapturedStep` captures the whole step: the
+gather and its all-reduce, the weights' rows, the loss, the update, the
+Polyak target and the priority write-back with its all-gather. Batch axes
+of one rank take the same path (their collectives run over one rank).
 
 Partition rules that split a parameter over a model axis (``fsdp``,
 ``tp``; :func:`make_rl_train_state` ``rules=`` / ``layout=``) shard the
@@ -195,7 +199,7 @@ def _drawn(reservoir, token, state_sharding):
     rows = reservoir.draw(token["_rl_buffers"], token["_rl_idx"])
     weights = _device_array(token["_rl_weights"], dev, torch.float32)
     write = _device_array(token["_rl_write"], dev, torch.int64)
-    if state_sharding is not None and state_sharding.batch_ways > 1:
+    if state_sharding is not None and state_sharding.batch_axes:
         from blendjax_torch.parallel.sharding import batch_sharding, local_rows
 
         weights = local_rows(weights, batch_sharding(
@@ -239,8 +243,8 @@ def _target_tensors(state) -> tuple:
 
 def _write_priorities(prio, write, per_row, eps, state_sharding) -> None:
     """``prio[write] = |per_row| + eps`` for the whole draw (a mesh rank's
-    rows all-gathered first)."""
-    if state_sharding is not None and state_sharding.batch_ways > 1:
+    rows all-gathered first, over one rank too)."""
+    if state_sharding is not None and state_sharding.batch_axes:
         from blendjax_torch.parallel.collectives import all_gather
 
         per_row = all_gather(per_row, state_sharding.mesh,

@@ -26,7 +26,10 @@ step's random generators on the host (``step.reseed``; the generators are
 registered with the graph, whose replay reads their seed and offset
 afresh), replays, advances ``state.step`` by the updates the graph makes,
 adds the kernel launches it captured to the wrappers' counts
-(:func:`blendjax_torch.kernels.add_launches`) and returns a clone of the
+(:func:`blendjax_torch.kernels.add_launches`), the host counts of calls
+(:func:`blendjax_torch.kernels.counting.add_calls`, Ulysses') and the
+collectives it holds (:func:`blendjax_torch.parallel.collectives.add_counts`,
+every kind, tallied once at capture) to theirs, and returns a clone of the
 static loss (the driver keeps losses alive across later replays).
 
 Capture needs warm-up calls, which update the weights and the optimizer:
@@ -361,7 +364,7 @@ class _Graph:
                  variants, generators, stager, flops=None, work=None,
                  state_bytes: int = 0, images: int | None = None,
                  op_flops_per_image: float | None = None,
-                 collectives: dict | None = None):
+                 collectives: dict | None = None, calls: dict | None = None):
         self.step = step
         self.graph = graph
         self.static = static
@@ -378,6 +381,8 @@ class _Graph:
         self.op_flops_per_image = op_flops_per_image
         # the collectives one replay issues (a mesh step's), by kind/axis
         self.collectives = collectives
+        # the host counts of calls one replay stands for (Ulysses')
+        self.calls = calls or {}
         # host launches of the last call: the input copies, two fills per
         # registered generator (the replay writes its seed and offset), the
         # graph launch and the loss clone
@@ -385,12 +390,14 @@ class _Graph:
 
     def __call__(self, state, batch):
         from blendjax_torch.kernels import add_launches
+        from blendjax_torch.kernels.counting import add_calls
 
         copies = _load(self.static, batch, self.stager)
         _reseed(self.step, state, batch)
         self.graph.replay()
         state.step += self.updates
         add_launches(self.launches, self.variants)
+        add_calls(self.calls)
         if self.collectives and self.collectives["ops"]:
             from blendjax_torch.parallel.collectives import add_counts
 
@@ -456,7 +463,7 @@ def _capture(step, state, batch, stream, mode: str, stager: HostStager,
                   tally["launches"], tally["variants"], generators, stager,
                   flops=flops, work=work, state_bytes=state_bytes,
                   images=images, op_flops_per_image=op_flops_per_image,
-                  collectives=coll)
+                  collectives=coll, calls=tally.get("calls"))
 
 
 def pool_bytes(graph, segments: list | None = None) -> int:
@@ -629,10 +636,11 @@ class CapturedStep:
     ``_cache_size`` (the graphs captured) is what
     :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches.
 
-    A mesh over a gloo process group (several ranks sharing one card, which
-    NCCL refuses) is not captured: gloo moves a card's tensors through the
-    host, which a capture forbids. Its step runs eagerly on the card,
-    counted in ``eager_calls``."""
+    A mesh step on an NCCL group of any size is captured whole, its
+    collectives inside the graph. A mesh over a gloo process group (several
+    ranks sharing one card, which NCCL refuses, or ranks on the CPU) is
+    not captured: gloo moves a card's tensors through the host, which a
+    capture forbids. Its step runs eagerly, counted in ``eager_calls``."""
 
     def __init__(self, step, mesh=None):
         self.step = step
@@ -693,11 +701,11 @@ class CapturedStep:
             self._graph(state, batch, device)
 
     def __call__(self, state, batch):
-        device = state_device(state)
-        if device.type != "cuda":
-            return self.step(state, batch)
         if self.host_collectives:
             self.eager_calls += 1
+            return self.step(state, batch)
+        device = state_device(state)
+        if device.type != "cuda":
             return self.step(state, batch)
         graph = self._graph(state, batch, device)
         out = graph(state, batch)

@@ -20,12 +20,15 @@ captures into one CUDA graph with its collectives (the data layout).
   global batch, so ``images/s`` and MFU read the whole mesh, and the MFU
   peak is ``peak_flops_per_chip`` times the cards of the mesh.
 
-Layouts: ``data`` (replicated state), ``data×fsdp``, ``data×tp`` and
-``data×expert`` (the state split over the model axis,
-:class:`~blendjax_torch.parallel.ShardedParams`) all capture one graph
-per plan signature with ``build(aot=True)``, one replay per step call, as
-on one card; the process group is used eagerly (the capture's warm-up
-steps) before any capture. On ``tp`` and ``expert`` the work splits as
+Layouts: ``data`` (replicated state), ``data×seq`` (a sequence-parallel
+model: Ulysses' all-to-alls or the ring's permutes inside its
+attention), ``data×fsdp``, ``data×tp`` and ``data×expert`` (the state
+split over the model axis, :class:`~blendjax_torch.parallel.ShardedParams`)
+all capture one graph per plan signature with ``build(aot=True)``, one
+replay per step call, as on one card; every axis's communicator is made
+before any capture (:func:`warm_up_groups` at build, then the capture's
+own eager warm-up steps). The echo step over a sharded ring captures the
+same way (:func:`make_mesh_echo_fused_step`). On ``tp`` and ``expert`` the work splits as
 the JAX package's compiled step splits it
 (``blendjax_torch/docs/mesh-split.md``): the ranks of a ``tp`` group train
 on the same rows, each with its block of the split kernels (its heads of
@@ -112,7 +115,11 @@ def make_mesh_echo_fused_step(state, mesh, reservoir, loss_fn=None,
     """:func:`~blendjax_torch.train.make_echo_fused_step` on a mesh:
     ``reservoir`` (the ``EchoingPipeline(mesh=..., emit_draws=True)``'s)
     must be sharded over the batch axes; each rank draws its rows of every
-    global draw."""
+    global draw. The draw's gather runs on the card from the token's
+    indices as a device tensor, so a
+    :class:`~blendjax_torch.train.CapturedStep` of this step holds the
+    gather with its all-reduce, the augmentation, the update and the loss
+    mean in one graph."""
     from blendjax_torch.train.steps import make_echo_fused_step
 
     _check_axis(mesh, data_axis)
@@ -131,7 +138,8 @@ def make_mesh_echo_fused_step(state, mesh, reservoir, loss_fn=None,
 def warm_up_groups(mesh, axes) -> None:
     """One all-reduce on the group of each of ``axes`` (and of the folded
     batch axes): a communicator is made at its first use, which must not
-    happen inside a graph capture."""
+    happen inside a graph capture. An NCCL group's all-to-all uses the
+    communicator this makes."""
     import torch
 
     from blendjax_torch.parallel.collectives import _all_reduce, recording
@@ -318,9 +326,10 @@ class MeshTrainDriver(TrainDriver):
         on the model, the mesh, the layout and its rules). On a state
         split over a model axis (fsdp, tp, expert) the graph holds the
         whole split step: the fsdp gathers, the split kernels' sums, the
-        gradient mean and the shards' update. A capture or replay that
-        fails raises; the fused step on a gloo group runs eagerly
-        (``eager_calls``).
+        gradient mean and the shards' update; on a ``seq`` axis it holds
+        the sequence split and gather and Ulysses' all-to-alls or the
+        ring's permutes. A capture or replay that fails raises; the fused
+        step on a gloo group runs eagerly (``eager_calls``).
         """
         from blendjax_torch.parallel.sharding import (
             resolve_layout,

@@ -262,10 +262,25 @@ recording: every K4a, K4b and K4c launch inside ``ulysses_attention``
 (each depth x updates times, as many as Ulysses' flash calls), losses
 within K4's bar of the non-mesh step's; then ``sp_mode="ring"`` on the
 same groups, held at the bf16 bar of ``tests/test_torch_parallel.py``
-and at the tighter bar of a one-block ring (world size 1: no hop); then
-one all-to-all and attention through Ulysses against local attention,
-timed. Phase 5h's pipeline leg runs on the same group before it is
-destroyed: ``pipeline_apply`` over ``create_mesh({"pipe": 1})`` with one
+and at the tighter bar of a one-block ring (world size 1: no hop). Each
+of Ulysses, ring and the non-mesh step runs again captured
+(``MeshTrainDriver.build(fused=True, aot=True)``; ``CapturedStep`` for
+the non-mesh step), every plan signature prepared before the run, all
+six runs cuDNN deterministic: one graph replay per step call and no eager
+call, the losses bit-equal to the same mode's eager run, K1 and K4a-c
+launches counted through the replays equal to the eager run's (for
+Ulysses, equal to its flash calls, counted per replay too), the
+collectives by kind and axis equal, each Ulysses graph holding its
+all-to-alls; img/s and host ms per step call printed captured against
+eager for each. Then one all-to-all and attention through Ulysses
+against local attention, timed. The echo mesh leg: full-width
+``CubeRegressor()``'s echo fused step over a ring of 64 seeded frames
+sharded on ``{"data": 1}`` (the device-side gather, its all-reduce over
+one rank), 8 draws eagerly and through ``CapturedStep(step,
+mesh=mesh)``: one replay per step call, no eager call, losses and
+parameters bit-equal, collectives equal, the donation audit of the state
+and the ring 1.0. Phase 5h's pipeline leg runs on the same group before
+it is destroyed: ``pipeline_apply`` over ``create_mesh({"pipe": 1})`` with one
 full-width StreamFormer ``Block`` (flash) as the stage through
 ``torch.func.functional_call``, 4 microbatches of (8, 768, 512) bf16: the
 output and the input gradient must be bit-equal to the block called on
@@ -342,7 +357,13 @@ size 1; the online and target networks gathered over one rank in the
 step), 16 steps on scripted transitions eagerly and through
 ``CapturedStep``, bit-equal (losses, shards, priorities), one replay per
 step, the donation audit 1.0, the losses within 1e-5 of the replicated
-captured run's; each run's ms per step printed.
+captured run's; then the replicated state over a reservoir sharded on
+``{"data": 1}`` (the ring's gather on the card, its all-reduce over one
+rank), eagerly and through ``CapturedStep(step, mesh=mesh)``: bit-equal
+(losses, parameters, target, priorities), one replay per step and no
+eager call, the collectives equal by kind and axis, the donation audit
+1.0, the losses within 1e-5 of the replicated run's; each run's ms per
+step printed.
 
 Phase 5j (after 5i), scoring, the scenario loop and the elastic fleet
 (``bench.py``'s ``measure_live_scenario`` and ``measure_live_fleet``,
@@ -492,9 +513,13 @@ LONG_ATTN = (4, 3072)
 # flagship leg through MeshTrainDriver (fewer steps than the single-card
 # flagship leg: it proves the path, the flagship leg measures the rate),
 # then the sequence-parallel legs of the full-width StreamFormer on the
-# flagship recording, eager (every K4 launch counted through Ulysses)
+# flagship recording, eager and captured (every K4 launch counted through
+# Ulysses, per replay in the captured run)
 MESH_FLAGSHIP = {"tile": (16, 32), "capacity": 160, "steps": 96, "warmup": 32}
 MESH_SP = {"steps": 16, "warmup": 2}
+# phase 5g's echo step over a ring sharded on {"data": 1}: the ring's
+# frames (seeded) and the draws of each run, eager and captured
+ECHO_MESH = {"capacity": 64, "steps": 8}
 # phase 5h: the streamformer leg's configuration with Switch MoE MLPs in
 # blocks 0, 2, 4, 6 (4 experts) on the flagship stream through the
 # captured fused step (its step budget), the dense model under remat on
@@ -3473,13 +3498,20 @@ def first_groups(prefix: str, n: int) -> list:
 def sp_phase(prefix: str, card: str) -> dict:
     """Phase 5g leg 2: the full-width StreamFormer with ``use_ring=True``,
     ``sp_mode="ulysses"`` on ``create_mesh({"data": 1, "seq": 1})``, flash
-    attention, through ``MeshTrainDriver.build(fused=True)`` (eager) on the
-    recording's first ``warmup + steps`` chunk groups: every K4a, K4b and
-    K4c launch is Ulysses' (each kernel depth x updates times, as many as
-    Ulysses' flash calls), and the per-update losses match the non-mesh
-    step's on the same groups within K4's bar. Then the same groups with
-    ``sp_mode="ring"``: its largest loss difference, held at the bf16
-    bar and at the one-block bar (``RING_ONE_BLOCK_REL``)."""
+    attention, through ``MeshTrainDriver.build(fused=True)`` on the
+    recording's first ``warmup + steps`` chunk groups, eagerly and with
+    ``aot=True`` (every plan signature captured before the run), cuDNN
+    deterministic: every K4a, K4b and K4c launch is Ulysses' (each kernel
+    depth x updates times, as many as Ulysses' flash calls, counted
+    through the replays in the captured run), and the per-update losses
+    match the non-mesh step's on the same groups within K4's bar. Then the
+    same groups with ``sp_mode="ring"``: its largest loss difference, held
+    at the bf16 bar and at the one-block bar (``RING_ONE_BLOCK_REL``).
+    Each captured run against its eager run (:func:`sp_capture_gates`):
+    one replay per step call, no eager call, the losses bit-equal, K1 and
+    K4a-c launches and the collectives by kind and axis equal, the
+    Ulysses graph holding its all-to-alls. Logs img/s and the host ms per
+    step call of each run, captured, eager and the non-mesh step's."""
     import torch
 
     from blendjax_torch.kernels import (
@@ -3489,7 +3521,13 @@ def sp_phase(prefix: str, card: str) -> dict:
     )
     from blendjax_torch.models import StreamFormer
     from blendjax_torch.parallel import create_mesh, ulysses
+    from blendjax_torch.parallel.collectives import (
+        collective_counts,
+        reset_collective_counts,
+        tally_diff,
+    )
     from blendjax_torch.train import (
+        CapturedStep,
         MeshTrainDriver,
         TrainDriver,
         make_fused_tile_step,
@@ -3502,20 +3540,29 @@ def sp_phase(prefix: str, card: str) -> dict:
                         image_shape=SHAPE).init_params(0)
     weights = {k: v.clone() for k, v in base.state_dict().items()}
 
-    def run(label, model, mesh_run):
+    def run(label, model, mesh_run, aot=False):
         model.load_state_dict(weights)
         if mesh_run:
             drv = MeshTrainDriver.build(model, mesh, fused=True,
                                         loss_fn=former_loss, inflight=2,
-                                        sync_every=4)
+                                        sync_every=4, aot=aot)
         else:
-            drv = TrainDriver(make_fused_tile_step(former_loss),
+            step = make_fused_tile_step(former_loss)
+            drv = TrainDriver(CapturedStep(step) if aot else step,
                               make_train_state(model), inflight=2,
                               sync_every=4)
-        seen, inner = [], drv.step
+        inner = drv.step
+        if aot:  # the captures are not the run's
+            for g in groups:
+                inner.prepare(drv.state, g)
+        seen, host = [], {"s": 0.0, "calls": 0, "on": False}
 
         def tap(state, batch):
+            t = time.perf_counter()
             state, m = inner(state, batch)
+            if host["on"]:
+                host["s"] += time.perf_counter() - t
+                host["calls"] += 1
             seen.append(m["loss"])
             return state, m
 
@@ -3523,12 +3570,15 @@ def sp_phase(prefix: str, card: str) -> dict:
         updates = 0
         reset_launch_counts()
         ulysses.reset_counts()
+        reset_collective_counts()
+        before = collective_counts()
         for i, g in enumerate(groups):
             if i == MESH_SP["warmup"]:
                 drv.drain()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 images = 0
+                host["on"] = True
             drv.submit(g)
             updates += int(g["_packed"].shape[0])
             if i >= MESH_SP["warmup"]:
@@ -3539,19 +3589,37 @@ def sp_phase(prefix: str, card: str) -> dict:
         losses = [x for v in seen for x in v.float().reshape(-1).tolist()]
         if not all(math.isfinite(v) for v in losses):
             fail(f"{label}: non-finite loss in {losses}")
+        graphs = [g for g in getattr(inner, "_graphs", {}).values() if g]
         return {"losses": losses, "launches": launch_counts(),
                 "variants": variant_counts(), "updates": updates,
                 "ulysses_flash_calls": ulysses.flash_calls,
-                "img_s": images / wall, "wall_s": wall}
+                "img_s": images / wall, "wall_s": wall,
+                "host_ms": host["s"] * 1e3 / max(host["calls"], 1),
+                "calls": len(groups),
+                "tally": tally_diff(collective_counts(), before),
+                "replays": getattr(inner, "graph_replays", 0),
+                "eager_calls": getattr(inner, "eager_calls", 0),
+                "graph_collectives": [g.collectives for g in graphs]}
 
     def sp_model(mode):
         return StreamFormer(**FORMER, attn_backend="flash", image_shape=SHAPE,
                             use_ring=True, sp_mode=mode, mesh=mesh)
 
-    uly = run("ulysses leg", sp_model("ulysses"), True)
-    plain = run("non-mesh streamformer", StreamFormer(
-        **FORMER, attn_backend="flash", image_shape=SHAPE), False)
-    ring = run("ring leg", sp_model("ring"), True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        uly = run("ulysses leg", sp_model("ulysses"), True)
+        uly_aot = run("captured ulysses leg", sp_model("ulysses"), True,
+                      aot=True)
+        plain = run("non-mesh streamformer", StreamFormer(
+            **FORMER, attn_backend="flash", image_shape=SHAPE), False)
+        plain_aot = run("captured non-mesh streamformer", StreamFormer(
+            **FORMER, attn_backend="flash", image_shape=SHAPE), False,
+            aot=True)
+        ring = run("ring leg", sp_model("ring"), True)
+        ring_aot = run("captured ring leg", sp_model("ring"), True, aot=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     want = FORMER["depth"] * uly["updates"]
     counts = uly["launches"]
     for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
@@ -3564,6 +3632,9 @@ def sp_phase(prefix: str, card: str) -> dict:
         fail(f"ring leg launched the flash kernels: {ring['launches']}")
     if counts["decode_spatial"] <= 0:
         fail("ulysses leg never launched decode_spatial (K1)")
+    sp_capture_gates("ulysses", uly_aot, uly, want)
+    sp_capture_gates("ring", ring_aot, ring, 0)
+    sp_capture_gates("non-mesh", plain_aot, plain, want)
 
     def rel(a, b):
         return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
@@ -3601,8 +3672,8 @@ def sp_phase(prefix: str, card: str) -> dict:
              f"by rel {r_rel:.3e} (one-block bar {RING_ONE_BLOCK_REL}, bf16 "
              f"bar {BF16_LOSS_REL})")
     log(f"sequence-parallel legs on {card}: StreamFormer {FORMER} on "
-        f"{ {'data': 1, 'seq': 1} } (NCCL), {uly['updates']} updates each; "
-        f"ulysses: K4a/K4b/K4c launches "
+        f"{ {'data': 1, 'seq': 1} } (NCCL), {uly['updates']} updates each, "
+        f"cuDNN deterministic; ulysses: K4a/K4b/K4c launches "
         f"{[counts[k] for k in ('flash_attention_fwd', 'flash_attention_bwd_dkv', 'flash_attention_bwd_dq')]}"
         f" = Ulysses' flash calls {uly['ulysses_flash_calls']} = depth x "
         f"updates {want}, variants {uly['variants']}; "
@@ -3612,6 +3683,20 @@ def sp_phase(prefix: str, card: str) -> dict:
         f"(bar {K4_LOSS_REL}), ring rel {r_rel:.3e} (one-block bar "
         f"{RING_ONE_BLOCK_REL}, bf16 bar {BF16_LOSS_REL}, ring "
         f"{ring['img_s']:.1f} img/s)")
+    runs = {"ulysses": (uly, uly_aot), "ring": (ring, ring_aot),
+            "non-mesh": (plain, plain_aot)}
+    log(f"sequence-parallel legs captured on {card}: img/s over "
+        f"{MESH_SP['steps']} step calls (host ms per step call), captured "
+        "against eager: " + "; ".join(
+            f"{name} {g['img_s']:.1f} ({g['host_ms']:.3f}) against "
+            f"{e['img_s']:.1f} ({e['host_ms']:.3f})"
+            for name, (e, g) in runs.items())
+        + f"; the captured runs one replay per step call and no eager call, "
+        f"losses bit-equal to their eager runs', launches and collectives "
+        f"equal (ulysses {uly_aot['tally']['per_kind']} by axis "
+        f"{uly_aot['tally']['per_axis']}; ring {ring_aot['tally']['per_kind']}"
+        f" by axis {ring_aot['tally']['per_axis']}); captured Ulysses' flash "
+        f"calls through the replays {uly_aot['ulysses_flash_calls']}")
     log(f"ulysses at {shape} bf16 on {card}: one all-to-all (NCCL, one "
         f"rank) {a2a['ms']:.4f} ms on the card ({a2a['min_ms']:.4f}-"
         f"{a2a['max_ms']:.4f}), {a2a['host_ms']:.4f} ms of host per call; "
@@ -3619,14 +3704,165 @@ def sp_phase(prefix: str, card: str) -> dict:
         f"{via['ms']:.4f} ms (host {via['host_ms']:.4f}) against "
         f"local_attention's {local['ms']:.4f} ms (host "
         f"{local['host_ms']:.4f})")
-    return {"ulysses": uly, "plain": plain, "ring": ring,
+    return {"ulysses": uly, "ulysses_aot": uly_aot, "plain": plain,
+            "plain_aot": plain_aot, "ring": ring, "ring_aot": ring_aot,
             "ulysses_rel": u_rel, "ring_rel": r_rel,
             "a2a": a2a, "via_ulysses": via, "local": local}
 
 
+def sp_capture_gates(name: str, graph: dict, eager: dict,
+                     flash: int) -> None:
+    """A captured sequence-parallel (or non-mesh) run against its eager
+    run on the same groups: one graph replay per step call and no eager
+    call, the losses bit-equal, K1 and each of K4a-c launched as often
+    (``flash`` times each, counted through the replays, and as many
+    Ulysses flash calls when the run is Ulysses'), the collectives by kind
+    and axis equal, and the Ulysses graphs holding their all-to-alls."""
+    kernels = ("decode_spatial", "flash_attention_fwd",
+               "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    problems = []
+    if graph["replays"] != graph["calls"] or graph["eager_calls"]:
+        problems.append(f"{graph['replays']} replays and "
+                        f"{graph['eager_calls']} eager calls for "
+                        f"{graph['calls']} step calls")
+    if graph["losses"] != eager["losses"] or not graph["losses"]:
+        problems.append(f"losses {graph['losses']} against eager "
+                        f"{eager['losses']}")
+    counts = {k: (graph["launches"][k], eager["launches"][k])
+              for k in kernels}
+    if (any(g != e for g, e in counts.values()) or counts[kernels[0]][0] <= 0
+            or any(counts[k][0] != flash for k in kernels[1:])):
+        problems.append(f"launches (graph, eager) {counts}, want {flash} "
+                        "of each flash kernel")
+    if graph["ulysses_flash_calls"] != eager["ulysses_flash_calls"] or (
+            name == "ulysses" and graph["ulysses_flash_calls"] != flash):
+        problems.append(f"Ulysses' flash calls {graph['ulysses_flash_calls']}"
+                        f" against eager {eager['ulysses_flash_calls']}")
+    if (graph["tally"]["per_kind"] != eager["tally"]["per_kind"]
+            or graph["tally"]["per_axis"] != eager["tally"]["per_axis"]):
+        problems.append(f"collectives {graph['tally']} against eager "
+                        f"{eager['tally']}")
+    if name == "ulysses" and not all(
+            c["per_kind"]["all-to-all"] > 0
+            for c in graph["graph_collectives"]):
+        problems.append("a Ulysses graph without its all-to-alls: "
+                        f"{graph['graph_collectives']}")
+    if problems:
+        fail(f"captured {name} leg: " + "; ".join(problems))
+
+
+def echo_mesh_leg(card: str) -> dict:
+    """Phase 5g leg 3: the echo fused step of full-width ``CubeRegressor()``
+    over a ring sharded on ``create_mesh({"data": 1})`` (the gather on the
+    card from the token's device indices, its all-reduce over one rank),
+    with the echo leg's default augmentation, eagerly and through
+    ``CapturedStep(step, mesh=mesh)``, from one model on twin reservoirs
+    filled with the same seeded frames, ``ECHO_MESH["steps"]`` draws each,
+    cuDNN deterministic: the captured run one replay per step call and no
+    eager call, its losses and parameters bit-equal to the eager run's,
+    the collectives by kind and axis equal (the gather's all-reduce
+    inside the graph), the donation audit of the state and the ring 1.0
+    on both. Logs each run's ms per step after the first (the
+    capture's)."""
+    import numpy as np
+    import torch
+
+    from blendjax_torch.data import SampleReservoir
+    from blendjax_torch.data.echo import default_echo_augment
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.parallel import create_mesh, ring_sharding
+    from blendjax_torch.parallel.collectives import (
+        collective_counts,
+        tally_diff,
+    )
+    from blendjax_torch.testing.donation import DonationAudit, state_tree
+    from blendjax_torch.train import (
+        CapturedStep,
+        make_mesh_echo_fused_step,
+        make_train_state,
+    )
+
+    mesh = create_mesh({"data": 1})
+    cap = ECHO_MESH["capacity"]
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.integers(0, 256, (cap, *SHAPE, 4),
+                                           np.uint8)).cuda()
+    xy = torch.from_numpy((rng.random((cap, 8, 2)) * SHAPE[::-1])
+                          .astype(np.float32)).cuda()
+    draws = [rng.integers(0, cap, BATCH) for _ in range(ECHO_MESH["steps"])]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("eager", "captured"):
+            res = SampleReservoir(cap, augment=default_echo_augment(
+                points_key="xy"), rng=3, sharding=ring_sharding(mesh))
+            for i in range(0, cap, BATCH):
+                res.insert({"image": frames[i:i + BATCH],
+                            "xy": xy[i:i + BATCH]})
+            state = make_train_state(CubeRegressor().init_params(0),
+                                     mesh=mesh)
+            step = make_mesh_echo_fused_step(state, mesh, res)
+            if name == "captured":
+                step = CapturedStep(step, mesh=mesh)
+            audit = DonationAudit()
+            losses, before = [], collective_counts()
+            for i, idx in enumerate(draws):
+                losses.append(step(state, res.draw_token(idx))[1]["loss"])
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    audit.snapshot(name, {**state_tree(state),
+                                          **res.device_buffers()})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (len(draws) - 1)
+            audit.snapshot(name, {**state_tree(state),
+                                  **res.device_buffers()})
+            runs[name] = {"losses": torch.stack(losses), "state": state,
+                          "step": step, "ms": ms, "audit": audit,
+                          "tally": tally_diff(collective_counts(), before)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    eager, graph = runs["eager"], runs["captured"]
+    kinds = [(r["tally"]["per_kind"], r["tally"]["per_axis"])
+             for r in (eager, graph)]
+    same = (torch.equal(eager["losses"], graph["losses"])
+            and all(torch.equal(p, q) for p, q in zip(
+                eager["state"].model.parameters(),
+                graph["state"].model.parameters())))
+    problems = []
+    if not same:
+        problems.append(f"losses {graph['losses'].tolist()} against eager "
+                        f"{eager['losses'].tolist()} (or the parameters)")
+    if graph["step"].graph_replays != len(draws) or graph["step"].eager_calls:
+        problems.append(f"{graph['step'].graph_replays} replays and "
+                        f"{graph['step'].eager_calls} eager calls for "
+                        f"{len(draws)} step calls")
+    if kinds[0] != kinds[1] or kinds[1][0]["all-reduce"] <= 0 or not all(
+            g.collectives["per_kind"]["all-reduce"] > 0
+            for g in graph["step"]._graphs.values()):
+        problems.append(f"collectives (eager, graph) {kinds}")
+    if not math.isfinite(float(graph["losses"][-1])):
+        problems.append("a non-finite loss")
+    if problems:
+        fail("echo mesh leg on a sharded ring: " + "; ".join(problems))
+    for name in runs:
+        audit_verdict(f"echo mesh leg ({name})", runs[name]["audit"])
+    log(f"echo mesh leg on {card}: CubeRegressor() echo fused step over a "
+        f"ring of {cap} frames sharded on {{'data': 1}} (NCCL at one rank), "
+        f"{len(draws)} draws of {BATCH}, eager and one graph replay each, "
+        f"no eager call, bit-equal (losses, parameters), collectives equal "
+        f"{kinds[1][0]} by axis {kinds[1][1]}; ms per step after the first: "
+        f"eager {eager['ms']:.3f}, captured {graph['ms']:.3f}; losses "
+        f"{[round(x, 6) for x in graph['losses'].tolist()]}")
+    return {k: {"ms": v["ms"], "losses": v["losses"].tolist()}
+            for k, v in runs.items()}
+
+
 def mesh_phase(tmp: str, prefix: str, flagship: dict, card: str) -> dict:
     """Phase 5g: the NCCL group, the mesh flagship leg, the
-    sequence-parallel legs; the group is destroyed after."""
+    sequence-parallel legs, the echo step over a sharded ring; the group
+    is destroyed after."""
     import torch.distributed as dist
 
     from blendjax_torch.parallel import create_mesh
@@ -3636,7 +3872,8 @@ def mesh_phase(tmp: str, prefix: str, flagship: dict, card: str) -> dict:
         mesh = create_mesh({"data": -1})
         out = {"flagship": mesh_flagship_leg(tmp, prefix, mesh, flagship,
                                              card),
-               "sp": sp_phase(prefix, card)}
+               "sp": sp_phase(prefix, card),
+               "echo": echo_mesh_leg(card)}
         # phase 5h's pipeline leg, on this group
         out["pipeline"] = pipeline_leg(card)
         return out
@@ -4872,7 +5109,14 @@ def dqn_mesh_leg(tmp: str, card: str) -> dict:
     captured run one replay per step and its losses, priorities and
     shards bit-equal to the split eager run's, its donation audit 1.0,
     and both split runs' losses within ``RL_MESH["loss_rel"]`` of the
-    replicated run's. Logs each run's ms per step after the first (the
+    replicated run's. Then the replicated state on ``{"data": 1}`` over a
+    reservoir sharded on that mesh (the ring's gather on the card, its
+    all-reduce over one rank), eager and through ``CapturedStep(step,
+    mesh=mesh)``: the captured run one replay per step and no eager call,
+    its losses, parameters, target and priorities bit-equal to the eager
+    run's, the collectives by kind and axis equal, the donation audit 1.0
+    on both, the losses within ``RL_MESH["loss_rel"]`` of the replicated
+    run's. Logs each run's ms per step after the first (the
     capture's)."""
     import numpy as np
     import torch
@@ -4880,6 +5124,10 @@ def dqn_mesh_leg(tmp: str, card: str) -> dict:
 
     from blendjax_torch.models import QNetwork
     from blendjax_torch.parallel import create_mesh
+    from blendjax_torch.parallel.collectives import (
+        collective_counts,
+        tally_diff,
+    )
     from blendjax_torch.parallel.mesh import init_group
     from blendjax_torch.rl import (
         TrajectoryReservoir,
@@ -4901,21 +5149,27 @@ def dqn_mesh_leg(tmp: str, card: str) -> dict:
     init_group("cuda", store_dir=tempfile.mkdtemp(dir=tmp))
     runs = {}
     try:
-        mesh = create_mesh({"data": 1, "fsdp": 1}, devices="cuda")
-        for name, split, captured in (("replicated", False, True),
-                                      ("fsdp", True, False),
-                                      ("fsdp_aot", True, True)):
-            res = TrajectoryReservoir(RL["capacity"], rng=2, prioritized=True)
+        meshes = {"fsdp": create_mesh({"data": 1, "fsdp": 1}, devices="cuda"),
+                  "ring": create_mesh({"data": 1}, devices="cuda")}
+        for name, layout, captured in (("replicated", None, True),
+                                       ("fsdp", "fsdp", False),
+                                       ("fsdp_aot", "fsdp", True),
+                                       ("ring", "ring", False),
+                                       ("ring_aot", "ring", True)):
+            mesh = meshes.get(layout)
+            res = TrajectoryReservoir(
+                RL["capacity"], rng=2, prioritized=True,
+                mesh=mesh if layout == "ring" else None)
             res.insert(rows)
             state = make_rl_train_state(copy.deepcopy(model),
-                                        learning_rate=RL["lr"],
-                                        mesh=mesh if split else None)
-            kw = mesh_rl_step_kwargs(state, mesh) if split else {}
+                                        learning_rate=RL["lr"], mesh=mesh)
+            kw = mesh_rl_step_kwargs(state, mesh) if mesh else {}
             step = make_dqn_step(res, gamma=RL["gamma"], **kw)
             if captured:
-                step = CapturedStep(step, mesh=mesh if split else None)
+                step = CapturedStep(step, mesh=mesh)
             audit = DonationAudit()
             losses = []
+            before = collective_counts()
             for i in range(RL_MESH["steps"]):
                 token = res.draw_token(*res.compose(RL["batch"]))
                 losses.append(step(state, token)[1]["loss"])
@@ -4927,7 +5181,8 @@ def dqn_mesh_leg(tmp: str, card: str) -> dict:
             ms = (time.perf_counter() - t0) * 1e3 / (RL_MESH["steps"] - 1)
             audit.snapshot(name, state_tree(state))
             runs[name] = {"losses": losses, "state": state, "res": res,
-                          "step": step, "ms": ms, "audit": audit}
+                          "step": step, "ms": ms, "audit": audit,
+                          "tally": tally_diff(collective_counts(), before)}
     finally:
         dist.destroy_process_group()
     ref, eager, graph = (runs[k] for k in ("replicated", "fsdp", "fsdp_aot"))
@@ -4948,14 +5203,39 @@ def dqn_mesh_leg(tmp: str, card: str) -> dict:
              f"{graph['step'].eager_calls} eager calls; eager losses "
              f"{[x.item() for x in eager['losses']]} graph "
              f"{[y.item() for y in graph['losses']]}")
+    ring_eager, ring_graph = runs["ring"], runs["ring_aot"]
+    ring_same = (
+        all(torch.equal(x, y) for x, y in zip(ring_eager["losses"],
+                                               ring_graph["losses"]))
+        and all(torch.equal(p, q) for p, q in zip(
+            ring_eager["state"].model.parameters(),
+            ring_graph["state"].model.parameters()))
+        and all(torch.equal(p, q) for p, q in zip(
+            ring_eager["state"].target.parameters(),
+            ring_graph["state"].target.parameters()))
+        and torch.equal(ring_eager["res"]._priorities,
+                        ring_graph["res"]._priorities))
+    kinds = [(r["tally"]["per_kind"], r["tally"]["per_axis"])
+             for r in (ring_eager, ring_graph)]
+    if (not ring_same or ring_graph["step"].graph_replays != RL_MESH["steps"]
+            or ring_graph["step"].eager_calls or kinds[0] != kinds[1]
+            or kinds[1][0]["all-reduce"] <= 0
+            or ring_eager["res"].ways != 1
+            or ring_eager["res"].sharding is None):
+        fail(f"dqn mesh leg on a sharded ring: "
+             f"{ring_graph['step'].graph_replays} replays, "
+             f"{ring_graph['step'].eager_calls} eager calls; collectives "
+             f"(eager, graph) {kinds}; eager losses "
+             f"{[x.item() for x in ring_eager['losses']]} graph "
+             f"{[y.item() for y in ring_graph['losses']]}")
     want = [x.item() for x in ref["losses"]]
     gaps = {k: _loss_gap([x.item() for x in runs[k]["losses"]], want)
-            for k in ("fsdp", "fsdp_aot")}
+            for k in ("fsdp", "fsdp_aot", "ring", "ring_aot")}
     if not all(math.isfinite(g) and g <= RL_MESH["loss_rel"]
                for g in gaps.values()):
         fail(f"dqn mesh leg: split losses against the replicated run's: "
              f"largest rel gaps {gaps} (bar {RL_MESH['loss_rel']})")
-    for name in ("fsdp", "fsdp_aot"):
+    for name in ("fsdp", "fsdp_aot", "ring", "ring_aot"):
         audit_verdict(f"phase 5i dqn mesh leg ({name})", runs[name]["audit"])
     log(f"phase 5i dqn mesh leg on {card}: {RL_MESH['steps']} make_dqn_step "
         f"steps on {{'data': 1, 'fsdp': 1}} (NCCL at one rank), eager and "
@@ -4964,6 +5244,13 @@ def dqn_mesh_leg(tmp: str, card: str) -> dict:
         f"losses: largest rel gaps {gaps} (bar {RL_MESH['loss_rel']}); ms "
         f"per step after the first: replicated captured {ref['ms']:.3f}, "
         f"split eager {eager['ms']:.3f}, split captured {graph['ms']:.3f}")
+    log(f"phase 5i dqn sharded-ring leg on {card}: {RL_MESH['steps']} "
+        f"make_dqn_step steps over a reservoir sharded on {{'data': 1}} "
+        f"(NCCL at one rank: the gather's all-reduce on the card), eager and "
+        f"one graph replay each, no eager call, bit-equal (losses, "
+        f"parameters, target, priorities), collectives equal "
+        f"{kinds[1][0]} by axis {kinds[1][1]}; ms per step after the first: "
+        f"eager {ring_eager['ms']:.3f}, captured {ring_graph['ms']:.3f}")
     return {k: {"ms": v["ms"], "losses": [x.item() for x in v["losses"]]}
             for k, v in runs.items()}
 
@@ -6837,11 +7124,16 @@ def main() -> None:
                          + mesh["flagship"]["launches"]["decode_spatial"]
                          + two_rank["launches"].get(name, 0)
                          + moe["launches"][name]
-                         + examples["launches"][name])
+                         + examples["launches"][name]
+                         + sum(mesh["sp"][run]["launches"][name] for run in
+                               ("ulysses_aot", "ring_aot", "plain_aot")))
         elif name.startswith("flash_attention"):
-            # the Ulysses leg, the two-rank leg's ranks, the MoE and
-            # remat legs, the pipeline stage
+            # the Ulysses legs (eager and captured) and the captured
+            # non-mesh run beside them, the two-rank leg's ranks, the MoE
+            # and remat legs, the pipeline stage
             launches += (mesh["sp"]["ulysses"]["launches"][name]
+                         + mesh["sp"]["ulysses_aot"]["launches"][name]
+                         + mesh["sp"]["plain_aot"]["launches"][name]
                          + moe["launches"][name] + remat["launches"][name]
                          + mesh["pipeline"]["launches"][name]
                          + two_rank["launches"].get(name, 0)

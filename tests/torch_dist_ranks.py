@@ -993,14 +993,17 @@ def _nested(leaves: dict, prefix: str) -> dict:
 
 
 def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
-                 steps_per_insert=2, seed=0, axes=None, rules=None):
+                 steps_per_insert=2, seed=0, axes=None, rules=None,
+                 captured=False):
     """The mesh learner on a scripted insert sequence: rank 0 inserts (the
     actor rank), every rank agrees on the inserts before each compose,
     trains its rows of each draw and all-reduces the gradients; the
     losses, the final parameters, the priorities and the accounting.
     ``axes`` (default ``{"data": -1}``) and ``rules`` (``(pattern,
     spec)`` pairs) split the state over a model axis: then also the
-    target's full values and this rank's shard shapes."""
+    target's full values and this rank's shard shapes. ``captured``
+    steps the learner through ``CapturedStep(step, mesh=mesh)`` (eager on
+    gloo: its ``eager_calls`` are returned)."""
     import torch.distributed as dist
 
     from blendjax_torch.models import QNetwork
@@ -1029,6 +1032,10 @@ def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
     state = make_rl_train_state(model, device="cpu", mesh=mesh, rules=rules)
     step = make_dqn_step(res, gamma=0.98, **mesh_rl_step_kwargs(
         state, mesh, rules=rules))
+    if captured:
+        from blendjax_torch.train import CapturedStep
+
+        step = CapturedStep(step, mesh=mesh)
     drv = RLTrainDriver(step, state, res, mesh=mesh, batch_size=batch,
                         min_fill=8, sync_every=1, inflight=1,
                         sample_timeout_s=30.0)
@@ -1042,7 +1049,8 @@ def case_rl_mesh(params_np, prioritized=False, capacity=64, batch=16,
            "prio": res._priorities.numpy().copy(), "stats": res.stats,
            "ring_rows": int(res._buffers["obs"].shape[0]),
            "steps": drv.steps, "images": drv.images_retired,
-           "sharded": state.shards is not None}
+           "sharded": state.shards is not None,
+           "eager_calls": getattr(step, "eager_calls", None)}
     if state.shards is None:
         out.update(params=flax_tree(model), target=flax_tree(state.target))
         return out
@@ -1463,6 +1471,123 @@ def case_echo_rows(n_draws=6):
             "row_local": mine.augment.row_local}
 
 
+# -- cases: captured mesh steps (sharded draws) ---------------------------------------
+
+RING_CAPACITY = 16
+
+
+def ring_fields(capacity=RING_CAPACITY, seed=4):
+    """A whole ring of host arrays: float, uint8 image rows, int and bool
+    fields (a bool sums as bytes)."""
+    rng = np.random.default_rng(seed)
+    return {"obs": rng.normal(size=(capacity, 3, 5)).astype(np.float32),
+            "image": rng.integers(0, 256, (capacity, 2, 3, 4), np.uint8),
+            "action": rng.integers(-9, 9, capacity).astype(np.int32),
+            "done": rng.random(capacity) < 0.5}
+
+
+def ring_draws(capacity=RING_CAPACITY):
+    """Draws of 8 global slots: random with repeats, one slot repeated, a
+    draw inside the last quarter of the ring (held by one rank of a ring
+    split 2 or 4 ways) and one inside the first half (missing every rank
+    past it)."""
+    rng = np.random.default_rng(8)
+    q = capacity // 4
+    return {"random": rng.integers(0, capacity, 8),
+            "repeated": np.array([5, 5, 5, 2, 2, 9, 9, 5]),
+            "one_rank": np.array([3, 0, 1, 1, 2, 3, 0, 2]) + 3 * q,
+            "misses_ranks": rng.integers(0, 2 * q, 8)}
+
+
+def case_ring_gather():
+    """This rank's slice of :func:`ring_fields` over the batch axes of
+    ``{"data": -1}``, and each of :func:`ring_draws` gathered from a
+    device index tensor: every row on every rank (``ring_gather``) and
+    this rank's rows (``make_ring_gather``), with the all-reduced bytes;
+    then one gather with ``Tensor.numpy``, ``tolist``, ``cpu`` and
+    ``item`` made to raise, which a host read of the indices would hit."""
+    import torch
+
+    from blendjax_torch.data.ring import (
+        allocate_ring,
+        make_ring_gather,
+        ring_gather,
+    )
+    from blendjax_torch.parallel import ring_sharding
+    from blendjax_torch.parallel.collectives import (
+        collective_counts,
+        tally_diff,
+    )
+
+    mesh = _mesh({"data": -1})
+    sh = ring_sharding(mesh)
+    bufs = allocate_ring(RING_CAPACITY, sharding=sh, device="cpu",
+                         initial=ring_fields())
+    gather = make_ring_gather(RING_CAPACITY, sh)
+    out = {"local_rows": int(bufs["obs"].shape[0])}
+    for name, idx in ring_draws().items():
+        t = torch.from_numpy(idx)
+        before = collective_counts()
+        whole = ring_gather(bufs, t, sharding=sh, capacity=RING_CAPACITY)
+        reduced = tally_diff(collective_counts(), before)["per_kind"]
+        out[name] = {
+            "whole": {k: v.numpy().copy() for k, v in whole.items()},
+            "mine": {k: v.numpy().copy() for k, v in gather(bufs, t).items()},
+            "reduced": reduced["all-reduce"]}
+    idx = torch.from_numpy(ring_draws()["random"])
+
+    def refuse(self, *args, **kwargs):
+        raise RuntimeError("the draw's indices were read on the host")
+
+    saved = {m: getattr(torch.Tensor, m)
+             for m in ("numpy", "tolist", "cpu", "item")}
+    try:
+        for m in saved:
+            setattr(torch.Tensor, m, refuse)
+        gather(bufs, idx)
+        out["host_read"] = None
+    except RuntimeError as e:
+        out["host_read"] = str(e)
+    finally:
+        for m, fn in saved.items():
+            setattr(torch.Tensor, m, fn)
+    return out
+
+
+def case_echo_capture(params_np, n_inserts=4, draws=2):
+    """The echo fused step over a ring sharded on ``{"data": -1}``
+    through ``CapturedStep(make_mesh_echo_fused_step(...), mesh=mesh)``
+    on scripted inserts (this rank's rows of :func:`messages`) and draws
+    (the reservoir test's index stream): the losses, the wrapper's eager
+    calls and graph replays, and the ring's rows on this rank."""
+    from blendjax_torch.data import SampleReservoir
+    from blendjax_torch.parallel import ring_sharding
+    from blendjax_torch.parallel.sharding import local_rows
+    from blendjax_torch.train import (
+        CapturedStep,
+        make_mesh_echo_fused_step,
+        make_train_state,
+    )
+
+    mesh = _mesh({"data": -1})
+    sh = ring_sharding(mesh)
+    res = SampleReservoir(64, augment=None, rng=7, sharding=sh, device="cpu")
+    state = make_train_state(_cube(params_np), device="cpu", mesh=mesh)
+    step = CapturedStep(make_mesh_echo_fused_step(state, mesh, res),
+                        mesh=mesh)
+    idx_rng = np.random.default_rng(11)
+    losses = []
+    for hb in messages(n_inserts):
+        res.insert({k: local_rows(hb[k], sh) for k in ("image", "xy")})
+        for _ in range(draws):
+            token = res.draw_token(idx_rng.integers(0, res.size, B))
+            state, m = step(state, token)
+            losses.append(float(m["loss"]))
+    return {"losses": np.asarray(losses), "eager_calls": step.eager_calls,
+            "replays": step.graph_replays, "steps": state.step,
+            "ring_rows": int(res.device_buffers()["image"].shape[0])}
+
+
 # -- cases: the datagen examples on a mesh -------------------------------------------
 
 
@@ -1525,7 +1650,28 @@ def case_example(argv, relpath="datagen/train.py", f32=True):
     if drv is not None:
         res["driver_losses"] = list(drv.losses)
         res["steps"] = drv.steps
+    step = out.get("step")
+    if step is not None:
+        res["step_type"] = type(step).__name__
+        res["eager_calls"] = getattr(step, "eager_calls", None)
     return {"text": buf.getvalue(), **res}
+
+
+def case_example_capture(argv, relpath="datagen/train.py"):
+    """An example's run on this rank's mesh as it is (its step wrapped in
+    ``CapturedStep``) and again with ``CapturedStep`` the identity (the
+    bare mesh step): the wrapped run's step type and eager calls, and
+    both runs' losses."""
+    import blendjax_torch.train as T
+
+    wrapped = case_example(argv, relpath, f32=False)
+    inner = T.CapturedStep
+    T.CapturedStep = lambda step, mesh=None: step
+    try:
+        bare = case_example(argv, relpath, f32=False)
+    finally:
+        T.CapturedStep = inner
+    return {"wrapped": wrapped, "bare": bare}
 
 
 def _fast_fleet():
@@ -1764,6 +1910,9 @@ def case_fleet_agreed(verdicts, clock_rates, interval=0.05):
 
 CASES = {
     "example": case_example,
+    "example_capture": case_example_capture,
+    "ring_gather": case_ring_gather,
+    "echo_capture": case_echo_capture,
     "example_fleet": case_example_fleet,
     "example_breach": case_example_breach,
     "checkpoint_flow": case_checkpoint_flow,
