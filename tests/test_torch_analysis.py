@@ -1169,6 +1169,12 @@ def test_bjx125_flags_captures_built_inside_a_driver_loop():
                  select=["BJX125"]) == []
 
 
+def _line_of(relpath, text):
+    """The number of the first line of ``relpath`` that holds ``text``."""
+    with open(os.path.join(REPO, relpath)) as f:
+        return next(n for n, line in enumerate(f, 1) if text in line)
+
+
 def test_the_census_attributes_recorded_syncs():
     """``chip_smoke.py``'s census bookkeeping on the CPU: syncs reported
     from frames of the port's files (a thread's too) land on their line
@@ -1192,12 +1198,21 @@ def test_the_census_attributes_recorded_syncs():
         return ns[cls]().__getattribute__(meth) if cls else ns[meth]
 
     warn = "warnings.warn('called a synchronizing CUDA operation')"
+    pipeline, echo = ("blendjax_torch/data/pipeline.py",
+                      "blendjax_torch/data/echo.py")
+    found, hot = chip_smoke.census_index()
+    # the feeder's throttle wait, and a line of EchoingPipeline that no
+    # rule flags and no comment suppresses, found by their text
+    throttle = _line_of(pipeline, "head.synchronize()")
+    with open(os.path.join(REPO, echo)) as f:
+        lines = f.read().splitlines()
+    start = _line_of(echo, "class EchoingPipeline:")
+    plain = next(n for n in range(start + 1, len(lines) + 1)
+                 if (echo, n) not in found and "bjx:" not in lines[n - 1])
     loss = frames_in("blendjax_torch/train/driver.py", 270,
                      "TrainDriver._sync_oldest", warn)
-    feeder = frames_in("blendjax_torch/data/pipeline.py", 188,
-                       "DeviceFeeder._pinned_slot", warn)
-    stray = frames_in("blendjax_torch/data/echo.py", 400,
-                      "EchoingPipeline._stray", warn)
+    feeder = frames_in(pipeline, throttle, "DeviceFeeder._pinned_slot", warn)
+    stray = frames_in(echo, plain, "EchoingPipeline._stray", warn)
     model = frames_in("blendjax_torch/models/cube.py", 50, "Cube.forward",
                       warn)
     with chip_smoke.SyncCensus("cpu", card=False) as census:
@@ -1213,27 +1228,24 @@ def test_the_census_attributes_recorded_syncs():
     assert census.sites == {
         ("blendjax_torch/train/driver.py", 270,
          "blendjax_torch.train.driver.TrainDriver._sync_oldest"): 2,
-        ("blendjax_torch/data/pipeline.py", 188,
+        (pipeline, throttle,
          "blendjax_torch.data.pipeline.DeviceFeeder._pinned_slot"): 1,
-        ("blendjax_torch/data/echo.py", 400,
-         "blendjax_torch.data.echo.EchoingPipeline._stray"): 1,
+        (echo, plain, "blendjax_torch.data.echo.EchoingPipeline._stray"): 1,
         ("blendjax_torch/models/cube.py", 50,
          "blendjax_torch.models.cube.Cube.forward"): 1,
     }
-    found, hot = chip_smoke.census_index()
-    assert found[("blendjax_torch/data/pipeline.py", 188)] == ["BJX102"]
+    assert found[(pipeline, throttle)] == ["BJX102"]
     rows = {r["site"]: (r["verdict"], r["count"]) for r in
             chip_smoke.census_verdicts(census.sites, found, hot)}
     assert rows == {
         "blendjax_torch/train/driver.py:270": ("sanctioned", 2),
-        "blendjax_torch/data/pipeline.py:188": ("flagged", 1),
-        "blendjax_torch/data/echo.py:400": ("unflagged", 1),
+        f"{pipeline}:{throttle}": ("flagged", 1),
+        f"{echo}:{plain}": ("unflagged", 1),
         "blendjax_torch/models/cube.py:50": ("outside", 1),
     }
     out = census.report(6, 0)
     assert out["per_step"] == 5 / 6
-    assert [r["site"] for r in out["unflagged"]] == [
-        "blendjax_torch/data/echo.py:400"]
+    assert [r["site"] for r in out["unflagged"]] == [f"{echo}:{plain}"]
     chip_smoke.census_gate({**out, "unflagged": []})
     with pytest.raises(SystemExit):
         chip_smoke.census_gate(out)
