@@ -887,16 +887,17 @@ NON_SIDECAR_KEYS = frozenset({"_mask", "_partial", "_batched", "_prebatched"})
 #   ``CapturedStep``/``build_aot_step`` set leaves the keys of
 #   ``aot._UNKEYED`` out of its graphs (:data:`CAPTURE_UNKEYED_KEYS`),
 #   so those are no leak into one.
-# - **alias liveness** (BJX121): every captured call writes its state
-#   argument, position 0, in place. A name bound BEFORE the call to a
+# - **alias liveness** (BJX121): every captured step call writes its
+#   state argument, position 0, in place (a ``CapturedDispatch`` takes
+#   only its batch and writes nothing the caller holds). A name bound BEFORE the call to a
 #   view of that state (``.detach()``, ``.view``, ``state_dict()``,
 #   ``parameters()``, a field or item of it) holds the NEW values after
 #   the call and is overwritten again by every later replay; a read of
 #   it after the call, before it is rebound, is the use. Re-passing the
 #   state itself (``for b in batches: step(state, b)``) is how a captured
 #   step is driven and is never a use.
-# - **plan-signature derivation** (BJX122): ``CapturedStep`` keys its
-#   graphs by ``aot._plan_signature`` — each tensor's shape and dtype,
+# - **plan-signature derivation** (BJX122): ``CapturedStep`` and
+#   ``CapturedDispatch`` key their graphs by ``aot._plan_signature`` — each tensor's shape and dtype,
 #   each host plan entry BY VALUE, and the key set. A host plan entry
 #   (a host scalar, string or tuple stored in the batch dict) or a key
 #   set extended under a per-message-derived key that reaches a captured
@@ -918,11 +919,17 @@ WIRE_DECODE_FUNCS = frozenset({"decode_message"})
 #: Callables whose result is a captured callable (matched on the last
 #: dotted segment of the resolved name).
 CAPTURE_CALLS = frozenset({"CapturedStep", "build_aot_step",
-                           "make_graphed_callables"})
+                           "make_graphed_callables", "CapturedDispatch"})
 
 #: Of those, the ones that key their graphs by ``aot._plan_signature``
 #: and leave :data:`CAPTURE_UNKEYED_KEYS` out of them.
-PLAN_KEYED_CALLS = frozenset({"CapturedStep", "build_aot_step"})
+PLAN_KEYED_CALLS = frozenset({"CapturedStep", "build_aot_step",
+                              "CapturedDispatch"})
+
+#: Of those, the ones that capture a dispatch outside a step (the
+#: counterpart of a ``jax.jit`` of a pure function): every argument is the
+#: batch, and none is a state written in place.
+DISPATCH_CALLS = frozenset({"CapturedDispatch"})
 
 #: ``blendjax_torch/train/aot.py:_UNKEYED``: the host sidecars a
 #: ``CapturedStep`` passes through without keying or copying them
@@ -971,14 +978,17 @@ def _is_capture_name(resolved: str | None) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class JitInfo:
-    """What a captured callable declares. Every one writes its state,
-    position 0, in place; a ``CapturedStep`` or ``build_aot_step`` set
-    keys its graphs by the batch's plan signature (``plan_keyed``) and
-    leaves ``unkeyed`` out of it."""
+    """What a captured callable declares. A captured step writes its
+    state, position 0, in place (``writes_state``); a captured dispatch
+    (``CapturedDispatch``) takes only its batch. A ``CapturedStep``,
+    ``build_aot_step`` set or ``CapturedDispatch`` keys its graphs by the
+    batch's plan signature (``plan_keyed``) and leaves ``unkeyed`` out of
+    it."""
 
     desc: str  # display name for messages ("CapturedStep(step)")
     plan_keyed: bool = True
     unkeyed: frozenset[str] = CAPTURE_UNKEYED_KEYS
+    writes_state: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1180,7 +1190,8 @@ class Dataflow:
             tname = dotted_name(node.args[0]) or ""
         kind = _last(resolved or "")
         if kind in PLAN_KEYED_CALLS:
-            return JitInfo(desc=f"{kind}({tname or '…'})")
+            return JitInfo(desc=f"{kind}({tname or '…'})",
+                           writes_state=kind not in DISPATCH_CALLS)
         return JitInfo(desc=f"{kind}({tname or '…'})", plan_keyed=False,
                        unkeyed=frozenset())
 
@@ -1407,7 +1418,7 @@ class Dataflow:
             # BJX121: the views of the state argument taken before the
             # call go stale (applied as the call is scanned, after its
             # own argument loads)
-            if call.args:
+            if call.args and jinfo.writes_state:
                 s = dotted_name(call.args[0])
                 if s is not None:
                     roots = {s} | aliases.get(s, frozenset())
@@ -1417,7 +1428,7 @@ class Dataflow:
                             donated_desc[name] = (s, jinfo.desc)
             # BJX122: host plan entries deriving from per-message data
             if jinfo.plan_keyed:
-                for a in call.args[1:]:
+                for a in call.args[1 if jinfo.writes_state else 0:]:
                     entry = None
                     if isinstance(a, ast.Dict):
                         entry = dict_entry(a)

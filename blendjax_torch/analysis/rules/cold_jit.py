@@ -1,5 +1,6 @@
 """BJX125 cold-capture-in-hot-loop: captured-step or step-builder
-construction inside a per-step or per-batch loop in a driver hot path.
+construction inside a per-step or per-batch loop in a driver hot path
+(a ``CapturedDispatch`` too).
 
 The port's instant-start work (``blendjax_torch/train/aot.py``) moves
 every capture *before step 0*: ``build_aot_step`` captures the bucket
@@ -35,7 +36,8 @@ from blendjax_torch.analysis.rules.driver_sync import LoopNode, _walk_loop
 from blendjax_torch.analysis.rules.markers import _is_driver_hot
 
 #: bare names of calls that construct a captured artifact
-CAPTURE_CONSTRUCTORS = {"CapturedStep", "CUDAGraph", "make_graphed_callables"}
+CAPTURE_CONSTRUCTORS = {"CapturedStep", "CapturedDispatch", "CUDAGraph",
+                        "make_graphed_callables"}
 # Step/state builders by bare name: each returns a fresh step (or makes
 # a state), so per-iteration calls capture again per iteration.
 BUILDER_NAME_RE = re.compile(

@@ -3,7 +3,9 @@ step.
 
 A CUDA graph records the card's work of ONE call and replays only that:
 ``CapturedStep`` and ``build_aot_step`` (``blendjax_torch/train/aot.py``)
-capture a step the first time its signature is seen,
+capture a step the first time its signature is seen, ``CapturedDispatch``
+a dispatch outside a step (the decoded form's decode, the echo
+reservoir's draw: the JAX package's ``jax.jit`` of each),
 ``torch.cuda.make_graphed_callables`` captures a callable, and a
 ``with torch.cuda.graph(g):`` block captures its body. Any Python side
 effect inside — ``print``, ``time.*``, file I/O, a host random draw
@@ -36,7 +38,8 @@ from blendjax_torch.analysis.core import (
 )
 
 #: callables that capture the function handed to them as a CUDA graph
-CAPTURE_WRAPPERS = {"CapturedStep", "build_aot_step", "make_graphed_callables"}
+CAPTURE_WRAPPERS = {"CapturedStep", "build_aot_step", "make_graphed_callables",
+                    "CapturedDispatch"}
 #: context managers whose body is captured
 CAPTURE_BLOCKS = {"graph"}
 PARTIAL_NAMES = {"partial", "functools.partial"}

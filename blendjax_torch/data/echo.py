@@ -163,6 +163,16 @@ class SampleReservoir:
         self.size = 0  # filled slots (== capacity once wrapped)
         self.inserts = 0  # samples inserted, lifetime
         self._draws = 0  # draw counter folded into the augment seed
+        from blendjax_torch.train.aot import CapturedDispatch
+
+        # sample()'s gather and augmentation: one CUDA graph per ring (its
+        # tensors, read in place) and draw size; the draw counter seeds
+        # the generators on the host before each replay
+        self.dispatch = CapturedDispatch(
+            self._token_draw, self.device, "echo_draw",
+            generators=lambda token: self.draw_generators(),
+            reseed=lambda token: self.seed_draw(token["_echo_counter"]),
+            mesh=getattr(sharding, "mesh", None))
 
     def insert(self, batch: dict) -> np.ndarray:
         """Write one batch of samples (host numpy or tensors, one leading
@@ -230,6 +240,13 @@ class SampleReservoir:
             return self.augment(seed, out, rows=(start, len(idx)))
         return self._local(self.augment(seed, out))
 
+    def _token_draw(self, token: dict) -> dict:
+        """The draw a :meth:`draw_token` names, the function
+        :attr:`dispatch` captures (a sharded ring's gather keeps its
+        all-reduce in the graph)."""
+        return self._draw_body(token["_echo_buffers"], token["_echo_idx"],
+                               token["_echo_counter"])
+
     def _local(self, batch: dict) -> dict:
         """This rank's rows of a whole draw (all of it off a mesh)."""
         if self.ways <= 1:
@@ -266,12 +283,19 @@ class SampleReservoir:
 
     def sample(self, idx) -> dict:
         """Gather the rows at host-chosen ``idx`` (B,) and augment them;
-        advances the draw counter."""
-        self._require()
-        counter = self._draws
-        self._draws += 1
+        advances the draw counter. On the card one replay of the graph of
+        this ring and draw size (:attr:`dispatch`), which returns fresh
+        tensors; an ``augment`` that is a plain ``fn(seed, batch)`` (not a
+        :class:`~blendjax_torch.ops.augment.SeededAugment`) takes its seed
+        on the host, which a graph would freeze, so its draws run eagerly
+        and count ``dispatch.eager_calls``."""
+        token = self.draw_token(idx)
+        plain = self.augment is not None and not isinstance(self.augment,
+                                                            SeededAugment)
         with metrics.span("echo.sample"):
-            return self._draw_body(self._buffers, idx, counter)
+            if plain and self.device.type == "cuda":
+                return self.dispatch.eager(token)
+            return self.dispatch(token)
 
     def gather(self, idx) -> dict:
         """Raw gather of ``idx`` rows: no augmentation, no counter advance."""
@@ -350,6 +374,8 @@ class SampleReservoir:
         if not d.get("built"):
             return
         bufs = {k: np.asarray(v) for k, v in d["buffers"].items()}
+        # the draw graphs read the old ring in place
+        self.dispatch.clear()
         self._buffers = allocate_ring(self.capacity, initial=bufs,
                                       sharding=self.sharding,
                                       device=self.device)

@@ -303,6 +303,14 @@ class TileStreamDecoder:
         self.chunk = max(1, int(chunk))
         self.emit_packed = bool(emit_packed)
         self.chunk_strict = bool(chunk_strict)
+        self.dispatch = None
+        if not self.emit_packed:
+            from blendjax_torch.train.aot import CapturedDispatch
+
+            # the decode of each group: one CUDA graph per plan signature
+            self.dispatch = CapturedDispatch(
+                self._decode_group, self.device, "decode",
+                mesh=getattr(sharding, "mesh", None))
         self._warned_mixed = False
         self._refs: dict = {}        # (name, btid) -> device ref tiles
         self._host_refs: dict = {}   # (name, btid) -> host copy
@@ -310,6 +318,13 @@ class TileStreamDecoder:
         self._shapes: dict = {}      # name -> wire geometry
         self._skipped: set = set()
         self._plans: collections.deque = collections.deque()
+
+    def _decode_group(self, group: dict) -> dict:
+        """One packed group's ``{field: (K', B, ...)}``, the function
+        :attr:`dispatch` captures; on a mesh this rank's rows of it."""
+        return T.decode_packed_group(
+            group, mesh=getattr(self.sharding, "mesh", None),
+            data_axis=_lead_axes(self.sharding))
 
     def reset(self) -> None:
         """Drop queued plans (call when re-iterating a pipeline)."""
@@ -514,7 +529,9 @@ class TileStreamDecoder:
 
     def _decoded(self, device_batches):
         """Decode every placed group on the card (tile groups through
-        K1/K2, palette groups through the byte-LUT gather). With
+        K1/K2, palette groups through the byte-LUT gather), each group one
+        replay of the graph of its plan (:attr:`dispatch`: the packed
+        buffer and the references are its inputs, the plan keys it). With
         ``chunk=1`` yield ``{field: (B, ...), **host sidecars}``, else
         ``{field: (K', B, ...), "_meta": [sidecars per batch]}``; a raw
         batch passes as it is (``chunk=1``) or with a leading K'=1 axis."""
@@ -529,19 +546,17 @@ class TileStreamDecoder:
                         db[k] = v[None]
                 yield db
                 continue
-            mesh = getattr(self.sharding, "mesh", None)
-            axes = _lead_axes(self.sharding)
+            if plan[0] == "palchunk":
+                _, spec, rests, pal_groups, rle_groups = plan
+                group = {"_pal": pal_groups}
+            else:
+                _, names, spec, rests, refs, geoms, rle_groups = plan
+                group = {"_refs": refs, "_names": tuple(names),
+                         "_geoms": geoms}
+            group.update(_packed=db["__packed__"], _spec=spec,
+                         _rle=rle_groups)
             with metrics.span("decode.dispatch"):
-                if plan[0] == "palchunk":
-                    _, spec, rests, pal_groups, rle_groups = plan
-                    fields = T.decode_packed_pal_superbatch(
-                        db["__packed__"], spec, pal_groups, rle_groups,
-                        mesh=mesh, data_axis=axes)
-                else:
-                    _, names, spec, rests, refs, geoms, rle_groups = plan
-                    fields = T.decode_packed_superbatch(
-                        db["__packed__"], refs, spec, names, geoms,
-                        rle_groups, mesh=mesh, data_axis=axes)
+                fields = self.dispatch(group)
             if self.chunk > 1:
                 out = {"_meta": rests, **fields}
             else:

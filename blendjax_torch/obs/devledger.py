@@ -310,14 +310,19 @@ class ExecutableLedger:
                  batch_images: int | None = None,
                  segments: list | None = None, mesh=None) -> dict:
         """Account one captured graph (a :class:`blendjax_torch.train.aot`
-        ``_Graph``: its ``flops`` and kernel ``work``, its static inputs,
-        loss, state bytes and private pool, sized from ``segments``, a
+        ``_Graph`` or ``_DispatchGraph``: its ``flops`` and kernel
+        ``work``, its static inputs, loss or outputs, state bytes and
+        private pool, sized from ``segments``, a
         ``torch.cuda.memory_snapshot()``, taken anew when not given).
         Every field is guarded; a failure records ``"unavailable"`` and
         counts ``device.ledger_failures``: this never raises into a
-        build."""
+        build. A dispatch's entry (``kind`` "dispatch": the decoded form's
+        decode, the reservoir's draw) is kept beside the steps' but feeds
+        neither the ``device.*`` step gauges nor the cost-model MFU."""
+        dispatch = hasattr(captured, "outputs")
         entry: dict = {
             "name": name,
+            "kind": "dispatch" if dispatch else "step",
             "signature": repr(signature) if signature is not None else None,
             "batch_images": (int(batch_images) if batch_images
                              else _sig_lead(signature)),
@@ -340,7 +345,8 @@ class ExecutableLedger:
             from blendjax_torch.train.aot import pool_bytes
 
             arg = _nbytes(captured.static) + int(captured.state_bytes)
-            out = _nbytes(captured.loss)
+            # a step's static loss, a dispatch's static outputs
+            out = _nbytes(captured.outputs if dispatch else captured.loss)
             temp = int(pool_bytes(captured, segments))
             entry.update(
                 argument_bytes=arg, output_bytes=out, temp_bytes=temp,
@@ -360,7 +366,8 @@ class ExecutableLedger:
             self.registry.count("device.ledger_failures", failures)
         with self._lock:
             self._entries.append(entry)
-        self._publish(entry)
+        if not dispatch:
+            self._publish(entry)
         return entry
 
     def register_collectives(self, name: str, tally: dict | None,
@@ -425,7 +432,9 @@ class ExecutableLedger:
         with self._lock:
             entries = [
                 e for e in self._entries
-                if isinstance(e.get("flops"), float) and e["batch_images"]
+                if e.get("kind") != "dispatch"
+                and isinstance(e.get("flops"), float)
+                and e["batch_images"]
             ]
         if not entries:
             return None

@@ -1000,3 +1000,20 @@ def decode_packed_pal_superbatch(packed, spec, pal_groups, rle_groups=(),
         return fields
     b = int(fields[pal_groups[0][0]].shape[1])
     return _local_fields(fields, _rank_rows(mesh, data_axis, b), b)
+
+
+def decode_packed_group(group: dict, mesh=None, data_axis="data") -> dict:
+    """A packed chunk group as the pipeline's device stage yields it
+    (``_packed``, ``_spec``, ``_rle`` and either a palette group's
+    ``_pal`` or a tile group's ``_refs``, ``_names`` and ``_geoms``) ->
+    its ``{field: (K', B, ...)}``, through
+    :func:`decode_packed_pal_superbatch` or
+    :func:`decode_packed_superbatch`."""
+    if "_pal" in group:
+        return decode_packed_pal_superbatch(
+            group["_packed"], group["_spec"], group["_pal"],
+            group.get("_rle", ()), mesh=mesh, data_axis=data_axis)
+    return decode_packed_superbatch(
+        group["_packed"], group["_refs"], group["_spec"], group["_names"],
+        group["_geoms"], group.get("_rle", ()), mesh=mesh,
+        data_axis=data_axis)

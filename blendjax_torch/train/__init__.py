@@ -3,6 +3,7 @@ driver."""
 
 from blendjax_torch.train.aot import (
     AotStepSet,
+    CapturedDispatch,
     CapturedStep,
     batch_specs_for_ladder,
     build_aot_step,
@@ -30,6 +31,7 @@ from blendjax_torch.train.steps import (
 
 __all__ = [
     "AotStepSet",
+    "CapturedDispatch",
     "CapturedStep",
     "CheckpointManager",
     "MeshTrainDriver",

@@ -83,6 +83,7 @@ logger = logging.getLogger(f"{LOGGER_NAME}.train")
 
 __all__ = [
     "AotStepSet",
+    "CapturedDispatch",
     "CapturedStep",
     "batch_specs_for_ladder",
     "build_aot_step",
@@ -352,58 +353,96 @@ def _reseed(step, state, batch) -> None:
         hook(state, batch)
 
 
-class _Graph:
-    """One captured step: the graph, its static inputs and loss, what one
-    replay adds on the host, and what the device ledger reads: ``flops``
-    and the kernels' declared ``work`` of one call, the torch operators'
-    FLOPs per image (``op_flops_per_image``, handed to a builder's later
-    captures), the bytes of the state it updates in place and the
-    ``images`` one call trains on."""
+class _Captured:
+    """What every captured graph keeps: the graph, its static inputs, its
+    registered generators and pinned stager, and the tally one replay adds
+    on the host (the kernel launches, the host counts of calls and the
+    collectives it holds), with the kernels' declared ``work`` and the
+    ``images`` of one call, which the device ledger reads."""
 
-    def __init__(self, step, graph, static, loss, updates, launches,
-                 variants, generators, stager, flops=None, work=None,
-                 state_bytes: int = 0, images: int | None = None,
-                 op_flops_per_image: float | None = None,
+    def __init__(self, graph, static, launches, variants, generators,
+                 stager, work=None, images: int | None = None,
                  collectives: dict | None = None, calls: dict | None = None):
-        self.step = step
         self.graph = graph
         self.static = static
-        self.loss = loss
-        self.updates = updates
         self.launches = launches
         self.variants = variants
         self.generators = generators
         self.stager = stager
-        self.flops = flops
         self.work = work or {}
-        self.state_bytes = int(state_bytes)
         self.images = images
-        self.op_flops_per_image = op_flops_per_image
         # the collectives one replay issues (a mesh step's), by kind/axis
         self.collectives = collectives
         # the host counts of calls one replay stands for (Ulysses')
         self.calls = calls or {}
-        # host launches of the last call: the input copies, two fills per
-        # registered generator (the replay writes its seed and offset), the
-        # graph launch and the loss clone
         self.host_launches = 0
 
-    def __call__(self, state, batch):
+    def _replay(self, batch, reseed) -> int:
+        """Copy ``batch`` into the static inputs, seed the generators on
+        the host (``reseed()``), replay, and add what the graph holds to
+        the host counts; returns the input copies queued."""
         from blendjax_torch.kernels import add_launches
         from blendjax_torch.kernels.counting import add_calls
 
         copies = _load(self.static, batch, self.stager)
-        _reseed(self.step, state, batch)
+        reseed()
         self.graph.replay()
-        state.step += self.updates
         add_launches(self.launches, self.variants)
         add_calls(self.calls)
         if self.collectives and self.collectives["ops"]:
             from blendjax_torch.parallel.collectives import add_counts
 
             add_counts(self.collectives)
+        return copies
+
+
+class _Graph(_Captured):
+    """One captured step: a :class:`_Captured` with its static loss, the
+    updates it makes, and what the device ledger reads: ``flops`` of one
+    call, the torch operators' FLOPs per image (``op_flops_per_image``,
+    handed to a builder's later captures) and the bytes of the state it
+    updates in place."""
+
+    def __init__(self, step, graph, static, loss, updates, launches,
+                 variants, generators, stager, flops=None, work=None,
+                 state_bytes: int = 0, images: int | None = None,
+                 op_flops_per_image: float | None = None,
+                 collectives: dict | None = None, calls: dict | None = None):
+        super().__init__(graph, static, launches, variants, generators,
+                         stager, work=work, images=images,
+                         collectives=collectives, calls=calls)
+        self.step = step
+        self.loss = loss
+        self.updates = updates
+        self.flops = flops
+        self.state_bytes = int(state_bytes)
+        self.op_flops_per_image = op_flops_per_image
+
+    def __call__(self, state, batch):
+        copies = self._replay(batch, lambda: _reseed(self.step, state, batch))
+        state.step += self.updates
+        # host launches of the call: the input copies, two fills per
+        # registered generator (the replay writes its seed and offset), the
+        # graph launch and the loss clone
         self.host_launches = copies + 2 * len(self.generators) + 2
         return state, {"loss": self.loss.clone()}
+
+
+def _record(fn, stream, mode: str, generators) -> tuple:
+    """Capture ``fn()`` on ``stream`` into a new graph with its own memory
+    pool and ``generators`` registered; its kernel launches go to a tally
+    and its collectives to a record, not to the run's counts. Returns
+    ``(graph, fn's result, tally, collectives)``."""
+    from blendjax_torch.kernels.counting import diverted
+    from blendjax_torch.parallel.collectives import recording
+
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with diverted(stream) as tally, recording() as coll, \
+            torch.cuda.graph(graph, stream=stream, capture_error_mode=mode):
+        out = fn()
+    return graph, out, tally, coll
 
 
 def _capture(step, state, batch, stream, mode: str, stager: HostStager,
@@ -443,15 +482,10 @@ def _capture(step, state, batch, stream, mode: str, stager: HostStager,
                 with diverted(stream):
                     step(state, static)
         torch.cuda.current_stream(device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
         generators = _generators(step, state, static)
-        for gen in generators:
-            graph.register_generator_state(gen)
         steps1 = state.step
-        with diverted(stream) as tally, recording() as coll, \
-                torch.cuda.graph(graph, stream=stream,
-                                 capture_error_mode=mode):
-            _, out = step(state, static)
+        graph, out, tally, coll = _record(lambda: step(state, static),
+                                          stream, mode, generators)
         updates = state.step - steps1
     finally:
         _restore(state, snap, step, batch)
@@ -620,6 +654,27 @@ def build_aot_step(step, state, example_batch: dict, *,
 
 # -- the fused and echo steps -------------------------------------------------
 
+def _host_collectives(mesh) -> bool:
+    """Whether ``mesh`` spans several ranks over a gloo process group,
+    whose collectives move a card's tensors through the host (which a
+    capture forbids; NCCL refuses several ranks on one card)."""
+    if mesh is None or int(mesh.mesh.numel()) <= 1:
+        return False
+    import torch.distributed as dist
+
+    return str(dist.get_backend()) == "gloo"
+
+
+def _register(entries: list, name: str, graph, sig, mesh) -> None:
+    """Register a new graph with the device ledger under ``name``,
+    appending its entry to ``entries``; accounting only, never raises."""
+    try:
+        entries.append(ledger.register(name, graph, signature=sig,
+                                       batch_images=graph.images, mesh=mesh))
+    except Exception:  # accounting only
+        logger.debug("device ledger registration failed", exc_info=True)
+
+
 class CapturedStep:
     """``step`` (the fused tile step or the echo step) with one CUDA graph
     per :func:`_plan_signature`, captured the first time a signature is
@@ -646,11 +701,7 @@ class CapturedStep:
         self.step = step
         self.mesh = mesh  # a mesh step's: the ledger's per-axis attribution
         self.eager_calls = 0
-        self.host_collectives = False
-        if mesh is not None and int(mesh.mesh.numel()) > 1:
-            import torch.distributed as dist
-
-            self.host_collectives = str(dist.get_backend()) == "gloo"
+        self.host_collectives = _host_collectives(mesh)
         self._graphs: dict = {}
         self._stream = None
         self._stager = HostStager()
@@ -683,13 +734,8 @@ class CapturedStep:
                     self._stager, self._op_flops_per_image)
             self._op_flops_per_image = graph.op_flops_per_image
             self.capture_ms[sig] = (time.perf_counter() - t0) * 1e3
-            try:
-                self.ledger_entries.append(ledger.register(
-                    "captured_step", graph, signature=sig,
-                    batch_images=graph.images, mesh=self.mesh))
-            except Exception:  # accounting only
-                logger.debug("device ledger registration failed",
-                             exc_info=True)
+            _register(self.ledger_entries, "captured_step", graph, sig,
+                      self.mesh)
         return graph
 
     def prepare(self, state, batch) -> None:
@@ -709,6 +755,159 @@ class CapturedStep:
             return self.step(state, batch)
         graph = self._graph(state, batch, device)
         out = graph(state, batch)
+        self.graph_replays += 1
+        self.host_launches = graph.host_launches
+        return out
+
+
+# -- dispatches outside a step ------------------------------------------------
+
+class _DispatchGraph(_Captured):
+    """One captured dispatch: a :class:`_Captured` with its static
+    ``outputs``; a call returns a copy of each (the module's note on
+    output lifetime)."""
+
+    def __init__(self, graph, static, outputs: dict, tally: dict,
+                 collectives, generators, stager, images):
+        work = dict(tally.get("work", {}))
+        super().__init__(graph, static, tally["launches"], tally["variants"],
+                         generators, stager, work=work, images=images,
+                         collectives=collectives, calls=tally.get("calls"))
+        self.outputs = outputs
+        # no torch operator of a dispatch does matrix products: its FLOPs
+        # are its kernels' declared work
+        self.flops = float(sum(f for f, _b in work.values()))
+        self.state_bytes = 0
+        self.copy_bytes = sum(int(v.numel() * v.element_size())
+                              for v in outputs.values())
+
+    def __call__(self, batch, reseed):
+        copies = self._replay(batch, reseed)
+        out = {k: v.clone() for k, v in self.outputs.items()}
+        # host launches of the call: the input copies, two fills per
+        # registered generator, the graph launch and one copy per output
+        self.host_launches = copies + 2 * len(self.generators) + 1 + len(out)
+        return out
+
+
+def _capture_dispatch(fn, batch: dict, stream, mode: str, generators,
+                      reseed, stager: HostStager,
+                      device) -> _DispatchGraph:
+    """Warm ``fn`` up once on ``batch`` (as static buffers) on ``stream``,
+    its launches diverted (it loads every kernel library it calls), then
+    capture one call into a new graph with its own memory pool."""
+    from blendjax_torch.kernels.counting import diverted
+    from blendjax_torch.parallel.collectives import recording
+
+    static = _make_static(batch, device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream), recording(), diverted(stream):
+        reseed(static)
+        fn(static)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    gens = list(generators(static))
+    reseed(static)
+    graph, out, tally, coll = _record(lambda: fn(static), stream, mode, gens)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return _DispatchGraph(graph, static, dict(out), tally, coll, gens,
+                          stager, batch_images(batch))
+
+
+class CapturedDispatch:
+    """``fn(batch) -> {name: tensor}``, a pure function of a batch dict's
+    tensors and host plan entries, with one CUDA graph per
+    :func:`_plan_signature` of the batch: the counterpart of a ``jax.jit``
+    that the JAX package dispatches outside a step (the decoded form's
+    decode, the echo reservoir's draw). A new signature is captured the
+    first time it is seen and replayed on that same batch.
+
+    The batch is what a :class:`CapturedStep` takes: its tensors and host
+    arrays are copied into the graph's static inputs (host arrays through
+    pinned buffers), the entries it lists under ``_by_reference`` are read
+    in place and keyed by their storage, host plan entries are keyed by
+    value, and the keys of ``_UNKEYED`` pass as they are. ``generators(batch)``
+    lists the generators ``fn`` draws from, which the graph registers, and
+    ``reseed(batch)`` seeds them on the host before each replay, so that a
+    replay draws what the eager call draws.
+
+    Output lifetime: a jitted JAX dispatch returns fresh arrays that never
+    change, while a replay writes the same static outputs every time. The
+    decoded form hands out batch i while it decodes batch i + 1 (the echo
+    pipeline's drain thread runs ahead of the step, and ``list(pipeline)``
+    holds every batch), so each call returns a copy of every output, made
+    on the current stream right after the replay: one device copy of
+    ``copy_bytes`` per call. A pool of output sets, replayed into only when
+    nothing outside holds their earlier outputs, would save that copy, but
+    it has to tell a live reference from a dead one through Python's
+    reference counts (views keep their base alive without showing in the
+    count of the tensor handed out), and a wrong guess corrupts a batch
+    the caller still reads.
+
+    Each capture is timed in the ``train.compile_ms`` span (and
+    ``capture_ms``) and registered with the device ledger under ``name``.
+    A capture or a replay that fails raises. On a CPU device every call is
+    the eager ``fn``; on a mesh of several ranks over gloo (whose
+    collectives a capture forbids) every call is the eager ``fn`` and
+    counts ``eager_calls``, as :class:`CapturedStep` does; :meth:`eager`
+    runs a call the caller knows cannot be captured, counted the same way.
+    """
+
+    def __init__(self, fn, device, name: str, generators=None, reseed=None,
+                 mesh=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.mesh = mesh
+        self._generators = generators or (lambda batch: [])
+        self._reseed = reseed or (lambda batch: None)
+        self.host_collectives = _host_collectives(mesh)
+        self._graphs: dict = {}
+        self._stream = None
+        self._stager = HostStager()
+        self.capture_ms: dict = {}
+        self.graph_replays = 0
+        self.host_launches = 0
+        self.eager_calls = 0
+        self.ledger_entries: list = []
+
+    signature_of = staticmethod(_plan_signature)
+
+    @property
+    def signatures(self) -> tuple:
+        return tuple(self._graphs)
+
+    def _cache_size(self) -> int:
+        return len(self._graphs)
+
+    def clear(self) -> None:
+        """Drop every graph (their memory pools go with them): the tensors
+        they read in place were replaced."""
+        self._graphs.clear()
+
+    def eager(self, batch: dict) -> dict:
+        """One eager call of ``fn``, counted in ``eager_calls``."""
+        self.eager_calls += 1
+        return self.fn(batch)
+
+    def __call__(self, batch: dict) -> dict:
+        if self.host_collectives:
+            return self.eager(batch)
+        if self.device.type != "cuda":
+            return self.fn(batch)
+        sig = _plan_signature(batch)
+        graph = self._graphs.get(sig)
+        if graph is None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            t0 = time.perf_counter()
+            with metrics.span("train.compile_ms"):
+                graph = self._graphs[sig] = _capture_dispatch(
+                    self.fn, batch, self._stream, "thread_local",
+                    self._generators, self._reseed, self._stager,
+                    self.device)
+            self.capture_ms[sig] = (time.perf_counter() - t0) * 1e3
+            _register(self.ledger_entries, self.name, graph, sig, self.mesh)
+        out = graph(batch, lambda: self._reseed(batch))
         self.graph_replays += 1
         self.host_launches = graph.host_launches
         return out

@@ -355,11 +355,7 @@ def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
     this rank's rows already (the feeder's), and so does a packed group
     marked ``ops.tiles.LOCAL_ROWS_KEY`` (a mesh pipeline's group of this
     rank's own producers or recording), which is decoded whole."""
-    from blendjax_torch.ops.tiles import (
-        LOCAL_ROWS_KEY,
-        decode_packed_pal_superbatch,
-        decode_packed_superbatch,
-    )
+    from blendjax_torch.ops.tiles import LOCAL_ROWS_KEY, decode_packed_group
     from blendjax_torch.parallel.sharding import check_sharding, leading_axes
 
     chunked = make_chunked_supervised_step(loss_fn, augment, augment_rng,
@@ -371,17 +367,9 @@ def make_fused_tile_step(loss_fn=None, augment=None, augment_rng=None,
 
     def step(state, batch):
         rows_of = None if batch.get(LOCAL_ROWS_KEY) else mesh
-        if "_pal" in batch:
-            superbatch = decode_packed_pal_superbatch(
-                batch["_packed"], batch["_spec"], batch["_pal"],
-                batch.get("_rle", ()), mesh=rows_of, data_axis=axes,
-            )
-        elif "_packed" in batch:
-            superbatch = decode_packed_superbatch(
-                batch["_packed"], batch["_refs"], batch["_spec"],
-                batch["_names"], batch["_geoms"], batch.get("_rle", ()),
-                mesh=rows_of, data_axis=axes,
-            )
+        if "_packed" in batch:
+            superbatch = decode_packed_group(batch, mesh=rows_of,
+                                             data_axis=axes)
         else:
             superbatch = _raw_fields(batch)
         return chunked(state, superbatch)

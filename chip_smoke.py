@@ -85,7 +85,9 @@ Phases (any failure exits non-zero):
    of the state and the ring that reads stable over the window, and K1 and
    K3 each
    launched once per decoded fresh batch (on the drain thread, outside the
-   step's graph), one graph replay per step and no fallback; it prints
+   step's graph, through the replays of the decoded form's graphs:
+   ``CapturedDispatch``, one replay per decoded batch and no eager
+   decode), one graph replay per step and no fallback; it prints
    live img/s into the step, the fresh frame rate and the unique fraction,
    and the step alone eager and through its graph;
 5b. graphs: each step builder of the slice (fused tile with K1, fused
@@ -93,7 +95,20 @@ Phases (any failure exits non-zero):
    4 steps eagerly and 4 through ``CapturedStep`` from one state on the
    legs' last recorded chunk groups (draw tokens for echo), cuDNN
    deterministic: losses and every parameter must be bit-equal, and the
-   launches counted through replays equal the eager ones. Then
+   launches counted through replays equal the eager ones. Then the
+   dispatches the JAX package jits outside a step, eager against
+   ``CapturedDispatch``: the decoded form's decode of the legs' recorded
+   groups (tile K1, tile K2, and full-frame palette groups of the
+   flagship's frames) and the echo reservoir's ``sample`` (default
+   augmentation), 4 calls each from the same inputs and draw counters:
+   bit-equal, one replay per call, launches through replays equal to the
+   eager ones; the held-batch gate (8 decoded and 8 drawn batches held
+   across 8 later calls that replay the same graphs, then each equal to
+   its eager twin); and card time (``time_ms``) and host launches per
+   call (the profiler's launch API calls), eager and captured, of the
+   decode of a K' = 4 flagship group (32 x 480 x 640 x 4) and of a draw
+   of 32 rows, beside the card time of the copy of the outputs each
+   captured call makes. Then
    ``TrainDriver.build(aot=True)`` on a decoded flagship group as a batch
    of 32 captures one graph per ladder signature before step 0; two full
    steps and a ragged tail of 20 rows (a masked bucket of 32) must be
@@ -2157,6 +2172,7 @@ def echo_leg(tmp: str) -> dict:
     producers = producer_report("echo leg", logs)
     losses = drv.losses
     decoded = tap.batches
+    decodes = pipe.tiles.dispatch
     checks = [
         (s1["fresh"] + s1["echoed"] == drv.steps * BATCH,
          f"fresh {s1['fresh']} + echoed {s1['echoed']} != steps "
@@ -2178,6 +2194,9 @@ def echo_leg(tmp: str) -> dict:
          and graph_step.graph_replays == drv.steps,
          f"{graph_step.graph_replays} graph replays and "
          f"{graph_step.aot_fallbacks} fallbacks for {drv.steps} steps"),
+        (decodes.graph_replays == decoded and decodes.eager_calls == 0,
+         f"{decodes.graph_replays} decode replays and {decodes.eager_calls} "
+         f"eager decodes for {decoded} decoded fresh batches"),
     ]
     for ok, what in checks:
         if not ok:
@@ -2208,6 +2227,8 @@ def echo_leg(tmp: str) -> dict:
         "graph_alone_ms": alone["graph_ms"],
         "graph_alone_img_s": alone["graph_img_s"],
         "captures_in_window": len(graph_step.signatures) - sigs0,
+        "decode_graphs": len(decodes.signatures),
+        "decode_replays": decodes.graph_replays,
         "alone": alone, "profile": alone["profile"],
         "gamma_last": tap.last, "producers": producers,
         "reservoir": echo.reservoir, "tokens": tokens,
@@ -6479,6 +6500,242 @@ def graph_parity_phase(legs: dict, echo: dict) -> dict:
     return out
 
 
+#: the dispatch phase: calls held against their eager twins, calls made
+#: after them (replaying the same graphs), the timed draw's rows
+DISPATCH = {"parity": 4, "held": 8, "later": 8, "draw_batch": 32}
+#: the host's CUDA API calls that queue work on the card, as the profiler
+#: names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+               "cudaGraphLaunch")
+
+
+def launches_per_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (the guarded trace):
+    the host's launch API calls (``LAUNCH_APIS``, by name) and the
+    kernels, copies and fills the card ran."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from blendjax_torch.utils.metrics import trace
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir, trace(logdir) as prof:
+        if prof is None:
+            fail("launches_per_call: another profiler trace is open")
+        fn()
+        torch.cuda.synchronize()
+    api, device = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            device += ev.count
+        elif ev.key in LAUNCH_APIS:
+            api[ev.key] = api.get(ev.key, 0) + ev.count
+    return {"host": sum(api.values()), "by_api": api, "device": device}
+
+
+def same_outputs(label: str, got: list, want: list) -> None:
+    """Every tensor of every call's output equal to its eager twin's."""
+    import torch
+
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            fail(f"{label}: call {i} fields {sorted(g)} != eager {sorted(w)}")
+        for k, v in w.items():
+            if not torch.equal(g[k], v):
+                fail(f"{label}: call {i} field {k} differs from its eager "
+                     "twin")
+
+
+def dispatch_pairs(label: str, dispatch, calls: list) -> dict:
+    """``calls`` (``(eager, captured)`` pairs of thunks on the same inputs)
+    run eagerly, then through ``dispatch``'s graphs: bit-equal outputs,
+    one replay per call, no eager call, and the launches counted through
+    the replays equal to the eager launches."""
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    want = [eager() for eager, _ in calls]
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    replays0, eager0 = dispatch.graph_replays, dispatch.eager_calls
+    got = [captured() for _, captured in calls]
+    counts = launch_counts()
+    same_outputs(label, got, want)
+    replays = dispatch.graph_replays - replays0
+    if replays != len(calls) or dispatch.eager_calls != eager0:
+        fail(f"{label}: {replays} replays and "
+             f"{dispatch.eager_calls - eager0} eager calls for {len(calls)} "
+             "calls")
+    if counts != eager_counts:
+        fail(f"{label}: launches through replays {counts} != eager "
+             f"{eager_counts}")
+    log(f"dispatch parity {label}: {len(calls)} calls eager and through "
+        f"{len(dispatch.signatures)} captured graph(s): every output bit-equal"
+        f", launches through replays equal the eager launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    return {"got": got, "want": want, "launches": counts}
+
+
+def palette_groups(groups: list, card: str) -> list:
+    """Full-frame palette groups (the cube producer's ``--encoding pal``)
+    of the frames the packed tile ``groups`` decode to, one message per
+    batch, packed on the card as the fused form packs them."""
+    import numpy as np
+
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.ops import tiles as T
+
+    msgs = []
+    for g in groups:
+        fields = T.decode_packed_group(g)
+        for images, xy, frameid in zip(fields["image"].cpu().numpy(),
+                                       fields["xy"].cpu().numpy(),
+                                       fields["frameid"].cpu().numpy()):
+            packed, pal, bits = T.palettize_frames(images)
+            msgs.append({
+                "_prebatched": True, "btid": 0, "_seq": len(msgs),
+                "image" + T.FRAMEPAL_SUFFIXES[bits]: packed,
+                "image" + T.PALETTE_SUFFIX: pal,
+                "image" + T.FRAMESHAPE_SUFFIX: np.array(
+                    [*images.shape[1:], bits], np.int32),
+                "xy": xy, "frameid": frameid})
+    out = list(StreamDataPipeline(iter(msgs), batch_size=BATCH, chunk=1,
+                                  emit_packed=True))
+    if not out or any("_pal" not in g for g in out):
+        fail(f"dispatch phase: {len(out)} palette groups from "
+             f"{len(msgs)} messages on {card}")
+    return out
+
+
+PLAN_KEYS = ("_packed", "_refs", "_spec", "_names", "_geoms", "_rle",
+             "_pal")
+
+
+def dispatch_phase(legs: dict, echo: dict, card: str) -> dict:
+    """The decoded form's decode and the reservoir's ``sample`` eager
+    against captured (``CapturedDispatch``): the decode of the legs'
+    recorded groups (tile K1, tile K2, full-frame palette) and ``sample``
+    with the default augmentation on the echo leg's reservoir, each
+    ``DISPATCH["parity"]`` calls from the same inputs and draw counters;
+    then the held-batch gate (``DISPATCH["held"]`` decoded and drawn
+    batches held across ``DISPATCH["later"]`` later calls that replay the
+    same graphs, then each held against its eager twin). Then card time
+    (``time_ms``) and host launches per call (``launches_per_call``),
+    eager and captured, at the flagship shape: a K' = 4 group of 8 frames
+    (32 x 480 x 640 x 4, capacity 160) and a draw of 32 rows, and the card
+    time of the copy of the outputs each call makes."""
+    import numpy as np
+
+    from blendjax_torch.data.pipeline import TileStreamDecoder
+
+    flagship = [{k: g[k] for k in PLAN_KEYS if k in g} for g in
+                (*legs["flagship"]["recorded"], *legs["flagship"]["first"])]
+    square = [{k: g[k] for k in PLAN_KEYS if k in g}
+              for g in legs["square"]["recorded"]]
+    palette = palette_groups(flagship[:DISPATCH["parity"]], card)
+    n = DISPATCH["parity"]
+    out = {}
+    decoder = TileStreamDecoder(device="cuda")
+    dec = decoder.dispatch
+    for label, groups in (("decode tile K1", flagship[:n]),
+                          ("decode tile K2", square[:n]),
+                          ("decode palette", palette[:n])):
+        if len(groups) < n:
+            fail(f"dispatch phase: {len(groups)} groups for {label}")
+        out[label] = dispatch_pairs(label, dec, [
+            (lambda g=g: dec.fn(g), lambda g=g: dec(g)) for g in groups])
+    res = echo["reservoir"]
+    rng = np.random.default_rng(11)
+
+    def draws(k):
+        return [rng.integers(0, res.size, BATCH) for _ in range(k)]
+
+    def draw_calls(idxs):
+        """``sample`` of each index vector eagerly and through its graph
+        at the same draw counters."""
+        c0 = res._draws
+        tokens = [res.draw_token(i) for i in idxs]
+        res._draws = c0
+        return [(lambda t=t: res.dispatch.fn(t),
+                 lambda i=i: res.sample(i)) for t, i in zip(tokens, idxs)]
+
+    out["draw"] = dispatch_pairs("sample (default augmentation)",
+                                 res.dispatch, draw_calls(draws(n)))
+    # the held-batch gate: the outputs handed out stay as they were while
+    # later calls replay the same graphs
+    held_groups = flagship[n:n + DISPATCH["held"]]
+    later_groups = flagship[n + DISPATCH["held"]:][:DISPATCH["later"]]
+    if len(held_groups) < DISPATCH["held"] or not later_groups:
+        fail(f"dispatch phase: {len(flagship)} flagship groups for the "
+             "held-batch gate")
+    want = [dec.fn(g) for g in held_groups]
+    held = [dec(g) for g in held_groups]
+    calls = draw_calls(draws(DISPATCH["held"]))
+    want_draws = [eager() for eager, _ in calls]
+    held_draws = [captured() for _, captured in calls]
+    for g in later_groups:
+        dec(g)
+    for _, captured in draw_calls(draws(DISPATCH["later"])):
+        captured()
+    same_outputs("held decoded batches", held, want)
+    same_outputs("held drawn batches", held_draws, want_draws)
+    log(f"dispatch held-batch gate on {card}: {len(held)} decoded and "
+        f"{len(held_draws)} drawn batches, each held across "
+        f"{len(later_groups)} later decodes and {DISPATCH['later']} later "
+        "draws replaying the same graphs, equal to their eager twins bit "
+        "for bit")
+    out["timed"] = dispatch_timing(dec, flagship, res, card)
+    out["decode_signatures"] = len(dec.signatures)
+    out["draw_signatures"] = len(res.dispatch.signatures)
+    return out
+
+
+def dispatch_timing(dec, groups: list, res, card: str) -> dict:
+    """Card time and host launches per call of the decode of a K' = 4
+    flagship group and of a draw of ``DISPATCH["draw_batch"]`` rows,
+    eager and captured, and of the copy of each graph's outputs."""
+    import numpy as np
+
+    group = next((g for g in groups if int(g["_packed"].shape[0]) == CHUNK),
+                 None)
+    if group is None:
+        fail("dispatch timing: no flagship group of K' = 4")
+    idx = np.random.default_rng(12).integers(0, res.size, DISPATCH["draw_batch"])
+    out = {}
+    for label, what, eager, captured, dispatch, batch in (
+            ("decode", "a K' = 4 group of 8 frames (32 x 480 x 640 x 4, "
+             "capacity 160)", lambda: dec.fn(group), lambda: dec(group),
+             dec, group),
+            ("draw", f"{len(idx)} rows of the echo ring",
+             lambda: res.dispatch.fn(res.draw_token(idx)),
+             lambda: res.sample(idx), res.dispatch, res.draw_token(idx))):
+        captured()  # captures this signature before the timing
+        graph = dispatch._graphs[dispatch.signature_of(batch)]
+        copy_t = time_ms(lambda g=graph: {k: v.clone()
+                                          for k, v in g.outputs.items()})
+        row = {"eager": time_ms(eager), "graph": time_ms(captured),
+               "eager_launches": launches_per_call(eager),
+               "graph_launches": launches_per_call(captured),
+               "wrapper_host_launches": dispatch.host_launches,
+               "copy_bytes": graph.copy_bytes, "copy": copy_t}
+        out[label] = row
+        log(f"dispatch timing {label} on {card} ({what}): eager "
+            f"{spread(row['eager'])} card, host enqueue "
+            f"{row['eager']['host_ms']:.4f} ms, "
+            f"{row['eager_launches']['host']} host launches "
+            f"{row['eager_launches']['by_api']} for "
+            f"{row['eager_launches']['device']} kernels/copies; graph "
+            f"{spread(row['graph'])} card, host enqueue "
+            f"{row['graph']['host_ms']:.4f} ms, "
+            f"{row['graph_launches']['host']} host launches "
+            f"{row['graph_launches']['by_api']} (the wrapper counts "
+            f"{row['wrapper_host_launches']}); output copy "
+            f"{graph.copy_bytes} bytes per call, {spread(copy_t)} card")
+    return out
+
+
 def aot_phase(group: dict) -> dict:
     """``TrainDriver.build(aot=True)`` on a decoded flagship group as one
     batch of 32 (one graph per ladder rung, captured before step 0), two
@@ -7060,7 +7317,9 @@ def main() -> None:
         f"{echo['unique_fraction']:.4f}; stats {echo['stats']}; decoded fresh "
         f"batches {echo['decoded_batches']}; launches {echo['launches']}; "
         f"seq_gaps {echo['seq_gaps']}; dispatches/step "
-        f"{echo['dispatch_per_step']:.2f}; driver {echo['driver']}; echo step "
+        f"{echo['dispatch_per_step']:.2f}; decodes {echo['decode_replays']} "
+        f"replays of {echo['decode_graphs']} captured graph(s), no eager "
+        f"decode; driver {echo['driver']}; echo step "
         f"alone {echo['step_alone_ms']:.2f} ms ({echo['step_alone_img_s']:.1f} "
         f"img/s) eager, {echo['graph_alone_ms']:.2f} ms "
         f"({echo['graph_alone_img_s']:.1f} img/s) through its graph; graphs "
@@ -7080,11 +7339,14 @@ def main() -> None:
     # supervised AOT set of TrainDriver.build
     t0 = time.perf_counter()
     parity = graph_parity_phase(legs, echo)
+    dispatches = dispatch_phase(legs, echo, card)
     aot = aot_phase(next(
         g for g in (*legs["flagship"]["recorded"], *legs["flagship"]["first"])
         if int(g["_packed"].shape[0]) == CHUNK))
-    log(f"graphs: parity of {len(parity)} step builders and the AOT set in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"graphs: parity of {len(parity)} step builders, of the decoded "
+        f"form's decode ({dispatches['decode_signatures']} graphs) and the "
+        f"reservoir's draw ({dispatches['draw_signatures']}), and the AOT "
+        f"set in {time.perf_counter() - t0:.1f} s")
 
     # phase 5e: the device ledger
     ledger_phase(aot, legs, card)

@@ -1169,6 +1169,58 @@ def test_bjx125_flags_captures_built_inside_a_driver_loop():
                  select=["BJX125"]) == []
 
 
+def test_a_captured_dispatch_is_read_as_a_captured_callable():
+    """A ``CapturedDispatch`` is read where the JAX rules read a
+    ``jax.jit`` outside a step: its function is captured (BJX101), its
+    batch is plan-keyed (BJX122, in position 0) and takes no stamps
+    (BJX120), and building one in a driver loop captures again (BJX125).
+    It writes no state, so a view of its batch read after the call is no
+    BJX121 finding, where the same view around a ``CapturedStep`` is."""
+    src = """
+        # bjx: driver-hot-path
+        from blendjax_torch.train import CapturedDispatch, CapturedStep
+
+        def impure(group):
+            print(group)
+            return group
+
+        decode = CapturedDispatch(impure, "cuda", "decode")
+        step = CapturedStep(lambda state, b: state)
+
+        def feed(batch):
+            return decode({"_packed": batch["tiles"],
+                           "_n": int(batch["count"])})
+
+        def leak(batch, traces):
+            batch["_traces"] = traces
+            return decode(batch)
+
+        def held(group):
+            view = group["_packed"].view(-1)
+            decode(group)
+            return view
+
+        def held_step(state, b):
+            view = state["w"].view(-1)
+            step(state, b)
+            return view
+
+        def loop(batches):
+            for b in batches:
+                d = CapturedDispatch(impure, "cuda", "decode")
+                d(b)
+    """
+    got = _project(src, select=["BJX120", "BJX121", "BJX122"])
+    assert sorted((f.rule, f.identity) for f in got) == [
+        ("BJX120", "pkg.m0.leak:_traces->CapturedDispatch(impure)"),
+        ("BJX121", "pkg.m0.held_step:view"),
+        ("BJX122",
+         "pkg.m0.feed:CapturedDispatch(impure):_n=int(batch['count'])")]
+    assert [(f.rule, f.line) for f in _port(
+        src, select=["BJX101", "BJX125"])] == [("BJX101", 6),
+                                               ("BJX125", 32)]
+
+
 def _line_of(relpath, text):
     """The number of the first line of ``relpath`` that holds ``text``."""
     with open(os.path.join(REPO, relpath)) as f:

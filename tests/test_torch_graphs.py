@@ -476,3 +476,153 @@ def test_the_discriminator_on_card_matches_the_cpu(cuda_card):
     with torch.no_grad():
         want, got = cpu(x), card(x.to(cuda_card)).cpu()
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# -- dispatches outside a step: the decoded form and the reservoir's draw ------
+
+
+def _decoded_messages(source):
+    """Recorded messages of the decoded form's three plans: tile groups
+    through K1 ((16, 32) tiles) or K2 (16x16), or full-frame palette
+    groups of 3 and 9 colours (2-bit and 4-bit plans)."""
+    from blendjax_torch.ops import tiles as T
+    from blendjax_torch.producer import CubeScene, TileBatchPublisher
+
+    if source == "palette":
+        rng = np.random.default_rng(2)
+        msgs = []
+        for i in range(12):
+            colors = rng.integers(0, 256, (3 if i % 2 else 9, 4),
+                                  dtype=np.uint8)
+            frames = colors[rng.integers(0, len(colors), (4, 64, 128))]
+            packed, pal, bits = T.palettize_frames(frames)
+            msgs.append({
+                "_prebatched": True, "btid": 0, "_seq": i,
+                "image" + T.FRAMEPAL_SUFFIXES[bits]: packed,
+                "image" + T.PALETTE_SUFFIX: pal,
+                "image" + T.FRAMESHAPE_SUFFIX: np.array([64, 128, 4, bits],
+                                                        np.int32),
+                "xy": np.full((4, 8, 2), i, np.float32),
+                "frameid": np.arange(4, dtype=np.int64) + 4 * i})
+        return msgs
+    scene = CubeScene(shape=(64, 128), seed=5)
+    cap = _Capture()
+    tp = TileBatchPublisher(cap, scene.background_image(), 4,
+                            tile=(16, 32) if source == "K1" else (16, 16),
+                            alpha_slice=False, capacity=24)
+    buf = np.empty((64, 128, 4), np.uint8)
+    for f in range(1, 49):
+        scene.step(f)
+        scene.render(out=buf)
+        tp.add(buf, hint=scene.raster.last_drawn,
+               xy=scene.camera.world_to_pixel(scene.corners_world()).astype(
+                   np.float32), frameid=np.int64(f))
+    return cap.msgs
+
+
+def _decoded(card, msgs, eager: bool):
+    """Every batch of ``StreamDataPipeline(emit_packed=False)`` on
+    ``msgs`` (held), with the launch counts and the pipeline's dispatch;
+    ``eager`` runs each decode eagerly on the card."""
+    from blendjax_torch.data import StreamDataPipeline
+    from blendjax_torch.kernels import launch_counts, reset_launch_counts
+
+    pipe = StreamDataPipeline(iter(copy.deepcopy(msgs)), batch_size=4,
+                              device=card)
+    dispatch = pipe.tiles.dispatch
+    if eager:
+        pipe.tiles.dispatch = dispatch.eager
+    reset_launch_counts()
+    out = list(pipe)
+    torch.cuda.synchronize()
+    return out, launch_counts(), dispatch
+
+
+def _same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        keys = {k for k, v in w.items() if isinstance(v, torch.Tensor)}
+        assert keys == {k for k, v in g.items()
+                        if isinstance(v, torch.Tensor)}
+        for k in keys:
+            assert torch.equal(g[k], w[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["K1", "K2", "palette"])
+def test_captured_decode_is_the_eager_decode_on_card(cuda_card, source):
+    """The decoded form replays one graph per group (no eager call), one
+    graph per plan, and every batch, each held while the later groups
+    replay the same graphs, equals the eager decode's bit for bit, with
+    the launches counted through replays equal to the eager launches."""
+    msgs = _decoded_messages(source)
+    want, eager_counts, _ = _decoded(cuda_card, msgs, eager=True)
+    got, counts, dispatch = _decoded(cuda_card, msgs, eager=False)
+    _same_batches(got, want)
+    assert len(got) >= 8
+    assert dispatch.graph_replays == len(got) and dispatch.eager_calls == 0
+    assert counts == eager_counts
+    kernel = {"K1": "decode_spatial", "K2": "decode_scatter"}.get(source)
+    if kernel:
+        assert counts[kernel] == len(got)
+    plans = {tuple(e for e in sig if e[0] != "_refs")
+             for sig in dispatch.signatures}
+    assert len(plans) == len(dispatch.signatures)
+
+
+@pytest.mark.cuda
+def test_captured_draw_is_the_eager_draw_on_card(cuda_card):
+    """``sample`` with the default augmentation replays one graph per draw
+    and equals the eager draw of the same counter bit for bit; 8 drawn
+    batches held across later draws and inserts keep their values; an
+    insert keeps the graph, ``load_state_dict`` drops it."""
+    from blendjax_torch.data import SampleReservoir, default_echo_augment
+
+    def make():
+        return SampleReservoir(
+            16, augment=default_echo_augment(points_key="xy"), rng=3,
+            device=cuda_card)
+
+    rng = np.random.default_rng(0)
+    inserts = [{"image": rng.integers(0, 256, (8, *SHAPE), dtype=np.uint8),
+                "xy": rng.uniform(0, 32, (8, 8, 2)).astype(np.float32)}
+               for _ in range(4)]
+    idxs = [rng.integers(0, 16, 8) for _ in range(12)]
+    eager, graphed = make(), make()
+    eager.dispatch = eager.dispatch.eager
+    want, got = [], []
+    for i, idx in enumerate(idxs):
+        if i % 3 == 0:
+            for res in (eager, graphed):
+                res.insert(inserts[i // 3])
+        want.append(eager.sample(idx))
+        got.append(graphed.sample(idx))
+    torch.cuda.synchronize()
+    _same_batches(got, want)
+    dispatch = graphed.dispatch
+    assert len(dispatch.signatures) == 1
+    assert dispatch.graph_replays == len(idxs) and dispatch.eager_calls == 0
+    snap = graphed.state_dict()
+    snap["buffers"] = {k: v.cpu() for k, v in snap["buffers"].items()}
+    graphed.load_state_dict(snap)
+    assert dispatch.signatures == ()
+    again = graphed.sample(idxs[0])
+    assert len(dispatch.signatures) == 1
+    assert again["image"].shape == got[0]["image"].shape
+
+
+@pytest.mark.cuda
+def test_a_failing_dispatch_capture_raises_on_card(cuda_card):
+    """A dispatch that cannot be captured (a host sync) raises; its eager
+    body does not run in its place."""
+    calls = []
+
+    def body(batch):
+        calls.append(1)
+        float(batch["x"].sum())  # a host sync: illegal while capturing
+        return {"y": batch["x"] + 1}
+
+    dispatch = aot.CapturedDispatch(body, cuda_card, "probe")
+    with pytest.raises(RuntimeError):
+        dispatch({"x": torch.ones(4, device=cuda_card)})
+    assert dispatch.eager_calls == 0 and dispatch.graph_replays == 0
