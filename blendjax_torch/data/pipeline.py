@@ -530,8 +530,12 @@ class TileStreamDecoder:
     def _decoded(self, device_batches):
         """Decode every placed group on the card (tile groups through
         K1/K2, palette groups through the byte-LUT gather), each group one
-        replay of the graph of its plan (:attr:`dispatch`: the packed
-        buffer and the references are its inputs, the plan keys it). With
+        replay of the graph of its plan (:attr:`dispatch`). The packed
+        buffer and the references are the graph's inputs, copied into it
+        on each call: a reference is one frame (1.2 MB at 480x640x4), so
+        one graph serves every producer's reference and a new keyframe
+        captures nothing, where a graph reading the references in place
+        would be keyed on their storage, one per producer and keyframe. With
         ``chunk=1`` yield ``{field: (B, ...), **host sidecars}``, else
         ``{field: (K', B, ...), "_meta": [sidecars per batch]}``; a raw
         batch passes as it is (``chunk=1``) or with a leading K'=1 axis."""

@@ -18,6 +18,12 @@ AdamW), replayed with one launch per step call.
   ``_names``, ``_geoms``, ``_rle``, ``_pal``), the counterpart of jit's
   cache keyed on static arguments, so each new plan is captured the first
   time it is seen and replayed on that same batch.
+- :class:`CapturedDispatch` does the same for a pure function of a batch
+  outside any step, the counterpart of a ``jax.jit`` dispatched on its
+  own: the decoded form's decode of each packed group
+  (:class:`~blendjax_torch.data.pipeline.TileStreamDecoder`) and the echo
+  reservoir's draw (:meth:`~blendjax_torch.data.echo.SampleReservoir.sample`).
+  It returns a copy of each output (its docstring says why).
 
 A graph reads its inputs from static buffers: each call copies the
 batch's tensors into them on the current stream (host arrays, such as an
@@ -484,8 +490,8 @@ def _capture(step, state, batch, stream, mode: str, stager: HostStager,
         torch.cuda.current_stream(device).wait_stream(stream)
         generators = _generators(step, state, static)
         steps1 = state.step
-        graph, out, tally, coll = _record(lambda: step(state, static),
-                                          stream, mode, generators)
+        graph, (_, out), tally, coll = _record(
+            lambda: step(state, static), stream, mode, generators)
         updates = state.step - steps1
     finally:
         _restore(state, snap, step, batch)
@@ -791,24 +797,21 @@ class _DispatchGraph(_Captured):
 
 
 def _capture_dispatch(fn, batch: dict, stream, mode: str, generators,
-                      reseed, stager: HostStager,
-                      device) -> _DispatchGraph:
+                      stager: HostStager, device) -> _DispatchGraph:
     """Warm ``fn`` up once on ``batch`` (as static buffers) on ``stream``,
-    its launches diverted (it loads every kernel library it calls), then
-    capture one call into a new graph with its own memory pool."""
+    its launches diverted (it loads every kernel library it calls and
+    makes its generators), then capture one call into a new graph with
+    its own memory pool and ``generators(static)`` registered."""
     from blendjax_torch.kernels.counting import diverted
     from blendjax_torch.parallel.collectives import recording
 
     static = _make_static(batch, device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream), recording(), diverted(stream):
-        reseed(static)
         fn(static)
     torch.cuda.current_stream(device).wait_stream(stream)
     gens = list(generators(static))
-    reseed(static)
     graph, out, tally, coll = _record(lambda: fn(static), stream, mode, gens)
-    torch.cuda.current_stream(device).wait_stream(stream)
     return _DispatchGraph(graph, static, dict(out), tally, coll, gens,
                           stager, batch_images(batch))
 
@@ -903,8 +906,7 @@ class CapturedDispatch:
             with metrics.span("train.compile_ms"):
                 graph = self._graphs[sig] = _capture_dispatch(
                     self.fn, batch, self._stream, "thread_local",
-                    self._generators, self._reseed, self._stager,
-                    self.device)
+                    self._generators, self._stager, self.device)
             self.capture_ms[sig] = (time.perf_counter() - t0) * 1e3
             _register(self.ledger_entries, self.name, graph, sig, self.mesh)
         out = graph(batch, lambda: self._reseed(batch))

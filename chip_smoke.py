@@ -6512,10 +6512,8 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 def launches_per_call(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler`` (the guarded trace):
-    the host's launch API calls (``LAUNCH_APIS``, by name) and the
-    kernels, copies and fills the card ran."""
+    the host's launch API calls (``LAUNCH_APIS``), in all and by name."""
     import torch
-    from torch.autograd import DeviceType
 
     from blendjax_torch.utils.metrics import trace
 
@@ -6525,13 +6523,11 @@ def launches_per_call(fn) -> dict:
             fail("launches_per_call: another profiler trace is open")
         fn()
         torch.cuda.synchronize()
-    api, device = {}, 0
+    api = {}
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            device += ev.count
-        elif ev.key in LAUNCH_APIS:
+        if ev.key in LAUNCH_APIS:
             api[ev.key] = api.get(ev.key, 0) + ev.count
-    return {"host": sum(api.values()), "by_api": api, "device": device}
+    return {"host": sum(api.values()), "by_api": api}
 
 
 def same_outputs(label: str, got: list, want: list) -> None:
@@ -6575,7 +6571,7 @@ def dispatch_pairs(label: str, dispatch, calls: list) -> dict:
         f"{len(dispatch.signatures)} captured graph(s): every output bit-equal"
         f", launches through replays equal the eager launches "
         f"{dict((k, v) for k, v in counts.items() if v)}")
-    return {"got": got, "want": want, "launches": counts}
+    return {"launches": counts}
 
 
 def palette_groups(groups: list, card: str) -> list:
@@ -6694,20 +6690,25 @@ def dispatch_phase(legs: dict, echo: dict, card: str) -> dict:
 
 def dispatch_timing(dec, groups: list, res, card: str) -> dict:
     """Card time and host launches per call of the decode of a K' = 4
-    flagship group and of a draw of ``DISPATCH["draw_batch"]`` rows,
-    eager and captured, and of the copy of each graph's outputs."""
+    flagship group and of a K' = 1 one (the echo leg's) and of a draw of
+    ``DISPATCH["draw_batch"]`` rows, eager and captured, and of the copy
+    of each graph's outputs; then the eager insert's."""
     import numpy as np
 
     group = next((g for g in groups if int(g["_packed"].shape[0]) == CHUNK),
                  None)
     if group is None:
-        fail("dispatch timing: no flagship group of K' = 4")
+        fail(f"dispatch timing: no flagship group of K' = {CHUNK}")
+    # its first batch alone: a packed group's rows are its batches
+    one = {**group, "_packed": group["_packed"][:1]}
     idx = np.random.default_rng(12).integers(0, res.size, DISPATCH["draw_batch"])
     out = {}
     for label, what, eager, captured, dispatch, batch in (
             ("decode", "a K' = 4 group of 8 frames (32 x 480 x 640 x 4, "
              "capacity 160)", lambda: dec.fn(group), lambda: dec(group),
              dec, group),
+            ("decode K'=1", "a group of 8 frames, the echo leg's",
+             lambda: dec.fn(one), lambda: dec(one), dec, one),
             ("draw", f"{len(idx)} rows of the echo ring",
              lambda: res.dispatch.fn(res.draw_token(idx)),
              lambda: res.sample(idx), res.dispatch, res.draw_token(idx))):
@@ -6715,7 +6716,11 @@ def dispatch_timing(dec, groups: list, res, card: str) -> dict:
         graph = dispatch._graphs[dispatch.signature_of(batch)]
         copy_t = time_ms(lambda g=graph: {k: v.clone()
                                           for k, v in g.outputs.items()})
-        row = {"eager": time_ms(eager), "graph": time_ms(captured),
+        # windows of 4 calls: a draw stages its host indices through 4
+        # pinned buffers, so a fifth call queued behind the sleep would
+        # wait for the card and read as host time
+        row = {"eager": time_ms(eager, reps=4),
+               "graph": time_ms(captured, reps=4),
                "eager_launches": launches_per_call(eager),
                "graph_launches": launches_per_call(captured),
                "wrapper_host_launches": dispatch.host_launches,
@@ -6725,14 +6730,24 @@ def dispatch_timing(dec, groups: list, res, card: str) -> dict:
             f"{spread(row['eager'])} card, host enqueue "
             f"{row['eager']['host_ms']:.4f} ms, "
             f"{row['eager_launches']['host']} host launches "
-            f"{row['eager_launches']['by_api']} for "
-            f"{row['eager_launches']['device']} kernels/copies; graph "
+            f"{row['eager_launches']['by_api']}; graph "
             f"{spread(row['graph'])} card, host enqueue "
             f"{row['graph']['host_ms']:.4f} ms, "
             f"{row['graph_launches']['host']} host launches "
             f"{row['graph_launches']['by_api']} (the wrapper counts "
             f"{row['wrapper_host_launches']}); output copy "
             f"{graph.copy_bytes} bytes per call, {spread(copy_t)} card")
+    # the insert stays eager (ROADMAP, chosen differences of PR 25): its
+    # launches at the echo leg's shape, a batch of 8 rows
+    rows = res.gather(np.arange(BATCH))
+    out["insert"] = {"launches": launches_per_call(lambda: res.insert(rows)),
+                     "time": time_ms(lambda: res.insert(rows), reps=4)}
+    ins = out["insert"]
+    log(f"echo insert on {card} (eager, {BATCH} rows of "
+        f"{sum(v[0].numel() * v.element_size() for v in rows.values())} "
+        f"bytes): {ins['launches']['host']} host launches "
+        f"{ins['launches']['by_api']}, {spread(ins['time'])} card, host "
+        f"enqueue {ins['time']['host_ms']:.4f} ms")
     return out
 
 

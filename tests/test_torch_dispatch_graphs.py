@@ -90,15 +90,13 @@ def _palette_messages(n=4, seed=0):
     return msgs, np.concatenate(frames)
 
 
-def _stand_in_capture(fn, batch, stream, mode, generators, reseed, stager,
-                      device):
+def _stand_in_capture(fn, batch, stream, mode, generators, stager, device):
     """``aot._capture_dispatch`` on the CPU: static buffers made as on the
     card, and a graph whose replay runs ``fn`` on them and writes its
     results into the SAME output tensors every time. As a replay of
     registered generators does, it draws from the generators as the host
     seeded them before it (a ``SeededAugment`` call seeds nothing)."""
     static = aot._make_static(batch, torch.device("cpu"))
-    reseed(static)
     outputs = dict(fn(static))
 
     class Replayed:

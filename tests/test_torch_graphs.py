@@ -4,7 +4,11 @@ bit, over 4 steps from one state (cuDNN deterministic on both sides), for
 the supervised ladder with a ragged tail, the fused tile step through K1
 and through K2, a depth-2 StreamFormer through K4a-c, and the echo step;
 an unseen signature's fallback, a failing capture, launch counts through
-replays and registered generators.
+replays and registered generators. The dispatches outside a step
+(``aot.CapturedDispatch``): the decoded form's decode of tile K1, tile K2
+and palette groups and the reservoir's ``sample``, each held batch
+bit-equal with the eager run's after later replays, and a failing
+capture.
 
 Every test here is ``cuda``-marked and skips without a card; on the CPU
 the steps run eagerly by design (``tests/test_torch_train.py``). The file
