@@ -101,6 +101,7 @@ from blendjax_torch.ops.augment import (
     SeededAugment,
     color_jitter,
     fold_seed,
+    host_seeded,
     make_batch_augment,
     random_crop_with_points,
     random_flip_with_points,
@@ -263,6 +264,13 @@ class SampleReservoir:
             return self.augment.generators(self.device)
         return []
 
+    @property
+    def host_seeded(self) -> bool:
+        """Whether the draws' ``augment`` is a plain ``fn(seed, batch)``,
+        seeded by a host integer that a CUDA graph would freeze: its draws,
+        and the echo steps over them, run eagerly on the card."""
+        return host_seeded(self.augment)
+
     def seed_draw(self, counter: int) -> None:
         """Seed the draw generators for draw ``counter`` on the host, as
         :meth:`draw` does before it draws: the host half of a draw that a
@@ -290,10 +298,8 @@ class SampleReservoir:
         on the host, which a graph would freeze, so its draws run eagerly
         and count ``dispatch.eager_calls``."""
         token = self.draw_token(idx)
-        plain = self.augment is not None and not isinstance(self.augment,
-                                                            SeededAugment)
         with metrics.span("echo.sample"):
-            if plain and self.device.type == "cuda":
+            if self.host_seeded and self.device.type == "cuda":
                 return self.dispatch.eager(token)
             return self.dispatch(token)
 

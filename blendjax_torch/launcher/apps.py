@@ -1,5 +1,6 @@
 """Launcher as a service (copied from ``blendjax/launcher/apps.py``).
 
+    blendjax-torch-launch launch.json --out launch_info.json
     python -m blendjax_torch.launcher.apps launch.json --out launch_info.json
 
 Reads a JSON file of launcher keyword arguments, starts the fleet, writes
@@ -23,17 +24,8 @@ from blendjax_torch.launcher.launcher import (
 
 
 def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO)
-
-    # the producers run in sessions of their own, so a SIGTERM to this
-    # process does not reach them: turn it into an exception, so the
-    # launcher's context unwinds and reaps the fleet
-    def _sigterm(signum, frame):
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, _sigterm)
     parser = argparse.ArgumentParser(
-        "blendjax_torch.launcher.apps",
+        "blendjax-torch-launch",
         description="Launch a fleet of producers from a JSON config.",
     )
     parser.add_argument(
@@ -44,6 +36,15 @@ def main(argv=None) -> int:
         help="where to write LaunchInfo JSON (default: launch_info.json)",
     )
     args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    # the producers run in sessions of their own, so a SIGTERM to this
+    # process does not reach them: turn it into an exception, so the
+    # launcher's context unwinds and reaps the fleet
+    def _sigterm(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
 
     with open(args.config) as f:
         cfg = json.load(f)

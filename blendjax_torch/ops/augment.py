@@ -340,6 +340,13 @@ class SeededAugment:
         return self._apply(self.generators(device, slot), x, rows)
 
 
+def host_seeded(augment) -> bool:
+    """Whether ``augment`` is a plain ``fn(seed, x)``: neither None nor a
+    :class:`SeededAugment`. It takes its seed as a host integer, which a
+    CUDA graph would freeze at its capture, so its calls run eagerly."""
+    return augment is not None and not isinstance(augment, SeededAugment)
+
+
 def call_augment(augment, seed: int, x, slot: int = 0):
     """``augment(seed, x)``, in ``slot`` when ``augment`` is a
     :class:`SeededAugment` (any other ``fn(seed, x)`` has no slots)."""
@@ -418,6 +425,7 @@ __all__ = [
     "crop_offsets",
     "cutout_centres",
     "fold_seed",
+    "host_seeded",
     "jitter_factors",
     "make_augment",
     "make_batch_augment",

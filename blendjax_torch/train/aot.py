@@ -12,6 +12,12 @@ AdamW), replayed with one launch per step call.
   and returns an :class:`AotStepSet`; a batch outside the set runs the
   eager step and counts ``aot_fallbacks``, as the JAX set falls back to
   jit.
+- A step whose ``capturable(state, batch)`` hook answers False (its
+  augmentation is a plain ``fn(seed, images)``, seeded by a host integer
+  that a graph would freeze at its capture) is not captured: both
+  wrappers run it eagerly on the card and count ``eager_calls``, where
+  the JAX package traces the seed inside its jit. The hook decides before
+  any capture is tried, never a caught error.
 - :class:`CapturedStep` wraps the fused tile step, the echo step and the
   RL learner steps (:mod:`blendjax_torch.rl.steps`): their signature
   includes the packed group's static host plan (``_spec``,
@@ -359,6 +365,12 @@ def _reseed(step, state, batch) -> None:
         hook(state, batch)
 
 
+def _capturable(step, state, batch) -> bool:
+    """The step's ``capturable(state, batch)`` hook; True without one."""
+    hook = getattr(step, "capturable", None)
+    return True if hook is None else bool(hook(state, batch))
+
+
 class _Captured:
     """What every captured graph keeps: the graph, its static inputs, its
     registered generators and pinned stager, and the tally one replay adds
@@ -523,9 +535,11 @@ class AotStepSet:
     """Captured graphs per batch signature, the eager step elsewhere.
 
     ``graphs`` maps each signature to its :class:`_Graph`, or to ``None``
-    on a CPU state (a known signature that runs eagerly). A signature
-    outside the set runs the eager step and counts ``aot_fallbacks`` (and
-    ``train.aot_fallbacks``); a replay that fails raises. ``_cache_size``
+    on a CPU state or where the step is not capturable (a known signature
+    that runs eagerly; on a card state each such call counts
+    ``eager_calls``). A signature outside the set runs the eager step and
+    counts ``aot_fallbacks`` (and ``train.aot_fallbacks``); a replay that
+    fails raises. ``_cache_size``
     (the graphs and the distinct signatures run eagerly) is what
     :class:`~blendjax_torch.obs.devledger.RetraceAudit` watches;
     ``ledger_entries`` are the graphs' device-ledger entries."""
@@ -540,6 +554,7 @@ class AotStepSet:
         self.cache_misses = cache_misses
         self.capture_ms = capture_ms or {}
         self.aot_fallbacks = 0
+        self.eager_calls = 0
         self.graph_replays = 0
         self.host_launches = 0
         self.ledger_entries: list = []
@@ -567,6 +582,8 @@ class AotStepSet:
             return self._step(state, fields)
         graph = self._graphs[sig]
         if graph is None:
+            if state_device(state).type == "cuda":
+                self.eager_calls += 1
             return self._step(state, fields)
         out = graph(state, fields)
         self.graph_replays += 1
@@ -603,7 +620,13 @@ def build_aot_step(step, state, example_batch: dict, *,
     thread of the process may make a call that capture forbids while it
     runs, which holds before step 0. Capture times per signature land on
     ``AotStepSet.capture_ms``, the whole build in the ``train.compile_ms``
-    span, and every graph in the device ledger under ``ledger_name``."""
+    span, and every graph in the device ledger under ``ledger_name``.
+
+    A signature whose example batch the step's ``capturable`` hook refuses
+    (a plain ``fn(seed, images)`` augmentation) maps to ``None`` and runs
+    eagerly, counted in ``eager_calls``: a graph would replay the seed of
+    its capture at every update, and the JAX package's jitted step folds
+    each update's own."""
     manifest: dict = {}
     seen: set = set()
     if cache_dir:
@@ -635,13 +658,14 @@ def build_aot_step(step, state, example_batch: dict, *,
                     misses += 1
                     metrics.count("train.aot_cache_misses")
                     seen.add(sig_hash)
-            if not on_card:
+            batch = _ladder_batch(example_batch, spec)
+            if not (on_card and _capturable(step, state, batch)):
                 graphs[sig] = None
                 continue
             t1 = time.perf_counter()
             graphs[sig] = graph = _capture(
-                step, state, _ladder_batch(example_batch, spec), stream,
-                "global", stager, op_flops_per_image)
+                step, state, batch, stream, "global", stager,
+                op_flops_per_image)
             op_flops_per_image = graph.op_flops_per_image
             capture_ms[sig] = (time.perf_counter() - t1) * 1e3
     compile_ms = (time.perf_counter() - t0) * 1e3
@@ -701,7 +725,15 @@ class CapturedStep:
     collectives inside the graph. A mesh over a gloo process group (several
     ranks sharing one card, which NCCL refuses, or ranks on the CPU) is
     not captured: gloo moves a card's tensors through the host, which a
-    capture forbids. Its step runs eagerly, counted in ``eager_calls``."""
+    capture forbids. Its step runs eagerly, counted in ``eager_calls``.
+
+    A call whose batch the step's ``capturable`` hook refuses (an
+    augmentation that is a plain ``fn(seed, images)``, or an echo draw
+    over such a reservoir) runs eagerly on the card too, counted in
+    ``eager_calls``, and :meth:`prepare` captures nothing for it: a graph
+    would replay its capture's seed at every call, while the JAX package's
+    jitted step takes each update's and each draw's own key. Its kernels
+    (K1, K2) still launch on the card."""
 
     def __init__(self, step, mesh=None):
         self.step = step
@@ -747,18 +779,25 @@ class CapturedStep:
     def prepare(self, state, batch) -> None:
         """Capture ``batch``'s signature ahead of its first call, without
         running the step: the state is left as it was (a capture puts it
-        back). A no-op on a CPU state or a signature already captured."""
+        back). A no-op on a CPU state, a signature already captured or a
+        batch the step's ``capturable`` hook refuses."""
         device = state_device(state)
-        if device.type == "cuda" and not self.host_collectives:
+        if (device.type == "cuda" and not self.host_collectives
+                and _capturable(self.step, state, batch)):
             self._graph(state, batch, device)
+
+    def _eager(self, state, batch):
+        self.eager_calls += 1
+        return self.step(state, batch)
 
     def __call__(self, state, batch):
         if self.host_collectives:
-            self.eager_calls += 1
-            return self.step(state, batch)
+            return self._eager(state, batch)
         device = state_device(state)
         if device.type != "cuda":
             return self.step(state, batch)
+        if not _capturable(self.step, state, batch):
+            return self._eager(state, batch)
         graph = self._graph(state, batch, device)
         out = graph(state, batch)
         self.graph_replays += 1

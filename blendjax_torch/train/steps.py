@@ -11,12 +11,16 @@ decode kernels and trains on it in the same call;
 :func:`make_echo_fused_step` gathers and re-augments an echo draw from the
 reservoir ring and trains on it in the same call.
 
-Every builder's step carries two host hooks for graph capture:
+Every builder's step carries three host hooks for graph capture:
 ``step.generators(state, batch)``, the random generators its
-augmentation draws from (a graph registers them), and
+augmentation draws from (a graph registers them),
 ``step.reseed(state, batch)``, which seeds them for that call on the host
 as the eager step does before it draws (a graph replays only device
-work). Update ``k`` of a call draws from slot ``k`` of the augmentation
+work), and ``step.capturable(state, batch)``, False where the call's
+augmentation is a plain ``fn(seed, images)``: its seed is a host integer
+that a graph would freeze at its capture, so such a call runs eagerly
+(a step without the hook is capturable). Update ``k`` of a call draws
+from slot ``k`` of the augmentation
 (:class:`~blendjax_torch.ops.augment.SeededAugment`) with the seed
 ``fold_seed(augment_rng, state.step)`` of that update, the port's
 ``fold_in(base_rng, state.step)``. A step that updates tensors in place
@@ -48,7 +52,12 @@ import dataclasses
 import torch
 
 from blendjax_torch.device import resolve_device
-from blendjax_torch.ops.augment import SeededAugment, call_augment, fold_seed
+from blendjax_torch.ops.augment import (
+    SeededAugment,
+    call_augment,
+    fold_seed,
+    host_seeded,
+)
 from blendjax_torch.precision import policy_value_and_grad, resolve_policy
 
 
@@ -251,8 +260,10 @@ def _augmented(batch, augment, base: int, state, slot: int):
 def _with_hooks(step, augment=None, base: int = 0, slots=lambda b: 1):
     """Attach ``step.generators`` and ``step.reseed`` for an augmentation
     whose update ``k`` of a call (``slots(batch)`` of them) draws from
-    slot ``k`` with the seed of that update's step."""
+    slot ``k`` with the seed of that update's step, and
+    ``step.capturable``, False for a plain ``fn(seed, images)``."""
     seeded = isinstance(augment, SeededAugment)
+    plain = host_seeded(augment)
 
     def generators(state, batch):
         if not seeded:
@@ -269,6 +280,7 @@ def _with_hooks(step, augment=None, base: int = 0, slots=lambda b: 1):
 
     step.generators = generators
     step.reseed = reseed
+    step.capturable = lambda state, batch: not plain
     return step
 
 
@@ -284,7 +296,13 @@ def make_supervised_step(loss_fn=None, accum_steps: int = 1, augment=None,
       :func:`blendjax_torch.ops.augment.make_augment`) transforms
       ``batch["image"]`` inside the step with the seed
       ``fold_seed(augment_rng, state.step)`` (``augment_rng`` defaults to
-      0);
+      0). The JAX package traces the key inside its jit, whatever ``fn``
+      is. A :class:`~blendjax_torch.ops.augment.SeededAugment` captures
+      into a CUDA graph (its generators are seeded on the host before
+      each replay); any other ``fn`` takes its seed as a host integer,
+      which a graph would freeze, so a captured wrapper runs this step
+      eagerly on the card and counts ``eager_calls``
+      (``step.capturable``);
     - ``precision`` names a policy of :mod:`blendjax_torch.precision`
       (``None``: the default, bf16-compute);
     - ``state_sharding`` (a mesh run's state shardings) adds the mean of
@@ -389,7 +407,11 @@ def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None,
 
     When ``reservoir_draw`` is a reservoir's bound ``draw``, the step's
     host hooks check the token against the ring and seed the draw's
-    generators from its counter (:meth:`SampleReservoir.seed_draw`).
+    generators from its counter (:meth:`SampleReservoir.seed_draw`); a
+    draw over a reservoir whose ``augment`` is a plain ``fn(seed,
+    batch)`` is not capturable (:attr:`SampleReservoir.host_seeded`) and
+    runs eagerly under a captured wrapper, while a fresh batch, which
+    carries no augmentation, still captures.
 
     On a mesh: ``state_sharding`` as in :func:`make_supervised_step`;
     ``buffer_sharding`` is the ring's sharding the step was built for (a
@@ -428,8 +450,13 @@ def make_echo_fused_step(reservoir_draw, loss_fn=None, precision=None,
             reservoir.check_token(batch["_echo_buffers"])
             reservoir.seed_draw(batch["_echo_counter"])
 
+    def capturable(state, batch):
+        return not (hooked and "_echo_idx" in batch
+                    and reservoir.host_seeded)
+
     step.generators = generators
     step.reseed = reseed
+    step.capturable = capturable
     return step
 
 

@@ -95,7 +95,18 @@ Phases (any failure exits non-zero):
    4 steps eagerly and 4 through ``CapturedStep`` from one state on the
    legs' last recorded chunk groups (draw tokens for echo), cuDNN
    deterministic: losses and every parameter must be bit-equal, and the
-   launches counted through replays equal the eager ones. Then the
+   launches counted through replays equal the eager ones. Then the same
+   over a plain ``fn(seed, images)`` augmentation (a shift drawn by a
+   generator of its own): the fused tile step (K1) under ``CapturedStep``,
+   ``TrainDriver.build(augment=fn, aot=True)`` on decoded flagship
+   batches and the echo step over a reservoir with a plain ``augment``,
+   each bit-equal with its eager twin with every call eager
+   (``eager_calls`` == calls, no replay, nothing captured) and K1
+   launched on the fused one, beside the fused step over a
+   ``SeededAugment`` that must replay one graph per call; it prints the
+   counts and the fused step's ms per update, the plain ``fn`` eager
+   against the same step forced through a capture (timing only) and the
+   seeded step captured. Then the
    dispatches the JAX package jits outside a step, eager against
    ``CapturedDispatch``: the decoded form's decode of the legs' recorded
    groups (tile K1, tile K2, and full-frame palette groups of the
@@ -6428,8 +6439,9 @@ def phase_5k(tmp: str, card: str) -> dict:
 def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
     """``make_step()`` run ``len(batches)`` times eagerly on one state and
     through ``CapturedStep(make_step())`` on another made the same way:
-    losses and every parameter must be bit-equal, and the launches the
-    replays add must equal the eager launches."""
+    losses and every parameter must be bit-equal, and the launches counted
+    through the wrapper must equal the eager launches. Returns the
+    wrapper, its state and its launches beside the losses."""
     import torch
 
     from blendjax_torch.kernels import launch_counts, reset_launch_counts
@@ -6460,8 +6472,11 @@ def eager_against_graph(label: str, make_step, make_state, batches) -> dict:
     log(f"graph parity {label}: {len(batches)} steps eager and through "
         f"{len(graph.signatures)} captured graph(s) from one state: losses "
         f"and all {n} parameters bit-equal; launches counted through "
-        f"replays equal the eager launches {dict((k, v) for k, v in graph_counts.items() if v)}")
-    return {"steps": len(batches), "losses": [float(x.reshape(-1)[-1]) for x in la]}
+        f"the wrapper equal the eager launches {dict((k, v) for k, v in graph_counts.items() if v)}")
+    return {"steps": len(batches),
+            "losses": [float(x.reshape(-1)[-1]) for x in la],
+            "wrapped": graph, "state": b, "launches": graph_counts,
+            "calls": len(batches), "updates": b.step}
 
 
 def graph_parity_phase(legs: dict, echo: dict) -> dict:
@@ -6498,6 +6513,175 @@ def graph_parity_phase(legs: dict, echo: dict) -> dict:
     finally:
         torch.backends.cudnn.deterministic = False
     return out
+
+
+def shift_augment(seed: int, images):
+    """A plain ``fn(seed, images)`` (no ``SeededAugment``): a brightness
+    shift of 1-63 drawn by a generator of its own, seeded from ``seed`` on
+    the images' card. A capture could neither register that generator nor
+    follow the seed, so every captured wrapper runs a step over it
+    eagerly."""
+    import torch
+
+    gen = torch.Generator(device=images.device).manual_seed(int(seed))
+    shift = torch.randint(1, 64, (), generator=gen, device=images.device)
+    return images + shift.to(images.dtype)
+
+
+def host_shift(seed: int, images):
+    """The same shift taken from the seed on the host (``seed % 63 + 1``):
+    capturable, but a graph would replay its capture's shift at every
+    call. Used only to time the step a capture would give."""
+    return images + (int(seed) % 63 + 1)
+
+
+def plain_augment_phase(legs: dict, card: str) -> dict:
+    """Captured steps over a plain ``fn(seed, images)`` augmentation
+    (:func:`shift_augment`), each from one snapshot against the same step
+    run eagerly (cuDNN deterministic): the fused tile step on the
+    flagship's recorded groups under ``CapturedStep`` (K1),
+    ``TrainDriver.build(augment=fn, aot=True)`` on decoded flagship
+    batches, and the echo step over a reservoir whose ``augment`` is
+    plain. Each must give the eager step's losses bit for bit, with every
+    call eager (``eager_calls`` == calls, no replay); the fused leg must
+    launch K1. Beside them the fused step over a ``SeededAugment``
+    (``make_augment(color_jitter)``) must still replay one graph per
+    call. Then ms per update of the fused step over the plain ``fn``
+    eagerly, against the same step with :func:`host_shift` forced through
+    a capture (what a capture would cost, with the wrong augmentation)
+    and the seeded step's replays."""
+    import numpy as np
+    import torch
+
+    from blendjax_torch.data import SampleReservoir
+    from blendjax_torch.models import CubeRegressor
+    from blendjax_torch.ops import augment as A
+    from blendjax_torch.ops.tiles import decode_packed_superbatch
+    from blendjax_torch.train import (
+        CapturedStep,
+        TrainDriver,
+        make_echo_fused_step,
+        make_fused_tile_step,
+        make_supervised_step,
+        make_train_state,
+    )
+
+    groups = legs["flagship"]["recorded"]
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        cube = make_train_state(CubeRegressor().init_params(5))
+
+        def fresh():
+            return copy.deepcopy(cube)
+
+        out["fused"] = eager_against_graph(
+            "plain augment fused tile K1",
+            lambda: make_fused_tile_step(augment=shift_augment),
+            fresh, groups)
+        out["seeded"] = eager_against_graph(
+            "SeededAugment fused tile K1",
+            lambda: make_fused_tile_step(augment=A.make_augment(A.color_jitter)),
+            fresh, groups)
+        full = [g for g in (*groups, *legs["flagship"]["first"])
+                if int(g["_packed"].shape[0]) == CHUNK]
+        decoded = []
+        for g in full[:PARITY_STEPS]:
+            fields = decode_packed_superbatch(
+                g["_packed"], g["_refs"], g["_spec"], g["_names"],
+                g["_geoms"], g["_rle"])
+            decoded.append({k: fields[k].flatten(0, 1) for k in ("image", "xy")})
+        batches = [decoded[i % len(decoded)] for i in range(PARITY_STEPS)]
+        # the entry point a user calls: TrainDriver.build over the plain fn
+        model = CubeRegressor().init_params(5)
+        ref = make_train_state(copy.deepcopy(model))
+        drv = TrainDriver.build(model, batches[0], augment=shift_augment,
+                                aot=True, inflight=2, sync_every=0)
+        eager = make_supervised_step(augment=shift_augment)
+        for i, batch in enumerate(batches):
+            drv.submit(batch)
+            got = drv.drain()
+            want = float(eager(ref, batch)[1]["loss"])
+            if got != want:
+                fail(f"plain augment aot: update {i} loss {got} != eager "
+                     f"{want}")
+        for p, q in zip(drv.state.model.parameters(), ref.model.parameters()):
+            if not torch.equal(p, q):
+                fail("plain augment aot: parameters differ from the eager "
+                     "step's")
+        out["aot"] = {"wrapped": drv.step, "calls": len(batches),
+                      "updates": drv.state.step, "launches": {}}
+        res = SampleReservoir(
+            2 * len(decoded[0]["image"]), device="cuda",
+            augment=lambda seed, b: {**b, "image": shift_augment(
+                seed, b["image"])})
+        for batch in batches[:2]:
+            res.insert(batch)
+        rng = np.random.default_rng(0)
+        tokens = [res.draw_token(rng.integers(0, res.capacity,
+                                              len(batches[0]["image"])))
+                  for _ in range(PARITY_STEPS)]
+        out["echo"] = eager_against_graph(
+            "plain augment echo", lambda: make_echo_fused_step(res.draw),
+            fresh, tokens)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for label in ("fused", "aot", "echo"):
+        leg = out[label]
+        w = leg["wrapped"]
+        if w.eager_calls != leg["calls"] or w.graph_replays:
+            fail(f"plain augment {label}: {w.eager_calls} eager calls and "
+                 f"{w.graph_replays} replays for {leg['calls']} calls")
+        if getattr(w, "aot_fallbacks", 0) or any(
+                g is not None for g in getattr(w, "_graphs", {}).values()):
+            fail(f"plain augment {label}: a graph was captured or a call "
+                 f"fell back ({w.aot_fallbacks} fallbacks)")
+    if out["fused"]["launches"].get("decode_spatial", 0) <= 0:
+        fail("plain augment fused: K1 (decode_spatial) never launched")
+    seeded = out["seeded"]["wrapped"]
+    if (seeded.graph_replays != len(groups) or seeded.eager_calls
+            or not seeded.signatures):
+        fail(f"plain augment: the SeededAugment step made "
+             f"{seeded.graph_replays} replays and {seeded.eager_calls} eager "
+             f"calls for {len(groups)} calls")
+
+    counts = {label: {"calls": out[label]["calls"],
+                      "updates": out[label]["updates"],
+                      "eager_calls": out[label]["wrapped"].eager_calls,
+                      "graph_replays": out[label]["wrapped"].graph_replays,
+                      "k1": out[label]["launches"].get("decode_spatial", 0)}
+              for label in ("fused", "aot", "echo", "seeded")}
+
+    # ms per update on the last recorded group: the plain fn eagerly (the
+    # wrapper's route), the same step forced through a capture, the seeded
+    # step's replays
+    group = groups[-1]
+    k = int(group["_packed"].shape[0])
+    reps = 16
+    forced = make_fused_tile_step(augment=host_shift)
+    forced.capturable = lambda state, batch: True  # timing only
+    forced_graph = CapturedStep(forced)
+    forced_state = copy.deepcopy(cube)
+    forced_graph.prepare(forced_state, group)
+    plain_state = out["fused"]["state"]
+    seeded_state = out["seeded"]["state"]
+    plain = out["fused"]["wrapped"]
+    ms = {}
+    for _ in range(2):  # alternating, the second round kept
+        ms["eager"] = alone_ms(lambda: plain(plain_state, dict(group)),
+                               reps) / k
+        ms["forced_capture"] = alone_ms(
+            lambda: forced_graph(forced_state, dict(group)), reps) / k
+        ms["seeded_capture"] = alone_ms(
+            lambda: seeded(seeded_state, dict(group)), reps) / k
+    log(f"plain augment: fn(seed, images) steps eager under the captured "
+        f"wrappers, bit-equal with their eager twins: {json.dumps(counts)}; "
+        f"ms per update of the fused K1 step (K'={k}, {reps} calls, host "
+        f"and card) on {card}: plain fn eager {ms['eager']:.3f}, the same "
+        f"step forced through a capture {ms['forced_capture']:.3f} (a "
+        f"frozen seed: timing only), SeededAugment captured "
+        f"{ms['seeded_capture']:.3f}")
+    return {"counts": counts, "ms_per_update": ms, "k": k}
 
 
 #: the dispatch phase: calls held against their eager twins, calls made
@@ -7353,12 +7537,16 @@ def main() -> None:
     # phase 5b: every step builder eager against its graph, then the
     # supervised AOT set of TrainDriver.build
     t0 = time.perf_counter()
-    parity = graph_parity_phase(legs, echo)
+    # the lengths alone: the results hold each leg's wrapper, graphs and
+    # state, whose memory the later phases must not carry
+    parity = len(graph_parity_phase(legs, echo))
+    plain_augment_phase(legs, card)
     dispatches = dispatch_phase(legs, echo, card)
     aot = aot_phase(next(
         g for g in (*legs["flagship"]["recorded"], *legs["flagship"]["first"])
         if int(g["_packed"].shape[0]) == CHUNK))
-    log(f"graphs: parity of {len(parity)} step builders, of the decoded "
+    log(f"graphs: parity of {parity} step builders and of their "
+        f"plain-augment twins, of the decoded "
         f"form's decode ({dispatches['decode_signatures']} graphs) and the "
         f"reservoir's draw ({dispatches['draw_signatures']}), and the AOT "
         f"set in {time.perf_counter() - t0:.1f} s")

@@ -4,7 +4,9 @@ bit, over 4 steps from one state (cuDNN deterministic on both sides), for
 the supervised ladder with a ragged tail, the fused tile step through K1
 and through K2, a depth-2 StreamFormer through K4a-c, and the echo step;
 an unseen signature's fallback, a failing capture, launch counts through
-replays and registered generators. The dispatches outside a step
+replays and registered generators; a plain ``fn(seed, images)``
+augmentation run eagerly by the captured wrappers, bit-equal with the
+eager step. The dispatches outside a step
 (``aot.CapturedDispatch``): the decoded form's decode of tile K1, tile K2
 and palette groups and the reservoir's ``sample``, each held batch
 bit-equal with the eager run's after later replays, and a failing
@@ -238,6 +240,54 @@ def test_registered_generators_give_the_eager_draws_on_card(cuda_card):
         aug.seed(seed, cuda_card)
         graph.replay()
         assert torch.equal(out, aug(seed, x))
+
+
+def _shift(seed, images):
+    """A plain ``fn(seed, images)``: a shift drawn by a generator of its
+    own, seeded from ``seed`` on the images' card."""
+    gen = torch.Generator(device=images.device).manual_seed(seed)
+    shift = torch.randint(1, 64, (), generator=gen, device=images.device)
+    return images + shift.to(images.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["supervised", "aot", "echo"])
+def test_a_plain_augment_runs_eagerly_on_card(cuda_card, kind):
+    """Over a plain ``fn`` drawing from its own generator, the captured
+    supervised step, the AOT set and the captured echo step give the eager
+    step's losses and parameters bit for bit over 3 calls, each call
+    eager (``eager_calls == 3``, no replay): a graph would freeze the
+    seed of its capture."""
+    from blendjax_torch.data import SampleReservoir
+
+    model = _card_cube(cuda_card)
+    if kind == "echo":
+        rng = np.random.default_rng(0)
+        res = SampleReservoir(
+            16, augment=lambda seed, b: {**b, "image": _shift(seed, b["image"])},
+            device=cuda_card)
+        res.insert({"image": rng.integers(0, 256, (16, *SHAPE), dtype=np.uint8),
+                    "xy": rng.uniform(0, 32, (16, 8, 2)).astype(np.float32)})
+        calls = [res.draw_token(rng.integers(0, 16, 8)) for _ in range(3)]
+
+        def make():
+            return S.make_echo_fused_step(res.draw)
+    else:
+        calls = [{k: v.to(cuda_card) for k, v in _t(_batch(seed=s)).items()}
+                 for s in (1, 2, 3)]
+
+        def make():
+            return S.make_supervised_step(augment=_shift, augment_rng=5)
+    a = S.make_train_state(copy.deepcopy(model))
+    b = S.make_train_state(copy.deepcopy(model))
+    eager = make()
+    la = [eager(a, dict(x))[1]["loss"] for x in calls]
+    wrapped = (aot.build_aot_step(make(), b, calls[0]) if kind == "aot"
+               else aot.CapturedStep(make()))
+    lb = [wrapped(b, dict(x))[1]["loss"] for x in calls]
+    torch.cuda.synchronize()
+    _assert_bit_equal(a, b, la, lb)
+    assert wrapped.eager_calls == 3 and wrapped.graph_replays == 0
 
 
 @pytest.mark.cuda

@@ -9,6 +9,8 @@ producer processes.
   the producers of a SIGKILLed launcher die with it (the parent-death
   shim); ``wait`` without the membership lock; the CLI app; the elastic
   membership (``add_instance``, ``retire_instance``, ``scale_to``).
+- The port's commands in ``pyproject.toml`` resolve, and
+  ``blendjax-torch-launch --help`` names itself.
 - A ``LaunchInfo`` file written by either package is read by the other.
 
 The producers here are port scripts written into ``tmp_path``; every
@@ -277,6 +279,40 @@ def test_cli_app_python_kind(tmp_path, echo):
     for pid in info.processes:
         with pytest.raises(OSError):
             os.kill(pid, 0)
+
+
+def _port_scripts() -> dict:
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    return {k: v for k, v in scripts.items() if "blendjax_torch" in v}
+
+
+def test_every_port_command_resolves_to_a_callable():
+    """Each ``[project.scripts]`` entry of ``pyproject.toml`` that names
+    the port imports and names a callable; the launcher service's command
+    is among them, as the JAX package's ``blendjax-launch`` is."""
+    import importlib
+
+    scripts = _port_scripts()
+    assert scripts["blendjax-torch-launch"] == (
+        "blendjax_torch.launcher.apps:main")
+    for name, target in scripts.items():
+        module, _, attr = target.partition(":")
+        assert callable(getattr(importlib.import_module(module), attr)), name
+
+
+def test_the_launch_command_prints_its_usage(capsys):
+    """``blendjax-torch-launch --help`` exits 0, and its usage line names
+    the command."""
+    from blendjax_torch.launcher.apps import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["--help"])
+    assert exc.value.code == 0
+    usage = capsys.readouterr().out.splitlines()[0]
+    assert usage.startswith("usage: blendjax-torch-launch "), usage
 
 
 @pytest.mark.skipif(sys.platform != "linux", reason="PDEATHSIG is Linux-only")
