@@ -1,0 +1,6 @@
+"""``feed.place_ms_p50.cnn``: ``feed.place_ms_p50`` read in the CNN
+cells, where it moves ``train_img_s.cnn``."""
+
+from portbench.cell import metric_reader
+
+read = metric_reader("feed.place_ms_p50")
